@@ -105,3 +105,8 @@ def pytest_sessionfinish(session, exitstatus):
              if "HbmPool" in l or "orphan spill file" in l]
     if leaks:
         raise RuntimeError("end-of-suite leak sweep:\n" + "\n".join(leaks))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none")
