@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (spark_rapids_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--sf 2.0] [--out PATH.json]
+    python3 chip_smoke.py [--sf 2.0] [--sf-ds 1.0] [--out PATH.json]
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -9,24 +9,37 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: every CUDA kernel source under spark_rapids_tpu_torch/csrc, one
    nvcc process each, started together;
 3. kernels: each kernel's wrapper against its plain torch version on the
-   card at three seeded shapes (Q3's lineitem-join shape, a
-   duplicate-heavy build, near-full clusters that reach the probe bound);
-   results must be exactly equal. Times are CUDA-event medians of 20 runs
+   card at seeded shapes. The probe at three (Q3's lineitem-join shape, a
+   duplicate-heavy build, near-full clusters that reach the probe bound),
+   exactly equal. The segmented scan for int32/int64/float32/float64 x
+   add/min/max at lengths around the kernel's 1024-row tile and above a
+   million rows, with random heads, all heads and one segment spanning the
+   whole input: integers and min/max exactly equal (NaN equals NaN), float
+   add within ``segscan_add_tolerance`` (a first-order rounding bound on
+   the running sum of |values|). Times are CUDA-event medians of 20 runs
    after warm-up, each queued behind a spin on the card so that the
    kernel's time is device time (``call_ms`` is the wrapper's call with
-   its host launch cost, timed without the spin). The bound is the bytes
-   the probe must move over 3.35 TB/s: 16 B of hashes in and 4 B of slot
-   out per probe row, the used byte of every table slot, and the two 8 B
-   hash words of the used slots only (the kernel reads a slot's words
-   only when its used byte is set);
-4. main path: TPC-H Q1/Q3/Q5/Q6 at SF ``--sf`` (12M lineitem rows at SF2)
+   its host launch cost, timed without the spin). Bounds are the bytes
+   each kernel must move over 3.35 TB/s. The probe: 16 B of hashes in and
+   4 B of slot out per probe row, the used byte of every table slot, and
+   the two 8 B hash words of the used slots only (the kernel reads a
+   slot's words only when its used byte is set). The segmented scan: its
+   value read and written once and its flag byte read once per row;
+4. TPC-H main path: Q1/Q3/Q5/Q6 at SF ``--sf`` (12M lineitem rows at SF2)
    through ``from_arrow(...)...to_arrow()`` on ``cuda``, once with every
    kernel launch count set to 0 just before and read just after, each
    result held against the pandas reference (rel 1e-6, exact keys, counts
    and ORDER BY order); then the warm wall time of each query (median of
-   3); then each kernel against its plain version, as in phase 3, on the
-   largest input the main path gave it. The kernels line reports that
-   input's times and bound.
+   3);
+5. TPC-DS main path: q44 and q67 at SF ``--sf-ds`` (2,880,000 store_sales
+   rows and 18,000 items at SF1, money columns decimal(7,2)) the same way,
+   each held against its pandas reference; the segmented scan must launch
+   in both queries; then warm wall times (median of 3);
+6. each kernel against its plain version, as in phase 3, on the largest
+   input the main path gave it (for the segmented scan also against
+   ``torch.cummax``, which computes the same function on the geometry
+   scan's input and is timed as ``library_ms``). The kernels line reports
+   that input's times and bound, and the launches of both main paths.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -45,6 +58,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 PROBE_SOURCE = "spark_rapids_tpu_torch/csrc/hashtbl_probe.cu"
 PROBE_REPLACES = "spark_rapids_tpu/exec/kernels.py:1769"
+SEGSCAN_SOURCE = "spark_rapids_tpu_torch/csrc/segscan.cu"
+SEGSCAN_REPLACES = "spark_rapids_tpu/exec/kernels.py:1990"
+SEGSCAN_LENGTHS = (1, 1023, 1024, 1025, 4097, 1_048_577)
+SEGSCAN_SPAN_ROWS = 3_000_001  # one segment over the whole input
 
 
 def log(msg: str) -> None:
@@ -177,8 +194,139 @@ def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int) -> dict:
     return res
 
 
+def segscan_bound_ms(n: int, itemsize: int) -> float:
+    """Least time of one segmented scan: each row's value read and written
+    once and its flag byte read once, at the memory rate."""
+    return (2 * itemsize + 1) * n / HBM_BYTES_PER_S * 1e3
+
+
+def segscan_case(dtype, op: str, n: int, mode: str, rng, device):
+    """Seeded (values, is_start) on the card: integers over their whole
+    range (add wraps), floats over six decades with NaNs for min/max."""
+    import numpy as np
+    import torch
+
+    if dtype.is_floating_point:
+        v = rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)
+        if op != "add":
+            v[rng.random(n) < 0.01] = np.nan
+        vals = torch.from_numpy(v).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        vals = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                             endpoint=True)).to(dtype)
+    if mode == "random":
+        f = rng.random(n) < 0.01
+    elif mode == "all_heads":
+        f = np.ones(n, np.bool_)
+    else:  # "span": no head at all, one segment over every row
+        f = np.zeros(n, np.bool_)
+    return vals.to(device), torch.from_numpy(f).to(device)
+
+
+def segscan_compare(k, p, values, is_start, op: str):
+    """(ok, max abs err, largest err / tolerance) of the kernel's output
+    against the plain one; the ratio is 0 where equality is required."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    ratio = 0.0
+    if values.is_floating_point() and op == "add":
+        absrun = K.segmented_scan(values.abs().double(), is_start, "add")
+        tol = K.segscan_add_tolerance(absrun, values.numel(), values.dtype)
+        err = (k.double() - p.double()).abs()
+        ok = bool((err <= tol).all())
+        if err.numel():
+            ratio = float((err / tol.clamp(min=1e-300)).max())
+    else:
+        same = k == p
+        if values.is_floating_point():
+            same = same | (torch.isnan(k) & torch.isnan(p))
+        ok = bool(same.all())
+        err = (k.double() - p.double()).abs().nan_to_num(0.0)
+    return ok, float(err.max()) if err.numel() else 0.0, ratio
+
+
+def check_segscan_shapes() -> dict:
+    """The kernel against its plain version at every type, op and seeded
+    shape; raises on the first disagreement."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    rng = np.random.default_rng(41)
+    checked, worst, worst_ratio = 0, 0.0, 0.0
+    for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
+        for op in ("add", "min", "max"):
+            shapes = [(n, m) for n in SEGSCAN_LENGTHS
+                      for m in ("random", "all_heads")]
+            shapes.append((SEGSCAN_SPAN_ROWS, "span"))
+            for n, mode in shapes:
+                v, f = segscan_case(dtype, op, n, mode, rng, "cuda")
+                k = K.segmented_scan_kernel(v, f, op)
+                torch.cuda.synchronize()
+                p = K.segmented_scan(v, f, op)
+                ok, err, ratio = segscan_compare(k, p, v, f, op)
+                checked += 1
+                if dtype.is_floating_point and op == "add":
+                    worst = max(worst, err)
+                    worst_ratio = max(worst_ratio, ratio)
+                if not ok:
+                    raise AssertionError(
+                        f"segscan kernel differs from its plain version: "
+                        f"{dtype} {op} n={n} {mode} (max abs err {err})")
+    K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    res = {"cases": checked, "lengths": list(SEGSCAN_LENGTHS)
+           + [SEGSCAN_SPAN_ROWS], "float_add_max_abs_err": worst,
+           "float_add_max_err_over_tolerance": worst_ratio,
+           "int_and_minmax_exact": True}
+    log("segscan shapes: " + json.dumps(res))
+    return res
+
+
+def check_segscan_main_input(values, is_start, op: str) -> dict:
+    """Kernel, plain version and torch.cummax on the largest main-path
+    input (a geometry max scan), with times and bound."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    k = K.segmented_scan_kernel(values, is_start, op)
+    torch.cuda.synchronize()
+    p = K.segmented_scan(values, is_start, op)
+    ok, err, _ratio = segscan_compare(k, p, values, is_start, op)
+    if not ok:
+        raise AssertionError(f"segscan kernel differs from its plain version "
+                             f"on the main path's largest input ({err})")
+    # the geometry scans carry a start row's index forward: a segmented
+    # max of (index at heads, -1 elsewhere) equals the running max
+    lib = torch.cummax(values, 0).values
+    if op != "max" or not torch.equal(lib, k):
+        raise AssertionError("torch.cummax differs from the kernel on the "
+                             "main path's largest geometry scan")
+    kernel_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op))
+    call_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
+                      queued=False)
+    plain_ms = cuda_ms(lambda: K.segmented_scan(values, is_start, op))
+    library_ms = cuda_ms(lambda: torch.cummax(values, 0))
+    K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    n = values.numel()
+    res = {"shape": "main_path_largest", "rows": n,
+           "dtype": str(values.dtype), "op": op,
+           "heads": int(is_start.sum()), "exact": True,
+           "max_abs_err": err, "kernel_ms": kernel_ms, "call_ms": call_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": segscan_bound_ms(n, values.element_size())}
+    log("segscan main_path_largest: " + json.dumps(res))
+    return res
+
+
 # ---------------------------------------------------------------------------
-# main path
+# main paths
 # ---------------------------------------------------------------------------
 
 
@@ -259,10 +407,6 @@ def run_main_path(sf: float, tables_seed: int = 0) -> dict:
     for q in ("q3", "q5"):
         if results[q]["launches"]["hashtbl_probe"] <= 0:
             raise AssertionError(f"{q} launched no probe kernel")
-    for name, count in main_launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
     # warm wall time per query (launches here are not the main path's)
     for q in queries:
         walls = []
@@ -279,9 +423,77 @@ def run_main_path(sf: float, tables_seed: int = 0) -> dict:
             "lineitem_rows": tables["lineitem"].num_rows}
 
 
+def run_tpcds_path(sf: float, tables_seed: int = 0) -> dict:
+    """q44 and q67 through the port's planner on the card, each held against
+    its pandas reference, with the launch counts zeroed before each query
+    and read after it; then warm wall times."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    t0 = time.perf_counter()
+    tables = S.tables_for(sf, seed=tables_seed)
+    log(f"generated TPC-DS SF{sf}: store_sales "
+        f"{tables['store_sales'].num_rows} rows, item "
+        f"{tables['item'].num_rows} in {time.perf_counter() - t0:.1f}s")
+    d = Q.df_tables(tables, batch_rows=1 << 20, device="cuda")
+    queries = ["q44", "q67"]
+
+    largest = {}
+    real_scan = K.segmented_scan_kernel
+
+    def recording_scan(values, is_start, op_name="add"):
+        if values.numel() > largest.get("n", -1):
+            largest.update(n=values.numel(), args=(values, is_start, op_name))
+        return real_scan(values, is_start, op_name)
+
+    K.segmented_scan_kernel = recording_scan
+    results = {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    try:
+        for q in queries:
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            out = Q.QUERIES[q](d).to_arrow()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            got = out.to_pylist()
+            ok, why = Q.check_rows(q, got, Q.PANDAS[q](tables))
+            if not ok:
+                raise AssertionError(f"{q} differs from the pandas reference "
+                                     f"({why}):\n{got[:3]}")
+            if launches["segscan"] <= 0:
+                raise AssertionError(f"{q} launched no segscan kernel")
+            results[q] = {"rows": len(got), "first_s": first_s,
+                          "launches": launches}
+            log(f"{q}: {len(got)} rows match the pandas reference; "
+                f"launches {launches}; first run {first_s:.3f}s")
+    finally:
+        K.segmented_scan_kernel = real_scan
+    for q in queries:
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            Q.QUERIES[q](d).to_arrow()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        results[q]["warm_s"] = statistics.median(walls)
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3)")
+    return {"queries": results, "launches": total,
+            "largest_segscan": largest.get("args"),
+            "store_sales_rows": tables["store_sales"].num_rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=2.0)
+    ap.add_argument("--sf-ds", type=float, default=1.0,
+                    help="TPC-DS scale factor of the q44/q67 path")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -316,28 +528,57 @@ def main(argv=None) -> int:
         shapes.append(check_probe(name, *synthetic_probe_inputs(
             name, 100 + i, "cuda")))
 
+    scan_shapes = check_segscan_shapes()
+
     main_res = run_main_path(args.sf)
+    ds_res = run_tpcds_path(args.sf_ds)
 
     tbl, h1, h2, capacity, seed = main_res.pop("largest_probe")
     real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed)
     shapes.append(real)
+    scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
 
+    by_path = {name: {"tpch": main_res["launches"][name],
+                      "tpcds": ds_res["launches"][name]}
+               for name in main_res["launches"]}
+    for name, paths in by_path.items():
+        if sum(paths.values()) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"main paths")
     kernels_line = {"kernels": [{
         "name": "hashtbl_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES,
         "replaces_fn": "probe_hash_table_pallas",
-        "launches": main_res["launches"]["hashtbl_probe"],
+        "launches": sum(by_path["hashtbl_probe"].values()),
+        "launches_by_path": by_path["hashtbl_probe"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": real["kernel_ms"], "kernel_ms": real["kernel_ms"],
         "call_ms": real["call_ms"],
         "plain_ms": real["plain_ms"], "bound_ms": real["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
-        "exact": all(s["exact"] for s in shapes)}]}
+        "exact": all(s["exact"] for s in shapes)}, {
+        "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
+        "replaces": SEGSCAN_REPLACES,
+        "replaces_fn": "segmented_scan_pallas",
+        "launches": sum(by_path["segscan"].values()),
+        "launches_by_path": by_path["segscan"],
+        "max_abs_err": max(scan_real["max_abs_err"],
+                           scan_shapes["float_add_max_abs_err"]),
+        "ms": scan_real["kernel_ms"], "kernel_ms": scan_real["kernel_ms"],
+        "call_ms": scan_real["call_ms"], "plain_ms": scan_real["plain_ms"],
+        "bound_ms": scan_real["bound_ms"], "bound_by": "bytes",
+        "library_ms": scan_real["library_ms"],
+        "library_call": "torch.cummax",
+        "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "sf": args.sf, "lineitem_rows": main_res["lineitem_rows"],
               "queries": main_res["queries"], "probe_shapes": shapes,
+              "sf_ds": args.sf_ds,
+              "store_sales_rows": ds_res["store_sales_rows"],
+              "tpcds_queries": ds_res["queries"],
+              "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "kernels": kernels_line["kernels"],
               "total_s": time.perf_counter() - t_all}
     if args.out:

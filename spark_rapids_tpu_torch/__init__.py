@@ -6,7 +6,9 @@ bench) with torch tensors on an explicit device. Entry point:
 ``spark_rapids_tpu_torch.plan.from_arrow(table, device=...)``, which puts
 batches on ``cuda`` unless the caller names another device.
 
-The hash-table probe of every join runs in a hand-written CUDA kernel
-(``csrc/hashtbl_probe.cu``, loaded by ``native.py``); on CPU tensors the
-same wrapper runs its plain torch version.
+Two hand-written CUDA kernels, loaded by ``native.py``, replace the JAX
+package's two TPU kernels: the hash-table probe of every join
+(``csrc/hashtbl_probe.cu``) and the segmented scan that gives every window
+its segment and peer geometry (``csrc/segscan.cu``). On CPU tensors the
+same wrappers run their plain torch versions.
 """

@@ -1,14 +1,19 @@
-"""Where the time of TPC-H Q1/Q3/Q5/Q6 goes on the card, for the port.
+"""Where the time of the port's main-path queries goes on the card.
 
-    python -m spark_rapids_tpu_torch.bench.profile_tpch [--sf 2.0]
-        [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch [--suite tpch]
+        [--sf 2.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds
+        [--sf 1.0]
 
-For each query (after one warm-up run): the warm wall time (host clock
-around a run that ends in a synchronise, median of 3), then one run under
-``torch.profiler`` giving the device time summed over kernels, the device's
-busy and idle share of that run's wall time, the number of kernel launches
-and of copies, and the operations that took the most device time and the
-most host time. The probe kernel's launches come from the port's own counter.
+``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
+tpcds`` the window queries TPC-DS q44/q67 (default SF 1, decimal(7,2) money
+columns). For each query (after one warm-up run): the warm wall time (host
+clock around a run that ends in a synchronise, median of 3), then one run
+under ``torch.profiler`` giving the device time summed over kernels, the
+device's busy and idle share of that run's wall time, the number of kernel
+launches and of copies, and the operations that took the most device time
+and the most host time. The hand-written kernels' launches come from the
+port's own counters.
 
 Needs a CUDA card: it fails rather than measure the CPU.
 """
@@ -50,14 +55,15 @@ def profile_query(run, reps: int = 3) -> dict:
         run()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    before = K.KERNEL_LAUNCHES["hashtbl_probe"]
+    before = dict(K.KERNEL_LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    probe_launches = K.KERNEL_LAUNCHES["hashtbl_probe"] - before
+    hand_launches = {k: K.KERNEL_LAUNCHES[k] - before[k]
+                     for k in K.KERNEL_LAUNCHES}
     kernel_us, launches, copies = 0.0, 0, 0
     by_name: dict = {}
     for name, us in device_events(prof):
@@ -77,7 +83,7 @@ def profile_query(run, reps: int = 3) -> dict:
             "profiled_wall_s": prof_wall, "device_s": kernel_us / 1e6,
             "device_busy_share": busy, "device_idle_share": 1.0 - busy,
             "device_kernels": launches, "device_copies_and_sets": copies,
-            "probe_kernel_launches": probe_launches,
+            "hand_kernel_launches": hand_launches,
             "top_device_ops": [{"op": k, "device_ms": us / 1e3, "calls": c}
                                for us, k, c in ops[:12]],
             "top_host_ops": [{"op": k, "host_self_ms": us / 1e3, "calls": c}
@@ -86,7 +92,9 @@ def profile_query(run, reps: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sf", type=float, default=2.0)
+    ap.add_argument("--suite", choices=("tpch", "tpcds"), default="tpch")
+    ap.add_argument("--sf", type=float, default=None,
+                    help="scale factor (default 2 for tpch, 1 for tpcds)")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -96,17 +104,29 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_tpch: no CUDA device", file=sys.stderr)
         return 1
-    from spark_rapids_tpu_torch.bench import tpch
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    tables = tpch.tables_for(args.sf, seed=0)
-    d = tpch.df_tables(tables, batch_rows=1 << 20, device="cuda")
-    out = {"device": smi, "torch": torch.__version__, "sf": args.sf,
-           "lineitem_rows": tables["lineitem"].num_rows, "queries": {}}
-    for q in ("q1", "q3", "q5", "q6"):
-        res = profile_query(lambda q=q: tpch.DF_QUERIES[q](d).to_arrow())
+    if args.suite == "tpch":
+        from spark_rapids_tpu_torch.bench import tpch as suite
+
+        sf = 2.0 if args.sf is None else args.sf
+        tables = suite.tables_for(sf, seed=0)
+        queries = suite.DF_QUERIES
+        fact = "lineitem"
+    else:
+        from spark_rapids_tpu_torch.bench import tpcds_queries as suite
+        from spark_rapids_tpu_torch.bench import tpcds_schema
+
+        sf = 1.0 if args.sf is None else args.sf
+        tables = tpcds_schema.tables_for(sf, seed=0)
+        queries = suite.QUERIES
+        fact = "store_sales"
+    d = suite.df_tables(tables, batch_rows=1 << 20, device="cuda")
+    out = {"device": smi, "torch": torch.__version__, "suite": args.suite,
+           "sf": sf, f"{fact}_rows": tables[fact].num_rows, "queries": {}}
+    for q in queries:
+        res = profile_query(lambda q=q: queries[q](d).to_arrow())
         out["queries"][q] = res
         print(json.dumps({"query": q, **{k: v for k, v in res.items()
                                          if not k.startswith("top_")}}),

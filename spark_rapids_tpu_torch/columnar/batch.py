@@ -64,7 +64,13 @@ def _arrow_fixed_to_numpy(arr: pa.Array, dt: T.DataType):
     """(values, valid) numpy arrays; null slots read as zero."""
     valid = (None if arr.null_count == 0
              else np.asarray(arr.is_valid(), dtype=np.bool_))
-    if dt == T.DATE:
+    if isinstance(dt, T.DecimalType):
+        # decimal128 -> int64 unscaled: the low limb of each 16-byte
+        # little-endian value is the whole value for precision <= 18
+        limbs = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                              count=2 * len(arr), offset=arr.offset * 16)
+        values = limbs[0::2].copy()
+    elif dt == T.DATE:
         values = np.asarray(arr.fill_null(0).cast(pa.int32()))
     elif dt == T.BOOLEAN:
         values = np.asarray(arr.fill_null(False).cast(pa.int8())).astype(
@@ -217,6 +223,19 @@ def _string_array(offsets: np.ndarray, data: np.ndarray,
                          pa.py_buffer(data.tobytes())])
 
 
+def _decimal_array(unscaled: np.ndarray, dt: T.DecimalType,
+                   valid: np.ndarray) -> pa.Array:
+    """int64 unscaled values -> Arrow decimal128(p, s): each value becomes
+    its 16-byte little-endian two's complement (low limb, sign limb)."""
+    lo = unscaled.astype(np.int64, copy=False)
+    limbs = np.empty((len(lo), 2), np.int64)
+    limbs[:, 0] = lo
+    limbs[:, 1] = lo >> 63
+    vbuf = None if valid.all() else _validity_buffer(valid)
+    return pa.Array.from_buffers(dt.arrow_type(), len(lo),
+                                 [vbuf, pa.py_buffer(limbs.tobytes())])
+
+
 def _column_to_arrow(col: DeviceColumn, dt: T.DataType) -> pa.Array:
     valid = col.validity.cpu().numpy()
     mask = None if valid.all() else ~valid
@@ -231,6 +250,8 @@ def _column_to_arrow(col: DeviceColumn, dt: T.DataType) -> pa.Array:
         return _string_array(col.offsets.cpu().numpy(), col.data.cpu().numpy(),
                              valid)
     values = col.data.cpu().numpy()
+    if isinstance(dt, T.DecimalType):
+        return _decimal_array(values, dt, valid)
     if dt == T.DATE:
         return pa.array(values.astype(np.int32), pa.int32(),
                         mask=mask).cast(pa.date32())

@@ -9,6 +9,13 @@ reduction, and a final projection turns buffers into results.
 
 Buffer layout per function (Spark result types):
   Sum -> [sum]    Count -> [count]    Average -> [sum, count]
+  Min -> [min]    Max -> [max]
+
+Decimal sums are exact int64 sums of the unscaled values; a sum whose
+magnitude reaches 10**precision of its result type is null (Spark's
+non-ANSI overflow). A decimal average is sum / count rounded HALF_UP at
+the result scale (the reference's rule, computed divide-first so the
+scaled numerator cannot wrap int64).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ class _AggSpec:
     buffer_types: List[T.DataType]
 
 
-_MERGE_OP = {"sum": "sum", "count": "sum", "count_all": "sum"}
+_MERGE_OP = {"sum": "sum", "count": "sum", "count_all": "sum", "min": "min",
+             "max": "max"}
 
 
 def _lower_agg(func: E.AggregateExpression, name: str,
@@ -46,9 +54,17 @@ def _lower_agg(func: E.AggregateExpression, name: str,
         return _AggSpec(func, name, input_index, [op], [T.LONG])
     if isinstance(func, E.Sum):
         return _AggSpec(func, name, input_index, ["sum"], [func.dtype])
+    if isinstance(func, (E.Min, E.Max)):
+        if func.child.dtype == T.STRING:
+            raise NotImplementedError("string min/max is not in the port yet")
+        op = "min" if isinstance(func, E.Min) else "max"
+        return _AggSpec(func, name, input_index, [op], [func.dtype])
     if isinstance(func, E.Average):
-        sum_t = (T.DOUBLE if func.child.dtype in T.FRACTIONAL_TYPES
-                 else T.LONG)
+        c = func.child.dtype
+        if isinstance(c, T.DecimalType):
+            sum_t = E.Sum(func.child).dtype
+        else:
+            sum_t = T.DOUBLE if c in T.FRACTIONAL_TYPES else T.LONG
         return _AggSpec(func, name, input_index, ["sum", "count"],
                         [sum_t, T.LONG])
     raise NotImplementedError(
@@ -193,14 +209,26 @@ class HashAggregateExec(UnaryExec):
         for s in self._specs:
             bufs = buffers.columns[bi: bi + len(s.ops)]
             bi += len(s.ops)
+            rt = s.func.dtype
             if isinstance(s.func, E.Average):
                 ssum, cnt = bufs
                 valid = ssum.validity & (cnt.data > 0)
-                data = ssum.data.double() / torch.clamp(cnt.data,
-                                                        min=1).double()
+                if isinstance(rt, T.DecimalType):
+                    in_t = s.func.child.dtype
+                    data = decimal_avg_half_up(ssum.data, cnt.data,
+                                               rt.scale - in_t.scale)
+                else:
+                    data = ssum.data.double() / torch.clamp(
+                        cnt.data, min=1).double()
                 out_cols.append(DeviceColumn(
-                    T.DOUBLE, torch.where(valid, data,
-                                          torch.zeros_like(data)), valid))
+                    rt, torch.where(valid, data, torch.zeros_like(data)),
+                    valid))
+            elif isinstance(s.func, E.Sum) and isinstance(rt, T.DecimalType):
+                b = bufs[0]
+                valid = b.validity & (b.data.abs() < 10 ** rt.precision)
+                out_cols.append(DeviceColumn(
+                    rt, torch.where(valid, b.data, torch.zeros_like(b.data)),
+                    valid))
             else:
                 out_cols.append(bufs[0])
         return ColumnarBatch(out_cols, buffers.num_rows)
@@ -219,6 +247,21 @@ class HashAggregateExec(UnaryExec):
         merged = (partials[0] if len(partials) == 1
                   else self._merge_pass(K.concat_device(partials)))
         yield self._final_project(merged)
+
+
+def decimal_avg_half_up(total: torch.Tensor, count: torch.Tensor,
+                        shift_digits: int) -> torch.Tensor:
+    """round_half_up(total * 10**shift_digits / count) over int64 (count
+    of 0 is read as 1): divide first, then scale only the remainder."""
+    k = 10 ** shift_digits
+    den = torch.clamp(count.long(), min=1)
+    mag = total.long().abs()
+    q1 = torch.div(mag, den, rounding_mode="floor")
+    frac = (mag - q1 * den) * k
+    fq = torch.div(frac, den, rounding_mode="floor")
+    fr = frac - fq * den
+    q = q1 * k + fq + (2 * fr >= den).long()
+    return torch.where(total < 0, -q, q)
 
 
 def _device_of(node: DeviceExec) -> torch.device:

@@ -12,14 +12,22 @@ the reference's uint64, a logical right shift is an arithmetic shift masked
 to the low bits, and constants at or above 2**63 are written as their signed
 value. Every hash and table field comes out bit-equal to the reference's.
 
-The hash-table probe has a hand-written CUDA kernel
-(``csrc/hashtbl_probe.cu``); ``probe_hash_table_kernel`` launches it for CUDA
-tensors and runs the plain ``probe_hash_table`` for CPU tensors.
+Decimal columns (DECIMAL64) are int64 unscaled values and take the integer
+paths of ``sortable_keys``, ``hash_keys`` and ``keys_equal``, as in the
+reference.
+
+Two functions have hand-written CUDA kernels, each behind a wrapper that
+launches the kernel for CUDA tensors and runs the plain torch version for
+CPU tensors: the hash-table probe (``csrc/hashtbl_probe.cu``,
+``probe_hash_table_kernel`` over ``probe_hash_table``) and the segmented
+scan (``csrc/segscan.cu``, ``segmented_scan_kernel`` over
+``segmented_scan``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from functools import lru_cache
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -707,7 +715,7 @@ def probe_hash_table(tbl: HashTable, h1: torch.Tensor, h2: torch.Tensor,
 
 
 # launches of each hand-written kernel, counted where the kernel launches
-KERNEL_LAUNCHES = {"hashtbl_probe": 0}
+KERNEL_LAUNCHES = {"hashtbl_probe": 0, "segscan": 0}
 _launch_lock = threading.Lock()
 
 
@@ -760,7 +768,7 @@ def probe_hash_table_kernel(tbl: HashTable, h1: torch.Tensor,
     n = h1.numel()
     slot = torch.empty(n, dtype=torch.int32, device=h1.device)
     if n:
-        lib = native.load()
+        lib = native.load("hashtbl_probe.cu")
         with torch.cuda.device(h1.device):  # launch in the tensors' context
             rc = lib.srt_hashtbl_probe(
                 tbl.slot_used.data_ptr(), tbl.slot_h1.data_ptr(),
@@ -770,7 +778,7 @@ def probe_hash_table_kernel(tbl: HashTable, h1: torch.Tensor,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"hashtbl_probe launch failed: CUDA error "
-                               f"{rc} ({native.error_string(rc)})")
+                               f"{rc} ({native.error_string(lib, rc)})")
         with _launch_lock:
             KERNEL_LAUNCHES["hashtbl_probe"] += 1
     return slot, slot >= 0
@@ -797,3 +805,106 @@ def expand_candidates(lo: torch.Tensor, cnt: torch.Tensor, r0: int, r1: int,
     j = torch.arange(total, device=dev)
     build_pos = lo.long()[probe] + (j - start[probe - r0])
     return probe, build_pos
+
+
+# ---------------------------------------------------------------------------
+# Segmented scan (window segment/peer geometry, running frames)
+# ---------------------------------------------------------------------------
+
+_SEGSCAN_OPS = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
+_SEGSCAN_OP_CODES = {"add": 0, "min": 1, "max": 2}
+_SEGSCAN_DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
+                        torch.float64: 3}
+
+
+def segmented_scan(values: torch.Tensor, is_start: torch.Tensor,
+                   op_name: str = "add") -> torch.Tensor:
+    """Plain version of the inclusive segmented scan: ``out[i]`` folds
+    ``op`` over the rows from the last ``is_start`` row at or before ``i``
+    (row 0 when there is none) up to ``i``.
+
+    A log-step (Hillis-Steele) scan of the reference's (seen-a-head, value)
+    combine ``(fa, va) . (fb, vb) = (fa | fb, vb if fb else va op vb)``.
+    Integer add wraps; min and max propagate NaN (torch.minimum/maximum).
+    Not a prefix sum minus the prefix at the segment start: for floats that
+    subtraction would lose a small segment's sum under a large prefix."""
+    op = _SEGSCAN_OPS[op_name]
+    n = values.numel()
+    v = values.clone()
+    f = is_start.to(torch.bool).clone()
+    d = 1
+    while d < n:
+        nv = torch.where(f[d:], v[d:], op(v[:-d], v[d:]))
+        nf = f[d:] | f[:-d]
+        v = torch.cat([v[:d], nv])
+        f = torch.cat([f[:d], nf])
+        d *= 2
+    return v
+
+
+def segscan_add_tolerance(abs_running: torch.Tensor, n: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Stated tolerance of a float ``add`` scan against another grouping of
+    the same sums, per row: a first-order rounding bound of
+    (2 * ceil(log2 n) + 32 + n / 2**20) * eps * (running sum of |values| in
+    the row's segment). Both the log-step plain version and the tiled
+    kernel (4 sequential rows, two 256/1024-wide log-step scans, a carry
+    chain of n / 2**20 chunks) add each value through fewer roundings."""
+    eps = torch.finfo(dtype).eps
+    depth = 2 * math.ceil(math.log2(max(n, 2))) + 32 + n / (1 << 20)
+    return depth * eps * abs_running
+
+
+def _check_segscan_args(values: torch.Tensor, is_start: torch.Tensor,
+                        op_name: str) -> None:
+    if op_name not in _SEGSCAN_OPS:
+        raise ValueError(f"segmented scan op {op_name!r} is not one of "
+                         f"{sorted(_SEGSCAN_OPS)}")
+    if values.dim() != 1 or is_start.shape != values.shape:
+        raise ValueError("values and is_start must be 1-D of one length")
+    if is_start.dtype != torch.bool:
+        raise TypeError(f"is_start must be bool, got {is_start.dtype}")
+    if is_start.device != values.device:
+        raise ValueError(f"is_start is on {is_start.device}, values on "
+                         f"{values.device}")
+
+
+def segmented_scan_kernel(values: torch.Tensor, is_start: torch.Tensor,
+                          op_name: str = "add") -> torch.Tensor:
+    """Segmented-scan wrapper: the CUDA kernel for CUDA tensors, the plain
+    ``segmented_scan`` for CPU tensors. Same contract as the plain version;
+    on the card, values must be contiguous int32, int64, float32 or
+    float64."""
+    _check_segscan_args(values, is_start, op_name)
+    if values.device.type == "cpu":
+        return segmented_scan(values, is_start, op_name)
+    if values.device.type != "cuda":
+        raise ValueError(f"no segmented-scan kernel for device "
+                         f"{values.device}")
+    code = _SEGSCAN_DTYPE_CODES.get(values.dtype)
+    if code is None:
+        raise TypeError(f"the segmented-scan kernel takes int32, int64, "
+                        f"float32 or float64 values, got {values.dtype}")
+    if not (values.is_contiguous() and is_start.is_contiguous()):
+        raise ValueError("values and is_start must be contiguous")
+    from spark_rapids_tpu_torch import native
+
+    n = values.numel()
+    out = torch.empty_like(values)
+    if n == 0:
+        return out
+    lib = native.load("segscan.cu")
+    scratch = torch.empty(lib.srt_segscan_scratch_bytes(n),
+                          dtype=torch.uint8, device=values.device)
+    with torch.cuda.device(values.device):  # launch in the tensors' context
+        rc = lib.srt_segscan(values.data_ptr(),
+                             is_start.view(torch.uint8).data_ptr(),
+                             out.data_ptr(), n, code,
+                             _SEGSCAN_OP_CODES[op_name], scratch.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segscan launch failed: CUDA error {rc} "
+                           f"({native.error_string(lib, rc)})")
+    with _launch_lock:
+        KERNEL_LAUNCHES["segscan"] += 1
+    return out

@@ -5,10 +5,19 @@ A value is ``ColVal(data, validity)`` for fixed-width results, or the
 string column itself (dictionary or plain) for string references; string
 equality against a literal compares the dictionary's entries once and
 gathers the answer by code.
+
+Decimals are int64 unscaled values. Add/Subtract rescale both operands to
+the result scale, Multiply multiplies the unscaled values (the result scale
+is the sum of the operand scales); a decimal meeting a double is cast to
+double first (unscaled / 10**scale in float64). Comparisons of decimals
+with decimals or integers are exact at mixed scales: the finer side is
+floor-divided down to the coarser scale and its remainder breaks ties, so
+nothing is scaled up and nothing can overflow.
 """
 
 from __future__ import annotations
 
+import decimal
 from typing import List, NamedTuple, Sequence, Union
 
 import torch
@@ -42,9 +51,31 @@ def _broadcast_literal(lit: E.Literal, ctx: EvalContext) -> ColVal:
     if lit.value is None:
         return ColVal(torch.zeros(n, dtype=dt.torch_dtype, device=ctx.device),
                       torch.zeros(n, dtype=torch.bool, device=ctx.device))
-    return ColVal(torch.full((n,), lit.value, dtype=dt.torch_dtype,
+    value = lit.value
+    if isinstance(dt, T.DecimalType):
+        value = decimal_unscaled(value, dt.scale)
+    return ColVal(torch.full((n,), value, dtype=dt.torch_dtype,
                              device=ctx.device),
                   torch.ones(n, dtype=torch.bool, device=ctx.device))
+
+
+def decimal_unscaled(value, scale: int) -> int:
+    """The unscaled integer of a decimal literal (value * 10**scale; exact,
+    HALF_UP past the scale)."""
+    with decimal.localcontext() as c:
+        c.prec = 50
+        return int(decimal.Decimal(str(value) if isinstance(value, float)
+                                   else value).scaleb(scale).quantize(
+            decimal.Decimal(1), rounding=decimal.ROUND_HALF_UP))
+
+
+def _decimal_to_double(data: torch.Tensor, dt: T.DecimalType) -> torch.Tensor:
+    return data.double() / (10.0 ** dt.scale)
+
+
+def _scale_of(dt: T.DataType) -> int:
+    """Scale of a decimal operand; an integral one is decimal(d, 0)."""
+    return dt.scale if isinstance(dt, T.DecimalType) else 0
 
 
 def _string_equals_literal(c: DeviceColumn, value: str) -> torch.Tensor:
@@ -73,6 +104,41 @@ def _nan_aware_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a < b
 
 
+def _compare_result(expr: E.BinaryComparison, lt_m: torch.Tensor,
+                    eq_m: torch.Tensor, valid: torch.Tensor) -> ColVal:
+    """A comparison from its less-than and equal masks."""
+    if isinstance(expr, E.EqualTo):
+        return ColVal(eq_m, valid)
+    if isinstance(expr, E.LessThan):
+        return ColVal(lt_m, valid)
+    if isinstance(expr, E.LessThanOrEqual):
+        return ColVal(lt_m | eq_m, valid)
+    if isinstance(expr, E.GreaterThan):
+        return ColVal(~lt_m & ~eq_m, valid)
+    if isinstance(expr, E.GreaterThanOrEqual):
+        return ColVal(~lt_m, valid)
+    raise NotImplementedError(type(expr).__name__)
+
+
+def _decimal_compare(expr: E.BinaryComparison, l: ColVal, r: ColVal,
+                     lt: T.DataType, rt: T.DataType) -> ColVal:
+    """Exact comparison of decimal/integral operands at mixed scales."""
+    da, sa = l.data.long(), _scale_of(lt)
+    db, sb = r.data.long(), _scale_of(rt)
+    if sa == sb:
+        lt_m, eq_m = da < db, da == db
+    elif sa > sb:
+        q = torch.div(da, 10 ** (sa - sb), rounding_mode="floor")
+        rm = da - q * 10 ** (sa - sb)
+        lt_m, eq_m = q < db, (q == db) & (rm == 0)
+    else:
+        q = torch.div(db, 10 ** (sb - sa), rounding_mode="floor")
+        rm = db - q * 10 ** (sb - sa)
+        lt_m = (da < q) | ((da == q) & (rm > 0))
+        eq_m = (da == q) & (rm == 0)
+    return _compare_result(expr, lt_m, eq_m, l.validity & r.validity)
+
+
 def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
     if expr.left.dtype == T.STRING or expr.right.dtype == T.STRING:
         if not isinstance(expr, E.EqualTo):
@@ -90,30 +156,50 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
     l = eval_expr(expr.left, ctx)
     r = eval_expr(expr.right, ctx)
     lt, rt = expr.left.dtype, expr.right.dtype
+    valid = l.validity & r.validity
+    if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+        if E.decimal_operands(lt, rt) is not None:
+            return _decimal_compare(expr, l, r, lt, rt)
+        # decimal against a double: both sides as double
+        a = (_decimal_to_double(l.data, lt) if isinstance(lt, T.DecimalType)
+             else l.data.double())
+        b = (_decimal_to_double(r.data, rt) if isinstance(rt, T.DecimalType)
+             else r.data.double())
+        return _compare_result(expr, _nan_aware_lt(a, b), a == b, valid)
     a, b = l.data, r.data
     if lt != rt:
         ct = E.numeric_widen(lt, rt)
         a, b = a.to(ct.torch_dtype), b.to(ct.torch_dtype)
-    valid = l.validity & r.validity
-    if isinstance(expr, E.EqualTo):
-        eq = a == b
-        if a.is_floating_point():
-            eq = eq | (torch.isnan(a) & torch.isnan(b))
-        return ColVal(eq, valid)
-    if isinstance(expr, E.LessThan):
-        return ColVal(_nan_aware_lt(a, b), valid)
-    if isinstance(expr, E.GreaterThanOrEqual):
-        return ColVal(~_nan_aware_lt(a, b), valid)
-    raise NotImplementedError(type(expr).__name__)
+    eq = a == b
+    if a.is_floating_point():
+        eq = eq | (torch.isnan(a) & torch.isnan(b))
+    # Spark orders NaN above every value and equal to itself
+    return _compare_result(expr, _nan_aware_lt(a, b), eq, valid)
 
 
 def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
     out_t = expr.dtype
+    lt, rt = expr.left.dtype, expr.right.dtype
     l = eval_expr(expr.left, ctx)
     r = eval_expr(expr.right, ctx)
-    a = l.data.to(out_t.torch_dtype)
-    b = r.data.to(out_t.torch_dtype)
     valid = l.validity & r.validity
+    if isinstance(out_t, T.DecimalType):
+        a, b = l.data.long(), r.data.long()
+        if isinstance(expr, E.Multiply):
+            return ColVal(a * b, valid)  # result scale = sa + sb
+        s = out_t.scale
+        a = a * 10 ** (s - _scale_of(lt))
+        b = b * 10 ** (s - _scale_of(rt))
+        if isinstance(expr, E.Add):
+            return ColVal(a + b, valid)
+        if isinstance(expr, E.Subtract):
+            return ColVal(a - b, valid)
+        raise NotImplementedError(f"decimal {type(expr).__name__}")
+    # decimal with a double: Spark casts the decimal side to double
+    a = (_decimal_to_double(l.data, lt) if isinstance(lt, T.DecimalType)
+         else l.data).to(out_t.torch_dtype)
+    b = (_decimal_to_double(r.data, rt) if isinstance(rt, T.DecimalType)
+         else r.data).to(out_t.torch_dtype)
     if isinstance(expr, E.Add):
         return ColVal(a + b, valid)
     if isinstance(expr, E.Subtract):
@@ -121,6 +207,18 @@ def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
     if isinstance(expr, E.Multiply):
         return ColVal(a * b, valid)
     raise NotImplementedError(type(expr).__name__)
+
+
+def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
+    src, dst = expr.child.dtype, expr.to
+    v = eval_expr(expr.child, ctx)
+    if src == dst:
+        return v
+    if isinstance(src, T.DecimalType) and dst == T.DOUBLE:
+        return ColVal(_decimal_to_double(v.data, src), v.validity)
+    if src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE):
+        return ColVal(v.data.to(dst.torch_dtype), v.validity)
+    raise NotImplementedError(f"cast {src} -> {dst} is not in the port yet")
 
 
 def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
@@ -137,6 +235,8 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         return _eval_arith(expr, ctx)
     if isinstance(expr, E.BinaryComparison):
         return _eval_compare(expr, ctx)
+    if isinstance(expr, E.Cast):
+        return _eval_cast(expr, ctx)
     if isinstance(expr, E.And):
         l = eval_expr(expr.left, ctx)
         r = eval_expr(expr.right, ctx)

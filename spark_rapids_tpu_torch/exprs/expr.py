@@ -1,8 +1,17 @@
 """Expression trees with Spark typing rules (host-only; counterpart of
-spark_rapids_tpu/exprs/expr.py for the nodes TPC-H Q1/Q3/Q5/Q6 build):
-column references, literals (DATE included), Alias, Add/Subtract/Multiply,
-LessThan/GreaterThanOrEqual/EqualTo, And, and the aggregates Sum, Average
-and Count.
+spark_rapids_tpu/exprs/expr.py for the nodes TPC-H Q1/Q3/Q5/Q6 and TPC-DS
+q44/q67 build): column references, literals (DATE and DECIMAL included),
+Alias, Cast, Add/Subtract/Multiply, the comparisons LessThan,
+LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, and the
+aggregates Sum, Average, Count, Min and Max.
+
+Decimal typing follows Spark's DecimalPrecision rules: an integral operand
+of a decimal operation is an implicit decimal(d, 0), a float operand turns
+the whole operation into double, Add/Subtract give
+decimal(max(p1-s1, p2-s2) + max(s1, s2) + 1, max(s1, s2)), Multiply gives
+decimal(p1 + p2 + 1, s1 + s2), Sum gives decimal(p + 10, s) and Average
+decimal(p + 4, s + 4). A result wider than 18 digits needs DECIMAL128 and
+raises NotImplementedError.
 
 Null semantics: every expression evaluates to (data, validity); arithmetic
 and comparisons are null-intolerant, And follows three-valued logic.
@@ -12,7 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-from typing import Any, List, Optional, Tuple
+import decimal
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 from spark_rapids_tpu_torch import types as T
 
@@ -49,6 +59,12 @@ class Expression:
 
     def __lt__(self, other):
         return LessThan(self, _lit(other))
+
+    def __le__(self, other):
+        return LessThanOrEqual(self, _lit(other))
+
+    def __gt__(self, other):
+        return GreaterThan(self, _lit(other))
 
     def __ge__(self, other):
         return GreaterThanOrEqual(self, _lit(other))
@@ -129,6 +145,10 @@ class Literal(Expression):
                 dtype = T.STRING
             elif isinstance(v, datetime.date):
                 dtype = T.DATE
+            elif isinstance(v, decimal.Decimal):
+                _sign, digits, exp = v.as_tuple()
+                scale = max(0, -exp)
+                dtype = T.DecimalType(max(len(digits), scale), scale)
             else:
                 raise TypeError(f"cannot infer literal type for {v!r}")
         if dtype == T.DATE and isinstance(v, datetime.date):
@@ -172,11 +192,49 @@ class _Binary(Expression):
 
 
 def numeric_widen(a: T.DataType, b: T.DataType) -> T.DataType:
-    """Spark's binary-arithmetic common type over the port's numerics."""
+    """Spark's binary-arithmetic common type over the port's numerics. A
+    decimal meets a float as double, and an integral as the decimal."""
+    if isinstance(a, T.DecimalType) or isinstance(b, T.DecimalType):
+        if isinstance(a, T.DecimalType) and isinstance(b, T.DecimalType):
+            return a  # same-type ops type themselves per operator
+        dec, other = (a, b) if isinstance(a, T.DecimalType) else (b, a)
+        if other in T.FRACTIONAL_TYPES:
+            return T.DOUBLE
+        if other in T.INTEGRAL_TYPES:
+            return dec
+        raise TypeError(f"no common numeric type for {a}, {b}")
     order = [T.INT, T.LONG, T.DOUBLE]
     if a not in order or b not in order:
         raise TypeError(f"no common numeric type for {a}, {b}")
     return order[max(order.index(a), order.index(b))]
+
+
+_INTEGRAL_DIGITS = {T.INT: 10, T.LONG: 20}
+
+
+def decimal_operands(lt: T.DataType, rt: T.DataType):
+    """Spark DecimalPrecision: an integral operand of a decimal operation is
+    an implicit decimal(d, 0) (d = 10 for int, 20 for bigint). Returns the
+    two operand types as decimals, or None when neither side is a decimal
+    or the other side is a float (then both sides go to double)."""
+    ld, rd = isinstance(lt, T.DecimalType), isinstance(rt, T.DecimalType)
+    if not (ld or rd):
+        return None
+    if ld and rd:
+        return lt, rt
+    other = rt if ld else lt
+    if other not in _INTEGRAL_DIGITS:
+        return None
+    od = _DecimalShape(_INTEGRAL_DIGITS[other], 0)
+    return (lt, od) if ld else (od, rt)
+
+
+class _DecimalShape(NamedTuple):
+    """(precision, scale) of an operand that may be wider than DECIMAL64
+    (bigint as decimal(20, 0)); only result types must fit 18 digits."""
+
+    precision: int
+    scale: int
 
 
 class BinaryArithmetic(_Binary):
@@ -184,7 +242,13 @@ class BinaryArithmetic(_Binary):
 
     @property
     def dtype(self):
+        pair = decimal_operands(self.left.dtype, self.right.dtype)
+        if pair is not None:
+            return self._decimal_result(*pair)
         return numeric_widen(self.left.dtype, self.right.dtype)
+
+    def _decimal_result(self, lt, rt) -> T.DataType:
+        raise NotImplementedError(f"decimal {self.symbol}")
 
     def __repr__(self):
         return f"({self.left!r} {self.symbol} {self.right!r})"
@@ -193,13 +257,24 @@ class BinaryArithmetic(_Binary):
 class Add(BinaryArithmetic):
     symbol = "+"
 
+    def _decimal_result(self, lt, rt):
+        s = max(lt.scale, rt.scale)
+        p = max(lt.precision - lt.scale, rt.precision - rt.scale) + s + 1
+        return T.DecimalType(min(p, T.DecimalType.MAX_PRECISION), s)
+
 
 class Subtract(BinaryArithmetic):
     symbol = "-"
+    _decimal_result = Add._decimal_result
 
 
 class Multiply(BinaryArithmetic):
     symbol = "*"
+
+    def _decimal_result(self, lt, rt):
+        return T.DecimalType(min(lt.precision + rt.precision + 1,
+                                 T.DecimalType.MAX_PRECISION),
+                             lt.scale + rt.scale)
 
 
 class BinaryComparison(_Binary):
@@ -221,6 +296,14 @@ class LessThan(BinaryComparison):
     symbol = "<"
 
 
+class LessThanOrEqual(BinaryComparison):
+    symbol = "<="
+
+
+class GreaterThan(BinaryComparison):
+    symbol = ">"
+
+
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
@@ -229,6 +312,26 @@ class And(_Binary):
     @property
     def dtype(self):
         return T.BOOLEAN
+
+
+@dataclasses.dataclass(frozen=True, repr=False, eq=False)
+class Cast(Expression):
+    """Non-ANSI cast. The port evaluates decimal -> double and the widening
+    numeric casts (int -> bigint -> double); others raise."""
+
+    child: Expression
+    to: T.DataType
+
+    @property
+    def children(self):  # type: ignore[override]
+        return (self.child,)
+
+    @property
+    def dtype(self):
+        return self.to
+
+    def __repr__(self):
+        return f"cast({self.child!r} as {self.to})"
 
 
 # --- aggregate functions (consumed by exec/aggregate.py) ---
@@ -243,7 +346,11 @@ class Sum(AggregateExpression):
 
     @property
     def dtype(self):
-        return T.LONG if self.child.dtype in T.INTEGRAL_TYPES else T.DOUBLE
+        c = self.child.dtype
+        if isinstance(c, T.DecimalType):
+            return T.DecimalType(min(T.DecimalType.MAX_PRECISION,
+                                     c.precision + 10), c.scale)
+        return T.LONG if c in T.INTEGRAL_TYPES else T.DOUBLE
 
     @property
     def nullable(self):
@@ -264,6 +371,28 @@ class Count(AggregateExpression):
         return False
 
 
+class _Extremum(AggregateExpression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Min(_Extremum):
+    pass
+
+
+class Max(_Extremum):
+    pass
+
+
 class Average(AggregateExpression):
     def __init__(self, child: Expression):
         self.child = child
@@ -271,6 +400,12 @@ class Average(AggregateExpression):
 
     @property
     def dtype(self):
+        c = self.child.dtype
+        if isinstance(c, T.DecimalType):
+            return T.DecimalType(min(T.DecimalType.MAX_PRECISION,
+                                     c.precision + 4),
+                                 min(T.DecimalType.MAX_PRECISION,
+                                     c.scale + 4))
         return T.DOUBLE
 
     @property
@@ -278,9 +413,10 @@ class Average(AggregateExpression):
         return True
 
 
-SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Add, Subtract,
-             Multiply, EqualTo, LessThan, GreaterThanOrEqual, And, Sum,
-             Count, Average)
+SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
+             Subtract, Multiply, EqualTo, LessThan, LessThanOrEqual,
+             GreaterThan, GreaterThanOrEqual, And, Sum, Count, Average, Min,
+             Max)
 
 
 def check_supported(expr: Expression) -> None:
@@ -303,6 +439,8 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
     kids: List[Expression] = [resolve(c, schema) for c in expr.children]
     if isinstance(expr, Alias):
         return Alias(kids[0], expr.name)
+    if isinstance(expr, Cast):
+        return Cast(kids[0], expr.to)
     if isinstance(expr, Count):
         return Count(kids[0] if kids else None)
     check_supported(expr)

@@ -21,7 +21,7 @@ from typing import Dict, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("hashtbl_probe.cu",)
+SOURCES = ("hashtbl_probe.cu", "segscan.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -70,26 +70,46 @@ def build_all() -> List[str]:
         return list(ex.map(build, SOURCES))
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind_common(lib: ctypes.CDLL) -> None:
+    lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.srt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _bind_hashtbl_probe(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     fn = lib.srt_hashtbl_probe
     fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_uint64, ctypes.c_int, p]
     fn.restype = ctypes.c_int
-    lib.srt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.srt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
-def load(source: str = "hashtbl_probe.cu") -> ctypes.CDLL:
+def _bind_segscan(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    fn = lib.srt_segscan
+    # values, is_start (uint8), out, n, dtype code, op code, scratch, stream
+    fn.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.srt_segscan_scratch_bytes
+    fn.argtypes = [ctypes.c_int64]
+    fn.restype = ctypes.c_int64
+
+
+_BINDERS = {"hashtbl_probe.cu": _bind_hashtbl_probe,
+            "segscan.cu": _bind_segscan}
+
+
+def load(source: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built on first use."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = _bind(ctypes.CDLL(build(source)))
+            lib = ctypes.CDLL(build(source))
+            _bind_common(lib)
+            _BINDERS[source](lib)
             _libs[source] = lib
         return lib
 
 
-def error_string(code: int) -> str:
-    return load().srt_cuda_error_string(code).decode()
+def error_string(lib: ctypes.CDLL, code: int) -> str:
+    """CUDA's text for an error code, as the library ``lib`` reports it."""
+    return lib.srt_cuda_error_string(code).decode()

@@ -66,6 +66,11 @@ class DataFrame:
         return self._with(L.Join(self.plan, other.plan, _cols(left_on),
                                  _cols(right_on), how))
 
+    def with_window(self, *window_exprs) -> "DataFrame":
+        """Append window columns (all expressions must share one
+        (partition, order) spec — Spark WindowExec shape)."""
+        return self._with(L.Window(list(window_exprs), self.plan))
+
     def limit(self, n: int, offset: int = 0) -> "DataFrame":
         return self._with(L.Limit(n, self.plan, offset))
 

@@ -1,6 +1,6 @@
 """Logical plan nodes (counterpart of spark_rapids_tpu/plan/logical.py for
-the nodes the slice plans): InMemoryScan, Project, Filter, Aggregate, Sort,
-Join and Limit. They hold structure and schemas only; ``overrides.py``
+the nodes the port plans): InMemoryScan, Project, Filter, Aggregate,
+Window, Sort, Join and Limit. They hold structure and schemas only; ``overrides.py``
 converts them into physical operators.
 """
 
@@ -100,6 +100,38 @@ class Aggregate(LogicalPlan):
 
     def describe(self):
         return f"Aggregate[keys={self.group_exprs}, aggs={self.agg_exprs}]"
+
+
+@dataclasses.dataclass
+class Window(LogicalPlan):
+    """Append window columns to the child (Spark WindowExec shape: all
+    expressions share one (partition, order) spec per node)."""
+
+    window_exprs: List[E.Expression]  # Alias(WindowExpression) ...
+    child: LogicalPlan
+
+    def __post_init__(self):
+        self.children = (self.child,)
+
+    @property
+    def schema(self) -> T.Schema:
+        from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
+
+        cs = self.child.schema
+        fields = list(cs)
+        for e in self.window_exprs:
+            func, name = _strip_alias(e)
+            f = func.function
+            if isinstance(f, E.AggregateExpression) and f.children:
+                b = type(f)(E.resolve(f.children[0], cs))
+                dt, nullable = b.dtype, b.nullable
+            else:
+                dt, nullable = f.dtype, f.nullable
+            fields.append(T.Field(name, dt, nullable))
+        return T.Schema(fields)
+
+    def describe(self):
+        return f"Window{self.window_exprs}"
 
 
 @dataclasses.dataclass

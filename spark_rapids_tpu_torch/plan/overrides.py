@@ -20,7 +20,9 @@ from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
 from spark_rapids_tpu_torch.exec.join import HashJoinExec
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
+from spark_rapids_tpu_torch.exec.window import WindowExec
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import logical as L
 
 
@@ -79,6 +81,19 @@ class Overrides:
             _check_exprs(node.group_exprs + node.agg_exprs)
             return HashAggregateExec(node.group_exprs, node.agg_exprs,
                                      kids[0], mode="complete")
+        if isinstance(node, L.Window):
+            # one partition, so no exchange; the window's functions and
+            # frames are checked by WindowExec itself
+            for e in node.window_exprs:
+                inner = e.child if isinstance(e, E.Alias) else e
+                if not isinstance(inner, W.WindowExpression):
+                    raise NotImplementedError(f"not a window expression: "
+                                              f"{e!r}")
+                spec = inner.spec
+                _check_exprs(list(spec.partition_by)
+                             + [o.child for o in spec.order_by]
+                             + list(inner.function.children))
+            return WindowExec(node.window_exprs, kids[0])
         if isinstance(node, L.Sort):
             _check_exprs([o.child for o in node.orders])
             return SortExec(node.orders, kids[0], limit=node.limit)

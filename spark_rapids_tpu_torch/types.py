@@ -1,8 +1,9 @@
 """Spark SQL data types the port carries, mapped onto torch dtypes.
 
 Counterpart of ``spark_rapids_tpu/types.py`` for the types TPC-H Q1/Q3/Q5/Q6
-use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days since the epoch) and
-STRING (dictionary codes or int32 offsets + uint8 bytes).
+and TPC-DS q44/q67 use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days since
+the epoch), DECIMAL64 (``DecimalType`` of precision <= 18, an int64 unscaled
+value) and STRING (dictionary codes or int32 offsets + uint8 bytes).
 """
 
 from __future__ import annotations
@@ -77,6 +78,44 @@ class DateType(DataType):
 
     def arrow_type(self):
         return pa.date32()
+
+
+class DecimalType(DataType):
+    """Decimal of ``precision`` digits, ``scale`` of them after the point.
+
+    Precision <= 18 (DECIMAL64) is stored as the int64 unscaled value
+    (value * 10**scale). Wider decimals (DECIMAL128) are not in the port
+    yet: building one raises."""
+
+    MAX_PRECISION = 38
+    MAX_LONG_DIGITS = 18
+    torch_dtype = torch.int64
+
+    def __init__(self, precision: int = 10, scale: int = 0):
+        if not 0 <= scale <= precision:
+            raise ValueError(f"decimal({precision},{scale}): scale must lie "
+                             f"in [0, precision]")
+        if precision > self.MAX_LONG_DIGITS:
+            raise NotImplementedError(
+                f"decimal({precision},{scale}) needs DECIMAL128 (precision "
+                f"> {self.MAX_LONG_DIGITS}), which is not in the port yet")
+        self.precision = precision
+        self.scale = scale
+
+    @property
+    def name(self):  # type: ignore[override]
+        return f"decimal({self.precision},{self.scale})"
+
+    def arrow_type(self):
+        return pa.decimal128(self.precision, self.scale)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, DecimalType)
+                and (self.precision, self.scale)
+                == (other.precision, other.scale))
+
+    def __hash__(self) -> int:
+        return hash((self.precision, self.scale))
 
 
 class StringType(DataType):
@@ -169,6 +208,8 @@ def from_arrow_type(t: pa.DataType) -> DataType:
         return DOUBLE
     if pa.types.is_date32(t):
         return DATE
+    if pa.types.is_decimal(t):
+        return DecimalType(t.precision, t.scale)
     if pa.types.is_string(t) or pa.types.is_large_string(t):
         return STRING
     raise NotImplementedError(f"arrow type {t} is outside the port's types")

@@ -1,10 +1,15 @@
 """The port's main-path kernels (spark_rapids_tpu_torch.exec.kernels) held
 against the JAX package's on the same seeded inputs: hashes, the hash-table
 build and probe bit for bit, sort/filter/group indices exactly, float sums
-within rel 1e-6 (another summation order)."""
+within rel 1e-6 (another summation order), and the segmented scan exactly
+for integers and min/max, within ``segscan_add_tolerance`` for float add."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
+import decimal
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -47,6 +52,9 @@ def _table(kind, n, rng):
         v[rng.random(n) < 0.1] = 0.0
         v[rng.random(n) < 0.05] = 1e300
         a = pa.array(v, pa.float64())
+    elif kind == "decimal":
+        a = pa.array([decimal.Decimal(int(x)).scaleb(-2) for x in
+                      rng.integers(-10**9, 10**9, n)], pa.decimal128(11, 2))
     elif kind == "dict_string":
         words = np.array(["FRANCE", "ALGERIA", "", "ASIA", "BUILDING", "zz"])
         a = pa.array(words[rng.integers(0, len(words), n)], pa.string())
@@ -61,8 +69,8 @@ def _table(kind, n, rng):
 KEY_CASES = {
     "long": ["long"], "int": ["int"], "date": ["date"],
     "double": ["double"], "dict_string": ["dict_string"],
-    "plain_string": ["plain_string"],
-    "multi": ["long", "dict_string", "double", "date"],
+    "plain_string": ["plain_string"], "decimal": ["decimal"],
+    "multi": ["long", "dict_string", "double", "date", "decimal"],
 }
 
 
@@ -271,6 +279,7 @@ SORT_CASES = [
     [("double", False, True)],
     [("dict_string", True, None), ("int", False, None)],
     [("date", True, False), ("double", False, None), ("long", True, None)],
+    [("decimal", False, None), ("dict_string", True, False)],
 ]
 
 
@@ -346,3 +355,157 @@ def test_concat_device_keeps_shared_dictionary_and_strings():
     np.testing.assert_array_equal(
         out.column("x").to_numpy(zero_copy_only=False),
         plain.column("x").to_numpy(zero_copy_only=False))
+
+
+def test_keys_equal_matches_on_decimal_and_mixed_keys():
+    rng = np.random.default_rng(17)
+    n = 300
+    kinds = ["decimal", "long", "double"]
+    t = pa.table({f"c{i}": pa.array(_table(k, n, rng).to_pylist()[:25] * 12)
+                  for i, k in enumerate(kinds)})
+    jb, pb = _batches(t)
+    a = rng.integers(0, n, 500)
+    b = rng.integers(0, n, 500)
+    cols = list(range(len(kinds)))
+    exp = _np(JK.keys_equal(jb, jnp.asarray(a, jnp.int32), cols, jb,
+                            jnp.asarray(b, jnp.int32), cols))
+    got = PK.keys_equal(pb, torch.from_numpy(a), cols, pb,
+                        torch.from_numpy(b), cols).numpy()
+    np.testing.assert_array_equal(got, exp)
+    assert got.any() and not got.all()
+
+
+# ---------------------------------------------------------------------------
+# segmented scan: the port's plain version against the reference's XLA
+# formulation and its Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+# Every case runs through the reference at one padded shape (rows past the
+# case are heads, so they cannot reach into it): one compile per op.
+_SCAN_ROWS = 1 << 17
+_SCAN_LENGTHS = [0, 1, 1023, 1024, 1025, 100_003]
+_SCAN_MODES = ["random", "all_heads", "one_head"]
+_SCAN_DTYPES = {"int32": np.int32, "int64": np.int64, "float32": np.float32,
+                "float64": np.float64}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan(op, pallas):
+    if pallas:
+        return jax.jit(functools.partial(JK.segmented_scan_pallas,
+                                         op_name=op, interpret=True))
+    return jax.jit(functools.partial(JK.segmented_scan_xla, op_name=op))
+
+
+def _scan_case(dtype, op, n, mode, rng):
+    """Seeded (values, is_start) of one case: integers over their whole
+    range (so add wraps), floats with NaNs for min/max."""
+    dt = _SCAN_DTYPES[dtype]
+    if np.issubdtype(dt, np.integer):
+        info = np.iinfo(dt)
+        v = rng.integers(info.min, info.max, n, endpoint=True).astype(dt)
+    else:
+        v = (rng.normal(0, 1, n) * 10.0 ** rng.integers(-3, 4, n)).astype(dt)
+        if op != "add":
+            v[rng.random(n) < 0.01] = np.nan
+    if mode == "random":
+        f = rng.random(n) < 0.01
+        if n:
+            f[0] = bool(rng.random() < 0.5)  # both first-row conventions
+    elif mode == "all_heads":
+        f = np.ones(n, np.bool_)
+    else:
+        f = np.zeros(n, np.bool_)
+        if n:
+            f[n // 2] = True
+    return v, f
+
+
+def _reference_scan(v, f, op, pallas):
+    pad = _SCAN_ROWS - len(v)
+    vp = np.concatenate([v, np.zeros(pad, v.dtype)])
+    fp = np.concatenate([f, np.ones(pad, np.bool_)])
+    out = _jax_scan(op, pallas)(jnp.asarray(vp), jnp.asarray(fp))
+    return np.asarray(jax.device_get(out))[: len(v)]
+
+
+def assert_scan_close(got, exp, v, f, op):
+    """Integers and min/max exactly (NaN equals NaN); float add within
+    ``segscan_add_tolerance`` of the running sum of |values|."""
+    assert got.dtype == exp.dtype and got.shape == exp.shape
+    if np.issubdtype(got.dtype, np.floating) and op == "add":
+        absrun = PK.segmented_scan(torch.from_numpy(np.abs(v)).double(),
+                                   torch.from_numpy(f), "add")
+        tol = PK.segscan_add_tolerance(absrun, len(v),
+                                       torch.from_numpy(v).dtype).numpy()
+        err = np.abs(got.astype(np.float64) - exp.astype(np.float64))
+        assert (err <= tol).all(), float((err - tol).max())
+    else:
+        np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", sorted(_SCAN_DTYPES))
+def test_segmented_scan_plain_matches_xla(dtype, op):
+    rng = np.random.default_rng(31)
+    for n in _SCAN_LENGTHS:
+        for mode in _SCAN_MODES:
+            v, f = _scan_case(dtype, op, n, mode, rng)
+            got = PK.segmented_scan(torch.from_numpy(v), torch.from_numpy(f),
+                                    op).numpy()
+            assert_scan_close(got, _reference_scan(v, f, op, False), v, f,
+                              op)
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_segmented_scan_plain_matches_pallas_interpret(dtype, op):
+    rng = np.random.default_rng(37)
+    for n in _SCAN_LENGTHS:
+        for mode in _SCAN_MODES:
+            v, f = _scan_case(dtype, op, n, mode, rng)
+            got = PK.segmented_scan(torch.from_numpy(v), torch.from_numpy(f),
+                                    op).numpy()
+            assert_scan_close(got, _reference_scan(v, f, op, True), v, f, op)
+
+
+def test_segmented_scan_is_not_a_prefix_difference():
+    # a small segment after a large prefix keeps its exact float sum
+    v = torch.tensor([1e17, -1e17 + 2.0**12, 1.0, 2.0], dtype=torch.float64)
+    f = torch.tensor([True, False, True, False])
+    out = PK.segmented_scan(v, f, "add")
+    assert out[2].item() == 1.0 and out[3].item() == 3.0
+
+
+def test_segscan_wrapper_routes_cpu_tensors_to_plain_version():
+    rng = np.random.default_rng(5)
+    v, f = _scan_case("int32", "max", 5000, "random", rng)
+    before = dict(PK.KERNEL_LAUNCHES)
+    got = PK.segmented_scan_kernel(torch.from_numpy(v), torch.from_numpy(f),
+                                   "max")
+    exp = PK.segmented_scan(torch.from_numpy(v), torch.from_numpy(f), "max")
+    assert torch.equal(got, exp)
+    assert PK.KERNEL_LAUNCHES == before
+    empty = PK.segmented_scan_kernel(torch.zeros(0, dtype=torch.int64),
+                                     torch.zeros(0, dtype=torch.bool), "add")
+    assert empty.shape == (0,) and empty.dtype == torch.int64
+
+
+@pytest.mark.parametrize("bad", ["flag_dtype", "shape", "op", "two_d",
+                                 "device"])
+def test_segscan_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    v = torch.arange(10, dtype=torch.int32)
+    f = torch.zeros(10, dtype=torch.bool)
+    op = "add"
+    if bad == "flag_dtype":
+        f = f.to(torch.uint8)
+    elif bad == "shape":
+        f = f[:5]
+    elif bad == "op":
+        op = "mul"
+    elif bad == "two_d":
+        v, f = v.reshape(2, 5), f.reshape(2, 5)
+    elif bad == "device":
+        v = v.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        PK.segmented_scan_kernel(v, f, op)
