@@ -6,25 +6,37 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: every CUDA kernel source under spark_rapids_tpu_torch/csrc, one
-   nvcc process each, started together;
+2. build: every CUDA kernel source under spark_rapids_tpu_torch/csrc (the
+   kernels and, under csrc/variants, the designs they were measured
+   against), one nvcc process each, started together;
 3. kernels: each kernel's wrapper against its plain torch version on the
    card at seeded shapes. The probe at three (Q3's lineitem-join shape, a
    duplicate-heavy build, near-full clusters that reach the probe bound),
-   exactly equal. The segmented scan for int32/int64/float32/float64 x
-   add/min/max at lengths around the kernel's 1024-row tile and above a
-   million rows, with random heads, all heads and one segment spanning the
-   whole input: integers and min/max exactly equal (NaN equals NaN), float
-   add within ``segscan_add_tolerance`` (a first-order rounding bound on
-   the running sum of |values|). Times are CUDA-event medians of 20 runs
-   after warm-up, each queued behind a spin on the card so that the
-   kernel's time is device time (``call_ms`` is the wrapper's call with
-   its host launch cost, timed without the spin). Bounds are the bytes
-   each kernel must move over 3.35 TB/s. The probe: 16 B of hashes in and
-   4 B of slot out per probe row, the used byte of every table slot, and
-   the two 8 B hash words of the used slots only (the kernel reads a
-   slot's words only when its used byte is set). The segmented scan: its
-   value read and written once and its flag byte read once per row;
+   exactly equal, each also through the designs it was measured against
+   (``PROBE_VARIANTS``, each held to the plain version too, and timed).
+   The segmented scan for int32/int64/float32/float64 x add/min/max at
+   lengths around the 4096-row tile (tile - 1, tile, tile + 1, 127 tiles +
+   1) and others from 1 to above a million rows, with random heads, all
+   heads and one segment spanning the whole input, and on views at
+   storage offsets 1-3 (misaligned values and flags): integers and
+   min/max exactly equal (NaN equals NaN), float add within
+   ``segscan_add_tolerance`` (a first-order rounding bound on the running
+   sum of |values|). Then a look-back stress: 100 scans of 16,777,216
+   int32 rows (max, 16 heads, so the look-back carries across many
+   tiles), each equal to the first and the first to the plain version.
+   Then one shape beyond the 50 MB L2 for each kernel (recorded, not
+   gated): a 16,777,216-row int32 add scan (with ``SEGSCAN_VARIANTS``)
+   and 8,388,608 probes into a 2^23-slot table. Times are CUDA-event
+   medians of 20 runs after warm-up, each queued behind a spin on the
+   card so that the kernel's time is device time (``call_ms`` is the
+   wrapper's call with its host launch cost, timed without the spin;
+   ``host_us`` the wrapper's mean host time over 200 calls made back to
+   back; ``cold_ms`` the device time after a 128 MB write that flushes the
+   L2 before each run). Bounds are the bytes each kernel must move over
+   3.35 TB/s. The probe: 16 B of hashes in and 4 B of slot out per probe
+   row, one byte of every table slot, and the 16 B record of the used
+   slots only. The segmented scan: its value read and written once and
+   its flag byte read once per row;
 4. TPC-H main path: Q1/Q3/Q5/Q6 at SF ``--sf`` (12M lineitem rows at SF2)
    through ``from_arrow(...)...to_arrow()`` on ``cuda``, once with every
    kernel launch count set to 0 just before and read just after, each
@@ -38,8 +50,10 @@ Phases, in order; any failure exits non-zero before the last line:
 6. each kernel against its plain version, as in phase 3, on the largest
    input the main path gave it (for the segmented scan also against
    ``torch.cummax``, which computes the same function on the geometry
-   scan's input and is timed as ``library_ms``). The kernels line reports
-   that input's times and bound, and the launches of both main paths.
+   scan's input and is timed as ``library_ms``; each also with the
+   designs of its variants), warm and with a cold L2. The kernels
+   line reports that input's times and bound, and the launches of both
+   main paths.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -60,8 +74,44 @@ PROBE_SOURCE = "spark_rapids_tpu_torch/csrc/hashtbl_probe.cu"
 PROBE_REPLACES = "spark_rapids_tpu/exec/kernels.py:1769"
 SEGSCAN_SOURCE = "spark_rapids_tpu_torch/csrc/segscan.cu"
 SEGSCAN_REPLACES = "spark_rapids_tpu/exec/kernels.py:1990"
-SEGSCAN_LENGTHS = (1, 1023, 1024, 1025, 4097, 1_048_577)
+SEGSCAN_TILE = 4096  # rows a tile of segscan.cu
+SEGSCAN_LENGTHS = (1, 1023, 1024, 1025, SEGSCAN_TILE - 1, SEGSCAN_TILE,
+                   SEGSCAN_TILE + 1, 127 * SEGSCAN_TILE + 1, 1_048_577)
 SEGSCAN_SPAN_ROWS = 3_000_001  # one segment over the whole input
+# (value offset, flag offset) of the misaligned views, in elements
+SEGSCAN_OFFSETS = ((1, 1), (2, 2), (3, 3), (0, 3), (3, 0))
+SEGSCAN_OFFSET_ROWS = 3 * SEGSCAN_TILE + 7
+BEYOND_L2_SCAN_ROWS = 16_777_216
+STRESS_CALLS = 100
+BEYOND_L2_PROBES = 8_388_608
+BEYOND_L2_SLOTS = 1 << 23
+FLUSH_BYTES = 128 << 20  # written before each cold-L2 run (L2: 50 MB)
+# srt_hashtbl_probe_variant's designs (csrc/variants), by variant number;
+# 13 is the kernel srt_hashtbl_probe runs, 0 the one it replaced.
+# PROBE_SEPARATE read separate h1/h2 arrays (the old layout), the others
+# the (h1, h2) records; PROBE_TAGS read the tag bytes in place of the used
+# bytes. The floors compute no probe.
+PROBE_VARIANTS = ("lockstep1_dependent_separate",
+                  "lockstep4_dependent_separate",
+                  "lockstep4_together_separate", "lockstep4_together_record",
+                  "lockstep4_together_record_streaming",
+                  "lockstep1_together_record_streaming",
+                  "lockstep8_together_record_streaming",
+                  "lockstep1_dependent_record_streaming",
+                  "pipelined2_record", "pipelined4_record",
+                  "pipelined4_separate", "floor_stream_rows",
+                  "floor_stream_rows_used_byte", "tagged1", "tagged2",
+                  "tagged4")
+PROBE_SEPARATE = (0, 1, 2, 10)
+PROBE_TAGS = (13, 14, 15)
+# srt_segscan_variant's designs (csrc/variants; int32 only), by variant
+# number; 6 is the kernel srt_segscan runs. The floors compute no scan.
+SEGSCAN_VARIANTS = ("striped_memset", "blocked_selfclean", "blocked_memset",
+                    "blocked_512x8", "blocked_1024x4",
+                    "blocked_1024x4_2blocks", "striped",
+                    "striped_6blocks", "striped_512x8",
+                    "floor_copy_blocked", "floor_copy_blocked_512x8",
+                    "floor_copy_blocked_1024x4", "floor_copy_striped")
 
 
 def log(msg: str) -> None:
@@ -75,12 +125,27 @@ def smi_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+_flush_buf = []
+
+
+def flush_l2() -> None:
+    """Write FLUSH_BYTES on the card, which evicts whatever the L2 held."""
+    import torch
+
+    if not _flush_buf:
+        _flush_buf.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                      device="cuda"))
+    _flush_buf[0].fill_(1)
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3,
-            queued: bool = True) -> float:
+            queued: bool = True, cold: bool = False) -> float:
     """Median CUDA-event time of ``fn`` in milliseconds. With ``queued``
     the events and ``fn``'s launches wait behind a spin of about 2 ms on
     the card, so the interval holds device work only and not the host's
-    time to make the launches (unless ``fn`` itself synchronises)."""
+    time to make the launches (unless ``fn`` itself synchronises). With
+    ``cold`` each run follows a write that flushes the L2 (outside the
+    timed interval)."""
     import torch
 
     for _ in range(warmup):
@@ -92,12 +157,29 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3,
         b = torch.cuda.Event(enable_timing=True)
         if queued:
             torch.cuda._sleep(4_000_000)
+        if cold:
+            flush_l2()
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Mean host time of one call of ``fn`` in microseconds, over ``calls``
+    calls made back to back (the card runs them behind the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def probe_bound_ms(n: int, capacity: int, table_keys: int) -> float:
@@ -159,8 +241,53 @@ def synthetic_probe_inputs(name: str, seed: int, device):
             capacity, seed_)
 
 
-def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int) -> dict:
-    """Kernel against the plain version on one input: exact slots, times."""
+def probe_variant_ms(tbl, h1, h2, capacity: int, seed: int, ps, ph) -> dict:
+    """Each design of PROBE_VARIANTS on one input: checked exactly against
+    the plain version's (slot, hit), then timed (device time, warm). The
+    floors compute no probe and are timed only."""
+    import torch
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    lib = native.load("variants/hashtbl_probe_variants.cu")
+    n = h1.numel()
+    separate = (tbl.slot_h1.contiguous(), tbl.slot_h2.contiguous())
+    rec = tbl.slot_keys.data_ptr()
+    times = {}
+    for v, name in enumerate(PROBE_VARIANTS):
+        slot = torch.empty(n, dtype=torch.int32, device="cuda")
+        hit = torch.empty(n, dtype=torch.bool, device="cuda")
+        keys = ((separate[0].data_ptr(), separate[1].data_ptr(), 1)
+                if v in PROBE_SEPARATE else (rec, rec + 8, 2))
+
+        used = tbl.slot_tag if v in PROBE_TAGS else tbl.slot_used
+
+        def run(v=v, keys=keys, slot=slot, hit=hit, used=used):
+            rc = lib.srt_hashtbl_probe_variant(
+                v, used.data_ptr(), *keys, h1.data_ptr(),
+                h2.data_ptr(), slot.data_ptr(), hit.data_ptr(), n, capacity,
+                K._seed_mix(seed), K.HASHTBL_MAX_PROBES,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"probe variant {name} failed: CUDA error "
+                                   f"{rc} ({native.error_string(lib, rc)})")
+
+        run()
+        torch.cuda.synchronize()
+        if not name.startswith("floor") and not (torch.equal(slot, ps)
+                                                 and torch.equal(hit, ph)):
+            raise AssertionError(f"probe variant {name} differs from the "
+                                 f"plain version")
+        times[name] = cuda_ms(run)
+    return times
+
+
+def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int,
+                variants: bool = True, cold: bool = False) -> dict:
+    """Kernel against the plain version on one input: exact slots, times;
+    with ``variants`` also the designs of PROBE_VARIANTS, with ``cold``
+    also the time after an L2 flush."""
     import torch
 
     from spark_rapids_tpu_torch.exec import kernels as K
@@ -176,8 +303,14 @@ def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int) -> dict:
         tbl, h1, h2, capacity, seed, mp))
     call_ms = cuda_ms(lambda: K.probe_hash_table_kernel(
         tbl, h1, h2, capacity, seed, mp), queued=False)
+    host = host_us(lambda: K.probe_hash_table_kernel(
+        tbl, h1, h2, capacity, seed, mp))
     plain_ms = cuda_ms(lambda: K.probe_hash_table(
         tbl, h1, h2, capacity, seed, mp))
+    cold_ms = (cuda_ms(lambda: K.probe_hash_table_kernel(
+        tbl, h1, h2, capacity, seed, mp), cold=True) if cold else None)
+    variant_ms = (probe_variant_ms(tbl, h1, h2, capacity, seed, ps, ph)
+                  if variants and exact else None)
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
     n = h1.numel()
     table_keys = int(tbl.slot_used.sum())
@@ -185,8 +318,10 @@ def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int) -> dict:
            "seed": seed, "table_keys": table_keys,
            "hit_rate": float(kh.float().mean()) if n else 0.0,
            "exact": exact, "max_abs_err": err, "kernel_ms": kernel_ms,
-           "call_ms": call_ms, "plain_ms": plain_ms,
-           "bound_ms": probe_bound_ms(n, capacity, table_keys)}
+           "call_ms": call_ms, "host_us": host, "cold_ms": cold_ms,
+           "plain_ms": plain_ms,
+           "bound_ms": probe_bound_ms(n, capacity, table_keys),
+           "variant_ms": variant_ms}
     log(f"probe {label}: " + json.dumps(res))
     if not exact:
         raise AssertionError(f"probe kernel differs from its plain version "
@@ -264,8 +399,15 @@ def check_segscan_shapes() -> dict:
             shapes = [(n, m) for n in SEGSCAN_LENGTHS
                       for m in ("random", "all_heads")]
             shapes.append((SEGSCAN_SPAN_ROWS, "span"))
+            shapes += [(SEGSCAN_OFFSET_ROWS, off) for off in SEGSCAN_OFFSETS]
             for n, mode in shapes:
-                v, f = segscan_case(dtype, op, n, mode, rng, "cuda")
+                if isinstance(mode, tuple):  # misaligned views
+                    vo, fo = mode
+                    v, f = segscan_case(dtype, op, n + 3, "random", rng,
+                                        "cuda")
+                    v, f = v[vo:vo + n], f[fo:fo + n]
+                else:
+                    v, f = segscan_case(dtype, op, n, mode, rng, "cuda")
                 k = K.segmented_scan_kernel(v, f, op)
                 torch.cuda.synchronize()
                 p = K.segmented_scan(v, f, op)
@@ -280,11 +422,58 @@ def check_segscan_shapes() -> dict:
                         f"{dtype} {op} n={n} {mode} (max abs err {err})")
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
     res = {"cases": checked, "lengths": list(SEGSCAN_LENGTHS)
-           + [SEGSCAN_SPAN_ROWS], "float_add_max_abs_err": worst,
+           + [SEGSCAN_SPAN_ROWS], "offsets": [list(o) for o in
+                                              SEGSCAN_OFFSETS],
+           "offset_rows": SEGSCAN_OFFSET_ROWS, "float_add_max_abs_err": worst,
            "float_add_max_err_over_tolerance": worst_ratio,
            "int_and_minmax_exact": True}
     log("segscan shapes: " + json.dumps(res))
     return res
+
+
+def segscan_variant_ms(values, is_start, op: str) -> dict:
+    """Each design of SEGSCAN_VARIANTS on one int32 input: checked exactly
+    against the plain version, then timed (device time, warm); the
+    self-cleaning ones must leave their scratch all zero. The floor
+    computes no scan and is timed only."""
+    import torch
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    lib = native.load("variants/segscan_variants.cu")
+    tile, header, per_tile = K._segscan_layout(lib)
+    n = values.numel()
+    nbytes = header + per_tile * -(-n // tile)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    zeroed = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    exp = K.segmented_scan(values, is_start, op)
+    times = {}
+    for v, name in enumerate(SEGSCAN_VARIANTS):
+        buf = scratch if "memset" in name else zeroed
+        out = torch.empty_like(values)
+
+        def run(v=v, buf=buf, out=out):
+            rc = lib.srt_segscan_variant(
+                v, values.data_ptr(), is_start.data_ptr(), out.data_ptr(), n,
+                K._SEGSCAN_OP_CODES[op], buf.data_ptr(), nbytes,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"segscan variant {name} failed: CUDA "
+                                   f"error {rc} "
+                                   f"({native.error_string(lib, rc)})")
+
+        run()
+        torch.cuda.synchronize()
+        if not name.startswith("floor") and not torch.equal(out, exp):
+            raise AssertionError(f"segscan variant {name} differs from the "
+                                 f"plain version")
+        times[name] = cuda_ms(run)
+    torch.cuda.synchronize()
+    if bool(zeroed.any()):
+        raise AssertionError("a self-cleaning segscan left its scratch "
+                             "dirty")
+    return times
 
 
 def check_segscan_main_input(values, is_start, op: str) -> dict:
@@ -311,18 +500,117 @@ def check_segscan_main_input(values, is_start, op: str) -> dict:
     kernel_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op))
     call_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
                       queued=False)
+    host = host_us(lambda: K.segmented_scan_kernel(values, is_start, op))
     plain_ms = cuda_ms(lambda: K.segmented_scan(values, is_start, op))
     library_ms = cuda_ms(lambda: torch.cummax(values, 0))
+    cold_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
+                      cold=True)
+    variant_ms = segscan_variant_ms(values, is_start, op)
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
     n = values.numel()
     res = {"shape": "main_path_largest", "rows": n,
            "dtype": str(values.dtype), "op": op,
            "heads": int(is_start.sum()), "exact": True,
            "max_abs_err": err, "kernel_ms": kernel_ms, "call_ms": call_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+           "host_us": host, "cold_ms": cold_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "variant_ms": variant_ms,
            "bound_ms": segscan_bound_ms(n, values.element_size())}
     log("segscan main_path_largest: " + json.dumps(res))
     return res
+
+
+def check_segscan_stress() -> dict:
+    """Look-back stress: STRESS_CALLS scans of BEYOND_L2_SCAN_ROWS int32
+    rows (max, 16 heads, so tiles carry across many tiles before them),
+    each output equal to the first, the first equal to the plain one."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    n = BEYOND_L2_SCAN_ROWS
+    rng = np.random.default_rng(43)
+    v, _ = segscan_case(torch.int32, "max", n, "span", rng, "cuda")
+    f = torch.zeros(n, dtype=torch.bool, device="cuda")
+    f[torch.from_numpy(rng.choice(n, 16, replace=False)).cuda()] = True
+    first = K.segmented_scan_kernel(v, f, "max")
+    if not torch.equal(first, K.segmented_scan(v, f, "max")):
+        raise AssertionError("segscan stress: the kernel differs from its "
+                             "plain version")
+    differ = 0
+    for _ in range(STRESS_CALLS):
+        differ += int(not torch.equal(K.segmented_scan_kernel(v, f, "max"),
+                                      first))
+    K.KERNEL_LAUNCHES.update(saved)
+    res = {"rows": n, "calls": STRESS_CALLS, "heads": 16,
+           "calls_differing": differ}
+    log("segscan look-back stress: " + json.dumps(res))
+    if differ:
+        raise AssertionError(f"segscan stress: {differ} of {STRESS_CALLS} "
+                             f"calls differ from the first")
+    return res
+
+
+def check_segscan_beyond_l2() -> dict:
+    """A BEYOND_L2_SCAN_ROWS-row int32 add scan (1% heads): exact against
+    the plain version, its time beside its byte bound."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    n = BEYOND_L2_SCAN_ROWS
+    v, f = segscan_case(torch.int32, "add", n, "random",
+                        np.random.default_rng(47), "cuda")
+    k = K.segmented_scan_kernel(v, f, "add")
+    if not torch.equal(k, K.segmented_scan(v, f, "add")):
+        raise AssertionError("segscan beyond L2: the kernel differs from "
+                             "its plain version")
+    kernel_ms = cuda_ms(lambda: K.segmented_scan_kernel(v, f, "add"))
+    call_ms = cuda_ms(lambda: K.segmented_scan_kernel(v, f, "add"),
+                      queued=False)
+    variant_ms = segscan_variant_ms(v, f, "add")
+    K.KERNEL_LAUNCHES.update(saved)
+    bound = segscan_bound_ms(n, 4)
+    res = {"shape": "beyond_l2", "rows": n, "dtype": "torch.int32",
+           "op": "add", "exact": True, "kernel_ms": kernel_ms,
+           "call_ms": call_ms, "bound_ms": bound,
+           "share_of_bound": bound / kernel_ms, "variant_ms": variant_ms}
+    log("segscan beyond_l2: " + json.dumps(res))
+    return res
+
+
+def beyond_l2_probe_inputs(device):
+    """(tbl, h1, h2, capacity, seed): about 3,000,000 distinct int64 keys
+    built into BEYOND_L2_SLOTS slots (about 143 MB of table), and
+    BEYOND_L2_PROBES probes, half of them build keys."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    rng = np.random.default_rng(53)
+    n_build = 3_000_000
+    mult = np.int64(2_654_435_761)  # odd: distinct keys stay distinct
+    build_keys = np.arange(1, n_build + 1, dtype=np.int64) * mult
+    half = BEYOND_L2_PROBES // 2
+    miss = np.arange(n_build + 1, n_build + 1 + half, dtype=np.int64) * mult
+    probe_keys = rng.permutation(np.concatenate(
+        [rng.choice(build_keys, BEYOND_L2_PROBES - half), miss]))
+    bb = batch_from_arrow(pa.table({"k": pa.array(build_keys, pa.int64())}),
+                          device)
+    pb = batch_from_arrow(pa.table({"k": pa.array(probe_keys, pa.int64())}),
+                          device)
+    valid = torch.ones(n_build, dtype=torch.bool, device=device)
+    tbl, _ = K.build_hash_table(K.hash_keys(bb, [0]),
+                                K.hash_keys(bb, [0], variant=1), valid,
+                                BEYOND_L2_SLOTS, 0, K.HASHTBL_MAX_PROBES)
+    return (tbl, K.hash_keys(pb, [0]), K.hash_keys(pb, [0], variant=1),
+            BEYOND_L2_SLOTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -515,8 +803,8 @@ def main(argv=None) -> int:
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = native.build_all()
-    for src in native.SOURCES:
+    libs = native.build_all(native.SOURCES + native.VARIANT_SOURCES)
+    for src in native.SOURCES + native.VARIANT_SOURCES:
         native.load(src)
     build_s = time.perf_counter() - t0
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
@@ -529,12 +817,17 @@ def main(argv=None) -> int:
             name, 100 + i, "cuda")))
 
     scan_shapes = check_segscan_shapes()
+    scan_stress = check_segscan_stress()
+    scan_big = check_segscan_beyond_l2()
+    probe_big = check_probe("beyond_l2", *beyond_l2_probe_inputs("cuda"))
+    torch.cuda.empty_cache()
 
     main_res = run_main_path(args.sf)
     ds_res = run_tpcds_path(args.sf_ds)
 
     tbl, h1, h2, capacity, seed = main_res.pop("largest_probe")
-    real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed)
+    real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed,
+                       cold=True)
     shapes.append(real)
     scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
@@ -554,7 +847,7 @@ def main(argv=None) -> int:
         "launches_by_path": by_path["hashtbl_probe"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": real["kernel_ms"], "kernel_ms": real["kernel_ms"],
-        "call_ms": real["call_ms"],
+        "call_ms": real["call_ms"], "cold_ms": real["cold_ms"],
         "plain_ms": real["plain_ms"], "bound_ms": real["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "exact": all(s["exact"] for s in shapes)}, {
@@ -566,7 +859,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(scan_real["max_abs_err"],
                            scan_shapes["float_add_max_abs_err"]),
         "ms": scan_real["kernel_ms"], "kernel_ms": scan_real["kernel_ms"],
-        "call_ms": scan_real["call_ms"], "plain_ms": scan_real["plain_ms"],
+        "call_ms": scan_real["call_ms"], "cold_ms": scan_real["cold_ms"],
+        "plain_ms": scan_real["plain_ms"],
         "bound_ms": scan_real["bound_ms"], "bound_by": "bytes",
         "library_ms": scan_real["library_ms"],
         "library_call": "torch.cummax",
@@ -579,6 +873,8 @@ def main(argv=None) -> int:
               "store_sales_rows": ds_res["store_sales_rows"],
               "tpcds_queries": ds_res["queries"],
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
+              "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,
+              "probe_beyond_l2": probe_big,
               "kernels": kernels_line["kernels"],
               "total_s": time.perf_counter() - t_all}
     if args.out:

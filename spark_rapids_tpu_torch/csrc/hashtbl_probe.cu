@@ -3,37 +3,61 @@
 // Replaces the TPU kernel probe_hash_table_pallas
 // (spark_rapids_tpu/exec/kernels.py, kernel body _pallas_probe_kernel).
 // Plain version and contract: probe_hash_table in
-// spark_rapids_tpu_torch/exec/kernels.py.
+// spark_rapids_tpu_torch/exec/kernels.py; wrapper probe_hash_table_kernel.
 //
 // What it computes: for each probe row i, start at the home slot
 // splitmix64(h1[i] ^ seed_mix) & (capacity - 1) and walk at most max_probes
-// slots of the open-addressing table. The first slot whose (slot_h1,
-// slot_h2) equals (h1[i], h2[i]) is the answer; an empty slot or the end of
-// the walk gives -1.
+// slots of the open-addressing table. The first used slot whose (h1, h2)
+// record equals (h1[i], h2[i]) is the answer; an empty slot or the end of
+// the walk gives -1. hit[i] is slot[i] >= 0.
 //
-// What bounds it: bytes. Each probe row reads 16 B of hashes and writes a
-// 4 B slot. Of the table it needs the used byte of every slot and the two
-// 64-bit hash words (16 B) of the used slots only, since a slot's words are
-// read only when its used byte is set: 20 B a probe row, 1 B a slot and
-// 16 B a stored key, each moved once. There is no arithmetic to speak of,
-// and every table read is a data-dependent gather.
+// Table layout (HashTable in exec/kernels.py): one tag byte a slot, 0 for
+// an empty slot and 0x80 | (h2 & 0x7f) of its key otherwise, and one
+// array of interleaved 16-byte (h1, h2) records. A slot whose tag is not
+// the row's cannot hold the row's key, so its record is never read.
 //
-// What the design does about it: one thread per probe row, 256 threads a
-// block, so neighbouring threads read neighbouring probe hashes and write
-// neighbouring slots (coalesced 8 B and 4 B accesses). The home slot is
-// computed here from h1 and the seed, which saves the reference's separate
-// int32 base array (4 B a row in and out). Table words are native 64-bit
-// (no 32-bit word split as on the TPU), and the walk checks the used byte
-// first and stops at the first empty slot or match, so a miss in a table at
-// load <= 0.5 costs about one or two slot reads. The table of a TPC-H join
-// build (about 18 MB at 2^20 slots) fits the 50 MB L2, so its random reads
-// are mostly served from L2 after the first touch. It allocates nothing,
-// launches on the caller's stream and does not synchronise.
+// What bounds it: bytes in principle, latency in practice. Each probe row
+// reads 16 B of hashes and writes a 4 B slot (and a 1 B hit); of the table
+// it needs one byte of every slot and the 16-byte record of the used slots:
+// 20 B a probe row, 1 B a slot and 16 B a stored key, each moved once. But
+// every table read is a gather whose address is known only after the row's
+// hashes arrive. Joins probe mostly keys that are not in the table (3.8%
+// hit at TPC-H Q5's largest probe, at a table load of 0.22), so most walks
+// end at an empty home slot; and a warp waits for its longest walk.
+// Measured on an H100 (chip_smoke.py's probe variants): streaming the rows
+// alone, with no table, takes about 0.011 ms of a 0.0091 ms bound at Q5's
+// 1,048,576 probes; with one table byte a row, 0.015 ms.
+//
+// What the design does about it:
+//   - The walk reads the 2 MB tag array, which stays in the L2 and mostly
+//     in L1, first; the record (32 MB at 2^21 slots) only on a tag match,
+//     as one 16-byte ld.global.nc.v2.u64. A miss that lands on a used slot
+//     (22% of homes at Q5) goes on to the next tag with no record read,
+//     where the used byte alone would need one. Loading the record
+//     together with the first byte (to save a round trip) was measured
+//     slower: it reads a random 32-byte sector of the records for nearly
+//     every row instead of for the few that match.
+//   - One row a thread, one thread per row (20 registers, so the SMs hold
+//     2048 threads each), and the probe hashes are read and slot/hit
+//     written with evict-first streaming hints (ld/st .cs), so the
+//     streamed rows do not push the table out of the 50 MB L2. Walking
+//     two or four adjacent rows a thread (16-byte row loads), four rows
+//     strided across a grid sized to the card, or software-pipelined
+//     walks that keep several rows a thread in flight, each at its own
+//     step, were all measured slower: a warp waits for the longest of its
+//     walks, and the extra registers cost more resident warps than the
+//     extra rows in flight win back.
+// Records that are not 16-byte aligned take a template variant with two
+// 8-byte loads (the wrapper never takes the plain version for a CUDA
+// tensor). It allocates nothing, launches on the caller's stream and does
+// not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
   x += 0x9E3779B97F4A7C15ull;
@@ -42,48 +66,124 @@ __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
   return x ^ (x >> 31);
 }
 
-__global__ void __launch_bounds__(256)
-hashtbl_probe_kernel(const uint8_t* __restrict__ slot_used,
-                     const uint64_t* __restrict__ slot_h1,
-                     const uint64_t* __restrict__ slot_h2,
-                     const uint64_t* __restrict__ h1,
-                     const uint64_t* __restrict__ h2,
-                     int32_t* __restrict__ out_slot, int64_t n,
-                     uint64_t mask, uint64_t seed_mix, int max_probes) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint64_t a = h1[i];
-  const uint64_t b = h2[i];
-  const uint64_t base = splitmix64(a ^ seed_mix) & mask;
-  int32_t found = -1;
-  for (int p = 0; p < max_probes; ++p) {
-    const uint64_t pos = (base + (uint64_t)p) & mask;
-    if (!slot_used[pos]) break;
-    if (slot_h1[pos] == a && slot_h2[pos] == b) {
-      found = (int32_t)pos;
-      break;
-    }
+struct ProbeArgs {
+  const uint8_t* slot_byte;  // tags (or, in some measured designs, used)
+  const uint64_t* key1;      // h1 word of slot 0
+  const uint64_t* key2;      // h2 word of slot 0
+  int key_stride;            // 8-byte words between slots: 2 records, 1 arrays
+  const uint64_t* h1;
+  const uint64_t* h2;
+  int32_t* out_slot;
+  uint8_t* out_hit;
+  int64_t n;
+  uint64_t mask;
+  uint64_t seed_mix;
+  int max_probes;
+};
+
+__device__ __forceinline__ uint8_t tag_of(uint64_t h2) {
+  return (uint8_t)(0x80 | (h2 & 0x7f));
+}
+
+template <bool kStream>
+__device__ __forceinline__ uint64_t load_row(const uint64_t* p) {
+  if constexpr (kStream) {
+    return __ldcs(reinterpret_cast<const unsigned long long*>(p));
+  } else {
+    return *p;
   }
-  out_slot[i] = found;
+}
+
+template <bool kStream>
+__device__ __forceinline__ void store_row(const ProbeArgs& a, int64_t i,
+                                          int32_t found) {
+  if constexpr (kStream) {
+    __stcs(a.out_slot + i, found);
+    __stcs(reinterpret_cast<unsigned char*>(a.out_hit) + i,
+           (unsigned char)(found >= 0));
+  } else {
+    a.out_slot[i] = found;
+    a.out_hit[i] = found >= 0;
+  }
+}
+
+// The two hash words of slot pos, as one 16-byte load (kVector: needs
+// interleaved, 16-byte aligned records) or two 8-byte loads.
+template <bool kVector>
+__device__ __forceinline__ void load_key(const ProbeArgs& a, uint64_t pos,
+                                         uint64_t& s1, uint64_t& s2) {
+  if constexpr (kVector) {
+    const ulonglong2 r =
+        __ldg(reinterpret_cast<const ulonglong2*>(a.key1) + pos);
+    s1 = r.x;
+    s2 = r.y;
+  } else {
+    s1 = __ldg(reinterpret_cast<const unsigned long long*>(a.key1) +
+               pos * a.key_stride);
+    s2 = __ldg(reinterpret_cast<const unsigned long long*>(a.key2) +
+               pos * a.key_stride);
+  }
+}
+
+// The kernel srt_hashtbl_probe runs: one row a thread, the slot's tag
+// first, its record only on a tag match.
+template <bool kVector>
+__global__ void __launch_bounds__(kThreads) probe_kernel(const ProbeArgs a) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  const uint64_t x = load_row<true>(a.h1 + i);
+  const uint64_t y = load_row<true>(a.h2 + i);
+  const uint8_t want = tag_of(y);
+  uint64_t pos = splitmix64(x ^ a.seed_mix) & a.mask;
+  int32_t found = -1;
+  for (int p = 0; p < a.max_probes; ++p) {
+    const uint8_t tag = __ldg(a.slot_byte + pos);
+    if (tag == 0) break;  // an empty slot
+    if (tag == want) {
+      uint64_t s1, s2;
+      load_key<kVector>(a, pos, s1, s2);
+      if (s1 == x && s2 == y) {
+        found = (int32_t)pos;
+        break;
+      }
+    }
+    pos = (pos + 1) & a.mask;
+  }
+  store_row<true>(a, i, found);
+}
+
+using ProbeKernel = void (*)(const ProbeArgs);
+
+// One thread a row (rows == 1) or a row group of `rows`.
+template <ProbeKernel kKernel>
+int launch(ProbeArgs a, int rows, cudaStream_t stream) {
+  const int64_t blocks = (a.n + (int64_t)kThreads * rows - 1) /
+                         ((int64_t)kThreads * rows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel((const void*)kKernel, dim3((unsigned)blocks),
+                               dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int srt_hashtbl_probe(const void* slot_used, const void* slot_h1,
-                                 const void* slot_h2, const void* h1,
-                                 const void* h2, void* out_slot, int64_t n,
+// slot_tag: one tag byte a slot; slot_keys: interleaved (h1, h2) records,
+// 16 bytes a slot. Returns the launch's error code (0 on success).
+extern "C" int srt_hashtbl_probe(const void* slot_tag, const void* slot_keys,
+                                 const void* h1, const void* h2,
+                                 void* out_slot, void* out_hit, int64_t n,
                                  int64_t capacity, uint64_t seed_mix,
                                  int max_probes, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  hashtbl_probe_kernel<<<(unsigned int)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)slot_used, (const uint64_t*)slot_h1,
-      (const uint64_t*)slot_h2, (const uint64_t*)h1, (const uint64_t*)h2,
-      (int32_t*)out_slot, n, (uint64_t)(capacity - 1), seed_mix, max_probes);
-  return (int)cudaGetLastError();
+  const uint64_t* keys = (const uint64_t*)slot_keys;
+  const ProbeArgs a{(const uint8_t*)slot_tag, keys, keys + 1, 2,
+                    (const uint64_t*)h1, (const uint64_t*)h2,
+                    (int32_t*)out_slot, (uint8_t*)out_hit, n,
+                    (uint64_t)(capacity - 1), seed_mix, max_probes};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (((uintptr_t)slot_keys & 15) == 0)
+    return launch<probe_kernel<true>>(a, 1, st);
+  return launch<probe_kernel<false>>(a, 1, st);
 }
 
 extern "C" const char* srt_cuda_error_string(int code) {

@@ -581,19 +581,34 @@ def concat_device(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
 # stably sorted by slot (``order``/``sorted_slots``) turn each slot into a
 # candidate range. Linear probing is bounded by ``max_probes``; a build
 # that overflows the bound is rebuilt with the next seed at twice the
-# capacity.
+# capacity. A slot's two hash words sit side by side, one 16-byte record a
+# slot (``slot_keys``, whose columns are ``slot_h1`` and ``slot_h2``), so
+# the probe kernel compares a slot with one load; and each slot
+# has a tag byte (0 when empty, else 0x80 | (h2 & 0x7f) of its key), which
+# the probe kernel reads first, so that it loads a slot's record only when
+# the tag is the probe row's.
 
 HASHTBL_MAX_PROBES = 16  # reference default of the probe bound
 HASHTBL_MAX_REHASH = 4   # reference default of the seeded rebuilds
 
 
 class HashTable(NamedTuple):
-    slot_h1: torch.Tensor       # (capacity,) int64 bits of the uint64 hash
-    slot_h2: torch.Tensor       # (capacity,) int64
+    slot_keys: torch.Tensor     # (capacity, 2) int64 bits of (h1, h2)
     slot_used: torch.Tensor     # (capacity,) bool
     row_slot: torch.Tensor      # (n,) int32, -1: invalid key
     order: torch.Tensor         # (n,) int32 build rows stably sorted by slot
     sorted_slots: torch.Tensor  # (n,) int32 row_slot[order]; invalid: capacity
+    slot_tag: torch.Tensor      # (capacity,) uint8 (hashtbl_tags)
+
+    @property
+    def slot_h1(self) -> torch.Tensor:
+        """(capacity,) int64: each slot's h1 (a view of ``slot_keys``)."""
+        return self.slot_keys[:, 0]
+
+    @property
+    def slot_h2(self) -> torch.Tensor:
+        """(capacity,) int64: each slot's h2 (a view of ``slot_keys``)."""
+        return self.slot_keys[:, 1]
 
 
 def hashtbl_capacity(n_rows: int) -> int:
@@ -614,10 +629,16 @@ def _hashtbl_base(h1: torch.Tensor, capacity: int, seed: int) -> torch.Tensor:
     return (_splitmix64(h1 ^ _s64(_seed_mix(seed))) & (capacity - 1)).int()
 
 
+def hashtbl_tags(slot_used: torch.Tensor,
+                 slot_h2: torch.Tensor) -> torch.Tensor:
+    """Tag byte of each slot: 0 when empty, else 0x80 | (h2 & 0x7f)."""
+    return torch.where(slot_used, (slot_h2 & 0x7F) | 0x80,
+                       0).to(torch.uint8)
+
+
 def _hashtbl_insert_rounds(h1, h2, valid, capacity: int, seed: int,
                            max_probes: int):
-    """Round-synchronous build: returns (slot_h1, slot_h2, slot_used,
-    row_slot).
+    """Round-synchronous build: returns (slot_keys, slot_used, row_slot).
 
     Round p: every unplaced row looks at base + p. Empty slots are claimed
     by a scatter-min of row ids; after the claims land, every unplaced row
@@ -629,8 +650,9 @@ def _hashtbl_insert_rounds(h1, h2, valid, capacity: int, seed: int,
     dev = h1.device
     row_ids = torch.arange(n, dtype=torch.int32, device=dev)
     base = _hashtbl_base(h1, capacity, seed).long()
-    slot_h1 = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
-    slot_h2 = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
+    keys = torch.zeros(capacity + 1, 2, dtype=torch.int64, device=dev)
+    slot_h1, slot_h2 = keys[:, 0], keys[:, 1]
+    pair = torch.stack([h1, h2], 1)
     slot_used = torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
     row_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for p in range(max_probes):
@@ -645,14 +667,12 @@ def _hashtbl_insert_rounds(h1, h2, valid, capacity: int, seed: int,
             0, tgt, row_ids, "amin", include_self=True)
         won = want & (claim[pos] == row_ids)
         wpos = torch.where(won, pos, capacity)
-        slot_h1[wpos] = h1
-        slot_h2[wpos] = h2
+        keys[wpos] = pair
         slot_used[wpos] = True
         match = (unplaced & slot_used[pos] & (slot_h1[pos] == h1)
                  & (slot_h2[pos] == h2))
         row_slot = torch.where(match, pos.int(), row_slot)
-    return (slot_h1[:capacity], slot_h2[:capacity], slot_used[:capacity],
-            row_slot)
+    return keys[:capacity], slot_used[:capacity], row_slot
 
 
 def build_hash_table(h1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
@@ -660,14 +680,15 @@ def build_hash_table(h1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
     """Build the table and its duplicate layout. Returns (HashTable,
     overflow); ``overflow`` (host bool) means some valid row found no slot
     within the probe bound under this seed."""
-    slot_h1, slot_h2, slot_used, row_slot = _hashtbl_insert_rounds(
+    slot_keys, slot_used, row_slot = _hashtbl_insert_rounds(
         h1, h2, valid, capacity, seed, max_probes)
     placed = valid & (row_slot >= 0)
     overflow = bool((valid & ~placed).any())
     srt = torch.where(placed, row_slot, capacity)
     order = torch.sort(srt, stable=True).indices.int()
-    return HashTable(slot_h1, slot_h2, slot_used, row_slot, order,
-                     srt[order.long()]), overflow
+    return HashTable(slot_keys, slot_used, row_slot, order,
+                     srt[order.long()],
+                     hashtbl_tags(slot_used, slot_keys[:, 1])), overflow
 
 
 def build_batch_hash_table(batch: ColumnarBatch, key_cols: Tuple[int, ...],
@@ -725,23 +746,73 @@ def reset_kernel_launches() -> None:
             KERNEL_LAUNCHES[k] = 0
 
 
+_bound_fns = {}  # (kernel source, C function) -> (library, bound function)
+# the current stream's raw handle; the public call builds a Stream object
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _kernel_fn(source: str, name: str):
+    """(library, bound C function) of one kernel source, built and loaded
+    on first use and cached."""
+    got = _bound_fns.get((source, name))
+    if got is None:
+        from spark_rapids_tpu_torch import native
+
+        lib = native.load(source)
+        got = _bound_fns[(source, name)] = (lib, getattr(lib, name))
+    return got
+
+
+def _device_stream(device: torch.device) -> Tuple[int, int]:
+    """(index, current stream handle) of a CUDA device."""
+    idx = device.index
+    if idx is None:
+        raise ValueError(f"{device} names no CUDA device index")
+    if _raw_stream is not None:
+        return idx, _raw_stream(idx)
+    return idx, torch.cuda.current_stream(idx).cuda_stream
+
+
+def _launch(kernel: str, source: str, name: str, idx: int, stream: int,
+            *args) -> None:
+    """Call one kernel's C launch function on device ``idx``'s ``stream``,
+    switching the current device only when it is another; raise on a
+    launch error, else count the launch."""
+    lib, fn = _kernel_fn(source, name)
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):  # launch in the tensors' context
+            rc = fn(*args, stream)
+    if rc != 0:
+        from spark_rapids_tpu_torch import native
+
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
+                           f"({native.error_string(lib, rc)})")
+    with _launch_lock:
+        KERNEL_LAUNCHES[kernel] += 1
+
+
 def _check_probe_args(tbl: HashTable, h1: torch.Tensor, h2: torch.Tensor,
                       capacity: int, max_probes: int) -> None:
     dev = h1.device
+    keys, used, tag = tbl.slot_keys, tbl.slot_used, tbl.slot_tag
     for name, t, dt, shape in (
-            ("slot_h1", tbl.slot_h1, torch.int64, (capacity,)),
-            ("slot_h2", tbl.slot_h2, torch.int64, (capacity,)),
-            ("slot_used", tbl.slot_used, torch.bool, (capacity,)),
+            ("slot_keys", keys, torch.int64, (capacity, 2)),
+            ("slot_used", used, torch.bool, (capacity,)),
+            ("slot_tag", tag, torch.uint8, (capacity,)),
             ("h1", h1, torch.int64, None), ("h2", h2, torch.int64, None)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h1 on {dev}")
         if t.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if shape is not None and tuple(t.shape) != shape:
+        if shape is not None and t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
+    if not (keys.is_contiguous() and tag.is_contiguous()
+            and h1.is_contiguous() and h2.is_contiguous()):
+        raise ValueError("slot_keys, slot_tag, h1 and h2 must be "
+                         "contiguous")
     if h1.dim() != 1 or h1.shape != h2.shape:
         raise ValueError("h1 and h2 must be 1-D of one length")
     if capacity <= 0 or capacity & (capacity - 1) or capacity > (1 << 31):
@@ -757,31 +828,26 @@ def probe_hash_table_kernel(tbl: HashTable, h1: torch.Tensor,
                             h2: torch.Tensor, capacity: int, seed: int,
                             max_probes: int):
     """Probe wrapper: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Same contract as ``probe_hash_table``."""
+    for CPU tensors. Same contract as ``probe_hash_table``. The kernel
+    reads ``slot_tag`` where the plain version reads ``slot_used`` (a
+    slot's tag is 0 exactly when it is unused) and ``slot_keys`` where it
+    reads ``slot_h1``/``slot_h2``."""
     _check_probe_args(tbl, h1, h2, capacity, max_probes)
-    if h1.device.type == "cpu":
+    dev = h1.device
+    if dev.type == "cpu":
         return probe_hash_table(tbl, h1, h2, capacity, seed, max_probes)
-    if h1.device.type != "cuda":
-        raise ValueError(f"no probe kernel for device {h1.device}")
-    from spark_rapids_tpu_torch import native
-
+    if dev.type != "cuda":
+        raise ValueError(f"no probe kernel for device {dev}")
     n = h1.numel()
-    slot = torch.empty(n, dtype=torch.int32, device=h1.device)
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        lib = native.load("hashtbl_probe.cu")
-        with torch.cuda.device(h1.device):  # launch in the tensors' context
-            rc = lib.srt_hashtbl_probe(
-                tbl.slot_used.data_ptr(), tbl.slot_h1.data_ptr(),
-                tbl.slot_h2.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-                slot.data_ptr(), n, capacity,
-                ctypes.c_uint64(_seed_mix(seed)), max_probes,
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"hashtbl_probe launch failed: CUDA error "
-                               f"{rc} ({native.error_string(lib, rc)})")
-        with _launch_lock:
-            KERNEL_LAUNCHES["hashtbl_probe"] += 1
-    return slot, slot >= 0
+        _launch("hashtbl_probe", "hashtbl_probe.cu", "srt_hashtbl_probe",
+                *_device_stream(dev), tbl.slot_tag.data_ptr(),
+                tbl.slot_keys.data_ptr(),
+                h1.data_ptr(), h2.data_ptr(), slot.data_ptr(),
+                hit.data_ptr(), n, capacity, _seed_mix(seed), max_probes)
+    return slot, hit
 
 
 def hashtbl_candidate_ranges(tbl: HashTable, slot: torch.Tensor,
@@ -815,6 +881,10 @@ _SEGSCAN_OPS = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
 _SEGSCAN_OP_CODES = {"add": 0, "min": 1, "max": 2}
 _SEGSCAN_DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                         torch.float64: 3}
+_SEGSCAN_TILE_ROWS = 4096  # rows a tile of csrc/segscan.cu (its kTile)
+# adds a value can meet inside one tile of csrc/segscan.cu's ScanGeometry
+# (segscan_add_tolerance)
+_SEGSCAN_TILE_DEPTH = 20
 
 
 def segmented_scan(values: torch.Tensor, is_start: torch.Tensor,
@@ -843,16 +913,38 @@ def segmented_scan(values: torch.Tensor, is_start: torch.Tensor,
 
 
 def segscan_add_tolerance(abs_running: torch.Tensor, n: int,
-                          dtype: torch.dtype) -> torch.Tensor:
-    """Stated tolerance of a float ``add`` scan against another grouping of
-    the same sums, per row: a first-order rounding bound of
-    (2 * ceil(log2 n) + 32 + n / 2**20) * eps * (running sum of |values| in
-    the row's segment). Both the log-step plain version and the tiled
-    kernel (4 sequential rows, two 256/1024-wide log-step scans, a carry
-    chain of n / 2**20 chunks) add each value through fewer roundings."""
+                          dtype: torch.dtype,
+                          grouping: str = "kernel") -> torch.Tensor:
+    """Stated tolerance of a float ``add`` scan against the plain version,
+    per row: a first-order rounding bound of (ceil(log2 n) + depth) * eps *
+    (running sum of |values| in the row's segment), where ceil(log2 n)
+    bounds the adds a value passes through in the plain version's log-step
+    scan (one a step) and ``depth`` those of the other grouping:
+    - ``"kernel"``, the CUDA kernel: 20 + ceil(n / 4096). Its 4096-row
+      tile is 8 warps, each lane holding 4 runs of 4 rows. On its way to
+      the tile's aggregate a value meets at most 3 sequential adds in its
+      run, 5 shuffle-scan steps over the lanes, 3 adds chaining the
+      warp's runs and 3 shuffle-scan steps over the 8 warp totals (14);
+      from there (or from the tile's prefix) into a row, at most 6 folds:
+      the warp's prefix, the 3 runs before, the lanes before and the row
+      (20 in all, the most any value inside the tile meets). The decoupled
+      look-back carries it across the tiles before the row's, at most one
+      add a tile crossed (a look-back over d tiles reduces them in a tree
+      of depth <= log2 d, chains windows of 32, and adds the inclusive
+      prefix it publishes: at most d adds): ceil(n / 4096);
+    - ``"reference"``, the JAX package's scans: the larger of its odd-even
+      associative scan (<= 2 adds a level, 2 ceil(log2 n)) and its Pallas
+      kernel's 128-lane rows and row carries (<= 15 + 2 ceil(log2(n / 128
+      + 1)))."""
     eps = torch.finfo(dtype).eps
-    depth = 2 * math.ceil(math.log2(max(n, 2))) + 32 + n / (1 << 20)
-    return depth * eps * abs_running
+    lg = math.ceil(math.log2(max(n, 2)))
+    if grouping == "kernel":
+        depth = _SEGSCAN_TILE_DEPTH + -(-max(n, 1) // _SEGSCAN_TILE_ROWS)
+    elif grouping == "reference":
+        depth = max(2 * lg, 15 + 2 * math.ceil(math.log2(n / 128 + 1)))
+    else:
+        raise ValueError(f"grouping {grouping!r} is not kernel or reference")
+    return (lg + depth) * eps * abs_running
 
 
 def _check_segscan_args(values: torch.Tensor, is_start: torch.Tensor,
@@ -869,42 +961,61 @@ def _check_segscan_args(values: torch.Tensor, is_start: torch.Tensor,
                          f"{values.device}")
 
 
+@lru_cache(maxsize=None)
+def _segscan_layout(lib) -> Tuple[int, int, int]:
+    """(rows a tile, header bytes, bytes a tile) of the kernel's scratch."""
+    out = [ctypes.c_int64() for _ in range(3)]
+    lib.srt_segscan_scratch_layout(*[ctypes.byref(o) for o in out])
+    if out[0].value != _SEGSCAN_TILE_ROWS:  # segscan_add_tolerance uses it
+        raise RuntimeError(f"segscan.cu tiles {out[0].value} rows, "
+                           f"_SEGSCAN_TILE_ROWS says {_SEGSCAN_TILE_ROWS}")
+    return out[0].value, out[1].value, out[2].value
+
+
+# (device index, stream) -> the scan's scratch there: zeroed once and left
+# zeroed by every launch; launches on one stream run one at a time
+_segscan_scratch = {}
+
+
+def _segscan_scratch_for(lib, n: int, idx: int, stream: int):
+    """The stream's zeroed scratch, grown to fit an n-row scan."""
+    tile, header, per_tile = _segscan_layout(lib)
+    nbytes = header + per_tile * -(-n // tile)
+    buf = _segscan_scratch.get((idx, stream))
+    if buf is None or buf.numel() < nbytes:
+        # zeroed on the device's current stream, the one the scan runs on
+        grown = 2 * buf.numel() if buf is not None else 0
+        buf = torch.zeros(max(nbytes, grown), dtype=torch.uint8, device=idx)
+        _segscan_scratch[(idx, stream)] = buf
+    return buf
+
+
 def segmented_scan_kernel(values: torch.Tensor, is_start: torch.Tensor,
                           op_name: str = "add") -> torch.Tensor:
     """Segmented-scan wrapper: the CUDA kernel for CUDA tensors, the plain
     ``segmented_scan`` for CPU tensors. Same contract as the plain version;
     on the card, values must be contiguous int32, int64, float32 or
-    float64."""
+    float64 (any storage offset)."""
     _check_segscan_args(values, is_start, op_name)
-    if values.device.type == "cpu":
+    dev = values.device
+    if dev.type == "cpu":
         return segmented_scan(values, is_start, op_name)
-    if values.device.type != "cuda":
-        raise ValueError(f"no segmented-scan kernel for device "
-                         f"{values.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no segmented-scan kernel for device {dev}")
     code = _SEGSCAN_DTYPE_CODES.get(values.dtype)
     if code is None:
         raise TypeError(f"the segmented-scan kernel takes int32, int64, "
                         f"float32 or float64 values, got {values.dtype}")
     if not (values.is_contiguous() and is_start.is_contiguous()):
         raise ValueError("values and is_start must be contiguous")
-    from spark_rapids_tpu_torch import native
-
     n = values.numel()
     out = torch.empty_like(values)
     if n == 0:
         return out
-    lib = native.load("segscan.cu")
-    scratch = torch.empty(lib.srt_segscan_scratch_bytes(n),
-                          dtype=torch.uint8, device=values.device)
-    with torch.cuda.device(values.device):  # launch in the tensors' context
-        rc = lib.srt_segscan(values.data_ptr(),
-                             is_start.view(torch.uint8).data_ptr(),
-                             out.data_ptr(), n, code,
-                             _SEGSCAN_OP_CODES[op_name], scratch.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"segscan launch failed: CUDA error {rc} "
-                           f"({native.error_string(lib, rc)})")
-    with _launch_lock:
-        KERNEL_LAUNCHES["segscan"] += 1
+    lib, _ = _kernel_fn("segscan.cu", "srt_segscan")
+    idx, stream = _device_stream(dev)
+    scratch = _segscan_scratch_for(lib, n, idx, stream)
+    _launch("segscan", "segscan.cu", "srt_segscan", idx, stream,
+            values.data_ptr(), is_start.data_ptr(), out.data_ptr(), n, code,
+            _SEGSCAN_OP_CODES[op_name], scratch.data_ptr(), scratch.numel())
     return out

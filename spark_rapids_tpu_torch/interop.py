@@ -2,7 +2,8 @@
 
 The reference package's batches and hash tables cross over as numpy arrays
 (its uint64 words viewed as int64, its bools as uint8 or bool), so tests
-can feed a table the reference built straight into the port's probe. This
+can feed a table the reference built straight into the port's probe (the
+port's records and tags are made from the reference's fields). This
 module imports no JAX.
 """
 
@@ -16,7 +17,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
-from spark_rapids_tpu_torch.exec.kernels import HashTable
+from spark_rapids_tpu_torch.exec.kernels import HashTable, hashtbl_tags
 
 
 def _t(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -65,11 +66,14 @@ def batch_from_numpy(columns: Sequence[Dict[str, np.ndarray]],
 def hash_table_from_numpy(fields: Dict[str, np.ndarray], device) -> HashTable:
     """A HashTable from the reference's fields: ``slot_h1``/``slot_h2``
     (uint64 or int64 bits), ``slot_used`` (bool or uint8), and the int32
-    ``row_slot``, ``order`` and ``sorted_slots``."""
+    ``row_slot``, ``order`` and ``sorted_slots``. The port's own fields
+    are made from them: the (h1, h2) records and the tags."""
+    slot_keys = torch.stack([_t(fields["slot_h1"], torch.int64, device),
+                             _t(fields["slot_h2"], torch.int64, device)], 1)
+    slot_used = _t(fields["slot_used"], torch.bool, device)
     return HashTable(
-        _t(fields["slot_h1"], torch.int64, device),
-        _t(fields["slot_h2"], torch.int64, device),
-        _t(fields["slot_used"], torch.bool, device),
+        slot_keys, slot_used,
         _t(fields["row_slot"], torch.int32, device),
         _t(fields["order"], torch.int32, device),
-        _t(fields["sorted_slots"], torch.int32, device))
+        _t(fields["sorted_slots"], torch.int32, device),
+        hashtbl_tags(slot_used, slot_keys[:, 1]))

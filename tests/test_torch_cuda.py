@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA card (marker ``cuda``); they skip
 where there is none: the probe and segmented-scan kernels against their
-plain versions on the card, and TPC-H Q3 and TPC-DS q44/q67 on the card
-against the same queries on the CPU. This file imports no JAX, so it also runs on a
-machine that has only the port's dependencies:
+plain versions on the card (ragged row counts, tile edges, misaligned
+views and records, many tiles, the scan's scratch left zeroed), and TPC-H
+Q3 and TPC-DS q44/q67 on the card against the same queries on the CPU.
+This file imports no JAX, so it also runs on a machine that has only the
+port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -41,6 +43,68 @@ def test_probe_kernel_matches_plain_version_on_card(distinct, probes):
     ks, kh = PK.probe_hash_table_kernel(tbl, h1, h2, cap, seed, 16)
     torch.cuda.synchronize()
     assert PK.KERNEL_LAUNCHES["hashtbl_probe"] == before + 1
+    ps, ph = PK.probe_hash_table(tbl, h1, h2, cap, seed, 16)
+    assert torch.equal(ks, ps) and torch.equal(kh, ph)
+
+
+@pytest.mark.parametrize("probes", [0, 1, 2, 3, 5, 6, 7, 4097, 4098, 4099,
+                                    1_000_003])
+def test_probe_kernel_ragged_row_counts_on_card(probes):
+    """The kernel walks four rows a thread: row counts of every residue
+    mod 4, none at all (no launch), and one above a card-sized grid."""
+    _card()
+    rng = np.random.default_rng(11)
+    bb = _keys(rng.integers(0, 3000, 9000))
+    tbl, cap, seed = PK.build_batch_hash_table(bb, (0,))
+    pb = _keys(rng.integers(0, 6000, probes))
+    h1, h2 = PK.hash_keys(pb, [0]), PK.hash_keys(pb, [0], variant=1)
+    before = PK.KERNEL_LAUNCHES["hashtbl_probe"]
+    ks, kh = PK.probe_hash_table_kernel(tbl, h1, h2, cap, seed, 16)
+    torch.cuda.synchronize()
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] == before + (probes > 0)
+    assert ks.shape == kh.shape == (probes,)
+    assert ks.dtype == torch.int32 and kh.dtype == torch.bool
+    ps, ph = PK.probe_hash_table(tbl, h1, h2, cap, seed, 16)
+    assert torch.equal(ks, ps) and torch.equal(kh, ph)
+
+
+def test_probe_kernel_near_full_table_stops_at_the_bound_on_card():
+    """60,000 keys in 2^16 slots: clusters run probes into the 16-slot
+    bound, where both versions give -1 without reaching an empty slot."""
+    _card()
+    rng = np.random.default_rng(13)
+    build = rng.choice(1 << 40, 60_000, replace=False)
+    bb = _keys(build)
+    h1b, h2b = PK.hash_keys(bb, [0]), PK.hash_keys(bb, [0], variant=1)
+    valid = torch.ones(len(build), dtype=torch.bool, device="cuda")
+    tbl, overflow = PK.build_hash_table(h1b, h2b, valid, 1 << 16, 0, 16)
+    assert overflow  # some keys found no slot within the bound
+    pb = _keys(np.concatenate([build, rng.integers(1 << 41, 1 << 42,
+                                                   50_001)]))
+    h1, h2 = PK.hash_keys(pb, [0]), PK.hash_keys(pb, [0], variant=1)
+    ks, kh = PK.probe_hash_table_kernel(tbl, h1, h2, 1 << 16, 0, 16)
+    ps, ph = PK.probe_hash_table(tbl, h1, h2, 1 << 16, 0, 16)
+    assert torch.equal(ks, ps) and torch.equal(kh, ph)
+    assert not bool(kh[: len(build)].all())  # the unplaced keys miss
+
+
+def test_probe_kernel_takes_records_not_16_byte_aligned_on_card():
+    """A record array 8 bytes off a 16-byte boundary (a contiguous view at
+    an odd storage offset) takes the kernel's two 8-byte loads; the result
+    is the same."""
+    _card()
+    rng = np.random.default_rng(15)
+    bb = _keys(rng.integers(0, 3000, 9000))
+    tbl, cap, seed = PK.build_batch_hash_table(bb, (0,))
+    flat = torch.empty(2 * cap + 1, dtype=torch.int64, device="cuda")
+    keys = flat[1:].view(cap, 2)
+    keys.copy_(tbl.slot_keys)
+    assert keys.is_contiguous() and keys.data_ptr() % 16 == 8
+    odd = tbl._replace(slot_keys=keys)
+    pb = _keys(rng.integers(0, 6000, 100_001))
+    h1, h2 = PK.hash_keys(pb, [0]), PK.hash_keys(pb, [0], variant=1)
+    ks, kh = PK.probe_hash_table_kernel(odd, h1, h2, cap, seed, 16)
+    torch.cuda.synchronize()
     ps, ph = PK.probe_hash_table(tbl, h1, h2, cap, seed, 16)
     assert torch.equal(ks, ps) and torch.equal(kh, ph)
 
@@ -111,6 +175,95 @@ def test_segscan_kernel_matches_plain_version_on_card(dtype, op):
             if dtype.is_floating_point:
                 same = same | (torch.isnan(k) & torch.isnan(p))
             assert bool(same.all()), (n, mode)
+
+
+def _assert_scan_matches(k, p, v, f, dtype, op, what):
+    if dtype.is_floating_point and op == "add":
+        absrun = PK.segmented_scan(v.abs().double(), f, "add")
+        tol = PK.segscan_add_tolerance(absrun, v.numel(), dtype)
+        assert bool(((k.double() - p.double()).abs() <= tol).all()), what
+    else:
+        same = k == p
+        if dtype.is_floating_point:
+            same = same | (torch.isnan(k) & torch.isnan(p))
+        assert bool(same.all()), what
+
+
+TILE = 4096  # rows a tile of csrc/segscan.cu
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", SCAN_DTYPES, ids=str)
+def test_segscan_kernel_tile_edges_on_card(dtype, op):
+    """Lengths at the kernel's 4096-row tile edges (tile - 1, tile,
+    tile + 1, 127 tiles + 1), with random heads, all heads and none."""
+    _card()
+    rng = np.random.default_rng(17)
+    for n in (TILE - 1, TILE, TILE + 1, 127 * TILE + 1):
+        for mode in ("random", "all_heads", "span"):
+            v, f = _scan_input(dtype, op, n, mode, rng)
+            k = PK.segmented_scan_kernel(v, f, op)
+            torch.cuda.synchronize()
+            _assert_scan_matches(k, PK.segmented_scan(v, f, op), v, f, dtype,
+                                 op, (n, mode))
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", SCAN_DTYPES, ids=str)
+def test_segscan_kernel_misaligned_views_on_card(dtype, op):
+    """Views at storage offsets 1-3 of values and flags take the kernel's
+    scalar loads; the result is the same."""
+    _card()
+    rng = np.random.default_rng(19)
+    n = 3 * TILE + 7
+    for vo, fo in ((1, 1), (2, 2), (3, 3), (0, 3), (3, 0)):
+        v, f = _scan_input(dtype, op, n + 3, "random", rng)
+        v, f = v[vo:vo + n], f[fo:fo + n]
+        assert v.is_contiguous() and f.is_contiguous()
+        k = PK.segmented_scan_kernel(v, f, op)
+        torch.cuda.synchronize()
+        _assert_scan_matches(k, PK.segmented_scan(v, f, op), v, f, dtype, op,
+                             (vo, fo))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64], ids=str)
+def test_segscan_kernel_many_tiles_on_card(dtype):
+    """4096 tiles with 16 heads: the look-back carries across many tiles;
+    ten repeated calls give the same output."""
+    _card()
+    rng = np.random.default_rng(23)
+    n = 4096 * TILE
+    f = torch.zeros(n, dtype=torch.bool, device="cuda")
+    f[torch.from_numpy(rng.choice(n, 16, replace=False)).cuda()] = True
+    for op in ("max", "add"):
+        v, _ = _scan_input(dtype, op, n, "span", rng)
+        k = PK.segmented_scan_kernel(v, f, op)
+        torch.cuda.synchronize()
+        _assert_scan_matches(k, PK.segmented_scan(v, f, op), v, f, dtype, op,
+                             op)
+        if op == "max":  # NaN rows are NaN in every call
+            for _ in range(10):
+                again = PK.segmented_scan_kernel(v, f, op)
+                assert bool(((again == k) | (torch.isnan(again)
+                                             & torch.isnan(k))).all())
+
+
+def test_segscan_kernel_leaves_its_scratch_zero_on_card():
+    """The scan's scratch arrives zeroed and each launch leaves it zeroed,
+    across dtypes whose descriptors are laid out differently and sizes
+    that grow the buffer; every result stays right."""
+    _card()
+    rng = np.random.default_rng(29)
+    for dtype, n in ((torch.float64, 300_001), (torch.int32, 5_000_001),
+                     (torch.int64, 70_000), (torch.float32, 3 * TILE)):
+        for op in ("add", "max"):
+            v, f = _scan_input(dtype, op, n, "random", rng)
+            k = PK.segmented_scan_kernel(v, f, op)
+            torch.cuda.synchronize()
+            _assert_scan_matches(k, PK.segmented_scan(v, f, op), v, f, dtype,
+                                 op, (dtype, n, op))
+            for buf in PK._segscan_scratch.values():
+                assert not bool(buf.any()), (dtype, n, op)
 
 
 def test_segscan_kernel_empty_input_launches_nothing():

@@ -146,9 +146,16 @@ def test_build_hash_table_identical(kind, seed):
         torch.from_numpy(h1.view(np.int64)), torch.from_numpy(h2.view(np.int64)),
         torch.from_numpy(valid), cap, seed, PK.HASHTBL_MAX_PROBES)
     assert pover == bool(jax.device_get(jover))
-    for field in PK.HashTable._fields:
+    for field in JK.HashTable._fields:
         np.testing.assert_array_equal(getattr(pt, field).numpy(),
                                       _np(getattr(jt, field)), err_msg=field)
+    np.testing.assert_array_equal(pt.slot_tag.numpy(),
+                                  _tags(_np(jt.slot_used), _np(jt.slot_h2)))
+
+
+def _tags(used, h2):
+    """The port's slot tags from a table's fields, in numpy."""
+    return np.where(used, 0x80 | (h2 & 0x7F), 0).astype(np.uint8)
 
 
 def _jax_table(keys):
@@ -186,11 +193,13 @@ def test_probe_on_jax_table_matches_jax_and_pallas(distinct):
     own, over = PK.build_hash_table(bh1, bh2, torch.ones(500, dtype=torch.bool),
                                     cap, seed, PK.HASHTBL_MAX_PROBES)
     assert not over
-    for f in PK.HashTable._fields:
+    for f in JK.HashTable._fields:
         exp = fields[f][:500] if f in ("row_slot", "order",
                                        "sorted_slots") else fields[f]
         np.testing.assert_array_equal(getattr(own, f).numpy(), exp,
                                       err_msg=f)
+    np.testing.assert_array_equal(own.slot_tag.numpy(),
+                                  _tags(fields["slot_used"], fields["slot_h2"]))
     # candidate ranges over the same table and slots
     jlo, jcnt = JK.hashtbl_candidate_ranges(tbl, js, jhit)
     lo, cnt = PK.hashtbl_candidate_ranges(ptbl, slot, hit)
@@ -242,8 +251,40 @@ def test_kernel_wrapper_routes_cpu_tensors_to_plain_version():
     assert PK.KERNEL_LAUNCHES == before
 
 
+def test_hash_table_layout_is_records_and_tags():
+    """Every table the port makes (its build, and a reference table brought
+    over by interop) keeps each slot's (h1, h2) as one row of a contiguous
+    (capacity, 2) record tensor, with the reference's values, and a tag
+    byte a slot: 0 exactly where the slot is unused."""
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 40, 300)
+    _, fields, cap, seed = _jax_table(keys)
+    ptbl = interop.hash_table_from_numpy(fields, "cpu")
+    bb = PB.batch_from_arrow(pa.table({"k": pa.array(keys, pa.int64())}),
+                             "cpu")
+    own, over = PK.build_hash_table(PK.hash_keys(bb, [0]),
+                                    PK.hash_keys(bb, [0], variant=1),
+                                    torch.ones(300, dtype=torch.bool), cap,
+                                    seed, PK.HASHTBL_MAX_PROBES)
+    assert not over
+    for tbl in (ptbl, own):
+        assert tbl.slot_keys.shape == (cap, 2)
+        assert tbl.slot_keys.is_contiguous()
+        np.testing.assert_array_equal(
+            tbl.slot_keys.numpy(),
+            np.stack([fields["slot_h1"], fields["slot_h2"]], 1))
+        for f in ("slot_h1", "slot_h2", "slot_used"):
+            np.testing.assert_array_equal(getattr(tbl, f).numpy(), fields[f],
+                                          err_msg=f)
+        tag = tbl.slot_tag.numpy()
+        np.testing.assert_array_equal(tag, _tags(fields["slot_used"],
+                                                 fields["slot_h2"]))
+        np.testing.assert_array_equal(tag != 0, fields["slot_used"])
+
+
 @pytest.mark.parametrize("bad", ["h1_dtype", "used_dtype", "shape",
-                                 "capacity", "noncontig"])
+                                 "capacity", "noncontig", "column_major_keys",
+                                 "tag_dtype"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     rng = np.random.default_rng(2)
     _, fields, cap, seed = _jax_table(rng.integers(0, 50, 200))
@@ -260,6 +301,10 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cap = cap - 1
     elif bad == "noncontig":
         h1 = torch.arange(20, dtype=torch.int64)[::2]
+    elif bad == "column_major_keys":  # h1 words apart from h2 words
+        tbl = tbl._replace(slot_keys=tbl.slot_keys.t().contiguous().t())
+    elif bad == "tag_dtype":
+        tbl = tbl._replace(slot_tag=tbl.slot_tag.bool())
     with pytest.raises((TypeError, ValueError)):
         PK.probe_hash_table_kernel(tbl, h1, h2, cap, seed, 16)
 
@@ -429,15 +474,18 @@ def _reference_scan(v, f, op, pallas):
     return np.asarray(jax.device_get(out))[: len(v)]
 
 
-def assert_scan_close(got, exp, v, f, op):
+def assert_scan_close(got, exp, v, f, op, grouping="reference"):
     """Integers and min/max exactly (NaN equals NaN); float add within
-    ``segscan_add_tolerance`` of the running sum of |values|."""
+    ``segscan_add_tolerance`` of the running sum of |values|, for the
+    grouping that ``got`` or ``exp`` was summed in besides the plain
+    version's."""
     assert got.dtype == exp.dtype and got.shape == exp.shape
     if np.issubdtype(got.dtype, np.floating) and op == "add":
         absrun = PK.segmented_scan(torch.from_numpy(np.abs(v)).double(),
                                    torch.from_numpy(f), "add")
         tol = PK.segscan_add_tolerance(absrun, len(v),
-                                       torch.from_numpy(v).dtype).numpy()
+                                       torch.from_numpy(v).dtype,
+                                       grouping).numpy()
         err = np.abs(got.astype(np.float64) - exp.astype(np.float64))
         assert (err <= tol).all(), float((err - tol).max())
     else:
@@ -509,3 +557,148 @@ def test_segscan_wrapper_rejects_what_the_kernel_does_not_take(bad):
         v = v.to("meta")
     with pytest.raises((TypeError, ValueError)):
         PK.segmented_scan_kernel(v, f, op)
+
+
+def test_segscan_add_tolerance_follows_the_kernel_grouping():
+    """The stated depth is ceil(log2 n) plus, for the kernel, its in-tile
+    depth + ceil(n / tile), both read off the tile geometry the kernel
+    runs (ScanGeometry in csrc/segscan.cu: r rows a run, R runs a thread,
+    W warps; r - 1 + 5 + R - 1 + log2 W adds to the tile aggregate, then
+    R + 2 folds into a row), and for the reference the larger of its two
+    groupings' depths; any other grouping is refused."""
+    import math
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(PK.__file__), "..", "csrc",
+                            "segscan.cu")).read()
+    tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
+    thr, items, _, striped = re.search(
+        r"using ScanGeometry = Geometry<(\d+), (\d+), (\d+), (\w+)>;",
+        src).groups()
+    thr, items = int(thr), int(items)
+    assert thr * items == tile == PK._SEGSCAN_TILE_ROWS == 4096
+    r = 4 if striped == "true" else items
+    runs, warps = items // r, thr // 32
+    in_tile = (r - 1 + 5 + runs - 1 + int(math.log2(warps))) + (runs + 2)
+    assert in_tile == PK._SEGSCAN_TILE_DEPTH == 20
+    eps = torch.finfo(torch.float32).eps
+    one = torch.ones(1, dtype=torch.float64)
+    for n, kernel, reference in ((1, 1 + 20 + 1, 1 + 17),
+                                 (4096, 12 + 20 + 1, 12 + 27),
+                                 (4097, 13 + 20 + 2, 13 + 27),
+                                 (100_003, 17 + 20 + 25, 17 + 35),
+                                 (3_000_001, 22 + 20 + 733, 22 + 45)):
+        for grouping, depth in (("kernel", kernel),
+                                ("reference", reference)):
+            got = PK.segscan_add_tolerance(one, n, torch.float32,
+                                           grouping).item()
+            assert got == pytest.approx(depth * eps, rel=1e-12), (n,
+                                                                  grouping)
+    assert PK.segscan_add_tolerance(one, 10, torch.float32).item() == \
+        PK.segscan_add_tolerance(one, 10, torch.float32, "kernel").item()
+    with pytest.raises(ValueError):
+        PK.segscan_add_tolerance(one, 10, torch.float32, "tiles")
+
+
+def _hs_scan(v, f, fn):
+    """Inclusive shuffle (Hillis-Steele) scan of (value, flag) pairs along
+    the last axis, as __shfl_up_sync steps give it."""
+    v, f = v.copy(), f.copy()
+    d = 1
+    while d < v.shape[-1]:
+        ov, of = v[..., :-d].copy(), f[..., :-d].copy()
+        v[..., d:] = np.where(f[..., d:], v[..., d:], fn(ov, v[..., d:]))
+        f[..., d:] = f[..., d:] | of
+        d *= 2
+    return v, f
+
+
+def _shift1(a):
+    """Each lane's value from the lane before it (lane 0 keeps its own)."""
+    return np.concatenate([a[..., :1], a[..., :-1]], -1)
+
+
+def _fold(have, pre, f, v, fn):
+    """pre . (f, v) where ``have``; v where not (csrc/segscan.cu's fold)."""
+    return np.where(have & ~f, fn(pre, v), v)
+
+
+def _kernel_grouping_scan(v, f, op):
+    """The CUDA kernel's grouping of the scan, emulated in numpy in the
+    values' own type: 4096-row tiles of 8 warps, each lane holding 4 runs
+    of 4 rows (run j of a warp's lanes covers 128 contiguous rows; rows
+    past the end are heads); a sequential scan in each run, a shuffle scan
+    of the run's thread totals over the lanes, the warp's runs chained,
+    a shuffle scan of the warp totals, and tile carries chained one tile
+    at a time (the longest chain the look-back can take)."""
+    fn = {"add": np.add, "min": np.minimum, "max": np.maximum}[op]
+    n = len(v)
+    tiles = max(-(-n // 4096), 1)
+    vp = np.zeros(tiles * 4096, v.dtype)
+    fp = np.ones(tiles * 4096, np.bool_)
+    vp[:n], fp[:n] = v, f
+    # (tile, warp, run, lane, row)
+    x = vp.reshape(tiles, 8, 4, 32, 4).copy()
+    h = fp.reshape(tiles, 8, 4, 32, 4)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for k in range(1, 4):
+            x[..., k] = np.where(h[..., k], x[..., k],
+                                 fn(x[..., k - 1], x[..., k]))
+        lv, lf = _hs_scan(x[..., 3], h.any(-1), fn)   # over the lanes
+        run_v, run_f = lv[..., 31], lf[..., 31]       # (tile, warp, run)
+        wt_v, wt_f = run_v[..., 0].copy(), run_f[..., 0].copy()
+        for j in range(1, 4):
+            wt_v = np.where(run_f[..., j], run_v[..., j],
+                            fn(wt_v, run_v[..., j]))
+            wt_f = wt_f | run_f[..., j]
+        tv, tf = _hs_scan(wt_v, wt_f, fn)             # over the warps
+        agg_v, agg_f = tv[:, 7], tf[:, 7]
+        incl = np.empty(tiles, v.dtype)
+        for t in range(tiles):
+            incl[t] = (agg_v[t] if t == 0 or agg_f[t]
+                       else fn(incl[t - 1], agg_v[t]))
+        # prefixes: tile, warp, the warp's runs before, the run's lanes
+        pre = np.zeros((tiles, 8), v.dtype)
+        have = np.zeros((tiles, 8), np.bool_)
+        pre[1:], have[1:] = incl[:-1, None], True
+        wmask = np.arange(8)[None, :] > 0
+        pre = np.where(wmask, _fold(have, pre, _shift1(tf), _shift1(tv), fn),
+                       pre)
+        have = have | wmask
+        lmask = np.arange(32) > 0
+        lane_v, lane_f = _shift1(lv), _shift1(lf)
+        before = np.cumsum(h, -1) == 0
+        for j in range(4):
+            p = np.where(lmask, _fold(have[..., None], pre[..., None],
+                                      lane_f[:, :, j], lane_v[:, :, j], fn),
+                         pre[..., None])
+            hj = have[..., None] | lmask
+            xj = x[:, :, j]
+            x[:, :, j] = np.where(before[:, :, j] & hj[..., None],
+                                  fn(p[..., None], xj), xj)
+            pre = _fold(have, pre, run_f[..., j], run_v[..., j], fn)
+            have = np.ones_like(have)
+    return x.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+@pytest.mark.parametrize("dtype", sorted(_SCAN_DTYPES))
+def test_kernel_grouping_matches_plain_scan(dtype, op):
+    """The kernel's tile/warp/look-back grouping (emulated) gives the plain
+    scan's rows: exactly for integers and min/max, within
+    ``segscan_add_tolerance`` for float add, across tile edges, several
+    tiles, and one segment carried over 74 tiles."""
+    rng = np.random.default_rng(29)
+    cases = [(n, m) for n in (1, 4095, 4096, 4097, 3 * 4096 + 7)
+             for m in _SCAN_MODES] + [(300_001, "span")]
+    for n, mode in cases:
+        if mode == "span":
+            v, _ = _scan_case(dtype, op, n, "random", rng)
+            f = np.zeros(n, np.bool_)
+        else:
+            v, f = _scan_case(dtype, op, n, mode, rng)
+        got = _kernel_grouping_scan(v, f, op)
+        exp = PK.segmented_scan(torch.from_numpy(v), torch.from_numpy(f),
+                                op).numpy()
+        assert_scan_close(got, exp, v, f, op, grouping="kernel")
