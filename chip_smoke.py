@@ -6,14 +6,12 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
-2. build: every CUDA kernel source under spark_rapids_tpu_torch/csrc (the
-   kernels and, under csrc/variants, the designs they were measured
-   against), one nvcc process each, started together;
+2. build: every CUDA kernel source under spark_rapids_tpu_torch/csrc, one
+   nvcc process each, started together;
 3. kernels: each kernel's wrapper against its plain torch version on the
    card at seeded shapes. The probe at three (Q3's lineitem-join shape, a
    duplicate-heavy build, near-full clusters that reach the probe bound),
-   exactly equal, each also through the designs it was measured against
-   (``PROBE_VARIANTS``, each held to the plain version too, and timed).
+   exactly equal.
    The segmented scan for int32/int64/float32/float64 x add/min/max at
    lengths around the 4096-row tile (tile - 1, tile, tile + 1, 127 tiles +
    1) and others from 1 to above a million rows, with random heads, all
@@ -25,8 +23,7 @@ Phases, in order; any failure exits non-zero before the last line:
    int32 rows (max, 16 heads, so the look-back carries across many
    tiles), each equal to the first and the first to the plain version.
    Then one shape beyond the 50 MB L2 for each kernel (recorded, not
-   gated): a 16,777,216-row int32 add scan (with ``SEGSCAN_VARIANTS``)
-   and 8,388,608 probes into a 2^23-slot table. Times are CUDA-event
+   gated): a 16,777,216-row int32 add scan and 8,388,608 probes into a 2^23-slot table. Times are CUDA-event
    medians of 20 runs after warm-up, each queued behind a spin on the
    card so that the kernel's time is device time (``call_ms`` is the
    wrapper's call with its host launch cost, timed without the spin;
@@ -50,8 +47,7 @@ Phases, in order; any failure exits non-zero before the last line:
 6. each kernel against its plain version, as in phase 3, on the largest
    input the main path gave it (for the segmented scan also against
    ``torch.cummax``, which computes the same function on the geometry
-   scan's input and is timed as ``library_ms``; each also with the
-   designs of its variants), warm and with a cold L2. The kernels
+   scan's input and is timed as ``library_ms``), warm and with a cold L2. The kernels
    line reports that input's times and bound, and the launches of both
    main paths.
 
@@ -86,32 +82,6 @@ STRESS_CALLS = 100
 BEYOND_L2_PROBES = 8_388_608
 BEYOND_L2_SLOTS = 1 << 23
 FLUSH_BYTES = 128 << 20  # written before each cold-L2 run (L2: 50 MB)
-# srt_hashtbl_probe_variant's designs (csrc/variants), by variant number;
-# 13 is the kernel srt_hashtbl_probe runs, 0 the one it replaced.
-# PROBE_SEPARATE read separate h1/h2 arrays (the old layout), the others
-# the (h1, h2) records; PROBE_TAGS read the tag bytes in place of the used
-# bytes. The floors compute no probe.
-PROBE_VARIANTS = ("lockstep1_dependent_separate",
-                  "lockstep4_dependent_separate",
-                  "lockstep4_together_separate", "lockstep4_together_record",
-                  "lockstep4_together_record_streaming",
-                  "lockstep1_together_record_streaming",
-                  "lockstep8_together_record_streaming",
-                  "lockstep1_dependent_record_streaming",
-                  "pipelined2_record", "pipelined4_record",
-                  "pipelined4_separate", "floor_stream_rows",
-                  "floor_stream_rows_used_byte", "tagged1", "tagged2",
-                  "tagged4")
-PROBE_SEPARATE = (0, 1, 2, 10)
-PROBE_TAGS = (13, 14, 15)
-# srt_segscan_variant's designs (csrc/variants; int32 only), by variant
-# number; 6 is the kernel srt_segscan runs. The floors compute no scan.
-SEGSCAN_VARIANTS = ("striped_memset", "blocked_selfclean", "blocked_memset",
-                    "blocked_512x8", "blocked_1024x4",
-                    "blocked_1024x4_2blocks", "striped",
-                    "striped_6blocks", "striped_512x8",
-                    "floor_copy_blocked", "floor_copy_blocked_512x8",
-                    "floor_copy_blocked_1024x4", "floor_copy_striped")
 
 
 def log(msg: str) -> None:
@@ -241,53 +211,10 @@ def synthetic_probe_inputs(name: str, seed: int, device):
             capacity, seed_)
 
 
-def probe_variant_ms(tbl, h1, h2, capacity: int, seed: int, ps, ph) -> dict:
-    """Each design of PROBE_VARIANTS on one input: checked exactly against
-    the plain version's (slot, hit), then timed (device time, warm). The
-    floors compute no probe and are timed only."""
-    import torch
-
-    from spark_rapids_tpu_torch import native
-    from spark_rapids_tpu_torch.exec import kernels as K
-
-    lib = native.load("variants/hashtbl_probe_variants.cu")
-    n = h1.numel()
-    separate = (tbl.slot_h1.contiguous(), tbl.slot_h2.contiguous())
-    rec = tbl.slot_keys.data_ptr()
-    times = {}
-    for v, name in enumerate(PROBE_VARIANTS):
-        slot = torch.empty(n, dtype=torch.int32, device="cuda")
-        hit = torch.empty(n, dtype=torch.bool, device="cuda")
-        keys = ((separate[0].data_ptr(), separate[1].data_ptr(), 1)
-                if v in PROBE_SEPARATE else (rec, rec + 8, 2))
-
-        used = tbl.slot_tag if v in PROBE_TAGS else tbl.slot_used
-
-        def run(v=v, keys=keys, slot=slot, hit=hit, used=used):
-            rc = lib.srt_hashtbl_probe_variant(
-                v, used.data_ptr(), *keys, h1.data_ptr(),
-                h2.data_ptr(), slot.data_ptr(), hit.data_ptr(), n, capacity,
-                K._seed_mix(seed), K.HASHTBL_MAX_PROBES,
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"probe variant {name} failed: CUDA error "
-                                   f"{rc} ({native.error_string(lib, rc)})")
-
-        run()
-        torch.cuda.synchronize()
-        if not name.startswith("floor") and not (torch.equal(slot, ps)
-                                                 and torch.equal(hit, ph)):
-            raise AssertionError(f"probe variant {name} differs from the "
-                                 f"plain version")
-        times[name] = cuda_ms(run)
-    return times
-
-
 def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int,
-                variants: bool = True, cold: bool = False) -> dict:
+                cold: bool = False) -> dict:
     """Kernel against the plain version on one input: exact slots, times;
-    with ``variants`` also the designs of PROBE_VARIANTS, with ``cold``
-    also the time after an L2 flush."""
+    with ``cold`` also the time after an L2 flush."""
     import torch
 
     from spark_rapids_tpu_torch.exec import kernels as K
@@ -309,8 +236,6 @@ def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int,
         tbl, h1, h2, capacity, seed, mp))
     cold_ms = (cuda_ms(lambda: K.probe_hash_table_kernel(
         tbl, h1, h2, capacity, seed, mp), cold=True) if cold else None)
-    variant_ms = (probe_variant_ms(tbl, h1, h2, capacity, seed, ps, ph)
-                  if variants and exact else None)
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
     n = h1.numel()
     table_keys = int(tbl.slot_used.sum())
@@ -320,8 +245,7 @@ def check_probe(label: str, tbl, h1, h2, capacity: int, seed: int,
            "exact": exact, "max_abs_err": err, "kernel_ms": kernel_ms,
            "call_ms": call_ms, "host_us": host, "cold_ms": cold_ms,
            "plain_ms": plain_ms,
-           "bound_ms": probe_bound_ms(n, capacity, table_keys),
-           "variant_ms": variant_ms}
+           "bound_ms": probe_bound_ms(n, capacity, table_keys)}
     log(f"probe {label}: " + json.dumps(res))
     if not exact:
         raise AssertionError(f"probe kernel differs from its plain version "
@@ -431,51 +355,6 @@ def check_segscan_shapes() -> dict:
     return res
 
 
-def segscan_variant_ms(values, is_start, op: str) -> dict:
-    """Each design of SEGSCAN_VARIANTS on one int32 input: checked exactly
-    against the plain version, then timed (device time, warm); the
-    self-cleaning ones must leave their scratch all zero. The floor
-    computes no scan and is timed only."""
-    import torch
-
-    from spark_rapids_tpu_torch import native
-    from spark_rapids_tpu_torch.exec import kernels as K
-
-    lib = native.load("variants/segscan_variants.cu")
-    tile, header, per_tile = K._segscan_layout(lib)
-    n = values.numel()
-    nbytes = header + per_tile * -(-n // tile)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-    zeroed = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
-    exp = K.segmented_scan(values, is_start, op)
-    times = {}
-    for v, name in enumerate(SEGSCAN_VARIANTS):
-        buf = scratch if "memset" in name else zeroed
-        out = torch.empty_like(values)
-
-        def run(v=v, buf=buf, out=out):
-            rc = lib.srt_segscan_variant(
-                v, values.data_ptr(), is_start.data_ptr(), out.data_ptr(), n,
-                K._SEGSCAN_OP_CODES[op], buf.data_ptr(), nbytes,
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"segscan variant {name} failed: CUDA "
-                                   f"error {rc} "
-                                   f"({native.error_string(lib, rc)})")
-
-        run()
-        torch.cuda.synchronize()
-        if not name.startswith("floor") and not torch.equal(out, exp):
-            raise AssertionError(f"segscan variant {name} differs from the "
-                                 f"plain version")
-        times[name] = cuda_ms(run)
-    torch.cuda.synchronize()
-    if bool(zeroed.any()):
-        raise AssertionError("a self-cleaning segscan left its scratch "
-                             "dirty")
-    return times
-
-
 def check_segscan_main_input(values, is_start, op: str) -> dict:
     """Kernel, plain version and torch.cummax on the largest main-path
     input (a geometry max scan), with times and bound."""
@@ -505,7 +384,6 @@ def check_segscan_main_input(values, is_start, op: str) -> dict:
     library_ms = cuda_ms(lambda: torch.cummax(values, 0))
     cold_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
                       cold=True)
-    variant_ms = segscan_variant_ms(values, is_start, op)
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
     n = values.numel()
     res = {"shape": "main_path_largest", "rows": n,
@@ -513,7 +391,7 @@ def check_segscan_main_input(values, is_start, op: str) -> dict:
            "heads": int(is_start.sum()), "exact": True,
            "max_abs_err": err, "kernel_ms": kernel_ms, "call_ms": call_ms,
            "host_us": host, "cold_ms": cold_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "variant_ms": variant_ms,
+           "library_ms": library_ms,
            "bound_ms": segscan_bound_ms(n, values.element_size())}
     log("segscan main_path_largest: " + json.dumps(res))
     return res
@@ -571,13 +449,12 @@ def check_segscan_beyond_l2() -> dict:
     kernel_ms = cuda_ms(lambda: K.segmented_scan_kernel(v, f, "add"))
     call_ms = cuda_ms(lambda: K.segmented_scan_kernel(v, f, "add"),
                       queued=False)
-    variant_ms = segscan_variant_ms(v, f, "add")
     K.KERNEL_LAUNCHES.update(saved)
     bound = segscan_bound_ms(n, 4)
     res = {"shape": "beyond_l2", "rows": n, "dtype": "torch.int32",
            "op": "add", "exact": True, "kernel_ms": kernel_ms,
            "call_ms": call_ms, "bound_ms": bound,
-           "share_of_bound": bound / kernel_ms, "variant_ms": variant_ms}
+           "share_of_bound": bound / kernel_ms}
     log("segscan beyond_l2: " + json.dumps(res))
     return res
 
@@ -803,8 +680,8 @@ def main(argv=None) -> int:
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = native.build_all(native.SOURCES + native.VARIANT_SOURCES)
-    for src in native.SOURCES + native.VARIANT_SOURCES:
+    libs = native.build_all()
+    for src in native.SOURCES:
         native.load(src)
     build_s = time.perf_counter() - t0
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "

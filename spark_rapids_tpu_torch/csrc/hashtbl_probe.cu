@@ -24,9 +24,10 @@
 // hashes arrive. Joins probe mostly keys that are not in the table (3.8%
 // hit at TPC-H Q5's largest probe, at a table load of 0.22), so most walks
 // end at an empty home slot; and a warp waits for its longest walk.
-// Measured on an H100 (chip_smoke.py's probe variants): streaming the rows
-// alone, with no table, takes about 0.011 ms of a 0.0091 ms bound at Q5's
-// 1,048,576 probes; with one table byte a row, 0.015 ms.
+// Measured on an H100 (PERF.md lists the designs timed against this one):
+// streaming the rows alone, with no table, takes about 0.011 ms of a
+// 0.0091 ms bound at Q5's 1,048,576 probes; with one table byte a row,
+// 0.015 ms.
 //
 // What the design does about it:
 //   - The walk reads the 2 MB tag array, which stays in the L2 and mostly
@@ -67,10 +68,8 @@ __device__ __forceinline__ uint64_t splitmix64(uint64_t x) {
 }
 
 struct ProbeArgs {
-  const uint8_t* slot_byte;  // tags (or, in some measured designs, used)
-  const uint64_t* key1;      // h1 word of slot 0
-  const uint64_t* key2;      // h2 word of slot 0
-  int key_stride;            // 8-byte words between slots: 2 records, 1 arrays
+  const uint8_t* slot_tag;
+  const uint64_t* slot_keys;  // (h1, h2) of slot pos at 2 * pos, 2 * pos + 1
   const uint64_t* h1;
   const uint64_t* h2;
   int32_t* out_slot;
@@ -85,59 +84,38 @@ __device__ __forceinline__ uint8_t tag_of(uint64_t h2) {
   return (uint8_t)(0x80 | (h2 & 0x7f));
 }
 
-template <bool kStream>
-__device__ __forceinline__ uint64_t load_row(const uint64_t* p) {
-  if constexpr (kStream) {
-    return __ldcs(reinterpret_cast<const unsigned long long*>(p));
-  } else {
-    return *p;
-  }
-}
-
-template <bool kStream>
-__device__ __forceinline__ void store_row(const ProbeArgs& a, int64_t i,
-                                          int32_t found) {
-  if constexpr (kStream) {
-    __stcs(a.out_slot + i, found);
-    __stcs(reinterpret_cast<unsigned char*>(a.out_hit) + i,
-           (unsigned char)(found >= 0));
-  } else {
-    a.out_slot[i] = found;
-    a.out_hit[i] = found >= 0;
-  }
-}
-
-// The two hash words of slot pos, as one 16-byte load (kVector: needs
-// interleaved, 16-byte aligned records) or two 8-byte loads.
+// The two hash words of slot pos, as one 16-byte load (kVector: the
+// records are 16-byte aligned) or two 8-byte loads.
 template <bool kVector>
 __device__ __forceinline__ void load_key(const ProbeArgs& a, uint64_t pos,
                                          uint64_t& s1, uint64_t& s2) {
   if constexpr (kVector) {
     const ulonglong2 r =
-        __ldg(reinterpret_cast<const ulonglong2*>(a.key1) + pos);
+        __ldg(reinterpret_cast<const ulonglong2*>(a.slot_keys) + pos);
     s1 = r.x;
     s2 = r.y;
   } else {
-    s1 = __ldg(reinterpret_cast<const unsigned long long*>(a.key1) +
-               pos * a.key_stride);
-    s2 = __ldg(reinterpret_cast<const unsigned long long*>(a.key2) +
-               pos * a.key_stride);
+    const unsigned long long* r =
+        reinterpret_cast<const unsigned long long*>(a.slot_keys) + 2 * pos;
+    s1 = __ldg(r);
+    s2 = __ldg(r + 1);
   }
 }
 
-// The kernel srt_hashtbl_probe runs: one row a thread, the slot's tag
-// first, its record only on a tag match.
+// One row a thread: the slot's tag first, its record only on a tag match;
+// the row's hashes read and its slot and hit written with streaming hints.
 template <bool kVector>
 __global__ void __launch_bounds__(kThreads) probe_kernel(const ProbeArgs a) {
   const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (i >= a.n) return;
-  const uint64_t x = load_row<true>(a.h1 + i);
-  const uint64_t y = load_row<true>(a.h2 + i);
+  using u64 = unsigned long long;
+  const uint64_t x = __ldcs(reinterpret_cast<const u64*>(a.h1) + i);
+  const uint64_t y = __ldcs(reinterpret_cast<const u64*>(a.h2) + i);
   const uint8_t want = tag_of(y);
   uint64_t pos = splitmix64(x ^ a.seed_mix) & a.mask;
   int32_t found = -1;
   for (int p = 0; p < a.max_probes; ++p) {
-    const uint8_t tag = __ldg(a.slot_byte + pos);
+    const uint8_t tag = __ldg(a.slot_tag + pos);
     if (tag == 0) break;  // an empty slot
     if (tag == want) {
       uint64_t s1, s2;
@@ -149,20 +127,17 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(const ProbeArgs a) {
     }
     pos = (pos + 1) & a.mask;
   }
-  store_row<true>(a, i, found);
+  __stcs(a.out_slot + i, found);
+  __stcs(reinterpret_cast<unsigned char*>(a.out_hit) + i,
+         (unsigned char)(found >= 0));
 }
 
-using ProbeKernel = void (*)(const ProbeArgs);
-
-// One thread a row (rows == 1) or a row group of `rows`.
-template <ProbeKernel kKernel>
-int launch(ProbeArgs a, int rows, cudaStream_t stream) {
-  const int64_t blocks = (a.n + (int64_t)kThreads * rows - 1) /
-                         ((int64_t)kThreads * rows);
+template <bool kVector>
+int launch(ProbeArgs a, cudaStream_t stream) {
+  const int64_t blocks = (a.n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  void* args[] = {&a};
-  return (int)cudaLaunchKernel((const void*)kKernel, dim3((unsigned)blocks),
-                               dim3(kThreads), args, 0, stream);
+  probe_kernel<kVector><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -175,15 +150,13 @@ extern "C" int srt_hashtbl_probe(const void* slot_tag, const void* slot_keys,
                                  int64_t capacity, uint64_t seed_mix,
                                  int max_probes, void* stream) {
   if (n <= 0) return 0;
-  const uint64_t* keys = (const uint64_t*)slot_keys;
-  const ProbeArgs a{(const uint8_t*)slot_tag, keys, keys + 1, 2,
+  const ProbeArgs a{(const uint8_t*)slot_tag, (const uint64_t*)slot_keys,
                     (const uint64_t*)h1, (const uint64_t*)h2,
                     (int32_t*)out_slot, (uint8_t*)out_hit, n,
                     (uint64_t)(capacity - 1), seed_mix, max_probes};
   cudaStream_t st = (cudaStream_t)stream;
-  if (((uintptr_t)slot_keys & 15) == 0)
-    return launch<probe_kernel<true>>(a, 1, st);
-  return launch<probe_kernel<false>>(a, 1, st);
+  if (((uintptr_t)slot_keys & 15) == 0) return launch<true>(a, st);
+  return launch<false>(a, st);
 }
 
 extern "C" const char* srt_cuda_error_string(int code) {

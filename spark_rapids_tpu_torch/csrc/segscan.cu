@@ -61,10 +61,10 @@
 //     such buffer for each stream, so a call needs no memset before its
 //     launch (a memset first cost about 1 us at 518,011 rows on an H100).
 // n == 0 launches nothing. It allocates nothing, runs on the caller's
-// stream and does not synchronise. csrc/variants/segscan_variants.cu
-// keeps the other layouts and the memset that were measured against this
-// one; a look-back reading 128 tiles a pass (4 a lane) was measured slower
-// at 518,011 and at 16M rows and is not kept.
+// stream and does not synchronise. PERF.md lists the other layouts and
+// the memset that were measured against this design; a look-back reading
+// 128 tiles a pass (4 a lane) was measured slower at 518,011 and at 16M
+// rows as well.
 //
 // Rounding of float add: on its way into a row a value passes through at
 // most 20 adds inside its tile (3 in its run, 5 shuffle steps over the
@@ -83,29 +83,21 @@ namespace {
 
 constexpr int kTile = 4096;  // rows a tile (segscan_add_tolerance uses it)
 
-// How a block covers its tile: threads, rows a thread, the blocks an SM
-// must hold at once (__launch_bounds__'s minimum; 1 asks nothing), and the
-// rows' layout. Blocked: a thread's rows are one contiguous run. Striped:
-// they are runs of 4 rows, and run j of the lanes of warp w covers the
-// 128 rows w * 32 * kIt + 128 * j ..., so every load and store a warp
-// makes covers 512 contiguous bytes (of 4-byte values).
-template <int kThr, int kIt, int kMinBlocks, bool kStriped>
-struct Geometry {
-  static_assert(kThr * kIt == kTile, "a block scans one tile");
-  static_assert(kIt == 4 || kIt == 8 || kIt == 16, "rows a thread");
-  static constexpr int threads = kThr;
-  static constexpr int items = kIt;
-  static constexpr int warps = kThr / 32;
-  static constexpr int min_blocks = kMinBlocks;
-  static constexpr int run = kStriped ? 4 : kIt;  // rows a run
-  static constexpr int runs = kIt / run;          // runs a thread
+// A block of kThreads threads scans one tile, kItems rows a thread, in
+// runs of kRun rows: run j of the lanes of warp w covers the 128 rows
+// w * 32 * kItems + 128 * j ..., so every load and store a warp makes
+// covers 512 contiguous bytes (of 4-byte values).
+constexpr int kThreads = 256;
+constexpr int kItems = 16;
+constexpr int kRun = 4;
+constexpr int kRuns = kItems / kRun;  // runs a thread
+constexpr int kWarps = kThreads / 32;
+static_assert(kThreads * kItems == kTile, "a block scans one tile");
 
-  // first row (in its tile) of run j of a lane of a warp
-  __device__ static __forceinline__ int row(int warp, int lane, int j) {
-    return kStriped ? warp * 32 * kIt + j * 32 * run + lane * run
-                    : (warp * 32 + lane) * kIt;
-  }
-};
+// first row (in its tile) of run j of a lane of a warp
+__device__ __forceinline__ int run_row(int warp, int lane, int j) {
+  return warp * 32 * kItems + j * 32 * kRun + lane * kRun;
+}
 constexpr int64_t kDescOffset = 128;  // the tile counters live before it
 constexpr int64_t kHeaderBytes = 512;
 constexpr int64_t kTileBytes = 24;
@@ -265,77 +257,66 @@ __device__ __forceinline__ T look_back(const Descriptors<T>& desc,
   }
 }
 
-// The thread's kIt rows; rows at or past `count` read as 0.
-template <typename T, int kItems>
+// One run's kRun rows; rows at or past `count` read as 0.
+template <typename T>
 __device__ __forceinline__ void load_values(const T* __restrict__ src,
                                             bool vector, int count,
-                                            T (&v)[kItems]) {
+                                            T (&v)[kRun]) {
   if (vector) {
-    constexpr int kVecs = kItems * (int)sizeof(T) / 16;
+    constexpr int kVecs = kRun * (int)sizeof(T) / 16;
     union {
       int4 q[kVecs];
-      T t[kItems];
+      T t[kRun];
     } u;
     const int4* p = reinterpret_cast<const int4*>(src);
 #pragma unroll
     for (int j = 0; j < kVecs; ++j) u.q[j] = p[j];
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) v[k] = u.t[k];
+    for (int k = 0; k < kRun; ++k) v[k] = u.t[k];
   } else {
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) v[k] = k < count ? src[k] : T(0);
+    for (int k = 0; k < kRun; ++k) v[k] = k < count ? src[k] : T(0);
   }
 }
 
-// Flag bytes as one vector load (kItems of them).
-template <int kItems>
-struct FlagVector;
-template <>
-struct FlagVector<4> { using type = uint32_t; };
-template <>
-struct FlagVector<8> { using type = uint2; };
-template <>
-struct FlagVector<16> { using type = int4; };
-
-// Bit k set: row k of the thread is a head; rows past `count` are heads.
-template <int kItems>
+// Bit k set: row k of the run is a head; rows past `count` are heads. The
+// vector path reads the run's 4 flag bytes as one 32-bit word.
 __device__ __forceinline__ uint32_t load_heads(const uint8_t* __restrict__ src,
                                                bool vector, int count) {
   uint32_t heads = 0;
   if (vector) {
-    using V = typename FlagVector<kItems>::type;
     union {
-      V q;
-      uint8_t b[kItems];
+      uint32_t q;
+      uint8_t b[kRun];
     } u;
-    u.q = *reinterpret_cast<const V*>(src);
+    u.q = *reinterpret_cast<const uint32_t*>(src);
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) heads |= (uint32_t)(u.b[k] != 0) << k;
+    for (int k = 0; k < kRun; ++k) heads |= (uint32_t)(u.b[k] != 0) << k;
   } else {
 #pragma unroll
-    for (int k = 0; k < kItems; ++k)
+    for (int k = 0; k < kRun; ++k)
       heads |= (uint32_t)(k >= count || src[k] != 0) << k;
   }
   return heads;
 }
 
-template <typename T, int kItems>
+template <typename T>
 __device__ __forceinline__ void store_values(T* __restrict__ dst, bool vector,
-                                             int count, const T (&v)[kItems]) {
+                                             int count, const T (&v)[kRun]) {
   if (vector) {
-    constexpr int kVecs = kItems * (int)sizeof(T) / 16;
+    constexpr int kVecs = kRun * (int)sizeof(T) / 16;
     union {
       int4 q[kVecs];
-      T t[kItems];
+      T t[kRun];
     } u;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) u.t[k] = v[k];
+    for (int k = 0; k < kRun; ++k) u.t[k] = v[k];
     int4* p = reinterpret_cast<int4*>(dst);
 #pragma unroll
     for (int j = 0; j < kVecs; ++j) p[j] = u.q[j];
   } else {
 #pragma unroll
-    for (int k = 0; k < kItems; ++k)
+    for (int k = 0; k < kRun; ++k)
       if (k < count) dst[k] = v[k];
   }
 }
@@ -347,19 +328,15 @@ __device__ __forceinline__ void fold(bool& have, T& pre, bool f, T v) {
   have = true;
 }
 
-// kSelfClean: the scratch arrives all zero and the last block to finish
-// zeroes it again (no memset before the launch); else the launch memsets
-// it first (both measured in csrc/variants/segscan_variants.cu).
-template <typename T, int OP, bool kSelfClean, typename G>
-__global__ void __launch_bounds__(G::threads, G::min_blocks)
+// The scratch arrives all zero, and the last block to finish zeroes it
+// again, so no memset precedes the launch.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
 segscan_kernel(const T* __restrict__ values,
                const uint8_t* __restrict__ is_start, T* __restrict__ out,
                int64_t n, unsigned int* __restrict__ counters,
                const Descriptors<T> desc, int vec, int64_t clean_vecs) {
   __shared__ unsigned int s_tile;
-  constexpr int kRun = G::run;
-  constexpr int kRuns = G::runs;
-  constexpr int kWarps = G::warps;
   __shared__ T s_warp_val[kWarps];
   __shared__ int s_warp_flag[kWarps];
   __shared__ T s_excl;
@@ -379,13 +356,13 @@ segscan_kernel(const T* __restrict__ values,
   int count[kRuns];  // rows of each run inside the input
 #pragma unroll
   for (int j = 0; j < kRuns; ++j) {
-    const int row = G::row(warp, lane, j);
+    const int row = run_row(warp, lane, j);
     count[j] = valid - row;
     const bool whole = count[j] >= kRun;
-    load_values<T, kRun>(values + base + row, whole && (vec & kVecValues),
-                         count[j], v[j]);
-    heads[j] = load_heads<kRun>(is_start + base + row,
-                                whole && (vec & kVecFlags), count[j]);
+    load_values<T>(values + base + row, whole && (vec & kVecValues),
+                   count[j], v[j]);
+    heads[j] = load_heads(is_start + base + row, whole && (vec & kVecFlags),
+                          count[j]);
   }
 
   // each run: its rows in the thread, then its thread totals across the
@@ -478,31 +455,28 @@ segscan_kernel(const T* __restrict__ values,
         if (k < first) v[j][k] = apply<T, OP>(p, v[j][k]);
     }
     fold<T, OP>(have, pre, run_f[j], run_v[j]);
-    const int row = G::row(warp, lane, j);
-    store_values<T, kRun>(out + base + row,
-                          count[j] >= kRun && (vec & kVecOut), count[j],
-                          v[j]);
+    const int row = run_row(warp, lane, j);
+    store_values<T>(out + base + row, count[j] >= kRun && (vec & kVecOut),
+                    count[j], v[j]);
   }
 
-  if constexpr (kSelfClean) {
-    // Warp 0 is past its look-back: this block reads and writes no
-    // descriptor again. The block that counts last knows every block is,
-    // and zeroes the scratch; the other warps need not wait for the count.
-    if (warp == 0) {
-      unsigned done = 0;
-      if (lane == 0) done = atomic_add_acq_rel(counters + 1, 1u);
-      if (__shfl_sync(kFull, done, 0) == gridDim.x - 1) {
-        uint4* p = reinterpret_cast<uint4*>(counters);
-        for (int64_t i = lane; i < clean_vecs; i += 32)
-          p[i] = make_uint4(0, 0, 0, 0);
-      }
+  // Warp 0 is past its look-back: this block reads and writes no
+  // descriptor again. The block that counts last knows every block is,
+  // and zeroes the scratch; the other warps need not wait for the count.
+  if (warp == 0) {
+    unsigned done = 0;
+    if (lane == 0) done = atomic_add_acq_rel(counters + 1, 1u);
+    if (__shfl_sync(kFull, done, 0) == gridDim.x - 1) {
+      uint4* p = reinterpret_cast<uint4*>(counters);
+      for (int64_t i = lane; i < clean_vecs; i += 32)
+        p[i] = make_uint4(0, 0, 0, 0);
     }
   }
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <typename T, int OP, bool kSelfClean, typename G>
+template <typename T, int OP>
 int launch(const void* values, const void* is_start, void* out, int64_t n,
            char* scratch, cudaStream_t stream) {
   const int64_t tiles = (n + kTile - 1) / kTile;
@@ -518,42 +492,25 @@ int launch(const void* values, const void* is_start, void* out, int64_t n,
     desc.inclusive = desc.aggregate + tiles;
     used = kDescOffset + status_bytes + 16 * tiles;
   }
-  if constexpr (!kSelfClean) {
-    // the counters and the statuses (values are read only after a status)
-    const int64_t zeroed =
-        sizeof(T) == 4 ? used : kDescOffset + 4 * tiles;
-    const cudaError_t err =
-        cudaMemsetAsync(scratch, 0, (size_t)zeroed, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int vec = (aligned16(values) ? kVecValues : 0) |
                   (aligned16(is_start) ? kVecFlags : 0) |
                   (aligned16(out) ? kVecOut : 0);
-  segscan_kernel<T, OP, kSelfClean, G>
-      <<<(unsigned int)tiles, G::threads, 0, stream>>>(
-          (const T*)values, (const uint8_t*)is_start, (T*)out, n,
-          (unsigned int*)scratch, desc, vec, (used + 15) / 16);
+  segscan_kernel<T, OP><<<(unsigned int)tiles, kThreads, 0, stream>>>(
+      (const T*)values, (const uint8_t*)is_start, (T*)out, n,
+      (unsigned int*)scratch, desc, vec, (used + 15) / 16);
   return (int)cudaGetLastError();
 }
 
-// The design srt_segscan runs: tile geometry and scratch handling.
-using ScanGeometry = Geometry<256, 16, 1, true>;
-constexpr bool kSelfCleaning = true;
-
-template <typename T, bool kSelfClean = kSelfCleaning,
-          typename G = ScanGeometry>
+template <typename T>
 int launch_op(int op, const void* values, const void* is_start, void* out,
               int64_t n, char* scratch, cudaStream_t stream) {
   switch (op) {
     case kAdd:
-      return launch<T, kAdd, kSelfClean, G>(values, is_start, out, n,
-                                            scratch, stream);
+      return launch<T, kAdd>(values, is_start, out, n, scratch, stream);
     case kMin:
-      return launch<T, kMin, kSelfClean, G>(values, is_start, out, n,
-                                            scratch, stream);
+      return launch<T, kMin>(values, is_start, out, n, scratch, stream);
     case kMax:
-      return launch<T, kMax, kSelfClean, G>(values, is_start, out, n,
-                                            scratch, stream);
+      return launch<T, kMax>(values, is_start, out, n, scratch, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

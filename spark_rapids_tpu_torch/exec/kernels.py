@@ -584,9 +584,9 @@ def concat_device(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
 # capacity. A slot's two hash words sit side by side, one 16-byte record a
 # slot (``slot_keys``, whose columns are ``slot_h1`` and ``slot_h2``), so
 # the probe kernel compares a slot with one load; and each slot
-# has a tag byte (0 when empty, else 0x80 | (h2 & 0x7f) of its key), which
-# the probe kernel reads first, so that it loads a slot's record only when
-# the tag is the probe row's.
+# has a tag byte (0 when empty, else 0x80 | (h2 & 0x7f) of its key;
+# ``slot_used`` is tag != 0), which the probe kernel reads first, so that
+# it loads a slot's record only when the tag is the probe row's.
 
 HASHTBL_MAX_PROBES = 16  # reference default of the probe bound
 HASHTBL_MAX_REHASH = 4   # reference default of the seeded rebuilds
@@ -594,11 +594,15 @@ HASHTBL_MAX_REHASH = 4   # reference default of the seeded rebuilds
 
 class HashTable(NamedTuple):
     slot_keys: torch.Tensor     # (capacity, 2) int64 bits of (h1, h2)
-    slot_used: torch.Tensor     # (capacity,) bool
     row_slot: torch.Tensor      # (n,) int32, -1: invalid key
     order: torch.Tensor         # (n,) int32 build rows stably sorted by slot
     sorted_slots: torch.Tensor  # (n,) int32 row_slot[order]; invalid: capacity
     slot_tag: torch.Tensor      # (capacity,) uint8 (hashtbl_tags)
+
+    @property
+    def slot_used(self) -> torch.Tensor:
+        """(capacity,) bool: whether each slot holds a key (tag != 0)."""
+        return self.slot_tag != 0
 
     @property
     def slot_h1(self) -> torch.Tensor:
@@ -686,8 +690,7 @@ def build_hash_table(h1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
     overflow = bool((valid & ~placed).any())
     srt = torch.where(placed, row_slot, capacity)
     order = torch.sort(srt, stable=True).indices.int()
-    return HashTable(slot_keys, slot_used, row_slot, order,
-                     srt[order.long()],
+    return HashTable(slot_keys, row_slot, order, srt[order.long()],
                      hashtbl_tags(slot_used, slot_keys[:, 1])), overflow
 
 
@@ -724,11 +727,12 @@ def probe_hash_table(tbl: HashTable, h1: torch.Tensor, h2: torch.Tensor,
     base = _hashtbl_base(h1, capacity, seed).long()
     slot = torch.full((n,), -1, dtype=torch.int32, device=h1.device)
     done = torch.zeros(n, dtype=torch.bool, device=h1.device)
+    used = tbl.slot_used
     for p in range(max_probes):
         if bool(done.all()):
             break
         pos = (base + p) & (capacity - 1)
-        occ = tbl.slot_used[pos]
+        occ = used[pos]
         match = occ & (tbl.slot_h1[pos] == h1) & (tbl.slot_h2[pos] == h2)
         slot = torch.where(~done & match, pos.int(), slot)
         done = done | match | ~occ
@@ -747,8 +751,6 @@ def reset_kernel_launches() -> None:
 
 
 _bound_fns = {}  # (kernel source, C function) -> (library, bound function)
-# the current stream's raw handle; the public call builds a Stream object
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _kernel_fn(source: str, name: str):
@@ -764,21 +766,18 @@ def _kernel_fn(source: str, name: str):
 
 
 def _device_stream(device: torch.device) -> Tuple[int, int]:
-    """(index, current stream handle) of a CUDA device."""
+    """(index, current stream handle) of a CUDA device. The handle comes
+    from torch's raw-stream call, which builds no Stream object."""
     idx = device.index
     if idx is None:
         raise ValueError(f"{device} names no CUDA device index")
-    if _raw_stream is not None:
-        return idx, _raw_stream(idx)
-    return idx, torch.cuda.current_stream(idx).cuda_stream
+    return idx, torch._C._cuda_getCurrentRawStream(idx)
 
 
-def _launch(kernel: str, source: str, name: str, idx: int, stream: int,
-            *args) -> None:
-    """Call one kernel's C launch function on device ``idx``'s ``stream``,
-    switching the current device only when it is another; raise on a
-    launch error, else count the launch."""
-    lib, fn = _kernel_fn(source, name)
+def _launch(kernel: str, lib, fn, idx: int, stream: int, *args) -> None:
+    """Call one kernel's C launch function ``fn`` of library ``lib`` on
+    device ``idx``'s ``stream``, switching the current device only when it
+    is another; raise on a launch error, else count the launch."""
     if idx == torch.cuda.current_device():
         rc = fn(*args, stream)
     else:
@@ -796,10 +795,9 @@ def _launch(kernel: str, source: str, name: str, idx: int, stream: int,
 def _check_probe_args(tbl: HashTable, h1: torch.Tensor, h2: torch.Tensor,
                       capacity: int, max_probes: int) -> None:
     dev = h1.device
-    keys, used, tag = tbl.slot_keys, tbl.slot_used, tbl.slot_tag
+    keys, tag = tbl.slot_keys, tbl.slot_tag
     for name, t, dt, shape in (
             ("slot_keys", keys, torch.int64, (capacity, 2)),
-            ("slot_used", used, torch.bool, (capacity,)),
             ("slot_tag", tag, torch.uint8, (capacity,)),
             ("h1", h1, torch.int64, None), ("h2", h2, torch.int64, None)):
         if t.device != dev:
@@ -829,9 +827,8 @@ def probe_hash_table_kernel(tbl: HashTable, h1: torch.Tensor,
                             max_probes: int):
     """Probe wrapper: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. Same contract as ``probe_hash_table``. The kernel
-    reads ``slot_tag`` where the plain version reads ``slot_used`` (a
-    slot's tag is 0 exactly when it is unused) and ``slot_keys`` where it
-    reads ``slot_h1``/``slot_h2``."""
+    reads ``slot_tag`` and ``slot_keys``, from which the plain version's
+    ``slot_used``, ``slot_h1`` and ``slot_h2`` are derived."""
     _check_probe_args(tbl, h1, h2, capacity, max_probes)
     dev = h1.device
     if dev.type == "cpu":
@@ -842,7 +839,8 @@ def probe_hash_table_kernel(tbl: HashTable, h1: torch.Tensor,
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        _launch("hashtbl_probe", "hashtbl_probe.cu", "srt_hashtbl_probe",
+        _launch("hashtbl_probe",
+                *_kernel_fn("hashtbl_probe.cu", "srt_hashtbl_probe"),
                 *_device_stream(dev), tbl.slot_tag.data_ptr(),
                 tbl.slot_keys.data_ptr(),
                 h1.data_ptr(), h2.data_ptr(), slot.data_ptr(),
@@ -882,8 +880,8 @@ _SEGSCAN_OP_CODES = {"add": 0, "min": 1, "max": 2}
 _SEGSCAN_DTYPE_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                         torch.float64: 3}
 _SEGSCAN_TILE_ROWS = 4096  # rows a tile of csrc/segscan.cu (its kTile)
-# adds a value can meet inside one tile of csrc/segscan.cu's ScanGeometry
-# (segscan_add_tolerance)
+# adds a value can meet inside one tile of csrc/segscan.cu (its kThreads x
+# kItems rows in runs of kRun; segscan_add_tolerance)
 _SEGSCAN_TILE_DEPTH = 20
 
 
@@ -1012,10 +1010,10 @@ def segmented_scan_kernel(values: torch.Tensor, is_start: torch.Tensor,
     out = torch.empty_like(values)
     if n == 0:
         return out
-    lib, _ = _kernel_fn("segscan.cu", "srt_segscan")
+    lib, fn = _kernel_fn("segscan.cu", "srt_segscan")
     idx, stream = _device_stream(dev)
     scratch = _segscan_scratch_for(lib, n, idx, stream)
-    _launch("segscan", "segscan.cu", "srt_segscan", idx, stream,
+    _launch("segscan", lib, fn, idx, stream,
             values.data_ptr(), is_start.data_ptr(), out.data_ptr(), n, code,
             _SEGSCAN_OP_CODES[op_name], scratch.data_ptr(), scratch.numel())
     return out

@@ -70,10 +70,9 @@ def hash_table_from_numpy(fields: Dict[str, np.ndarray], device) -> HashTable:
     are made from them: the (h1, h2) records and the tags."""
     slot_keys = torch.stack([_t(fields["slot_h1"], torch.int64, device),
                              _t(fields["slot_h2"], torch.int64, device)], 1)
-    slot_used = _t(fields["slot_used"], torch.bool, device)
     return HashTable(
-        slot_keys, slot_used,
-        _t(fields["row_slot"], torch.int32, device),
+        slot_keys, _t(fields["row_slot"], torch.int32, device),
         _t(fields["order"], torch.int32, device),
         _t(fields["sorted_slots"], torch.int32, device),
-        hashtbl_tags(slot_used, slot_keys[:, 1]))
+        hashtbl_tags(_t(fields["slot_used"], torch.bool, device),
+                     slot_keys[:, 1]))

@@ -3,10 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers), at first use,
 into ``_build/`` next to this file; the library name carries a hash of the
-source and of the files it includes, so an edited kernel is rebuilt.
-Libraries load through ``ctypes``. ``VARIANT_SOURCES`` hold the alternative
-designs that ``chip_smoke.py`` times against the kernels; nothing on a
-query's path loads them. Nothing here runs when the module is imported.
+source, so an edited kernel is rebuilt. Libraries load through ``ctypes``.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -14,7 +12,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -25,8 +22,6 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("hashtbl_probe.cu", "segscan.cu")
-VARIANT_SOURCES = ("variants/hashtbl_probe_variants.cu",
-                   "variants/segscan_variants.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -46,21 +41,12 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _source_text(path: str) -> bytes:
-    """A source with the files it includes (``#include "..."``)."""
-    with open(path, "rb") as f:
-        text = f.read()
-    for inc in re.findall(rb'#include "([^"]+)"', text):
-        text += _source_text(os.path.join(os.path.dirname(path),
-                                          inc.decode()))
-    return text
-
-
 def _lib_path(source: str) -> str:
-    digest = hashlib.sha256(_source_text(os.path.join(CSRC, source))
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    name = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    with open(os.path.join(CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR,
+                        f"lib{os.path.splitext(source)[0]}_{digest}.so")
 
 
 def build(source: str) -> str:
@@ -78,10 +64,10 @@ def build(source: str) -> str:
     return out
 
 
-def build_all(sources=SOURCES) -> List[str]:
+def build_all() -> List[str]:
     """Compile every kernel source, one nvcc process each, in parallel."""
-    with ThreadPoolExecutor(max_workers=len(sources)) as ex:
-        return list(ex.map(build, sources))
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        return list(ex.map(build, SOURCES))
 
 
 def _bind_common(lib: ctypes.CDLL) -> None:
@@ -99,16 +85,6 @@ def _bind_hashtbl_probe(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def _bind_hashtbl_probe_variants(lib: ctypes.CDLL) -> None:
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn = lib.srt_hashtbl_probe_variant
-    # variant, slot bytes, key1, key2, key stride (words), h1, h2, out slot,
-    # out hit, n, capacity, seed mix, max probes, stream
-    fn.argtypes = [ctypes.c_int, p, p, p, ctypes.c_int, p, p, p, p, i64, i64,
-                   ctypes.c_uint64, ctypes.c_int, p]
-    fn.restype = ctypes.c_int
-
-
 def _bind_segscan(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     fn = lib.srt_segscan
@@ -121,21 +97,8 @@ def _bind_segscan(lib: ctypes.CDLL) -> None:
     fn.restype = None
 
 
-def _bind_segscan_variants(lib: ctypes.CDLL) -> None:
-    _bind_segscan(lib)
-    fn = lib.srt_segscan_variant
-    # variant, then as srt_segscan without the dtype (int32 only)
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-
 _BINDERS = {"hashtbl_probe.cu": _bind_hashtbl_probe,
-            "segscan.cu": _bind_segscan,
-            "variants/hashtbl_probe_variants.cu":
-                _bind_hashtbl_probe_variants,
-            "variants/segscan_variants.cu": _bind_segscan_variants}
+            "segscan.cu": _bind_segscan}
 
 
 def load(source: str) -> ctypes.CDLL:

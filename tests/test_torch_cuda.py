@@ -50,8 +50,9 @@ def test_probe_kernel_matches_plain_version_on_card(distinct, probes):
 @pytest.mark.parametrize("probes", [0, 1, 2, 3, 5, 6, 7, 4097, 4098, 4099,
                                     1_000_003])
 def test_probe_kernel_ragged_row_counts_on_card(probes):
-    """The kernel walks four rows a thread: row counts of every residue
-    mod 4, none at all (no launch), and one above a card-sized grid."""
+    """The kernel runs one row a thread in 256-thread blocks: row counts
+    of every residue mod 4, none at all (no launch), counts just past a
+    block edge, and one of many blocks."""
     _card()
     rng = np.random.default_rng(11)
     bb = _keys(rng.integers(0, 3000, 9000))

@@ -293,8 +293,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     h2 = torch.arange(10, dtype=torch.int64)
     if bad == "h1_dtype":
         h1 = h1.int()
-    elif bad == "used_dtype":
-        tbl = tbl._replace(slot_used=tbl.slot_used.to(torch.uint8))
+    elif bad == "used_dtype":  # a slot's used state lives in its tag
+        tbl = tbl._replace(slot_tag=tbl.slot_tag.int())
     elif bad == "shape":
         h2 = h2[:5]
     elif bad == "capacity":
@@ -562,23 +562,24 @@ def test_segscan_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_segscan_add_tolerance_follows_the_kernel_grouping():
     """The stated depth is ceil(log2 n) plus, for the kernel, its in-tile
     depth + ceil(n / tile), both read off the tile geometry the kernel
-    runs (ScanGeometry in csrc/segscan.cu: r rows a run, R runs a thread,
-    W warps; r - 1 + 5 + R - 1 + log2 W adds to the tile aggregate, then
-    R + 2 folds into a row), and for the reference the larger of its two
-    groupings' depths; any other grouping is refused."""
+    runs (kThreads, kItems and kRun in csrc/segscan.cu: r rows a run, R
+    runs a thread, W warps; r - 1 + 5 + R - 1 + log2 W adds to the tile
+    aggregate, then R + 2 folds into a row), and for the reference the
+    larger of its two groupings' depths; any other grouping is refused."""
     import math
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(PK.__file__), "..", "csrc",
                             "segscan.cu")).read()
-    tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
-    thr, items, _, striped = re.search(
-        r"using ScanGeometry = Geometry<(\d+), (\d+), (\d+), (\w+)>;",
-        src).groups()
-    thr, items = int(thr), int(items)
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    tile, thr, items, r = (const(c) for c in ("kTile", "kThreads",
+                                               "kItems", "kRun"))
     assert thr * items == tile == PK._SEGSCAN_TILE_ROWS == 4096
-    r = 4 if striped == "true" else items
     runs, warps = items // r, thr // 32
     in_tile = (r - 1 + 5 + runs - 1 + int(math.log2(warps))) + (runs + 2)
     assert in_tile == PK._SEGSCAN_TILE_DEPTH == 20
