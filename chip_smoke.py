@@ -44,12 +44,24 @@ Phases, in order; any failure exits non-zero before the last line:
    rows and 18,000 items at SF1, money columns decimal(7,2)) the same way,
    each held against its pandas reference; the segmented scan must launch
    in both queries; then warm wall times (median of 3);
-6. each kernel against its plain version, as in phase 3, on the largest
-   input the main path gave it (for the segmented scan also against
-   ``torch.cummax``, which computes the same function on the geometry
-   scan's input and is timed as ``library_ms``), warm and with a cold L2. The kernels
-   line reports that input's times and bound, and the launches of both
-   main paths.
+6. TPC-DS headline: q3/q7/q42/q52/q96 at SF ``--sf-ds`` on the same
+   generated tables, uploaded in batches of 2^22 rows as ``bench.py``
+   does. For each query: ``explain("ALL")`` must mark no node for the CPU
+   engine; one run on the card with the launch counts zeroed before and
+   read after, held against the pandas reference; the same query with
+   ``spark.rapids.gpu.sql.enabled=false`` (every node on the CPU engine,
+   ``bench.py``'s gate), whose rows must match too; the warm wall (median
+   of 3) and the CPU engine's wall. The probe must launch in every query.
+   Then one mixed plan: a filter with a string ordering comparison, tagged
+   for the CPU engine under device joins, an aggregate and a sort, held
+   against pandas;
+7. each kernel against its plain version, as in phase 3, on the largest
+   input the TPC-H and window paths gave it (for the segmented scan also
+   against ``torch.cummax``, which computes the same function on the
+   geometry scan's input and is timed as ``library_ms``), warm and with a
+   cold L2, and the probe also on the headline's largest probe. The
+   kernels line reports the first input's times and bound, and the
+   launches of every main path.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -588,21 +600,26 @@ def run_main_path(sf: float, tables_seed: int = 0) -> dict:
             "lineitem_rows": tables["lineitem"].num_rows}
 
 
-def run_tpcds_path(sf: float, tables_seed: int = 0) -> dict:
+def tpcds_tables(sf: float, seed: int = 0):
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+
+    t0 = time.perf_counter()
+    tables = S.tables_for(sf, seed=seed)
+    log(f"generated TPC-DS SF{sf}: store_sales "
+        f"{tables['store_sales'].num_rows} rows, item "
+        f"{tables['item'].num_rows} in {time.perf_counter() - t0:.1f}s")
+    return tables
+
+
+def run_tpcds_path(tables) -> dict:
     """q44 and q67 through the port's planner on the card, each held against
     its pandas reference, with the launch counts zeroed before each query
     and read after it; then warm wall times."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
-    from spark_rapids_tpu_torch.bench import tpcds_schema as S
     from spark_rapids_tpu_torch.exec import kernels as K
 
-    t0 = time.perf_counter()
-    tables = S.tables_for(sf, seed=tables_seed)
-    log(f"generated TPC-DS SF{sf}: store_sales "
-        f"{tables['store_sales'].num_rows} rows, item "
-        f"{tables['item'].num_rows} in {time.perf_counter() - t0:.1f}s")
     d = Q.df_tables(tables, batch_rows=1 << 20, device="cuda")
     queries = ["q44", "q67"]
 
@@ -654,11 +671,170 @@ def run_tpcds_path(sf: float, tables_seed: int = 0) -> dict:
             "store_sales_rows": tables["store_sales"].num_rows}
 
 
+def _warm_wall(run) -> float:
+    import torch
+
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    return statistics.median(walls)
+
+
+def run_headline_path(tables) -> dict:
+    """The TPC-DS half of bench.py's headline (q3/q7/q42/q52/q96) on the
+    card in batches of 2^22 rows: every plan wholly on the device, each
+    result held against its pandas reference and against the same query
+    on the CPU engine, with the launch counts zeroed before each query and
+    read after it; then warm wall times and the CPU engine's wall."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    largest = {}
+    real_probe = K.probe_hash_table_kernel
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("n", -1):
+            largest.update(n=h1.numel(), args=(tbl, h1, h2, capacity, seed))
+        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    results = {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    K.probe_hash_table_kernel = recording_probe
+    try:
+        for q in Q.HEADLINE:
+            plan = Q.QUERIES[q](d).explain("ALL")
+            off = [ln.strip() for ln in plan.splitlines()
+                   if ln.lstrip().startswith("!")]
+            if off:
+                raise AssertionError(f"{q} has nodes on the CPU engine: "
+                                     f"{off}")
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            out = Q.QUERIES[q](d).to_arrow()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            got = out.to_pylist()
+            ok, why = Q.check_rows(q, got, Q.PANDAS[q](tables))
+            if not ok:
+                raise AssertionError(f"{q} differs from the pandas reference "
+                                     f"({why}):\n{got[:3]}")
+            if launches["hashtbl_probe"] <= 0:
+                raise AssertionError(f"{q} launched no probe kernel")
+            t1 = time.perf_counter()
+            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+            cpu_s = time.perf_counter() - t1
+            ok, why = Q.check_rows(q, on_cpu, got)
+            if not ok:
+                raise AssertionError(f"{q} on the CPU engine differs from "
+                                     f"the card ({why})")
+            results[q] = {"rows": len(got), "first_s": first_s,
+                          "launches": launches, "cpu_engine_s": cpu_s}
+            log(f"{q}: {len(got)} rows match the pandas reference and the "
+                f"CPU engine; launches {launches}; first run "
+                f"{first_s:.3f}s; CPU engine {cpu_s:.3f}s")
+    finally:
+        K.probe_hash_table_kernel = real_probe
+    for q in Q.HEADLINE:
+        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
+                                          .to_arrow())
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
+            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
+            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
+    results["mixed_string_range"] = run_mixed_plan(tables, d)
+    return {"queries": results, "launches": total,
+            "largest_probe": largest.get("args")}
+
+
+def mixed_string_range(d):
+    """Sales of the items whose brand sorts below "brand#5": the filter's
+    string ordering comparison runs on the CPU engine, the joins, the
+    aggregate and the sort above it on the card."""
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.exprs.expr import (
+        EqualTo, LessThan, Sum, col, lit)
+
+    it = d["item"].filter(LessThan(col("i_brand"), lit("brand#5")))
+    dt = d["date_dim"].filter(EqualTo(col("d_year"), lit(2001)))
+    return (d["store_sales"]
+            .join(dt, left_on="ss_sold_date_sk", right_on="d_date_sk")
+            .join(it, left_on="ss_item_sk", right_on="i_item_sk")
+            .group_by("i_category")
+            .agg(Sum(col("ss_ext_sales_price")).alias("sales"))
+            .sort(Q.desc("sales"), "i_category"))
+
+
+def pandas_mixed_string_range(tables):
+    import decimal
+
+    import pandas as pd
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+
+    ss = tables["store_sales"]
+    sales = {"ss_sold_date_sk": ss.column("ss_sold_date_sk").to_numpy(),
+             "ss_item_sk": ss.column("ss_item_sk").to_numpy(),
+             "price": Q._unscaled(ss.column("ss_ext_sales_price"))}
+    dd = tables["date_dim"].to_pandas()
+    it = tables["item"].to_pandas()
+    it = it[it.i_brand < "brand#5"][["i_item_sk", "i_category"]]
+    j = (pd.DataFrame(sales)
+         .merge(dd[dd.d_year == 2001][["d_date_sk"]],
+                left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .merge(it, left_on="ss_item_sk", right_on="i_item_sk"))
+    g = j.groupby("i_category").price.sum().reset_index()
+    g = g.sort_values(["price", "i_category"], ascending=[False, True],
+                      kind="stable")
+    return [{"i_category": c, "sales": decimal.Decimal(int(p)).scaleb(-2)}
+            for c, p in zip(g.i_category, g.price)]
+
+
+def run_mixed_plan(tables, d) -> dict:
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    df = mixed_string_range(d)
+    plan = df.explain("ALL")
+    off = [ln.strip() for ln in plan.splitlines()
+           if ln.lstrip().startswith("!")]
+    if len(off) != 1 or not off[0].startswith("! Filter"):
+        raise AssertionError(f"the mixed plan should put its string filter "
+                             f"alone on the CPU engine:\n{plan}")
+    K.reset_kernel_launches()
+    t1 = time.perf_counter()
+    got = df.to_arrow().to_pylist()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(K.KERNEL_LAUNCHES)
+    exp = pandas_mixed_string_range(tables)
+    if got != exp:
+        raise AssertionError(f"the mixed plan differs from pandas:\n"
+                             f"{got[:3]}\n{exp[:3]}")
+    if launches["hashtbl_probe"] <= 0:
+        raise AssertionError("the mixed plan launched no probe kernel")
+    log(f"mixed plan (string range filter on the CPU engine): {len(got)} "
+        f"rows match pandas; launches {launches}; {wall:.3f}s\n{plan}")
+    return {"rows": len(got), "wall_s": wall, "launches": launches,
+            "cpu_nodes": off}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=2.0)
     ap.add_argument("--sf-ds", type=float, default=1.0,
-                    help="TPC-DS scale factor of the q44/q67 path")
+                    help="TPC-DS scale factor (q44/q67 and the headline)")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -700,17 +876,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     main_res = run_main_path(args.sf)
-    ds_res = run_tpcds_path(args.sf_ds)
+    ds_tables = tpcds_tables(args.sf_ds)
+    ds_res = run_tpcds_path(ds_tables)
+    head_res = run_headline_path(ds_tables)
 
     tbl, h1, h2, capacity, seed = main_res.pop("largest_probe")
     real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed,
                        cold=True)
     shapes.append(real)
+    shapes.append(check_probe("headline_largest",
+                              *head_res.pop("largest_probe"), cold=True))
     scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
 
     by_path = {name: {"tpch": main_res["launches"][name],
-                      "tpcds": ds_res["launches"][name]}
+                      "tpcds_windows": ds_res["launches"][name],
+                      "tpcds_headline": head_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -749,6 +930,7 @@ def main(argv=None) -> int:
               "sf_ds": args.sf_ds,
               "store_sales_rows": ds_res["store_sales_rows"],
               "tpcds_queries": ds_res["queries"],
+              "tpcds_headline": head_res["queries"],
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,
               "probe_beyond_l2": probe_big,

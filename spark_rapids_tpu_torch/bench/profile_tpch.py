@@ -3,17 +3,21 @@
     python -m spark_rapids_tpu_torch.bench.profile_tpch [--suite tpch]
         [--sf 2.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds
-        [--sf 1.0]
+        [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
-tpcds`` the window queries TPC-DS q44/q67 (default SF 1, decimal(7,2) money
+tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
+batches of 2^22 rows as ``bench.py`` runs them, and the window queries
+q44/q67 in batches of 2^20 rows (default SF 1, decimal(7,2) money
 columns). For each query (after one warm-up run): the warm wall time (host
 clock around a run that ends in a synchronise, median of 3), then one run
-under ``torch.profiler`` giving the device time summed over kernels, the
-device's busy and idle share of that run's wall time, the number of kernel
-launches and of copies, and the operations that took the most device time
-and the most host time. The hand-written kernels' launches come from the
-port's own counters.
+under ``torch.profiler`` giving the device time summed over kernels and
+copies, the host-to-device copy time within it, the device's busy and idle
+share of that run's wall time, the number of kernel launches and of
+copies, and the operations that took the most device time and the most
+host time. The hand-written kernels' launches come from the port's own
+counters. ``string_hash_power_table_bytes`` is what the device cache of
+the string hash's power tables holds after the query (it only grows).
 
 Needs a CUDA card: it fails rather than measure the CPU.
 """
@@ -64,12 +68,15 @@ def profile_query(run, reps: int = 3) -> dict:
         prof_wall = time.perf_counter() - t0
     hand_launches = {k: K.KERNEL_LAUNCHES[k] - before[k]
                      for k in K.KERNEL_LAUNCHES}
-    kernel_us, launches, copies = 0.0, 0, 0
+    kernel_us, h2d_us, launches, copies = 0.0, 0.0, 0, 0
     by_name: dict = {}
     for name, us in device_events(prof):
         kernel_us += us
-        if "memcpy" in name.lower() or "memset" in name.lower():
+        low = name.lower()
+        if "memcpy" in low or "memset" in low:
             copies += 1
+            if "htod" in low:
+                h2d_us += us
         else:
             launches += 1
         tot, cnt = by_name.get(name, (0.0, 0))
@@ -81,6 +88,7 @@ def profile_query(run, reps: int = 3) -> dict:
     busy = kernel_us / 1e6 / prof_wall if prof_wall > 0 else 0.0
     return {"warm_wall_s": statistics.median(walls), "walls_s": walls,
             "profiled_wall_s": prof_wall, "device_s": kernel_us / 1e6,
+            "host_to_device_copy_s": h2d_us / 1e6,
             "device_busy_share": busy, "device_idle_share": 1.0 - busy,
             "device_kernels": launches, "device_copies_and_sets": copies,
             "hand_kernel_launches": hand_launches,
@@ -104,6 +112,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_tpch: no CUDA device", file=sys.stderr)
         return 1
+    from spark_rapids_tpu_torch.exec import kernels as K
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -123,10 +133,18 @@ def main(argv=None) -> int:
         queries = suite.QUERIES
         fact = "store_sales"
     d = suite.df_tables(tables, batch_rows=1 << 20, device="cuda")
+    # bench.py runs the TPC-DS headline in batches of 2^22 rows
+    head = (suite.df_tables(tables, batch_rows=1 << 22, device="cuda")
+            if args.suite == "tpcds" else d)
+    order = (list(suite.HEADLINE) + ["q44", "q67"] if args.suite == "tpcds"
+             else list(queries))
     out = {"device": smi, "torch": torch.__version__, "suite": args.suite,
            "sf": sf, f"{fact}_rows": tables[fact].num_rows, "queries": {}}
-    for q in queries:
-        res = profile_query(lambda q=q: queries[q](d).to_arrow())
+    for q in order:
+        dq = head if q in getattr(suite, "HEADLINE", ()) else d
+        res = profile_query(lambda q=q, dq=dq: queries[q](dq).to_arrow())
+        res["string_hash_power_table_bytes"] = sum(
+            t.numel() * t.element_size() for t in K._POW_TABLES.values())
         out["queries"][q] = res
         print(json.dumps({"query": q, **{k: v for k, v in res.items()
                                          if not k.startswith("top_")}}),

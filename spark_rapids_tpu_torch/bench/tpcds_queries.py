@@ -1,19 +1,30 @@
-"""TPC-DS q44 and q67 on the port's DataFrame front end (counterpart of
+"""TPC-DS queries on the port's DataFrame front end (counterpart of
 spark_rapids_tpu/bench/tpcds_queries.py), written as the reference writes
 them, plus a pandas reference answer for each.
 
-Both queries rank rows with a window over decimal money columns: q44 ranks
+q3, q7, q42, q52 and q96 are the TPC-DS half of ``bench.py``'s headline
+suite: each an inner-join star over store_sales with filtered dimensions,
+then a group-by and a sort with a limit (q96 a global count instead). q7
+filters promotions with an Or, groups by the plain-string item id and
+averages a double and three decimal(7,2) columns (HALF_UP into
+decimal(11,6)); q3/q42/q52 sum decimal(7,2) sales into decimal(17,2).
+
+q44 and q67 rank rows with a window over decimal money columns: q44 ranks
 items by their average net profit (decimal(7,2) averaged into
 decimal(11,6)) in both directions, q67 ranks aggregated sales
 (decimal(7,2) times a double quantity, summed as double) within each
-category. The pandas references compute the same answers independently:
-q44's averages exactly in integers (HALF_UP at scale 6), q67's sums in
+category.
+
+The pandas references compute the same answers independently: decimal
+sums and HALF_UP averages exactly in integers, double sums and averages in
 float64. Results are compared with ``tpch.rows_match`` (rel 1e-6 on
-doubles, exact keys and counts) and the ORDER BY columns in order.
+doubles, exact keys, decimals and counts) and the ORDER BY columns in
+order.
 """
 
 from __future__ import annotations
 
+import decimal
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -22,8 +33,8 @@ import pyarrow as pa
 
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.expr import (
-    And, Average, GreaterThanOrEqual, LessThanOrEqual, Multiply, Sum, col,
-    lit,
+    And, Average, Count, EqualTo, GreaterThanOrEqual, LessThanOrEqual,
+    Multiply, Or, Sum, col, lit,
 )
 from spark_rapids_tpu_torch.exprs.window import Rank, over, window_spec
 
@@ -52,6 +63,55 @@ def q(name):
         QUERIES[name] = fn
         return fn
     return reg
+
+
+@q("q3")
+def q3(d: D):
+    ss = d["store_sales"]
+    dt = d["date_dim"].filter(EqualTo(col("d_moy"), lit(11)))
+    it = d["item"].filter(_between(col("i_manufact_id"), 100, 150))
+    j = (ss.join(dt, left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(it, left_on="ss_item_sk", right_on="i_item_sk"))
+    return (j.group_by("d_year", "i_brand", "i_brand_id")
+            .agg(Sum(col("ss_ext_sales_price")).alias("sum_agg"))
+            .sort(asc("d_year"), desc("sum_agg"), asc("i_brand_id"),
+                  limit=100))
+
+
+@q("q7")
+def q7(d: D):
+    ss = d["store_sales"]
+    cd = d["customer_demographics"].filter(
+        And(And(EqualTo(col("cd_gender"), lit("M")),
+                EqualTo(col("cd_marital_status"), lit("S"))),
+            EqualTo(col("cd_education_status"), lit("College"))))
+    dt = d["date_dim"].filter(EqualTo(col("d_year"), lit(2000)))
+    pr = d["promotion"].filter(
+        Or(EqualTo(col("p_channel_email"), lit("N")),
+           EqualTo(col("p_channel_event"), lit("N"))))
+    j = (ss.join(cd, left_on="ss_cdemo_sk", right_on="cd_demo_sk")
+         .join(dt, left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(pr, left_on="ss_promo_sk", right_on="p_promo_sk")
+         .join(d["item"], left_on="ss_item_sk", right_on="i_item_sk"))
+    return (j.group_by("i_item_id")
+            .agg(Average(col("ss_quantity")).alias("agg1"),
+                 Average(col("ss_list_price")).alias("agg2"),
+                 Average(col("ss_coupon_amt")).alias("agg3"),
+                 Average(col("ss_sales_price")).alias("agg4"))
+            .sort("i_item_id", limit=100))
+
+
+@q("q42")
+def q42(d: D):
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(And(EqualTo(col("d_moy"), lit(11)),
+                                        EqualTo(col("d_year"), lit(2000)))),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(d["item"], left_on="ss_item_sk", right_on="i_item_sk"))
+    return (j.group_by("d_year", "i_category_id", "i_category")
+            .agg(Sum(col("ss_ext_sales_price")).alias("sum_agg"))
+            .sort(desc("sum_agg"), asc("d_year"), asc("i_category_id"),
+                  asc("i_category"), limit=100))
 
 
 @q("q44")
@@ -106,9 +166,46 @@ def q67(d: D):
                   limit=100))
 
 
+@q("q52")
+def q52(d: D):
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(And(EqualTo(col("d_moy"), lit(11)),
+                                        EqualTo(col("d_year"), lit(2000)))),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(d["item"], left_on="ss_item_sk", right_on="i_item_sk"))
+    return (j.group_by("d_year", "i_brand", "i_brand_id")
+            .agg(Sum(col("ss_ext_sales_price")).alias("ext_price"))
+            .sort(asc("d_year"), desc("ext_price"), asc("i_brand_id"),
+                  limit=100))
+
+
+@q("q96")
+def q96(d: D):
+    td = d["time_dim"].filter(And(EqualTo(col("t_hour"), lit(20)),
+                                  GreaterThanOrEqual(col("t_minute"),
+                                                     lit(30))))
+    hd = d["household_demographics"].filter(EqualTo(col("hd_dep_count"),
+                                                    lit(7)))
+    st = d["store"].filter(EqualTo(col("s_store_name"), lit("ese")))
+    j = (d["store_sales"]
+         .join(td, left_on="ss_sold_time_sk", right_on="t_time_sk")
+         .join(hd, left_on="ss_hdemo_sk", right_on="hd_demo_sk")
+         .join(st, left_on="ss_store_sk", right_on="s_store_sk"))
+    return j.agg(Count().alias("cnt"))
+
+
+# the TPC-DS half of bench.py's headline suite, in its order
+HEADLINE = ("q3", "q7", "q42", "q52", "q96")
+
 # ORDER BY columns whose order the result must keep exactly (q67's
 # sumsales order is checked through rk, its rank within the category)
-ORDER_KEYS = {"q44": ("rnk",), "q67": ("i_category", "rk")}
+ORDER_KEYS = {"q3": ("d_year", "sum_agg", "i_brand_id"),
+              "q7": ("i_item_id",),
+              "q42": ("sum_agg", "d_year", "i_category_id", "i_category"),
+              "q44": ("rnk",),
+              "q52": ("d_year", "ext_price", "i_brand_id"),
+              "q67": ("i_category", "rk"),
+              "q96": ("cnt",)}
 
 
 def df_tables(tables: Dict[str, pa.Table], conf=None,
@@ -198,7 +295,126 @@ def pandas_q67(t: Dict[str, pa.Table]) -> List[dict]:
                     "d_year", "sumsales", "rk"]])
 
 
-PANDAS = {"q44": pandas_q44, "q67": pandas_q67}
+def _decimals(unscaled, scale: int) -> List[decimal.Decimal]:
+    return [decimal.Decimal(int(u)).scaleb(-scale) for u in unscaled]
+
+
+def _sales(t: Dict[str, pa.Table], cols, money=()) -> pd.DataFrame:
+    """store_sales columns as a frame; ``money`` columns as int64 unscaled
+    decimal(7,2) values."""
+    ss = t["store_sales"]
+    out = {c: ss.column(c).to_numpy() for c in cols}
+    out.update({c: _unscaled(ss.column(c)) for c in money})
+    return pd.DataFrame(out)
+
+
+def _brand_sales(t: Dict[str, pa.Table], dates: pd.DataFrame,
+                 items: pd.DataFrame, keys, name: str) -> pd.DataFrame:
+    """sum(ss_ext_sales_price) of the sales on ``dates`` of ``items``,
+    grouped by ``keys`` (exact, in unscaled int64)."""
+    sales = _sales(t, ["ss_sold_date_sk", "ss_item_sk"],
+                   ["ss_ext_sales_price"])
+    j = (sales.merge(dates[["d_date_sk", "d_year"]],
+                     left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .merge(items, left_on="ss_item_sk", right_on="i_item_sk"))
+    return j.groupby(keys).ss_ext_sales_price.sum().reset_index(name=name)
+
+
+def _with_decimals(g: pd.DataFrame, cols, scale: int) -> List[dict]:
+    rows = _rows(g)
+    for r in rows:
+        for c in cols:
+            r[c] = decimal.Decimal(int(r[c])).scaleb(-scale)
+    return rows
+
+
+def pandas_q3(t: Dict[str, pa.Table]) -> List[dict]:
+    dd = t["date_dim"].to_pandas()
+    it = t["item"].to_pandas()
+    it = it[(it.i_manufact_id >= 100) & (it.i_manufact_id <= 150)]
+    g = _brand_sales(t, dd[dd.d_moy == 11],
+                     it[["i_item_sk", "i_brand", "i_brand_id"]],
+                     ["d_year", "i_brand", "i_brand_id"], "sum_agg")
+    g = g.sort_values(["d_year", "sum_agg", "i_brand_id"],
+                      ascending=[True, False, True], kind="stable").head(100)
+    return _with_decimals(g, ["sum_agg"], 2)
+
+
+def pandas_q7(t: Dict[str, pa.Table]) -> List[dict]:
+    money = ["ss_list_price", "ss_coupon_amt", "ss_sales_price"]
+    sales = _sales(t, ["ss_cdemo_sk", "ss_sold_date_sk", "ss_promo_sk",
+                       "ss_item_sk", "ss_quantity"], money)
+    cd = t["customer_demographics"].to_pandas()
+    cd = cd[(cd.cd_gender == "M") & (cd.cd_marital_status == "S")
+            & (cd.cd_education_status == "College")]
+    dd = t["date_dim"].to_pandas()
+    dd = dd[dd.d_year == 2000]
+    pr = t["promotion"].to_pandas()
+    pr = pr[(pr.p_channel_email == "N") | (pr.p_channel_event == "N")]
+    it = t["item"].to_pandas()[["i_item_sk", "i_item_id"]]
+    j = (sales.merge(cd[["cd_demo_sk"]], left_on="ss_cdemo_sk",
+                     right_on="cd_demo_sk")
+         .merge(dd[["d_date_sk"]], left_on="ss_sold_date_sk",
+                right_on="d_date_sk")
+         .merge(pr[["p_promo_sk"]], left_on="ss_promo_sk",
+                right_on="p_promo_sk")
+         .merge(it, left_on="ss_item_sk", right_on="i_item_sk"))
+    g = j.groupby("i_item_id").agg(
+        agg1=("ss_quantity", "mean"), n=("ss_quantity", "size"),
+        **{c: (c, "sum") for c in money}).reset_index()
+    g = g.sort_values("i_item_id", kind="stable").head(100)
+    out = []
+    for r in _rows(g):
+        row = {"i_item_id": r["i_item_id"], "agg1": r["agg1"]}
+        for name, c in zip(("agg2", "agg3", "agg4"), money):
+            # decimal(7,2) averaged into decimal(11,6): 4 more digits
+            row[name] = _decimals(_avg_half_up(
+                np.array([r[c]]), np.array([r["n"]]), 4), 6)[0]
+        out.append(row)
+    return out
+
+
+def pandas_q42(t: Dict[str, pa.Table]) -> List[dict]:
+    dd = t["date_dim"].to_pandas()
+    it = t["item"].to_pandas()[["i_item_sk", "i_category_id", "i_category"]]
+    g = _brand_sales(t, dd[(dd.d_moy == 11) & (dd.d_year == 2000)], it,
+                     ["d_year", "i_category_id", "i_category"], "sum_agg")
+    g = g.sort_values(["sum_agg", "d_year", "i_category_id", "i_category"],
+                      ascending=[False, True, True, True],
+                      kind="stable").head(100)
+    return _with_decimals(g, ["sum_agg"], 2)
+
+
+def pandas_q52(t: Dict[str, pa.Table]) -> List[dict]:
+    dd = t["date_dim"].to_pandas()
+    it = t["item"].to_pandas()[["i_item_sk", "i_brand", "i_brand_id"]]
+    g = _brand_sales(t, dd[(dd.d_moy == 11) & (dd.d_year == 2000)], it,
+                     ["d_year", "i_brand", "i_brand_id"], "ext_price")
+    g = g.sort_values(["d_year", "ext_price", "i_brand_id"],
+                      ascending=[True, False, True], kind="stable").head(100)
+    return _with_decimals(g, ["ext_price"], 2)
+
+
+def pandas_q96(t: Dict[str, pa.Table]) -> List[dict]:
+    sales = _sales(t, ["ss_sold_time_sk", "ss_hdemo_sk", "ss_store_sk"])
+    td = t["time_dim"].to_pandas()
+    td = td[(td.t_hour == 20) & (td.t_minute >= 30)]
+    hd = t["household_demographics"].to_pandas()
+    hd = hd[hd.hd_dep_count == 7]
+    st = t["store"].to_pandas()
+    st = st[st.s_store_name == "ese"]
+    j = (sales.merge(td[["t_time_sk"]], left_on="ss_sold_time_sk",
+                     right_on="t_time_sk")
+         .merge(hd[["hd_demo_sk"]], left_on="ss_hdemo_sk",
+                right_on="hd_demo_sk")
+         .merge(st[["s_store_sk"]], left_on="ss_store_sk",
+                right_on="s_store_sk"))
+    return [{"cnt": len(j)}]
+
+
+PANDAS = {"q3": pandas_q3, "q7": pandas_q7, "q42": pandas_q42,
+          "q44": pandas_q44, "q52": pandas_q52, "q67": pandas_q67,
+          "q96": pandas_q96}
 
 
 def check_rows(name: str, got: List[dict], exp: List[dict]) -> Tuple[bool,

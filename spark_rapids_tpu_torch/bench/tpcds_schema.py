@@ -1,9 +1,11 @@
-"""TPC-DS tables for the port's window slice (copy of the parts of
-spark_rapids_tpu/bench/tpcds_schema.py that TPC-DS q44 and q67 read).
+"""TPC-DS tables of the port's queries (copy of the parts of
+spark_rapids_tpu/bench/tpcds_schema.py and spark_rapids_tpu/bench/tpcds.py
+that TPC-DS q3, q7, q42, q44, q52, q67 and q96 read).
 
-date_dim, item, store and store_sales come from the same seeded generators
+date_dim, time_dim, item, store, store_sales, household_demographics,
+customer_demographics and promotion come from the same seeded generators
 as the reference's, so the tables are equal bit for bit; money columns are
-retyped to decimal(7,2) as in the official TPC-DS schema. The other 20
+retyped to decimal(7,2) as in the official TPC-DS schema. The other 16
 tables of the reference's schema are not carried yet.
 """
 
@@ -249,6 +251,77 @@ def gen_store_sales(sf: float, seed: int = 3) -> pa.Table:
     })
 
 
+def gen_time_dim() -> pa.Table:
+    sk = np.arange(0, 86400, 60)  # one row per minute
+    hours = sk // 3600
+    shift = np.select([hours < 12, hours < 17, hours < 21],
+                      ["morning", "afternoon", "evening"], "night")
+    return pa.table({
+        "t_time_sk": pa.array(sk, pa.int64()),
+        "t_time": pa.array(sk.astype(np.int32), pa.int32()),
+        "t_hour": pa.array(hours.astype(np.int32), pa.int32()),
+        "t_minute": pa.array((sk % 3600 // 60).astype(np.int32), pa.int32()),
+        "t_meal_time": pa.array(
+            np.select([(hours >= 6) & (hours <= 8),
+                       (hours >= 11) & (hours <= 13),
+                       (hours >= 17) & (hours <= 19)],
+                      ["breakfast", "lunch", "dinner"], None), pa.string()),
+        "t_shift": pa.array(shift, pa.string()),
+    })
+
+
+def gen_household_demographics(seed: int = 11) -> pa.Table:
+    n = 7200
+    rng = np.random.default_rng(seed)
+    pot = np.array([">10000", "5001-10000", "1001-5000", "501-1000",
+                    "0-500", "Unknown"])
+    return pa.table({
+        "hd_demo_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "hd_income_band_sk": pa.array(rng.integers(1, 21, n), pa.int64()),
+        "hd_buy_potential": pa.array(pot[rng.integers(0, len(pot), n)],
+                                     pa.string()),
+        "hd_dep_count": pa.array(rng.integers(0, 10, n).astype(np.int32),
+                                 pa.int32()),
+        "hd_vehicle_count": pa.array(rng.integers(-1, 5, n).astype(np.int32),
+                                     pa.int32()),
+    })
+
+
+def gen_promotion(seed: int = 13) -> pa.Table:
+    n = 300
+    rng = np.random.default_rng(seed)
+    yn = np.array(["Y", "N"])
+    return pa.table({
+        "p_promo_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "p_promo_id": pa.array([f"P{j:08d}" for j in range(1, n + 1)],
+                               pa.string()),
+        "p_channel_email": pa.array(yn[rng.integers(0, 2, n)], pa.string()),
+        "p_channel_event": pa.array(yn[rng.integers(0, 2, n)], pa.string()),
+        "p_channel_dmail": pa.array(yn[rng.integers(0, 2, n)], pa.string()),
+        "p_channel_tv": pa.array(yn[rng.integers(0, 2, n)], pa.string()),
+    })
+
+
+def gen_customer_demographics() -> pa.Table:
+    """Copy of spark_rapids_tpu/bench/tpcds.py's generator (seed 12)."""
+    n = 19_200
+    rng = np.random.default_rng(12)
+    genders = np.array(["M", "F"])
+    marital = np.array(["S", "M", "D", "W", "U"])
+    edu = np.array(["Primary", "Secondary", "College", "2 yr Degree",
+                    "4 yr Degree", "Advanced Degree", "Unknown"])
+    return pa.table({
+        "cd_demo_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "cd_gender": pa.array(genders[rng.integers(0, 2, n)], pa.string()),
+        "cd_marital_status": pa.array(marital[rng.integers(0, 5, n)],
+                                      pa.string()),
+        "cd_education_status": pa.array(edu[rng.integers(0, 7, n)],
+                                        pa.string()),
+        "cd_dep_count": pa.array(rng.integers(0, 7, n).astype(np.int32),
+                                 pa.int32()),
+    })
+
+
 _MONEY_TOKENS = ("price", "cost", "amt", "tax", "paid", "profit", "fee",
                  "credit", "charge", "cash", "coupon", "commission")
 
@@ -269,14 +342,19 @@ def _decimalize(table: pa.Table) -> pa.Table:
 
 
 def tables_for(sf: float, seed: int = 0) -> Dict[str, pa.Table]:
-    """date_dim, item, store and store_sales at scale factor ``sf``, with
-    the reference's seeds (date_dim ``seed``, item ``seed + 1``, store
-    ``seed + 2``, store_sales ``seed + 3``) and money columns as
-    decimal(7,2)."""
+    """The port's eight TPC-DS tables at scale factor ``sf``, with the
+    seeds the reference's ``tables_for`` passes (date_dim ``seed``, item
+    ``seed + 1``, store ``seed + 2``, store_sales ``seed + 3``, promotion
+    ``seed + 13``; time_dim, customer_demographics and
+    household_demographics fixed) and money columns as decimal(7,2)."""
     out = {
         "date_dim": gen_date_dim(seed),
+        "time_dim": gen_time_dim(),
         "item": gen_item(sf, seed + 1),
         "store": gen_store(sf, seed + 2),
+        "customer_demographics": gen_customer_demographics(),
+        "household_demographics": gen_household_demographics(),
+        "promotion": gen_promotion(seed + 13),
         "store_sales": gen_store_sales(sf, seed + 3),
     }
     return {k: _decimalize(v) for k, v in out.items()}

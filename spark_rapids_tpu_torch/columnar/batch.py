@@ -192,6 +192,7 @@ def batch_from_arrow(table, device=None,
     for name in table.column_names:
         arr = table.column(name).combine_chunks()
         dt = T.from_arrow_type(arr.type)
+        T.check_device_type(dt)
         if isinstance(arr.type, pa.DictionaryType):
             dv = arr.dictionary.cast(pa.string())
             if dt == T.STRING and _dict_bytes_encodable(dv, len(arr)):

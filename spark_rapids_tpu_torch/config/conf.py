@@ -49,6 +49,21 @@ def conf(key: str, *, default, doc: str) -> ConfEntry:
     return entry
 
 
+SQL_ENABLED = conf(
+    "spark.rapids.gpu.sql.enabled", default=True,
+    doc="Enable plan rewrite onto GPU operators. When false all operators run "
+        "on the CPU fallback engine.")
+
+EXPLAIN = conf(
+    "spark.rapids.gpu.sql.explain", default="NONE",
+    doc="Explain why parts of a plan did or did not run on GPU: NONE, "
+        "NOT_ON_GPU, ALL. (reference: spark.rapids.sql.explain)")
+
+CPU_FALLBACK_ENABLED = conf(
+    "spark.rapids.gpu.sql.fallback.enabled", default=True,
+    doc="Allow per-operator CPU fallback. When false an unsupported operator "
+        "raises instead.")
+
 JOIN_MAX_OUTPUT_ROWS = conf(
     "spark.rapids.gpu.sql.join.maxCandidateRowsPerBatch", default=1 << 27,
     doc="Hard cap on candidate join pairs produced by one probe batch; a "
@@ -61,6 +76,9 @@ JOIN_CHUNK_TARGET_ROWS = conf(
         "batches.")
 
 
+EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
+
+
 class RapidsConf:
     """Immutable bag of settings; unknown keys are rejected."""
 
@@ -71,6 +89,10 @@ class RapidsConf:
             if entry is None:
                 raise KeyError(f"unknown conf key {k}")
             self._values[k] = entry.conv(v)
+        explain = self.get(EXPLAIN.key)
+        if explain not in EXPLAIN_MODES:
+            raise ValueError(f"{EXPLAIN.key} must be one of {EXPLAIN_MODES}, "
+                             f"not {explain!r}")
 
     def get(self, key: str):
         if key in self._values:

@@ -105,17 +105,9 @@ class HashAggregateExec(UnaryExec):
                 pre.append(func.children[0])
             self._specs.append(_lower_agg(func, name, idx))
         self._pre_bound = tuple(pre)
+        for f in self.output_schema:
+            T.check_device_type(f.dtype)
         self._register_metric("numAggBatches")
-
-    def _buffer_schema(self) -> T.Schema:
-        fields = []
-        for e in self._group_bound:
-            inner, name = _strip_alias(e)
-            fields.append(T.Field(name, inner.dtype, inner.nullable))
-        for s in self._specs:
-            for bi, bt in enumerate(s.buffer_types):
-                fields.append(T.Field(f"{s.name}#b{bi}", bt, True))
-        return T.Schema(fields)
 
     @property
     def output_schema(self) -> T.Schema:
@@ -240,9 +232,11 @@ class HashAggregateExec(UnaryExec):
             self.metrics["numAggBatches"].add(1)
         if not partials:
             if self._n_keys == 0:
-                dev = _device_of(self)
-                buf = empty_batch(self._buffer_schema().types(), dev)
-                yield self._final_project(self._merge_pass(buf))
+                # a global aggregate over no input is one row, as over an
+                # empty batch: counts 0, every other function null
+                empty = empty_batch(self.child.output_schema.types(),
+                                    self.plan_device())
+                yield self._final_project(self._first_pass(empty))
             return
         merged = (partials[0] if len(partials) == 1
                   else self._merge_pass(K.concat_device(partials)))
@@ -262,15 +256,3 @@ def decimal_avg_half_up(total: torch.Tensor, count: torch.Tensor,
     fr = frac - fq * den
     q = q1 * k + fq + (2 * fr >= den).long()
     return torch.where(total < 0, -q, q)
-
-
-def _device_of(node: DeviceExec) -> torch.device:
-    """The device of a plan's source batches (for empty results)."""
-    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
-
-    while not isinstance(node, BatchSourceExec):
-        node = node.children[0]
-    if node.device is None:
-        raise ValueError("the plan's source has no device: pass device= to "
-                         "BatchSourceExec")
-    return node.device

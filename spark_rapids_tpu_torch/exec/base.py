@@ -93,6 +93,10 @@ class DeviceExec:
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
 
+    def plan_device(self) -> torch.device:
+        """The device this plan's batches live on: its first source's."""
+        return self.children[0].plan_device()
+
     def _register_metric(self, name: str) -> Metric:
         m = Metric(name)
         self.metrics[name] = m
@@ -158,6 +162,12 @@ class BatchSourceExec(DeviceExec):
 
     def num_partitions(self) -> int:
         return len(self._parts)
+
+    def plan_device(self) -> torch.device:
+        if self.device is None:
+            raise ValueError("the plan's source has no device: pass device= "
+                             "to BatchSourceExec")
+        return self.device
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         yield from self._parts[partition]

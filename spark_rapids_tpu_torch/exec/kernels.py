@@ -32,7 +32,6 @@ import threading
 from functools import lru_cache
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -165,11 +164,41 @@ class SortSpec(NamedTuple):
     nulls_first: Optional[bool] = None
 
 
+def string_full_keys(col: DeviceColumn, words: int) -> List[torch.Tensor]:
+    """``words`` int64 keys of a plain string column, most significant
+    first: the first ``8 * words`` bytes of each row, big-endian, zero past
+    the row's end, with the top bit flipped so that torch's signed order
+    of a word is the unsigned order of its bytes. Ties past a row's end
+    (``"ab"`` and ``"ab\\0"``) are broken by the length key that
+    ``sortable_keys`` adds."""
+    n = col.num_rows
+    dev = col.device
+    nbytes = col.data.numel()
+    lens = col.lengths().long()
+    starts = col.offsets[:-1].long()
+    byte_pos = torch.arange(8, device=dev)
+    keys = []
+    for w in range(words):
+        rel = byte_pos + 8 * w
+        if nbytes == 0:
+            b = torch.zeros(n, 8, dtype=torch.uint8, device=dev)
+        else:
+            pos = torch.clamp(starts[:, None] + rel, max=nbytes - 1)
+            b = torch.where(rel < lens[:, None], col.data[pos],
+                            torch.zeros((), dtype=torch.uint8, device=dev))
+        word = b.flip(1).contiguous().view(torch.int64).reshape(n)
+        keys.append(word ^ _INT64_MIN)
+    return keys
+
+
 def sortable_keys(col: DeviceColumn, ascending: bool = True,
                   nulls_first: Optional[bool] = None) -> List[torch.Tensor]:
     """Per-column sort keys, least significant first, each in torch's signed
     order. Spark defaults: nulls first ascending, last descending; NaN
-    greater than every other value."""
+    greater than every other value. A plain string sorts on the big-endian
+    words of its bytes, as many as its longest row needs (one host read),
+    and then its length, so a proper prefix sorts before its extensions
+    (``"a" < "ab" < "ab\\0"``)."""
     if nulls_first is None:
         nulls_first = ascending
     v = col.validity
@@ -183,8 +212,15 @@ def sortable_keys(col: DeviceColumn, ascending: bool = True,
             torch.iinfo(torch.int32).max
         return [torch.where(v, k, torch.full_like(k, null_v))]
     if col.offsets is not None:
-        raise NotImplementedError(
-            "ORDER BY on a plain (non-dictionary) string column")
+        longest = int(col.lengths().max()) if col.num_rows else 0
+        words = string_full_keys(col, (longest + 7) // 8)
+        data_keys = [col.lengths().long()] + words[::-1]
+        if not ascending:
+            data_keys = [~k for k in data_keys]
+        data_keys = [torch.where(v, k, torch.zeros_like(k))
+                     for k in data_keys]
+        null_key = v.int() if nulls_first else 1 - v.int()
+        return data_keys + [null_key]
     dt = col.dtype
     if dt == T.BOOLEAN:
         k = col.data.int()
@@ -254,15 +290,26 @@ _COMBINE_MULT = (31, 0x100000001B3)
 _NULL_HASH = 0xDEADBEEFCAFEBABE
 
 
-@lru_cache(maxsize=32)
-def _pow_table_np(p: int, n: int) -> np.ndarray:
-    """powers[k] = p**k mod 2**64 (uint64), by doubling."""
-    vals = np.ones(1, np.uint64)
-    stride = p & _MASK64
-    while vals.shape[0] < n:
-        vals = np.concatenate([vals, vals * np.uint64(stride)])
-        stride = (stride * stride) & _MASK64
-    return vals[:n]
+# powers of each variant's string multiplier, one int64 tensor per
+# (variant, device), kept on its device and grown by doubling on it, so a
+# warm hash copies nothing from the host; it covers the longest row hashed
+# so far (rounded up to a power of two), not a column's total bytes
+_POW_TABLES: dict = {}
+_POW_LOCK = threading.Lock()
+
+
+def _pow_table(variant: int, n: int, device) -> torch.Tensor:
+    """powers[k] = p**k mod 2**64 (int64 bits) for k < n, on ``device``."""
+    key = (variant, torch.device(device))
+    with _POW_LOCK:
+        t = _POW_TABLES.get(key)
+        if t is None:
+            t = torch.ones(1, dtype=torch.int64, device=device)
+        while t.numel() < n:
+            step = pow(_STR_P[variant], t.numel(), 1 << 64)
+            t = torch.cat([t, t * _s64(step)])
+        _POW_TABLES[key] = t
+    return t[:n]
 
 
 def _string_hash(col: DeviceColumn, variant: int = 0) -> torch.Tensor:
@@ -278,8 +325,7 @@ def _string_hash(col: DeviceColumn, variant: int = 0) -> torch.Tensor:
         rows = torch.repeat_interleave(torch.arange(n, device=dev),
                                        lens.long(), output_size=nbytes)
         rel = torch.arange(nbytes, device=dev) - col.offsets[:-1].long()[rows]
-        powers = torch.from_numpy(
-            _pow_table_np(_STR_P[variant], nbytes).view(np.int64)).to(dev)
+        powers = _pow_table(variant, int(lens.max()), dev)
         contrib = (col.data.long() + 1) * powers[rel]
         h = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
             0, rows, contrib)

@@ -19,6 +19,8 @@ class ProjectExec(UnaryExec):
         self._bound = tuple(EV.bind_projection(self.exprs,
                                                child.output_schema))
         self._schema = EV.output_schema(self._bound)
+        for f in self._schema:
+            T.check_device_type(f.dtype)
 
     @property
     def output_schema(self) -> T.Schema:

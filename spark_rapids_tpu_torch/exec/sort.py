@@ -4,7 +4,9 @@ take_ordered_and_project).
 
 The partition's batches are concatenated on the device, one stable
 lexicographic argsort orders the rows (Spark null and NaN order), and one
-gather emits them, cut to ``limit`` rows when given.
+gather emits them, cut to ``limit`` rows when given. A plain-string key
+sorts on all the bytes of its longest row (one host read per such key),
+then its length, so ORDER BY on strings is exact at any length.
 """
 
 from __future__ import annotations

@@ -101,6 +101,7 @@ class WindowExec(UnaryExec):
                     raise NotImplementedError(
                         "window aggregate over a string column is not in "
                         "the port yet")
+            T.check_device_type(f.dtype)
             bound.append((f, frame, name))
         self._bound_wins = bound
 

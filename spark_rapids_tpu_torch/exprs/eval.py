@@ -3,8 +3,12 @@ spark_rapids_tpu/exprs/eval.py for the port's expression nodes).
 
 A value is ``ColVal(data, validity)`` for fixed-width results, or the
 string column itself (dictionary or plain) for string references; string
-equality against a literal compares the dictionary's entries once and
-gathers the answer by code.
+equality against a literal, and ``IN`` over string literals, compare the
+dictionary's entries once and gather the answer by code.
+
+And, Or and Not follow Spark's three-valued logic; ``x IN (items)`` is the
+OR of ``x = item`` under the same logic (null when x is null, or when
+nothing matches and some item is null).
 
 Decimals are int64 unscaled values. Add/Subtract rescale both operands to
 the result scale, Multiply multiplies the unscaled values (the result scale
@@ -221,6 +225,34 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
     raise NotImplementedError(f"cast {src} -> {dst} is not in the port yet")
 
 
+def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:
+    value = expr.value
+    if value.dtype == T.STRING:
+        if not all(isinstance(i, E.Literal) for i in expr.items):
+            raise NotImplementedError("string IN over non-literal items")
+        c = eval_expr(value, ctx)
+        target = c.dictionary if c.is_dict else c
+        hit = torch.zeros(target.num_rows, dtype=torch.bool,
+                          device=c.device)
+        for item in expr.items:
+            if item.value is not None:
+                hit = hit | _string_equals_literal(target, item.value)
+        if c.is_dict:
+            hit = hit[c.data.long()]
+        hit = hit & c.validity
+        if any(i.value is None for i in expr.items):
+            return ColVal(hit, hit)
+        return ColVal(hit, c.validity)
+    v = eval_expr(value, ctx)
+    hit = torch.zeros_like(v.validity)
+    all_valid = v.validity
+    for item in expr.items:
+        eq = _eval_compare(E.EqualTo(value, item), ctx)
+        hit = hit | (eq.data & eq.validity)
+        all_valid = all_valid & eq.validity
+    return ColVal(hit, hit | all_valid)
+
+
 def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
     if isinstance(expr, E.Alias):
         return eval_expr(expr.child, ctx)
@@ -244,6 +276,22 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         valid = ((l.validity & r.validity) | (l.validity & ~l.data)
                  | (r.validity & ~r.data))
         return ColVal(l.data & r.data & l.validity & r.validity, valid)
+    if isinstance(expr, E.Or):
+        l = eval_expr(expr.left, ctx)
+        r = eval_expr(expr.right, ctx)
+        # valid when both are, or either is a valid True
+        valid = ((l.validity & r.validity) | (l.validity & l.data)
+                 | (r.validity & r.data))
+        return ColVal((l.data & l.validity) | (r.data & r.validity), valid)
+    if isinstance(expr, E.Not):
+        c = eval_expr(expr.child, ctx)
+        return ColVal(~c.data & c.validity, c.validity)
+    if isinstance(expr, (E.IsNull, E.IsNotNull)):
+        valid = eval_expr(expr.child, ctx).validity
+        return ColVal(~valid if isinstance(expr, E.IsNull) else valid,
+                      torch.ones_like(valid))
+    if isinstance(expr, E.In):
+        return _eval_in(expr, ctx)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the port yet")
 

@@ -1,20 +1,28 @@
 """Expression trees with Spark typing rules (host-only; counterpart of
-spark_rapids_tpu/exprs/expr.py for the nodes TPC-H Q1/Q3/Q5/Q6 and TPC-DS
-q44/q67 build): column references, literals (DATE and DECIMAL included),
+spark_rapids_tpu/exprs/expr.py for the nodes the port's TPC-H and TPC-DS
+queries build): column references, literals (DATE and DECIMAL included),
 Alias, Cast, Add/Subtract/Multiply, the comparisons LessThan,
-LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, and the
-aggregates Sum, Average, Count, Min and Max.
+LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
+IsNull, IsNotNull and In, and the aggregates Sum, Average, Count, Min and
+Max.
 
 Decimal typing follows Spark's DecimalPrecision rules: an integral operand
 of a decimal operation is an implicit decimal(d, 0), a float operand turns
 the whole operation into double, Add/Subtract give
 decimal(max(p1-s1, p2-s2) + max(s1, s2) + 1, max(s1, s2)), Multiply gives
 decimal(p1 + p2 + 1, s1 + s2), Sum gives decimal(p + 10, s) and Average
-decimal(p + 4, s + 4). A result wider than 18 digits needs DECIMAL128 and
-raises NotImplementedError.
+decimal(p + 4, s + 4), each capped at 38 digits. A result wider than 18
+digits is DECIMAL128, which only the CPU engine evaluates.
 
 Null semantics: every expression evaluates to (data, validity); arithmetic
-and comparisons are null-intolerant, And follows three-valued logic.
+and comparisons are null-intolerant, And/Or/Not follow three-valued logic
+(``null OR true`` is true, ``null OR false`` null), IsNull/IsNotNull are
+never null, and ``x IN (...)`` is null when x is null, or when no item
+matches and some item is null.
+
+Each class the planner may place on the device declares ``type_support``
+(``spark_rapids_tpu_torch.support``); ``plan/overrides.check_expr`` holds
+every bound expression to it.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import decimal
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import types as T
 
@@ -56,6 +64,12 @@ class Expression:
 
     def __and__(self, other):
         return And(self, _lit(other))
+
+    def __or__(self, other):
+        return Or(self, _lit(other))
+
+    def __invert__(self):
+        return Not(self)
 
     def __lt__(self, other):
         return LessThan(self, _lit(other))
@@ -314,6 +328,57 @@ class And(_Binary):
         return T.BOOLEAN
 
 
+class Or(_Binary):
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class _Unary(Expression):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+
+class Not(_Unary):
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class IsNull(_Unary):
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return False
+
+
+class IsNotNull(_Unary):
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return False
+
+
+class In(Expression):
+    """value IN (items)."""
+
+    def __init__(self, value: Expression, items: Sequence[Expression]):
+        self.value = value
+        self.items = tuple(_lit(i) for i in items)
+        self.children = (value,) + self.items
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class Cast(Expression):
     """Non-ANSI cast. The port evaluates decimal -> double and the widening
@@ -415,8 +480,8 @@ class Average(AggregateExpression):
 
 SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              Subtract, Multiply, EqualTo, LessThan, LessThanOrEqual,
-             GreaterThan, GreaterThanOrEqual, And, Sum, Count, Average, Min,
-             Max)
+             GreaterThan, GreaterThanOrEqual, And, Or, Not, IsNull,
+             IsNotNull, In, Sum, Count, Average, Min, Max)
 
 
 def check_supported(expr: Expression) -> None:
@@ -443,5 +508,34 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Cast(kids[0], expr.to)
     if isinstance(expr, Count):
         return Count(kids[0] if kids else None)
+    if isinstance(expr, In):
+        return In(kids[0], kids[1:])
     check_supported(expr)
     return type(expr)(*kids)
+
+
+# type_support declarations of the device path (spark_rapids_tpu_torch.support)
+from spark_rapids_tpu_torch.support import (  # noqa: E402
+    DECIMAL64, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
+
+Expression.type_support = None
+for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
+    _cls.type_support = ts(DEVICE_SCALAR)
+# decimal -> double and widening integral casts only: check_expr refuses
+# the rest
+Cast.type_support = ts(NUMERIC, DECIMAL64)
+BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL64)
+# check_expr places string ordering comparisons and string equality of two
+# columns on the CPU engine
+BinaryComparison.type_support = ts(DEVICE_SCALAR, out="boolean")
+And.type_support = ts("boolean")
+Or.type_support = ts("boolean")
+Not.type_support = ts("boolean")
+IsNull.type_support = ts(DEVICE_SCALAR, out="boolean")
+IsNotNull.type_support = ts(DEVICE_SCALAR, out="boolean")
+In.type_support = ts(DEVICE_SCALAR, out="boolean")
+Sum.type_support = ts(NUMERIC, DECIMAL64)
+Average.type_support = ts(NUMERIC, DECIMAL64, out="fractional decimal64")
+Count.type_support = ts(DEVICE_SCALAR, out="integral")
+Min.type_support = ts(ORDERABLE)
+Max.type_support = ts(ORDERABLE)

@@ -1,0 +1,586 @@
+"""The CPU fallback engine (counterpart of spark_rapids_tpu/plan/cpu.py).
+
+Operators the planner tags off the device run here, on host Arrow tables,
+with numpy: a scan, Project, Filter, Sort (with an optional limit) and
+Limit in this module, the aggregate and the inner join in ``cpu_agg.py``.
+Values are ``(values, valid)`` numpy pairs with the device's null rules:
+null slots hold zero (an empty string for strings), and every expression
+follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
+greater than every other double, non-ANSI decimal overflow to null).
+Decimals are exact: int64 unscaled values where the precision allows
+(p <= 18), Python ints in object arrays for DECIMAL128, and averages round
+HALF_UP with integer arithmetic only.
+
+Transitions are explicit and one each way: a CPU operator reads a device
+child through ``batch_to_arrow`` (device to host), and a device operator
+reads a CPU child through its ``do_execute``, which uploads each host table
+to the plan's device, named by the planner, with the scan's dictionary
+rule (host to device). The engine is a planned placement only: no code
+moves work here after a device failure.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import (
+    _arrow_fixed_to_numpy, _decimal_array, batch_from_arrow, batch_to_arrow,
+    dictionary_encode_table)
+from spark_rapids_tpu_torch.exec.base import DeviceExec
+from spark_rapids_tpu_torch.exec.sort import SortOrder
+from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs.eval import (
+    bind_projection, decimal_unscaled, output_schema)
+
+Pair = Tuple[np.ndarray, np.ndarray]
+
+# expressions the CPU engine evaluates: the port's whole expression set
+CPU_EXPRS = E.SUPPORTED
+
+_MASK64 = (1 << 64) - 1
+
+
+# ---------------------------------------------------------------------------
+# host values
+# ---------------------------------------------------------------------------
+
+
+def _wide_decimals(arr: pa.Array) -> np.ndarray:
+    """Python-int unscaled values of a decimal128 array (nulls read 0)."""
+    limbs = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                          count=2 * len(arr), offset=arr.offset * 16)
+    lo = limbs[0::2].view(np.uint64).tolist()
+    hi = limbs[1::2].tolist()
+    out = np.empty(len(arr), dtype=object)
+    out[:] = [(h << 64) | l for h, l in zip(hi, lo)]
+    return out
+
+
+def column_values(arr, dt: T.DataType) -> Pair:
+    """(values, valid) of one Arrow column; null slots hold zero or ''."""
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    if pa.types.is_dictionary(arr.type):
+        arr = arr.cast(arr.type.value_type)
+    valid = (np.ones(len(arr), np.bool_) if arr.null_count == 0
+             else np.asarray(arr.is_valid(), dtype=np.bool_))
+    if dt == T.STRING:
+        vals = np.asarray(arr.fill_null("").to_numpy(zero_copy_only=False),
+                          dtype=object)
+        return vals, valid
+    if T.is_wide_decimal(dt):
+        vals = _wide_decimals(arr)
+        vals[~valid] = 0
+        return vals, valid
+    vals, _ = _arrow_fixed_to_numpy(arr, dt)
+    return vals, valid
+
+
+def values_to_arrow(vals: np.ndarray, valid: np.ndarray,
+                    dt: T.DataType) -> pa.Array:
+    """(values, valid) -> an Arrow array of ``dt``."""
+    valid = np.asarray(valid, dtype=np.bool_)
+    mask = None if valid.all() else ~valid
+    if dt == T.STRING:
+        return pa.array(vals, pa.string(), mask=mask)
+    if isinstance(dt, T.DecimalType):
+        if not dt.is_wide:
+            return _decimal_array(np.asarray(vals, np.int64), dt, valid)
+        ints = [int(v) if ok else 0 for v, ok in zip(vals, valid)]
+        limbs = np.empty((len(ints), 2), np.int64)
+        limbs[:, 0] = np.array([v & _MASK64 for v in ints],
+                               np.uint64).view(np.int64)
+        limbs[:, 1] = np.array([v >> 64 for v in ints], np.int64)
+        vbuf = (None if mask is None else pa.py_buffer(
+            np.packbits(valid, bitorder="little").tobytes()))
+        return pa.Array.from_buffers(dt.arrow_type(), len(ints),
+                                     [vbuf, pa.py_buffer(limbs.tobytes())])
+    if dt == T.DATE:
+        return pa.array(np.asarray(vals, np.int32), pa.int32(),
+                        mask=mask).cast(pa.date32())
+    return pa.array(np.asarray(vals).astype(_np_dtype(dt)), dt.arrow_type(),
+                    mask=mask)
+
+
+def _np_dtype(dt: T.DataType) -> np.dtype:
+    """numpy dtype of a fixed-width type's values."""
+    return torch.empty(0, dtype=dt.torch_dtype).numpy().dtype
+
+
+def _is_float(dt: T.DataType) -> bool:
+    return dt in T.FRACTIONAL_TYPES
+
+
+def _scale(dt: T.DataType) -> int:
+    return dt.scale if isinstance(dt, T.DecimalType) else 0
+
+
+def _rescale(vals: np.ndarray, k: int) -> np.ndarray:
+    """Unscaled values times 10**k, exact: int64 where every result fits,
+    else Python ints."""
+    if k == 0:
+        return vals
+    if vals.dtype != object:
+        big = (max(abs(int(vals.max())), abs(int(vals.min())))
+               if len(vals) else 0)
+        if big * 10 ** k < (1 << 62):
+            return vals.astype(np.int64) * np.int64(10 ** k)
+    out = np.empty(len(vals), dtype=object)
+    out[:] = [int(v) * 10 ** k for v in vals]
+    return out
+
+
+def _half_up_div(num: int, den: int) -> int:
+    """Exact ROUND_HALF_UP (away from zero) division; den > 0."""
+    q, r = divmod(abs(num), den)
+    if 2 * r >= den:
+        q += 1
+    return q if num >= 0 else -q
+
+
+def _decimal_overflow(vals: np.ndarray, valid: np.ndarray,
+                      dt: T.DecimalType) -> Pair:
+    """Spark's non-ANSI decimal overflow: a value of 10**precision or more
+    in magnitude is null."""
+    if not dt.is_wide:
+        return vals.astype(np.int64), valid
+    bound = 10 ** dt.precision
+    ok = np.array([abs(int(v)) < bound for v in vals], np.bool_)
+    out = vals.copy()
+    out[~ok] = 0
+    return out, valid & ok
+
+
+def _as_double(vals: np.ndarray, dt: T.DataType) -> np.ndarray:
+    """Values as doubles; a decimal is unscaled / 10**scale, as the
+    device's cast."""
+    d = vals.astype(np.float64)
+    return d / (10.0 ** dt.scale) if isinstance(dt, T.DecimalType) else d
+
+
+def _canonical_float(vals: np.ndarray) -> np.ndarray:
+    """-0.0 as 0.0 (Spark's equality and order of doubles)."""
+    return np.where(vals == 0.0, 0.0, vals)
+
+
+def _nan_lt(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Spark order of doubles: NaN is greater than everything."""
+    an, bn = np.isnan(a), np.isnan(b)
+    with np.errstate(invalid="ignore"):
+        return np.where(an, False, np.where(bn, True, a < b))
+
+
+def comparable(a: np.ndarray, lt: T.DataType, b: np.ndarray,
+               rt: T.DataType) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """Both operands of a comparison in one exact representation, and
+    whether it is floating point: doubles win (decimals cast to double),
+    decimals and integers meet at the finer scale."""
+    if _is_float(lt) or _is_float(rt):
+        return (_canonical_float(_as_double(a, lt)),
+                _canonical_float(_as_double(b, rt)), True)
+    if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+        s = max(_scale(lt), _scale(rt))
+        return _rescale(a, s - _scale(lt)), _rescale(b, s - _scale(rt)), False
+    return a, b, False
+
+
+def _compare(kind: type, a: np.ndarray, b: np.ndarray,
+             is_float: bool) -> np.ndarray:
+    """One comparison over aligned operands (strings: byte order, which is
+    the code-point order of Python strings)."""
+    if is_float:
+        lt = _nan_lt(a, b)
+        eq = (a == b) | (np.isnan(a) & np.isnan(b))
+    else:
+        lt = np.asarray(a < b, dtype=np.bool_)
+        eq = np.asarray(a == b, dtype=np.bool_)
+    if kind is E.EqualTo:
+        return eq
+    if kind is E.LessThan:
+        return lt
+    if kind is E.LessThanOrEqual:
+        return lt | eq
+    if kind is E.GreaterThan:
+        return ~lt & ~eq
+    if kind is E.GreaterThanOrEqual:
+        return ~lt
+    raise NotImplementedError(kind.__name__)
+
+
+def _literal(expr: E.Literal, n: int) -> Pair:
+    dt = expr.dtype
+    if expr.value is None:
+        if dt == T.STRING:
+            return np.full(n, "", dtype=object), np.zeros(n, np.bool_)
+        if T.is_wide_decimal(dt):
+            return np.zeros(n, dtype=object), np.zeros(n, np.bool_)
+        return np.zeros(n, _np_dtype(dt)), np.zeros(n, np.bool_)
+    ones = np.ones(n, np.bool_)
+    if dt == T.STRING:
+        return np.full(n, expr.value, dtype=object), ones
+    if isinstance(dt, T.DecimalType):
+        v = decimal_unscaled(expr.value, dt.scale)
+        if dt.is_wide:
+            return np.full(n, v, dtype=object), ones
+        return np.full(n, v, np.int64), ones
+    return np.full(n, expr.value, _np_dtype(dt)), ones
+
+
+def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
+    (av, am), (bv, bm) = a, b
+    valid = am & bm
+    lt, rt, out_t = expr.left.dtype, expr.right.dtype, expr.dtype
+    if isinstance(out_t, T.DecimalType):
+        if isinstance(expr, E.Multiply):
+            if out_t.is_wide:
+                out = np.empty(len(av), dtype=object)
+                out[:] = [int(x) * int(y) for x, y in zip(av, bv)]
+            else:
+                out = av.astype(np.int64) * bv.astype(np.int64)
+        else:
+            x = _rescale(av, out_t.scale - _scale(lt))
+            y = _rescale(bv, out_t.scale - _scale(rt))
+            if out_t.is_wide or x.dtype == object or y.dtype == object:
+                x, y = x.astype(object), y.astype(object)
+            out = x + y if isinstance(expr, E.Add) else x - y
+        out, valid = _decimal_overflow(out, valid, out_t)
+        return out, valid
+    np_t = _np_dtype(out_t)
+    x = (_as_double(av, lt) if isinstance(lt, T.DecimalType) else av)
+    y = (_as_double(bv, rt) if isinstance(rt, T.DecimalType) else bv)
+    x, y = np.asarray(x).astype(np_t), np.asarray(y).astype(np_t)
+    with np.errstate(over="ignore", invalid="ignore"):
+        if isinstance(expr, E.Add):
+            out = x + y
+        elif isinstance(expr, E.Subtract):
+            out = x - y
+        elif isinstance(expr, E.Multiply):
+            out = x * y
+        else:
+            raise NotImplementedError(type(expr).__name__)
+    return np.where(valid, out, np.zeros((), np_t)), valid
+
+
+def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """Casts the CPU engine evaluates."""
+    if src == dst:
+        return True
+    if src in T.INTEGRAL_TYPES or isinstance(src, T.DecimalType):
+        return dst in (T.INT, T.LONG, T.DOUBLE) or isinstance(
+            dst, T.DecimalType)
+    return False
+
+
+def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
+          dst: T.DataType) -> Pair:
+    if src == dst:
+        return vals, valid
+    if not cast_supported(src, dst):
+        raise NotImplementedError(f"cast {src} -> {dst} is not in the CPU "
+                                  f"engine yet")
+    if dst == T.DOUBLE:
+        return np.where(valid, _as_double(vals, src), 0.0), valid
+    if isinstance(dst, T.DecimalType):
+        k = dst.scale - _scale(src)
+        if k >= 0:
+            out = _rescale(vals, k)
+        else:
+            out = np.empty(len(vals), dtype=object)
+            out[:] = [_half_up_div(int(v), 10 ** -k) for v in vals]
+        if not dst.is_wide:
+            bound = 10 ** dst.precision
+            ok = np.array([abs(int(v)) < bound for v in out], np.bool_)
+            out = np.where(ok, out, 0).astype(np.int64)
+            return out, valid & ok
+        out = out.astype(object)
+        return _decimal_overflow(out, valid, dst)
+    np_t = _np_dtype(dst)
+    if isinstance(src, T.DecimalType):
+        # whole part, truncated toward zero (non-ANSI wraps past the type)
+        p = 10 ** src.scale
+        whole = [(abs(int(v)) // p) * (1 if v >= 0 else -1) for v in vals]
+        return (np.array([w & _MASK64 for w in whole], np.uint64)
+                .view(np.int64).astype(np_t), valid)
+    return vals.astype(np_t), valid
+
+
+def cpu_eval(expr: E.Expression, table: pa.Table) -> Pair:
+    """Evaluate a bound expression over a host table: (values, valid)."""
+    n = table.num_rows
+
+    def ev(e):
+        return cpu_eval(e, table)
+
+    if isinstance(expr, E.Alias):
+        return ev(expr.child)
+    if isinstance(expr, E.ColumnRef):
+        return column_values(table.column(expr.index), expr.dtype)
+    if isinstance(expr, E.Literal):
+        return _literal(expr, n)
+    if isinstance(expr, E.Cast):
+        v, m = ev(expr.child)
+        return _cast(v, m, expr.child.dtype, expr.to)
+    if isinstance(expr, E.BinaryArithmetic):
+        return _arith(expr, ev(expr.left), ev(expr.right))
+    if isinstance(expr, E.BinaryComparison):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        a, b, fl = comparable(a, expr.left.dtype, b, expr.right.dtype)
+        return _compare(type(expr), a, b, fl) & am & bm, am & bm
+    if isinstance(expr, E.And):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        valid = (am & bm) | (am & ~a) | (bm & ~b)
+        return a & b & am & bm, valid
+    if isinstance(expr, E.Or):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        valid = (am & bm) | (am & a) | (bm & b)
+        return (a & am) | (b & bm), valid
+    if isinstance(expr, E.Not):
+        a, m = ev(expr.child)
+        return ~a.astype(np.bool_) & m, m
+    if isinstance(expr, (E.IsNull, E.IsNotNull)):
+        _, m = ev(expr.child)
+        return (~m if isinstance(expr, E.IsNull) else m.copy()), \
+            np.ones(n, np.bool_)
+    if isinstance(expr, E.In):
+        v, vm = ev(expr.value)
+        hit = np.zeros(n, np.bool_)
+        all_valid = vm.copy()
+        for item in expr.items:
+            iv, im = ev(item)
+            a, b, fl = comparable(v, expr.value.dtype, iv, item.dtype)
+            hit |= _compare(E.EqualTo, a, b, fl) & vm & im
+            all_valid &= im
+        return hit, hit | all_valid
+    raise NotImplementedError(
+        f"expression {type(expr).__name__} is not in the CPU engine yet")
+
+
+def cpu_unsupported(expr: E.Expression, schema: T.Schema) -> List[str]:
+    """Why the CPU engine cannot evaluate ``expr`` (empty: it can)."""
+    out: List[str] = []
+
+    def walk(e: E.Expression):
+        if type(e) not in CPU_EXPRS:
+            out.append(f"expression {type(e).__name__} is not in the CPU "
+                       f"engine yet")
+            return
+        if isinstance(e, E.Cast):
+            src = E.resolve(e.child, schema).dtype
+            if not cast_supported(src, e.to):
+                out.append(f"cast {src} -> {e.to} is not in the CPU engine "
+                           f"yet")
+        for c in e.children:
+            walk(c)
+
+    walk(expr)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# operators
+# ---------------------------------------------------------------------------
+
+
+class CpuExec(DeviceExec):
+    """A CPU operator: ``execute_host`` yields host Arrow tables. Read as a
+    device operator (``execute``), it uploads each table to ``device``."""
+
+    def __init__(self, *children: DeviceExec, device):
+        super().__init__(*children)
+        self.device = torch.device(device)
+
+    def plan_device(self) -> torch.device:
+        return self.device
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        raise NotImplementedError
+
+    def child_tables(self, child: DeviceExec,
+                     partition: int = 0) -> Iterator[pa.Table]:
+        """A child's output on the host: a CPU child's tables as they are,
+        a device child's batches through the device-to-host transition."""
+        if isinstance(child, CpuExec):
+            yield from child.execute_host(partition)
+            return
+        schema = child.output_schema
+        for b in child.execute(partition):
+            yield batch_to_arrow(b, schema)
+
+    def all_child_rows(self, child: DeviceExec) -> pa.Table:
+        """Every row of a child as one host table."""
+        tables = list(self.child_tables(child))
+        if not tables:
+            return child.output_schema.to_arrow().empty_table()
+        return pa.concat_tables(tables).combine_chunks()
+
+    def do_execute(self, partition: int):
+        """The host-to-device transition: each table uploaded to the plan's
+        device, strings dictionary-encoded under the scan's rule."""
+        for t in self.execute_host(partition):
+            cache: dict = {}
+            yield batch_from_arrow(dictionary_encode_table(t), self.device,
+                                   dict_cache=cache)
+
+    def node_description(self) -> str:
+        return type(self).__name__
+
+
+class CpuInMemoryScanExec(CpuExec):
+    def __init__(self, table: pa.Table, device):
+        super().__init__(device=device)
+        self.table = table
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return T.Schema.from_arrow(self.table.schema)
+
+    def node_description(self) -> str:
+        return f"CpuInMemoryScan[{self.table.num_rows} rows]"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        # dictionary-typed strings arrive as the plain strings of the schema
+        target = self.output_schema.to_arrow()
+        yield (self.table if self.table.schema == target
+               else self.table.cast(target))
+
+
+class CpuProjectExec(CpuExec):
+    def __init__(self, exprs: Sequence[E.Expression], child: DeviceExec,
+                 device):
+        super().__init__(child, device=device)
+        self.exprs = list(exprs)
+        self._bound = bind_projection(self.exprs, child.output_schema)
+        self._schema = output_schema(self._bound)
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return f"CpuProject [{', '.join(map(repr, self.exprs))}]"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        for t in self.child_tables(self.children[0], partition):
+            arrays = []
+            for e, f in zip(self._bound, self._schema):
+                inner = e.child if isinstance(e, E.Alias) else e
+                if isinstance(inner, E.ColumnRef):
+                    arrays.append(t.column(inner.index))
+                else:
+                    arrays.append(values_to_arrow(*cpu_eval(e, t), f.dtype))
+            yield pa.Table.from_arrays(arrays, schema=self._schema.to_arrow())
+
+
+class CpuFilterExec(CpuExec):
+    def __init__(self, condition: E.Expression, child: DeviceExec, device):
+        super().__init__(child, device=device)
+        self.condition = condition
+        self._bound = E.resolve(condition, child.output_schema)
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    def node_description(self) -> str:
+        return f"CpuFilter [{self.condition!r}]"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        for t in self.child_tables(self.children[0], partition):
+            vals, valid = cpu_eval(self._bound, t)
+            yield t.filter(pa.array(vals.astype(np.bool_) & valid))
+
+
+def order_ranks(vals: np.ndarray, valid: np.ndarray,
+                dt: T.DataType) -> Tuple[np.ndarray, int]:
+    """Dense rank of each valid value in Spark order (strings by bytes,
+    NaN above every double, -0.0 equal to 0.0) and the number of distinct
+    valid values; null rows rank 0."""
+    v = vals[valid]
+    if _is_float(dt):
+        v = _canonical_float(v)
+    uniq, inv = np.unique(v, return_inverse=True)
+    ranks = np.zeros(len(vals), np.int64)
+    ranks[valid] = inv.reshape(-1)
+    return ranks, len(uniq)
+
+
+def sort_permutation(table: pa.Table, keys: Sequence[Tuple[E.Expression,
+                                                           bool,
+                                                           Optional[bool]]]
+                     ) -> np.ndarray:
+    """Stable ORDER BY permutation over bound (expr, ascending,
+    nulls_first) keys, Spark's default null order where None."""
+    perm = np.arange(table.num_rows)
+    for expr, ascending, nulls_first in reversed(list(keys)):
+        if nulls_first is None:
+            nulls_first = ascending
+        vals, valid = cpu_eval(expr, table)
+        ranks, n_distinct = order_ranks(vals, valid, expr.dtype)
+        if not ascending:
+            ranks = n_distinct - 1 - ranks
+        key = np.where(valid, ranks, -1 if nulls_first else n_distinct)
+        perm = perm[np.argsort(key[perm], kind="stable")]
+    return perm
+
+
+class CpuSortExec(CpuExec):
+    """Sort of all the child's rows on the host, cut to ``limit`` rows
+    when given."""
+
+    def __init__(self, orders: Sequence[SortOrder], child: DeviceExec,
+                 device, limit: Optional[int] = None):
+        super().__init__(child, device=device)
+        self.orders = list(orders)
+        self.limit = limit
+        schema = child.output_schema
+        self._keys = [(E.resolve(o.child, schema), o.ascending,
+                       o.nulls_first) for o in self.orders]
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    def node_description(self) -> str:
+        lim = f" limit={self.limit}" if self.limit is not None else ""
+        return f"CpuSort [{', '.join(map(repr, self.orders))}]{lim}"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        t = self.all_child_rows(self.children[0])
+        perm = sort_permutation(t, self._keys)
+        if self.limit is not None:
+            perm = perm[: self.limit]
+        yield t.take(pa.array(perm, pa.int64()))
+
+
+class CpuLimitExec(CpuExec):
+    """First ``n`` rows after ``offset`` rows."""
+
+    def __init__(self, n: int, child: DeviceExec, device, offset: int = 0):
+        super().__init__(child, device=device)
+        self.n = n
+        self.offset = offset
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self.children[0].output_schema
+
+    def node_description(self) -> str:
+        return f"CpuLimit {self.n} offset={self.offset}"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        skip, remaining = self.offset, self.n
+        for t in self.child_tables(self.children[0], partition):
+            if remaining <= 0:
+                return
+            lo = min(skip, t.num_rows)
+            skip -= lo
+            take = min(t.num_rows - lo, remaining)
+            if take > 0:
+                remaining -= take
+                yield t.slice(lo, take)
+

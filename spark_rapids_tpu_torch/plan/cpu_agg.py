@@ -1,0 +1,282 @@
+"""The CPU engine's aggregate and inner join (counterpart of
+spark_rapids_tpu/plan/cpu_agg.py), vectorised with numpy.
+
+``CpuAggregateExec`` is the hash aggregate in mode ``complete``: group keys
+are factorised (a null key is a group of its own; doubles group with -0.0
+as 0.0 and NaN as one value), groups come out in order of first
+appearance, and Sum, Count, Average, Min and Max reduce with Spark's
+result types: integer sums wrap as a long does, decimal sums are exact and
+null past their precision, decimal averages round HALF_UP at the result
+scale in integer arithmetic. A global aggregate over no rows is one row
+(counts 0, everything else null).
+
+``CpuJoinExec`` is the inner equi-join: both sides' keys are factorised
+together, null keys never match, and the pairs come out in left-row order,
+each left row's matches in right-row order.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Sequence, Tuple
+
+import numpy as np
+import pyarrow as pa
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
+from spark_rapids_tpu_torch.exec.base import DeviceExec
+from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.plan.cpu import (
+    CpuExec, _canonical_float, _half_up_div, comparable, cpu_eval,
+    order_ranks, values_to_arrow)
+
+
+def _factorize(vals: np.ndarray, valid: np.ndarray,
+               dt: T.DataType) -> Tuple[np.ndarray, int]:
+    """Codes 0..k-1 of the valid values and k for null; returns (codes,
+    k + 1)."""
+    ranks, k = order_ranks(vals, valid, dt)
+    return np.where(valid, ranks, k), k + 1
+
+
+def _combine(codes: Sequence[np.ndarray], n: int) -> np.ndarray:
+    """One dense id per distinct tuple of per-key codes."""
+    gid = np.zeros(n, np.int64)
+    for c in codes:
+        _, gid = np.unique(gid * (int(c.max()) + 1 if len(c) else 1) + c,
+                           return_inverse=True)
+        gid = gid.reshape(-1).astype(np.int64)
+    return gid
+
+
+def _segments(gid: np.ndarray, keep: np.ndarray, ng: int):
+    """Rows with ``keep`` ordered by group: (order, starts, groups present,
+    rows per group)."""
+    rows = np.flatnonzero(keep)
+    order = rows[np.argsort(gid[rows], kind="stable")]
+    g = gid[order]
+    present, starts = np.unique(g, return_index=True)
+    counts = np.bincount(g, minlength=ng)
+    return order, starts, present, counts
+
+
+def _group_sum(vals: np.ndarray, valid: np.ndarray, gid: np.ndarray,
+               ng: int, wrap: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """(sum, any valid) per group. Doubles add in row order; integers in
+    int64 (wrapping as Spark's long does when ``wrap``), else exactly as
+    Python ints where int64 could overflow."""
+    order, starts, present, counts = _segments(gid, valid, ng)
+    has = counts > 0
+    if vals.dtype.kind == "f":
+        return np.bincount(gid[valid], weights=vals[valid],
+                           minlength=ng), has
+    v = vals[order]
+    safe = v.dtype != object and (
+        wrap or len(v) == 0
+        or max(abs(int(v.max())), abs(int(v.min()))) * len(v) < (1 << 62))
+    out = np.zeros(ng, np.int64 if safe else object)
+    if len(v):
+        if safe:
+            with np.errstate(over="ignore"):
+                out[present] = np.add.reduceat(v.astype(np.int64), starts)
+        else:
+            bounds = list(starts) + [len(v)]
+            out[present] = [sum(int(x) for x in v[a:b])
+                            for a, b in zip(bounds[:-1], bounds[1:])]
+    return out, has
+
+
+def _group_extreme(vals: np.ndarray, valid: np.ndarray, dt: T.DataType,
+                   gid: np.ndarray, ng: int, want_max: bool):
+    """(min or max, any valid) per group in Spark order."""
+    ranks, _ = order_ranks(vals, valid, dt)
+    rows = np.flatnonzero(valid)
+    order = rows[np.lexsort((ranks[rows], gid[rows]))]
+    g = gid[order]
+    present, first = np.unique(g, return_index=True)
+    pick = first
+    if want_max:
+        pick = np.append(first[1:], len(order)) - 1
+    out = np.zeros(ng, vals.dtype)
+    if vals.dtype == object and dt == T.STRING:
+        out[:] = ""
+    out[present] = vals[order[pick]]
+    has = np.zeros(ng, np.bool_)
+    has[present] = True
+    return out, has
+
+
+def _decimal_avg(total: np.ndarray, count: np.ndarray,
+                 shift_digits: int) -> np.ndarray:
+    """round_half_up(total * 10**shift_digits / count) per group (count 0
+    read as 1): exact integer arithmetic."""
+    den = np.maximum(count, 1)
+    if total.dtype != object:
+        # divide first, then scale only the remainder (no int64 overflow),
+        # as the device's decimal_avg_half_up
+        k = np.int64(10 ** shift_digits)
+        mag = np.abs(total)
+        q1 = mag // den
+        frac = (mag - q1 * den) * k
+        fq = frac // den
+        fr = frac - fq * den
+        q = q1 * k + fq + (2 * fr >= den)
+        return np.where(total < 0, -q, q)
+    out = np.empty(len(total), dtype=object)
+    out[:] = [_half_up_div(int(t) * 10 ** shift_digits, int(c))
+              for t, c in zip(total, den)]
+    return out
+
+
+class CpuAggregateExec(CpuExec):
+    def __init__(self, group_exprs: Sequence[E.Expression],
+                 agg_exprs: Sequence[E.Expression], child: DeviceExec,
+                 device):
+        super().__init__(child, device=device)
+        self.group_exprs = list(group_exprs)
+        self.agg_exprs = list(agg_exprs)
+        cs = child.output_schema
+        self._keys = [E.resolve(e, cs) for e in self.group_exprs]
+        self._aggs = []
+        for e in self.agg_exprs:
+            func, name = _strip_alias(e)
+            if not isinstance(func, (E.Sum, E.Count, E.Average, E.Min,
+                                     E.Max)):
+                raise NotImplementedError(
+                    f"aggregate {type(func).__name__} is not in the CPU "
+                    f"engine yet")
+            self._aggs.append((E.resolve(func, cs), name))
+        fields = []
+        for b in self._keys:
+            inner, name = _strip_alias(b)
+            fields.append(T.Field(name, inner.dtype, inner.nullable))
+        for func, name in self._aggs:
+            fields.append(T.Field(name, func.dtype, func.nullable))
+        self._schema = T.Schema(fields)
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return (f"CpuAggregate keys=[{', '.join(map(repr, self.group_exprs))}"
+                f"] aggs=[{', '.join(map(repr, self.agg_exprs))}]")
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        t = self.all_child_rows(self.children[0])
+        n = t.num_rows
+        key_vals = [cpu_eval(b, t) for b in self._keys]
+        if key_vals:
+            gid = _combine([_factorize(v, m, b.dtype)[0]
+                            for (v, m), b in zip(key_vals, self._keys)], n)
+            _, first = np.unique(gid, return_index=True)
+            # groups in order of first appearance
+            by_first = np.argsort(first, kind="stable")
+            rank = np.empty(len(first), np.int64)
+            rank[by_first] = np.arange(len(first))
+            gid = rank[gid]
+            first = first[by_first]
+        else:
+            gid = np.zeros(n, np.int64)
+            first = np.zeros(0, np.int64)
+        ng = len(first) if key_vals else 1
+        arrays: List[pa.Array] = []
+        for (v, m), f in zip(key_vals, self._schema):
+            arrays.append(values_to_arrow(v[first], m[first], f.dtype))
+        for (func, _name), f in zip(self._aggs,
+                                    list(self._schema)[len(key_vals):]):
+            arrays.append(self._reduce(func, f.dtype, t, gid, ng))
+        yield pa.Table.from_arrays(arrays, schema=self._schema.to_arrow())
+
+    @staticmethod
+    def _reduce(func, out_t: T.DataType, t: pa.Table, gid: np.ndarray,
+                ng: int) -> pa.Array:
+        n = t.num_rows
+        if isinstance(func, E.Count):
+            valid = (cpu_eval(func.children[0], t)[1] if func.children
+                     else np.ones(n, np.bool_))
+            return values_to_arrow(np.bincount(gid[valid], minlength=ng),
+                                   np.ones(ng, np.bool_), out_t)
+        in_t = func.children[0].dtype
+        vals, valid = cpu_eval(func.children[0], t)
+        if in_t in T.FRACTIONAL_TYPES:
+            vals = _canonical_float(vals)
+        if isinstance(func, (E.Min, E.Max)):
+            out, has = _group_extreme(vals, valid, in_t, gid, ng,
+                                      isinstance(func, E.Max))
+            return values_to_arrow(out, has, out_t)
+        total, has = _group_sum(vals, valid, gid, ng,
+                                wrap=in_t in T.INTEGRAL_TYPES)
+        if isinstance(func, E.Sum):
+            if isinstance(out_t, T.DecimalType):
+                bound = 10 ** out_t.precision
+                ok = np.array([abs(int(x)) < bound for x in total], np.bool_)
+                total = np.where(ok, total, 0)
+                return values_to_arrow(total, has & ok, out_t)
+            return values_to_arrow(total, has, out_t)
+        count = np.bincount(gid[valid], minlength=ng)
+        if isinstance(out_t, T.DecimalType):
+            avg = _decimal_avg(total, count, out_t.scale - in_t.scale)
+            return values_to_arrow(avg, has, out_t)
+        avg = total.astype(np.float64) / np.maximum(count, 1)
+        return values_to_arrow(np.where(has, avg, 0.0), has, out_t)
+
+
+class CpuJoinExec(CpuExec):
+    """Inner equi-join of two children on the host."""
+
+    def __init__(self, left_keys: Sequence[E.Expression],
+                 right_keys: Sequence[E.Expression], join_type: str,
+                 left: DeviceExec, right: DeviceExec, device):
+        if join_type != "inner":
+            raise NotImplementedError(
+                f"{join_type} join is not in the port yet")
+        super().__init__(left, right, device=device)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        ls, rs = left.output_schema, right.output_schema
+        self._lk = [E.resolve(k, ls) for k in self.left_keys]
+        self._rk = [E.resolve(k, rs) for k in self.right_keys]
+        self._schema = T.Schema(list(ls) + list(rs))
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return (f"CpuJoin {self.join_type} "
+                f"keys={list(zip(self.left_keys, self.right_keys))}")
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        lt = self.all_child_rows(self.children[0])
+        rt = self.all_child_rows(self.children[1])
+        nl, nr = lt.num_rows, rt.num_rows
+        lok, rok = np.ones(nl, np.bool_), np.ones(nr, np.bool_)
+        codes = []
+        for lb, rb in zip(self._lk, self._rk):
+            lv, lm = cpu_eval(lb, lt)
+            rv, rm = cpu_eval(rb, rt)
+            a, b, is_float = comparable(lv, lb.dtype, rv, rb.dtype)
+            code, _ = _factorize(np.concatenate([a, b]),
+                                 np.concatenate([lm, rm]),
+                                 T.DOUBLE if is_float else lb.dtype)
+            codes.append(code)
+            lok &= lm
+            rok &= rm
+        key = _combine(codes, nl + nr)
+        lkey, rkey = key[:nl], key[nl:]
+        rrows = np.flatnonzero(rok)
+        rrows = rrows[np.argsort(rkey[rrows], kind="stable")]
+        rsorted = rkey[rrows]
+        lrows = np.flatnonzero(lok)
+        lo = np.searchsorted(rsorted, lkey[lrows], "left")
+        cnt = np.searchsorted(rsorted, lkey[lrows], "right") - lo
+        total = int(cnt.sum())
+        li = np.repeat(lrows, cnt)
+        offs = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        ri = rrows[np.arange(total) - offs + np.repeat(lo, cnt)]
+        left = lt.take(pa.array(li, pa.int64()))
+        right = rt.take(pa.array(ri, pa.int64()))
+        yield pa.Table.from_arrays(list(left.columns) + list(right.columns),
+                                   schema=self._schema.to_arrow())

@@ -83,13 +83,23 @@ class DataFrame:
 
         return Overrides(self.conf).apply(self.plan)
 
-    def explain(self) -> str:
-        return self.physical_plan().explain()
+    def explain(self, mode: str = "ALL") -> str:
+        """The planner's tag tree: ``*`` for a node on the device, ``!`` for
+        a node on the CPU engine with the reasons (``mode`` NOT_ON_GPU lists
+        only those)."""
+        from spark_rapids_tpu_torch.plan.overrides import Overrides, explain
+
+        return explain(Overrides(self.conf).wrap_and_tag(self.plan), mode)
 
     def to_arrow(self) -> pa.Table:
+        from spark_rapids_tpu_torch.plan.cpu import CpuExec
+
         node = self.physical_plan()
         schema = node.output_schema
-        tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
+        if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
+            tables = list(node.execute_host())
+        else:
+            tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
         if not tables:
             return schema.to_arrow().empty_table()
         return pa.concat_tables(tables)

@@ -15,6 +15,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import window as W
 
 
 class LogicalPlan:
@@ -125,6 +126,8 @@ class Window(LogicalPlan):
             if isinstance(f, E.AggregateExpression) and f.children:
                 b = type(f)(E.resolve(f.children[0], cs))
                 dt, nullable = b.dtype, b.nullable
+            elif isinstance(f, W.Lead):  # and Lag: the value's type
+                dt, nullable = E.resolve(f.child, cs).dtype, True
             else:
                 dt, nullable = f.dtype, f.nullable
             fields.append(T.Field(name, dt, nullable))

@@ -1,17 +1,32 @@
-"""Logical -> physical conversion (the converter part of
-spark_rapids_tpu/plan/overrides.py).
+"""Plan rewrite: tag -> convert -> explain, with per-operator CPU fallback
+(counterpart of spark_rapids_tpu/plan/overrides.py for one partition).
 
-Every plan becomes a single-partition physical tree with no exchange. A
-node or expression outside the port raises NotImplementedError naming it;
-there is no CPU fallback engine yet.
+  LogicalPlan -> PlanMeta tree --tag--> device-or-CPU decision per node
+             --convert--> device operators and CpuExec nodes (the
+             transitions live in CpuExec) --> explain string
+
+Tagging holds every bound expression to the device's declarations
+(``check_expr``: the expression set, each class's ``type_support``,
+DECIMAL128, and the device's own refusals such as string ordering
+comparisons). A node with reasons runs on the CPU engine when
+``spark.rapids.gpu.sql.fallback.enabled`` is true (the default) and raises
+NotImplementedError naming them when it is false; with
+``spark.rapids.gpu.sql.enabled`` false every node runs on the CPU engine.
+Placement is decided here, at plan time, and nowhere else. A node that
+neither side can run (a window the device refuses, a join other than
+inner, an expression outside the port) raises NotImplementedError with the
+reasons. Every plan is a single partition with no exchange.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import weakref
 from typing import List, Optional
 
+from spark_rapids_tpu_torch import support
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     batch_from_arrow, dictionary_encode_table)
 from spark_rapids_tpu_torch.config import conf as C
@@ -20,10 +35,13 @@ from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
 from spark_rapids_tpu_torch.exec.join import HashJoinExec
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
-from spark_rapids_tpu_torch.exec.window import WindowExec
+from spark_rapids_tpu_torch.exec.window import (
+    WindowExec, _check_window_supported)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
+from spark_rapids_tpu_torch.plan import cpu as CPU
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.cpu_agg import CpuAggregateExec, CpuJoinExec
 
 
 # uploaded batches per (arrow table, batch_rows, device), so plans over one
@@ -53,57 +71,270 @@ def source_batches(node: L.InMemoryScan):
     return batches
 
 
-def _check_exprs(exprs) -> None:
-    for e in exprs:
-        E.check_supported(e)
+# ---------------------------------------------------------------------------
+# device support
+# ---------------------------------------------------------------------------
+
+_ORDERING = (E.LessThan, E.LessThanOrEqual, E.GreaterThan,
+             E.GreaterThanOrEqual)
+
+
+def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
+    """Casts ``exprs/eval.py`` evaluates on the device."""
+    return (src == dst
+            or (isinstance(src, T.DecimalType) and dst == T.DOUBLE)
+            or (src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE)))
+
+
+def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
+    """Reasons this expression cannot run on the device (empty: it can)."""
+    reasons: List[str] = []
+
+    def walk(e: E.Expression):
+        if type(e) not in E.SUPPORTED:
+            reasons.append(f"expression {type(e).__name__} not on device")
+            return
+        bound = E.resolve(e, schema)
+        name = type(bound).__name__
+        decl = type(bound).type_support
+        if not isinstance(bound, E.Alias):
+            # no declaration lists decimal128: the device refuses it here
+            bad_in = [c.dtype for c in bound.children
+                      if not decl.ok(c.dtype)]
+            if bad_in:
+                reasons.append(f"{name} does not support "
+                               f"{support.classify(bad_in[0])} inputs")
+            if not decl.ok(bound.dtype, output=True):
+                reasons.append(f"{name} does not support "
+                               f"{support.classify(bound.dtype)} outputs")
+        if isinstance(bound, E.Cast) and not _device_cast(
+                bound.child.dtype, bound.to):
+            reasons.append(f"cast {bound.child.dtype} -> {bound.to} not "
+                           f"on device")
+        if isinstance(bound, E.BinaryComparison) and T.STRING in (
+                bound.left.dtype, bound.right.dtype):
+            if isinstance(bound, _ORDERING):
+                reasons.append("string ordering comparison not on device")
+            elif not (isinstance(bound.left, E.Literal)
+                      or isinstance(bound.right, E.Literal)):
+                reasons.append("string equality of two columns not on "
+                               "device")
+        if (isinstance(bound, E.In) and bound.value.dtype == T.STRING
+                and not all(isinstance(i, E.Literal) for i in bound.items)):
+            reasons.append("string IN over non-literal items not on device")
+        for c in e.children:
+            walk(c)
+
+    walk(expr)
+    return reasons
+
+
+def _node_exprs(node: L.LogicalPlan) -> List[E.Expression]:
+    """The expressions a Project, Filter, Aggregate or Sort evaluates over
+    its child's rows."""
+    if isinstance(node, L.Project):
+        return list(node.exprs)
+    if isinstance(node, L.Filter):
+        return [node.condition]
+    if isinstance(node, L.Aggregate):
+        return list(node.group_exprs) + list(node.agg_exprs)
+    if isinstance(node, L.Sort):
+        return [o.child for o in node.orders]
+    return []
+
+
+def _window_reasons(node: L.Window) -> List[str]:
+    """Why the device's WindowExec cannot run this node (it has no CPU
+    counterpart yet)."""
+    schema = node.child.schema
+    reasons: List[str] = []
+    for e in node.window_exprs:
+        inner = e.child if isinstance(e, E.Alias) else e
+        if not isinstance(inner, W.WindowExpression):
+            reasons.append(f"not a window expression: {e!r}")
+            continue
+        spec = inner.spec
+        fn = inner.function
+        for x in (list(spec.partition_by) + [o.child for o in spec.order_by]
+                  + ([fn] if isinstance(fn, E.AggregateExpression)
+                     else list(fn.children))):
+            reasons.extend(check_expr(x, schema))
+        try:
+            _check_window_supported(fn, spec.resolved_frame())
+        except NotImplementedError as ex:
+            reasons.append(str(ex))
+    return reasons
+
+
+# ---------------------------------------------------------------------------
+# meta tree
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlanMeta:
+    node: L.LogicalPlan
+    children: List["PlanMeta"]
+    reasons: List[str] = dataclasses.field(default_factory=list)
+
+    def will_not_work(self, reason: str) -> None:
+        if reason not in self.reasons:
+            self.reasons.append(reason)
+
+    @property
+    def can_run_on_device(self) -> bool:
+        return not self.reasons
+
+
+def explain(meta: PlanMeta, mode: str = "ALL") -> str:
+    """The tag tree (spark.rapids.sql.explain): ``*`` on the device, ``!``
+    on the CPU engine with its reasons; NOT_ON_GPU lists only the ``!``
+    nodes."""
+    lines: List[str] = []
+
+    def walk(m: PlanMeta, depth: int):
+        if mode == "ALL" or not m.can_run_on_device:
+            line = (f"{'  ' * depth}{'*' if m.can_run_on_device else '!'} "
+                    f"{m.node.describe()}")
+            if m.reasons:
+                line += "  cannot run on GPU because " + "; ".join(m.reasons)
+            lines.append(line)
+        for c in m.children:
+            walk(c, depth + 1)
+
+    walk(meta, 0)
+    return "\n".join(lines) if lines else "(entire plan runs on GPU)"
+
+
+# one planner at a time: apply sets the process-wide active conf
+_APPLY_LOCK = threading.RLock()
 
 
 class Overrides:
     def __init__(self, conf: Optional[C.RapidsConf] = None):
         self.conf = conf or C.RapidsConf()
 
-    def apply(self, plan: L.LogicalPlan) -> DeviceExec:
-        C.set_active(self.conf)
-        return self._convert(plan)
+    # -- tag ---------------------------------------------------------------
+    def wrap_and_tag(self, plan: L.LogicalPlan) -> PlanMeta:
+        meta = PlanMeta(plan, [self.wrap_and_tag(c) for c in plan.children])
+        if not C.SQL_ENABLED.get(self.conf):
+            meta.will_not_work(f"{C.SQL_ENABLED.key} is false")
+        else:
+            self._tag(meta)
+        return meta
 
-    def _convert(self, node: L.LogicalPlan) -> DeviceExec:
-        kids: List[DeviceExec] = [self._convert(c) for c in node.children]
+    def _tag(self, meta: PlanMeta) -> None:
+        node = meta.node
+        child_schema = node.children[0].schema if node.children else None
+        # no device batch holds a DECIMAL128 column, in or out (this also
+        # covers scans, joins and limits, which evaluate no expression)
+        for s in [node.schema] + [c.schema for c in node.children]:
+            for f in s:
+                if T.is_wide_decimal(f.dtype):
+                    meta.will_not_work(f"column {f.name} is {f.dtype.name}, "
+                                       f"which needs DECIMAL128")
+        for e in _node_exprs(node):
+            for r in check_expr(e, child_schema):
+                meta.will_not_work(r)
+        if isinstance(node, L.Sort):
+            for o in node.orders:
+                if not isinstance(o.child, (E.UnresolvedColumn,
+                                            E.ColumnRef)):
+                    meta.will_not_work(f"sort key {o.child!r} is not a "
+                                       f"column reference")
+        elif isinstance(node, L.Join):
+            if node.join_type != "inner":
+                meta.will_not_work(f"{node.join_type} join not on device")
+            for k, s in ([(k, node.left.schema) for k in node.left_keys]
+                         + [(k, node.right.schema)
+                            for k in node.right_keys]):
+                for r in check_expr(k, s):
+                    meta.will_not_work(r)
+                if not isinstance(k, (E.UnresolvedColumn, E.ColumnRef)):
+                    meta.will_not_work(f"join key {k!r} is not a column "
+                                       f"reference")
+        elif isinstance(node, L.Window):
+            for r in _window_reasons(node):
+                meta.will_not_work(r)
+
+    # -- convert -----------------------------------------------------------
+    def apply(self, plan: L.LogicalPlan) -> DeviceExec:
+        with _APPLY_LOCK:
+            C.set_active(self.conf)
+            meta = self.wrap_and_tag(plan)
+            mode = C.EXPLAIN.get(self.conf)
+            if mode != "NONE":
+                print(explain(meta, mode))
+            return self._convert(meta)
+
+    def _cpu_reasons(self, node: L.LogicalPlan) -> List[str]:
+        """Why the CPU engine cannot run this node (empty: it can)."""
+        if isinstance(node, L.Window):
+            return ["the CPU engine has no window operator yet"]
+        if isinstance(node, L.Join) and node.join_type != "inner":
+            return [f"{node.join_type} join is not in the port yet"]
+        schema = node.children[0].schema if node.children else None
+        return [r for e in _node_exprs(node)
+                for r in CPU.cpu_unsupported(e, schema)]
+
+    def _convert(self, meta: PlanMeta) -> DeviceExec:
+        node = meta.node
+        on_dev = meta.can_run_on_device
+        if not on_dev:
+            if (C.SQL_ENABLED.get(self.conf)
+                    and not C.CPU_FALLBACK_ENABLED.get(self.conf)):
+                raise NotImplementedError(
+                    f"{node.describe()} cannot run on the GPU and "
+                    f"{C.CPU_FALLBACK_ENABLED.key} is false: "
+                    f"{'; '.join(meta.reasons)}")
+            cpu_reasons = self._cpu_reasons(node)
+            if cpu_reasons:
+                raise NotImplementedError(
+                    f"{node.describe()} runs neither on the GPU nor on the "
+                    f"CPU engine: {'; '.join(meta.reasons + cpu_reasons)}")
+        kids = [self._convert(c) for c in meta.children]
+        dev = self._device(node)
         if isinstance(node, L.InMemoryScan):
-            return BatchSourceExec([source_batches(node)], node.schema,
-                                   node.device)
+            if not on_dev:
+                return CPU.CpuInMemoryScanExec(node.table, dev)
+            return BatchSourceExec([source_batches(node)], node.schema, dev)
         if isinstance(node, L.Project):
-            _check_exprs(node.exprs)
-            return ProjectExec(node.exprs, kids[0])
+            return (ProjectExec(node.exprs, kids[0]) if on_dev
+                    else CPU.CpuProjectExec(node.exprs, kids[0], dev))
         if isinstance(node, L.Filter):
-            _check_exprs([node.condition])
-            return FilterExec(node.condition, kids[0])
+            return (FilterExec(node.condition, kids[0]) if on_dev
+                    else CPU.CpuFilterExec(node.condition, kids[0], dev))
         if isinstance(node, L.Aggregate):
-            _check_exprs(node.group_exprs + node.agg_exprs)
+            if not on_dev:
+                return CpuAggregateExec(node.group_exprs, node.agg_exprs,
+                                        kids[0], dev)
             return HashAggregateExec(node.group_exprs, node.agg_exprs,
                                      kids[0], mode="complete")
         if isinstance(node, L.Window):
-            # one partition, so no exchange; the window's functions and
-            # frames are checked by WindowExec itself
-            for e in node.window_exprs:
-                inner = e.child if isinstance(e, E.Alias) else e
-                if not isinstance(inner, W.WindowExpression):
-                    raise NotImplementedError(f"not a window expression: "
-                                              f"{e!r}")
-                spec = inner.spec
-                _check_exprs(list(spec.partition_by)
-                             + [o.child for o in spec.order_by]
-                             + list(inner.function.children))
             return WindowExec(node.window_exprs, kids[0])
         if isinstance(node, L.Sort):
-            _check_exprs([o.child for o in node.orders])
+            if not on_dev:
+                return CPU.CpuSortExec(node.orders, kids[0], dev,
+                                       limit=node.limit)
             return SortExec(node.orders, kids[0], limit=node.limit)
         if isinstance(node, L.Join):
-            _check_exprs(node.left_keys + node.right_keys)
+            if not on_dev:
+                return CpuJoinExec(node.left_keys, node.right_keys,
+                                   node.join_type, kids[0], kids[1], dev)
             return HashJoinExec(node.left_keys, node.right_keys,
                                 node.join_type, kids[0], kids[1],
                                 max_candidate_rows=C.JOIN_MAX_OUTPUT_ROWS.get(
                                     self.conf))
         if isinstance(node, L.Limit):
-            return LimitExec(node.n, kids[0], node.offset)
+            return (LimitExec(node.n, kids[0], node.offset) if on_dev
+                    else CPU.CpuLimitExec(node.n, kids[0], dev, node.offset))
         raise NotImplementedError(
             f"plan node {type(node).__name__} is not in the port yet")
+
+    @staticmethod
+    def _device(node: L.LogicalPlan) -> str:
+        """The device of a node's first scan: where its batches live, and
+        where a CPU node uploads its output for a device parent."""
+        while node.children:
+            node = node.children[0]
+        return node.device

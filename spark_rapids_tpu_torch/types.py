@@ -1,9 +1,11 @@
 """Spark SQL data types the port carries, mapped onto torch dtypes.
 
-Counterpart of ``spark_rapids_tpu/types.py`` for the types TPC-H Q1/Q3/Q5/Q6
-and TPC-DS q44/q67 use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days since
-the epoch), DECIMAL64 (``DecimalType`` of precision <= 18, an int64 unscaled
-value) and STRING (dictionary codes or int32 offsets + uint8 bytes).
+Counterpart of ``spark_rapids_tpu/types.py`` for the types the port's
+TPC-H and TPC-DS queries use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days
+since the epoch), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
+unscaled value) and STRING (dictionary codes or int32 offsets + uint8
+bytes). DECIMAL128 (precision 19-38) is a type of the plan and of the CPU
+engine only: no device column holds one (``check_device_type``).
 """
 
 from __future__ import annotations
@@ -83,9 +85,10 @@ class DateType(DataType):
 class DecimalType(DataType):
     """Decimal of ``precision`` digits, ``scale`` of them after the point.
 
-    Precision <= 18 (DECIMAL64) is stored as the int64 unscaled value
-    (value * 10**scale). Wider decimals (DECIMAL128) are not in the port
-    yet: building one raises."""
+    Precision <= 18 (DECIMAL64) is stored on the device as the int64
+    unscaled value (value * 10**scale). Wider decimals (DECIMAL128, up to
+    38 digits) type plans and run on the CPU engine; the device refuses
+    them (``check_device_type``)."""
 
     MAX_PRECISION = 38
     MAX_LONG_DIGITS = 18
@@ -95,10 +98,9 @@ class DecimalType(DataType):
         if not 0 <= scale <= precision:
             raise ValueError(f"decimal({precision},{scale}): scale must lie "
                              f"in [0, precision]")
-        if precision > self.MAX_LONG_DIGITS:
-            raise NotImplementedError(
-                f"decimal({precision},{scale}) needs DECIMAL128 (precision "
-                f"> {self.MAX_LONG_DIGITS}), which is not in the port yet")
+        if precision > self.MAX_PRECISION:
+            raise ValueError(f"decimal({precision},{scale}): precision "
+                             f"exceeds {self.MAX_PRECISION}")
         self.precision = precision
         self.scale = scale
 
@@ -117,6 +119,11 @@ class DecimalType(DataType):
     def __hash__(self) -> int:
         return hash((self.precision, self.scale))
 
+    @property
+    def is_wide(self) -> bool:
+        """DECIMAL128: more digits than one int64 holds."""
+        return self.precision > self.MAX_LONG_DIGITS
+
 
 class StringType(DataType):
     name = "string"
@@ -127,6 +134,19 @@ class StringType(DataType):
 
     def arrow_type(self):
         return pa.string()
+
+
+def is_wide_decimal(dt: DataType) -> bool:
+    return isinstance(dt, DecimalType) and dt.is_wide
+
+
+def check_device_type(dt: DataType) -> None:
+    """Raise NotImplementedError for a type no device column can hold."""
+    if is_wide_decimal(dt):
+        raise NotImplementedError(
+            f"{dt.name} needs DECIMAL128 (precision > "
+            f"{DecimalType.MAX_LONG_DIGITS}), which the port's device does "
+            f"not hold")
 
 
 BOOLEAN = BooleanType()

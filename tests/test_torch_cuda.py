@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA card (marker ``cuda``); they skip
 where there is none: the probe and segmented-scan kernels against their
 plain versions on the card (ragged row counts, tile edges, misaligned
-views and records, many tiles, the scan's scratch left zeroed), and TPC-H
-Q3 and TPC-DS q44/q67 on the card against the same queries on the CPU.
+views and records, many tiles, the scan's scratch left zeroed), TPC-H
+Q3 and TPC-DS q3/q7/q42/q44/q52/q67/q96 on the card against the same
+queries on the CPU (the headline queries also against the CPU engine),
+plain-string sort keys and the string hash's device-resident power table.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -303,3 +305,51 @@ def test_tpcds_window_query_on_card_matches_cpu(q):
     exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
     assert Q.check_rows(q, got, exp) == (True, "")
     assert Q.check_rows(q, got, Q.PANDAS[q](t)) == (True, "")
+
+
+@pytest.mark.parametrize("q", ["q3", "q7", "q42", "q52", "q96"])
+def test_tpcds_headline_query_on_card_matches_cpu(q):
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = S.tables_for(0.25, seed=3)
+    df = Q.QUERIES[q](Q.df_tables(t, batch_rows=1 << 22, device="cuda"))
+    assert "!" not in df.explain()
+    got = df.to_arrow().to_pylist()
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
+    assert Q.check_rows(q, got, exp) == (True, "")
+    assert Q.check_rows(q, got, Q.PANDAS[q](t)) == (True, "")
+    on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
+    assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")
+
+
+def test_plain_string_sort_keys_on_card_match_cpu():
+    _card()
+    rng = np.random.default_rng(23)
+    vals = ["".join(chr(c) for c in rng.integers(97, 100, rng.integers(0, 41)))
+            for _ in range(5000)] + ["ab", "ab\x00", "", "a"]
+    t = pa.table({"s": pa.array(vals, pa.string(),
+                                mask=rng.random(len(vals)) < 0.05)})
+    for asc in (True, False):
+        pc, pg = PB.batch_from_arrow(t, "cpu"), PB.batch_from_arrow(t, "cuda")
+        specs = [PK.SortSpec(0, asc)]
+        got = PK.sort_indices(pg, specs)
+        exp = PK.sort_indices(pc, specs)
+        assert torch.equal(got.cpu(), exp)
+
+
+def test_string_hash_power_table_stays_on_card():
+    _card()
+    t = pa.table({"s": pa.array([f"row{i}" * (i % 7) for i in range(3000)],
+                                pa.string())})
+    col = PB.batch_from_arrow(t, "cuda").columns[0]
+    got = PK._string_hash(col, 0)
+    table = PK._POW_TABLES[(0, col.device)]
+    assert table.device.type == "cuda"
+    PK._string_hash(col, 0)
+    assert PK._POW_TABLES[(0, col.device)] is table
+    exp = PK._string_hash(PB.batch_from_arrow(t, "cpu").columns[0], 0)
+    assert torch.equal(got.cpu(), exp)

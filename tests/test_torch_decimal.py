@@ -88,11 +88,21 @@ def test_arrow_round_trip(p, s):
 
 
 def test_decimal128_raises():
+    """DECIMAL128 (p > 18) types plans and the CPU engine only: the device
+    refuses it at upload and in its operators."""
     t = pa.table({"x": pa.array([D("1.00")], pa.decimal128(19, 2))})
     with pytest.raises(NotImplementedError, match="DECIMAL128"):
         PB.batch_from_arrow(t, "cpu")
+    wide = PE.Sum(PE.ColumnRef(0, PT.DecimalType(9, 2))).dtype
+    assert repr(wide) == repr(
+        JE.Sum(JE.ColumnRef(0, JT.DecimalType(9, 2))).dtype)
     with pytest.raises(NotImplementedError, match="DECIMAL128"):
-        PE.Sum(PE.ColumnRef(0, PT.DecimalType(9, 2))).dtype
+        PT.check_device_type(wide)
+    narrow = pa.table({"x": pa.array([D("1.00")], pa.decimal128(9, 2))})
+    src = PSource([[PB.batch_from_arrow(narrow, "cpu")]],
+                  PT.Schema.from_arrow(narrow.schema))
+    with pytest.raises(NotImplementedError, match="DECIMAL128"):
+        PAgg([], [PE.Sum(PE.col("x")).alias("s")], src)
 
 
 def _typed(M, T, name):

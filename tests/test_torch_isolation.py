@@ -98,3 +98,36 @@ def test_unported_nodes_raise_naming_them():
 
     with pytest.raises(NotImplementedError, match="Modulo"):
         df.filter(Modulo()).to_arrow()
+
+
+def test_the_fallback_engine_modules_are_covered():
+    mods = _modules()
+    for m in ("spark_rapids_tpu_torch.support",
+              "spark_rapids_tpu_torch.plan.cpu",
+              "spark_rapids_tpu_torch.plan.cpu_agg",
+              "spark_rapids_tpu_torch.plan.overrides"):
+        assert m in mods
+        assert os.path.exists(os.path.join(
+            ROOT, *m.split(".")) + ".py")
+
+
+def test_no_exception_handler_moves_work_elsewhere():
+    """Placement is a plan-time decision: no ``except`` clause in the port
+    builds a CPU operator or calls a kernel's plain version."""
+    plain = {"probe_hash_table", "segmented_scan"}
+    for d, _, fs in os.walk(PKG):
+        for f in fs:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if not isinstance(node, ast.ExceptHandler):
+                    continue
+                for sub in ast.walk(node):
+                    name = (sub.id if isinstance(sub, ast.Name) else
+                            sub.attr if isinstance(sub, ast.Attribute)
+                            else "")
+                    assert not name.startswith("Cpu"), (path, node.lineno)
+                    assert name not in plain, (path, node.lineno)

@@ -1,9 +1,14 @@
-"""TPC-DS q44 and q67 (window ranks over decimal(7,2) money columns) at
-SF 0.01 through the port's planner (spark_rapids_tpu_torch.plan.from_arrow
-on the CPU), held against the JAX package's planner on the same tables
-(one shuffle partition) and against the pandas reference: ``rows_match``
-(rel 1e-6 on doubles, exact keys, decimals and counts) and the ORDER BY
-columns in order. The port's generated tables equal the reference's."""
+"""TPC-DS at SF 0.01 through the port's planner
+(spark_rapids_tpu_torch.plan.from_arrow on the CPU): the headline queries
+q3/q7/q42/q52/q96 (inner-join stars, group-by, sort with a limit or a
+global count) and the window queries q44/q67 (ranks over decimal(7,2)
+money columns), each held against the JAX package's planner on the same
+tables (one shuffle partition) and against the pandas reference:
+``rows_match`` (rel 1e-6 on doubles, exact keys, decimals and counts) and
+the ORDER BY columns in order. The headline queries also run wholly on
+the CPU engine (``spark.rapids.gpu.sql.enabled=false``) with the same
+rows, and wholly on the device path by default. The port's generated
+tables equal the reference's."""
 
 import pytest
 
@@ -12,6 +17,7 @@ from spark_rapids_tpu.bench import tpcds_schema as JS
 from spark_rapids_tpu.plan import from_arrow as jax_from_arrow
 from spark_rapids_tpu_torch.bench import tpcds_queries as PQ
 from spark_rapids_tpu_torch.bench import tpcds_schema as PS
+from spark_rapids_tpu_torch.config.conf import RapidsConf
 
 SF = 0.01
 _CACHE = {}
@@ -40,7 +46,9 @@ def _jax_rows(q):
 def test_generated_tables_equal_the_reference(seed):
     ref = JS.tables_for(SF, seed=seed)
     got = PS.tables_for(SF, seed=seed)
-    assert sorted(got) == ["date_dim", "item", "store", "store_sales"]
+    assert sorted(got) == ["customer_demographics", "date_dim",
+                           "household_demographics", "item", "promotion",
+                           "store", "store_sales", "time_dim"]
     for name, t in got.items():
         assert t.equals(ref[name]), name
     assert str(got["store_sales"].schema.field("ss_net_profit").type) == \
@@ -59,3 +67,26 @@ def test_tpcds_window_query_matches_jax_and_pandas(q):
             if not isinstance(v, float):
                 assert v == re_[k]  # keys, ranks and names exactly
     assert PQ.check_rows(q, got, PQ.PANDAS[q](_tables())) == (True, "")
+
+
+@pytest.mark.parametrize("q", ["q3", "q7", "q42", "q52", "q96"])
+def test_tpcds_headline_query_matches_jax_and_pandas(q):
+    d = PQ.df_tables(_tables(), batch_rows=8192, device="cpu")
+    df = PQ.QUERIES[q](d)
+    assert "!" not in df.explain()  # every node on the device path
+    got = df.to_arrow().to_pylist()
+    exp = _jax_rows(q)
+    assert len(got) == len(exp) and len(got) >= 1
+    assert PQ.check_rows(q, got, exp) == (True, "")
+    for rg, re_ in zip(got, exp):
+        for k, v in rg.items():
+            if not isinstance(v, float):
+                assert v == re_[k]  # keys, decimals and counts exactly
+    assert PQ.check_rows(q, got, PQ.PANDAS[q](_tables())) == (True, "")
+    cpu = PQ.df_tables(_tables(), RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+    on_cpu = PQ.QUERIES[q](cpu)
+    assert all(ln.lstrip().startswith("!")
+               for ln in on_cpu.explain().splitlines())
+    assert PQ.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True,
+                                                                    "")
