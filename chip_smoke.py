@@ -55,12 +55,24 @@ Phases, in order; any failure exits non-zero before the last line:
    Then one mixed plan: a filter with a string ordering comparison, tagged
    for the CPU engine under device joins, an aggregate and a sort, held
    against pandas;
-7. each kernel against its plain version, as in phase 3, on the largest
+7. TPC-DS joins: q9/q28/q40/q43/q87/q88/q93/q97 at SF ``--sf-ds`` (the
+   same tables plus store_returns, reason, catalog_sales, catalog_returns,
+   web_sales, customer and warehouse from the reference's generators), in
+   one batch of 2^22 rows a table as ``bench.py``: left, full, semi and
+   anti joins, If/CaseWhen/Coalesce and COUNT(DISTINCT) (q28's, through
+   the planner's distinct rewrite). For each query, as in phase 6:
+   ``explain("ALL")`` must mark no node for the CPU engine; one run with
+   the launch counts zeroed before and read after, held against the
+   pandas reference and against the CPU engine; the warm wall (median of
+   3). The probe must launch in every query that joins (all but q9);
+8. each kernel against its plain version, as in phase 3, on the largest
    input the TPC-H and window paths gave it (for the segmented scan also
    against ``torch.cummax``, which computes the same function on the
    geometry scan's input and is timed as ``library_ms``), warm and with a
-   cold L2, and the probe also on the headline's largest probe. The
-   kernels line reports the first input's times and bound, and the
+   cold L2, and the probe also on the headline's largest probe and on the
+   joins path's (q93's 2,880,000 store_sales rows into the 288,000-row
+   store_returns table). The kernels line reports the first input's
+   times and bound, the joins path's under ``joins_largest``, and the
    launches of every main path.
 
 The last lines are the kernels JSON line, the card's name and power limit,
@@ -604,7 +616,8 @@ def tpcds_tables(sf: float, seed: int = 0):
     from spark_rapids_tpu_torch.bench import tpcds_schema as S
 
     t0 = time.perf_counter()
-    tables = S.tables_for(sf, seed=seed)
+    tables = S.tables_for(sf, seed=seed,
+                          names=S.BASE_TABLES + S.JOIN_TABLES)
     log(f"generated TPC-DS SF{sf}: store_sales "
         f"{tables['store_sales'].num_rows} rows, item "
         f"{tables['item'].num_rows} in {time.perf_counter() - t0:.1f}s")
@@ -757,6 +770,87 @@ def run_headline_path(tables) -> dict:
             "largest_probe": largest.get("args")}
 
 
+def run_joins_path(tables) -> dict:
+    """q9/q28/q40/q43/q87/q88/q93/q97 on the card in batches of 2^22 rows:
+    every plan wholly on the device, each result held against its pandas
+    reference and against the same query on the CPU engine, with the
+    launch counts zeroed before each query and read after it; then warm
+    wall times. Records q93's probe into its largest table (the left
+    join's store_sales rows into store_returns)."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    largest = {}
+    current = [None]
+    real_probe = K.probe_hash_table_kernel
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        if current[0] == "q93":
+            size = (capacity, h1.numel())
+            if size > largest.get("size", (-1, -1)):
+                largest.update(size=size, args=(tbl, h1, h2, capacity, seed))
+        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    results = {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    K.probe_hash_table_kernel = recording_probe
+    try:
+        for q in Q.JOINS:
+            current[0] = q
+            plan = Q.QUERIES[q](d).explain("ALL")
+            off = [ln.strip() for ln in plan.splitlines()
+                   if ln.lstrip().startswith("!")]
+            if off:
+                raise AssertionError(f"{q} has nodes on the CPU engine: "
+                                     f"{off}")
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            out = Q.QUERIES[q](d).to_arrow()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            got = out.to_pylist()
+            ok, why = Q.check_rows(q, got, Q.PANDAS[q](tables))
+            if not ok:
+                raise AssertionError(f"{q} differs from the pandas reference "
+                                     f"({why}):\n{got[:3]}")
+            if q != "q9" and launches["hashtbl_probe"] <= 0:
+                raise AssertionError(f"{q} launched no probe kernel")
+            current[0] = None
+            t1 = time.perf_counter()
+            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+            cpu_s = time.perf_counter() - t1
+            ok, why = Q.check_rows(q, on_cpu, got)
+            if not ok:
+                raise AssertionError(f"{q} on the CPU engine differs from "
+                                     f"the card ({why})")
+            results[q] = {"rows": len(got), "first_s": first_s,
+                          "launches": launches, "cpu_engine_s": cpu_s,
+                          "first_row": {k: str(v) for k, v in
+                                        (got[0] if got else {}).items()}}
+            log(f"{q}: {len(got)} rows match the pandas reference and the "
+                f"CPU engine; launches {launches}; first run "
+                f"{first_s:.3f}s; CPU engine {cpu_s:.3f}s")
+    finally:
+        K.probe_hash_table_kernel = real_probe
+    for q in Q.JOINS:
+        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
+                                          .to_arrow())
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
+            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
+            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
+    return {"queries": results, "launches": total,
+            "largest_probe": largest.get("args")}
+
+
 def mixed_string_range(d):
     """Sales of the items whose brand sorts below "brand#5": the filter's
     string ordering comparison runs on the CPU engine, the joins, the
@@ -834,7 +928,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=2.0)
     ap.add_argument("--sf-ds", type=float, default=1.0,
-                    help="TPC-DS scale factor (q44/q67 and the headline)")
+                    help="TPC-DS scale factor (q44/q67, the headline and the "
+                         "joins queries)")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -879,6 +974,7 @@ def main(argv=None) -> int:
     ds_tables = tpcds_tables(args.sf_ds)
     ds_res = run_tpcds_path(ds_tables)
     head_res = run_headline_path(ds_tables)
+    joins_res = run_joins_path(ds_tables)
 
     tbl, h1, h2, capacity, seed = main_res.pop("largest_probe")
     real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed,
@@ -886,12 +982,16 @@ def main(argv=None) -> int:
     shapes.append(real)
     shapes.append(check_probe("headline_largest",
                               *head_res.pop("largest_probe"), cold=True))
+    joins_probe = check_probe("joins_largest",
+                              *joins_res.pop("largest_probe"), cold=True)
+    shapes.append(joins_probe)
     scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
-                      "tpcds_headline": head_res["launches"][name]}
+                      "tpcds_headline": head_res["launches"][name],
+                      "tpcds_joins": joins_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -908,6 +1008,9 @@ def main(argv=None) -> int:
         "call_ms": real["call_ms"], "cold_ms": real["cold_ms"],
         "plain_ms": real["plain_ms"], "bound_ms": real["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
+        "joins_largest": {k: joins_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -931,6 +1034,7 @@ def main(argv=None) -> int:
               "store_sales_rows": ds_res["store_sales_rows"],
               "tpcds_queries": ds_res["queries"],
               "tpcds_headline": head_res["queries"],
+              "tpcds_joins": joins_res["queries"],
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,
               "probe_beyond_l2": probe_big,

@@ -4,19 +4,24 @@
         [--sf 2.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds
         [--sf 1.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_joins
+        [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
 tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
 batches of 2^22 rows as ``bench.py`` runs them, and the window queries
 q44/q67 in batches of 2^20 rows (default SF 1, decimal(7,2) money
-columns). For each query (after one warm-up run): the warm wall time (host
-clock around a run that ends in a synchronise, median of 3), then one run
-under ``torch.profiler`` giving the device time summed over kernels and
-copies, the host-to-device copy time within it, the device's busy and idle
-share of that run's wall time, the number of kernel launches and of
-copies, and the operations that took the most device time and the most
-host time. The hand-written kernels' launches come from the port's own
-counters. ``string_hash_power_table_bytes`` is what the device cache of
+columns), ``--suite tpcds_joins`` the joins slice's q9/q28/q40/q43/q87/
+q88/q93/q97 in batches of 2^22 rows (default SF 1). For each query (after
+one warm-up run): the warm wall time (host clock around a run that ends in
+a synchronise, median of 3), then one run under ``torch.profiler`` giving
+the device time summed over kernels and copies, the host-to-device copy
+time within it, the device's busy and idle share of that run's wall time,
+the number of kernel launches and of copies, the host syncs (the
+``cudaStreamSynchronize`` calls the host made: each read of a device value
+waits for one), and the operations that took the most device time and the
+most host time. The hand-written kernels' launches come from the port's
+own counters. ``string_hash_power_table_bytes`` is what the device cache of
 the string hash's power tables holds after the query (it only grows).
 
 Needs a CUDA card: it fails rather than measure the CPU.
@@ -83,14 +88,18 @@ def profile_query(run, reps: int = 3) -> dict:
         by_name[name] = (tot + us, cnt + 1)
     ops = sorted(((us, k, c) for k, (us, c) in by_name.items()),
                  reverse=True)
+    averages = prof.key_averages()
     host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
-                   for e in prof.key_averages()), reverse=True)
+                   for e in averages), reverse=True)
+    syncs = sum(e.count for e in averages
+                if e.key == "cudaStreamSynchronize")
     busy = kernel_us / 1e6 / prof_wall if prof_wall > 0 else 0.0
     return {"warm_wall_s": statistics.median(walls), "walls_s": walls,
             "profiled_wall_s": prof_wall, "device_s": kernel_us / 1e6,
             "host_to_device_copy_s": h2d_us / 1e6,
             "device_busy_share": busy, "device_idle_share": 1.0 - busy,
             "device_kernels": launches, "device_copies_and_sets": copies,
+            "host_syncs": syncs,
             "hand_kernel_launches": hand_launches,
             "top_device_ops": [{"op": k, "device_ms": us / 1e3, "calls": c}
                                for us, k, c in ops[:12]],
@@ -100,7 +109,8 @@ def profile_query(run, reps: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--suite", choices=("tpch", "tpcds"), default="tpch")
+    ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins"),
+                    default="tpch")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 2 for tpch, 1 for tpcds)")
     ap.add_argument("--out", default="",
@@ -124,24 +134,31 @@ def main(argv=None) -> int:
         tables = suite.tables_for(sf, seed=0)
         queries = suite.DF_QUERIES
         fact = "lineitem"
+        order, batched = list(queries), ()
     else:
         from spark_rapids_tpu_torch.bench import tpcds_queries as suite
         from spark_rapids_tpu_torch.bench import tpcds_schema
 
         sf = 1.0 if args.sf is None else args.sf
-        tables = tpcds_schema.tables_for(sf, seed=0)
+        if args.suite == "tpcds":
+            names = tpcds_schema.BASE_TABLES
+            order, batched = list(suite.HEADLINE) + ["q44", "q67"], \
+                suite.HEADLINE
+        else:
+            names = suite.tables_of(suite.JOINS)
+            order, batched = list(suite.JOINS), suite.JOINS
+        tables = tpcds_schema.tables_for(sf, seed=0, names=names)
         queries = suite.QUERIES
         fact = "store_sales"
     d = suite.df_tables(tables, batch_rows=1 << 20, device="cuda")
-    # bench.py runs the TPC-DS headline in batches of 2^22 rows
+    # bench.py runs the TPC-DS headline in batches of 2^22 rows, and the
+    # joins queries run the same way
     head = (suite.df_tables(tables, batch_rows=1 << 22, device="cuda")
-            if args.suite == "tpcds" else d)
-    order = (list(suite.HEADLINE) + ["q44", "q67"] if args.suite == "tpcds"
-             else list(queries))
+            if batched else d)
     out = {"device": smi, "torch": torch.__version__, "suite": args.suite,
            "sf": sf, f"{fact}_rows": tables[fact].num_rows, "queries": {}}
     for q in order:
-        dq = head if q in getattr(suite, "HEADLINE", ()) else d
+        dq = head if q in batched else d
         res = profile_query(lambda q=q, dq=dq: queries[q](dq).to_arrow())
         res["string_hash_power_table_bytes"] = sum(
             t.numel() * t.element_size() for t in K._POW_TABLES.values())

@@ -15,6 +15,17 @@ decimal(11,6)) in both directions, q67 ranks aggregated sales
 (decimal(7,2) times a double quantity, summed as double) within each
 category.
 
+q9, q28, q40, q43, q87, q88, q93 and q97 carry the outer, semi and anti
+joins, the conditionals and COUNT(DISTINCT): q9 and q28 are global
+averages and counts over ``If`` panels of store_sales (q28 also six
+distinct counts, which the planner rewrites into joins), q43 and q88 sum
+``If`` panels after inner joins, q93 left-joins store_sales with
+store_returns on (ticket, item) and semi-joins the reason, q40
+left-joins catalog_sales with catalog_returns on (order, item) and
+sums ``If``/``Coalesce`` of decimals, q97 full-joins two distinct
+(customer, item) sets and q87 anti-joins three distinct (last, first)
+name sets. ``TABLES`` names the tables each query reads.
+
 The pandas references compute the same answers independently: decimal
 sums and HALF_UP averages exactly in integers, double sums and averages in
 float64. Results are compared with ``tpch.rows_match`` (rel 1e-6 on
@@ -31,10 +42,12 @@ import numpy as np
 import pandas as pd
 import pyarrow as pa
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.expr import (
-    And, Average, Count, EqualTo, GreaterThanOrEqual, LessThanOrEqual,
-    Multiply, Or, Sum, col, lit,
+    And, Average, Coalesce, Count, CountDistinct, EqualTo, GreaterThanOrEqual,
+    If, IsNotNull, IsNull, LessThan, LessThanOrEqual, Multiply, Or, Subtract,
+    Sum, col, lit,
 )
 from spark_rapids_tpu_torch.exprs.window import Rank, over, window_spec
 
@@ -53,6 +66,10 @@ def desc(c, nf=None):
 def _between(c, lo, hi):
     c = col(c) if isinstance(c, str) else c
     return And(GreaterThanOrEqual(c, lit(lo)), LessThanOrEqual(c, lit(hi)))
+
+
+def _distinct(df, *cols_):
+    return df.select(*cols_).group_by(*cols_).agg()
 
 
 QUERIES: Dict[str, Callable[[D], "object"]] = {}
@@ -194,8 +211,219 @@ def q96(d: D):
     return j.agg(Count().alias("cnt"))
 
 
+@q("q9")
+def q9(d: D):
+    """Bucketed averages via CASE over quantity ranges (scalar subqueries
+    evaluated as conditional aggregates in one pass)."""
+    ss = d["store_sales"]
+
+    def bucket(lo, hi, name):
+        cond = _between(col("ss_quantity"), float(lo), float(hi))
+        return (Average(If(cond, col("ss_ext_discount_amt"),
+                           lit(None, T.DOUBLE))).alias(f"avg_disc_{name}"),
+                Average(If(cond, col("ss_net_paid"),
+                           lit(None, T.DOUBLE))).alias(f"avg_paid_{name}"),
+                Count(If(cond, col("ss_quantity"),
+                         lit(None, T.DOUBLE))).alias(f"cnt_{name}"))
+    aggs = []
+    for i, (lo, hi) in enumerate(Q9_BUCKETS):
+        aggs.extend(bucket(lo, hi, f"b{i}"))
+    return ss.agg(*aggs)
+
+
+Q9_BUCKETS = [(1, 20), (21, 40), (41, 60), (61, 80), (81, 100)]
+Q28_BUCKETS = [(0, 5, 8.0, 18.0), (6, 10, 9.0, 19.0), (11, 15, 10.0, 20.0),
+               (16, 20, 11.0, 21.0), (21, 25, 12.0, 22.0),
+               (26, 30, 13.0, 23.0)]
+
+
+@q("q28")
+def q28(d: D):
+    """Six price-bucket aggregate panels over store_sales (conditional
+    aggregates in one pass, like q9)."""
+    ss = d["store_sales"]
+    aggs = []
+    for i, (qlo, qhi, plo, phi) in enumerate(Q28_BUCKETS):
+        cond = And(_between(col("ss_quantity"), float(qlo), float(qhi)),
+                   Or(_between(col("ss_list_price"), plo, phi),
+                      _between(col("ss_coupon_amt"), plo * 10, phi * 10)))
+        v = If(cond, col("ss_list_price"), lit(None, T.DOUBLE))
+        aggs.extend([
+            Average(v).alias(f"b{i}_avg"),
+            Count(v).alias(f"b{i}_cnt"),
+            CountDistinct(v).alias(f"b{i}_cntd"),
+        ])
+    return ss.agg(*aggs)
+
+
+@q("q40")
+def q40(d: D):
+    """Catalog sales +/- returns by warehouse/item around a pivot date."""
+    pivot = 900
+    j = (d["catalog_sales"]
+         .join(d["catalog_returns"],
+               left_on=[col("cs_order_number"), col("cs_item_sk")],
+               right_on=[col("cr_order_number"), col("cr_item_sk")],
+               how="left")
+         .join(d["warehouse"], left_on="cs_warehouse_sk",
+               right_on="w_warehouse_sk")
+         .join(d["item"].filter(_between(col("i_current_price"), 0.99, 50.0)),
+               left_on="cs_item_sk", right_on="i_item_sk")
+         .join(d["date_dim"].filter(_between(col("d_date_sk"),
+                                             pivot - 30, pivot + 30)),
+               left_on="cs_sold_date_sk", right_on="d_date_sk"))
+    net = Subtract(col("cs_sales_price"),
+                   Coalesce(col("cr_refunded_cash"), lit(0.0)))
+    g = (j.group_by("w_state", "i_item_id")
+         .agg(Sum(If(LessThan(col("d_date_sk"), lit(pivot)), net,
+                     lit(0.0))).alias("sales_before"),
+              Sum(If(GreaterThanOrEqual(col("d_date_sk"), lit(pivot)), net,
+                     lit(0.0))).alias("sales_after")))
+    return g.sort("w_state", "i_item_id", limit=100)
+
+
+Q43_DAYS = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+            "Friday", "Saturday")
+
+
+@q("q43")
+def q43(d: D):
+    """Store sales by weekday per store."""
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(EqualTo(col("d_year"), lit(2000))),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+
+    def day(nm):
+        return Sum(If(EqualTo(col("d_day_name"), lit(nm)),
+                      col("ss_sales_price"),
+                      lit(None, T.DOUBLE))).alias(f"{nm[:3].lower()}_sales")
+    return (j.group_by("s_store_name", "s_store_id")
+            .agg(*[day(nm) for nm in Q43_DAYS])
+            .sort("s_store_name", "s_store_id", limit=100))
+
+
+@q("q87")
+def q87(d: D):
+    """Customers in store but not in both other channels (EXCEPT chain)."""
+    dt = d["date_dim"].filter(_between(col("d_month_seq"), 12, 23))
+
+    def chan(fact, datecol, custcol):
+        return _distinct(
+            d[fact].join(dt, left_on=datecol, right_on="d_date_sk")
+            .join(d["customer"], left_on=custcol, right_on="c_customer_sk"),
+            "c_last_name", "c_first_name")
+    ss = chan("store_sales", "ss_sold_date_sk", "ss_customer_sk")
+    cs = chan("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk")
+    ws = chan("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk")
+    out = (ss.join(cs, on=["c_last_name", "c_first_name"], how="left_anti")
+           .join(ws, on=["c_last_name", "c_first_name"], how="left_anti"))
+    return out.agg(Count().alias("num_customers"))
+
+
+Q88_SLOTS = ((8, 30, 59, "h8_30"), (9, 0, 29, "h9_00"), (9, 30, 59, "h9_30"),
+             (10, 0, 29, "h10_00"), (10, 30, 59, "h10_30"),
+             (11, 0, 29, "h11_00"), (11, 30, 59, "h11_30"),
+             (12, 0, 29, "h12_00"))
+
+
+@q("q88")
+def q88(d: D):
+    """Store traffic by half-hour time slots (8 conditional counts)."""
+    hd = d["household_demographics"].filter(
+        Or(Or(And(EqualTo(col("hd_dep_count"), lit(4)),
+                  LessThanOrEqual(col("hd_vehicle_count"), lit(6))),
+              And(EqualTo(col("hd_dep_count"), lit(2)),
+                  LessThanOrEqual(col("hd_vehicle_count"), lit(4)))),
+           And(EqualTo(col("hd_dep_count"), lit(0)),
+               LessThanOrEqual(col("hd_vehicle_count"), lit(2)))))
+    st = d["store"].filter(EqualTo(col("s_store_name"), lit("ese")))
+    j = (d["store_sales"]
+         .join(hd, left_on="ss_hdemo_sk", right_on="hd_demo_sk")
+         .join(st, left_on="ss_store_sk", right_on="s_store_sk")
+         .join(d["time_dim"], left_on="ss_sold_time_sk",
+               right_on="t_time_sk"))
+
+    def slot(h, mlo, mhi, name):
+        return Sum(If(And(EqualTo(col("t_hour"), lit(h)),
+                          _between(col("t_minute"), mlo, mhi)),
+                      lit(1), lit(0))).alias(name)
+    return j.agg(*[slot(*s_) for s_ in Q88_SLOTS])
+
+
+@q("q93")
+def q93(d: D):
+    """Actual store sales after returns per customer for one reason."""
+    j = (d["store_sales"]
+         .join(d["store_returns"],
+               left_on=[col("ss_ticket_number"), col("ss_item_sk")],
+               right_on=[col("sr_ticket_number"), col("sr_item_sk")],
+               how="left")
+         .join(d["reason"].filter(EqualTo(col("r_reason_desc"),
+                                          lit("Did not fit"))),
+               left_on=col("sr_reason_sk"), right_on=col("r_reason_sk"),
+               how="left_semi"))
+    val = If(IsNull(col("sr_return_quantity")),
+             Multiply(col("ss_quantity"), col("ss_sales_price")),
+             Multiply(Subtract(col("ss_quantity"),
+                               col("sr_return_quantity")),
+                      col("ss_sales_price")))
+    g = (j.group_by("ss_customer_sk")
+         .agg(Sum(val).alias("sumsales")))
+    return g.sort(asc("sumsales"), asc("ss_customer_sk"), limit=100)
+
+
+@q("q97")
+def q97(d: D):
+    """Store/catalog customer-item overlap counts."""
+    ss = _distinct(
+        d["store_sales"].join(
+            d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+            left_on="ss_sold_date_sk", right_on="d_date_sk"),
+        "ss_customer_sk", "ss_item_sk").select(
+        col("ss_customer_sk").alias("sc"), col("ss_item_sk").alias("si"),
+        lit(1).alias("s_flag"))
+    cs = _distinct(
+        d["catalog_sales"].join(
+            d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+            left_on="cs_sold_date_sk", right_on="d_date_sk"),
+        "cs_bill_customer_sk", "cs_item_sk").select(
+        col("cs_bill_customer_sk").alias("cc"),
+        col("cs_item_sk").alias("ci"), lit(1).alias("c_flag"))
+    j = ss.join(cs, left_on=[col("sc"), col("si")],
+                right_on=[col("cc"), col("ci")], how="full")
+    return j.agg(
+        Sum(If(And(IsNotNull(col("s_flag")), IsNull(col("c_flag"))),
+               lit(1), lit(0))).alias("store_only"),
+        Sum(If(And(IsNull(col("s_flag")), IsNotNull(col("c_flag"))),
+               lit(1), lit(0))).alias("catalog_only"),
+        Sum(If(And(IsNotNull(col("s_flag")), IsNotNull(col("c_flag"))),
+               lit(1), lit(0))).alias("store_and_catalog"))
+
+
 # the TPC-DS half of bench.py's headline suite, in its order
 HEADLINE = ("q3", "q7", "q42", "q52", "q96")
+# the joins slice: outer/semi/anti joins, conditionals, COUNT(DISTINCT)
+JOINS = ("q9", "q28", "q40", "q43", "q87", "q88", "q93", "q97")
+
+# the tables each query reads (tpcds_schema.tables_for(sf, names=...))
+TABLES = {
+    "q9": ("store_sales",),
+    "q28": ("store_sales",),
+    "q40": ("catalog_sales", "catalog_returns", "warehouse", "item",
+            "date_dim"),
+    "q43": ("store_sales", "date_dim", "store"),
+    "q87": ("store_sales", "catalog_sales", "web_sales", "date_dim",
+            "customer"),
+    "q88": ("store_sales", "household_demographics", "store", "time_dim"),
+    "q93": ("store_sales", "store_returns", "reason"),
+    "q97": ("store_sales", "catalog_sales", "date_dim"),
+}
+
+
+def tables_of(queries) -> Tuple[str, ...]:
+    """The tables a set of the joins slice's queries reads, each once."""
+    return tuple(sorted({t for q_ in queries for t in TABLES[q_]}))
 
 # ORDER BY columns whose order the result must keep exactly (q67's
 # sumsales order is checked through rk, its rank within the category)
@@ -205,7 +433,16 @@ ORDER_KEYS = {"q3": ("d_year", "sum_agg", "i_brand_id"),
               "q44": ("rnk",),
               "q52": ("d_year", "ext_price", "i_brand_id"),
               "q67": ("i_category", "rk"),
-              "q96": ("cnt",)}
+              "q96": ("cnt",),
+              # q40 and q43 order by their group keys; q93 by a double sum
+              # (checked by ORDER_BY below); the rest have no order
+              "q9": (), "q28": (), "q40": ("w_state", "i_item_id"),
+              "q43": ("s_store_name", "s_store_id"), "q87": (), "q88": (),
+              "q93": (), "q97": ()}
+
+# ORDER BY specs checked on a result's own values, where a key is a double
+# sum whose last bits depend on the order of the additions
+ORDER_BY = {"q93": (("sumsales", True), ("ss_customer_sk", True))}
 
 
 def df_tables(tables: Dict[str, pa.Table], conf=None,
@@ -412,9 +649,183 @@ def pandas_q96(t: Dict[str, pa.Table]) -> List[dict]:
     return [{"cnt": len(j)}]
 
 
+def _frame(t: Dict[str, pa.Table], name: str, cols,
+           money=()) -> pd.DataFrame:
+    """Columns of one table as a frame; ``money`` columns as int64 unscaled
+    decimal(7,2) values (null-free in the generated tables)."""
+    tb = t[name]
+    out = {c: tb.column(c).to_numpy(zero_copy_only=False) for c in cols}
+    out.update({c: _unscaled(tb.column(c)) for c in money})
+    return pd.DataFrame(out)
+
+
+def _dec(v, scale: int):
+    return None if v is None else decimal.Decimal(int(v)).scaleb(-scale)
+
+
+def _avg_dec(vals: np.ndarray):
+    """A decimal(7,2) average as Spark's decimal(11,6) (HALF_UP), or null
+    over no values."""
+    if len(vals) == 0:
+        return None
+    return _dec(_avg_half_up(np.array([int(vals.sum())]),
+                             np.array([len(vals)]), 4)[0], 6)
+
+
+def pandas_q9(t: Dict[str, pa.Table]) -> List[dict]:
+    ss = _frame(t, "store_sales", ["ss_quantity"],
+                ["ss_ext_discount_amt", "ss_net_paid"])
+    row = {}
+    for i, (lo, hi) in enumerate(Q9_BUCKETS):
+        b = ss[(ss.ss_quantity >= lo) & (ss.ss_quantity <= hi)]
+        row[f"avg_disc_b{i}"] = _avg_dec(b.ss_ext_discount_amt.to_numpy())
+        row[f"avg_paid_b{i}"] = _avg_dec(b.ss_net_paid.to_numpy())
+        row[f"cnt_b{i}"] = len(b)
+    return [row]
+
+
+def pandas_q28(t: Dict[str, pa.Table]) -> List[dict]:
+    ss = _frame(t, "store_sales", ["ss_quantity"],
+                ["ss_list_price", "ss_coupon_amt"])
+    row = {}
+    for i, (qlo, qhi, plo, phi) in enumerate(Q28_BUCKETS):
+        # unscaled cents against the bounds in cents (exact: the bounds
+        # are whole)
+        lp, cp = ss.ss_list_price, ss.ss_coupon_amt
+        b = ss[(ss.ss_quantity >= qlo) & (ss.ss_quantity <= qhi)
+               & (((lp >= plo * 100) & (lp <= phi * 100))
+                  | ((cp >= plo * 1000) & (cp <= phi * 1000)))]
+        v = b.ss_list_price.to_numpy()
+        row[f"b{i}_avg"] = _avg_dec(v)
+        row[f"b{i}_cnt"] = len(v)
+        row[f"b{i}_cntd"] = len(np.unique(v))
+    return [row]
+
+
+def pandas_q40(t: Dict[str, pa.Table]) -> List[dict]:
+    pivot = 900
+    cs = _frame(t, "catalog_sales", ["cs_order_number", "cs_item_sk",
+                                     "cs_warehouse_sk", "cs_sold_date_sk"],
+                ["cs_sales_price"])
+    cr = _frame(t, "catalog_returns", ["cr_order_number", "cr_item_sk"],
+                ["cr_refunded_cash"])
+    wh = t["warehouse"].to_pandas()[["w_warehouse_sk", "w_state"]]
+    it = _frame(t, "item", ["i_item_sk", "i_item_id"], ["i_current_price"])
+    it = it[(it.i_current_price >= 99) & (it.i_current_price <= 5000)]
+    dd = t["date_dim"].to_pandas()[["d_date_sk"]]
+    dd = dd[(dd.d_date_sk >= pivot - 30) & (dd.d_date_sk <= pivot + 30)]
+    j = (cs.merge(cr, how="left", left_on=["cs_order_number", "cs_item_sk"],
+                  right_on=["cr_order_number", "cr_item_sk"])
+         .merge(wh, left_on="cs_warehouse_sk", right_on="w_warehouse_sk")
+         .merge(it[["i_item_sk", "i_item_id"]], left_on="cs_item_sk",
+                right_on="i_item_sk")
+         .merge(dd, left_on="cs_sold_date_sk", right_on="d_date_sk"))
+    net = (j.cs_sales_price - j.cr_refunded_cash.fillna(0)).astype(np.int64)
+    j = j.assign(before=np.where(j.d_date_sk < pivot, net, 0),
+                 after=np.where(j.d_date_sk >= pivot, net, 0))
+    g = (j.groupby(["w_state", "i_item_id"])[["before", "after"]].sum()
+         .reset_index().sort_values(["w_state", "i_item_id"],
+                                    kind="stable").head(100))
+    return [{"w_state": r["w_state"], "i_item_id": r["i_item_id"],
+             "sales_before": _dec(r["before"], 2),
+             "sales_after": _dec(r["after"], 2)} for r in _rows(g)]
+
+
+def pandas_q43(t: Dict[str, pa.Table]) -> List[dict]:
+    ss = _sales(t, ["ss_sold_date_sk", "ss_store_sk"], ["ss_sales_price"])
+    dd = t["date_dim"].to_pandas()
+    dd = dd[dd.d_year == 2000][["d_date_sk", "d_day_name"]]
+    st = t["store"].to_pandas()[["s_store_sk", "s_store_name", "s_store_id"]]
+    j = (ss.merge(dd, left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .merge(st, left_on="ss_store_sk", right_on="s_store_sk"))
+    out = []
+    for (name, sid), g in sorted(j.groupby(["s_store_name", "s_store_id"])):
+        row = {"s_store_name": name, "s_store_id": sid}
+        for nm in Q43_DAYS:
+            v = g.ss_sales_price[g.d_day_name == nm]
+            row[f"{nm[:3].lower()}_sales"] = (_dec(int(v.sum()), 2)
+                                              if len(v) else None)
+        out.append(row)
+    return out[:100]
+
+
+def pandas_q87(t: Dict[str, pa.Table]) -> List[dict]:
+    dd = t["date_dim"].to_pandas()
+    dd = dd[(dd.d_month_seq >= 12) & (dd.d_month_seq <= 23)][["d_date_sk"]]
+    cu = t["customer"].to_pandas()[["c_customer_sk", "c_last_name",
+                                    "c_first_name"]]
+
+    def chan(fact, datecol, custcol):
+        f = _frame(t, fact, [datecol, custcol])
+        j = (f.merge(dd, left_on=datecol, right_on="d_date_sk")
+             .merge(cu, left_on=custcol, right_on="c_customer_sk"))
+        return set(zip(j.c_last_name, j.c_first_name))
+    ss = chan("store_sales", "ss_sold_date_sk", "ss_customer_sk")
+    cs = chan("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk")
+    ws = chan("web_sales", "ws_sold_date_sk", "ws_bill_customer_sk")
+    return [{"num_customers": len(ss - cs - ws)}]
+
+
+def pandas_q88(t: Dict[str, pa.Table]) -> List[dict]:
+    ss = _sales(t, ["ss_hdemo_sk", "ss_store_sk", "ss_sold_time_sk"])
+    hd = t["household_demographics"].to_pandas()
+    dep, veh = hd.hd_dep_count, hd.hd_vehicle_count
+    hd = hd[((dep == 4) & (veh <= 6)) | ((dep == 2) & (veh <= 4))
+            | ((dep == 0) & (veh <= 2))][["hd_demo_sk"]]
+    st = t["store"].to_pandas()
+    st = st[st.s_store_name == "ese"][["s_store_sk"]]
+    td = t["time_dim"].to_pandas()[["t_time_sk", "t_hour", "t_minute"]]
+    j = (ss.merge(hd, left_on="ss_hdemo_sk", right_on="hd_demo_sk")
+         .merge(st, left_on="ss_store_sk", right_on="s_store_sk")
+         .merge(td, left_on="ss_sold_time_sk", right_on="t_time_sk"))
+    # a sum over no rows is null
+    return [{name: (int(((j.t_hour == h) & (j.t_minute >= lo)
+                         & (j.t_minute <= hi)).sum()) if len(j) else None)
+             for h, lo, hi, name in Q88_SLOTS}]
+
+
+def pandas_q93(t: Dict[str, pa.Table]) -> List[dict]:
+    ss = _sales(t, ["ss_ticket_number", "ss_item_sk", "ss_customer_sk",
+                    "ss_quantity"], ["ss_sales_price"])
+    sr = _frame(t, "store_returns", ["sr_ticket_number", "sr_item_sk",
+                                     "sr_reason_sk", "sr_return_quantity"])
+    rs = t["reason"].to_pandas()
+    reasons = set(rs.r_reason_sk[rs.r_reason_desc == "Did not fit"])
+    j = ss.merge(sr, how="left", left_on=["ss_ticket_number", "ss_item_sk"],
+                 right_on=["sr_ticket_number", "sr_item_sk"])
+    j = j[j.sr_reason_sk.isin(reasons)]
+    # decimal(7,2) times a double is a double (Spark casts the decimal)
+    price = j.ss_sales_price / 100.0
+    qty = np.where(j.sr_return_quantity.isna(), j.ss_quantity,
+                   j.ss_quantity - j.sr_return_quantity)
+    g = (j.assign(v=qty * price).groupby("ss_customer_sk").v.sum()
+         .reset_index(name="sumsales")
+         .sort_values(["sumsales", "ss_customer_sk"], kind="stable")
+         .head(100))
+    return _rows(g)
+
+
+def pandas_q97(t: Dict[str, pa.Table]) -> List[dict]:
+    dd = t["date_dim"].to_pandas()
+    dd = dd[(dd.d_month_seq >= 12) & (dd.d_month_seq <= 23)][["d_date_sk"]]
+
+    def pairs(fact, datecol, cust, item):
+        f = _frame(t, fact, [datecol, cust, item])
+        j = f.merge(dd, left_on=datecol, right_on="d_date_sk")
+        return set(zip(j[cust], j[item]))
+    s = pairs("store_sales", "ss_sold_date_sk", "ss_customer_sk",
+              "ss_item_sk")
+    c = pairs("catalog_sales", "cs_sold_date_sk", "cs_bill_customer_sk",
+              "cs_item_sk")
+    return [{"store_only": len(s - c), "catalog_only": len(c - s),
+             "store_and_catalog": len(s & c)}]
+
+
 PANDAS = {"q3": pandas_q3, "q7": pandas_q7, "q42": pandas_q42,
           "q44": pandas_q44, "q52": pandas_q52, "q67": pandas_q67,
-          "q96": pandas_q96}
+          "q96": pandas_q96, "q9": pandas_q9, "q28": pandas_q28,
+          "q40": pandas_q40, "q43": pandas_q43, "q87": pandas_q87,
+          "q88": pandas_q88, "q93": pandas_q93, "q97": pandas_q97}
 
 
 def check_rows(name: str, got: List[dict], exp: List[dict]) -> Tuple[bool,
@@ -431,5 +842,17 @@ def check_rows(name: str, got: List[dict], exp: List[dict]) -> Tuple[bool,
     if ([tuple(r[k] for k in keys) for r in got]
             != [tuple(r[k] for k in keys) for r in exp]):
         return False, f"ORDER BY order of {keys} differs"
+    spec = ORDER_BY.get(name)
+    if spec is not None and not _sorted_by(got, spec):
+        return False, f"rows are not in ORDER BY {spec} order"
     return True, ""
+
+
+def _sorted_by(rows: List[dict], spec) -> bool:
+    """Whether ``rows`` are in the order of ``spec`` ((column, ascending),
+    ...; no nulls) by their own values."""
+    def key(r):
+        return tuple(r[c] if up else -r[c] for c, up in spec)
+
+    return all(key(a) <= key(b) for a, b in zip(rows, rows[1:]))
 

@@ -1,17 +1,20 @@
 """TPC-DS tables of the port's queries (copy of the parts of
 spark_rapids_tpu/bench/tpcds_schema.py and spark_rapids_tpu/bench/tpcds.py
-that TPC-DS q3, q7, q42, q44, q52, q67 and q96 read).
+that the port's TPC-DS queries read).
 
 date_dim, time_dim, item, store, store_sales, household_demographics,
-customer_demographics and promotion come from the same seeded generators
-as the reference's, so the tables are equal bit for bit; money columns are
-retyped to decimal(7,2) as in the official TPC-DS schema. The other 16
-tables of the reference's schema are not carried yet.
+customer_demographics and promotion (q3, q7, q42, q44, q52, q67, q96),
+and store_returns, reason, catalog_sales, catalog_returns, web_sales,
+customer and warehouse (q9, q28, q40, q43, q87, q88, q93, q97) come from
+the same seeded generators as the reference's, so the tables are equal bit
+for bit; money columns are retyped to decimal(7,2) as in the official
+TPC-DS schema. The other 10 tables of the reference's schema are not
+carried yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import pyarrow as pa
@@ -45,6 +48,10 @@ def n_customers(sf: float) -> int:
 
 def n_addresses(sf: float) -> int:
     return max(int(50_000 * min(sf, 10.0)), 100)
+
+
+def n_warehouses(sf: float) -> int:
+    return max(int(5 * np.sqrt(max(sf, 0.01))), 2)
 
 
 def n_stores(sf: float) -> int:
@@ -322,6 +329,280 @@ def gen_customer_demographics() -> pa.Table:
     })
 
 
+def gen_customer(sf: float, seed: int = 21) -> pa.Table:
+    n = n_customers(sf)
+    rng = np.random.default_rng(seed)
+    firsts = np.array(["James", "Mary", "John", "Linda", "Robert", "Susan",
+                       "Michael", "Karen", "William", "Lisa"])
+    lasts = np.array(["Smith", "Jones", "Brown", "Davis", "Miller", "Wilson",
+                      "Moore", "Taylor", "Clark", "Hall"])
+    countries = np.array(["UNITED STATES", "CANADA", "MEXICO", "GERMANY",
+                          "FRANCE", "JAPAN"])
+    yn = np.array(["Y", "N"])
+    return pa.table({
+        "c_customer_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "c_customer_id": pa.array([f"C{j:012d}" for j in range(1, n + 1)],
+                                  pa.string()),
+        "c_first_name": pa.array(firsts[rng.integers(0, len(firsts), n)],
+                                 pa.string()),
+        "c_last_name": pa.array(lasts[rng.integers(0, len(lasts), n)],
+                                pa.string()),
+        "c_preferred_cust_flag": pa.array(yn[rng.integers(0, 2, n)],
+                                          pa.string()),
+        "c_birth_month": pa.array(rng.integers(1, 13, n).astype(np.int32),
+                                  pa.int32()),
+        "c_birth_year": pa.array(
+            rng.integers(1924, 1993, n).astype(np.int32), pa.int32()),
+        "c_birth_country": pa.array(
+            countries[rng.integers(0, len(countries), n)], pa.string()),
+        "c_current_addr_sk": pa.array(
+            rng.integers(1, n_addresses(sf) + 1, n), pa.int64()),
+        "c_current_cdemo_sk": pa.array(rng.integers(1, 19_201, n), pa.int64()),
+        "c_current_hdemo_sk": pa.array(rng.integers(1, 7201, n), pa.int64()),
+        "c_email_address": pa.array(
+            [f"c{j}@example.com" for j in range(1, n + 1)], pa.string()),
+        "c_salutation": pa.array(
+            np.array(["Mr.", "Ms.", "Dr.", "Mrs.", "Sir"])[
+                rng.integers(0, 5, n)], pa.string()),
+        "c_login": pa.array([f"login{j}" for j in range(1, n + 1)],
+                            pa.string()),
+        "c_first_sales_date_sk": pa.array(
+            rng.integers(1, _N_DATES + 1, n), pa.int64()),
+        "c_first_shipto_date_sk": pa.array(
+            rng.integers(1, _N_DATES + 1, n), pa.int64()),
+    })
+
+
+def gen_reason(seed: int = 14) -> pa.Table:
+    descs = ["Package was damaged", "Stopped working", "Did not like the",
+             "Wrong size", "Not the product that", "Parts missing",
+             "Does not work with", "Gift exchange", "Did not fit",
+             "Found a better price", "Was too expensive", "unknown"]
+    n = len(descs)
+    return pa.table({
+        "r_reason_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "r_reason_desc": pa.array(descs, pa.string()),
+    })
+
+
+def gen_warehouse(sf: float, seed: int = 15) -> pa.Table:
+    n = n_warehouses(sf)
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "w_warehouse_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "w_warehouse_name": pa.array([f"Warehouse {j}" for j in range(1, n + 1)],
+                                     pa.string()),
+        "w_warehouse_sq_ft": pa.array(
+            rng.integers(50_000, 1_000_000, n).astype(np.int32), pa.int32()),
+        "w_state": pa.array(_STATES[rng.integers(0, len(_STATES), n)],
+                            pa.string()),
+        "w_county": pa.array(_COUNTIES[rng.integers(0, len(_COUNTIES), n)],
+                             pa.string()),
+        "w_city": pa.array(_CITIES[rng.integers(0, len(_CITIES), n)],
+                           pa.string()),
+    })
+
+
+def gen_store_returns(sf: float, store_sales: pa.Table,
+                      seed: int = 4) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    n_s = store_sales.num_rows
+    n = max(n_s // 10, 10)
+    pick = rng.integers(0, n_s, n)
+    item = store_sales.column("ss_item_sk").to_numpy()[pick]
+    ticket = store_sales.column("ss_ticket_number").to_numpy()[pick]
+    cust = store_sales.column("ss_customer_sk").to_numpy()[pick]
+    store = store_sales.column("ss_store_sk").to_numpy()[pick]
+    # returns happen 1-90 days AFTER the sale (dsdgen ties them the same
+    # way; random dates starve bought-then-returned window chains like q25)
+    sold = store_sales.column("ss_sold_date_sk").to_numpy()[pick]
+    ret_date = np.minimum(sold + rng.integers(1, 91, n), _N_DATES)
+    qty = rng.integers(1, 51, n)
+    amt = _money(rng, 1.0, 300.0, n)
+    return pa.table({
+        "sr_returned_date_sk": pa.array(ret_date, pa.int64()),
+        "sr_item_sk": pa.array(item, pa.int64()),
+        "sr_customer_sk": pa.array(cust, pa.int64()),
+        "sr_cdemo_sk": pa.array(rng.integers(1, 19_201, n), pa.int64()),
+        "sr_hdemo_sk": pa.array(rng.integers(1, 7201, n), pa.int64()),
+        "sr_addr_sk": pa.array(rng.integers(1, n_addresses(sf) + 1, n),
+                               pa.int64()),
+        "sr_store_sk": pa.array(store, pa.int64()),
+        "sr_reason_sk": pa.array(rng.integers(1, 13, n), pa.int64()),
+        "sr_ticket_number": pa.array(ticket, pa.int64()),
+        "sr_return_quantity": pa.array(qty.astype(np.float64), pa.float64()),
+        "sr_return_amt": pa.array(amt, pa.float64()),
+        "sr_return_tax": pa.array(np.round(amt * 0.08, 2), pa.float64()),
+        "sr_return_amt_inc_tax": pa.array(np.round(amt * 1.08, 2),
+                                          pa.float64()),
+        "sr_fee": pa.array(_money(rng, 0.5, 100.0, n), pa.float64()),
+        "sr_return_ship_cost": pa.array(_money(rng, 0, 50, n), pa.float64()),
+        "sr_refunded_cash": pa.array(np.round(amt * 0.8, 2), pa.float64()),
+        "sr_reversed_charge": pa.array(np.round(amt * 0.1, 2), pa.float64()),
+        "sr_store_credit": pa.array(np.round(amt * 0.1, 2), pa.float64()),
+        "sr_net_loss": pa.array(_money(rng, 0.5, 200.0, n), pa.float64()),
+    })
+
+
+def _correlate_baskets(rng, n: int, cust: np.ndarray, item: np.ndarray,
+                       basket: Optional[pa.Table], cust_col: str,
+                       item_col: str, frac: float = 0.25):
+    """Overwrite a fraction of (customer, item) pairs with pairs drawn from
+    another channel's sales — dsdgen models repeat customers the same way;
+    without it, cross-channel chains (q25/q29/q54/q64: bought in store,
+    returned, re-bought via catalog) are empty at small scale."""
+    if basket is None or n == 0 or basket.num_rows == 0:
+        return cust, item
+    k = int(n * frac)
+    idx = rng.choice(n, size=k, replace=False)
+    pick = rng.integers(0, basket.num_rows, k)
+    cust = cust.copy()
+    item = item.copy()
+    cust[idx] = basket.column(cust_col).to_numpy()[pick]
+    item[idx] = basket.column(item_col).to_numpy()[pick]
+    return cust, item
+
+
+def gen_catalog_sales(sf: float, seed: int = 5,
+                      basket: Optional[pa.Table] = None,
+                      basket_cols=("ss_customer_sk", "ss_item_sk")
+                      ) -> pa.Table:
+    n = int(1_440_000 * sf)
+    rng = np.random.default_rng(seed)
+    c = _sales_common(rng, n, sf)
+    ship_date = rng.integers(1, _N_DATES + 1, n)
+    bill_cust, cs_item = _correlate_baskets(
+        rng, n, rng.integers(1, n_customers(sf) + 1, n),
+        rng.integers(1, n_items(sf) + 1, n), basket,
+        basket_cols[0], basket_cols[1])
+    return pa.table({
+        "cs_sold_date_sk": pa.array(rng.integers(1, _N_DATES + 1, n),
+                                    pa.int64()),
+        "cs_sold_time_sk": pa.array(rng.integers(0, 86400 // 60, n) * 60,
+                                    pa.int64()),
+        "cs_ship_date_sk": pa.array(ship_date, pa.int64()),
+        "cs_bill_customer_sk": pa.array(bill_cust, pa.int64()),
+        "cs_bill_cdemo_sk": pa.array(rng.integers(1, 19_201, n), pa.int64()),
+        "cs_bill_hdemo_sk": pa.array(rng.integers(1, 7201, n), pa.int64()),
+        "cs_bill_addr_sk": pa.array(rng.integers(1, n_addresses(sf) + 1, n),
+                                    pa.int64()),
+        "cs_ship_customer_sk": pa.array(
+            rng.integers(1, n_customers(sf) + 1, n), pa.int64()),
+        "cs_ship_addr_sk": pa.array(rng.integers(1, n_addresses(sf) + 1, n),
+                                    pa.int64()),
+        "cs_ship_mode_sk": pa.array(rng.integers(1, 7, n), pa.int64()),
+        "cs_call_center_sk": pa.array(rng.integers(1, 7, n), pa.int64()),
+        "cs_catalog_page_sk": pa.array(rng.integers(1, 11_001, n), pa.int64()),
+        "cs_warehouse_sk": pa.array(
+            rng.integers(1, n_warehouses(sf) + 1, n), pa.int64()),
+        "cs_item_sk": pa.array(cs_item, pa.int64()),
+        "cs_promo_sk": pa.array(rng.integers(1, 301, n), pa.int64()),
+        "cs_order_number": pa.array(np.arange(1, n + 1) // 4 + 1, pa.int64()),
+        "cs_quantity": pa.array(c["qty"].astype(np.float64), pa.float64()),
+        "cs_wholesale_cost": pa.array(c["wholesale"], pa.float64()),
+        "cs_list_price": pa.array(c["list_price"], pa.float64()),
+        "cs_sales_price": pa.array(c["sales_price"], pa.float64()),
+        "cs_ext_discount_amt": pa.array(c["discount"], pa.float64()),
+        "cs_ext_sales_price": pa.array(c["ext_sales"], pa.float64()),
+        "cs_ext_wholesale_cost": pa.array(c["ext_wholesale"], pa.float64()),
+        "cs_ext_list_price": pa.array(c["ext_list"], pa.float64()),
+        "cs_ext_tax": pa.array(c["tax"], pa.float64()),
+        "cs_coupon_amt": pa.array(c["coupon"], pa.float64()),
+        "cs_ext_ship_cost": pa.array(_money(rng, 0, 100, n), pa.float64()),
+        "cs_net_paid": pa.array(c["net_paid"], pa.float64()),
+        "cs_net_paid_inc_tax": pa.array(
+            np.round(c["net_paid"] + c["tax"], 2), pa.float64()),
+        "cs_net_profit": pa.array(c["profit"], pa.float64()),
+    })
+
+
+def gen_catalog_returns(sf: float, catalog_sales: pa.Table,
+                        seed: int = 6) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    n_s = catalog_sales.num_rows
+    n = max(n_s // 10, 10)
+    pick = rng.integers(0, n_s, n)
+    item = catalog_sales.column("cs_item_sk").to_numpy()[pick]
+    order = catalog_sales.column("cs_order_number").to_numpy()[pick]
+    cust = catalog_sales.column("cs_bill_customer_sk").to_numpy()[pick]
+    qty = rng.integers(1, 51, n)
+    amt = _money(rng, 1.0, 300.0, n)
+    return pa.table({
+        "cr_returned_date_sk": pa.array(rng.integers(1, _N_DATES + 1, n),
+                                        pa.int64()),
+        "cr_item_sk": pa.array(item, pa.int64()),
+        "cr_refunded_customer_sk": pa.array(cust, pa.int64()),
+        "cr_returning_customer_sk": pa.array(cust, pa.int64()),
+        "cr_returning_addr_sk": pa.array(
+            rng.integers(1, n_addresses(sf) + 1, n), pa.int64()),
+        "cr_call_center_sk": pa.array(rng.integers(1, 7, n), pa.int64()),
+        "cr_catalog_page_sk": pa.array(rng.integers(1, 11_001, n), pa.int64()),
+        "cr_reason_sk": pa.array(rng.integers(1, 13, n), pa.int64()),
+        "cr_order_number": pa.array(order, pa.int64()),
+        "cr_return_quantity": pa.array(qty.astype(np.float64), pa.float64()),
+        "cr_return_amount": pa.array(amt, pa.float64()),
+        "cr_return_amt_inc_tax": pa.array(np.round(amt * 1.08, 2),
+                                          pa.float64()),
+        "cr_fee": pa.array(_money(rng, 0.5, 100.0, n), pa.float64()),
+        "cr_return_ship_cost": pa.array(_money(rng, 0, 50, n), pa.float64()),
+        "cr_refunded_cash": pa.array(np.round(amt * 0.8, 2), pa.float64()),
+        "cr_reversed_charge": pa.array(np.round(amt * 0.1, 2), pa.float64()),
+        "cr_store_credit": pa.array(np.round(amt * 0.1, 2), pa.float64()),
+        "cr_net_loss": pa.array(_money(rng, 0.5, 200.0, n), pa.float64()),
+    })
+
+
+def gen_web_sales(sf: float, seed: int = 7,
+                  basket: Optional[pa.Table] = None) -> pa.Table:
+    n = int(720_000 * sf)
+    rng = np.random.default_rng(seed)
+    c = _sales_common(rng, n, sf)
+    bill_cust, ws_item = _correlate_baskets(
+        rng, n, rng.integers(1, n_customers(sf) + 1, n),
+        rng.integers(1, n_items(sf) + 1, n), basket,
+        "ss_customer_sk", "ss_item_sk")
+    return pa.table({
+        "ws_sold_date_sk": pa.array(rng.integers(1, _N_DATES + 1, n),
+                                    pa.int64()),
+        "ws_sold_time_sk": pa.array(rng.integers(0, 86400 // 60, n) * 60,
+                                    pa.int64()),
+        "ws_ship_date_sk": pa.array(rng.integers(1, _N_DATES + 1, n),
+                                    pa.int64()),
+        "ws_item_sk": pa.array(ws_item, pa.int64()),
+        "ws_bill_customer_sk": pa.array(bill_cust, pa.int64()),
+        "ws_bill_cdemo_sk": pa.array(rng.integers(1, 19_201, n), pa.int64()),
+        "ws_bill_hdemo_sk": pa.array(rng.integers(1, 7201, n), pa.int64()),
+        "ws_bill_addr_sk": pa.array(rng.integers(1, n_addresses(sf) + 1, n),
+                                    pa.int64()),
+        "ws_ship_customer_sk": pa.array(
+            rng.integers(1, n_customers(sf) + 1, n), pa.int64()),
+        "ws_ship_addr_sk": pa.array(rng.integers(1, n_addresses(sf) + 1, n),
+                                    pa.int64()),
+        "ws_web_page_sk": pa.array(rng.integers(1, 61, n), pa.int64()),
+        "ws_web_site_sk": pa.array(rng.integers(1, 25, n), pa.int64()),
+        "ws_ship_mode_sk": pa.array(rng.integers(1, 7, n), pa.int64()),
+        "ws_warehouse_sk": pa.array(
+            rng.integers(1, n_warehouses(sf) + 1, n), pa.int64()),
+        "ws_promo_sk": pa.array(rng.integers(1, 301, n), pa.int64()),
+        "ws_order_number": pa.array(np.arange(1, n + 1) // 4 + 1, pa.int64()),
+        "ws_quantity": pa.array(c["qty"].astype(np.float64), pa.float64()),
+        "ws_wholesale_cost": pa.array(c["wholesale"], pa.float64()),
+        "ws_list_price": pa.array(c["list_price"], pa.float64()),
+        "ws_sales_price": pa.array(c["sales_price"], pa.float64()),
+        "ws_ext_discount_amt": pa.array(c["discount"], pa.float64()),
+        "ws_ext_sales_price": pa.array(c["ext_sales"], pa.float64()),
+        "ws_ext_wholesale_cost": pa.array(c["ext_wholesale"], pa.float64()),
+        "ws_ext_list_price": pa.array(c["ext_list"], pa.float64()),
+        "ws_ext_tax": pa.array(c["tax"], pa.float64()),
+        "ws_coupon_amt": pa.array(c["coupon"], pa.float64()),
+        "ws_ext_ship_cost": pa.array(_money(rng, 0, 100, n), pa.float64()),
+        "ws_net_paid": pa.array(c["net_paid"], pa.float64()),
+        "ws_net_paid_inc_tax": pa.array(
+            np.round(c["net_paid"] + c["tax"], 2), pa.float64()),
+        "ws_net_profit": pa.array(c["profit"], pa.float64()),
+    })
+
+
 _MONEY_TOKENS = ("price", "cost", "amt", "tax", "paid", "profit", "fee",
                  "credit", "charge", "cash", "coupon", "commission")
 
@@ -341,20 +622,63 @@ def _decimalize(table: pa.Table) -> pa.Table:
     return table
 
 
-def tables_for(sf: float, seed: int = 0) -> Dict[str, pa.Table]:
-    """The port's eight TPC-DS tables at scale factor ``sf``, with the
-    seeds the reference's ``tables_for`` passes (date_dim ``seed``, item
-    ``seed + 1``, store ``seed + 2``, store_sales ``seed + 3``, promotion
-    ``seed + 13``; time_dim, customer_demographics and
-    household_demographics fixed) and money columns as decimal(7,2)."""
-    out = {
-        "date_dim": gen_date_dim(seed),
-        "time_dim": gen_time_dim(),
-        "item": gen_item(sf, seed + 1),
-        "store": gen_store(sf, seed + 2),
-        "customer_demographics": gen_customer_demographics(),
-        "household_demographics": gen_household_demographics(),
-        "promotion": gen_promotion(seed + 13),
-        "store_sales": gen_store_sales(sf, seed + 3),
-    }
-    return {k: _decimalize(v) for k, v in out.items()}
+BASE_TABLES = ("date_dim", "time_dim", "item", "store",
+               "customer_demographics", "household_demographics",
+               "promotion", "store_sales")
+JOIN_TABLES = ("store_returns", "reason", "catalog_sales",
+               "catalog_returns", "web_sales", "customer", "warehouse")
+
+
+def tables_for(sf: float, seed: int = 0,
+               names=BASE_TABLES) -> Dict[str, pa.Table]:
+    """The named tables (by default the eight of q3-q96) at scale factor
+    ``sf``, with the seeds the reference's ``tables_for`` passes (date_dim
+    ``seed``, item ``seed + 1``, store ``seed + 2``, store_sales ``seed +
+    3``, store_returns ``seed + 4``, catalog_sales ``seed + 5`` with the
+    store_returns basket, catalog_returns ``seed + 6``, web_sales ``seed +
+    7`` with the store_sales basket, promotion ``seed + 13``, warehouse
+    ``seed + 15``, customer ``seed + 21``; time_dim, reason,
+    customer_demographics and household_demographics fixed) and money
+    columns as decimal(7,2). A fact table that another is drawn from is
+    generated for it, but returned only when named."""
+    names = tuple(names)
+    unknown = set(names) - set(BASE_TABLES) - set(JOIN_TABLES)
+    if unknown:
+        raise KeyError(f"tables not carried by the port: {sorted(unknown)}")
+    made: Dict[str, pa.Table] = {}
+
+    def get(name: str) -> pa.Table:
+        if name not in made:
+            made[name] = _GENERATORS[name](sf, seed, get)
+        return made[name]
+
+    return {k: _decimalize(get(k)) for k in names}
+
+
+# name -> (sf, seed, get) -> table; ``get`` gives a table it is drawn from
+_GENERATORS = {
+    "date_dim": lambda sf, seed, get: gen_date_dim(seed),
+    "time_dim": lambda sf, seed, get: gen_time_dim(),
+    "item": lambda sf, seed, get: gen_item(sf, seed + 1),
+    "store": lambda sf, seed, get: gen_store(sf, seed + 2),
+    "customer_demographics": lambda sf, seed, get:
+        gen_customer_demographics(),
+    "household_demographics": lambda sf, seed, get:
+        gen_household_demographics(),
+    "promotion": lambda sf, seed, get: gen_promotion(seed + 13),
+    "store_sales": lambda sf, seed, get: gen_store_sales(sf, seed + 3),
+    "store_returns": lambda sf, seed, get: gen_store_returns(
+        sf, get("store_sales"), seed + 4),
+    # catalog re-buys correlate with returned store pairs, web buys with
+    # store sales (the reference's baskets)
+    "catalog_sales": lambda sf, seed, get: gen_catalog_sales(
+        sf, seed + 5, basket=get("store_returns"),
+        basket_cols=("sr_customer_sk", "sr_item_sk")),
+    "catalog_returns": lambda sf, seed, get: gen_catalog_returns(
+        sf, get("catalog_sales"), seed + 6),
+    "web_sales": lambda sf, seed, get: gen_web_sales(
+        sf, seed + 7, basket=get("store_sales")),
+    "reason": lambda sf, seed, get: gen_reason(),
+    "warehouse": lambda sf, seed, get: gen_warehouse(sf, seed + 15),
+    "customer": lambda sf, seed, get: gen_customer(sf, seed + 21),
+}

@@ -1,5 +1,6 @@
-"""Inner hash equi-join on the open-addressing table (counterpart of the
-``ht`` path of spark_rapids_tpu/exec/join.py).
+"""Hash equi-join on the open-addressing table (counterpart of the ``ht``
+path of spark_rapids_tpu/exec/join.py): inner, left, right and full outer,
+left semi and left anti.
 
 The build (right) side is concatenated once and its key hash pair inserted
 into a ``kernels.HashTable``. Each probe batch hashes its keys, finds each
@@ -7,9 +8,29 @@ row's slot through the probe kernel's wrapper, reads the slot's candidate
 range of build rows, expands the candidate pairs and keeps the pairs whose
 real keys are equal, so a hash collision only costs a discarded candidate.
 
+Outer, semi and anti joins keep the reference's matched flags, all on the
+device:
+
+- ``pmatch`` (per probe batch): the probe rows with at least one verified
+  pair, ORed over the batch's chunks. Left and full joins emit the rows
+  without one after the pairs of the batch's last chunk, in the same
+  output batch, with null build columns; semi and anti joins emit the
+  rows with one, or without one, once each and no pairs.
+- ``build_matched`` (across probe batches): the build rows that were
+  paired. Right and full joins emit the others once, after the last probe
+  batch, with null probe columns.
+
+A null key never matches: such a probe row is kept by left, full and anti
+joins and dropped by semi joins; such a build row is never probed and is
+emitted by right and full joins. An empty build side still emits every
+probe row of a left, full or anti join, and an empty probe side every
+build row of a right or full join.
+
 Host reads per probe batch: the candidate total (sizes the expansion and
-feeds the explosion guard) and the verified pair count of each output
-chunk. Chunks stay on the device.
+feeds the explosion guard), the verified pair count of each output chunk
+(joins that emit pairs), and one count of the rows that a left, full, semi
+or anti join emits unpaired; one more after the last batch for right and
+full joins. Chunks stay on the device.
 """
 
 from __future__ import annotations
@@ -19,11 +40,38 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import BinaryExec, DeviceExec
 from spark_rapids_tpu_torch.exprs import expr as E
+
+JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")
+
+
+def join_schema(ls: T.Schema, rs: T.Schema, join_type: str) -> T.Schema:
+    """A join's output: the left side alone for semi and anti joins, else
+    both sides, nullable on a side whose rows can be missing."""
+    if join_type in ("left_semi", "left_anti"):
+        return T.Schema(list(ls))
+    lf = [T.Field(f.name, f.dtype,
+                  f.nullable or join_type in ("right", "full")) for f in ls]
+    rf = [T.Field(f.name, f.dtype,
+                  f.nullable or join_type in ("left", "full")) for f in rs]
+    return T.Schema(lf + rf)
+
+
+def _null_columns(schema: T.Schema, n: int, device,
+                  like: Optional[ColumnarBatch]) -> List[DeviceColumn]:
+    """Null columns of a side's schema; a dictionary column of ``like``
+    lends its dictionary, so the chunks concatenate by code."""
+    out = []
+    for i, f in enumerate(schema):
+        d = (like.columns[i].dictionary if like is not None
+             and like.columns[i].is_dict else None)
+        out.append(K.null_column(f.dtype, n, device, d))
+    return out
 
 
 class HashJoinExec(BinaryExec):
@@ -32,7 +80,7 @@ class HashJoinExec(BinaryExec):
                  left: DeviceExec, right: DeviceExec,
                  max_candidate_rows: Optional[int] = None):
         super().__init__(left, right)
-        if join_type != "inner":
+        if join_type not in JOIN_TYPES:
             raise NotImplementedError(
                 f"{join_type} join is not in the port yet")
         cf = C.get_active()
@@ -46,7 +94,7 @@ class HashJoinExec(BinaryExec):
         ls, rs = left.output_schema, right.output_schema
         self._lkeys = [self._key_index(k, ls) for k in self.left_keys]
         self._rkeys = [self._key_index(k, rs) for k in self.right_keys]
-        self._schema = T.Schema(list(ls) + list(rs))
+        self._schema = join_schema(ls, rs, join_type)
         for name in ("buildTimeNs", "joinTimeNs", "numCandidatePairs",
                      "numProbeBatches", "numChunks"):
             self._register_metric(name)
@@ -67,12 +115,13 @@ class HashJoinExec(BinaryExec):
                 f"keys={list(zip(self.left_keys, self.right_keys))}")
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
+        jt = self.join_type
         with self.timer("buildTimeNs"):
             parts = list(self.right.execute(partition))
-            build = (K.concat_device(parts) if parts else None)
-            if build is None or build.num_rows == 0:
-                ht = None
-            else:
+            build = (K.concat_device(parts) if parts else empty_batch(
+                self.right.output_schema.types(), self.plan_device()))
+            ht = None
+            if build.num_rows:
                 ht = K.build_batch_hash_table(build, tuple(self._rkeys),
                                               K.HASHTBL_MAX_PROBES,
                                               K.HASHTBL_MAX_REHASH)
@@ -80,17 +129,46 @@ class HashJoinExec(BinaryExec):
                     raise RuntimeError(
                         f"hash-table build overflowed its probe bound under "
                         f"every seed ({self.node_description()})")
-        if ht is None:
-            return  # an inner join with an empty build side emits nothing
+        # inner and semi joins with an empty build side emit nothing
+        if ht is None and jt in ("inner", "left_semi"):
+            return
+        build_matched = (torch.zeros(build.num_rows, dtype=torch.bool,
+                                     device=self.plan_device())
+                         if jt in ("right", "full") else None)
+        last_probe = None
         for probe in self.left.execute(partition):
             if probe.num_rows == 0:
                 continue
+            last_probe = probe
             with self.timer("joinTimeNs"):
-                outs = self._join_batch_ht(probe, build, ht)
+                if ht is None:
+                    outs = self._join_batch_empty_build(probe, build)
+                else:
+                    outs, build_matched = self._join_batch_ht(
+                        probe, build, ht, build_matched)
             yield from outs
+        if build_matched is not None and build.num_rows:
+            with self.timer("joinTimeNs"):
+                out = self._unmatched_build(build, build_matched, last_probe)
+            if out is not None:
+                yield out
+
+    def _join_batch_empty_build(self, probe: ColumnarBatch,
+                                build: ColumnarBatch) -> List[ColumnarBatch]:
+        """No build row: a left or full join pads every probe row with
+        nulls, an anti join keeps every probe row, a right join emits
+        nothing."""
+        if self.join_type == "left_anti":
+            return [probe]
+        if self.join_type in ("left", "full"):
+            return [ColumnarBatch(list(probe.columns) + _null_columns(
+                self.right.output_schema, probe.num_rows,
+                probe.columns[0].device, build), probe.num_rows)]
+        return []
 
     def _join_batch_ht(self, probe: ColumnarBatch, build: ColumnarBatch,
-                       ht) -> List[ColumnarBatch]:
+                       ht, build_matched: Optional[torch.Tensor]):
+        jt = self.join_type
         tbl, capacity, seed = ht
         self.metrics["numProbeBatches"].add(1)
         ph1, ph2, pvalid = _ht_probe_hashes(probe, self._lkeys)
@@ -106,18 +184,65 @@ class HashJoinExec(BinaryExec):
                 f"{total} candidate pairs (> "
                 f"{C.JOIN_MAX_OUTPUT_ROWS.key}={self.max_candidate_rows}); "
                 f"check the join keys ({self.node_description()})")
-        out = []
+        pairs_out = jt in ("inner", "left", "right", "full")
+        pmatch = (torch.zeros(probe.num_rows, dtype=torch.bool,
+                              device=ph1.device)
+                  if jt in ("left", "full", "left_semi", "left_anti")
+                  else None)
+        chunks = []  # (probe rows, build rows) of each chunk with pairs
         for r0, r1, ctot in _chunk_ranges(ends, total,
                                           self.chunk_target_rows):
-            self.metrics["numChunks"].add(1)
-            pi, bi = _verified_pairs(probe, build, tbl.order, lo, cnt, r0, r1,
-                                     ctot, self._lkeys, self._rkeys)
-            if pi.numel() == 0:
+            if ctot == 0:
                 continue
+            self.metrics["numChunks"].add(1)
+            pc, build_row, ver = _candidate_pairs(
+                probe, build, tbl.order, lo, cnt, r0, r1, ctot, self._lkeys,
+                self._rkeys)
+            if not pairs_out:  # semi/anti: flags only, no pair count read
+                pmatch = K.mark_rows(pmatch, pc, ver)
+                continue
+            keep = K.filter_indices(ver)
+            if keep.numel() == 0:
+                continue
+            pi, bi = pc[keep], build_row[keep]
+            if pmatch is not None:
+                pmatch = K.mark_rows(pmatch, pi)
+            if build_matched is not None:
+                build_matched = K.mark_rows(build_matched, bi)
+            chunks.append((pi, bi))
+        if jt in ("left_semi", "left_anti"):
+            idx = K.filter_indices(pmatch if jt == "left_semi" else ~pmatch)
+            return ([K.gather_batch(probe, idx)] if idx.numel() else []), \
+                build_matched
+        if jt in ("left", "full"):
+            # unmatched probe rows (null keys included) ride with the last
+            # chunk's pairs, their build rows -1: null build columns
+            ui = K.filter_indices(~pmatch)
+            if ui.numel():
+                pi, bi = chunks.pop() if chunks else (ui[:0], ui[:0])
+                chunks.append((torch.cat([pi, ui]), torch.cat(
+                    [bi, torch.full_like(ui, -1)])))
+        out = []
+        for pi, bi in chunks:
+            bcols = ([K.gather_column_or_null(c, bi) for c in build.columns]
+                     if jt in ("left", "full") else
+                     K.gather_columns(build.columns, bi))
             out.append(ColumnarBatch(K.gather_columns(probe.columns, pi)
-                                     + K.gather_columns(build.columns, bi),
-                                     pi.numel()))
-        return out
+                                     + bcols, pi.numel()))
+        return out, build_matched
+
+    def _unmatched_build(self, build: ColumnarBatch, matched: torch.Tensor,
+                         like: Optional[ColumnarBatch]
+                         ) -> Optional[ColumnarBatch]:
+        """The build rows no probe row paired with (null keys included),
+        once, with null probe columns."""
+        idx = K.filter_indices(~matched)
+        n = idx.numel()
+        if n == 0:
+            return None
+        return ColumnarBatch(_null_columns(self.left.output_schema, n,
+                                           idx.device, like)
+                             + K.gather_columns(build.columns, idx), n)
 
 
 def _ht_probe_hashes(probe: ColumnarBatch, lkeys: Sequence[int]):
@@ -157,14 +282,14 @@ def _chunk_ranges(ends: torch.Tensor, total: int,
     return ranges
 
 
-def _verified_pairs(probe: ColumnarBatch, build: ColumnarBatch,
-                    order: torch.Tensor, lo: torch.Tensor, cnt: torch.Tensor,
-                    r0: int, r1: int, ctot: int, lkeys: Sequence[int],
-                    rkeys: Sequence[int]):
-    """Expand the candidates of probe rows [r0, r1) and keep the pairs with
-    exactly equal keys. Returns (probe rows, build rows), int64."""
+def _candidate_pairs(probe: ColumnarBatch, build: ColumnarBatch,
+                     order: torch.Tensor, lo: torch.Tensor, cnt: torch.Tensor,
+                     r0: int, r1: int, ctot: int, lkeys: Sequence[int],
+                     rkeys: Sequence[int]):
+    """Expand the candidates of probe rows [r0, r1) and test their keys:
+    (probe rows, build rows, keys exactly equal), nothing read back."""
     pc, bpos = K.expand_candidates(lo, cnt, r0, r1, ctot)
     build_row = order.long()[bpos]
     ver = K.keys_equal(probe, pc, list(lkeys), build, build_row, list(rkeys))
-    keep = K.filter_indices(ver)
-    return pc[keep], build_row[keep]
+    return pc, build_row, ver
+

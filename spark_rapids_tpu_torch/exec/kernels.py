@@ -85,12 +85,58 @@ def decode_dictionary(col: DeviceColumn) -> DeviceColumn:
     return gather_string(col.dictionary, col.data, col.validity)
 
 
+def null_column(dt: T.DataType, n: int, device,
+                dictionary: Optional[DeviceColumn] = None) -> DeviceColumn:
+    """``n`` null rows of type ``dt`` (zeroed data, empty strings). A
+    string column with ``dictionary`` is a dictionary column over it, so
+    it concatenates with that dictionary's columns by code."""
+    valid = torch.zeros(n, dtype=torch.bool, device=device)
+    if dictionary is not None:
+        return DeviceColumn(dt, torch.zeros(n, dtype=torch.int32,
+                                            device=device), valid, None,
+                            dictionary)
+    if dt.fixed_width:
+        return DeviceColumn(dt, torch.zeros(n, dtype=dt.torch_dtype,
+                                            device=device), valid)
+    return DeviceColumn(dt, torch.zeros(0, dtype=torch.uint8, device=device),
+                        valid, torch.zeros(n + 1, dtype=torch.int32,
+                                           device=device))
+
+
+def mark_rows(flags: torch.Tensor, rows: torch.Tensor,
+              hits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The matched-flag scatter: ``flags`` with every row in ``rows`` set
+    (where ``hits`` is true, when given). Repeated rows are fine and
+    nothing is read back to the host."""
+    rows = rows.long()
+    if hits is None:
+        return flags.index_fill(0, rows, True)
+    marks = torch.zeros(flags.numel(), dtype=torch.int32,
+                        device=flags.device).index_add_(0, rows, hits.int())
+    return flags | (marks > 0)
+
+
 def gather_column(col: DeviceColumn, idx: torch.Tensor) -> DeviceColumn:
     if col.offsets is not None:
         return gather_string(col, idx)
     idx = idx.long()
     return DeviceColumn(col.dtype, col.data[idx], col.validity[idx], None,
                         col.dictionary)
+
+
+def gather_column_or_null(col: DeviceColumn,
+                          idx: torch.Tensor) -> DeviceColumn:
+    """Rows of ``col`` at ``idx``; a negative index gives a null row (an
+    outer join's missing side). ``col`` must hold a row."""
+    idx = idx.long()
+    ok = idx >= 0
+    safe = torch.where(ok, idx, torch.zeros_like(idx))
+    if col.offsets is not None:
+        return gather_string(col, safe, ok)
+    data = col.data[safe]
+    return DeviceColumn(col.dtype, torch.where(ok, data,
+                                               torch.zeros_like(data)),
+                        col.validity[safe] & ok, None, col.dictionary)
 
 
 def gather_lanes(lanes: Sequence[torch.Tensor],

@@ -10,6 +10,13 @@ And, Or and Not follow Spark's three-valued logic; ``x IN (items)`` is the
 OR of ``x = item`` under the same logic (null when x is null, or when
 nothing matches and some item is null).
 
+If, CaseWhen and Coalesce select per row with ``torch.where`` over their
+branches' data and validity (``resolve`` has given every value branch the
+conditional's type). A null predicate takes the else branch. String
+branches that share one dictionary select codes and keep it; otherwise the
+branches are decoded and each row's length and bytes are gathered from the
+branch it takes.
+
 Decimals are int64 unscaled values. Add/Subtract rescale both operands to
 the result scale, Multiply multiplies the unscaled values (the result scale
 is the sum of the operand scales); a decimal meeting a double is cast to
@@ -29,6 +36,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exprs import expr as E
 
 
@@ -253,6 +261,86 @@ def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:
     return ColVal(hit, hit | all_valid)
 
 
+def _string_value(expr: E.Expression, ctx: EvalContext,
+                  like: DeviceColumn = None) -> DeviceColumn:
+    """A string branch as a column; a literal becomes a column of ``n``
+    rows (a null one shares ``like``'s dictionary when it has one)."""
+    if not isinstance(expr, E.Literal):
+        return eval_expr(expr, ctx)
+    n, dev = ctx.num_rows, ctx.device
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    if expr.value is None:
+        if like is not None and like.is_dict:
+            return DeviceColumn(T.STRING, zeros, zeros.bool(), None,
+                                like.dictionary)
+        return K.null_column(T.STRING, n, dev)
+    raw = torch.tensor(list(expr.value.encode("utf-8")), dtype=torch.uint8,
+                       device=dev)
+    entry = DeviceColumn(T.STRING, raw,
+                         torch.ones(1, dtype=torch.bool, device=dev),
+                         torch.tensor([0, raw.numel()], dtype=torch.int32,
+                                      device=dev))
+    return DeviceColumn(T.STRING, zeros, torch.ones(n, dtype=torch.bool,
+                                                    device=dev), None, entry)
+
+
+def _string_select(take: torch.Tensor, a: DeviceColumn,
+                   b: DeviceColumn) -> DeviceColumn:
+    """Per row, ``a`` where ``take`` else ``b``."""
+    valid = torch.where(take, a.validity, b.validity)
+    if a.is_dict and b.is_dict and a.dictionary is b.dictionary:
+        return DeviceColumn(T.STRING, torch.where(take, a.data, b.data),
+                            valid, None, a.dictionary)
+    both = K.concat_device([
+        ColumnarBatch([K.decode_dictionary(c) if c.is_dict else c],
+                      c.num_rows) for c in (a, b)]).columns[0]
+    rows = torch.arange(take.numel(), device=take.device)
+    out = K.gather_string(both, torch.where(take, rows, rows + a.num_rows))
+    return DeviceColumn(T.STRING, out.data, valid, out.offsets)
+
+
+def _eval_conditional(expr: E.Expression, ctx: EvalContext) -> Val:
+    """If, CaseWhen and Coalesce as a fold of two-way selections from the
+    last value back to the first."""
+    if isinstance(expr, E.If):
+        p, t, f = expr.children
+        arms = [(p, t)]
+        last = f
+    elif isinstance(expr, E.CaseWhen):
+        arms = list(expr.branches)
+        last = (expr.else_value if expr.else_value is not None
+                else E.Literal(None, expr.dtype))
+    else:  # Coalesce: each value is its own predicate (non-null)
+        arms = [(None, v) for v in expr.children[:-1]]
+        last = expr.children[-1]
+    if expr.dtype == T.STRING:
+        cols = {id(v): eval_expr(v, ctx) for v in [v for _, v in arms]
+                + [last] if not isinstance(v, E.Literal)}
+        like = next((c for c in cols.values() if c.is_dict), None)
+
+        def value(e):
+            got = cols.get(id(e))
+            return got if got is not None else _string_value(e, ctx, like)
+        select = _string_select
+    else:
+        def value(e):
+            return eval_expr(e, ctx)
+
+        def select(take, a, b):
+            return ColVal(torch.where(take, a.data, b.data),
+                          torch.where(take, a.validity, b.validity))
+    out = value(last)
+    for pred, v in reversed(arms):
+        val = value(v)
+        if pred is None:
+            take = val.validity
+        else:
+            pv = eval_expr(pred, ctx)
+            take = pv.data & pv.validity
+        out = select(take, val, out)
+    return out
+
+
 def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
     if isinstance(expr, E.Alias):
         return eval_expr(expr.child, ctx)
@@ -292,6 +380,8 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
                       torch.ones_like(valid))
     if isinstance(expr, E.In):
         return _eval_in(expr, ctx)
+    if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
+        return _eval_conditional(expr, ctx)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the port yet")
 

@@ -3,8 +3,8 @@ spark_rapids_tpu/exprs/expr.py for the nodes the port's TPC-H and TPC-DS
 queries build): column references, literals (DATE and DECIMAL included),
 Alias, Cast, Add/Subtract/Multiply, the comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
-IsNull, IsNotNull and In, and the aggregates Sum, Average, Count, Min and
-Max.
+IsNull, IsNotNull and In, the conditionals If, CaseWhen and Coalesce, and
+the aggregates Sum, Average, Count, Min, Max and CountDistinct.
 
 Decimal typing follows Spark's DecimalPrecision rules: an integral operand
 of a decimal operation is an implicit decimal(d, 0), a float operand turns
@@ -18,7 +18,16 @@ Null semantics: every expression evaluates to (data, validity); arithmetic
 and comparisons are null-intolerant, And/Or/Not follow three-valued logic
 (``null OR true`` is true, ``null OR false`` null), IsNull/IsNotNull are
 never null, and ``x IN (...)`` is null when x is null, or when no item
-matches and some item is null.
+matches and some item is null. If takes its else branch where the
+predicate is null, CaseWhen its first branch whose predicate is true (null
+when none is and there is no ELSE), Coalesce its first non-null value.
+
+A conditional is typed by its first value branch, as the reference types
+it: ``If(c, decimal(7,2), lit(None, DOUBLE))`` is decimal(7,2). ``resolve``
+brings every other value branch to that type: a literal is re-typed (a null
+stays null, a number becomes the decimal or number of that type), any
+other expression is wrapped in a Cast, which each engine evaluates or
+refuses as it does any cast.
 
 Each class the planner may place on the device declares ``type_support``
 (``spark_rapids_tpu_torch.support``); ``plan/overrides.check_expr`` holds
@@ -399,6 +408,85 @@ class Cast(Expression):
         return f"cast({self.child!r} as {self.to})"
 
 
+class If(Expression):
+    """IF(predicate, true value, false value)."""
+
+    def __init__(self, pred: Expression, true_val: Expression,
+                 false_val: Expression):
+        self.children = (pred, true_val, false_val)
+
+    @property
+    def dtype(self):
+        return self.children[1].dtype
+
+
+class CaseWhen(Expression):
+    """CASE WHEN p1 THEN v1 ... [ELSE e] END."""
+
+    def __init__(self, branches: Sequence[Tuple[Expression, Expression]],
+                 else_value: Optional[Expression] = None):
+        self.branches = [tuple(b) for b in branches]
+        self.else_value = else_value
+        flat: List[Expression] = []
+        for p, v in self.branches:
+            flat += [p, v]
+        if else_value is not None:
+            flat.append(else_value)
+        self.children = tuple(flat)
+
+    @property
+    def dtype(self):
+        return self.branches[0][1].dtype
+
+    @property
+    def nullable(self):
+        return self.else_value is None or any(c.nullable
+                                              for c in self.children)
+
+
+class Coalesce(Expression):
+    """The first non-null of its children."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype
+
+    @property
+    def nullable(self):
+        return all(c.nullable for c in self.children)
+
+
+def value_as(e: Expression, dt: T.DataType) -> Expression:
+    """A conditional's value branch brought to the conditional's type
+    ``dt``: unchanged when it has it, a literal re-typed when its value
+    converts exactly, else a Cast."""
+    if e.dtype == dt:
+        return e
+    if isinstance(e, Literal):
+        v = e.value
+        if v is None:
+            return Literal(None, dt)
+        if (isinstance(dt, T.DecimalType) and not isinstance(v, bool)
+                and isinstance(v, (int, float, decimal.Decimal))):
+            d = decimal.Decimal(str(v) if isinstance(v, float) else v)
+            q = d.quantize(decimal.Decimal(1).scaleb(-dt.scale),
+                           rounding=decimal.ROUND_HALF_UP)
+            if q == d and abs(q.scaleb(dt.scale)) < 10 ** dt.precision:
+                return Literal(q, dt)
+        elif dt == T.DOUBLE and isinstance(v, (int, float)) \
+                and not isinstance(v, bool):
+            return Literal(float(v), dt)
+        elif dt in T.INTEGRAL_TYPES and isinstance(v, int) \
+                and not isinstance(v, bool):
+            bits = 31 if dt == T.INT else 63
+            if -(2 ** bits) <= v < 2 ** bits:
+                return Literal(v, dt)
+    return Cast(e, dt)
+
+
 # --- aggregate functions (consumed by exec/aggregate.py) ---
 class AggregateExpression(Expression):
     """Marker base; aggregates appear only inside aggregation operators."""
@@ -478,15 +566,37 @@ class Average(AggregateExpression):
         return True
 
 
+class CountDistinct(AggregateExpression):
+    """COUNT(DISTINCT x): the number of distinct non-null values. The CPU
+    engine reduces it natively; on the device the planner rewrites it
+    into a distinct aggregate under a Count (``plan/overrides.py``)."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+
+# expressions the device evaluates
 SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              Subtract, Multiply, EqualTo, LessThan, LessThanOrEqual,
              GreaterThan, GreaterThanOrEqual, And, Or, Not, IsNull,
-             IsNotNull, In, Sum, Count, Average, Min, Max)
+             IsNotNull, In, If, CaseWhen, Coalesce, Sum, Count, Average,
+             Min, Max)
+# expressions only the CPU engine evaluates
+CPU_ONLY = (CountDistinct,)
 
 
 def check_supported(expr: Expression) -> None:
     """Raise NotImplementedError naming the first node outside the port."""
-    if type(expr) not in SUPPORTED:
+    if type(expr) not in SUPPORTED + CPU_ONLY:
         raise NotImplementedError(
             f"expression {type(expr).__name__} is not in the port yet")
     for c in expr.children:
@@ -510,6 +620,20 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Count(kids[0] if kids else None)
     if isinstance(expr, In):
         return In(kids[0], kids[1:])
+    if isinstance(expr, If):
+        dt = kids[1].dtype
+        return If(kids[0], kids[1], value_as(kids[2], dt))
+    if isinstance(expr, CaseWhen):
+        dt = kids[1].dtype
+        n = len(expr.branches)
+        branches = [(kids[2 * i], value_as(kids[2 * i + 1], dt))
+                    for i in range(n)]
+        else_v = (value_as(kids[2 * n], dt)
+                  if expr.else_value is not None else None)
+        return CaseWhen(branches, else_v)
+    if isinstance(expr, Coalesce):
+        dt = kids[0].dtype
+        return Coalesce(*[value_as(k, dt) for k in kids])
     check_supported(expr)
     return type(expr)(*kids)
 
@@ -534,8 +658,14 @@ Not.type_support = ts("boolean")
 IsNull.type_support = ts(DEVICE_SCALAR, out="boolean")
 IsNotNull.type_support = ts(DEVICE_SCALAR, out="boolean")
 In.type_support = ts(DEVICE_SCALAR, out="boolean")
+# a predicate is boolean; value branches are any device scalar
+If.type_support = ts(DEVICE_SCALAR)
+CaseWhen.type_support = ts(DEVICE_SCALAR)
+Coalesce.type_support = ts(DEVICE_SCALAR)
 Sum.type_support = ts(NUMERIC, DECIMAL64)
 Average.type_support = ts(NUMERIC, DECIMAL64, out="fractional decimal64")
 Count.type_support = ts(DEVICE_SCALAR, out="integral")
 Min.type_support = ts(ORDERABLE)
 Max.type_support = ts(ORDERABLE)
+# not on the device (not in SUPPORTED): the distinct rewrite replaces it
+CountDistinct.type_support = ts(DEVICE_SCALAR, out="integral")

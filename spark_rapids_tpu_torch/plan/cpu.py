@@ -2,7 +2,7 @@
 
 Operators the planner tags off the device run here, on host Arrow tables,
 with numpy: a scan, Project, Filter, Sort (with an optional limit) and
-Limit in this module, the aggregate and the inner join in ``cpu_agg.py``.
+Limit in this module, the aggregate and the join in ``cpu_agg.py``.
 Values are ``(values, valid)`` numpy pairs with the device's null rules:
 null slots hold zero (an empty string for strings), and every expression
 follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
@@ -40,7 +40,7 @@ from spark_rapids_tpu_torch.exprs.eval import (
 Pair = Tuple[np.ndarray, np.ndarray]
 
 # expressions the CPU engine evaluates: the port's whole expression set
-CPU_EXPRS = E.SUPPORTED
+CPU_EXPRS = E.SUPPORTED + E.CPU_ONLY
 
 _MASK64 = (1 << 64) - 1
 
@@ -356,8 +356,37 @@ def cpu_eval(expr: E.Expression, table: pa.Table) -> Pair:
             hit |= _compare(E.EqualTo, a, b, fl) & vm & im
             all_valid &= im
         return hit, hit | all_valid
+    if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
+        return _conditional(expr, ev)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the CPU engine yet")
+
+
+def _conditional(expr: E.Expression, ev) -> Pair:
+    """If, CaseWhen and Coalesce: per row, the value of the first arm whose
+    predicate is true (a null predicate is not), folded from the last
+    value back to the first; Coalesce's arms are its non-null values."""
+    if isinstance(expr, E.If):
+        p, t, f = expr.children
+        arms, last = [(p, t)], f
+    elif isinstance(expr, E.CaseWhen):
+        arms = list(expr.branches)
+        last = (expr.else_value if expr.else_value is not None
+                else E.Literal(None, expr.dtype))
+    else:
+        arms = [(None, v) for v in expr.children[:-1]]
+        last = expr.children[-1]
+    out, valid = ev(last)
+    for pred, v in reversed(arms):
+        vals, vm = ev(v)
+        if pred is None:
+            take = vm
+        else:
+            pv, pm = ev(pred)
+            take = pv.astype(np.bool_) & pm
+        out = np.where(take, vals, out)
+        valid = np.where(take, vm, valid)
+    return out, valid
 
 
 def cpu_unsupported(expr: E.Expression, schema: T.Schema) -> List[str]:
@@ -369,12 +398,12 @@ def cpu_unsupported(expr: E.Expression, schema: T.Schema) -> List[str]:
             out.append(f"expression {type(e).__name__} is not in the CPU "
                        f"engine yet")
             return
-        if isinstance(e, E.Cast):
-            src = E.resolve(e.child, schema).dtype
-            if not cast_supported(src, e.to):
-                out.append(f"cast {src} -> {e.to} is not in the CPU engine "
-                           f"yet")
-        for c in e.children:
+        bound = E.resolve(e, schema)
+        if isinstance(bound, E.Cast) and not cast_supported(
+                bound.child.dtype, bound.to):
+            out.append(f"cast {bound.child.dtype} -> {bound.to} is not in "
+                       f"the CPU engine yet")
+        for c in bound.children:
             walk(c)
 
     walk(expr)

@@ -1,4 +1,4 @@
-"""The CPU engine's aggregate and inner join (counterpart of
+"""The CPU engine's aggregate and join (counterpart of
 spark_rapids_tpu/plan/cpu_agg.py), vectorised with numpy.
 
 ``CpuAggregateExec`` is the hash aggregate in mode ``complete``: group keys
@@ -7,12 +7,17 @@ as 0.0 and NaN as one value), groups come out in order of first
 appearance, and Sum, Count, Average, Min and Max reduce with Spark's
 result types: integer sums wrap as a long does, decimal sums are exact and
 null past their precision, decimal averages round HALF_UP at the result
-scale in integer arithmetic. A global aggregate over no rows is one row
-(counts 0, everything else null).
+scale in integer arithmetic; CountDistinct counts each group's distinct
+non-null values. A global aggregate over no rows is one row (counts 0,
+everything else null).
 
-``CpuJoinExec`` is the inner equi-join: both sides' keys are factorised
-together, null keys never match, and the pairs come out in left-row order,
-each left row's matches in right-row order.
+``CpuJoinExec`` is the equi-join of every type the device runs (inner,
+left, right, full, left_semi, left_anti): both sides' keys are factorised
+together and null keys never match. Pairs come out in left-row order, each
+left row's matches in right-row order; then the unpaired left rows of a
+left or full join (null right columns) and the unpaired right rows of a
+right or full join (null left columns). Semi and anti joins emit the
+matched or unmatched left rows once each, in order.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import pyarrow as pa
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
 from spark_rapids_tpu_torch.exec.base import DeviceExec
+from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, join_schema
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.plan.cpu import (
     CpuExec, _canonical_float, _half_up_div, comparable, cpu_eval,
@@ -141,7 +147,7 @@ class CpuAggregateExec(CpuExec):
         for e in self.agg_exprs:
             func, name = _strip_alias(e)
             if not isinstance(func, (E.Sum, E.Count, E.Average, E.Min,
-                                     E.Max)):
+                                     E.Max, E.CountDistinct)):
                 raise NotImplementedError(
                     f"aggregate {type(func).__name__} is not in the CPU "
                     f"engine yet")
@@ -199,6 +205,11 @@ class CpuAggregateExec(CpuExec):
                                    np.ones(ng, np.bool_), out_t)
         in_t = func.children[0].dtype
         vals, valid = cpu_eval(func.children[0], t)
+        if isinstance(func, E.CountDistinct):
+            codes, k = _factorize(vals, valid, in_t)
+            pairs = np.unique(gid[valid] * k + codes[valid])  # (group, x)
+            return values_to_arrow(np.bincount(pairs // k, minlength=ng),
+                                   np.ones(ng, np.bool_), out_t)
         if in_t in T.FRACTIONAL_TYPES:
             vals = _canonical_float(vals)
         if isinstance(func, (E.Min, E.Max)):
@@ -223,12 +234,13 @@ class CpuAggregateExec(CpuExec):
 
 
 class CpuJoinExec(CpuExec):
-    """Inner equi-join of two children on the host."""
+    """Equi-join of two children on the host, of any type in
+    ``JOIN_TYPES``."""
 
     def __init__(self, left_keys: Sequence[E.Expression],
                  right_keys: Sequence[E.Expression], join_type: str,
                  left: DeviceExec, right: DeviceExec, device):
-        if join_type != "inner":
+        if join_type not in JOIN_TYPES:
             raise NotImplementedError(
                 f"{join_type} join is not in the port yet")
         super().__init__(left, right, device=device)
@@ -238,7 +250,7 @@ class CpuJoinExec(CpuExec):
         ls, rs = left.output_schema, right.output_schema
         self._lk = [E.resolve(k, ls) for k in self.left_keys]
         self._rk = [E.resolve(k, rs) for k in self.right_keys]
-        self._schema = T.Schema(list(ls) + list(rs))
+        self._schema = join_schema(ls, rs, join_type)
 
     @property
     def output_schema(self) -> T.Schema:
@@ -249,6 +261,7 @@ class CpuJoinExec(CpuExec):
                 f"keys={list(zip(self.left_keys, self.right_keys))}")
 
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        jt = self.join_type
         lt = self.all_child_rows(self.children[0])
         rt = self.all_child_rows(self.children[1])
         nl, nr = lt.num_rows, rt.num_rows
@@ -272,11 +285,33 @@ class CpuJoinExec(CpuExec):
         lrows = np.flatnonzero(lok)
         lo = np.searchsorted(rsorted, lkey[lrows], "left")
         cnt = np.searchsorted(rsorted, lkey[lrows], "right") - lo
+        lmatched = np.zeros(nl, np.bool_)
+        lmatched[lrows[cnt > 0]] = True
+        if jt in ("left_semi", "left_anti"):
+            keep = lmatched if jt == "left_semi" else ~lmatched
+            yield lt.filter(pa.array(keep))
+            return
         total = int(cnt.sum())
         li = np.repeat(lrows, cnt)
         offs = np.repeat(np.cumsum(cnt) - cnt, cnt)
         ri = rrows[np.arange(total) - offs + np.repeat(lo, cnt)]
-        left = lt.take(pa.array(li, pa.int64()))
-        right = rt.take(pa.array(ri, pa.int64()))
+        lnull, rnull = np.zeros(total, np.bool_), np.zeros(total, np.bool_)
+        if jt in ("left", "full"):
+            lonly = np.flatnonzero(~lmatched)
+            li = np.concatenate([li, lonly])
+            ri = np.concatenate([ri, np.zeros(len(lonly), np.int64)])
+            lnull = np.concatenate([lnull, np.zeros(len(lonly), np.bool_)])
+            rnull = np.concatenate([rnull, np.ones(len(lonly), np.bool_)])
+        if jt in ("right", "full"):
+            rmatched = np.zeros(nr, np.bool_)
+            rmatched[ri[~rnull]] = True
+            ronly = np.flatnonzero(~rmatched)
+            li = np.concatenate([li, np.zeros(len(ronly), np.int64)])
+            ri = np.concatenate([ri, ronly])
+            lnull = np.concatenate([lnull, np.ones(len(ronly), np.bool_)])
+            rnull = np.concatenate([rnull, np.zeros(len(ronly), np.bool_)])
+        # a null index takes a null row
+        left = lt.take(pa.array(li, pa.int64(), mask=lnull))
+        right = rt.take(pa.array(ri, pa.int64(), mask=rnull))
         yield pa.Table.from_arrays(list(left.columns) + list(right.columns),
                                    schema=self._schema.to_arrow())

@@ -61,8 +61,13 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              left_on=None, right_on=None) -> "DataFrame":
+        """Equi-join with ``other``; ``how`` is inner, left, right, full,
+        left_semi or left_anti. ``on`` names key columns that both sides
+        share (one name or a list); else ``left_on``/``right_on`` give
+        each side's keys (names or expressions)."""
         if on is not None:
-            left_on = right_on = on
+            names = [on] if isinstance(on, str) else list(on)
+            left_on = right_on = [E.col(c) for c in names]
         return self._with(L.Join(self.plan, other.plan, _cols(left_on),
                                  _cols(right_on), how))
 
@@ -89,7 +94,7 @@ class DataFrame:
         only those)."""
         from spark_rapids_tpu_torch.plan.overrides import Overrides, explain
 
-        return explain(Overrides(self.conf).wrap_and_tag(self.plan), mode)
+        return explain(Overrides(self.conf).prepare(self.plan), mode)
 
     def to_arrow(self) -> pa.Table:
         from spark_rapids_tpu_torch.plan.cpu import CpuExec
@@ -114,6 +119,7 @@ class GroupedDataFrame:
         self.keys = keys
 
     def agg(self, *aggs) -> DataFrame:
+        """Aggregate each group; with no aggregate, the distinct keys."""
         return self.df._with(L.Aggregate(self.keys, list(aggs), self.df.plan))
 
 

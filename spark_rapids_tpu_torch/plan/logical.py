@@ -167,7 +167,10 @@ class Join(LogicalPlan):
 
     @property
     def schema(self) -> T.Schema:
-        return T.Schema(list(self.left.schema) + list(self.right.schema))
+        from spark_rapids_tpu_torch.exec.join import join_schema
+
+        return join_schema(self.left.schema, self.right.schema,
+                           self.join_type)
 
     def describe(self):
         return f"Join[{self.join_type}]"

@@ -13,9 +13,17 @@ comparisons). A node with reasons runs on the CPU engine when
 NotImplementedError naming them when it is false; with
 ``spark.rapids.gpu.sql.enabled`` false every node runs on the CPU engine.
 Placement is decided here, at plan time, and nowhere else. A node that
-neither side can run (a window the device refuses, a join other than
-inner, an expression outside the port) raises NotImplementedError with the
-reasons. Every plan is a single partition with no exchange.
+neither side can run (a window the device refuses, a join type outside
+inner/left/right/full/left_semi/left_anti, an expression outside the port)
+raises NotImplementedError with the reasons. Every plan is a single
+partition with no exchange.
+
+Before tagging, with ``spark.rapids.gpu.sql.enabled`` true, an aggregate
+with COUNT(DISTINCT x) is rewritten for the device (``rewrite_distinct``,
+Spark's RewriteDistinctAggregates): the regular aggregate joined on its
+keys with one Count over each (keys, x)-distinct sub-aggregate, on a
+constant ``#one`` key when there are no keys. ``explain`` shows the
+rewritten plan.
 """
 
 from __future__ import annotations
@@ -30,9 +38,10 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     batch_from_arrow, dictionary_encode_table)
 from spark_rapids_tpu_torch.config import conf as C
-from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+from spark_rapids_tpu_torch.exec.aggregate import (
+    HashAggregateExec, _strip_alias)
 from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
-from spark_rapids_tpu_torch.exec.join import HashJoinExec
+from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, HashJoinExec
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
 from spark_rapids_tpu_torch.exec.window import (
@@ -122,7 +131,8 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
         if (isinstance(bound, E.In) and bound.value.dtype == T.STRING
                 and not all(isinstance(i, E.Literal) for i in bound.items)):
             reasons.append("string IN over non-literal items not on device")
-        for c in e.children:
+        # the bound children: resolve may add Casts (conditional branches)
+        for c in bound.children:
             walk(c)
 
     walk(expr)
@@ -243,7 +253,7 @@ class Overrides:
                     meta.will_not_work(f"sort key {o.child!r} is not a "
                                        f"column reference")
         elif isinstance(node, L.Join):
-            if node.join_type != "inner":
+            if node.join_type not in JOIN_TYPES:
                 meta.will_not_work(f"{node.join_type} join not on device")
             for k, s in ([(k, node.left.schema) for k in node.left_keys]
                          + [(k, node.right.schema)
@@ -257,11 +267,19 @@ class Overrides:
             for r in _window_reasons(node):
                 meta.will_not_work(r)
 
+    # -- rewrite -----------------------------------------------------------
+    def prepare(self, plan: L.LogicalPlan) -> PlanMeta:
+        """The tagged plan the planner converts: rewritten for the device
+        first when the device is enabled."""
+        if C.SQL_ENABLED.get(self.conf):
+            plan = rewrite_distinct(plan)
+        return self.wrap_and_tag(plan)
+
     # -- convert -----------------------------------------------------------
     def apply(self, plan: L.LogicalPlan) -> DeviceExec:
         with _APPLY_LOCK:
             C.set_active(self.conf)
-            meta = self.wrap_and_tag(plan)
+            meta = self.prepare(plan)
             mode = C.EXPLAIN.get(self.conf)
             if mode != "NONE":
                 print(explain(meta, mode))
@@ -271,7 +289,7 @@ class Overrides:
         """Why the CPU engine cannot run this node (empty: it can)."""
         if isinstance(node, L.Window):
             return ["the CPU engine has no window operator yet"]
-        if isinstance(node, L.Join) and node.join_type != "inner":
+        if isinstance(node, L.Join) and node.join_type not in JOIN_TYPES:
             return [f"{node.join_type} join is not in the port yet"]
         schema = node.children[0].schema if node.children else None
         return [r for e in _node_exprs(node)
@@ -338,3 +356,71 @@ class Overrides:
         while node.children:
             node = node.children[0]
         return node.device
+
+
+# ---------------------------------------------------------------------------
+# distinct-aggregate rewrite
+# ---------------------------------------------------------------------------
+
+
+def _with_children(node: L.LogicalPlan, kids) -> L.LogicalPlan:
+    """A copy of ``node`` over new children."""
+    if isinstance(node, L.Join):
+        return dataclasses.replace(node, left=kids[0], right=kids[1])
+    return dataclasses.replace(node, child=kids[0])
+
+
+def rewrite_distinct(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Spark's distinct-aggregate rewrite (RewriteDistinctAggregates; the
+    reference's ``Overrides._rewrite_distinct``).
+
+    ``Aggregate(keys, [.., CountDistinct(x) AS n, ..])`` becomes the
+    regular aggregate (distinct aggregates dropped) joined on the keys
+    with, per distinct aggregate, ``Count(#dx) AS n`` over the
+    ``(keys, x AS #dx)``-distinct sub-aggregate (a Count skips the null
+    x). A global aggregate joins its one-row parts on a constant ``#one``
+    key. An aggregate whose group keys are not non-nullable columns stays
+    as it is (the join would drop null-key groups): tagging places it on
+    the CPU engine, which counts distinct values natively. A Project
+    restores the output columns' order."""
+    kids = [rewrite_distinct(c) for c in plan.children]
+    if any(k is not c for k, c in zip(kids, plan.children)):
+        plan = _with_children(plan, kids)
+    if not isinstance(plan, L.Aggregate):
+        return plan
+    dist = [i for i, e in enumerate(plan.agg_exprs)
+            if isinstance(_strip_alias(e)[0], E.CountDistinct)]
+    if not dist:
+        return plan
+    child_schema = plan.child.schema
+    key_names = []
+    for e in plan.group_exprs:
+        inner, name = _strip_alias(E.resolve(e, child_schema))
+        if not isinstance(inner, E.ColumnRef) or inner.nullable:
+            return plan
+        key_names.append(name)
+    regular = [e for i, e in enumerate(plan.agg_exprs) if i not in dist]
+    if key_names:
+        reg_plan: L.LogicalPlan = L.Aggregate(list(plan.group_exprs),
+                                              regular, plan.child)
+        join_keys = key_names
+    else:
+        agg = L.Aggregate([], regular, plan.child)
+        reg_plan = L.Project([E.col(f.name) for f in agg.schema]
+                             + [E.Alias(E.Literal(1, T.INT), "#one")], agg)
+        join_keys = ["#one"]
+    for n, i in enumerate(dist):
+        func, name = _strip_alias(plan.agg_exprs[i])
+        x = f"#dx{n}"
+        sub = L.Aggregate(list(plan.group_exprs)
+                          + [E.Alias(func.children[0], x)], [], plan.child)
+        cnt: L.LogicalPlan = L.Aggregate(
+            [E.col(k) for k in key_names],
+            [E.Alias(E.Count(E.col(x)), name)], sub)
+        if not key_names:
+            cnt = L.Project([E.col(name),
+                             E.Alias(E.Literal(1, T.INT), "#one")], cnt)
+        reg_plan = L.Join(reg_plan, cnt, [E.col(k) for k in join_keys],
+                          [E.col(k) for k in join_keys])
+    return L.Project([E.col(_strip_alias(e)[1])
+                      for e in plan.group_exprs + plan.agg_exprs], reg_plan)

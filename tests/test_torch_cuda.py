@@ -4,7 +4,11 @@ plain versions on the card (ragged row counts, tile edges, misaligned
 views and records, many tiles, the scan's scratch left zeroed), TPC-H
 Q3 and TPC-DS q3/q7/q42/q44/q52/q67/q96 on the card against the same
 queries on the CPU (the headline queries also against the CPU engine),
-plain-string sort keys and the string hash's device-resident power table.
+plain-string sort keys and the string hash's device-resident power table;
+the six join types (inner, left, right, full, left_semi, left_anti)
+through the probe kernel against the same joins on the CPU, and the
+joins slice's q9/q28/q40/q43/q87/q88/q93/q97 on the card against the CPU
+and the CPU engine.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -353,3 +357,84 @@ def test_string_hash_power_table_stays_on_card():
     assert PK._POW_TABLES[(0, col.device)] is table
     exp = PK._string_hash(PB.batch_from_arrow(t, "cpu").columns[0], 0)
     assert torch.equal(got.cpu(), exp)
+
+
+JOIN_TYPES = ["inner", "left", "right", "full", "left_semi", "left_anti"]
+
+
+def _join_sides(device, string_keys):
+    """Probe (three batches) and build sides with null and repeated keys,
+    on ``device``."""
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+
+    rng = np.random.default_rng(17)
+    n, m = 30_000, 4_000
+
+    def keys(k, count, domain):
+        v = rng.integers(0, domain, count)
+        mask = rng.random(count) < 0.05
+        if string_keys:
+            return pa.array([f"key-{int(x)}" for x in v], pa.string(),
+                            mask=mask)
+        return pa.array(v, pa.int64(), mask=mask)
+    left = pa.table({"k": keys("k", n, 3000),
+                     "k2": pa.array(rng.integers(0, 3, n), pa.int64()),
+                     "v": pa.array(rng.normal(size=n))})
+    right = pa.table({"rk": keys("rk", m, 4000),
+                      "rk2": pa.array(rng.integers(0, 3, m), pa.int64()),
+                      "w": pa.array(rng.integers(0, 99, m), pa.int64())})
+
+    def source(t, rows):
+        t = PB.dictionary_encode_table(t)
+        cache = {}
+        return BatchSourceExec([[PB.batch_from_arrow(
+            t.slice(i, rows), device, dict_cache=cache)
+            for i in range(0, t.num_rows, rows)]],
+            PT.Schema.from_arrow(t.schema), device)
+    return source(left, 10_000), source(right, m)
+
+
+@pytest.mark.parametrize("string_keys", [False, True])
+@pytest.mark.parametrize("how", JOIN_TYPES)
+def test_join_type_through_probe_kernel_matches_cpu_on_card(how,
+                                                             string_keys):
+    _card()
+    from spark_rapids_tpu_torch.bench.tpch import rows_match
+    from spark_rapids_tpu_torch.exec.join import HashJoinExec
+    from spark_rapids_tpu_torch.exprs import expr as PE
+
+    def run(device):
+        left, right = _join_sides(device, string_keys)
+        node = HashJoinExec([PE.col("k"), PE.col("k2")],
+                            [PE.col("rk"), PE.col("rk2")], how, left, right)
+        return pa.concat_tables([PB.batch_to_arrow(b, node.output_schema)
+                                 for b in node.execute(0)]).to_pylist()
+    before = PK.KERNEL_LAUNCHES["hashtbl_probe"]
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] == before + 3  # one a batch
+    exp = run("cpu")
+    assert len(got) == len(exp) and rows_match(got, exp)
+
+
+@pytest.mark.parametrize("q", ["q9", "q28", "q40", "q43", "q87", "q88",
+                               "q93", "q97"])
+def test_tpcds_join_query_on_card_matches_cpu(q):
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = S.tables_for(0.1, seed=3, names=Q.TABLES[q])
+    df = Q.QUERIES[q](Q.df_tables(t, batch_rows=1 << 22, device="cuda"))
+    assert "!" not in df.explain()
+    before = PK.KERNEL_LAUNCHES["hashtbl_probe"]
+    got = df.to_arrow().to_pylist()
+    assert (PK.KERNEL_LAUNCHES["hashtbl_probe"] > before) == (q != "q9")
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
+    assert Q.check_rows(q, got, exp) == (True, "")
+    assert Q.check_rows(q, got, Q.PANDAS[q](t)) == (True, "")
+    on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
+    assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")

@@ -369,8 +369,8 @@ def _walk(node):
 def test_nodes_neither_side_runs_raise_naming_the_reason():
     t = _mixed_table()
     df = port_from_arrow(t, device="cpu")
-    with pytest.raises(NotImplementedError, match="left join"):
-        df.join(df, on="g", how="left").collect()
+    with pytest.raises(NotImplementedError, match="cross join"):
+        df.join(df, on="g", how="cross").collect()
     from spark_rapids_tpu_torch.exprs import window as PW
 
     spec = PW.window_spec(partition_by=["g"], order_by=[POrd(PE.col("x"))])

@@ -90,8 +90,8 @@ def test_unported_nodes_raise_naming_them():
 
     t = pa.table({"a": pa.array([1, 2], pa.int64())})
     df = from_arrow(t, device="cpu")
-    with pytest.raises(NotImplementedError, match="left join"):
-        df.join(df, on="a", how="left").to_arrow()
+    with pytest.raises(NotImplementedError, match="cross join"):
+        df.join(df, on="a", how="cross").to_arrow()
 
     class Modulo(E.Expression):
         pass
@@ -109,6 +109,35 @@ def test_the_fallback_engine_modules_are_covered():
         assert m in mods
         assert os.path.exists(os.path.join(
             ROOT, *m.split(".")) + ".py")
+
+
+def test_the_joins_slice_modules_are_covered():
+    """The modules that carry the outer, semi and anti joins, the
+    conditionals and the distinct rewrite are walked by the import checks
+    above, and hold the names the slice adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exec.join",
+             ("JOIN_TYPES", "join_schema", "HashJoinExec")),
+            ("spark_rapids_tpu_torch.exec.kernels",
+             ("null_column", "mark_rows", "gather_column_or_null")),
+            ("spark_rapids_tpu_torch.exprs.expr",
+             ("If", "CaseWhen", "Coalesce", "CountDistinct", "value_as")),
+            ("spark_rapids_tpu_torch.plan.overrides", ("rewrite_distinct",)),
+            ("spark_rapids_tpu_torch.plan.cpu_agg", ("CpuJoinExec",)),
+            ("spark_rapids_tpu_torch.bench.tpcds_schema",
+             ("JOIN_TABLES", "gen_store_returns", "gen_catalog_sales",
+              "gen_web_sales", "gen_customer", "gen_warehouse",
+              "gen_reason", "gen_catalog_returns")),
+            ("spark_rapids_tpu_torch.bench.tpcds_queries",
+             ("JOINS", "TABLES")),
+            ("spark_rapids_tpu_torch.bench.profile_tpch", ("main",))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
 
 
 def test_no_exception_handler_moves_work_elsewhere():

@@ -7,8 +7,11 @@ tables (one shuffle partition) and against the pandas reference:
 ``rows_match`` (rel 1e-6 on doubles, exact keys, decimals and counts) and
 the ORDER BY columns in order. The headline queries also run wholly on
 the CPU engine (``spark.rapids.gpu.sql.enabled=false``) with the same
-rows, and wholly on the device path by default. The port's generated
-tables equal the reference's."""
+rows, and wholly on the device path by default. The joins slice's
+queries q9/q28/q40/q43/q87/q88/q93/q97 (outer, semi and anti joins,
+If/CaseWhen/Coalesce, COUNT(DISTINCT)) are held the same way, on the
+device path and on the CPU engine. The port's generated tables equal the
+reference's."""
 
 import pytest
 
@@ -29,12 +32,20 @@ def _tables():
     return _CACHE["t"]
 
 
+def _join_tables():
+    if "j" not in _CACHE:
+        _CACHE["j"] = PS.tables_for(SF, names=PQ.tables_of(PQ.JOINS))
+    return _CACHE["j"]
+
+
 def _jax_rows(q):
     """The JAX package's answer, once per query per process."""
     key = ("jax", q)
     if key not in _CACHE:
         dfs = {}
-        for k, v in _tables().items():
+        tables = (_tables() if q not in PQ.JOINS
+                  else {k: _join_tables()[k] for k in PQ.TABLES[q]})
+        for k, v in tables.items():
             df = jax_from_arrow(v)
             df.shuffle_partitions = 1
             dfs[k] = df
@@ -53,6 +64,14 @@ def test_generated_tables_equal_the_reference(seed):
         assert t.equals(ref[name]), name
     assert str(got["store_sales"].schema.field("ss_net_profit").type) == \
         "decimal128(7, 2)"
+    # the joins slice's tables, generated only when named
+    more = PS.tables_for(SF, seed=seed, names=PS.JOIN_TABLES)
+    assert sorted(more) == sorted(PS.JOIN_TABLES)
+    for name, t in more.items():
+        assert t.equals(ref[name]), name
+    assert more["store_returns"].num_rows == got["store_sales"].num_rows // 10
+    assert PS.tables_for(SF, seed=seed, names=("reason",))["reason"].equals(
+        ref["reason"])
 
 
 @pytest.mark.parametrize("q", ["q44", "q67"])
@@ -84,6 +103,37 @@ def test_tpcds_headline_query_matches_jax_and_pandas(q):
                 assert v == re_[k]  # keys, decimals and counts exactly
     assert PQ.check_rows(q, got, PQ.PANDAS[q](_tables())) == (True, "")
     cpu = PQ.df_tables(_tables(), RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+    on_cpu = PQ.QUERIES[q](cpu)
+    assert all(ln.lstrip().startswith("!")
+               for ln in on_cpu.explain().splitlines())
+    assert PQ.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True,
+                                                                    "")
+
+
+@pytest.mark.parametrize("q", ["q9", "q28", "q40", "q43", "q87", "q88",
+                               "q93", "q97"])
+def test_tpcds_join_query_matches_jax_and_pandas(q):
+    tables = _join_tables()
+    d = PQ.df_tables({k: tables[k] for k in PQ.TABLES[q]}, batch_rows=8192,
+                     device="cpu")
+    df = PQ.QUERIES[q](d)
+    plan = df.explain()
+    assert "!" not in plan  # every node on the device path
+    if q == "q28":
+        assert plan.count("Join[inner]") == 6  # the global distinct rewrite
+    got = df.to_arrow().to_pylist()
+    exp = _jax_rows(q)
+    assert len(got) == len(exp) and len(got) >= 1
+    assert PQ.check_rows(q, got, exp) == (True, "")
+    def exact(r):
+        return repr([v for v in r.values() if not isinstance(v, float)])
+    for rg, re_ in zip(sorted(got, key=exact), sorted(exp, key=exact)):
+        for k, v in rg.items():
+            if not isinstance(v, float):
+                assert v == re_[k]  # keys, decimals and counts exactly
+    assert PQ.check_rows(q, got, PQ.PANDAS[q](tables)) == (True, "")
+    cpu = PQ.df_tables({k: tables[k] for k in PQ.TABLES[q]}, RapidsConf(
         {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
     on_cpu = PQ.QUERIES[q](cpu)
     assert all(ln.lstrip().startswith("!")
