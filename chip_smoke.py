@@ -74,6 +74,22 @@ Phases, in order; any failure exits non-zero before the last line:
    store_returns table). The kernels line reports the first input's
    times and bound, the joins path's under ``joins_largest``, and the
    launches of every main path.
+9. TPC-DS breadth: the 33 queries of ``tpcds_queries.BREADTH`` at SF
+   ``--sf-ds`` (all 24 tables of the reference's generators, one batch of
+   2^22 rows a table). For each: ``explain("ALL")``, printing every node
+   placed on the CPU engine with its reason (a query with any is reported
+   "mixed"); one run with the launch counts zeroed before and read after,
+   held against the same query on the CPU engine; each result must show
+   values (``tpcds_queries.informative``) unless ``EMPTY_AT_SF`` names it
+   at that SF; the probe must launch in every query; the warm wall
+   (median of 3), the CPU engine's wall and the path each join took.
+   Every query runs once more with each probe call held exactly against
+   the plain version, and the path's largest table probe and its largest
+   probe are checked as in phase 8; the kernels line reports the first
+   under ``breadth_largest``. Then every join query of phases 6, 7 and 9
+   runs again with ``spark.rapids.gpu.sql.join.hashTable.enabled=false``:
+   every device join must report the sorted-hash path, none may launch
+   the probe, and the rows must equal the hash-table run's;
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -616,8 +632,7 @@ def tpcds_tables(sf: float, seed: int = 0):
     from spark_rapids_tpu_torch.bench import tpcds_schema as S
 
     t0 = time.perf_counter()
-    tables = S.tables_for(sf, seed=seed,
-                          names=S.BASE_TABLES + S.JOIN_TABLES)
+    tables = S.tables_for(sf, seed=seed, names=S.ALL_TABLES)
     log(f"generated TPC-DS SF{sf}: store_sales "
         f"{tables['store_sales'].num_rows} rows, item "
         f"{tables['item'].num_rows} in {time.perf_counter() - t0:.1f}s")
@@ -719,7 +734,7 @@ def run_headline_path(tables) -> dict:
             largest.update(n=h1.numel(), args=(tbl, h1, h2, capacity, seed))
         return real_probe(tbl, h1, h2, capacity, seed, max_probes)
 
-    results = {}
+    results, rows = {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
     K.probe_hash_table_kernel = recording_probe
     try:
@@ -754,6 +769,7 @@ def run_headline_path(tables) -> dict:
                                      f"the card ({why})")
             results[q] = {"rows": len(got), "first_s": first_s,
                           "launches": launches, "cpu_engine_s": cpu_s}
+            rows[q] = got
             log(f"{q}: {len(got)} rows match the pandas reference and the "
                 f"CPU engine; launches {launches}; first run "
                 f"{first_s:.3f}s; CPU engine {cpu_s:.3f}s")
@@ -767,7 +783,7 @@ def run_headline_path(tables) -> dict:
             f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
     results["mixed_string_range"] = run_mixed_plan(tables, d)
     return {"queries": results, "launches": total,
-            "largest_probe": largest.get("args")}
+            "largest_probe": largest.get("args"), "rows": rows}
 
 
 def run_joins_path(tables) -> dict:
@@ -797,7 +813,7 @@ def run_joins_path(tables) -> dict:
                 largest.update(size=size, args=(tbl, h1, h2, capacity, seed))
         return real_probe(tbl, h1, h2, capacity, seed, max_probes)
 
-    results = {}
+    results, rows = {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
     K.probe_hash_table_kernel = recording_probe
     try:
@@ -836,6 +852,7 @@ def run_joins_path(tables) -> dict:
                           "launches": launches, "cpu_engine_s": cpu_s,
                           "first_row": {k: str(v) for k, v in
                                         (got[0] if got else {}).items()}}
+            rows[q] = got
             log(f"{q}: {len(got)} rows match the pandas reference and the "
                 f"CPU engine; launches {launches}; first run "
                 f"{first_s:.3f}s; CPU engine {cpu_s:.3f}s")
@@ -848,7 +865,180 @@ def run_joins_path(tables) -> dict:
             f"probe launches {results[q]['launches']['hashtbl_probe']}, "
             f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
     return {"queries": results, "launches": total,
-            "largest_probe": largest.get("args")}
+            "largest_probe": largest.get("args"), "rows": rows}
+
+
+def run_breadth_path(tables, sf: float) -> dict:
+    """The breadth slice's 33 queries on the card in batches of 2^22 rows:
+    each plan's CPU-engine nodes printed with their reasons (a query with
+    any is "mixed"), one run with the launch counts zeroed before and read
+    after, held against the same query on the CPU engine; each result must
+    show values (``Q.informative``) unless ``Q.EMPTY_AT_SF`` names it at
+    ``sf``, and the probe must launch in every query (each joins on the
+    device). Records the probe into the path's largest table and its
+    largest probe; then runs every query once more with each probe call
+    held exactly against the plain version on the same inputs; then warm
+    walls and the path each join took."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    empty_ok = Q.EMPTY_AT_SF.get(sf, ())
+    by_table, by_rows = {}, {}
+    real_probe = K.probe_hash_table_kernel
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        args = (tbl, h1, h2, capacity, seed)
+        for rec, size in ((by_table, (capacity, h1.numel())),
+                          (by_rows, (h1.numel(), capacity))):
+            if size > rec.get("size", (-1, -1)):
+                rec.update(size=size, args=args)
+        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    results, rows = {}, {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    K.probe_hash_table_kernel = recording_probe
+    try:
+        for q in Q.BREADTH:
+            df = Q.QUERIES[q](d)
+            off = [ln.strip() for ln in df.explain("ALL").splitlines()
+                   if ln.lstrip().startswith("!")]
+            for ln in off:
+                log(f"{q}: on the CPU engine: {ln}")
+            plan = df.physical_plan()
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            paths = join_paths(plan)
+            got = out.to_pylist()
+            if launches["hashtbl_probe"] <= 0 or "ht" not in paths:
+                raise AssertionError(f"{q} launched no probe kernel (join "
+                                     f"paths {paths})")
+            if not Q.informative(got) and q not in empty_ok:
+                raise AssertionError(f"{q} shows no value at SF {sf}: "
+                                     f"{got[:3]}")
+            t1 = time.perf_counter()
+            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+            cpu_s = time.perf_counter() - t1
+            ok, why = Q.check_rows(q, on_cpu, got)
+            if not ok:
+                raise AssertionError(f"{q} on the CPU engine differs from "
+                                     f"the card ({why}):\n{got[:3]}\n"
+                                     f"{on_cpu[:3]}")
+            results[q] = {"rows": len(got), "informative":
+                          Q.informative(got), "first_s": first_s,
+                          "launches": launches, "cpu_engine_s": cpu_s,
+                          "placement": "mixed" if off else "device",
+                          "cpu_nodes": off, "join_paths": paths}
+            rows[q] = got
+            log(f"{q}: {len(got)} rows match the CPU engine; "
+                f"{results[q]['placement']}; launches {launches}; join "
+                f"paths {paths}; first run {first_s:.3f}s; CPU engine "
+                f"{cpu_s:.3f}s")
+    finally:
+        K.probe_hash_table_kernel = real_probe
+    checked = check_every_probe(d, Q.BREADTH)
+    for q in Q.BREADTH:
+        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
+                                          .to_arrow())
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
+            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
+            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
+    return {"queries": results, "launches": total, "rows": rows,
+            "probe_calls_checked": checked,
+            "largest_table_probe": by_table.get("args"),
+            "largest_probe": by_rows.get("args")}
+
+
+def check_every_probe(d, queries) -> int:
+    """Runs each query once more with every probe call held against the
+    plain version on the same inputs: slots and hits must be equal. These
+    launches are not counted. Returns the number of calls checked."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    real_probe = K.probe_hash_table_kernel
+    calls = [0]
+
+    def checking_probe(tbl, h1, h2, capacity, seed, max_probes):
+        ks, kh = real_probe(tbl, h1, h2, capacity, seed, max_probes)
+        ps, ph = K.probe_hash_table(tbl, h1, h2, capacity, seed,
+                                    max_probes)
+        if not (torch.equal(ks, ps) and torch.equal(kh, ph)):
+            raise AssertionError(
+                f"probe kernel differs from its plain version on a "
+                f"{h1.numel()}-row probe into {capacity} slots")
+        calls[0] += 1
+        return ks, kh
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    K.probe_hash_table_kernel = checking_probe
+    try:
+        for q in queries:
+            Q.QUERIES[q](d).to_arrow()
+    finally:
+        K.probe_hash_table_kernel = real_probe
+        K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    log(f"probe: all {calls[0]} calls of {len(queries)} queries equal the "
+        f"plain version")
+    return calls[0]
+
+
+def run_sorted_hash(tables, rows: dict) -> dict:
+    """Every join query of phases 6, 7 and 9 again with
+    ``spark.rapids.gpu.sql.join.hashTable.enabled=false``: every device
+    join must take the sorted-hash path (no probe launch), and the rows
+    must equal the hash-table run's (``rows``); with the warm wall (median
+    of 3) of each."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    d = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+        batch_rows=1 << 22, device="cuda")
+    results = {}
+    for q, exp in rows.items():
+        plan = Q.QUERIES[q](d).physical_plan()
+        K.reset_kernel_launches()
+        got = execute_to_arrow(plan).to_pylist()
+        torch.cuda.synchronize()
+        paths = join_paths(plan)
+        if "sorted" not in paths or any(p not in ("sorted", "empty", "cpu")
+                                        for p in paths):
+            raise AssertionError(f"{q} with the hash table off took join "
+                                 f"paths {paths}")
+        if K.KERNEL_LAUNCHES["hashtbl_probe"]:
+            raise AssertionError(f"{q} launched the probe with the hash "
+                                 f"table off")
+        ok, why = Q.check_rows(q, got, exp)
+        if not ok:
+            raise AssertionError(f"{q} on the sorted-hash path differs from "
+                                 f"the hash-table path ({why})")
+        warm = _warm_wall(lambda q=q: Q.QUERIES[q](d).to_arrow())
+        results[q] = {"rows": len(got), "join_paths": paths,
+                      "warm_s": warm}
+        log(f"{q}: sorted-hash path, {len(got)} rows equal the hash-table "
+            f"run's; join paths {paths}; warm wall {warm:.4f}s")
+    return results
 
 
 def mixed_string_range(d):
@@ -988,10 +1178,24 @@ def main(argv=None) -> int:
     scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
 
+    breadth_res = run_breadth_path(ds_tables, args.sf_ds)
+    breadth_probe = check_probe("breadth_largest",
+                                *breadth_res.pop("largest_table_probe"),
+                                cold=True)
+    shapes.append(breadth_probe)
+    shapes.append(check_probe("breadth_most_rows",
+                              *breadth_res.pop("largest_probe"), cold=True))
+    join_rows = dict(head_res.pop("rows"))
+    join_rows.update({q: r for q, r in joins_res.pop("rows").items()
+                      if q != "q9"})
+    join_rows.update(breadth_res.pop("rows"))
+    sorted_res = run_sorted_hash(ds_tables, join_rows)
+
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
                       "tpcds_headline": head_res["launches"][name],
-                      "tpcds_joins": joins_res["launches"][name]}
+                      "tpcds_joins": joins_res["launches"][name],
+                      "tpcds_breadth": breadth_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -1011,6 +1215,10 @@ def main(argv=None) -> int:
         "joins_largest": {k: joins_probe[k] for k in (
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "breadth_largest": {k: breadth_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "breadth_calls_checked": breadth_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -1035,6 +1243,8 @@ def main(argv=None) -> int:
               "tpcds_queries": ds_res["queries"],
               "tpcds_headline": head_res["queries"],
               "tpcds_joins": joins_res["queries"],
+              "tpcds_breadth": breadth_res["queries"],
+              "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,
               "probe_beyond_l2": probe_big,

@@ -6,13 +6,18 @@
         [--sf 1.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_joins
         [--sf 1.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_breadth
+        [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
 tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
 batches of 2^22 rows as ``bench.py`` runs them, and the window queries
 q44/q67 in batches of 2^20 rows (default SF 1, decimal(7,2) money
 columns), ``--suite tpcds_joins`` the joins slice's q9/q28/q40/q43/q87/
-q88/q93/q97 in batches of 2^22 rows (default SF 1). For each query (after
+q88/q93/q97 in batches of 2^22 rows (default SF 1), ``--suite
+tpcds_breadth`` the breadth slice's 33 queries (``tpcds_queries.BREADTH``)
+the same way, each with the nodes its plan places on the CPU engine
+(``cpu_nodes``, from ``explain``). For each query (after
 one warm-up run): the warm wall time (host clock around a run that ends in
 a synchronise, median of 3), then one run under ``torch.profiler`` giving
 the device time summed over kernels and copies, the host-to-device copy
@@ -21,7 +26,8 @@ the number of kernel launches and of copies, the host syncs (the
 ``cudaStreamSynchronize`` calls the host made: each read of a device value
 waits for one), and the operations that took the most device time and the
 most host time. The hand-written kernels' launches come from the port's
-own counters. ``string_hash_power_table_bytes`` is what the device cache of
+own counters. ``--hash-table off`` runs every join on the sorted-hash
+path. ``string_hash_power_table_bytes`` is what the device cache of
 the string hash's power tables holds after the query (it only grows).
 
 Needs a CUDA card: it fails rather than measure the CPU.
@@ -109,10 +115,14 @@ def profile_query(run, reps: int = 3) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins"),
+    ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins",
+                                        "tpcds_breadth"),
                     default="tpch")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 2 for tpch, 1 for tpcds)")
+    ap.add_argument("--hash-table", choices=("on", "off"), default="on",
+                    help="off: spark.rapids.gpu.sql.join.hashTable.enabled="
+                         "false, every join on the sorted-hash path")
     ap.add_argument("--out", default="",
                     help="also write the full record as JSON to this path")
     args = ap.parse_args(argv)
@@ -145,23 +155,33 @@ def main(argv=None) -> int:
             order, batched = list(suite.HEADLINE) + ["q44", "q67"], \
                 suite.HEADLINE
         else:
-            names = suite.tables_of(suite.JOINS)
-            order, batched = list(suite.JOINS), suite.JOINS
+            group = (suite.JOINS if args.suite == "tpcds_joins"
+                     else suite.BREADTH)
+            names = suite.tables_of(group)
+            order, batched = list(group), group
         tables = tpcds_schema.tables_for(sf, seed=0, names=names)
         queries = suite.QUERIES
         fact = "store_sales"
-    d = suite.df_tables(tables, batch_rows=1 << 20, device="cuda")
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    conf = (RapidsConf({"spark.rapids.gpu.sql.join.hashTable.enabled":
+                        "false"}) if args.hash_table == "off" else None)
+    d = suite.df_tables(tables, conf, batch_rows=1 << 20, device="cuda")
     # bench.py runs the TPC-DS headline in batches of 2^22 rows, and the
     # joins queries run the same way
-    head = (suite.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    head = (suite.df_tables(tables, conf, batch_rows=1 << 22, device="cuda")
             if batched else d)
     out = {"device": smi, "torch": torch.__version__, "suite": args.suite,
+           "hash_table": args.hash_table,
            "sf": sf, f"{fact}_rows": tables[fact].num_rows, "queries": {}}
     for q in order:
         dq = head if q in batched else d
         res = profile_query(lambda q=q, dq=dq: queries[q](dq).to_arrow())
         res["string_hash_power_table_bytes"] = sum(
             t.numel() * t.element_size() for t in K._POW_TABLES.values())
+        if args.suite != "tpch":
+            res["cpu_nodes"] = [ln.strip() for ln in queries[q](dq).explain(
+                "NOT_ON_GPU").splitlines() if ln.lstrip().startswith("!")]
         out["queries"][q] = res
         print(json.dumps({"query": q, **{k: v for k, v in res.items()
                                          if not k.startswith("top_")}}),

@@ -5,11 +5,13 @@ that the port's TPC-DS queries read).
 date_dim, time_dim, item, store, store_sales, household_demographics,
 customer_demographics and promotion (q3, q7, q42, q44, q52, q67, q96),
 and store_returns, reason, catalog_sales, catalog_returns, web_sales,
-customer and warehouse (q9, q28, q40, q43, q87, q88, q93, q97) come from
-the same seeded generators as the reference's, so the tables are equal bit
-for bit; money columns are retyped to decimal(7,2) as in the official
-TPC-DS schema. The other 10 tables of the reference's schema are not
-carried yet.
+customer and warehouse (q9, q28, q40, q43, q87, q88, q93, q97), and
+customer_address, inventory, web_returns, catalog_page, web_site,
+web_page, call_center, ship_mode and income_band (the breadth queries)
+come from the same seeded generators as the reference's, so the tables
+are equal bit for bit; money columns are retyped to decimal(7,2) as in the
+official TPC-DS schema. All 24 tables of the reference's schema are
+carried.
 """
 
 from __future__ import annotations
@@ -403,6 +405,113 @@ def gen_warehouse(sf: float, seed: int = 15) -> pa.Table:
     })
 
 
+def gen_customer_address(sf: float, seed: int = 20) -> pa.Table:
+    n = n_addresses(sf)
+    rng = np.random.default_rng(seed)
+    loc = np.array(["apartment", "condo", "single family"])
+    return pa.table({
+        "ca_address_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "ca_address_id": pa.array([f"A{j:08d}" for j in range(1, n + 1)],
+                                  pa.string()),
+        "ca_state": pa.array(_STATES[rng.integers(0, len(_STATES), n)],
+                             pa.string()),
+        "ca_county": pa.array(_COUNTIES[rng.integers(0, len(_COUNTIES), n)],
+                              pa.string()),
+        "ca_city": pa.array(_CITIES[rng.integers(0, len(_CITIES), n)],
+                            pa.string()),
+        "ca_zip": pa.array([f"{z:05d}" for z in rng.integers(10000, 99999, n)],
+                           pa.string()),
+        "ca_country": pa.array(
+            _COUNTRIES[rng.integers(0, len(_COUNTRIES), n)], pa.string()),
+        "ca_gmt_offset": pa.array(
+            rng.choice([-5.0, -6.0, -7.0, -8.0], n), pa.float64()),
+        "ca_location_type": pa.array(loc[rng.integers(0, len(loc), n)],
+                                     pa.string()),
+        "ca_street_name": pa.array(
+            [f"{w} St" for w in _CITIES[rng.integers(0, len(_CITIES), n)]],
+            pa.string()),
+        "ca_street_number": pa.array(
+            [str(x) for x in rng.integers(1, 1000, n)], pa.string()),
+        "ca_suite_number": pa.array(
+            [f"Suite {x}" for x in rng.integers(1, 100, n)], pa.string()),
+    })
+
+
+def gen_income_band() -> pa.Table:
+    sk = np.arange(1, 21)
+    lo = (sk - 1) * 10_000
+    return pa.table({
+        "ib_income_band_sk": pa.array(sk, pa.int64()),
+        "ib_lower_bound": pa.array(lo.astype(np.int32), pa.int32()),
+        "ib_upper_bound": pa.array((lo + 9999).astype(np.int32), pa.int32()),
+    })
+
+
+def gen_ship_mode() -> pa.Table:
+    types = ["EXPRESS", "NEXT DAY", "OVERNIGHT", "REGULAR", "TWO DAY",
+             "LIBRARY"]
+    carriers = ["UPS", "FEDEX", "AIRBORNE", "USPS", "DHL", "LATVIAN"]
+    n = len(types)
+    return pa.table({
+        "sm_ship_mode_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "sm_type": pa.array(types, pa.string()),
+        "sm_carrier": pa.array(carriers, pa.string()),
+        "sm_code": pa.array(["AIR"] * n, pa.string()),
+    })
+
+
+def gen_web_site(seed: int = 16) -> pa.Table:
+    n = 24
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "web_site_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "web_site_id": pa.array([f"W{j:08d}" for j in range(1, n + 1)],
+                                pa.string()),
+        "web_name": pa.array([f"site_{j % 4}" for j in range(n)], pa.string()),
+        "web_company_name": pa.array(
+            np.array(["pri", "ought", "able", "ese"])[rng.integers(0, 4, n)],
+            pa.string()),
+    })
+
+
+def gen_web_page(seed: int = 17) -> pa.Table:
+    n = 60
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "wp_web_page_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "wp_char_count": pa.array(
+            rng.integers(100, 8000, n).astype(np.int32), pa.int32()),
+    })
+
+
+def gen_call_center(seed: int = 18) -> pa.Table:
+    n = 6
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "cc_call_center_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "cc_call_center_id": pa.array([f"CC{j:06d}" for j in range(1, n + 1)],
+                                      pa.string()),
+        "cc_name": pa.array([f"call center {j}" for j in range(1, n + 1)],
+                            pa.string()),
+        "cc_county": pa.array(_COUNTIES[rng.integers(0, len(_COUNTIES), n)],
+                              pa.string()),
+        "cc_manager": pa.array([f"Manager {j}" for j in range(1, n + 1)],
+                               pa.string()),
+    })
+
+
+def gen_catalog_page(seed: int = 19) -> pa.Table:
+    n = 11_000
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "cp_catalog_page_sk": pa.array(np.arange(1, n + 1), pa.int64()),
+        "cp_catalog_page_id": pa.array(
+            [f"CP{j:010d}" for j in range(1, n + 1)], pa.string()),
+        "cp_catalog_page_number": pa.array(
+            rng.integers(1, 109, n).astype(np.int32), pa.int32()),
+    })
+
+
 def gen_store_returns(sf: float, store_sales: pa.Table,
                       seed: int = 4) -> pa.Table:
     rng = np.random.default_rng(seed)
@@ -603,6 +712,59 @@ def gen_web_sales(sf: float, seed: int = 7,
     })
 
 
+def gen_web_returns(sf: float, web_sales: pa.Table, seed: int = 8) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    n_s = web_sales.num_rows
+    n = max(n_s // 10, 10)
+    pick = rng.integers(0, n_s, n)
+    item = web_sales.column("ws_item_sk").to_numpy()[pick]
+    order = web_sales.column("ws_order_number").to_numpy()[pick]
+    cust = web_sales.column("ws_bill_customer_sk").to_numpy()[pick]
+    qty = rng.integers(1, 51, n)
+    amt = _money(rng, 1.0, 300.0, n)
+    return pa.table({
+        "wr_returned_date_sk": pa.array(rng.integers(1, _N_DATES + 1, n),
+                                        pa.int64()),
+        "wr_item_sk": pa.array(item, pa.int64()),
+        "wr_refunded_customer_sk": pa.array(cust, pa.int64()),
+        "wr_returning_customer_sk": pa.array(cust, pa.int64()),
+        "wr_returning_addr_sk": pa.array(
+            rng.integers(1, n_addresses(sf) + 1, n), pa.int64()),
+        "wr_refunded_addr_sk": pa.array(
+            rng.integers(1, n_addresses(sf) + 1, n), pa.int64()),
+        "wr_web_page_sk": pa.array(rng.integers(1, 61, n), pa.int64()),
+        "wr_reason_sk": pa.array(rng.integers(1, 13, n), pa.int64()),
+        "wr_order_number": pa.array(order, pa.int64()),
+        "wr_return_quantity": pa.array(qty.astype(np.float64), pa.float64()),
+        "wr_return_amt": pa.array(amt, pa.float64()),
+        "wr_fee": pa.array(_money(rng, 0.5, 100.0, n), pa.float64()),
+        "wr_refunded_cash": pa.array(np.round(amt * 0.8, 2), pa.float64()),
+        "wr_net_loss": pa.array(_money(rng, 0.5, 200.0, n), pa.float64()),
+    })
+
+
+def gen_inventory(sf: float, seed: int = 9) -> pa.Table:
+    # weekly snapshots: dates every 7 days x items x warehouses (capped)
+    rng = np.random.default_rng(seed)
+    dates = np.arange(1, _N_DATES + 1, 7)
+    items = np.arange(1, n_items(sf) + 1)
+    whs = np.arange(1, n_warehouses(sf) + 1)
+    # cap the cross product for test scales
+    max_rows = int(2_000_000 * max(sf, 0.01))
+    total = len(dates) * len(items) * len(whs)
+    if total > max_rows:
+        items = items[: max(max_rows // (len(dates) * len(whs)), 1)]
+        total = len(dates) * len(items) * len(whs)
+    d, i, w = np.meshgrid(dates, items, whs, indexing="ij")
+    return pa.table({
+        "inv_date_sk": pa.array(d.ravel(), pa.int64()),
+        "inv_item_sk": pa.array(i.ravel(), pa.int64()),
+        "inv_warehouse_sk": pa.array(w.ravel(), pa.int64()),
+        "inv_quantity_on_hand": pa.array(
+            rng.integers(0, 1000, total).astype(np.int32), pa.int32()),
+    })
+
+
 _MONEY_TOKENS = ("price", "cost", "amt", "tax", "paid", "profit", "fee",
                  "credit", "charge", "cash", "coupon", "commission")
 
@@ -627,6 +789,10 @@ BASE_TABLES = ("date_dim", "time_dim", "item", "store",
                "promotion", "store_sales")
 JOIN_TABLES = ("store_returns", "reason", "catalog_sales",
                "catalog_returns", "web_sales", "customer", "warehouse")
+BREADTH_TABLES = ("customer_address", "inventory", "web_returns",
+                  "catalog_page", "web_site", "web_page", "call_center",
+                  "ship_mode", "income_band")
+ALL_TABLES = BASE_TABLES + JOIN_TABLES + BREADTH_TABLES
 
 
 def tables_for(sf: float, seed: int = 0,
@@ -636,13 +802,15 @@ def tables_for(sf: float, seed: int = 0,
     ``seed``, item ``seed + 1``, store ``seed + 2``, store_sales ``seed +
     3``, store_returns ``seed + 4``, catalog_sales ``seed + 5`` with the
     store_returns basket, catalog_returns ``seed + 6``, web_sales ``seed +
-    7`` with the store_sales basket, promotion ``seed + 13``, warehouse
-    ``seed + 15``, customer ``seed + 21``; time_dim, reason,
-    customer_demographics and household_demographics fixed) and money
-    columns as decimal(7,2). A fact table that another is drawn from is
-    generated for it, but returned only when named."""
+    7`` with the store_sales basket, web_returns ``seed + 8``, inventory
+    ``seed + 9``, promotion ``seed + 13``, warehouse ``seed + 15``,
+    customer_address ``seed + 20``, customer ``seed + 21``; time_dim,
+    reason, customer_demographics, household_demographics, income_band,
+    ship_mode, web_site, web_page, call_center and catalog_page fixed) and
+    money columns as decimal(7,2). A fact table that another is drawn from
+    is generated for it, but returned only when named."""
     names = tuple(names)
-    unknown = set(names) - set(BASE_TABLES) - set(JOIN_TABLES)
+    unknown = set(names) - set(ALL_TABLES)
     if unknown:
         raise KeyError(f"tables not carried by the port: {sorted(unknown)}")
     made: Dict[str, pa.Table] = {}
@@ -681,4 +849,15 @@ _GENERATORS = {
     "reason": lambda sf, seed, get: gen_reason(),
     "warehouse": lambda sf, seed, get: gen_warehouse(sf, seed + 15),
     "customer": lambda sf, seed, get: gen_customer(sf, seed + 21),
+    "customer_address": lambda sf, seed, get: gen_customer_address(
+        sf, seed + 20),
+    "inventory": lambda sf, seed, get: gen_inventory(sf, seed + 9),
+    "web_returns": lambda sf, seed, get: gen_web_returns(
+        sf, get("web_sales"), seed + 8),
+    "catalog_page": lambda sf, seed, get: gen_catalog_page(),
+    "web_site": lambda sf, seed, get: gen_web_site(),
+    "web_page": lambda sf, seed, get: gen_web_page(),
+    "call_center": lambda sf, seed, get: gen_call_center(),
+    "ship_mode": lambda sf, seed, get: gen_ship_mode(),
+    "income_band": lambda sf, seed, get: gen_income_band(),
 }

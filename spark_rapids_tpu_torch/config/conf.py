@@ -69,6 +69,14 @@ JOIN_MAX_OUTPUT_ROWS = conf(
     doc="Hard cap on candidate join pairs produced by one probe batch; a "
         "join that explodes past it raises instead of exhausting memory.")
 
+JOIN_HASHTBL_ENABLED = conf(
+    "spark.rapids.gpu.sql.join.hashTable.enabled", default=True,
+    doc="Join duplicate-key build sides through the open-addressing device "
+        "hash table (the probe kernel). When false every join takes the "
+        "sorted-hash path (build hashes sorted, candidates by binary "
+        "search), which is also the fallback when every seeded table build "
+        "overflows its probe bound.")
+
 JOIN_CHUNK_TARGET_ROWS = conf(
     "spark.rapids.gpu.sql.join.gatherChunkTargetRows", default=1 << 22,
     doc="Candidate-pair budget per output chunk of the hash-table join: a "

@@ -1,12 +1,21 @@
-"""Hash equi-join on the open-addressing table (counterpart of the ``ht``
-path of spark_rapids_tpu/exec/join.py): inner, left, right and full outer,
-left semi and left anti.
+"""Hash equi-join (counterpart of the ``ht`` and ``sorted`` paths of
+spark_rapids_tpu/exec/join.py): inner, left, right and full outer, left
+semi and left anti.
 
-The build (right) side is concatenated once and its key hash pair inserted
-into a ``kernels.HashTable``. Each probe batch hashes its keys, finds each
-row's slot through the probe kernel's wrapper, reads the slot's candidate
-range of build rows, expands the candidate pairs and keeps the pairs whose
-real keys are equal, so a hash collision only costs a discarded candidate.
+The build (right) side is concatenated once. On the hash-table path (the
+default) its key hash pair is inserted into a ``kernels.HashTable``; each
+probe batch hashes its keys, finds each row's slot through the probe
+kernel's wrapper and reads the slot's candidate range of build rows. On
+the sorted-hash path (``spark.rapids.gpu.sql.join.hashTable.enabled``
+false, or every seeded table build overflowed its probe bound, as the
+reference's ``_choose_path``) the build's key hashes are sorted once
+(``kernels.prepare_join_side``) and each probe row's candidate range is
+found by binary search (``kernels.join_candidate_counts``). Both paths then
+share everything else: they expand the candidate pairs and keep the pairs
+whose real keys are equal, so a hash collision only costs a discarded
+candidate, and they emit the same rows. The metrics ``hashTableJoins``,
+``sortedHashJoins`` and ``sortedHashFallbacks`` record the path each
+execution took; ``join_path`` reads it from them.
 
 Outer, semi and anti joins keep the reference's matched flags, all on the
 device:
@@ -91,12 +100,14 @@ class HashJoinExec(BinaryExec):
                                    if max_candidate_rows is not None
                                    else C.JOIN_MAX_OUTPUT_ROWS.get(cf))
         self.chunk_target_rows = C.JOIN_CHUNK_TARGET_ROWS.get(cf)
+        self.hashtbl_enabled = C.JOIN_HASHTBL_ENABLED.get(cf)
         ls, rs = left.output_schema, right.output_schema
         self._lkeys = [self._key_index(k, ls) for k in self.left_keys]
         self._rkeys = [self._key_index(k, rs) for k in self.right_keys]
         self._schema = join_schema(ls, rs, join_type)
         for name in ("buildTimeNs", "joinTimeNs", "numCandidatePairs",
-                     "numProbeBatches", "numChunks"):
+                     "numProbeBatches", "numChunks", "hashTableJoins",
+                     "sortedHashJoins", "sortedHashFallbacks"):
             self._register_metric(name)
 
     @staticmethod
@@ -110,9 +121,46 @@ class HashJoinExec(BinaryExec):
     def output_schema(self) -> T.Schema:
         return self._schema
 
+    @property
+    def join_path(self) -> Optional[str]:
+        """The path the build side took, from the metrics: ``ht`` (the hash
+        table and its probe kernel), ``sorted`` (the sorted hashes), or
+        None before a build side with rows."""
+        if self.metrics["hashTableJoins"].value:
+            return "ht"
+        if self.metrics["sortedHashJoins"].value:
+            return "sorted"
+        return None
+
     def node_description(self) -> str:
         return (f"HashJoin {self.join_type} "
                 f"keys={list(zip(self.left_keys, self.right_keys))}")
+
+    def _prepare_build(self, build: ColumnarBatch):
+        """The build side's probe structure, as the reference's
+        ``_choose_path``: the hash table when it is enabled and a seeded
+        build fits its probe bound, else the sorted hashes, counted in the
+        metrics. Returns (order, candidates)."""
+        keys = tuple(self._rkeys)
+        if self.hashtbl_enabled:
+            ht = K.build_batch_hash_table(build, keys, K.HASHTBL_MAX_PROBES,
+                                          K.HASHTBL_MAX_REHASH)
+            if ht is not None:
+                self.metrics["hashTableJoins"].add(1)
+                return (ht[0].order,
+                        lambda probe: self._ht_candidates(probe, ht))
+            self.metrics["sortedHashFallbacks"].add(1)
+        jh = K.prepare_join_side(build, keys)
+        self.metrics["sortedHashJoins"].add(1)
+        return (jh.order, lambda probe: K.join_candidate_counts(
+            probe, self._lkeys, jh))
+
+    def _ht_candidates(self, probe: ColumnarBatch, ht):
+        tbl, capacity, seed = ht
+        ph1, ph2, pvalid = _ht_probe_hashes(probe, self._lkeys)
+        slot, hit = K.probe_hash_table_kernel(tbl, ph1, ph2, capacity, seed,
+                                              K.HASHTBL_MAX_PROBES)
+        return K.hashtbl_candidate_ranges(tbl, slot, hit & pvalid)
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         jt = self.join_type
@@ -120,17 +168,11 @@ class HashJoinExec(BinaryExec):
             parts = list(self.right.execute(partition))
             build = (K.concat_device(parts) if parts else empty_batch(
                 self.right.output_schema.types(), self.plan_device()))
-            ht = None
+            prep = None
             if build.num_rows:
-                ht = K.build_batch_hash_table(build, tuple(self._rkeys),
-                                              K.HASHTBL_MAX_PROBES,
-                                              K.HASHTBL_MAX_REHASH)
-                if ht is None:
-                    raise RuntimeError(
-                        f"hash-table build overflowed its probe bound under "
-                        f"every seed ({self.node_description()})")
+                prep = self._prepare_build(build)
         # inner and semi joins with an empty build side emit nothing
-        if ht is None and jt in ("inner", "left_semi"):
+        if prep is None and jt in ("inner", "left_semi"):
             return
         build_matched = (torch.zeros(build.num_rows, dtype=torch.bool,
                                      device=self.plan_device())
@@ -141,11 +183,11 @@ class HashJoinExec(BinaryExec):
                 continue
             last_probe = probe
             with self.timer("joinTimeNs"):
-                if ht is None:
+                if prep is None:
                     outs = self._join_batch_empty_build(probe, build)
                 else:
-                    outs, build_matched = self._join_batch_ht(
-                        probe, build, ht, build_matched)
+                    outs, build_matched = self._join_batch(
+                        probe, build, prep, build_matched)
             yield from outs
         if build_matched is not None and build.num_rows:
             with self.timer("joinTimeNs"):
@@ -166,15 +208,16 @@ class HashJoinExec(BinaryExec):
                 probe.columns[0].device, build), probe.num_rows)]
         return []
 
-    def _join_batch_ht(self, probe: ColumnarBatch, build: ColumnarBatch,
-                       ht, build_matched: Optional[torch.Tensor]):
+    def _join_batch(self, probe: ColumnarBatch, build: ColumnarBatch, prep,
+                    build_matched: Optional[torch.Tensor]):
+        """One probe batch on either path: ``prep`` is (order, candidates),
+        where ``candidates(probe)`` gives each probe row's range
+        ``[lo, lo + cnt)`` of positions in ``order`` (build rows)."""
         jt = self.join_type
-        tbl, capacity, seed = ht
+        order, candidates = prep
         self.metrics["numProbeBatches"].add(1)
-        ph1, ph2, pvalid = _ht_probe_hashes(probe, self._lkeys)
-        slot, hit = K.probe_hash_table_kernel(tbl, ph1, ph2, capacity, seed,
-                                              K.HASHTBL_MAX_PROBES)
-        lo, cnt, ends = _ht_candidate_stats(tbl, slot, hit & pvalid)
+        lo, cnt = candidates(probe)
+        ends = torch.cumsum(cnt.long(), 0)
         total = int(ends[-1])  # the one candidate-total read of this batch
         self.metrics["numCandidatePairs"].add(total)
         if total > self.max_candidate_rows:
@@ -186,7 +229,7 @@ class HashJoinExec(BinaryExec):
                 f"check the join keys ({self.node_description()})")
         pairs_out = jt in ("inner", "left", "right", "full")
         pmatch = (torch.zeros(probe.num_rows, dtype=torch.bool,
-                              device=ph1.device)
+                              device=lo.device)
                   if jt in ("left", "full", "left_semi", "left_anti")
                   else None)
         chunks = []  # (probe rows, build rows) of each chunk with pairs
@@ -196,7 +239,7 @@ class HashJoinExec(BinaryExec):
                 continue
             self.metrics["numChunks"].add(1)
             pc, build_row, ver = _candidate_pairs(
-                probe, build, tbl.order, lo, cnt, r0, r1, ctot, self._lkeys,
+                probe, build, order, lo, cnt, r0, r1, ctot, self._lkeys,
                 self._rkeys)
             if not pairs_out:  # semi/anti: flags only, no pair count read
                 pmatch = K.mark_rows(pmatch, pc, ver)
@@ -253,13 +296,6 @@ def _ht_probe_hashes(probe: ColumnarBatch, lkeys: Sequence[int]):
     for i in lkeys:
         pvalid = pvalid & probe.columns[i].validity
     return ph1, ph2, pvalid
-
-
-def _ht_candidate_stats(tbl: K.HashTable, slot: torch.Tensor,
-                        ok: torch.Tensor):
-    """Candidate ranges and their inclusive prefix sum (``ends``)."""
-    lo, cnt = K.hashtbl_candidate_ranges(tbl, slot, ok)
-    return lo, cnt, torch.cumsum(cnt.long(), 0)
 
 
 def _chunk_ranges(ends: torch.Tensor, total: int,

@@ -964,6 +964,52 @@ def expand_candidates(lo: torch.Tensor, cnt: torch.Tensor, r0: int, r1: int,
 
 
 # ---------------------------------------------------------------------------
+# Sorted-hash join structures (the hash-table path's fallback)
+# ---------------------------------------------------------------------------
+# The build side's rows with no null key, sorted by their 64-bit key hash
+# (``hash_keys``, variant 0); a probe row's candidates are the build rows of
+# its hash, found by two binary searches. The reference sorts and searches
+# the hash as uint64; torch has no unsigned 64-bit sort or searchsorted, so
+# the hash is sorted and searched as ``_u64_order`` of its bits (top bit
+# flipped), whose signed order is the unsigned order. Rows with a null key
+# never match: the reference pushes them past every real hash and clamps
+# the search to the valid count, the port leaves them out of the sorted
+# arrays, which gives the same ranges.
+
+
+class JoinHashes(NamedTuple):
+    sorted_hash: torch.Tensor  # (n_valid,) int64 _u64_order of the hash
+    order: torch.Tensor        # (n_valid,) int32 build row of each position
+
+
+def prepare_join_side(batch: ColumnarBatch,
+                      key_cols: Sequence[int]) -> JoinHashes:
+    """Sort a build side's non-null-key rows by key hash (stable, so equal
+    hashes keep row order)."""
+    valid = torch.ones(batch.num_rows, dtype=torch.bool,
+                       device=batch.columns[key_cols[0]].device)
+    for i in key_cols:
+        valid = valid & batch.columns[i].validity
+    rows = filter_indices(valid)
+    h = _u64_order(hash_keys(batch, list(key_cols))[rows])
+    srt = torch.sort(h, stable=True)
+    return JoinHashes(srt.values, rows[srt.indices].int())
+
+
+def join_candidate_counts(probe: ColumnarBatch, probe_keys: Sequence[int],
+                          build: JoinHashes):
+    """Per probe row, its candidate range ``[lo, lo + cnt)`` in
+    ``build.order`` (0 candidates for a null key). Returns (lo, cnt)."""
+    ph = _u64_order(hash_keys(probe, list(probe_keys)))
+    pvalid = torch.ones(probe.num_rows, dtype=torch.bool, device=ph.device)
+    for i in probe_keys:
+        pvalid = pvalid & probe.columns[i].validity
+    lo = torch.searchsorted(build.sorted_hash, ph).int()
+    hi = torch.searchsorted(build.sorted_hash, ph, right=True).int()
+    return lo, torch.where(pvalid, hi - lo, torch.zeros_like(lo))
+
+
+# ---------------------------------------------------------------------------
 # Segmented scan (window segment/peer geometry, running frames)
 # ---------------------------------------------------------------------------
 

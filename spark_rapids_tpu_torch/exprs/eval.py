@@ -24,6 +24,11 @@ double first (unscaled / 10**scale in float64). Comparisons of decimals
 with decimals or integers are exact at mixed scales: the finer side is
 floor-divided down to the coarser scale and its remainder breaks ties, so
 nothing is scaled up and nothing can overflow.
+
+Casts follow the reference's non-ANSI numeric semantics (``Cast``): a
+narrowing integer cast wraps, a double becomes an integer as Java's
+``(int)``/``(long)`` (``double_to_integral``), a decimal keeps its whole
+part.
 """
 
 from __future__ import annotations
@@ -230,7 +235,31 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
         return ColVal(_decimal_to_double(v.data, src), v.validity)
     if src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE):
         return ColVal(v.data.to(dst.torch_dtype), v.validity)
+    if dst in T.INTEGRAL_TYPES:
+        if src == T.DOUBLE:
+            return ColVal(double_to_integral(v.data, dst), v.validity)
+        if isinstance(src, T.DecimalType):  # the whole part, then wrap
+            return ColVal(torch.div(v.data, 10 ** src.scale,
+                                    rounding_mode="trunc")
+                          .to(dst.torch_dtype), v.validity)
+        if src in T.INTEGRAL_TYPES:  # bigint -> int wraps, as Java's
+            return ColVal(v.data.to(dst.torch_dtype), v.validity)
     raise NotImplementedError(f"cast {src} -> {dst} is not in the port yet")
+
+
+def double_to_integral(d: torch.Tensor, dst: T.DataType) -> torch.Tensor:
+    """Java's (int)/(long) of a double, Spark's non-ANSI cast: NaN is 0,
+    values at or past the type's range saturate at its min/max (infinities
+    included), the rest truncate toward zero. The bounds are exact powers
+    of two: the type's max itself does not round-trip through a double."""
+    info = torch.iinfo(dst.torch_dtype)
+    hi = float(2 ** (info.bits - 1))
+    over, under = d >= hi, d < -hi
+    inside = torch.where(torch.isnan(d) | over | under,
+                         torch.zeros_like(d), d)
+    out = torch.trunc(inside).to(dst.torch_dtype)
+    out = torch.where(over, torch.full_like(out, info.max), out)
+    return torch.where(under, torch.full_like(out, info.min), out)
 
 
 def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:

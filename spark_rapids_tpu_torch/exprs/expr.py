@@ -29,6 +29,11 @@ stays null, a number becomes the decimal or number of that type), any
 other expression is wrapped in a Cast, which each engine evaluates or
 refuses as it does any cast.
 
+An untyped NULL literal (``lit(None)``) has the reference's NULL type
+until ``resolve`` gives it the type its parent implies (see ``resolve``);
+where none is implied it raises TypeError on both engines, as the
+reference does for arithmetic and comparisons.
+
 Each class the planner may place on the device declares ``type_support``
 (``spark_rapids_tpu_torch.support``); ``plan/overrides.check_expr`` holds
 every bound expression to it.
@@ -166,6 +171,8 @@ class Literal(Expression):
                 dtype = T.DOUBLE
             elif isinstance(v, str):
                 dtype = T.STRING
+            elif v is None:
+                dtype = T.NULL
             elif isinstance(v, datetime.date):
                 dtype = T.DATE
             elif isinstance(v, decimal.Decimal):
@@ -390,8 +397,12 @@ class In(Expression):
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class Cast(Expression):
-    """Non-ANSI cast. The port evaluates decimal -> double and the widening
-    numeric casts (int -> bigint -> double); others raise."""
+    """Non-ANSI cast. The port evaluates decimal -> double, the widening
+    numeric casts (int -> bigint -> double), the narrowing ones (bigint ->
+    int wraps; double -> int/bigint truncates, NaN is 0 and out-of-range
+    values saturate; decimal -> int/bigint keeps the whole part and
+    wraps) and, on the CPU engine only, integer and decimal -> decimal;
+    others (strings, double -> decimal) raise naming the cast."""
 
     child: Expression
     to: T.DataType
@@ -603,38 +614,93 @@ def check_supported(expr: Expression) -> None:
         check_supported(c)
 
 
+def _is_null_type(e: Expression) -> bool:
+    return isinstance(e, Literal) and e.dtype == T.NULL
+
+
+def _typed(e: Expression, dt: T.DataType) -> Expression:
+    """``e``, or a NULL literal of type ``dt`` when ``e`` is untyped."""
+    return Literal(None, dt) if _is_null_type(e) else e
+
+
+def _value_type(kids: Sequence[Expression], what: str) -> T.DataType:
+    """A conditional's type: its first value branch that is not an untyped
+    NULL literal."""
+    for k in kids:
+        if not _is_null_type(k):
+            return k.dtype
+    raise TypeError(f"{what} has only untyped NULL values; give one a type "
+                    f"with lit(None, dtype)")
+
+
 def resolve(expr: Expression, schema: T.Schema) -> Expression:
-    """Replace UnresolvedColumn with a typed ColumnRef against a schema."""
+    """Replace UnresolvedColumn with a typed ColumnRef against a schema,
+    and type every untyped NULL literal (``lit(None)``) from its parent:
+    a conditional's value takes the type of its first typed branch, an
+    ``IN`` item the value's type, a Cast its target type, And/Or/Not and
+    IsNull/IsNotNull a boolean, Sum, Average and Count a double (as the
+    reference, Spark's sum(NULL) is a double). Arithmetic, comparisons,
+    Min, Max and a bare projected NULL raise TypeError, as the reference
+    types them ("no common numeric type")."""
+    out = _resolve(expr, schema)
+    if _is_null_type(out):
+        raise TypeError("an untyped NULL literal has no type here; give it "
+                        "one with lit(None, dtype)")
+    return out
+
+
+def _resolve(expr: Expression, schema: T.Schema) -> Expression:
     if isinstance(expr, UnresolvedColumn):
         i = schema.index_of(expr.name)
         f = schema[i]
         return ColumnRef(i, f.dtype, f.nullable, f.name)
     if isinstance(expr, (ColumnRef, Literal)):
         return expr
-    kids: List[Expression] = [resolve(c, schema) for c in expr.children]
+    kids: List[Expression] = [_resolve(c, schema) for c in expr.children]
     if isinstance(expr, Alias):
+        if _is_null_type(kids[0]):
+            raise TypeError(f"an untyped NULL literal has no type as "
+                            f"{expr.name!r}; give it one with "
+                            f"lit(None, dtype)")
         return Alias(kids[0], expr.name)
     if isinstance(expr, Cast):
+        if _is_null_type(kids[0]):
+            return Literal(None, expr.to)
         return Cast(kids[0], expr.to)
     if isinstance(expr, Count):
-        return Count(kids[0] if kids else None)
+        return Count(_typed(kids[0], T.BOOLEAN) if kids else None)
+    if isinstance(expr, (Sum, Average)):
+        return type(expr)(_typed(kids[0], T.DOUBLE))
+    if isinstance(expr, (And, Or, Not, IsNull, IsNotNull)):
+        return type(expr)(*[_typed(k, T.BOOLEAN) for k in kids])
     if isinstance(expr, In):
-        return In(kids[0], kids[1:])
+        dt = _value_type(kids, "IN")
+        return In(_typed(kids[0], dt), [_typed(k, dt) for k in kids[1:]])
     if isinstance(expr, If):
-        dt = kids[1].dtype
-        return If(kids[0], kids[1], value_as(kids[2], dt))
+        dt = _value_type(kids[1:], "IF")
+        return If(_typed(kids[0], T.BOOLEAN), value_as(kids[1], dt),
+                  value_as(kids[2], dt))
     if isinstance(expr, CaseWhen):
-        dt = kids[1].dtype
         n = len(expr.branches)
-        branches = [(kids[2 * i], value_as(kids[2 * i + 1], dt))
-                    for i in range(n)]
+        vals = [kids[2 * i + 1] for i in range(n)]
+        if expr.else_value is not None:
+            vals.append(kids[2 * n])
+        dt = _value_type(vals, "CASE WHEN")
+        branches = [(_typed(kids[2 * i], T.BOOLEAN),
+                     value_as(kids[2 * i + 1], dt)) for i in range(n)]
         else_v = (value_as(kids[2 * n], dt)
                   if expr.else_value is not None else None)
         return CaseWhen(branches, else_v)
     if isinstance(expr, Coalesce):
-        dt = kids[0].dtype
+        dt = _value_type(kids, "COALESCE")
         return Coalesce(*[value_as(k, dt) for k in kids])
     check_supported(expr)
+    if any(_is_null_type(k) for k in kids):
+        if isinstance(expr, _Binary):
+            raise TypeError(f"no common numeric type for {kids[0].dtype}, "
+                            f"{kids[1].dtype}")
+        raise TypeError(f"{type(expr).__name__} of an untyped NULL literal "
+                        f"has no type; give it one with lit(None, dtype)")
     return type(expr)(*kids)
 
 

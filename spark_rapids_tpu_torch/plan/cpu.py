@@ -156,23 +156,28 @@ def _decimal_overflow(vals: np.ndarray, valid: np.ndarray,
     return out, valid & ok
 
 
+def _per_value(vals: np.ndarray, fn) -> np.ndarray:
+    """``fn`` over the values; a broadcast literal (stride 0) is mapped
+    once and broadcast again."""
+    if vals.ndim == 1 and len(vals) > 1 and vals.strides[0] == 0:
+        return np.broadcast_to(fn(vals[:1]), vals.shape)
+    return fn(vals)
+
+
 def _as_double(vals: np.ndarray, dt: T.DataType) -> np.ndarray:
     """Values as doubles; a decimal is unscaled / 10**scale, as the
     device's cast."""
-    d = vals.astype(np.float64)
-    return d / (10.0 ** dt.scale) if isinstance(dt, T.DecimalType) else d
+    if isinstance(dt, T.DecimalType):
+        return _per_value(vals, lambda v: v.astype(np.float64)
+                          / (10.0 ** dt.scale))
+    return _per_value(vals, lambda v: v.astype(np.float64))
 
 
 def _canonical_float(vals: np.ndarray) -> np.ndarray:
-    """-0.0 as 0.0 (Spark's equality and order of doubles)."""
-    return np.where(vals == 0.0, 0.0, vals)
-
-
-def _nan_lt(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Spark order of doubles: NaN is greater than everything."""
-    an, bn = np.isnan(a), np.isnan(b)
-    with np.errstate(invalid="ignore"):
-        return np.where(an, False, np.where(bn, True, a < b))
+    """-0.0 as 0.0 (Spark's equality and order of doubles): adding +0.0
+    turns -0.0 into +0.0 and leaves every other value, NaN included, as
+    it is."""
+    return _per_value(vals, lambda v: v + 0.0)
 
 
 def comparable(a: np.ndarray, lt: T.DataType, b: np.ndarray,
@@ -194,8 +199,12 @@ def _compare(kind: type, a: np.ndarray, b: np.ndarray,
     """One comparison over aligned operands (strings: byte order, which is
     the code-point order of Python strings)."""
     if is_float:
-        lt = _nan_lt(a, b)
-        eq = (a == b) | (np.isnan(a) & np.isnan(b))
+        # Spark's order of doubles: NaN is greater than everything and
+        # equal to itself
+        an, bn = np.isnan(a), np.isnan(b)
+        with np.errstate(invalid="ignore"):
+            lt = (a < b) | (bn & ~an)
+            eq = (a == b) | (an & bn)
     else:
         lt = np.asarray(a < b, dtype=np.bool_)
         eq = np.asarray(a == b, dtype=np.bool_)
@@ -227,8 +236,9 @@ def _literal(expr: E.Literal, n: int) -> Pair:
         v = decimal_unscaled(expr.value, dt.scale)
         if dt.is_wide:
             return np.full(n, v, dtype=object), ones
-        return np.full(n, v, np.int64), ones
-    return np.full(n, expr.value, _np_dtype(dt)), ones
+        return np.broadcast_to(np.int64(v), (n,)), ones
+    # one value for every row: a read-only broadcast, no copy per row
+    return np.broadcast_to(np.array(expr.value, _np_dtype(dt)), (n,)), ones
 
 
 def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
@@ -273,6 +283,8 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     if src in T.INTEGRAL_TYPES or isinstance(src, T.DecimalType):
         return dst in (T.INT, T.LONG, T.DOUBLE) or isinstance(
             dst, T.DecimalType)
+    if src == T.DOUBLE:  # double -> decimal is not in the port yet
+        return dst in T.INTEGRAL_TYPES
     return False
 
 
@@ -300,6 +312,8 @@ def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
         out = out.astype(object)
         return _decimal_overflow(out, valid, dst)
     np_t = _np_dtype(dst)
+    if src == T.DOUBLE:
+        return _double_to_integral(vals, np_t), valid
     if isinstance(src, T.DecimalType):
         # whole part, truncated toward zero (non-ANSI wraps past the type)
         p = 10 ** src.scale
@@ -309,12 +323,52 @@ def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
     return vals.astype(np_t), valid
 
 
-def cpu_eval(expr: E.Expression, table: pa.Table) -> Pair:
-    """Evaluate a bound expression over a host table: (values, valid)."""
+def _double_to_integral(d: np.ndarray, np_t: np.dtype) -> np.ndarray:
+    """Java's (int)/(long) of a double (the device's ``double_to_integral``):
+    NaN is 0, values at or past the range saturate, the rest truncate."""
+    info = np.iinfo(np_t)
+    hi = float(2 ** (info.bits - 1))
+    over, under = d >= hi, d < -hi
+    inside = np.where(np.isnan(d) | over | under, 0.0, d)
+    out = np.trunc(inside).astype(np_t)
+    return np.where(over, info.max, np.where(under, info.min, out)).astype(
+        np_t)
+
+
+def expr_key(e: E.Expression):
+    """A structural key of a bound expression: equal keys evaluate to
+    equal values (literals by value and type, columns by ordinal)."""
+    if isinstance(e, E.Literal):
+        return ("lit", repr(e.value), e.dtype.name)
+    if isinstance(e, E.ColumnRef):
+        return ("col", e.index)
+    if isinstance(e, E.Alias):
+        return expr_key(e.child)
+    to = e.to.name if isinstance(e, E.Cast) else None
+    return (type(e).__name__, to, tuple(expr_key(c) for c in e.children))
+
+
+def cpu_eval(expr: E.Expression, table: pa.Table,
+             cache: Optional[dict] = None) -> Pair:
+    """Evaluate a bound expression over a host table: (values, valid).
+    With ``cache`` (a dict kept for one table), every sub-expression is
+    evaluated once and its arrays are shared, so callers must not write
+    into them."""
+    if cache is not None:
+        k = expr_key(expr)
+        got = cache.get(k)
+        if got is None:
+            got = cache[k] = _cpu_eval(expr, table, cache)
+        return got
+    return _cpu_eval(expr, table, None)
+
+
+def _cpu_eval(expr: E.Expression, table: pa.Table,
+              cache: Optional[dict]) -> Pair:
     n = table.num_rows
 
     def ev(e):
-        return cpu_eval(e, table)
+        return cpu_eval(e, table, cache)
 
     if isinstance(expr, E.Alias):
         return ev(expr.child)

@@ -2,9 +2,12 @@
 spark_rapids_tpu/plan/cpu_agg.py), vectorised with numpy.
 
 ``CpuAggregateExec`` is the hash aggregate in mode ``complete``: group keys
-are factorised (a null key is a group of its own; doubles group with -0.0
-as 0.0 and NaN as one value), groups come out in order of first
-appearance, and Sum, Count, Average, Min and Max reduce with Spark's
+are factorised by hash (a null key is a group of its own; doubles group
+with -0.0 as 0.0 and NaN as one value), groups come out in order of first
+appearance, the rows are ordered by group once for the whole node and
+every function reduces over that order, each distinct input
+(sub-)expression is evaluated once (``cpu_eval``'s cache), and Sum, Count,
+Average, Min and Max reduce with Spark's
 result types: integer sums wrap as a long does, decimal sums are exact and
 null past their precision, decimal averages round HALF_UP at the result
 scale in integer arithmetic; CountDistinct counts each group's distinct
@@ -25,6 +28,7 @@ from __future__ import annotations
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+import pandas as pd
 import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
@@ -33,63 +37,96 @@ from spark_rapids_tpu_torch.exec.base import DeviceExec
 from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, join_schema
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.plan.cpu import (
-    CpuExec, _canonical_float, _half_up_div, comparable, cpu_eval,
-    order_ranks, values_to_arrow)
+    CpuExec, _canonical_float, _half_up_div, _is_float, comparable,
+    cpu_eval, order_ranks, values_to_arrow)
 
 
 def _factorize(vals: np.ndarray, valid: np.ndarray,
                dt: T.DataType) -> Tuple[np.ndarray, int]:
     """Codes 0..k-1 of the valid values and k for null; returns (codes,
-    k + 1)."""
-    ranks, k = order_ranks(vals, valid, dt)
-    return np.where(valid, ranks, k), k + 1
+    k + 1). The codes are by hash, not in value order: grouping, joins and
+    distinct counts only need equality (doubles: -0.0 equals 0.0, NaN
+    equals NaN; strings by bytes)."""
+    v = vals[valid]
+    if _is_float(dt):
+        v = _canonical_float(v)
+    codes, uniq = pd.factorize(v, use_na_sentinel=False)
+    k = len(uniq)
+    out = np.full(len(vals), k, np.int64)
+    out[valid] = codes
+    return out, k + 1
 
 
 def _combine(codes: Sequence[np.ndarray], n: int) -> np.ndarray:
     """One dense id per distinct tuple of per-key codes."""
     gid = np.zeros(n, np.int64)
     for c in codes:
-        _, gid = np.unique(gid * (int(c.max()) + 1 if len(c) else 1) + c,
-                           return_inverse=True)
-        gid = gid.reshape(-1).astype(np.int64)
+        gid, _ = pd.factorize(gid * (int(c.max()) + 1 if len(c) else 1) + c)
+        gid = gid.astype(np.int64)
     return gid
 
 
-def _segments(gid: np.ndarray, keep: np.ndarray, ng: int):
-    """Rows with ``keep`` ordered by group: (order, starts, groups present,
-    rows per group)."""
-    rows = np.flatnonzero(keep)
-    order = rows[np.argsort(gid[rows], kind="stable")]
-    g = gid[order]
-    present, starts = np.unique(g, return_index=True)
-    counts = np.bincount(g, minlength=ng)
-    return order, starts, present, counts
+class _Groups:
+    """The rows of an aggregate node ordered by group, computed once and
+    shared by all its functions: ``order`` (None for a global aggregate,
+    whose rows are already one group) and each group's first position in
+    it (``starts``). Every group holds at least one row."""
+
+    def __init__(self, gid: np.ndarray, ng: int, keyed: bool):
+        self.gid, self.ng = gid, ng
+        self.order = np.argsort(gid, kind="stable") if keyed else None
+        if keyed and len(gid):
+            g = gid[self.order]
+            self.starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+        else:
+            self.starts = np.zeros(min(len(gid), 1), np.int64)
+
+    def counts(self, valid: np.ndarray) -> np.ndarray:
+        return np.bincount(self.gid[valid], minlength=self.ng)
 
 
-def _group_sum(vals: np.ndarray, valid: np.ndarray, gid: np.ndarray,
-               ng: int, wrap: bool) -> Tuple[np.ndarray, np.ndarray]:
+def _group_sum(vals: np.ndarray, valid: np.ndarray, groups: _Groups,
+               wrap: bool) -> Tuple[np.ndarray, np.ndarray]:
     """(sum, any valid) per group. Doubles add in row order; integers in
     int64 (wrapping as Spark's long does when ``wrap``), else exactly as
-    Python ints where int64 could overflow."""
-    order, starts, present, counts = _segments(gid, valid, ng)
-    has = counts > 0
+    Python ints where int64 could overflow. Null rows add nothing."""
+    ng, gid = groups.ng, groups.gid
+    has = groups.counts(valid) > 0
     if vals.dtype.kind == "f":
         return np.bincount(gid[valid], weights=vals[valid],
                            minlength=ng), has
-    v = vals[order]
-    safe = v.dtype != object and (
-        wrap or len(v) == 0
-        or max(abs(int(v.max())), abs(int(v.min()))) * len(v) < (1 << 62))
+    live = vals[valid]
+    safe = live.dtype != object and (
+        wrap or len(live) == 0
+        or max(abs(int(live.max())), abs(int(live.min()))) * len(live)
+        < (1 << 62))
     out = np.zeros(ng, np.int64 if safe else object)
-    if len(v):
+    if len(live):
+        v = np.where(valid, vals, 0)
+        if groups.order is not None:
+            v = v[groups.order]
         if safe:
             with np.errstate(over="ignore"):
-                out[present] = np.add.reduceat(v.astype(np.int64), starts)
+                out[:] = np.add.reduceat(v.astype(np.int64), groups.starts)
         else:
-            bounds = list(starts) + [len(v)]
-            out[present] = [sum(int(x) for x in v[a:b])
-                            for a, b in zip(bounds[:-1], bounds[1:])]
+            bounds = list(groups.starts) + [len(v)]
+            out[:] = [sum(int(x) for x in v[a:b])
+                      for a, b in zip(bounds[:-1], bounds[1:])]
     return out, has
+
+
+def _count_distinct(codes: np.ndarray, k: int, valid: np.ndarray,
+                    gid: np.ndarray, ng: int) -> np.ndarray:
+    """Distinct valid codes (0..k-1) per group: a bitmap of (group, code)
+    pairs where it is small, else the sorted unique pairs."""
+    pair = gid[valid] * k + codes[valid]
+    if ng * k <= max(1 << 24, 4 * len(pair)):
+        seen = np.zeros(ng * k, np.bool_)
+        seen[pair] = True
+        pair = np.flatnonzero(seen)
+    else:
+        pair = np.unique(pair)
+    return np.bincount(pair // k, minlength=ng)
 
 
 def _group_extreme(vals: np.ndarray, valid: np.ndarray, dt: T.DataType,
@@ -186,29 +223,34 @@ class CpuAggregateExec(CpuExec):
             gid = np.zeros(n, np.int64)
             first = np.zeros(0, np.int64)
         ng = len(first) if key_vals else 1
+        groups = _Groups(gid, ng, bool(key_vals))
+        cache: dict = {}  # each distinct (sub-)expression, evaluated once
+
+        def evaluate(e: E.Expression):
+            return cpu_eval(e, t, cache)
+
         arrays: List[pa.Array] = []
         for (v, m), f in zip(key_vals, self._schema):
             arrays.append(values_to_arrow(v[first], m[first], f.dtype))
         for (func, _name), f in zip(self._aggs,
                                     list(self._schema)[len(key_vals):]):
-            arrays.append(self._reduce(func, f.dtype, t, gid, ng))
+            arrays.append(self._reduce(func, f.dtype, n, groups, evaluate))
         yield pa.Table.from_arrays(arrays, schema=self._schema.to_arrow())
 
     @staticmethod
-    def _reduce(func, out_t: T.DataType, t: pa.Table, gid: np.ndarray,
-                ng: int) -> pa.Array:
-        n = t.num_rows
+    def _reduce(func, out_t: T.DataType, n: int, groups: _Groups,
+                evaluate) -> pa.Array:
+        gid, ng = groups.gid, groups.ng
         if isinstance(func, E.Count):
-            valid = (cpu_eval(func.children[0], t)[1] if func.children
+            valid = (evaluate(func.children[0])[1] if func.children
                      else np.ones(n, np.bool_))
-            return values_to_arrow(np.bincount(gid[valid], minlength=ng),
+            return values_to_arrow(groups.counts(valid),
                                    np.ones(ng, np.bool_), out_t)
         in_t = func.children[0].dtype
-        vals, valid = cpu_eval(func.children[0], t)
+        vals, valid = evaluate(func.children[0])
         if isinstance(func, E.CountDistinct):
             codes, k = _factorize(vals, valid, in_t)
-            pairs = np.unique(gid[valid] * k + codes[valid])  # (group, x)
-            return values_to_arrow(np.bincount(pairs // k, minlength=ng),
+            return values_to_arrow(_count_distinct(codes, k, valid, gid, ng),
                                    np.ones(ng, np.bool_), out_t)
         if in_t in T.FRACTIONAL_TYPES:
             vals = _canonical_float(vals)
@@ -216,7 +258,7 @@ class CpuAggregateExec(CpuExec):
             out, has = _group_extreme(vals, valid, in_t, gid, ng,
                                       isinstance(func, E.Max))
             return values_to_arrow(out, has, out_t)
-        total, has = _group_sum(vals, valid, gid, ng,
+        total, has = _group_sum(vals, valid, groups,
                                 wrap=in_t in T.INTEGRAL_TYPES)
         if isinstance(func, E.Sum):
             if isinstance(out_t, T.DecimalType):
@@ -225,7 +267,7 @@ class CpuAggregateExec(CpuExec):
                 total = np.where(ok, total, 0)
                 return values_to_arrow(total, has & ok, out_t)
             return values_to_arrow(total, has, out_t)
-        count = np.bincount(gid[valid], minlength=ng)
+        count = groups.counts(valid)
         if isinstance(out_t, T.DecimalType):
             avg = _decimal_avg(total, count, out_t.scale - in_t.scale)
             return values_to_arrow(avg, has, out_t)
@@ -277,14 +319,16 @@ class CpuJoinExec(CpuExec):
             codes.append(code)
             lok &= lm
             rok &= rm
-        key = _combine(codes, nl + nr)
+        key = _combine(codes, nl + nr)  # dense ids 0..k-1
         lkey, rkey = key[:nl], key[nl:]
         rrows = np.flatnonzero(rok)
         rrows = rrows[np.argsort(rkey[rrows], kind="stable")]
-        rsorted = rkey[rrows]
+        # the right rows of each id: a count and a start per id
+        per_key = np.bincount(rkey[rrows], minlength=int(key.max(
+            initial=-1)) + 1)
         lrows = np.flatnonzero(lok)
-        lo = np.searchsorted(rsorted, lkey[lrows], "left")
-        cnt = np.searchsorted(rsorted, lkey[lrows], "right") - lo
+        cnt = per_key[lkey[lrows]]
+        lo = (np.cumsum(per_key) - per_key)[lkey[lrows]]
         lmatched = np.zeros(nl, np.bool_)
         lmatched[lrows[cnt > 0]] = True
         if jt in ("left_semi", "left_anti"):

@@ -97,20 +97,26 @@ class DataFrame:
         return explain(Overrides(self.conf).prepare(self.plan), mode)
 
     def to_arrow(self) -> pa.Table:
-        from spark_rapids_tpu_torch.plan.cpu import CpuExec
-
-        node = self.physical_plan()
-        schema = node.output_schema
-        if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
-            tables = list(node.execute_host())
-        else:
-            tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
-        if not tables:
-            return schema.to_arrow().empty_table()
-        return pa.concat_tables(tables)
+        return execute_to_arrow(self.physical_plan())
 
     def collect(self) -> List[dict]:
         return self.to_arrow().to_pylist()
+
+
+def execute_to_arrow(node) -> pa.Table:
+    """Run a physical plan (``DataFrame.physical_plan``) and gather its
+    rows; the caller keeps the plan, so it can read the operators'
+    metrics after the run."""
+    from spark_rapids_tpu_torch.plan.cpu import CpuExec
+
+    schema = node.output_schema
+    if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
+        tables = list(node.execute_host())
+    else:
+        tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
+    if not tables:
+        return schema.to_arrow().empty_table()
+    return pa.concat_tables(tables)
 
 
 class GroupedDataFrame:

@@ -90,9 +90,11 @@ _ORDERING = (E.LessThan, E.LessThanOrEqual, E.GreaterThan,
 
 def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
     """Casts ``exprs/eval.py`` evaluates on the device."""
-    return (src == dst
-            or (isinstance(src, T.DecimalType) and dst == T.DOUBLE)
-            or (src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE)))
+    numeric = (src in T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES
+               or isinstance(src, T.DecimalType))
+    return (src == dst or (numeric and dst in T.INTEGRAL_TYPES)
+            or (dst == T.DOUBLE and src not in T.FRACTIONAL_TYPES
+                and numeric))
 
 
 def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
@@ -214,6 +216,25 @@ def explain(meta: PlanMeta, mode: str = "ALL") -> str:
 
     walk(meta, 0)
     return "\n".join(lines) if lines else "(entire plan runs on GPU)"
+
+
+def join_paths(node) -> List[str]:
+    """The path each join of an executed physical plan took, in plan
+    order: ``ht`` (the device hash table and its probe kernel), ``sorted``
+    (the device sorted-hash path), ``empty`` (a device join whose build
+    side had no row) or ``cpu`` (the CPU engine)."""
+    out: List[str] = []
+
+    def walk(n):
+        if isinstance(n, HashJoinExec):
+            out.append(n.join_path or "empty")
+        elif isinstance(n, CpuJoinExec):
+            out.append("cpu")
+        for c in n.children:
+            walk(c)
+
+    walk(node)
+    return out
 
 
 # one planner at a time: apply sets the process-wide active conf
@@ -382,7 +403,10 @@ def rewrite_distinct(plan: L.LogicalPlan) -> L.LogicalPlan:
     key. An aggregate whose group keys are not non-nullable columns stays
     as it is (the join would drop null-key groups): tagging places it on
     the CPU engine, which counts distinct values natively. A Project
-    restores the output columns' order."""
+    restores the output columns' order. An aggregate whose only aggregate
+    is one COUNT(DISTINCT x) needs no join, whatever its keys: it becomes
+    ``Count(#dx0)`` per key over the ``(keys, x AS #dx0)``-distinct
+    sub-aggregate."""
     kids = [rewrite_distinct(c) for c in plan.children]
     if any(k is not c for k, c in zip(kids, plan.children)):
         plan = _with_children(plan, kids)
@@ -393,6 +417,18 @@ def rewrite_distinct(plan: L.LogicalPlan) -> L.LogicalPlan:
     if not dist:
         return plan
     child_schema = plan.child.schema
+    if len(dist) == len(plan.agg_exprs) == 1:
+        # one distinct aggregate and nothing else (Spark's single-distinct
+        # plan): count the (keys, x)-distinct rows per key, no join, so
+        # nullable keys need nothing more
+        func, name = _strip_alias(plan.agg_exprs[0])
+        keys = [_strip_alias(E.resolve(e, child_schema))[1]
+                for e in plan.group_exprs]
+        sub = L.Aggregate(list(plan.group_exprs)
+                          + [E.Alias(func.children[0], "#dx0")], [],
+                          plan.child)
+        return L.Aggregate([E.col(k) for k in keys],
+                           [E.Alias(E.Count(E.col("#dx0")), name)], sub)
     key_names = []
     for e in plan.group_exprs:
         inner, name = _strip_alias(E.resolve(e, child_schema))

@@ -136,6 +136,18 @@ class StringType(DataType):
         return pa.string()
 
 
+class NullType(DataType):
+    """The type of an untyped NULL literal (``lit(None)``). No column has
+    it: ``exprs.expr.resolve`` gives each such literal the type its parent
+    needs, or raises a TypeError where none is implied."""
+
+    name = "void"
+    torch_dtype = torch.bool
+
+    def arrow_type(self):
+        return pa.null()
+
+
 def is_wide_decimal(dt: DataType) -> bool:
     return isinstance(dt, DecimalType) and dt.is_wide
 
@@ -155,6 +167,7 @@ LONG = LongType()
 DOUBLE = DoubleType()
 DATE = DateType()
 STRING = StringType()
+NULL = NullType()
 
 INTEGRAL_TYPES = (INT, LONG)
 FRACTIONAL_TYPES = (DOUBLE,)

@@ -8,7 +8,9 @@ plain-string sort keys and the string hash's device-resident power table;
 the six join types (inner, left, right, full, left_semi, left_anti)
 through the probe kernel against the same joins on the CPU, and the
 joins slice's q9/q28/q40/q43/q87/q88/q93/q97 on the card against the CPU
-and the CPU engine.
+and the CPU engine; the sorted-hash join path (all six types, its
+candidate ranges) and the breadth slice's 33 queries on the card against
+the CPU, the CPU engine and the sorted-hash path.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -438,3 +440,98 @@ def test_tpcds_join_query_on_card_matches_cpu(q):
     on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
         {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
     assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")
+
+
+@pytest.mark.parametrize("string_keys", [False, True])
+@pytest.mark.parametrize("how", JOIN_TYPES)
+def test_join_type_on_sorted_hash_path_matches_cpu_on_card(how,
+                                                            string_keys):
+    """The sorted-hash path (hash table off) on the card: no probe launch,
+    and the rows of the same join on the CPU, on either path."""
+    _card()
+    from spark_rapids_tpu_torch.bench.tpch import rows_match
+    from spark_rapids_tpu_torch.config import conf as PC
+    from spark_rapids_tpu_torch.exec.join import HashJoinExec
+    from spark_rapids_tpu_torch.exprs import expr as PE
+
+    def run(device, hash_table):
+        PC.set_active(PC.RapidsConf({
+            "spark.rapids.gpu.sql.join.hashTable.enabled": hash_table}))
+        try:
+            left, right = _join_sides(device, string_keys)
+            node = HashJoinExec([PE.col("k"), PE.col("k2")],
+                                [PE.col("rk"), PE.col("rk2")], how, left,
+                                right)
+        finally:
+            PC.set_active(None)
+        rows = pa.concat_tables([PB.batch_to_arrow(b, node.output_schema)
+                                 for b in node.execute(0)]).to_pylist()
+        return rows, node.join_path
+    before = PK.KERNEL_LAUNCHES["hashtbl_probe"]
+    got, path = run("cuda", False)
+    torch.cuda.synchronize()
+    assert path == "sorted"
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] == before
+    for hash_table in (False, True):
+        exp, _ = run("cpu", hash_table)
+        assert len(got) == len(exp) and rows_match(got, exp)
+
+
+def test_sorted_hash_candidates_on_card_match_cpu():
+    """prepare_join_side and join_candidate_counts on the card give the
+    CPU's sorted hashes, build rows and candidate ranges, hashes on both
+    sides of 2^63 included (the search runs on the top-bit-flipped
+    bits)."""
+    _card()
+    rng = np.random.default_rng(23)
+    build = rng.integers(0, 20_000, 50_000)
+    probe = rng.integers(0, 40_000, 200_000)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bb = PB.batch_from_arrow(pa.table({"k": pa.array(build, pa.int64())}),
+                                 dev)
+        pb = PB.batch_from_arrow(pa.table({"k": pa.array(probe, pa.int64())}),
+                                 dev)
+        jh = PK.prepare_join_side(bb, [0])
+        lo, cnt = PK.join_candidate_counts(pb, [0], jh)
+        out[dev] = [t.cpu() for t in (jh.sorted_hash, jh.order, lo, cnt)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    h = PK.hash_keys(PB.batch_from_arrow(pa.table(
+        {"k": pa.array(build, pa.int64())}), "cpu"), [0])
+    assert bool((h < 0).any()) and bool((h >= 0).any())
+    assert int(out["cpu"][3].sum()) > 0
+
+
+@pytest.mark.parametrize("q", ["q1", "q13", "q14", "q16", "q17", "q25", "q26",
+                               "q27", "q29", "q30", "q32", "q34", "q37",
+                               "q38", "q39", "q41", "q48", "q50", "q55",
+                               "q62", "q64", "q65", "q69", "q73", "q78",
+                               "q79", "q81", "q82", "q84", "q85", "q92",
+                               "q94", "q99"])
+def test_tpcds_breadth_query_on_card_matches_cpu(q):
+    """The breadth slice's queries on the card against the same query on
+    the CPU, on the CPU engine and with the hash table off (the sorted-hash
+    path on the card)."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t = S.tables_for(0.1, seed=3, names=Q.TABLES[q])
+    df = Q.QUERIES[q](Q.df_tables(t, batch_rows=1 << 22, device="cuda"))
+    got = df.to_arrow().to_pylist()
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
+    assert Q.informative(got)  # every result of seed 3 at SF 0.1 has values
+    assert Q.check_rows(q, got, exp) == (True, "")
+    on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
+    assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")
+    off = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+        batch_rows=1 << 22, device="cuda")).physical_plan()
+    assert Q.check_rows(q, execute_to_arrow(off).to_pylist(), got) == (True,
+                                                                     "")
+    assert "ht" not in join_paths(off)

@@ -361,3 +361,32 @@ def test_distinct_rewrite_matches_jax(keys):
     assert "#dx" not in on_cpu.explain()  # the CPU engine counts natively
     assert rows_match(on_cpu.collect(), exp)
     assert [list(r) for r in got[:1]] == [list(r) for r in exp[:1]]
+
+
+@pytest.mark.parametrize("keys", [[], ["g"], ["gn"]])
+def test_single_distinct_rewrite_matches_jax(keys):
+    """An aggregate whose only function is one COUNT(DISTINCT x) plans as
+    two aggregates on the device, no join, nullable keys included (the
+    null key is a group of its own). Without keys the reference returns
+    no row at all (ROADMAP.md queue 3); the port's one row is held
+    against the distinct non-null values counted in Python."""
+    t = _distinct_table()
+    jdf = jax_from_arrow(t)
+    jdf.shuffle_partitions = 1
+
+    def query(M, df, alias_keys):
+        ks = [M.Alias(M.col(k), k) for k in keys] if alias_keys else keys
+        agg = M.Alias(M.CountDistinct(M.col("x")), "nx")
+        return df.group_by(*ks).agg(agg) if keys else df.agg(agg)
+    exp = query(JE, jdf, True).collect()
+    if not keys:
+        assert exp == []
+        exp = [{"nx": len({v for v in t.column("x").to_pylist()
+                           if v is not None})}]
+    df = query(PE, port_from_arrow(t, batch_rows=128, device="cpu"), False)
+    plan = df.explain()
+    assert "!" not in plan and "Join" not in plan and "#dx0" in plan
+    got = df.collect()
+    assert len(got) == len(exp) and rows_match(got, exp)
+    if keys == ["gn"]:
+        assert any(r["gn"] is None for r in got)

@@ -210,7 +210,8 @@ def test_probe_on_jax_table_matches_jax_and_pallas(distinct):
 def test_build_rehashes_then_gives_up(monkeypatch):
     """An overflowing build retries with the next seed at twice the
     capacity; when every seed overflows the builder returns None and the
-    join raises instead of dropping rows."""
+    join takes the sorted-hash path instead of dropping rows (the
+    reference's fallback), recorded in its metrics."""
     real = PK.build_hash_table
     calls = []
 
@@ -231,8 +232,13 @@ def test_build_rehashes_then_gives_up(monkeypatch):
     node = HashJoinExec([PE.col("k")], [PE.col("k")], "inner",
                         BatchSourceExec([[bb]], schema),
                         BatchSourceExec([[bb]], schema))
-    with pytest.raises(RuntimeError, match="overflowed"):
-        list(node.execute(0))
+    out = list(node.execute(0))
+    assert sorted(v for b in out for v in b.columns[0].data.tolist()) == \
+        list(range(40))
+    assert node.join_path == "sorted"
+    assert node.metrics["sortedHashFallbacks"].value == 1
+    assert node.metrics["sortedHashJoins"].value == 1
+    assert node.metrics["hashTableJoins"].value == 0
 
 
 def test_kernel_wrapper_routes_cpu_tensors_to_plain_version():
