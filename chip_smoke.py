@@ -90,6 +90,24 @@ Phases, in order; any failure exits non-zero before the last line:
    runs again with ``spark.rapids.gpu.sql.join.hashTable.enabled=false``:
    every device join must report the sorted-hash path, none may launch
    the probe, and the rows must equal the hash-table run's;
+10. TPC-DS union slice: the 25 queries of ``tpcds_queries.UNION_SLICE``
+   (Union, Substring, Like, string-column equality, projected string
+   literals and residual join conditions) at SF ``--sf-ds`` on the same
+   tables, one batch of 2^22 rows a table, each as phase 9 runs a
+   breadth query: its CPU-engine nodes printed with their reasons, one
+   run with the launch counts zeroed before the query is built (q23 and
+   q24 collect their threshold while they are built) and read after it,
+   held against the CPU engine, required to show values unless
+   ``EMPTY_AT_SF`` names it, the probe required to launch (but in q76,
+   whose probe sides are empty); every probe
+   call of the path held against the plain version, the path's largest
+   table probe checked as in phase 8 (``union_largest`` on the kernels
+   line); warm walls. q76, empty at every SF (no null promotion key is
+   generated), runs once more on the same tables with 10% of the
+   promotion keys nulled, where it must show values and equal the CPU
+   engine. Then the six queries that join with a condition
+   (``CONDITION_JOINS``) run with the hash table off: the same rows, no
+   probe launch, every device join on the sorted-hash path;
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -923,7 +941,10 @@ def run_breadth_path(tables, sf: float) -> dict:
                 total[k] += v
             paths = join_paths(plan)
             got = out.to_pylist()
-            if launches["hashtbl_probe"] <= 0 or "ht" not in paths:
+            # q76's probe sides are empty (no null promotion key): its
+            # joins probe nothing here, and below where they do
+            if ((launches["hashtbl_probe"] <= 0 and q not in
+                 Q.EMPTY_ALWAYS) or "ht" not in paths):
                 raise AssertionError(f"{q} launched no probe kernel (join "
                                      f"paths {paths})")
             if not Q.informative(got) and q not in empty_ok:
@@ -960,6 +981,111 @@ def run_breadth_path(tables, sf: float) -> dict:
             "probe_calls_checked": checked,
             "largest_table_probe": by_table.get("args"),
             "largest_probe": by_rows.get("args")}
+
+
+def run_union_path(tables, sf: float) -> dict:
+    """The union slice's 25 queries on the card in batches of 2^22 rows,
+    as ``run_breadth_path`` runs the breadth queries, then q76 on tables
+    with null promotion keys; records the probe into the path's largest
+    table."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    empty_ok = Q.EMPTY_AT_SF.get(sf, ())
+    by_table = {}
+    real_probe = K.probe_hash_table_kernel
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        size = (capacity, h1.numel())
+        if size > by_table.get("size", (-1, -1)):
+            by_table.update(size=size, args=(tbl, h1, h2, capacity, seed))
+        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    results, rows = {}, {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    K.probe_hash_table_kernel = recording_probe
+    try:
+        for q in Q.UNION_SLICE:
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            df = Q.QUERIES[q](d)
+            plan = df.physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            off = [ln.strip() for ln in df.explain("ALL").splitlines()
+                   if ln.lstrip().startswith("!")]
+            for ln in off:
+                log(f"{q}: on the CPU engine: {ln}")
+            paths = join_paths(plan)
+            got = out.to_pylist()
+            # q76's probe sides are empty (no null promotion key): its
+            # joins probe nothing here, and below where they do
+            if ((launches["hashtbl_probe"] <= 0 and q not in
+                 Q.EMPTY_ALWAYS) or "ht" not in paths):
+                raise AssertionError(f"{q} launched no probe kernel (join "
+                                     f"paths {paths})")
+            if not Q.informative(got) and q not in empty_ok:
+                raise AssertionError(f"{q} shows no value at SF {sf}: "
+                                     f"{got[:3]}")
+            t1 = time.perf_counter()
+            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+            cpu_s = time.perf_counter() - t1
+            ok, why = Q.check_rows(q, on_cpu, got)
+            if not ok:
+                raise AssertionError(f"{q} on the CPU engine differs from "
+                                     f"the card ({why}):\n{got[:3]}\n"
+                                     f"{on_cpu[:3]}")
+            results[q] = {"rows": len(got), "informative":
+                          Q.informative(got), "first_s": first_s,
+                          "launches": launches, "cpu_engine_s": cpu_s,
+                          "placement": "mixed" if off else "device",
+                          "cpu_nodes": off, "join_paths": paths}
+            rows[q] = got
+            log(f"{q}: {len(got)} rows match the CPU engine; "
+                f"{results[q]['placement']}; launches {launches}; join "
+                f"paths {paths}; first run {first_s:.3f}s; CPU engine "
+                f"{cpu_s:.3f}s")
+        # q76 where it has rows to count
+        nulled = Q.with_null_promotions(tables)
+        dn = Q.df_tables(nulled, batch_rows=1 << 22, device="cuda")
+        K.reset_kernel_launches()
+        got = Q.QUERIES["q76"](dn).to_arrow().to_pylist()
+        launches = dict(K.KERNEL_LAUNCHES)
+        on_cpu = Q.QUERIES["q76"](Q.df_tables(nulled, RapidsConf(
+            {"spark.rapids.gpu.sql.enabled": "false"}),
+            device="cuda")).to_arrow().to_pylist()
+        ok, why = Q.check_rows("q76", on_cpu, got)
+        if not ok or not Q.informative(got) or not launches["hashtbl_probe"]:
+            raise AssertionError(f"q76 with null promotion keys: {why}; "
+                                 f"{len(got)} rows; launches {launches}")
+        results["q76_null_promotions"] = {"rows": len(got),
+                                          "launches": launches}
+        log(f"q76 with 10% null promotion keys: {len(got)} rows match the "
+            f"CPU engine; launches {launches}")
+    finally:
+        K.probe_hash_table_kernel = real_probe
+    checked = check_every_probe(d, Q.UNION_SLICE)
+    for q in Q.UNION_SLICE:
+        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
+                                          .to_arrow())
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
+            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
+            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
+    return {"queries": results, "launches": total, "rows": rows,
+            "probe_calls_checked": checked,
+            "largest_table_probe": by_table.get("args")}
 
 
 def check_every_probe(d, queries) -> int:
@@ -1191,11 +1317,23 @@ def main(argv=None) -> int:
     join_rows.update(breadth_res.pop("rows"))
     sorted_res = run_sorted_hash(ds_tables, join_rows)
 
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+
+    union_res = run_union_path(ds_tables, args.sf_ds)
+    union_probe = check_probe("union_largest",
+                              *union_res.pop("largest_table_probe"),
+                              cold=True)
+    shapes.append(union_probe)
+    union_rows = union_res.pop("rows")
+    sorted_res.update(run_sorted_hash(ds_tables, {
+        q: union_rows[q] for q in Q.CONDITION_JOINS}))
+
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
                       "tpcds_headline": head_res["launches"][name],
                       "tpcds_joins": joins_res["launches"][name],
-                      "tpcds_breadth": breadth_res["launches"][name]}
+                      "tpcds_breadth": breadth_res["launches"][name],
+                      "tpcds_union": union_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -1219,6 +1357,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "breadth_calls_checked": breadth_res["probe_calls_checked"],
+        "union_largest": {k: union_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "union_calls_checked": union_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -1244,6 +1386,7 @@ def main(argv=None) -> int:
               "tpcds_headline": head_res["queries"],
               "tpcds_joins": joins_res["queries"],
               "tpcds_breadth": breadth_res["queries"],
+              "tpcds_union": union_res["queries"],
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

@@ -8,6 +8,8 @@
         [--sf 1.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_breadth
         [--sf 1.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_union
+        [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
 tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
@@ -17,7 +19,9 @@ columns), ``--suite tpcds_joins`` the joins slice's q9/q28/q40/q43/q87/
 q88/q93/q97 in batches of 2^22 rows (default SF 1), ``--suite
 tpcds_breadth`` the breadth slice's 33 queries (``tpcds_queries.BREADTH``)
 the same way, each with the nodes its plan places on the CPU engine
-(``cpu_nodes``, from ``explain``). For each query (after
+(``cpu_nodes``, from ``explain``), and ``--suite tpcds_union`` the union
+slice's 25 queries (``tpcds_queries.UNION_SLICE``) the same way (q23 and
+q24 collect their threshold inside each run). For each query (after
 one warm-up run): the warm wall time (host clock around a run that ends in
 a synchronise, median of 3), then one run under ``torch.profiler`` giving
 the device time summed over kernels and copies, the host-to-device copy
@@ -116,7 +120,7 @@ def profile_query(run, reps: int = 3) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins",
-                                        "tpcds_breadth"),
+                                        "tpcds_breadth", "tpcds_union"),
                     default="tpch")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 2 for tpch, 1 for tpcds)")
@@ -155,8 +159,9 @@ def main(argv=None) -> int:
             order, batched = list(suite.HEADLINE) + ["q44", "q67"], \
                 suite.HEADLINE
         else:
-            group = (suite.JOINS if args.suite == "tpcds_joins"
-                     else suite.BREADTH)
+            group = {"tpcds_joins": suite.JOINS,
+                     "tpcds_breadth": suite.BREADTH,
+                     "tpcds_union": suite.UNION_SLICE}[args.suite]
             names = suite.tables_of(group)
             order, batched = list(group), group
         tables = tpcds_schema.tables_for(sf, seed=0, names=names)

@@ -29,6 +29,15 @@ device:
   paired. Right and full joins emit the others once, after the last probe
   batch, with null probe columns.
 
+A residual ``condition`` (over the left columns, then the right, as the
+reference binds it) is evaluated over every key-verified pair of a chunk,
+on the columns it reads gathered at the pair's rows (``PairCondition``),
+and ANDed into the verified mask before the compaction and the matched
+flags, in the one ``_join_batch`` both paths share. A pair where it is
+false or null is no match: it pairs nothing, and it counts for neither
+``pmatch`` nor ``build_matched``, so an outer join keeps such rows
+unmatched and an anti join keeps their probe rows.
+
 A null key never matches: such a probe row is kept by left, full and anti
 joins and dropped by semi joins; such a build row is never probed and is
 emitted by right and full joins. An empty build side still emits every
@@ -54,6 +63,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import BinaryExec, DeviceExec
+from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
 
 JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")
@@ -83,11 +93,50 @@ def _null_columns(schema: T.Schema, n: int, device,
     return out
 
 
+def condition_columns(condition: E.Expression,
+                      pair: T.Schema) -> List[int]:
+    """The pair-schema ordinals a (name-based) join condition reads."""
+    if isinstance(condition, E.ColumnRef):
+        raise NotImplementedError("a join condition names its columns; it "
+                                  "takes no bound column reference")
+    if isinstance(condition, E.UnresolvedColumn):
+        return [pair.index_of(condition.name)]
+    return sorted({i for c in condition.children
+                   for i in condition_columns(c, pair)})
+
+
+class PairCondition:
+    """A join's residual condition bound over just the pair-schema
+    columns it reads (``columns``; the left side's ``n_left`` columns come
+    first)."""
+
+    def __init__(self, condition: E.Expression, ls: T.Schema,
+                 rs: T.Schema):
+        pair = T.Schema(list(ls) + list(rs))
+        self.columns = condition_columns(condition, pair) or [0]
+        self.n_left = len(ls)
+        self.bound = E.resolve(condition, T.Schema(
+            [pair[i] for i in self.columns]))
+
+    def holds(self, probe: ColumnarBatch, pc: torch.Tensor,
+              build: ColumnarBatch, build_row: torch.Tensor) -> torch.Tensor:
+        """Per pair (probe row ``pc``, build row ``build_row``): whether
+        the condition is true (null is not)."""
+        nl = self.n_left
+        cols = [K.gather_column(probe.columns[i], pc) if i < nl
+                else K.gather_column(build.columns[i - nl], build_row)
+                for i in self.columns]
+        v = EV.eval_expr(self.bound, EV.EvalContext(
+            ColumnarBatch(cols, pc.numel())))
+        return v.data & v.validity
+
+
 class HashJoinExec(BinaryExec):
     def __init__(self, left_keys: Sequence[E.Expression],
                  right_keys: Sequence[E.Expression], join_type: str,
                  left: DeviceExec, right: DeviceExec,
-                 max_candidate_rows: Optional[int] = None):
+                 max_candidate_rows: Optional[int] = None,
+                 condition: Optional[E.Expression] = None):
         super().__init__(left, right)
         if join_type not in JOIN_TYPES:
             raise NotImplementedError(
@@ -105,6 +154,9 @@ class HashJoinExec(BinaryExec):
         self._lkeys = [self._key_index(k, ls) for k in self.left_keys]
         self._rkeys = [self._key_index(k, rs) for k in self.right_keys]
         self._schema = join_schema(ls, rs, join_type)
+        self.condition = condition
+        self._cond = (PairCondition(condition, ls, rs)
+                      if condition is not None else None)
         for name in ("buildTimeNs", "joinTimeNs", "numCandidatePairs",
                      "numProbeBatches", "numChunks", "hashTableJoins",
                      "sortedHashJoins", "sortedHashFallbacks"):
@@ -133,8 +185,10 @@ class HashJoinExec(BinaryExec):
         return None
 
     def node_description(self) -> str:
+        cond = (f" condition={self.condition!r}"
+                if self.condition is not None else "")
         return (f"HashJoin {self.join_type} "
-                f"keys={list(zip(self.left_keys, self.right_keys))}")
+                f"keys={list(zip(self.left_keys, self.right_keys))}{cond}")
 
     def _prepare_build(self, build: ColumnarBatch):
         """The build side's probe structure, as the reference's
@@ -241,6 +295,8 @@ class HashJoinExec(BinaryExec):
             pc, build_row, ver = _candidate_pairs(
                 probe, build, order, lo, cnt, r0, r1, ctot, self._lkeys,
                 self._rkeys)
+            if self._cond is not None:
+                ver = ver & self._cond.holds(probe, pc, build, build_row)
             if not pairs_out:  # semi/anti: flags only, no pair count read
                 pmatch = K.mark_rows(pmatch, pc, ver)
                 continue

@@ -460,6 +460,34 @@ def keys_equal(a: ColumnarBatch, a_idx: torch.Tensor, a_cols: Sequence[int],
     return eq
 
 
+def strings_equal(a: DeviceColumn, b: DeviceColumn) -> torch.Tensor:
+    """Row-wise byte equality of two string columns of one length: codes
+    when both share one dictionary, else the bytes (``_string_eq_at``).
+    Validity is the caller's."""
+    if a.is_dict and b.is_dict and a.dictionary is b.dictionary:
+        return a.data == b.data
+    rows = torch.arange(a.num_rows, device=a.device)
+    return _string_eq_at(a, rows, b, rows)
+
+
+def dictionary_unique(entries: DeviceColumn
+                      ) -> Tuple[DeviceColumn, torch.Tensor]:
+    """Re-encode a plain string column as a dictionary: (its distinct
+    values sorted bytewise, each row's code among them). Entries that
+    are equal share one code, and code order is byte order."""
+    n = entries.num_rows
+    if n == 0:
+        return entries, torch.zeros(0, dtype=torch.int32,
+                                    device=entries.device)
+    perm = lexsort_chain(sortable_keys(entries))
+    boundary = torch.ones(n, dtype=torch.bool, device=entries.device)
+    boundary[1:] = ~_string_eq_at(entries, perm[1:], entries, perm[:-1])
+    rank = torch.cumsum(boundary.int(), 0, dtype=torch.int32) - 1
+    codes = torch.empty(n, dtype=torch.int32, device=entries.device)
+    codes[perm] = rank
+    return gather_string(entries, perm[boundary]), codes
+
+
 # ---------------------------------------------------------------------------
 # Group-by: hash sort, exact neighbour split, sorted segment reducers
 # ---------------------------------------------------------------------------

@@ -1,10 +1,20 @@
 """Expression evaluation over device batches (counterpart of
 spark_rapids_tpu/exprs/eval.py for the port's expression nodes).
 
-A value is ``ColVal(data, validity)`` for fixed-width results, or the
-string column itself (dictionary or plain) for string references; string
-equality against a literal, and ``IN`` over string literals, compare the
-dictionary's entries once and gather the answer by code.
+A value is ``ColVal(data, validity)`` for fixed-width results, or a
+string column (dictionary or plain) for string results; string equality
+against a literal, ``IN`` over string literals and LIKE compare or match
+the dictionary's entries once and gather the answer by code. Equality of
+two string columns compares codes when both share one dictionary, and
+bytes otherwise (``kernels.strings_equal``). A projected string literal
+is a column over a one-entry dictionary.
+
+Substring works on bytes, as the reference's device path does (equal to
+Spark's character semantics on ASCII text). Over a plain column it gathers
+each row's window of bytes; over a dictionary column it cuts every entry
+once and re-encodes the cut entries (``kernels.dictionary_unique``): equal
+cuts of different entries share one code, and the new dictionary is
+sorted, so grouping, joining and sorting on codes stay exact.
 
 And, Or and Not follow Spark's three-valued logic; ``x IN (items)`` is the
 OR of ``x = item`` under the same logic (null when x is null, or when
@@ -28,7 +38,9 @@ nothing is scaled up and nothing can overflow.
 Casts follow the reference's non-ANSI numeric semantics (``Cast``): a
 narrowing integer cast wraps, a double becomes an integer as Java's
 ``(int)``/``(long)`` (``double_to_integral``), a decimal keeps its whole
-part.
+part. An int or decimal cast to a decimal that holds all its digits
+(``T.is_exact_decimal_widening``, a union's widening) is a rescale; other
+casts to decimal run on the CPU engine.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import regex as RX
 
 
 class ColVal(NamedTuple):
@@ -64,7 +77,7 @@ def _broadcast_literal(lit: E.Literal, ctx: EvalContext) -> ColVal:
     n = ctx.num_rows
     dt = lit.dtype
     if dt == T.STRING:
-        raise NotImplementedError("string literal outside an equality")
+        return _string_value(lit, ctx)
     if lit.value is None:
         return ColVal(torch.zeros(n, dtype=dt.torch_dtype, device=ctx.device),
                       torch.zeros(n, dtype=torch.bool, device=ctx.device))
@@ -164,7 +177,8 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
         if isinstance(col_side, E.Literal):
             col_side, lit_side = lit_side, col_side
         if not isinstance(lit_side, E.Literal):
-            raise NotImplementedError("string equality of two columns")
+            a, b = eval_expr(expr.left, ctx), eval_expr(expr.right, ctx)
+            return ColVal(K.strings_equal(a, b), a.validity & b.validity)
         c = eval_expr(col_side, ctx)
         if lit_side.value is None:
             return ColVal(torch.zeros_like(c.validity),
@@ -235,6 +249,9 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
         return ColVal(_decimal_to_double(v.data, src), v.validity)
     if src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE):
         return ColVal(v.data.to(dst.torch_dtype), v.validity)
+    if T.is_exact_decimal_widening(src, dst):  # a rescale, exact
+        return ColVal(v.data.long() * 10 ** (dst.scale - _scale_of(src)),
+                      v.validity)
     if dst in T.INTEGRAL_TYPES:
         if src == T.DOUBLE:
             return ColVal(double_to_integral(v.data, dst), v.validity)
@@ -288,6 +305,56 @@ def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:
         hit = hit | (eq.data & eq.validity)
         all_valid = all_valid & eq.validity
     return ColVal(hit, hit | all_valid)
+
+
+def _substring(expr: E.Substring, ctx: EvalContext) -> DeviceColumn:
+    c = eval_expr(expr.child, ctx)
+    if not c.is_dict:
+        return substring_bytes(c, expr.pos, expr.length)
+    entries, remap = K.dictionary_unique(
+        substring_bytes(c.dictionary, expr.pos, expr.length))
+    return DeviceColumn(T.STRING, remap[c.data.long()], c.validity, None,
+                        entries)
+
+
+def substring_bytes(c: DeviceColumn, pos: int, length: int) -> DeviceColumn:
+    """Spark's substringSQL over the bytes of a plain string column: the
+    window [start, start + length) from pos (1-based; 0 acts as 1; a
+    negative pos counts from the end) clamped into [0, len]. One host
+    read: the output's byte count."""
+    lens = c.lengths().long()
+    if pos > 0:
+        raw = torch.full_like(lens, pos - 1)
+    elif pos == 0:
+        raw = torch.zeros_like(lens)
+    else:
+        raw = lens + pos
+    zero = torch.zeros_like(lens)
+    start = torch.minimum(torch.maximum(raw, zero), lens)
+    # a length past any row (up to Java's int range) clamps to the row
+    end = torch.minimum(torch.maximum(raw + min(length, 1 << 40), zero),
+                        lens)
+    out_len = torch.clamp(end - start, min=0)
+    n = c.num_rows
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=c.device)
+    if n:
+        offsets[1:] = torch.cumsum(out_len, 0)
+    total = int(offsets[-1]) if n else 0
+    rows = torch.repeat_interleave(torch.arange(n, device=c.device), out_len,
+                                   output_size=total)
+    rel = torch.arange(total, device=c.device) - offsets[:-1][rows]
+    src = c.offsets[:-1].long()[rows] + start[rows] + rel
+    return DeviceColumn(T.STRING, c.data[src], c.validity, offsets.int())
+
+
+def _like(expr: E.Like, ctx: EvalContext) -> ColVal:
+    c = eval_expr(expr.child, ctx)
+    dfa = RX.like_to_dfa(expr.pattern, expr.escape)
+    if c.is_dict:
+        hit = RX.match_strings(dfa, c.dictionary)[c.data.long()]
+    else:
+        hit = RX.match_strings(dfa, c)
+    return ColVal(hit & c.validity, c.validity)
 
 
 def _string_value(expr: E.Expression, ctx: EvalContext,
@@ -411,6 +478,10 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         return _eval_in(expr, ctx)
     if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
         return _eval_conditional(expr, ctx)
+    if isinstance(expr, E.Substring):
+        return _substring(expr, ctx)
+    if isinstance(expr, E.Like):
+        return _like(expr, ctx)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the port yet")
 

@@ -3,8 +3,13 @@ spark_rapids_tpu/exprs/expr.py for the nodes the port's TPC-H and TPC-DS
 queries build): column references, literals (DATE and DECIMAL included),
 Alias, Cast, Add/Subtract/Multiply, the comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
-IsNull, IsNotNull and In, the conditionals If, CaseWhen and Coalesce, and
-the aggregates Sum, Average, Count, Min, Max and CountDistinct.
+IsNull, IsNotNull and In, the conditionals If, CaseWhen and Coalesce, the
+string functions Substring and Like, and the aggregates Sum, Average,
+Count, Min, Max and CountDistinct.
+
+Substring and Like carry literal parameters (a position and a length, a
+pattern and an escape character) beside their one child, as the
+reference's nodes do; ``resolve`` keeps them.
 
 Decimal typing follows Spark's DecimalPrecision rules: an integral operand
 of a decimal operation is an implicit decimal(d, 0), a float operand turns
@@ -395,14 +400,54 @@ class In(Expression):
         return T.BOOLEAN
 
 
+class Substring(Expression):
+    """substring(str, pos, len), Spark's ``substringSQL``: pos > 0 counts
+    from 1, pos 0 acts as 1, a negative pos counts back from the end; the
+    window [start, start + len) is then clamped into the string, so it may
+    come out shorter or empty. Null when the string is null."""
+
+    def __init__(self, child: Expression, pos: int, length: int):
+        self.child = child
+        self.pos = int(pos)
+        self.length = int(length)
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    def __repr__(self):
+        return f"substring({self.child!r}, {self.pos}, {self.length})"
+
+
+class Like(Expression):
+    """str LIKE pattern (a literal pattern): ``%`` matches any run of
+    bytes, ``_`` any one byte, and ``escape`` makes the next character a
+    literal. The whole string must match. Null when the string is null."""
+
+    def __init__(self, child: Expression, pattern: str, escape: str = "\\"):
+        self.child = child
+        self.pattern = pattern
+        self.escape = escape
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    def __repr__(self):
+        return f"({self.child!r} LIKE {self.pattern!r})"
+
+
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class Cast(Expression):
     """Non-ANSI cast. The port evaluates decimal -> double, the widening
-    numeric casts (int -> bigint -> double), the narrowing ones (bigint ->
-    int wraps; double -> int/bigint truncates, NaN is 0 and out-of-range
-    values saturate; decimal -> int/bigint keeps the whole part and
-    wraps) and, on the CPU engine only, integer and decimal -> decimal;
-    others (strings, double -> decimal) raise naming the cast."""
+    numeric casts (int -> bigint -> double; int and decimal -> a decimal
+    that holds all their digits), the narrowing ones (bigint -> int wraps;
+    double -> int/bigint truncates, NaN is 0 and out-of-range values
+    saturate; decimal -> int/bigint keeps the whole part and wraps) and,
+    on the CPU engine only, the other integer and decimal -> decimal
+    casts; others (strings, double -> decimal) raise naming the cast."""
 
     child: Expression
     to: T.DataType
@@ -599,8 +644,8 @@ class CountDistinct(AggregateExpression):
 SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              Subtract, Multiply, EqualTo, LessThan, LessThanOrEqual,
              GreaterThan, GreaterThanOrEqual, And, Or, Not, IsNull,
-             IsNotNull, In, If, CaseWhen, Coalesce, Sum, Count, Average,
-             Min, Max)
+             IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like, Sum,
+             Count, Average, Min, Max)
 # expressions only the CPU engine evaluates
 CPU_ONLY = (CountDistinct,)
 
@@ -694,6 +739,14 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
     if isinstance(expr, Coalesce):
         dt = _value_type(kids, "COALESCE")
         return Coalesce(*[value_as(k, dt) for k in kids])
+    if isinstance(expr, (Substring, Like)):
+        child = _typed(kids[0], T.STRING)
+        if child.dtype != T.STRING:
+            raise TypeError(f"{type(expr).__name__} takes a string, not "
+                            f"{child.dtype}")
+        if isinstance(expr, Substring):
+            return Substring(child, expr.pos, expr.length)
+        return Like(child, expr.pattern, expr.escape)
     check_supported(expr)
     if any(_is_null_type(k) for k in kids):
         if isinstance(expr, _Binary):
@@ -728,6 +781,8 @@ In.type_support = ts(DEVICE_SCALAR, out="boolean")
 If.type_support = ts(DEVICE_SCALAR)
 CaseWhen.type_support = ts(DEVICE_SCALAR)
 Coalesce.type_support = ts(DEVICE_SCALAR)
+Substring.type_support = ts("string")
+Like.type_support = ts("string", out="boolean")
 Sum.type_support = ts(NUMERIC, DECIMAL64)
 Average.type_support = ts(NUMERIC, DECIMAL64, out="fractional decimal64")
 Count.type_support = ts(DEVICE_SCALAR, out="integral")

@@ -1,8 +1,10 @@
 """The CPU fallback engine (counterpart of spark_rapids_tpu/plan/cpu.py).
 
 Operators the planner tags off the device run here, on host Arrow tables,
-with numpy: a scan, Project, Filter, Sort (with an optional limit) and
-Limit in this module, the aggregate and the join in ``cpu_agg.py``.
+with numpy: a scan, Project, Filter, Sort (with an optional limit), Limit
+and Union in this module, the aggregate and the join in ``cpu_agg.py``.
+Substring and LIKE work on Python strings (characters), which equals the
+device's bytes on ASCII text.
 Values are ``(values, valid)`` numpy pairs with the device's null rules:
 null slots hold zero (an empty string for strings), and every expression
 follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
@@ -21,6 +23,7 @@ moves work here after a device failure.
 
 from __future__ import annotations
 
+import re
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -345,6 +348,10 @@ def expr_key(e: E.Expression):
     if isinstance(e, E.Alias):
         return expr_key(e.child)
     to = e.to.name if isinstance(e, E.Cast) else None
+    if isinstance(e, E.Substring):
+        to = (e.pos, e.length)
+    elif isinstance(e, E.Like):
+        to = (e.pattern, e.escape)
     return (type(e).__name__, to, tuple(expr_key(c) for c in e.children))
 
 
@@ -412,8 +419,47 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return hit, hit | all_valid
     if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
         return _conditional(expr, ev)
+    if isinstance(expr, E.Substring):
+        v, m = ev(expr.child)
+        return _per_value(v, lambda x: np.array(
+            [substring_sql(s, expr.pos, expr.length) for s in x],
+            dtype=object)), m
+    if isinstance(expr, E.Like):
+        v, m = ev(expr.child)
+        prog = like_regex(expr.pattern, expr.escape)
+        return _per_value(v, lambda x: np.array(
+            [prog.fullmatch(s) is not None for s in x], np.bool_)) & m, m
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the CPU engine yet")
+
+
+def substring_sql(s: str, pos: int, length: int) -> str:
+    """Spark's substringSQL: pos > 0 counts from 1, 0 acts as 1, a
+    negative pos counts from the end, and [start, start + length) is
+    clamped into the string."""
+    start = pos - 1 if pos > 0 else (len(s) + pos if pos < 0 else 0)
+    end = start + length
+    start = max(start, 0)
+    return s[start:end] if end > start else ""
+
+
+def like_regex(pattern: str, escape: str) -> "re.Pattern":
+    """A LIKE pattern as a whole-string regex (``%`` any run, ``_`` any
+    one character, ``escape`` quoting the next one). A pattern ending
+    with the escape character raises ValueError, as on the device."""
+    out, i = [], 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == escape:
+            if i + 1 >= len(pattern):
+                raise ValueError(f"the LIKE pattern {pattern!r} ends with "
+                                 f"the escape character {escape!r}")
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if c == "%" else "." if c == "_" else re.escape(c))
+        i += 1
+    return re.compile("".join(out), re.DOTALL)
 
 
 def _conditional(expr: E.Expression, ev) -> Pair:
@@ -667,3 +713,25 @@ class CpuLimitExec(CpuExec):
                 remaining -= take
                 yield t.slice(lo, take)
 
+
+class CpuUnionExec(CpuExec):
+    """UNION ALL on the host: every child's tables in child order, under
+    the union's names and nullability (the planner has cast each child to
+    the union's types)."""
+
+    def __init__(self, schema: T.Schema, *children: DeviceExec, device):
+        super().__init__(*children, device=device)
+        self._schema = schema
+
+    @property
+    def output_schema(self) -> T.Schema:
+        return self._schema
+
+    def node_description(self) -> str:
+        return f"CpuUnion [{len(self.children)} children]"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        target = self._schema.to_arrow()
+        for c in self.children:
+            for t in self.child_tables(c, partition):
+                yield pa.Table.from_arrays(list(t.columns), schema=target)

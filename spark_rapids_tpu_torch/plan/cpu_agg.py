@@ -20,12 +20,15 @@ together and null keys never match. Pairs come out in left-row order, each
 left row's matches in right-row order; then the unpaired left rows of a
 left or full join (null right columns) and the unpaired right rows of a
 right or full join (null left columns). Semi and anti joins emit the
-matched or unmatched left rows once each, in order.
+matched or unmatched left rows once each, in order. A residual
+``condition`` is evaluated over every key-equal pair (the columns it reads
+taken at the pair's rows) before any row counts as matched: a pair where
+it is false or null is dropped, for all six join types.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -34,7 +37,8 @@ import pyarrow as pa
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
 from spark_rapids_tpu_torch.exec.base import DeviceExec
-from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, join_schema
+from spark_rapids_tpu_torch.exec.join import (
+    JOIN_TYPES, PairCondition, join_schema)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.plan.cpu import (
     CpuExec, _canonical_float, _half_up_div, _is_float, comparable,
@@ -281,7 +285,8 @@ class CpuJoinExec(CpuExec):
 
     def __init__(self, left_keys: Sequence[E.Expression],
                  right_keys: Sequence[E.Expression], join_type: str,
-                 left: DeviceExec, right: DeviceExec, device):
+                 left: DeviceExec, right: DeviceExec, device,
+                 condition: Optional[E.Expression] = None):
         if join_type not in JOIN_TYPES:
             raise NotImplementedError(
                 f"{join_type} join is not in the port yet")
@@ -293,14 +298,32 @@ class CpuJoinExec(CpuExec):
         self._lk = [E.resolve(k, ls) for k in self.left_keys]
         self._rk = [E.resolve(k, rs) for k in self.right_keys]
         self._schema = join_schema(ls, rs, join_type)
+        self.condition = condition
+        self._cond = (PairCondition(condition, ls, rs)
+                      if condition is not None else None)
 
     @property
     def output_schema(self) -> T.Schema:
         return self._schema
 
     def node_description(self) -> str:
+        cond = (f" condition={self.condition!r}"
+                if self.condition is not None else "")
         return (f"CpuJoin {self.join_type} "
-                f"keys={list(zip(self.left_keys, self.right_keys))}")
+                f"keys={list(zip(self.left_keys, self.right_keys))}{cond}")
+
+    def _condition_holds(self, lt: pa.Table, li: np.ndarray, rt: pa.Table,
+                         ri: np.ndarray) -> np.ndarray:
+        """Per pair (left row ``li``, right row ``ri``): whether the
+        condition is true (null is not)."""
+        c = self._cond
+        arrays = [lt.column(i).take(pa.array(li)) if i < c.n_left
+                  else rt.column(i - c.n_left).take(pa.array(ri))
+                  for i in c.columns]
+        pair = pa.Table.from_arrays(arrays, names=[f"c{j}" for j in
+                                                   range(len(arrays))])
+        vals, valid = cpu_eval(c.bound, pair)
+        return np.asarray(vals, np.bool_) & valid
 
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
         jt = self.join_type
@@ -330,8 +353,9 @@ class CpuJoinExec(CpuExec):
         cnt = per_key[lkey[lrows]]
         lo = (np.cumsum(per_key) - per_key)[lkey[lrows]]
         lmatched = np.zeros(nl, np.bool_)
-        lmatched[lrows[cnt > 0]] = True
-        if jt in ("left_semi", "left_anti"):
+        semi = jt in ("left_semi", "left_anti")
+        if semi and self._cond is None:  # no pair is needed
+            lmatched[lrows[cnt > 0]] = True
             keep = lmatched if jt == "left_semi" else ~lmatched
             yield lt.filter(pa.array(keep))
             return
@@ -339,6 +363,15 @@ class CpuJoinExec(CpuExec):
         li = np.repeat(lrows, cnt)
         offs = np.repeat(np.cumsum(cnt) - cnt, cnt)
         ri = rrows[np.arange(total) - offs + np.repeat(lo, cnt)]
+        if self._cond is not None:
+            holds = self._condition_holds(lt, li, rt, ri)
+            li, ri = li[holds], ri[holds]
+            total = len(li)
+        lmatched[li] = True
+        if semi:
+            keep = lmatched if jt == "left_semi" else ~lmatched
+            yield lt.filter(pa.array(keep))
+            return
         lnull, rnull = np.zeros(total, np.bool_), np.zeros(total, np.bool_)
         if jt in ("left", "full"):
             lonly = np.flatnonzero(~lmatched)

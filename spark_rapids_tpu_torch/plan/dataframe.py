@@ -35,6 +35,21 @@ class DataFrame:
     def select(self, *exprs) -> "DataFrame":
         return self._with(L.Project(_cols(list(exprs)), self.plan))
 
+    def with_column(self, name: str, expr: E.Expression) -> "DataFrame":
+        """Append a named column, or replace the column of that name in
+        place, keeping all others (Spark's ``withColumn``)."""
+        exprs: List[E.Expression] = []
+        replaced = False
+        for f in self.plan.schema:
+            if f.name == name:
+                exprs.append(E.Alias(expr, name))
+                replaced = True
+            else:
+                exprs.append(E.col(f.name))
+        if not replaced:
+            exprs.append(E.Alias(expr, name))
+        return self._with(L.Project(exprs, self.plan))
+
     def filter(self, condition: E.Expression) -> "DataFrame":
         return self._with(L.Filter(condition, self.plan))
 
@@ -60,16 +75,24 @@ class DataFrame:
     order_by = sort
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
-             left_on=None, right_on=None) -> "DataFrame":
+             left_on=None, right_on=None,
+             condition: Optional[E.Expression] = None) -> "DataFrame":
         """Equi-join with ``other``; ``how`` is inner, left, right, full,
         left_semi or left_anti. ``on`` names key columns that both sides
         share (one name or a list); else ``left_on``/``right_on`` give
-        each side's keys (names or expressions)."""
+        each side's keys (names or expressions). ``condition`` is a
+        residual predicate over both sides' columns (a name resolves to
+        the left side's column first): a key-equal pair where it is not
+        true does not match, for every join type."""
         if on is not None:
             names = [on] if isinstance(on, str) else list(on)
             left_on = right_on = [E.col(c) for c in names]
         return self._with(L.Join(self.plan, other.plan, _cols(left_on),
-                                 _cols(right_on), how))
+                                 _cols(right_on), how, condition))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position (``L.Union``)."""
+        return self._with(L.Union([self.plan, other.plan]))
 
     def with_window(self, *window_exprs) -> "DataFrame":
         """Append window columns (all expressions must share one

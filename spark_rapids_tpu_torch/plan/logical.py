@@ -1,7 +1,8 @@
 """Logical plan nodes (counterpart of spark_rapids_tpu/plan/logical.py for
 the nodes the port plans): InMemoryScan, Project, Filter, Aggregate,
-Window, Sort, Join and Limit. They hold structure and schemas only; ``overrides.py``
-converts them into physical operators.
+Window, Sort, Join (with an optional residual condition over the pair of
+rows), Limit and Union. They hold structure and schemas only;
+``overrides.py`` converts them into physical operators.
 """
 
 from __future__ import annotations
@@ -161,6 +162,9 @@ class Join(LogicalPlan):
     left_keys: List[E.Expression]
     right_keys: List[E.Expression]
     join_type: str = "inner"
+    # a residual predicate over the left and right columns of each
+    # key-equal pair: a pair where it is not true is no match
+    condition: Optional[E.Expression] = None
 
     def __post_init__(self):
         self.children = (self.left, self.right)
@@ -173,6 +177,8 @@ class Join(LogicalPlan):
                            self.join_type)
 
     def describe(self):
+        if self.condition is not None:
+            return f"Join[{self.join_type}, {self.condition!r}]"
         return f"Join[{self.join_type}]"
 
 
@@ -191,3 +197,49 @@ class Limit(LogicalPlan):
 
     def describe(self):
         return f"Limit[{self.n}]"
+
+
+@dataclasses.dataclass
+class Union(LogicalPlan):
+    """UNION ALL of its inputs, matched by position. The schema takes the
+    first input's names; each column's type widens over the inputs
+    (Spark's WidenSetOperationTypes, ``union_widen``) and is nullable
+    where any input's is."""
+
+    inputs: List[LogicalPlan]
+
+    def __post_init__(self):
+        self.children = tuple(self.inputs)
+
+    @property
+    def schema(self) -> T.Schema:
+        schemas = [c.schema for c in self.inputs]
+        first = schemas[0]
+        for s in schemas[1:]:
+            if len(s) != len(first):
+                raise ValueError(f"union inputs have {len(first)} and "
+                                 f"{len(s)} columns")
+        fields = []
+        for i, f in enumerate(first):
+            dt, nullable = f.dtype, f.nullable
+            for s in schemas[1:]:
+                dt = union_widen(dt, s[i].dtype)
+                nullable = nullable or s[i].nullable
+            fields.append(T.Field(f.name, dt, nullable))
+        return T.Schema(fields)
+
+    def describe(self):
+        return f"Union[{len(self.inputs)}]"
+
+
+def union_widen(a: T.DataType, b: T.DataType) -> T.DataType:
+    """The common type of two union columns: two decimals widen to the
+    larger integer digits plus the larger scale (capped at 38 digits),
+    other numerics as binary arithmetic widens them."""
+    if a == b:
+        return a
+    if isinstance(a, T.DecimalType) and isinstance(b, T.DecimalType):
+        s = max(a.scale, b.scale)
+        p = max(a.precision - a.scale, b.precision - b.scale) + s
+        return T.DecimalType(min(p, T.DecimalType.MAX_PRECISION), s)
+    return E.numeric_widen(a, b)

@@ -18,6 +18,13 @@ inner/left/right/full/left_semi/left_anti, an expression outside the port)
 raises NotImplementedError with the reasons. Every plan is a single
 partition with no exchange.
 
+Before tagging, every union branch whose column types differ from the
+union's (``L.union_widen``) gets a Project of Casts to them
+(``widen_unions``, Spark's WidenSetOperationTypes), which is tagged like
+any projection: on the device when the device has the cast, else on the
+CPU engine, named by ``explain``. A join's residual condition is checked
+like a filter's, over the pair schema (left columns, then right).
+
 Before tagging, with ``spark.rapids.gpu.sql.enabled`` true, an aggregate
 with COUNT(DISTINCT x) is rewritten for the device (``rewrite_distinct``,
 Spark's RewriteDistinctAggregates): the regular aggregate joined on its
@@ -42,6 +49,7 @@ from spark_rapids_tpu_torch.exec.aggregate import (
     HashAggregateExec, _strip_alias)
 from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
 from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, HashJoinExec
+from spark_rapids_tpu_torch.exec.misc import UnionExec
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
 from spark_rapids_tpu_torch.exec.window import (
@@ -94,7 +102,7 @@ def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
                or isinstance(src, T.DecimalType))
     return (src == dst or (numeric and dst in T.INTEGRAL_TYPES)
             or (dst == T.DOUBLE and src not in T.FRACTIONAL_TYPES
-                and numeric))
+                and numeric) or T.is_exact_decimal_widening(src, dst))
 
 
 def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
@@ -126,10 +134,6 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
                 bound.left.dtype, bound.right.dtype):
             if isinstance(bound, _ORDERING):
                 reasons.append("string ordering comparison not on device")
-            elif not (isinstance(bound.left, E.Literal)
-                      or isinstance(bound.right, E.Literal)):
-                reasons.append("string equality of two columns not on "
-                               "device")
         if (isinstance(bound, E.In) and bound.value.dtype == T.STRING
                 and not all(isinstance(i, E.Literal) for i in bound.items)):
             reasons.append("string IN over non-literal items not on device")
@@ -139,6 +143,12 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
 
     walk(expr)
     return reasons
+
+
+def pair_schema(node: L.Join) -> T.Schema:
+    """The schema a join's condition is bound against: the left columns,
+    then the right (for semi and anti joins too)."""
+    return T.Schema(list(node.left.schema) + list(node.right.schema))
 
 
 def _node_exprs(node: L.LogicalPlan) -> List[E.Expression]:
@@ -284,14 +294,18 @@ class Overrides:
                 if not isinstance(k, (E.UnresolvedColumn, E.ColumnRef)):
                     meta.will_not_work(f"join key {k!r} is not a column "
                                        f"reference")
+            if node.condition is not None:
+                for r in check_expr(node.condition, pair_schema(node)):
+                    meta.will_not_work(f"join condition: {r}")
         elif isinstance(node, L.Window):
             for r in _window_reasons(node):
                 meta.will_not_work(r)
 
     # -- rewrite -----------------------------------------------------------
     def prepare(self, plan: L.LogicalPlan) -> PlanMeta:
-        """The tagged plan the planner converts: rewritten for the device
-        first when the device is enabled."""
+        """The tagged plan the planner converts: unions widened, and
+        rewritten for the device first when the device is enabled."""
+        plan = widen_unions(plan)
         if C.SQL_ENABLED.get(self.conf):
             plan = rewrite_distinct(plan)
         return self.wrap_and_tag(plan)
@@ -313,8 +327,11 @@ class Overrides:
         if isinstance(node, L.Join) and node.join_type not in JOIN_TYPES:
             return [f"{node.join_type} join is not in the port yet"]
         schema = node.children[0].schema if node.children else None
-        return [r for e in _node_exprs(node)
-                for r in CPU.cpu_unsupported(e, schema)]
+        out = [r for e in _node_exprs(node)
+               for r in CPU.cpu_unsupported(e, schema)]
+        if isinstance(node, L.Join) and node.condition is not None:
+            out += CPU.cpu_unsupported(node.condition, pair_schema(node))
+        return out
 
     def _convert(self, meta: PlanMeta) -> DeviceExec:
         node = meta.node
@@ -359,11 +376,16 @@ class Overrides:
         if isinstance(node, L.Join):
             if not on_dev:
                 return CpuJoinExec(node.left_keys, node.right_keys,
-                                   node.join_type, kids[0], kids[1], dev)
+                                   node.join_type, kids[0], kids[1], dev,
+                                   condition=node.condition)
             return HashJoinExec(node.left_keys, node.right_keys,
                                 node.join_type, kids[0], kids[1],
                                 max_candidate_rows=C.JOIN_MAX_OUTPUT_ROWS.get(
-                                    self.conf))
+                                    self.conf), condition=node.condition)
+        if isinstance(node, L.Union):
+            if not on_dev:
+                return CPU.CpuUnionExec(node.schema, *kids, device=dev)
+            return UnionExec(node.schema, *kids)
         if isinstance(node, L.Limit):
             return (LimitExec(node.n, kids[0], node.offset) if on_dev
                     else CPU.CpuLimitExec(node.n, kids[0], dev, node.offset))
@@ -388,7 +410,33 @@ def _with_children(node: L.LogicalPlan, kids) -> L.LogicalPlan:
     """A copy of ``node`` over new children."""
     if isinstance(node, L.Join):
         return dataclasses.replace(node, left=kids[0], right=kids[1])
+    if isinstance(node, L.Union):
+        return dataclasses.replace(node, inputs=list(kids))
     return dataclasses.replace(node, child=kids[0])
+
+
+def widen_unions(plan: L.LogicalPlan) -> L.LogicalPlan:
+    """Give every union branch the union's column types: a branch that
+    differs is wrapped in a Project that casts each differing column (by
+    ordinal, keeping the branch's names)."""
+    kids = [widen_unions(c) for c in plan.children]
+    if any(k is not c for k, c in zip(kids, plan.children)):
+        plan = _with_children(plan, kids)
+    if not isinstance(plan, L.Union):
+        return plan
+    target = [f.dtype for f in plan.schema]
+    inputs = []
+    for child in plan.inputs:
+        cs = child.schema
+        if [f.dtype for f in cs] != target:
+            exprs: List[E.Expression] = []
+            for i, (f, dt) in enumerate(zip(cs, target)):
+                ref = E.ColumnRef(i, f.dtype, f.nullable, f.name)
+                exprs.append(ref if f.dtype == dt
+                             else E.Alias(E.Cast(ref, dt), f.name))
+            child = L.Project(exprs, child)
+        inputs.append(child)
+    return L.Union(inputs)
 
 
 def rewrite_distinct(plan: L.LogicalPlan) -> L.LogicalPlan:

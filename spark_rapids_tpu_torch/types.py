@@ -152,6 +152,18 @@ def is_wide_decimal(dt: DataType) -> bool:
     return isinstance(dt, DecimalType) and dt.is_wide
 
 
+def is_exact_decimal_widening(src: DataType, dst: DataType) -> bool:
+    """Whether casting ``src`` to the DECIMAL64 ``dst`` only rescales: an
+    int (10 digits) or a decimal whose integer digits and scale both fit
+    ``dst``'s, so no value rounds or overflows."""
+    if not isinstance(dst, DecimalType) or dst.is_wide:
+        return False
+    if isinstance(src, DecimalType):
+        return (dst.scale >= src.scale and dst.precision - dst.scale
+                >= src.precision - src.scale)
+    return isinstance(src, IntegerType) and dst.precision - dst.scale >= 10
+
+
 def check_device_type(dt: DataType) -> None:
     """Raise NotImplementedError for a type no device column can hold."""
     if is_wide_decimal(dt):

@@ -10,7 +10,11 @@ through the probe kernel against the same joins on the CPU, and the
 joins slice's q9/q28/q40/q43/q87/q88/q93/q97 on the card against the CPU
 and the CPU engine; the sorted-hash join path (all six types, its
 candidate ranges) and the breadth slice's 33 queries on the card against
-the CPU, the CPU engine and the sorted-hash path.
+the CPU, the CPU engine and the sorted-hash path; Substring, LIKE and
+string-column equality, residual join conditions (all six types, both
+join paths) and the union slice's 25 queries on the card against the
+CPU (the queries also against the CPU engine, and the six that join with
+a condition against the sorted-hash path).
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -535,3 +539,113 @@ def test_tpcds_breadth_query_on_card_matches_cpu(q):
     assert Q.check_rows(q, execute_to_arrow(off).to_pylist(), got) == (True,
                                                                      "")
     assert "ht" not in join_paths(off)
+
+
+def _string_table(n=5000, seed=11):
+    rng = np.random.default_rng(seed)
+    words = np.array(["abcxx", "zbcyy", "abdxx", "", "a", "a%b", "x_y",
+                      "qbcxx"], dtype=object)
+    d = words[rng.integers(0, len(words), n)].tolist()
+    return pa.table({
+        "d": pa.array(d, pa.string(), mask=rng.random(n) < 0.1),
+        "d2": pa.array(words[rng.integers(0, len(words), n)].tolist(),
+                       pa.string()),
+        "p": pa.array([w + str(int(x)) for w, x in
+                       zip(d, rng.integers(0, 10**6, n))], pa.string()),
+    })
+
+
+def test_string_functions_on_card_match_cpu():
+    """Substring (dictionary and plain), LIKE and string-column equality
+    on the card against the same projection on the CPU, and a group-by on
+    a cut dictionary column."""
+    _card()
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    t = _string_table()
+
+    def q(device):
+        df = from_arrow(t, batch_rows=2048, device=device)
+        cols = []
+        for c in ("d", "p"):
+            for pos, ln in ((1, 3), (0, 2), (-2, 2), (9, 2), (2, 10**9)):
+                cols.append(E.Alias(E.Substring(E.col(c), pos, ln),
+                                    f"{c}{pos}_{ln}"))
+            for k, pat in enumerate(("ab%", "%x_", "", "a\\%b", "%")):
+                cols.append(E.Alias(E.Like(E.col(c), pat), f"{c}like{k}"))
+        cols += [E.Alias(E.EqualTo(E.col("d"), E.col("d2")), "dd"),
+                 E.Alias(E.EqualTo(E.col("d"), E.col("p")), "dp"),
+                 E.Alias(E.lit("chan"), "chan")]
+        proj = df.select(*cols).collect()
+        grouped = (df.with_column("s", E.Substring(E.col("d"), 2, 3))
+                   .group_by("s").agg(E.Alias(E.Count(), "n")).sort("s")
+                   .collect())
+        return proj, grouped
+    assert q("cuda") == q("cpu")
+
+
+@pytest.mark.parametrize("hashtable", ["true", "false"])
+@pytest.mark.parametrize("how", JOIN_TYPES)
+def test_join_condition_on_card_matches_cpu(how, hashtable):
+    _card()
+    from spark_rapids_tpu_torch.bench.tpch import rows_match
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    rng = np.random.default_rng(17)
+    n, m = 20000, 3000
+    left = pa.table({"k": pa.array(rng.integers(0, 500, n), pa.int64()),
+                     "s": pa.array([f"w{int(x)}" for x in
+                                    rng.integers(0, 30, n)]),
+                     "v": pa.array(rng.integers(0, 9, n), pa.int64())})
+    right = pa.table({"rk": pa.array(rng.integers(0, 600, m), pa.int64()),
+                      "rs": pa.array([f"w{int(x)}" for x in
+                                      rng.integers(0, 30, m)]),
+                      "w": pa.array(rng.integers(0, 9, m), pa.int64())})
+    cond = E.And(E.Not(E.EqualTo(E.col("s"), E.col("rs"))),
+                 E.LessThan(E.col("v"), E.col("w")))
+
+    def q(device):
+        conf = RapidsConf({"spark.rapids.gpu.sql.join.hashTable.enabled":
+                           hashtable})
+        return from_arrow(left, conf, batch_rows=8192, device=device).join(
+            from_arrow(right, conf, device=device), left_on="k",
+            right_on="rk", how=how, condition=cond).collect()
+    got, exp = q("cuda"), q("cpu")
+    assert len(got) == len(exp) and rows_match(got, exp)
+
+
+@pytest.mark.parametrize("q", ["q5", "q6", "q8", "q10", "q15", "q18", "q19",
+                               "q22", "q23", "q24", "q33", "q35", "q45",
+                               "q46", "q56", "q60", "q66", "q68", "q71",
+                               "q72", "q76", "q77", "q80", "q91", "q95"])
+def test_tpcds_union_query_on_card_matches_cpu(q):
+    """The union slice's queries on the card against the same query on the
+    CPU and on the CPU engine, and the six that join with a condition
+    also with the hash table off (the sorted-hash path on the card)."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t = S.tables_for(0.1, seed=3, names=Q.TABLES[q])
+    if q == "q76":
+        t = Q.with_null_promotions(t)
+    got = Q.QUERIES[q](Q.df_tables(t, batch_rows=1 << 22, device="cuda")
+                       ).to_arrow().to_pylist()
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
+    assert Q.check_rows(q, got, exp) == (True, "")
+    on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
+    assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")
+    if q in Q.CONDITION_JOINS:
+        off = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+            {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+            batch_rows=1 << 22, device="cuda")).physical_plan()
+        assert Q.check_rows(q, execute_to_arrow(off).to_pylist(),
+                            got) == (True, "")
+        assert "ht" not in join_paths(off)

@@ -8,9 +8,11 @@ against the JAX package on the same seeded tables:
 - ORDER BY on plain strings of 0-40 bytes with shared prefixes and nulls
   against the reference's sort_indices, both directions;
 - one mixed device/CPU plan per fallback trigger (a string ordering
-  comparison, string equality of two columns, a DECIMAL128 result), each
-  equal to the JAX planner, marked ``!`` in explain, and raising
-  NotImplementedError naming its reason when fallback is disabled;
+  comparison, a DECIMAL128 result), each equal to the JAX planner, marked
+  ``!`` in explain, and raising NotImplementedError naming its reason
+  when fallback is disabled; string equality of two columns, a trigger
+  until the device compared two string columns, now plans wholly on the
+  device and equals the JAX planner with fallback disabled too;
 - the CPU engine's operators with the whole plan on the host
   (``spark.rapids.gpu.sql.enabled=false``) against the JAX planner;
 - the transitions (one conversion each way) and the placement rules.
@@ -203,9 +205,11 @@ def _trigger_query(M, which, df):
     return q.sort("g")
 
 
+# (explain mark, reason) of each trigger; None: the case runs wholly on
+# the device (string equality of two columns: codes or bytes compared
+# there)
 TRIGGERS = {"string_ordering": ("! Filter", "string ordering comparison"),
-            "string_equality_of_columns": ("! Filter",
-                                           "string equality of two columns"),
+            "string_equality_of_columns": None,
             "decimal128_result": ("! Aggregate", "DECIMAL128")}
 
 
@@ -218,8 +222,15 @@ def test_fallback_trigger_gives_mixed_plan_equal_to_jax(which):
     q = _trigger_query(PE, which, port_from_arrow(t, batch_rows=64,
                                                   device="cpu"))
     text = q.explain()
-    mark, reason = TRIGGERS[which]
     bad = [ln for ln in text.splitlines() if ln.lstrip().startswith("!")]
+    if TRIGGERS[which] is None:
+        assert not bad, text
+        got = q.collect()
+        assert len(got) == len(exp) == 5 and got == exp
+        assert _trigger_query(PE, which, port_from_arrow(
+            t, RapidsConf(NO_FALLBACK), device="cpu")).collect() == exp
+        return
+    mark, reason = TRIGGERS[which]
     assert len(bad) == 1 and bad[0].lstrip().startswith(mark), text
     assert reason in bad[0]
     assert "* InMemoryScan" in text  # the scan stays on the device

@@ -140,6 +140,46 @@ def test_the_joins_slice_modules_are_covered():
             assert hasattr(mod, n), (m, n)
 
 
+def test_the_union_slice_modules_are_covered():
+    """The modules that carry Union, Substring, Like, string-column
+    equality and residual join conditions are walked by the import checks
+    above, and hold the names the slice adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exec.misc", ("UnionExec",)),
+            ("spark_rapids_tpu_torch.exprs.regex",
+             ("like_to_dfa", "match_strings", "DFA")),
+            ("spark_rapids_tpu_torch.exprs.expr", ("Substring", "Like")),
+            ("spark_rapids_tpu_torch.exprs.eval", ("substring_bytes",)),
+            ("spark_rapids_tpu_torch.exec.kernels",
+             ("strings_equal", "dictionary_unique")),
+            ("spark_rapids_tpu_torch.exec.join",
+             ("PairCondition", "condition_columns")),
+            ("spark_rapids_tpu_torch.plan.logical", ("Union", "union_widen")),
+            ("spark_rapids_tpu_torch.plan.overrides", ("widen_unions",)),
+            ("spark_rapids_tpu_torch.plan.cpu",
+             ("CpuUnionExec", "substring_sql", "like_regex")),
+            ("spark_rapids_tpu_torch.bench.tpcds_queries",
+             ("UNION_SLICE", "CONDITION_JOINS", "spend_threshold",
+              "with_null_promotions"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+
+
+def test_the_threshold_queries_catch_nothing():
+    """q23 and q24 compute their threshold without an exception handler
+    (the reference's bare ``except`` hides a TypeError): no ``try`` in the
+    queries module."""
+    path = os.path.join(PKG, "bench", "tpcds_queries.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
 def test_no_exception_handler_moves_work_elsewhere():
     """Placement is a plan-time decision: no ``except`` clause in the port
     builds a CPU operator or calls a kernel's plain version."""

@@ -10,6 +10,12 @@ distinct aggregates, held against the JAX package on the CPU:
   build-side matched flags across batches), a chunk budget small enough
   that one batch's candidates split into several chunks, two-column keys
   and plain-string keys. Results are compared as row multisets;
+- a residual join condition (a string inequality, an ordering between
+  the sides, a condition that rejects every key-equal pair of some probe
+  rows and a condition that is always null) for every join type, on the
+  hash-table path and on the sorted-hash path of the port's join and on
+  its CPU engine, against the reference's ``HashJoinExec`` with the same
+  condition;
 - If, CaseWhen and Coalesce against the reference's ``compile_projection``
   on the device path and on the CPU engine, with null predicates and
   decimal, double, integer and string branches;
@@ -188,6 +194,70 @@ def test_semi_and_anti_joins_emit_each_probe_row_once():
     keys = set(right.column("rk").drop_null().to_pylist())
     assert all(r["k"] in keys for r in semi)
     assert all(r["k"] not in keys for r in anti)
+
+
+# ---------------------------------------------------------------------------
+# residual join conditions
+# ---------------------------------------------------------------------------
+
+
+def _conditions(M, T):
+    col, lit = M.col, M.lit
+    return {
+        # a string inequality of two plain-string columns (q24/q46/q68)
+        "string_neq": M.Not(M.EqualTo(col("s"), col("rs"))),
+        # an ordering between the sides (q72)
+        "less_than": M.LessThan(col("k2"), col("rk2")),
+        # false for every pair of a probe row whose v <= 0: outer and anti
+        # joins keep those rows unmatched
+        "rejects_row": M.GreaterThan(col("v"), lit(0.0)),
+        # null for every pair: nothing matches
+        "null": M.LessThan(col("w"), lit(None, T.LONG)),
+    }
+
+
+@pytest.mark.parametrize("how", JOIN_TYPES)
+@pytest.mark.parametrize("cond", ["string_neq", "less_than", "rejects_row",
+                                  "null"])
+def test_join_condition_matches_jax_on_both_paths(cond, how):
+    left, right = _left(300, 51), _right(120, 52, domain=20)
+    jl, pl = _sources(left, 100)
+    jr, pr = _sources(right, 60)
+    saved = JC.get_active()
+    JC.set_active(JC.RapidsConf(HT_CONF))
+    try:
+        exp = _rows(JJoin([JE.col("k")], [JE.col("rk")], how, jl, jr,
+                          condition=_conditions(JE, JT)[cond]),
+                    JB.batch_to_arrow)
+    finally:
+        JC.set_active(saved)
+    pcond = _conditions(PE, PT)[cond]
+    psaved = PC.get_active()
+    for hashtable in ("true", "false"):
+        PC.set_active(PC.RapidsConf(
+            {"spark.rapids.gpu.sql.join.hashTable.enabled": hashtable}))
+        try:
+            node = PJoin([PE.col("k")], [PE.col("rk")], how, pl, pr,
+                         condition=pcond)
+            got = _rows(node, PB.batch_to_arrow)
+        finally:
+            PC.set_active(psaved)
+        assert node.join_path == ("ht" if hashtable == "true" else "sorted")
+        assert len(got) == len(exp) and rows_match(got, exp), hashtable
+    conf = PC.RapidsConf(CPU_ONLY)
+    on_cpu = port_from_arrow(left, conf, device="cpu").join(
+        port_from_arrow(right, conf, device="cpu"), left_on="k",
+        right_on="rk", how=how, condition=pcond).collect()
+    assert len(on_cpu) == len(exp) and rows_match(on_cpu, exp)
+    keys = set(right.column("rk").drop_null().to_pylist())
+    if cond == "null":
+        assert len(got) == {"left": 300, "full": 420, "right": 120,
+                            "left_anti": 300}.get(how, 0)
+    if cond == "rejects_row" and how in ("left", "full", "left_anti"):
+        # a row whose key matches but whose every pair fails is kept,
+        # unmatched
+        kept = [r for r in got if r["k"] in keys and r["v"] <= 0]
+        assert kept and all(r.get("rk") is None for r in kept)
 
 
 # ---------------------------------------------------------------------------
