@@ -108,6 +108,27 @@ Phases, in order; any failure exits non-zero before the last line:
    engine. Then the six queries that join with a condition
    (``CONDITION_JOINS``) run with the hash table off: the same rows, no
    probe launch, every device join on the sorted-hash path;
+11. TPC-DS decimal slice: the 21 queries of ``tpcds_queries.DECIMAL_SLICE``
+   (Divide, Abs and DECIMAL128 on the device, window Sums and Averages
+   into DECIMAL128) and q1/q30/q65/q81 (``WIDE_AVERAGES``, whose
+   decimal(21,6) averages ran on the CPU engine before) at SF ``--sf-ds``
+   on the same tables, one batch of 2^22 rows a table, each as phase 10
+   runs a union query, but every plan must place no node on the CPU
+   engine (each one would be printed with its reason first); the
+   segmented scan must launch in each window query (q12/q20/q98 and
+   q36/q49/q51/q53/q63), the probe in every query. q24's threshold
+   subquery (a decimal(21,6) average) must run wholly on the device and
+   give the CPU engine's value. Every probe call of the path and every
+   segmented-scan call of its window queries is held against the plain
+   version (the scan: integers and min/max exactly, float adds within
+   ``segscan_add_tolerance``); the path's largest table probe is checked as
+   in phase 8 (``decimal_largest``); warm walls. Every query runs again
+   with the hash table off: the same rows, no probe launch. Last, one
+   decimal(17,2) / decimal(17,2) Divide over 2,880,000 rows (a
+   decimal(37,20) quotient through the 128-bit long division): its torch
+   kernel launches and device time (one profiled call), its host time
+   (median of 5 calls, each ending in a synchronise), and its rows equal
+   to the same Divide on the CPU (the first 100,000);
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1088,6 +1109,236 @@ def run_union_path(tables, sf: float) -> dict:
             "largest_table_probe": by_table.get("args")}
 
 
+# the decimal slice's queries that compute a window (their geometry and
+# window sums run through the segmented-scan kernel)
+DECIMAL_WINDOWS = ("q12", "q20", "q98", "q36", "q49", "q51", "q53", "q63")
+
+
+def run_decimal_path(tables, sf: float) -> dict:
+    """The decimal slice's 21 queries and q1/q30/q65/q81 on the card in
+    batches of 2^22 rows, as ``run_union_path`` runs the union queries,
+    every plan wholly on the device, the segmented scan launched in each
+    window query; then q24's threshold subquery; records the probe into
+    the path's largest table."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exprs.expr import Average, col
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    empty_ok = Q.EMPTY_AT_SF.get(sf, ())
+    queries = list(Q.DECIMAL_SLICE) + list(Q.WIDE_AVERAGES)
+    by_table = {}
+    real_probe = K.probe_hash_table_kernel
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        size = (capacity, h1.numel())
+        if size > by_table.get("size", (-1, -1)):
+            by_table.update(size=size, args=(tbl, h1, h2, capacity, seed))
+        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    results, rows = {}, {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    K.probe_hash_table_kernel = recording_probe
+    try:
+        for q in queries:
+            df = Q.QUERIES[q](d)
+            off = [ln.strip() for ln in df.explain("ALL").splitlines()
+                   if ln.lstrip().startswith("!")]
+            for ln in off:
+                log(f"{q}: on the CPU engine: {ln}")
+            if off:
+                raise AssertionError(f"{q} places {len(off)} nodes on the "
+                                     f"CPU engine")
+            plan = df.physical_plan()
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            paths = join_paths(plan)
+            got = out.to_pylist()
+            if launches["hashtbl_probe"] <= 0 or "ht" not in paths:
+                raise AssertionError(f"{q} launched no probe kernel (join "
+                                     f"paths {paths})")
+            if q in DECIMAL_WINDOWS and launches["segscan"] <= 0:
+                raise AssertionError(f"{q} launched no segscan kernel")
+            if not Q.informative(got) and q not in empty_ok:
+                raise AssertionError(f"{q} shows no value at SF {sf}: "
+                                     f"{got[:3]}")
+            t1 = time.perf_counter()
+            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+            cpu_s = time.perf_counter() - t1
+            ok, why = Q.check_rows(q, on_cpu, got)
+            if not ok:
+                raise AssertionError(f"{q} on the CPU engine differs from "
+                                     f"the card ({why}):\n{got[:3]}\n"
+                                     f"{on_cpu[:3]}")
+            results[q] = {"rows": len(got), "informative":
+                          Q.informative(got), "first_s": first_s,
+                          "launches": launches, "cpu_engine_s": cpu_s,
+                          "placement": "device", "join_paths": paths}
+            rows[q] = got
+            log(f"{q}: {len(got)} rows match the CPU engine; wholly on the "
+                f"device; launches {launches}; join paths {paths}; first "
+                f"run {first_s:.3f}s; CPU engine {cpu_s:.3f}s")
+        # q24's threshold subquery: a decimal(21,6) average
+        sub = Q._q24_paid(d).agg(Average(col("netpaid")).alias("m"))
+        off = [ln.strip() for ln in sub.explain("ALL").splitlines()
+               if ln.lstrip().startswith("!")]
+        K.reset_kernel_launches()
+        thresh = Q.q24_threshold(d)
+        launches = dict(K.KERNEL_LAUNCHES)
+        on_cpu = Q.q24_threshold(cpu)
+        if off or thresh != on_cpu or not thresh or not launches[
+                "hashtbl_probe"]:
+            raise AssertionError(f"q24's threshold subquery: CPU nodes "
+                                 f"{off}; {thresh} against the CPU "
+                                 f"engine's {on_cpu}; launches {launches}")
+        results["q24_threshold"] = {"value": str(thresh),
+                                    "launches": launches}
+        log(f"q24 threshold subquery wholly on the device: {thresh} equals "
+            f"the CPU engine's; launches {launches}")
+    finally:
+        K.probe_hash_table_kernel = real_probe
+    checked = check_every_probe(d, queries)
+    scans = check_every_segscan(d, DECIMAL_WINDOWS)
+    for q in queries:
+        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
+                                          .to_arrow())
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
+            f"launches {results[q]['launches']}, CPU engine "
+            f"{results[q]['cpu_engine_s']:.3f}s")
+    return {"queries": results, "launches": total, "rows": rows,
+            "probe_calls_checked": checked, "segscan_calls_checked": scans,
+            "largest_table_probe": by_table.get("args")}
+
+
+def check_every_segscan(d, queries) -> int:
+    """Runs each query once more with every segmented-scan call held
+    against the plain version on the same inputs: integers and min/max
+    exactly (NaN equal to NaN), float adds within
+    ``segscan_add_tolerance``. These launches are not counted. Returns the
+    number of calls checked."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    real_scan = K.segmented_scan_kernel
+    calls = [0]
+
+    def checking_scan(values, is_start, op_name="add"):
+        k = real_scan(values, is_start, op_name)
+        p = K.segmented_scan(values, is_start, op_name)
+        if values.is_floating_point() and op_name == "add":
+            running = K.segmented_scan(values.abs(), is_start, "add")
+            tol = K.segscan_add_tolerance(running, values.numel(),
+                                          values.dtype)
+            ok = bool(((k - p).abs() <= tol).all())
+        else:
+            ok = torch.equal(k, p) or bool(
+                ((k == p) | (torch.isnan(k) & torch.isnan(p))).all()
+                if k.is_floating_point() else False)
+        if not ok:
+            raise AssertionError(
+                f"segscan kernel differs from its plain version on a "
+                f"{values.numel()}-row {values.dtype} {op_name} scan")
+        calls[0] += 1
+        return k
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    K.segmented_scan_kernel = checking_scan
+    try:
+        for q in queries:
+            Q.QUERIES[q](d).to_arrow()
+    finally:
+        K.segmented_scan_kernel = real_scan
+        K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    log(f"segscan: all {calls[0]} calls of {len(queries)} window queries "
+        f"equal the plain version")
+    return calls[0]
+
+
+def decimal_divide_cost(n: int = 2_880_000, checked: int = 100_000) -> dict:
+    """One decimal(17,2) / decimal(17,2) Divide (a decimal(37,20) quotient)
+    over ``n`` seeded rows on the card: torch kernel launches and device
+    time of one profiled call, host time of a call (median of 5, each
+    ending in a synchronise), and its first ``checked`` rows against the
+    same Divide on the CPU."""
+    import numpy as np
+    import pyarrow as pa
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.bench.profile_tpch import device_events
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.exprs import eval as EV
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    rng = np.random.default_rng(17)
+    a = rng.integers(-10**17 + 1, 10**17, n)
+    b = rng.integers(-10**9, 10**9, n)
+    b[::1000] = 0
+    dec = T.DecimalType(17, 2)
+
+    def column(u):
+        limbs = np.stack([u, u >> 63], 1).astype(np.int64)
+        return pa.Array.from_buffers(dec.arrow_type(), n,
+                                     [None, pa.py_buffer(limbs.tobytes())])
+    t = pa.table({"a": column(a), "b": column(b)})
+    expr = E.resolve(E.Divide(E.col("a"), E.col("b")),
+                     T.Schema.from_arrow(t.schema))
+    batch = batch_from_arrow(t, "cuda")
+
+    def call():
+        return EV.eval_expr(expr, EV.EvalContext(batch))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    kernels = [us for name, us in events
+               if "memcpy" not in name.lower() and "memset" not in
+               name.lower()]
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    got = call()
+    small = batch_from_arrow(t.slice(0, checked), "cpu")
+    exp = EV.eval_expr(expr, EV.EvalContext(small))
+    if not (torch.equal(got.data[:checked].cpu(), exp.data)
+            and torch.equal(got.validity[:checked].cpu(), exp.validity)):
+        raise AssertionError("the decimal Divide on the card differs from "
+                             "the CPU's")
+    res = {"rows": n, "result_type": expr.dtype.name,
+           "kernel_launches": len(kernels),
+           "device_ms": sum(kernels) / 1e3,
+           "host_ms": statistics.median(walls) * 1e3,
+           "host_ms_all": [w * 1e3 for w in walls],
+           "null_rows": int((~got.validity).sum())}
+    log(f"decimal divide {expr.dtype.name} over {n} rows: "
+        f"{res['kernel_launches']} kernel launches, device "
+        f"{res['device_ms']:.3f} ms, call {res['host_ms']:.3f} ms (median "
+        f"of 5); first {checked} rows equal the CPU's")
+    return res
+
+
 def check_every_probe(d, queries) -> int:
     """Runs each query once more with every probe call held against the
     plain version on the same inputs: slots and hits must be equal. These
@@ -1328,12 +1579,20 @@ def main(argv=None) -> int:
     sorted_res.update(run_sorted_hash(ds_tables, {
         q: union_rows[q] for q in Q.CONDITION_JOINS}))
 
+    dec_res = run_decimal_path(ds_tables, args.sf_ds)
+    dec_probe = check_probe("decimal_largest",
+                            *dec_res.pop("largest_table_probe"), cold=True)
+    shapes.append(dec_probe)
+    sorted_res.update(run_sorted_hash(ds_tables, dec_res.pop("rows")))
+    divide_res = decimal_divide_cost()
+
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
                       "tpcds_headline": head_res["launches"][name],
                       "tpcds_joins": joins_res["launches"][name],
                       "tpcds_breadth": breadth_res["launches"][name],
-                      "tpcds_union": union_res["launches"][name]}
+                      "tpcds_union": union_res["launches"][name],
+                      "tpcds_decimal": dec_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -1361,6 +1620,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "union_calls_checked": union_res["probe_calls_checked"],
+        "decimal_largest": {k: dec_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "decimal_calls_checked": dec_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -1375,6 +1638,7 @@ def main(argv=None) -> int:
         "bound_ms": scan_real["bound_ms"], "bound_by": "bytes",
         "library_ms": scan_real["library_ms"],
         "library_call": "torch.cummax",
+        "decimal_calls_checked": dec_res["segscan_calls_checked"],
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -1387,6 +1651,8 @@ def main(argv=None) -> int:
               "tpcds_joins": joins_res["queries"],
               "tpcds_breadth": breadth_res["queries"],
               "tpcds_union": union_res["queries"],
+              "tpcds_decimal": dec_res["queries"],
+              "decimal_divide": divide_res,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

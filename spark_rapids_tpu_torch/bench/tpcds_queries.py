@@ -56,11 +56,13 @@ import pyarrow as pa
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs.expr import (
-    And, Average, Coalesce, Count, CountDistinct, EqualTo, GreaterThan,
-    GreaterThanOrEqual, If, In, IsNotNull, IsNull, LessThan, LessThanOrEqual,
-    Like, Max, Min, Multiply, Not, Or, Substring, Subtract, Sum, col, lit,
+    Abs, Add, And, Average, Cast, Coalesce, Count, CountDistinct, Divide,
+    EqualTo, GreaterThan, GreaterThanOrEqual, If, In, IsNotNull, IsNull,
+    LessThan, LessThanOrEqual, Like, Max, Min, Multiply, Not, Or, Substring,
+    Subtract, Sum, col, lit,
 )
-from spark_rapids_tpu_torch.exprs.window import Rank, over, window_spec
+from spark_rapids_tpu_torch.exprs.window import (
+    Rank, WindowFrame, over, window_spec)
 
 D = Dict[str, "object"]
 
@@ -2120,6 +2122,618 @@ def q95(d: D):
                   Sum(col("ws_net_profit")).alias("total_net_profit"))
 
 
+# ---------------------------------------------------------------------------
+# the decimal slice: the queries that divide (Divide, Abs, DECIMAL128)
+# ---------------------------------------------------------------------------
+
+
+def _year_total(d: D, channel: str, year: int):
+    """Per-customer yearly total of one channel (q4/q11/q74)."""
+    if channel == "s":
+        f, date_col, cust_col = (d["store_sales"], "ss_sold_date_sk",
+                                 "ss_customer_sk")
+        price = Subtract(col("ss_ext_list_price"),
+                         col("ss_ext_discount_amt"))
+    elif channel == "c":
+        f, date_col, cust_col = (d["catalog_sales"], "cs_sold_date_sk",
+                                 "cs_bill_customer_sk")
+        price = Subtract(col("cs_ext_list_price"),
+                         col("cs_ext_discount_amt"))
+    else:
+        f, date_col, cust_col = (d["web_sales"], "ws_sold_date_sk",
+                                 "ws_bill_customer_sk")
+        price = Subtract(col("ws_ext_list_price"),
+                         col("ws_ext_discount_amt"))
+    j = (f.join(d["date_dim"].filter(EqualTo(col("d_year"), lit(year))),
+                left_on=date_col, right_on="d_date_sk")
+         .join(d["customer"], left_on=cust_col, right_on="c_customer_sk"))
+    return (j.group_by("c_customer_id", "c_first_name", "c_last_name")
+            .agg(Sum(price).alias("year_total")))
+
+
+def _totals(d: D, channel: str, year: int, key: str, total: str):
+    return _year_total(d, channel, year).select(
+        col("c_customer_id").alias(key), col("year_total").alias(total))
+
+
+@q("q2")
+def q2(d: D):
+    """Web and catalog weekly sales by weekday, year over year (a channel
+    union, a weekly pivot, a self-join on week_seq + 53)."""
+    ws = d["web_sales"].select(
+        col("ws_sold_date_sk").alias("sold_date_sk"),
+        col("ws_ext_sales_price").alias("sales_price"))
+    cs = d["catalog_sales"].select(
+        col("cs_sold_date_sk").alias("sold_date_sk"),
+        col("cs_ext_sales_price").alias("sales_price"))
+    wscs = ws.union(cs).join(d["date_dim"], left_on="sold_date_sk",
+                             right_on="d_date_sk")
+
+    def day(name, alias):
+        return Sum(If(EqualTo(col("d_day_name"), lit(name)),
+                      col("sales_price"), lit(None, T.DOUBLE))).alias(alias)
+    wk = (wscs.group_by("d_week_seq")
+          .agg(day("Sunday", "sun"), day("Monday", "mon"),
+               day("Friday", "fri")))
+
+    def year(y, n):
+        weeks = _distinct(d["date_dim"].filter(
+            EqualTo(col("d_year"), lit(y))), "d_week_seq")
+        return (wk.join(weeks, left_on="d_week_seq", right_on="d_week_seq")
+                .select(col("d_week_seq").alias(f"wk{n}"),
+                        col("sun").alias(f"sun{n}"),
+                        col("mon").alias(f"mon{n}"),
+                        col("fri").alias(f"fri{n}")))
+    y1 = year(1999, 1)
+    y2 = year(2000, 2).select(Subtract(col("wk2"), lit(53)).alias("wk2s"),
+                              "sun2", "mon2", "fri2")
+    j = y1.join(y2, left_on=col("wk1"), right_on=col("wk2s"))
+    return (j.select("wk1", Divide(col("sun1"), col("sun2")).alias("r_sun"),
+                     Divide(col("mon1"), col("mon2")).alias("r_mon"),
+                     Divide(col("fri1"), col("fri2")).alias("r_fri"))
+            .sort("wk1"))
+
+
+@q("q4")
+def q4(d: D):
+    """Customers whose catalog and web spending grew faster than their
+    store spending (three channels, two years, self-joins)."""
+    j = (_totals(d, "s", 1999, "sid", "s_y1")
+         .join(_totals(d, "s", 2000, "sid2", "s_y2"), left_on=col("sid"),
+               right_on=col("sid2"))
+         .join(_totals(d, "c", 1999, "cid", "c_y1"), left_on=col("sid"),
+               right_on=col("cid"))
+         .join(_totals(d, "c", 2000, "cid2", "c_y2"), left_on=col("sid"),
+               right_on=col("cid2"))
+         .join(_totals(d, "w", 1999, "wid", "w_y1"), left_on=col("sid"),
+               right_on=col("wid"))
+         .join(_totals(d, "w", 2000, "wid2", "w_y2"), left_on=col("sid"),
+               right_on=col("wid2")))
+    j = j.filter(And(
+        And(GreaterThan(col("c_y1"), lit(0.0)),
+            GreaterThan(col("s_y1"), lit(0.0))),
+        And(GreaterThan(Divide(col("c_y2"), col("c_y1")),
+                        Divide(col("s_y2"), col("s_y1"))),
+            GreaterThan(Divide(col("w_y2"), Coalesce(col("w_y1"), lit(1.0))),
+                        Divide(col("s_y2"), col("s_y1"))))))
+    return j.select("sid").sort("sid", limit=100)
+
+
+def _web_beats_store(d: D):
+    """q11 and q74: customers whose web growth beat their store growth."""
+    j = (_totals(d, "s", 1999, "sid", "s_y1")
+         .join(_totals(d, "s", 2000, "sid2", "s_y2"), left_on=col("sid"),
+               right_on=col("sid2"))
+         .join(_totals(d, "w", 1999, "wid", "w_y1"), left_on=col("sid"),
+               right_on=col("wid"))
+         .join(_totals(d, "w", 2000, "wid2", "w_y2"), left_on=col("sid"),
+               right_on=col("wid2")))
+    j = j.filter(And(
+        And(GreaterThan(col("w_y1"), lit(0.0)),
+            GreaterThan(col("s_y1"), lit(0.0))),
+        GreaterThan(Divide(col("w_y2"), col("w_y1")),
+                    Divide(col("s_y2"), col("s_y1")))))
+    return j.select("sid").sort("sid", limit=100)
+
+
+@q("q11")
+def q11(d: D):
+    """Customers whose web growth beat their store growth (q4 with two
+    channels)."""
+    return _web_beats_store(d)
+
+
+@q("q74")
+def q74(d: D):
+    """q11 again (the reference's q74 body is q11's)."""
+    return _web_beats_store(d)
+
+
+def _revenue_share(d: D, fact: str, date_col: str, item_col: str,
+                   price: str, times_one: bool):
+    """q12/q20/q98: each item's revenue and its share of its class's
+    revenue (a window Sum over a decimal(17,2) sum: decimal(27,2))."""
+    dt = d["date_dim"].filter(_between(col("d_date_sk"), 760, 790))
+    it = d["item"].filter(In(col("i_category"),
+                             [lit(x) for x in ("Sports", "Books", "Home")]))
+    j = (d[fact].join(dt, left_on=date_col, right_on="d_date_sk")
+         .join(it, left_on=item_col, right_on="i_item_sk"))
+    g = (j.group_by("i_item_id", "i_item_desc", "i_category", "i_class",
+                    "i_current_price")
+         .agg(Sum(col(price)).alias("itemrevenue")))
+    w = g.with_window(
+        over(Sum(col("itemrevenue")),
+             window_spec(partition_by=["i_class"],
+                         frame=WindowFrame("rows", None, None)))
+        .alias("class_rev"))
+    ratio = Divide(Multiply(col("itemrevenue"), lit(100.0)),
+                   col("class_rev"))
+    if times_one:
+        ratio = Multiply(ratio, lit(1.0))
+    return (w.select("i_item_id", "i_item_desc", "i_category", "i_class",
+                     "i_current_price", "itemrevenue",
+                     ratio.alias("revenueratio"))
+            .sort("i_category", "i_class", "i_item_id", "i_item_desc",
+                  "revenueratio", limit=100))
+
+
+@q("q12")
+def q12(d: D):
+    """Web revenue share within its class over a 30-day window."""
+    return _revenue_share(d, "web_sales", "ws_sold_date_sk", "ws_item_sk",
+                          "ws_ext_sales_price", True)
+
+
+@q("q20")
+def q20(d: D):
+    """Catalog revenue share within its class (q12 on catalog)."""
+    return _revenue_share(d, "catalog_sales", "cs_sold_date_sk",
+                          "cs_item_sk", "cs_ext_sales_price", False)
+
+
+@q("q98")
+def q98(d: D):
+    """Store revenue share within its class (q12 on store sales)."""
+    return _revenue_share(d, "store_sales", "ss_sold_date_sk", "ss_item_sk",
+                          "ss_ext_sales_price", False)
+
+
+@q("q21")
+def q21(d: D):
+    """Inventory before and after a date by warehouse and item."""
+    pivot = 900
+    j = (d["inventory"]
+         .join(d["date_dim"].filter(_between(col("d_date_sk"),
+                                             pivot - 30, pivot + 30)),
+               left_on="inv_date_sk", right_on="d_date_sk")
+         .join(d["item"], left_on="inv_item_sk", right_on="i_item_sk")
+         .join(d["warehouse"], left_on="inv_warehouse_sk",
+               right_on="w_warehouse_sk"))
+    g = (j.group_by("w_warehouse_name", "i_item_id")
+         .agg(Sum(If(LessThan(col("d_date_sk"), lit(pivot)),
+                     col("inv_quantity_on_hand"), lit(0)))
+              .alias("inv_before"),
+              Sum(If(GreaterThanOrEqual(col("d_date_sk"), lit(pivot)),
+                     col("inv_quantity_on_hand"), lit(0)))
+              .alias("inv_after")))
+    g = g.filter(And(GreaterThan(col("inv_before"), lit(0)),
+                     _between(Divide(Cast(col("inv_after"), T.DOUBLE),
+                                     Cast(col("inv_before"), T.DOUBLE)),
+                              2.0 / 3.0, 3.0 / 2.0)))
+    return g.sort("w_warehouse_name", "i_item_id", limit=100)
+
+
+@q("q31")
+def q31(d: D):
+    """County store-versus-web quarterly growth."""
+    def chan(fact, datecol, addrcol, price, qoy, name):
+        j = (d[fact]
+             .join(d["date_dim"].filter(
+                 And(EqualTo(col("d_year"), lit(2000)),
+                     EqualTo(col("d_qoy"), lit(qoy)))),
+                 left_on=datecol, right_on="d_date_sk")
+             .join(d["customer_address"], left_on=addrcol,
+                   right_on="ca_address_sk"))
+        return (j.group_by("ca_county")
+                .agg(Sum(col(price)).alias(name))
+                .select(col("ca_county").alias(f"{name}_cty"), col(name)))
+    ss1 = chan("store_sales", "ss_sold_date_sk", "ss_addr_sk",
+               "ss_ext_sales_price", 1, "ss1")
+    ss2 = chan("store_sales", "ss_sold_date_sk", "ss_addr_sk",
+               "ss_ext_sales_price", 2, "ss2")
+    ws1 = chan("web_sales", "ws_sold_date_sk", "ws_bill_addr_sk",
+               "ws_ext_sales_price", 1, "ws1")
+    ws2 = chan("web_sales", "ws_sold_date_sk", "ws_bill_addr_sk",
+               "ws_ext_sales_price", 2, "ws2")
+    j = (ss1.join(ss2, left_on=col("ss1_cty"), right_on=col("ss2_cty"))
+         .join(ws1, left_on=col("ss1_cty"), right_on=col("ws1_cty"))
+         .join(ws2, left_on=col("ss1_cty"), right_on=col("ws2_cty")))
+    j = j.filter(And(GreaterThan(col("ss1"), lit(0.0)),
+                     GreaterThan(col("ws1"), lit(0.0))))
+    j = j.filter(GreaterThan(Divide(col("ws2"), col("ws1")),
+                             Divide(col("ss2"), col("ss1"))))
+    return (j.select(col("ss1_cty").alias("county"),
+                     Divide(col("ws2"), col("ws1")).alias("web_growth"),
+                     Divide(col("ss2"), col("ss1")).alias("store_growth"))
+            .sort("county", limit=100))
+
+
+@q("q36")
+def q36(d: D):
+    """Gross margin ranked within its category (a window over an
+    aggregate; the base grouping of the official ROLLUP)."""
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(EqualTo(col("d_year"), lit(2001))),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(d["item"], left_on="ss_item_sk", right_on="i_item_sk")
+         .join(d["store"].filter(EqualTo(col("s_state"), lit("TN"))),
+               left_on="ss_store_sk", right_on="s_store_sk"))
+    g = (j.group_by("i_category", "i_class")
+         .agg(Sum(col("ss_net_profit")).alias("profit"),
+              Sum(col("ss_ext_sales_price")).alias("sales")))
+    g = g.select("i_category", "i_class",
+                 Divide(col("profit"), col("sales")).alias("gross_margin"))
+    w = g.with_window(
+        over(Rank(), window_spec(partition_by=["i_category"],
+                                 order_by=[asc("gross_margin")]))
+        .alias("rank_within_parent"))
+    return w.sort("i_category", "rank_within_parent", limit=100)
+
+
+def _vs_window_average(g, part, value: str, avg: str):
+    """q53/q63: rows whose sales differ from their partition's average (a
+    window Average over a decimal(17,2) sum: decimal(21,6)) by more than
+    10% of it."""
+    w = g.with_window(
+        over(Average(col(value)),
+             window_spec(partition_by=part,
+                         frame=WindowFrame("rows", None, None)))
+        .alias(avg))
+    gap = Abs(Subtract(col(value), col(avg)))
+    return w.filter(And(GreaterThan(col(avg), lit(0.0)),
+                        GreaterThan(Divide(gap, col(avg)), lit(0.1))))
+
+
+@q("q49")
+def q49(d: D):
+    """The worst return ratios of each channel (a ranked union)."""
+    def chan(sales, returns, s_item, s_ord, s_qty, s_price, r_item, r_ord,
+             r_qty, r_amt, name):
+        j = (d[sales]
+             .join(d[returns], left_on=[col(s_ord), col(s_item)],
+                   right_on=[col(r_ord), col(r_item)])
+             .filter(GreaterThan(col(s_price), lit(1.0))))
+        g = (j.group_by(s_item)
+             .agg(Sum(col(r_qty)).alias("ret_qty"),
+                  Sum(col(s_qty)).alias("sold_qty"),
+                  Sum(col(r_amt)).alias("ret_amt"),
+                  Sum(Multiply(col(s_price), col(s_qty))).alias("sold_amt")))
+        g = g.select(col(s_item).alias("item"),
+                     Divide(col("ret_qty"), col("sold_qty")
+                            ).alias("currency_ratio"))
+        w = g.with_window(over(Rank(), window_spec(
+            order_by=[asc("currency_ratio")])).alias("return_rank"))
+        return (w.filter(LessThanOrEqual(col("return_rank"), lit(10)))
+                .select(lit(name).alias("channel"), "item", "return_rank"))
+    u = (chan("web_sales", "web_returns", "ws_item_sk", "ws_order_number",
+              "ws_quantity", "ws_net_paid", "wr_item_sk", "wr_order_number",
+              "wr_return_quantity", "wr_return_amt", "web")
+         .union(chan("catalog_sales", "catalog_returns", "cs_item_sk",
+                     "cs_order_number", "cs_quantity", "cs_net_paid",
+                     "cr_item_sk", "cr_order_number", "cr_return_quantity",
+                     "cr_return_amount", "catalog"))
+         .union(chan("store_sales", "store_returns", "ss_item_sk",
+                     "ss_ticket_number", "ss_quantity", "ss_net_paid",
+                     "sr_item_sk", "sr_ticket_number", "sr_return_quantity",
+                     "sr_return_amt", "store")))
+    return u.sort("channel", "return_rank", "item", limit=100)
+
+
+@q("q51")
+def q51(d: D):
+    """Web against store cumulative daily sales per item (running window
+    sums over a decimal(17,2) daily sum: decimal(27,2); the reference's
+    simplification to matched items)."""
+    def daily(fact, item, date, price, i_alias, d_alias, name):
+        return (d[fact]
+                .join(d["date_dim"].filter(_between(col("d_month_seq"),
+                                                    12, 23)),
+                      left_on=date, right_on="d_date_sk")
+                .group_by(item, "d_date_sk")
+                .agg(Sum(col(price)).alias(name))
+                .select(col(item).alias(i_alias),
+                        col("d_date_sk").alias(d_alias), col(name)))
+    ws = daily("web_sales", "ws_item_sk", "ws_sold_date_sk",
+               "ws_sales_price", "w_item", "w_date", "web_day")
+    ss = daily("store_sales", "ss_item_sk", "ss_sold_date_sk",
+               "ss_sales_price", "s_item", "s_date", "store_day")
+    j = ws.join(ss, left_on=[col("w_item"), col("w_date")],
+                right_on=[col("s_item"), col("s_date")])
+    spec = window_spec(partition_by=["w_item"], order_by=["w_date"],
+                       frame=WindowFrame("rows", None, 0))
+    w = j.with_window(
+        over(Sum(col("web_day")), spec).alias("web_cumulative"),
+        over(Sum(col("store_day")), spec).alias("store_cumulative"))
+    out = w.filter(GreaterThan(col("web_cumulative"),
+                               col("store_cumulative")))
+    return (out.select("w_item", "w_date", "web_cumulative",
+                       "store_cumulative")
+            .sort("w_item", "w_date", limit=100))
+
+
+@q("q53")
+def q53(d: D):
+    """Quarterly manufacturer sales against their average (a window)."""
+    it = d["item"].filter(In(col("i_class"),
+                             [lit(c) for c in ("accessories", "classical",
+                                               "fiction", "history")]))
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(it, left_on="ss_item_sk", right_on="i_item_sk")
+         .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+    g = (j.group_by("i_manufact_id", "d_qoy")
+         .agg(Sum(col("ss_sales_price")).alias("sum_sales")))
+    out = _vs_window_average(g, ["i_manufact_id"], "sum_sales",
+                             "avg_quarterly_sales")
+    return (out.select("i_manufact_id", "sum_sales", "avg_quarterly_sales")
+            .sort(asc("avg_quarterly_sales"), asc("sum_sales"),
+                  asc("i_manufact_id"), limit=100))
+
+
+@q("q54")
+def q54(d: D):
+    """Customers who bought a category through catalog or web, bucketed by
+    their later store revenue (the reference's simplification: a count
+    by spend segment)."""
+    cw = (d["catalog_sales"].select(
+        col("cs_sold_date_sk").alias("sold_date"),
+        col("cs_bill_customer_sk").alias("cust"),
+        col("cs_item_sk").alias("item"))
+        .union(d["web_sales"].select(
+            col("ws_sold_date_sk").alias("sold_date"),
+            col("ws_bill_customer_sk").alias("cust"),
+            col("ws_item_sk").alias("item"))))
+    my = (cw.join(d["item"].filter(And(EqualTo(col("i_category"),
+                                               lit("Women")),
+                                       EqualTo(col("i_class"),
+                                               lit("dresses")))),
+                  left_on=col("item"), right_on=col("i_item_sk"))
+          .join(d["date_dim"].filter(And(EqualTo(col("d_moy"), lit(12)),
+                                         EqualTo(col("d_year"), lit(1998)))),
+                left_on=col("sold_date"), right_on=col("d_date_sk")))
+    custs = _distinct(my, "cust")
+    rev = (d["store_sales"]
+           .join(custs, left_on=col("ss_customer_sk"), right_on=col("cust"),
+                 how="left_semi")
+           .group_by("ss_customer_sk")
+           .agg(Sum(col("ss_ext_sales_price")).alias("revenue")))
+    seg = rev.select(
+        Cast(Divide(col("revenue"), lit(50.0)), T.LONG).alias("segment"))
+    return (seg.group_by("segment").agg(Count().alias("num_customers"))
+            .sort("segment", limit=100))
+
+
+@q("q58")
+def q58(d: D):
+    """Items selling equally well in all three channels in one week."""
+    wk = _distinct(d["date_dim"].filter(EqualTo(col("d_week_seq"), lit(60))),
+                   "d_date_sk")
+
+    def chan(fact, datecol, itemcol, price, name):
+        return (d[fact]
+                .join(wk, left_on=datecol, right_on="d_date_sk",
+                      how="left_semi")
+                .join(d["item"], left_on=itemcol, right_on="i_item_sk")
+                .group_by("i_item_id")
+                .agg(Sum(col(price)).alias(name))
+                .select(col("i_item_id").alias(f"{name}_id"), col(name)))
+    ss = chan("store_sales", "ss_sold_date_sk", "ss_item_sk",
+              "ss_ext_sales_price", "ss_rev")
+    cs = chan("catalog_sales", "cs_sold_date_sk", "cs_item_sk",
+              "cs_ext_sales_price", "cs_rev")
+    ws = chan("web_sales", "ws_sold_date_sk", "ws_item_sk",
+              "ws_ext_sales_price", "ws_rev")
+    j = (ss.join(cs, left_on=col("ss_rev_id"), right_on=col("cs_rev_id"))
+         .join(ws, left_on=col("ss_rev_id"), right_on=col("ws_rev_id")))
+    avg3 = Divide(Add(Add(col("ss_rev"), col("cs_rev")), col("ws_rev")),
+                  lit(3.0))
+    j = j.filter(And(
+        And(_between(Divide(col("ss_rev"), avg3), 0.9, 1.1),
+            _between(Divide(col("cs_rev"), avg3), 0.9, 1.1)),
+        _between(Divide(col("ws_rev"), avg3), 0.9, 1.1)))
+    return (j.select(col("ss_rev_id").alias("item_id"), "ss_rev", "cs_rev",
+                     "ws_rev")
+            .sort("item_id", "ss_rev", limit=100))
+
+
+@q("q59")
+def q59(d: D):
+    """Week-over-week store sales ratios by weekday."""
+    def day(name, alias):
+        return Sum(If(EqualTo(col("d_day_name"), lit(name)),
+                      col("ss_sales_price"), lit(None, T.DOUBLE))
+                   ).alias(alias)
+    wss = (d["store_sales"]
+           .join(d["date_dim"], left_on="ss_sold_date_sk",
+                 right_on="d_date_sk")
+           .group_by("d_week_seq", "ss_store_sk")
+           .agg(day("Sunday", "sun"), day("Wednesday", "wed"),
+                day("Friday", "fri")))
+    y1 = (wss.filter(_between(col("d_week_seq"), 10, 62))
+          .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk")
+          .select(col("s_store_name").alias("name1"),
+                  col("s_store_id").alias("id1"),
+                  col("d_week_seq").alias("wk1"),
+                  col("sun").alias("sun1"), col("wed").alias("wed1"),
+                  col("fri").alias("fri1")))
+    y2 = (wss.filter(_between(col("d_week_seq"), 62, 114))
+          .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk")
+          .select(col("s_store_id").alias("id2"),
+                  Subtract(col("d_week_seq"), lit(52)).alias("wk2"),
+                  col("sun").alias("sun2"), col("wed").alias("wed2"),
+                  col("fri").alias("fri2")))
+    j = y1.join(y2, left_on=[col("id1"), col("wk1")],
+                right_on=[col("id2"), col("wk2")])
+    return (j.select("name1", "id1", "wk1",
+                     Divide(col("sun1"), col("sun2")).alias("r_sun"),
+                     Divide(col("wed1"), col("wed2")).alias("r_wed"),
+                     Divide(col("fri1"), col("fri2")).alias("r_fri"))
+            .sort("name1", "id1", "wk1", limit=100))
+
+
+@q("q61")
+def q61(d: D):
+    """Promotional against total sales for one category, time zone and
+    month (two global sums joined on a constant key)."""
+    base = (d["store_sales"]
+            .join(d["date_dim"].filter(And(EqualTo(col("d_year"), lit(1998)),
+                                           EqualTo(col("d_moy"), lit(11)))),
+                  left_on="ss_sold_date_sk", right_on="d_date_sk")
+            .join(d["store"].filter(EqualTo(col("s_gmt_offset"), lit(-5.0))),
+                  left_on="ss_store_sk", right_on="s_store_sk")
+            .join(d["item"].filter(EqualTo(col("i_category"),
+                                           lit("Jewelry"))),
+                  left_on="ss_item_sk", right_on="i_item_sk")
+            .join(d["customer"], left_on="ss_customer_sk",
+                  right_on="c_customer_sk")
+            .join(d["customer_address"].filter(
+                EqualTo(col("ca_gmt_offset"), lit(-5.0))),
+                left_on="c_current_addr_sk", right_on="ca_address_sk"))
+    promo = (base.join(d["promotion"].filter(
+        Or(Or(EqualTo(col("p_channel_dmail"), lit("Y")),
+              EqualTo(col("p_channel_email"), lit("Y"))),
+           EqualTo(col("p_channel_tv"), lit("Y")))),
+        left_on="ss_promo_sk", right_on="p_promo_sk")
+        .agg(Sum(col("ss_ext_sales_price")).alias("promotions")))
+    total = base.agg(Sum(col("ss_ext_sales_price")).alias("total"))
+    pj = promo.select("promotions", lit(1).alias("#k1"))
+    tj = total.select("total", lit(1).alias("#k2"))
+    j = pj.join(tj, left_on=col("#k1"), right_on=col("#k2"))
+    return j.select("promotions", "total",
+                    Multiply(Divide(col("promotions"), col("total")),
+                             lit(100.0)).alias("ratio"))
+
+
+@q("q63")
+def q63(d: D):
+    """q53 by manager."""
+    it = d["item"].filter(In(col("i_class"),
+                             [lit(c) for c in ("accessories", "dresses",
+                                               "shirts", "pants")]))
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(it, left_on="ss_item_sk", right_on="i_item_sk")
+         .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+    g = (j.group_by("i_manager_id", "d_moy")
+         .agg(Sum(col("ss_sales_price")).alias("sum_sales")))
+    out = _vs_window_average(g, ["i_manager_id"], "sum_sales",
+                             "avg_monthly_sales")
+    return (out.select("i_manager_id", "sum_sales", "avg_monthly_sales")
+            .sort(asc("i_manager_id"), asc("avg_monthly_sales"),
+                  asc("sum_sales"), limit=100))
+
+
+@q("q75")
+def q75(d: D):
+    """Year-over-year channel sales net of returns by item attributes."""
+    def chan(sales, ret, s_item, s_date, s_qty, s_price, r_item, r_ord_or_t,
+             s_ord_or_t, r_qty, r_amt):
+        j = (d[sales]
+             .join(d[ret], left_on=[col(s_ord_or_t), col(s_item)],
+                   right_on=[col(r_ord_or_t), col(r_item)], how="left")
+             .join(d["date_dim"], left_on=s_date, right_on="d_date_sk")
+             .join(d["item"].filter(EqualTo(col("i_category"),
+                                            lit("Books"))),
+                   left_on=s_item, right_on="i_item_sk"))
+        return j.select(
+            col("d_year"), col("i_brand_id"), col("i_class_id"),
+            col("i_category_id"), col("i_manufact_id"),
+            Subtract(col(s_qty), Coalesce(col(r_qty), lit(0.0)))
+            .alias("qty"),
+            Subtract(Multiply(col(s_price), lit(1.0)),
+                     Coalesce(col(r_amt), lit(0.0))).alias("amt"))
+    u = (chan("store_sales", "store_returns", "ss_item_sk",
+              "ss_sold_date_sk", "ss_quantity", "ss_ext_sales_price",
+              "sr_item_sk", "sr_ticket_number", "ss_ticket_number",
+              "sr_return_quantity", "sr_return_amt")
+         .union(chan("catalog_sales", "catalog_returns", "cs_item_sk",
+                     "cs_sold_date_sk", "cs_quantity", "cs_ext_sales_price",
+                     "cr_item_sk", "cr_order_number", "cs_order_number",
+                     "cr_return_quantity", "cr_return_amount"))
+         .union(chan("web_sales", "web_returns", "ws_item_sk",
+                     "ws_sold_date_sk", "ws_quantity", "ws_ext_sales_price",
+                     "wr_item_sk", "wr_order_number", "ws_order_number",
+                     "wr_return_quantity", "wr_return_amt")))
+    g = (u.group_by("d_year", "i_brand_id", "i_class_id", "i_category_id",
+                    "i_manufact_id")
+         .agg(Sum(col("qty")).alias("qty"), Sum(col("amt")).alias("amt")))
+
+    def year(y, n):
+        return g.filter(EqualTo(col("d_year"), lit(y))).select(
+            col("i_brand_id").alias(f"b{n}"), col("i_class_id").alias(f"c{n}"),
+            col("i_category_id").alias(f"g{n}"),
+            col("i_manufact_id").alias(f"m{n}"),
+            col("qty").alias(f"qty{n}"), col("amt").alias(f"amt{n}"))
+    j = year(1999, 1).join(
+        year(2000, 2), left_on=[col("b1"), col("c1"), col("g1"), col("m1")],
+        right_on=[col("b2"), col("c2"), col("g2"), col("m2")])
+    j = j.filter(LessThan(Divide(col("qty2"),
+                                 Coalesce(col("qty1"), lit(1.0))), lit(0.9)))
+    return (j.select("b1", "c1", "g1", "m1", "qty1", "qty2", "amt1", "amt2")
+            .sort(asc("qty2"), asc("b1"), limit=100))
+
+
+@q("q83")
+def q83(d: D):
+    """Return quantities across the three channels for shared items."""
+    def chan(ret, item, date, qty, name):
+        return (d[ret]
+                .join(d["date_dim"].filter(_between(col("d_date_sk"),
+                                                    730, 790)),
+                      left_on=date, right_on="d_date_sk")
+                .join(d["item"], left_on=item, right_on="i_item_sk")
+                .group_by("i_item_id")
+                .agg(Sum(col(qty)).alias(name))
+                .select(col("i_item_id").alias(f"{name}_id"), col(name)))
+    sr = chan("store_returns", "sr_item_sk", "sr_returned_date_sk",
+              "sr_return_quantity", "sr_qty")
+    cr = chan("catalog_returns", "cr_item_sk", "cr_returned_date_sk",
+              "cr_return_quantity", "cr_qty")
+    wr = chan("web_returns", "wr_item_sk", "wr_returned_date_sk",
+              "wr_return_quantity", "wr_qty")
+    j = (sr.join(cr, left_on=col("sr_qty_id"), right_on=col("cr_qty_id"))
+         .join(wr, left_on=col("sr_qty_id"), right_on=col("wr_qty_id")))
+    total = Add(Add(col("sr_qty"), col("cr_qty")), col("wr_qty"))
+    return (j.select(col("sr_qty_id").alias("item_id"), "sr_qty", "cr_qty",
+                     "wr_qty",
+                     Divide(Multiply(col("sr_qty"), lit(100.0)), total)
+                     .alias("sr_share"))
+            .sort("item_id", "sr_qty", limit=100))
+
+
+@q("q90")
+def q90(d: D):
+    """The ratio of morning to evening web sales."""
+    wp = d["web_page"].filter(_between(col("wp_char_count"), 2500, 5200))
+    hd = d["household_demographics"].filter(EqualTo(col("hd_dep_count"),
+                                                    lit(6)))
+
+    def half(hlo, hhi, name):
+        td = d["time_dim"].filter(_between(col("t_hour"), hlo, hhi))
+        j = (d["web_sales"]
+             .join(td, left_on="ws_sold_time_sk", right_on="t_time_sk")
+             .join(hd, left_on="ws_bill_hdemo_sk", right_on="hd_demo_sk")
+             .join(wp, left_on="ws_web_page_sk", right_on="wp_web_page_sk"))
+        return j.agg(Count().alias(name))
+    am = half(8, 9, "amc").select("amc", lit(1).alias("#k1"))
+    pm = half(19, 20, "pmc").select("pmc", lit(1).alias("#k2"))
+    j = am.join(pm, left_on=col("#k1"), right_on=col("#k2"))
+    return j.select(Divide(Cast(col("amc"), T.DOUBLE),
+                           Cast(col("pmc"), T.DOUBLE)).alias("am_pm_ratio"))
+
+
 # the threshold each of q23 and q24 computes by default
 THRESHOLDS = {"q23": q23_threshold, "q24": q24_threshold}
 
@@ -2141,6 +2755,19 @@ UNION_SLICE = ("q5", "q6", "q8", "q10", "q15", "q18", "q19", "q22", "q23",
 # the union slice's queries that join with a residual condition (q19's
 # compares two Substrings)
 CONDITION_JOINS = ("q19", "q24", "q46", "q68", "q72", "q95")
+# the decimal slice: the queries that divide (Divide, Abs, DECIMAL128 on
+# the device): q2, q4, q11, q21, q31, q54, q58, q59, q61, q74, q75, q83
+# and q90 divide; q12, q20 and q98 divide by a window Sum over a
+# decimal(17,2) sum (decimal(27,2)); q36, q49, q51, q53 and q63 add ranks
+# over quotients, running window sums into DECIMAL128 and window averages
+# (decimal(21,6)) under Abs. (q47, q57 and q89 partition their windows by
+# plain-string columns, which the device's window does not order yet.)
+DECIMAL_SLICE = ("q2", "q4", "q11", "q12", "q20", "q21", "q31", "q54",
+                 "q58", "q59", "q61", "q74", "q75", "q83", "q90", "q98",
+                 "q36", "q49", "q51", "q53", "q63")
+# the breadth queries whose decimal(21,6) averages (DECIMAL128) ran on the
+# CPU engine before the decimal slice, wholly on the device since
+WIDE_AVERAGES = ("q1", "q30", "q65", "q81")
 
 # the tables each query reads (tpcds_schema.tables_for(sf, names=...))
 TABLES = {
@@ -2255,6 +2882,36 @@ TABLES = {
             "call_center"),
     "q95": ("date_dim", "web_sales", "customer_address", "web_returns",
             "web_site"),
+    # the decimal slice
+    "q2": ("web_sales", "catalog_sales", "date_dim"),
+    "q4": ("store_sales", "catalog_sales", "web_sales", "date_dim",
+           "customer"),
+    "q11": ("store_sales", "web_sales", "date_dim", "customer"),
+    "q12": ("web_sales", "date_dim", "item"),
+    "q20": ("catalog_sales", "date_dim", "item"),
+    "q21": ("inventory", "date_dim", "item", "warehouse"),
+    "q31": ("store_sales", "web_sales", "date_dim", "customer_address"),
+    "q36": ("store_sales", "date_dim", "item", "store"),
+    "q49": ("web_sales", "web_returns", "catalog_sales", "catalog_returns",
+            "store_sales", "store_returns"),
+    "q51": ("web_sales", "store_sales", "date_dim"),
+    "q53": ("store_sales", "date_dim", "item", "store"),
+    "q54": ("catalog_sales", "web_sales", "item", "date_dim",
+            "store_sales"),
+    "q58": ("store_sales", "catalog_sales", "web_sales", "date_dim",
+            "item"),
+    "q59": ("store_sales", "date_dim", "store"),
+    "q61": ("store_sales", "date_dim", "store", "item", "customer",
+            "customer_address", "promotion"),
+    "q63": ("store_sales", "date_dim", "item", "store"),
+    "q74": ("store_sales", "web_sales", "date_dim", "customer"),
+    "q75": ("store_sales", "store_returns", "catalog_sales",
+            "catalog_returns", "web_sales", "web_returns", "date_dim",
+            "item"),
+    "q83": ("store_returns", "catalog_returns", "web_returns", "date_dim",
+            "item"),
+    "q90": ("web_sales", "time_dim", "household_demographics", "web_page"),
+    "q98": ("store_sales", "date_dim", "item"),
 }
 
 
@@ -2336,7 +2993,24 @@ ORDER_KEYS = {"q3": ("d_year", "sum_agg", "i_brand_id"),
                       "i_category"),
               "q77": ("channel", "id"), "q80": ("channel", "id"),
               # q91 orders by a double sum: checked by ORDER_BY below
-              "q91": (), "q95": ()}
+              "q91": (), "q95": (),
+              # the decimal slice (q12/q20/q98 without their trailing
+              # double ratio, which follows the item's id and text; q75's
+              # qty2 is a sum of whole-number doubles, exact)
+              "q2": ("wk1",), "q4": ("sid",), "q11": ("sid",),
+              "q74": ("sid",),
+              "q12": ("i_category", "i_class", "i_item_id", "i_item_desc"),
+              "q20": ("i_category", "i_class", "i_item_id", "i_item_desc"),
+              "q98": ("i_category", "i_class", "i_item_id", "i_item_desc"),
+              "q21": ("w_warehouse_name", "i_item_id"), "q31": ("county",),
+              "q54": ("segment",), "q58": ("item_id", "ss_rev"),
+              "q59": ("name1", "id1", "wk1"), "q61": (),
+              "q75": ("qty2", "b1"), "q83": ("item_id", "sr_qty"),
+              "q90": (), "q36": ("i_category", "rank_within_parent"),
+              "q49": ("channel", "return_rank", "item"),
+              "q51": ("w_item", "w_date"),
+              "q53": ("avg_quarterly_sales", "sum_sales", "i_manufact_id"),
+              "q63": ("i_manager_id", "avg_monthly_sales", "sum_sales")}
 
 # queries whose ORDER BY keys do not order every row totally, with their
 # LIMIT: where rows tie at the cut, two correct engines may keep different
@@ -2348,7 +3022,8 @@ ORDER_KEYS = {"q3": ("d_year", "sum_agg", "i_brand_id"),
 # q79 end in the ticket number, which fixes the row.) ``check_rows``
 # compares the rows before the last tie group exactly and the group by
 # its count.
-TIED_AT_LIMIT = {"q64": 100, "q65": 100, "q73": 100, "q68": 100}
+TIED_AT_LIMIT = {"q64": 100, "q65": 100, "q73": 100, "q68": 100,
+                 "q75": 100, "q36": 100}
 
 # ORDER BY specs checked on a result's own values, where a key is a double
 # sum whose last bits depend on the order of the additions
@@ -2360,11 +3035,12 @@ ORDER_BY = {"q93": (("sumsales", True), ("ss_customer_sk", True)),
 # filters. At SF 0.01 q41, q65, q8, q46 and q68 return no row and q32 and
 # q92 one null sum; at SF 0.1 q92 still sums no row and q8 finds no store
 # whose zip prefix a preferred customer shares (it does at SF 0.15; q46
-# and q68 show values from SF 0.07). q76 (``EMPTY_ALWAYS``) is empty at
-# every SF.
+# and q68 show values from SF 0.07). q58 finds no item whose three
+# channels' week revenues lie within 10% of their mean below SF 0.2. q76
+# (``EMPTY_ALWAYS``) is empty at every SF.
 EMPTY_AT_SF = {0.01: ("q32", "q41", "q65", "q92", "q8", "q46", "q68",
-                      "q76"),
-               0.1: ("q92", "q8", "q76"), 1.0: ("q76",)}
+                      "q76", "q58"),
+               0.1: ("q92", "q8", "q76", "q58"), 1.0: ("q76",)}
 # q76 selects the sales rows whose promotion key is null, and the
 # generators (the reference's) write no null promotion key, so its result
 # is empty at every SF; it is held on tables with seeded null promotion

@@ -44,7 +44,8 @@ def resolve_device(device=None) -> torch.device:
 def empty_column(dt: T.DataType, device) -> DeviceColumn:
     valid = torch.zeros(0, dtype=torch.bool, device=device)
     if dt.fixed_width:
-        return DeviceColumn(dt, torch.zeros(0, dtype=dt.torch_dtype,
+        return DeviceColumn(dt, torch.zeros(T.device_shape(dt, 0),
+                                            dtype=dt.torch_dtype,
                                             device=device), valid)
     return DeviceColumn(dt, torch.zeros(0, dtype=torch.uint8, device=device),
                         valid, torch.zeros(1, dtype=torch.int32,
@@ -61,9 +62,18 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _arrow_fixed_to_numpy(arr: pa.Array, dt: T.DataType):
-    """(values, valid) numpy arrays; null slots read as zero."""
+    """(values, valid) numpy arrays; null slots read as zero. A DECIMAL128
+    column's values are its (n, 2) ``[lo, hi]`` limbs, a view of Arrow's
+    buffer."""
     valid = (None if arr.null_count == 0
              else np.asarray(arr.is_valid(), dtype=np.bool_))
+    if T.is_wide_decimal(dt):
+        values = np.frombuffer(arr.buffers()[1], dtype=np.int64,
+                               count=2 * len(arr),
+                               offset=arr.offset * 16).reshape(len(arr), 2)
+        if valid is not None:
+            values = np.where(valid[:, None], values, np.int64(0))
+        return values, valid
     if isinstance(dt, T.DecimalType):
         # decimal128 -> int64 unscaled: the low limb of each 16-byte
         # little-endian value is the whole value for precision <= 18
@@ -192,7 +202,6 @@ def batch_from_arrow(table, device=None,
     for name in table.column_names:
         arr = table.column(name).combine_chunks()
         dt = T.from_arrow_type(arr.type)
-        T.check_device_type(dt)
         if isinstance(arr.type, pa.DictionaryType):
             dv = arr.dictionary.cast(pa.string())
             if dt == T.STRING and _dict_bytes_encodable(dv, len(arr)):
@@ -226,14 +235,18 @@ def _string_array(offsets: np.ndarray, data: np.ndarray,
 
 def _decimal_array(unscaled: np.ndarray, dt: T.DecimalType,
                    valid: np.ndarray) -> pa.Array:
-    """int64 unscaled values -> Arrow decimal128(p, s): each value becomes
-    its 16-byte little-endian two's complement (low limb, sign limb)."""
-    lo = unscaled.astype(np.int64, copy=False)
-    limbs = np.empty((len(lo), 2), np.int64)
-    limbs[:, 0] = lo
-    limbs[:, 1] = lo >> 63
+    """Unscaled values -> Arrow decimal128(p, s): each value is its 16-byte
+    little-endian two's complement. int64 values (n,) get their sign limb;
+    DECIMAL128 limbs (n, 2) ``[lo, hi]`` are that layout already."""
+    if unscaled.ndim == 2:
+        limbs = np.ascontiguousarray(unscaled, dtype=np.int64)
+    else:
+        lo = unscaled.astype(np.int64, copy=False)
+        limbs = np.empty((len(lo), 2), np.int64)
+        limbs[:, 0] = lo
+        limbs[:, 1] = lo >> 63
     vbuf = None if valid.all() else _validity_buffer(valid)
-    return pa.Array.from_buffers(dt.arrow_type(), len(lo),
+    return pa.Array.from_buffers(dt.arrow_type(), len(limbs),
                                  [vbuf, pa.py_buffer(limbs.tobytes())])
 
 

@@ -3,6 +3,9 @@
 A column holds exactly its live rows, so there is no capacity padding:
 
 - fixed width: ``data`` (n,) of the type's torch dtype, ``validity`` (n,) bool;
+  DECIMAL128: ``data`` (n, 2) int64, each row ``[lo, hi]`` (two's complement
+  limbs, Arrow's 16-byte decimal128 layout), so a row gather ``data[idx]``
+  and ``torch.cat`` along rows carry it as they carry any column;
 - plain string: ``data`` uint8 bytes, ``offsets`` int32 (n+1,), ``validity``;
 - dictionary string: ``data`` int32 codes into ``dictionary``, a plain string
   column of distinct values sorted bytewise, so code order is byte order.

@@ -11,11 +11,16 @@ Buffer layout per function (Spark result types):
   Sum -> [sum]    Count -> [count]    Average -> [sum, count]
   Min -> [min]    Max -> [max]
 
-Decimal sums are exact int64 sums of the unscaled values; a sum whose
-magnitude reaches 10**precision of its result type is null (Spark's
-non-ANSI overflow). A decimal average is sum / count rounded HALF_UP at
-the result scale (the reference's rule, computed divide-first so the
-scaled numerator cannot wrap int64).
+Decimal sums are exact sums of the unscaled values: int64 for a DECIMAL64
+result, two int64 limbs exact mod 2^128 for a DECIMAL128 one (a
+decimal(17,2) column sums into decimal(27,2); ``kernels.segment_agg``); a
+sum whose magnitude reaches 10**precision of its result type is null
+(Spark's non-ANSI overflow). A decimal average is sum / count rounded
+HALF_UP at the result scale (the reference's rule, computed divide-first
+so the scaled numerator cannot wrap): in int64 when the sum fits one, else
+through ``int128.decimal_avg_128`` (a decimal(17,2) column averages into
+decimal(21,6)). Min and Max of DECIMAL128 values reduce both limbs, and
+DECIMAL128 group keys hash, sort and compare both.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
 from spark_rapids_tpu_torch.exprs import eval as EV
@@ -187,11 +193,13 @@ class HashAggregateExec(UnaryExec):
                     src = pre.columns[src_i]
                     vals, valid = K.gather_lanes([src.data, src.validity],
                                                  perm)
+                    if T.is_wide_decimal(bt) and vals.dim() == 1:
+                        # a DECIMAL64 sum into a DECIMAL128 buffer
+                        vals = I128.pack(*I128.from_i64(vals))
                 data, avalid = K.segment_agg(vals, valid, gi.segment_ids,
                                              gi.group_starts, op)
-                data = data.to(bt.torch_dtype)
                 out_cols.append(DeviceColumn(
-                    bt, torch.where(avalid, data, torch.zeros_like(data)),
+                    bt, K.where_valid(avalid, data.to(bt.torch_dtype)),
                     avalid))
         return ColumnarBatch(out_cols, gi.num_groups)
 
@@ -205,6 +213,11 @@ class HashAggregateExec(UnaryExec):
             if isinstance(s.func, E.Average):
                 ssum, cnt = bufs
                 valid = ssum.validity & (cnt.data > 0)
+                if ssum.data.dim() == 2:
+                    out_cols.append(_wide_average(
+                        ssum, cnt, valid, s.buffer_types[0], rt,
+                        rt.scale - s.func.child.dtype.scale))
+                    continue
                 if isinstance(rt, T.DecimalType):
                     in_t = s.func.child.dtype
                     data = decimal_avg_half_up(ssum.data, cnt.data,
@@ -217,10 +230,14 @@ class HashAggregateExec(UnaryExec):
                     valid))
             elif isinstance(s.func, E.Sum) and isinstance(rt, T.DecimalType):
                 b = bufs[0]
-                valid = b.validity & (b.data.abs() < 10 ** rt.precision)
+                if b.data.dim() == 2:
+                    ovf = I128.overflow_mask(*I128.split(b.data),
+                                             rt.precision)
+                else:
+                    ovf = b.data.abs() >= 10 ** rt.precision
+                valid = b.validity & ~ovf
                 out_cols.append(DeviceColumn(
-                    rt, torch.where(valid, b.data, torch.zeros_like(b.data)),
-                    valid))
+                    rt, K.where_valid(valid, b.data), valid))
             else:
                 out_cols.append(bufs[0])
         return ColumnarBatch(out_cols, buffers.num_rows)
@@ -241,6 +258,22 @@ class HashAggregateExec(UnaryExec):
         merged = (partials[0] if len(partials) == 1
                   else self._merge_pass(K.concat_device(partials)))
         yield self._final_project(merged)
+
+
+def _wide_average(ssum: DeviceColumn, cnt: DeviceColumn, valid, sum_t,
+                  rt: T.DecimalType, shift_digits: int) -> DeviceColumn:
+    """A decimal average from a DECIMAL128 sum (``decimal_avg_128``): null
+    where the sum overflowed its own type or the result its precision; a
+    DECIMAL64 result keeps the low limb where it fits."""
+    h, l = I128.split(ssum.data)
+    qh, ql, ovf = I128.decimal_avg_128(h, l, cnt.data, shift_digits,
+                                       rt.precision)
+    valid = valid & ~ovf & ~I128.overflow_mask(h, l, sum_t.precision)
+    if rt.is_wide:
+        return DeviceColumn(rt, K.where_valid(valid, I128.pack(qh, ql)),
+                            valid)
+    valid = valid & (qh == torch.where(ql < 0, -1, 0))
+    return DeviceColumn(rt, K.where_valid(valid, ql), valid)
 
 
 def decimal_avg_half_up(total: torch.Tensor, count: torch.Tensor,

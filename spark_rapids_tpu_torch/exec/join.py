@@ -13,7 +13,10 @@ reference's ``_choose_path``) the build's key hashes are sorted once
 found by binary search (``kernels.join_candidate_counts``). Both paths then
 share everything else: they expand the candidate pairs and keep the pairs
 whose real keys are equal, so a hash collision only costs a discarded
-candidate, and they emit the same rows. The metrics ``hashTableJoins``,
+candidate, and they emit the same rows. Payload columns of every type,
+DECIMAL128 limbs included, are gathered as rows; a DECIMAL128 key raises,
+as the reference's does (the planner keeps such a join on the CPU
+engine). The metrics ``hashTableJoins``,
 ``sortedHashJoins`` and ``sortedHashFallbacks`` record the path each
 execution took; ``join_path`` reads it from them.
 
@@ -167,6 +170,11 @@ class HashJoinExec(BinaryExec):
         b = E.resolve(k, schema)
         if not isinstance(b, E.ColumnRef):
             raise NotImplementedError("join keys must be column references")
+        if T.is_wide_decimal(b.dtype):
+            # as the reference: its hash and key paths are single-word
+            raise NotImplementedError(
+                f"join key {b.name or b!r} is {b.dtype.name}: a DECIMAL128 "
+                f"join key is not on the device")
         return b.index
 
     @property

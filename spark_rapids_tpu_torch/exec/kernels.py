@@ -14,7 +14,10 @@ value. Every hash and table field comes out bit-equal to the reference's.
 
 Decimal columns (DECIMAL64) are int64 unscaled values and take the integer
 paths of ``sortable_keys``, ``hash_keys`` and ``keys_equal``, as in the
-reference.
+reference. A DECIMAL128 column's ``(n, 2)`` ``[lo, hi]`` limbs sort on
+(hi, lo read unsigned), hash both limbs and compare both; their segment
+sums are exact mod 2^128 and their min/max reduce hi, then lo among the
+rows that tie on hi (``segment_agg``).
 
 Two functions have hand-written CUDA kernels, each behind a wrapper that
 launches the kernel for CUDA tensors and runs the plain torch version for
@@ -37,6 +40,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.exec import int128 as I128
 
 _MASK64 = (1 << 64) - 1
 _INT64_MIN = -(1 << 63)
@@ -56,6 +60,14 @@ def _lsr(x: torch.Tensor, s: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Gather and filter
 # ---------------------------------------------------------------------------
+
+
+def where_valid(valid: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``data`` with its null rows zeroed (a DECIMAL128 row's two limbs
+    alike)."""
+    v = valid[:, None] if data.dim() == 2 else valid
+    return torch.where(v, data, torch.zeros((), dtype=data.dtype,
+                                            device=data.device))
 
 
 def gather_string(col: DeviceColumn, idx: torch.Tensor,
@@ -96,7 +108,8 @@ def null_column(dt: T.DataType, n: int, device,
                                             device=device), valid, None,
                             dictionary)
     if dt.fixed_width:
-        return DeviceColumn(dt, torch.zeros(n, dtype=dt.torch_dtype,
+        return DeviceColumn(dt, torch.zeros(T.device_shape(dt, n),
+                                            dtype=dt.torch_dtype,
                                             device=device), valid)
     return DeviceColumn(dt, torch.zeros(0, dtype=torch.uint8, device=device),
                         valid, torch.zeros(n + 1, dtype=torch.int32,
@@ -133,9 +146,7 @@ def gather_column_or_null(col: DeviceColumn,
     safe = torch.where(ok, idx, torch.zeros_like(idx))
     if col.offsets is not None:
         return gather_string(col, safe, ok)
-    data = col.data[safe]
-    return DeviceColumn(col.dtype, torch.where(ok, data,
-                                               torch.zeros_like(data)),
+    return DeviceColumn(col.dtype, where_valid(ok, col.data[safe]),
                         col.validity[safe] & ok, None, col.dictionary)
 
 
@@ -283,11 +294,16 @@ def sortable_keys(col: DeviceColumn, ascending: bool = True,
         ex = torch.where(v, ex, torch.full_like(ex, 0 if nulls_first else 3))
         d = torch.where(v & ~is_nan, d, torch.zeros_like(d))
         return [d, ex]
+    null_key = v.int() if nulls_first else 1 - v.int()
+    if col.data.dim() == 2:  # DECIMAL128: (hi, lo read unsigned)
+        kh, kl = I128.sortable_keys(*I128.split(col.data))
+        if not ascending:
+            kh, kl = ~kh, ~kl
+        return [where_valid(v, kl), where_valid(v, kh), null_key]
     k = col.data.int() if dt in (T.INT, T.DATE) else col.data.long()
     if not ascending:
         k = ~k
     k = torch.where(v, k, torch.zeros_like(k))
-    null_key = v.int() if nulls_first else 1 - v.int()
     return [k, null_key]
 
 
@@ -395,6 +411,9 @@ def hash_keys(batch: ColumnarBatch, key_cols: Sequence[int],
             ch = _string_hash(col, variant)
         elif col.dtype in T.FRACTIONAL_TYPES:
             ch = _splitmix64(_float_hash_key(col.data) ^ salt)
+        elif col.data.dim() == 2:  # DECIMAL128: both limbs
+            hi, lo = I128.split(col.data)
+            ch = _splitmix64(_splitmix64(_int_sortable(lo) ^ salt) + hi)
         else:
             ch = _splitmix64(_int_sortable(col.data) ^ salt)
         ch = torch.where(col.validity, ch,
@@ -454,10 +473,20 @@ def keys_equal(a: ColumnarBatch, a_idx: torch.Tensor, a_cols: Sequence[int],
             db, nb = _float_canonical(cb.data)
             ceq = (((da[a_idx] == db[b_idx]) & ~na[a_idx] & ~nb[b_idx])
                    | (na[a_idx] & nb[b_idx]))
+        elif ca.data.dim() == 2 or cb.data.dim() == 2:  # DECIMAL128 limbs
+            ceq = (_limbs(ca)[a_idx] == _limbs(cb)[b_idx]).all(dim=1)
         else:
             ceq = ca.data.long()[a_idx] == cb.data.long()[b_idx]
         eq = eq & ((ceq & va & vb) | (~va & ~vb))
     return eq
+
+
+def _limbs(c: DeviceColumn) -> torch.Tensor:
+    """A decimal column's (n, 2) ``[lo, hi]`` limbs (a DECIMAL64 column's
+    sign-extended)."""
+    if c.data.dim() == 2:
+        return c.data
+    return I128.pack(*I128.from_i64(c.data))
 
 
 def strings_equal(a: DeviceColumn, b: DeviceColumn) -> torch.Tensor:
@@ -520,6 +549,9 @@ def _neighbor_key_neq(batch: ColumnarBatch, key_cols: Sequence[int],
 
         if c.offsets is not None:
             lanes.append(m(c.lengths()))
+        elif c.data.dim() == 2:  # DECIMAL128: each limb a lane
+            lanes.append(m(c.data[:, 0]))
+            lanes.append(m(c.data[:, 1]))
         elif c.dtype in T.FRACTIONAL_TYPES:
             d, is_nan = _float_canonical(c.data)
             lanes.append(m(d))
@@ -609,6 +641,38 @@ def _sorted_segment_reducers(seg: torch.Tensor, starts: torch.Tensor):
     return seg_sum, seg_min, seg_max
 
 
+def segment_sum_int128(h: torch.Tensor, l: torch.Tensor, seg: torch.Tensor,
+                       starts: torch.Tensor):
+    """(hi, lo) per-segment sums of 128-bit values over sorted segment
+    ids, exact mod 2^128: lo's two 32-bit halves and hi are summed apart
+    (each half's sums stay below 2^63 for fewer than 2^31 rows, hi wraps
+    mod 2^64 as its place value allows), then joined with carries."""
+    seg_sum = _sorted_segment_reducers(seg, starts)[0]
+    l0, l1 = I128.lo_halves(l)
+    return I128.from_part_sums(seg_sum(l0), seg_sum(l1), seg_sum(h))
+
+
+def segment_minmax_int128(h: torch.Tensor, l: torch.Tensor,
+                          valid: torch.Tensor, seg: torch.Tensor,
+                          starts: torch.Tensor, op: str):
+    """(hi, lo) per-segment min or max of 128-bit values over their valid
+    rows: reduce the signed hi word, then lo read unsigned among the rows
+    that tie on it (a segment with no valid row gives 0)."""
+    _, seg_min, seg_max = _sorted_segment_reducers(seg, starts)
+    red = seg_min if op == "min" else seg_max
+    ident = (1 << 63) - 1 if op == "min" else -(1 << 63)
+    kh, kl = I128.sortable_keys(h, l)
+    segl = seg.long()
+    hm = torch.where(valid, kh, ident)
+    rh = red(hm)
+    tie = valid & (hm == rh[segl])
+    rl = red(torch.where(tie, kl, ident))
+    any_valid = seg_max(valid.long()) > 0
+    zero = torch.zeros_like(rh)
+    return (torch.where(any_valid, rh, zero),
+            torch.where(any_valid, rl ^ _INT64_MIN, zero))
+
+
 def segment_agg(values: Optional[torch.Tensor], validity: torch.Tensor,
                 seg: torch.Tensor, starts: torch.Tensor, op: str):
     """One segmented aggregation over sorted segment ids; ``starts`` holds
@@ -616,14 +680,24 @@ def segment_agg(values: Optional[torch.Tensor], validity: torch.Tensor,
 
     Returns (values, validity) with one entry per segment. ``op`` is one of
     sum, count (non-null values), count_all (rows; ``values`` unused), min
-    and max. Sums of integers are int64, of floats float64; a segment with
-    no non-null value is null (counts never are)."""
+    and max. Sums of integers are int64, of floats float64, of DECIMAL128
+    (n, 2) limbs exact mod 2^128; a segment with no non-null value is null
+    (counts never are)."""
     seg_sum, seg_min, seg_max = _sorted_segment_reducers(seg, starts)
     if op in ("count_all", "count"):
         data = seg_sum((validity if op == "count" else
                         torch.ones_like(validity)).long())
         return data, torch.ones_like(data, dtype=torch.bool)
     any_valid = seg_sum(validity.long()) > 0
+    if values.dim() == 2:  # DECIMAL128 limbs
+        h, l = I128.split(where_valid(validity, values))
+        if op == "sum":
+            return I128.pack(*segment_sum_int128(h, l, seg, starts)), \
+                any_valid
+        if op in ("min", "max"):
+            return I128.pack(*segment_minmax_int128(
+                h, l, validity, seg, starts, op)), any_valid
+        raise NotImplementedError(f"decimal128 segment op {op}")
     if op == "sum":
         v = values.double() if values.is_floating_point() else values.long()
         return seg_sum(torch.where(validity, v, torch.zeros_like(v))), \

@@ -10,11 +10,19 @@ start and end. Every window column is a function of that shared geometry
 
 Supported: RowNumber, Rank and DenseRank; Sum, Count, Average, Min and Max
 over ROWS or RANGE frames UNBOUNDED PRECEDING..UNBOUNDED FOLLOWING and
-UNBOUNDED PRECEDING..CURRENT ROW, over non-string inputs and DECIMAL64.
-Everything else raises NotImplementedError naming what is missing: lead/lag,
-ntile, percent_rank, cume_dist, bounded frames, first/last, the sparse-table
-frames, streaming windows and DECIMAL128 results. A plain (non-dictionary)
-string partition or order key raises too; it is never ordered by its hash.
+UNBOUNDED PRECEDING..CURRENT ROW, over non-string inputs, DECIMAL64 and
+DECIMAL128 (Sum, Count and Average; a decimal(17,2) sum windows into
+decimal(27,2), its average into decimal(21,6)). A DECIMAL128 window sum
+splits each value into three int64 lanes (lo's two 32-bit halves and hi),
+add-scans each through the segmented-scan kernel (a half's sums stay below
+2^63 for any partition under 2^31 rows; hi wraps mod 2^64, as its place
+value allows) and joins them with carries: exact mod 2^128, null past the
+result's precision. DECIMAL128 partition and order keys sort and compare
+both limbs. Everything else raises NotImplementedError naming what is
+missing: lead/lag, ntile, percent_rank, cume_dist, bounded frames,
+first/last, the sparse-table frames, streaming windows and Min/Max over
+DECIMAL128. A plain (non-dictionary) string partition or order key raises
+too; it is never ordered by its hash.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_column
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.aggregate import (
     _strip_alias, decimal_avg_half_up)
@@ -101,6 +110,11 @@ class WindowExec(UnaryExec):
                     raise NotImplementedError(
                         "window aggregate over a string column is not in "
                         "the port yet")
+                if isinstance(f, (E.Min, E.Max)) and T.is_wide_decimal(
+                        f.dtype):
+                    raise NotImplementedError(
+                        "window min/max over DECIMAL128 is not in the port "
+                        "yet")
             T.check_device_type(f.dtype)
             bound.append((f, frame, name))
         self._bound_wins = bound
@@ -235,6 +249,9 @@ class WindowExec(UnaryExec):
         contributing = torch.ones_like(valid) if count_all else valid
         seg_flag = idx == seg_start
         hi = self._frame_end(frame, idx, seg_end, run_end).long()
+        if T.is_wide_decimal(out_t) and isinstance(f, (E.Sum, E.Average)):
+            return _wide_agg_window(f, out_t, vals, contributing, seg_flag,
+                                    hi)
 
         if isinstance(f, (E.Min, E.Max)):
             op = "min" if isinstance(f, E.Min) else "max"
@@ -309,6 +326,38 @@ class WindowExec(UnaryExec):
         return _win_out(out_t, red, cnt > 0)
 
 
+def _wide_agg_window(f, out_t: T.DecimalType, vals: torch.Tensor,
+                     contributing: torch.Tensor, seg_flag: torch.Tensor,
+                     hi: torch.Tensor) -> DeviceColumn:
+    """A DECIMAL128 window Sum or Average: the segment's running 128-bit
+    sum at each row's last frame row, from three add-scans of the
+    segmented-scan kernel (lo's 32-bit halves and hi), joined with
+    carries."""
+    if vals.dim() == 2:
+        h, l = I128.split(vals)
+    else:  # a DECIMAL64 input whose window sum is DECIMAL128
+        h, l = I128.from_i64(vals)
+    zero = torch.zeros((), dtype=torch.int64, device=vals.device)
+    h = torch.where(contributing, h, zero)
+    l = torch.where(contributing, l, zero)
+
+    def win(x):
+        return K.segmented_scan_kernel(x.contiguous(), seg_flag, "add")[hi]
+
+    l0, l1 = I128.lo_halves(l)
+    th, tl = I128.from_part_sums(win(l0), win(l1), win(h))
+    c = win(contributing.long())
+    nz = c > 0
+    if isinstance(f, E.Average):
+        d = out_t.scale - f.children[0].dtype.scale
+        qh, ql, ovf = I128.decimal_avg_128(th, tl, c, d, out_t.precision)
+    else:
+        qh, ql = th, tl
+        ovf = I128.overflow_mask(th, tl, out_t.precision)
+    ok = nz & ~ovf
+    return DeviceColumn(out_t, K.where_valid(ok, I128.pack(qh, ql)), ok)
+
+
 def _rev_flags(flags: torch.Tensor) -> torch.Tensor:
     """Segment-start flags in reversed coordinates: reversed position i
     starts a segment when original row n-1-i ends one (the next row starts
@@ -320,9 +369,9 @@ def _rev_flags(flags: torch.Tensor) -> torch.Tensor:
 
 def _win_out(out_t: T.DataType, data: torch.Tensor,
              valid: torch.Tensor) -> DeviceColumn:
-    data = data.to(out_t.torch_dtype)
-    return DeviceColumn(out_t, torch.where(valid, data,
-                                           torch.zeros_like(data)), valid)
+    return DeviceColumn(out_t, K.where_valid(valid,
+                                             data.to(out_t.torch_dtype)),
+                        valid)
 
 
 def _finish_agg(f, out_t: T.DataType, s: torch.Tensor,

@@ -27,20 +27,34 @@ branches that share one dictionary select codes and keep it; otherwise the
 branches are decoded and each row's length and bytes are gathered from the
 branch it takes.
 
-Decimals are int64 unscaled values. Add/Subtract rescale both operands to
-the result scale, Multiply multiplies the unscaled values (the result scale
-is the sum of the operand scales); a decimal meeting a double is cast to
-double first (unscaled / 10**scale in float64). Comparisons of decimals
-with decimals or integers are exact at mixed scales: the finer side is
-floor-divided down to the coarser scale and its remainder breaks ties, so
-nothing is scaled up and nothing can overflow.
+Decimals are int64 unscaled values (DECIMAL64) or ``(n, 2)`` int64
+``[lo, hi]`` limbs (DECIMAL128, ``exec/int128.py``). Add/Subtract rescale
+both operands to the result scale, Multiply multiplies the unscaled values
+(the result scale is the sum of the operand scales); a decimal meeting a
+double is cast to double first (unscaled / 10**scale in float64; limbs as
+hi * 2^64 + lo). A result or operand of DECIMAL128 takes the 128-bit path
+(``_eval_arith_wide``): operands rescaled with the overflow check made
+before the multiply, a narrow x narrow product through ``mul_64x64``,
+wider ones through ``mul_128_exact``, and every decimal Divide through
+``decimal_divide_128`` (HALF_UP at the result scale); a result at or past
+10**precision, and a zero divisor, give null (Spark's non-ANSI answer).
+Comparisons of decimals with decimals or integers are exact at mixed
+scales: the finer side is floor-divided down to the coarser scale and its
+remainder breaks ties, so nothing is scaled up and nothing can overflow.
+
+Divide of doubles or integers is a double, null where the divisor is zero
+(Spark's non-ANSI Divide; the reference's engines give IEEE inf/NaN for a
+fractional ``x / 0.0``, a known difference). Abs and UnaryMinus negate in
+place (integers wrap, as Java's).
 
 Casts follow the reference's non-ANSI numeric semantics (``Cast``): a
 narrowing integer cast wraps, a double becomes an integer as Java's
 ``(int)``/``(long)`` (``double_to_integral``), a decimal keeps its whole
 part. An int or decimal cast to a decimal that holds all its digits
-(``T.is_exact_decimal_widening``, a union's widening) is a rescale; other
-casts to decimal run on the CPU engine.
+(``T.is_exact_decimal_widening``, a union's widening) is a rescale. Casts
+into and out of DECIMAL128 (``_cast_wide``) rescale up with the overflow
+check, round HALF_UP down (by at most 18 digits), and null what does not
+fit the target; other casts to decimal run on the CPU engine.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import regex as RX
@@ -79,14 +94,18 @@ def _broadcast_literal(lit: E.Literal, ctx: EvalContext) -> ColVal:
     if dt == T.STRING:
         return _string_value(lit, ctx)
     if lit.value is None:
-        return ColVal(torch.zeros(n, dtype=dt.torch_dtype, device=ctx.device),
+        return ColVal(torch.zeros(T.device_shape(dt, n), dtype=dt.torch_dtype,
+                                  device=ctx.device),
                       torch.zeros(n, dtype=torch.bool, device=ctx.device))
     value = lit.value
+    ones = torch.ones(n, dtype=torch.bool, device=ctx.device)
     if isinstance(dt, T.DecimalType):
         value = decimal_unscaled(value, dt.scale)
+        if dt.is_wide:
+            limbs = I128.pack(*I128.from_py_ints([value], ctx.device))
+            return ColVal(limbs.expand(n, 2), ones)
     return ColVal(torch.full((n,), value, dtype=dt.torch_dtype,
-                             device=ctx.device),
-                  torch.ones(n, dtype=torch.bool, device=ctx.device))
+                             device=ctx.device), ones)
 
 
 def decimal_unscaled(value, scale: int) -> int:
@@ -99,8 +118,61 @@ def decimal_unscaled(value, scale: int) -> int:
             decimal.Decimal(1), rounding=decimal.ROUND_HALF_UP))
 
 
+def _wide_to_f64(data: torch.Tensor) -> torch.Tensor:
+    """DECIMAL128 limbs as doubles: the magnitude's hi * 2^64 + lo (read
+    unsigned), then the sign. The reference adds the signed limbs, which
+    cancels catastrophically for a small negative value (hi = -1, lo
+    near 2^64: -1.5 at scale 2 reads as 0.0); the magnitude keeps every
+    value within a few ulps of its exact double."""
+    hi, lo = I128.abs_(*I128.split(data))
+    lo_u = lo.double() + (lo < 0).double() * (2.0 ** 64)
+    mag = hi.double() * (2.0 ** 64) + lo_u
+    return torch.where(data[:, 1] < 0, -mag, mag)
+
+
 def _decimal_to_double(data: torch.Tensor, dt: T.DecimalType) -> torch.Tensor:
+    if data.dim() == 2:
+        return _wide_to_f64(data) / (10.0 ** dt.scale)
     return data.double() / (10.0 ** dt.scale)
+
+
+def _is_wide(v: ColVal) -> bool:
+    return v.data.dim() == 2
+
+
+def _wide_parts(v: ColVal):
+    """(hi, lo) of a decimal or integral value (an int64 sign-extended)."""
+    if _is_wide(v):
+        return I128.split(v.data)
+    return I128.from_i64(v.data)
+
+
+def _as_wide(v: ColVal, dt: T.DataType, to_scale: int):
+    """A decimal or integral value as (hi, lo) limbs at ``to_scale``."""
+    h, l = _wide_parts(v)
+    if to_scale > _scale_of(dt):
+        h, l = I128.rescale10(h, l, to_scale - _scale_of(dt))
+    return h, l
+
+
+def _as_wide_checked(v: ColVal, dt: T.DataType, to_scale: int,
+                     precision: int):
+    """``_as_wide`` with the rescale's overflow flagged (a wrapped rescale
+    would dodge the result's overflow check): (hi, lo, overflow)."""
+    h, l = _wide_parts(v)
+    if to_scale > _scale_of(dt):
+        return I128.rescale10_checked(h, l, to_scale - _scale_of(dt),
+                                      precision)
+    return h, l, torch.zeros_like(h, dtype=torch.bool)
+
+
+def _wide_result(h, l, ovf, valid, out_t: T.DecimalType) -> ColVal:
+    """A DECIMAL128 (or, for a narrow Divide, DECIMAL64) result: null
+    where it overflowed."""
+    ok = valid & ~ovf
+    if out_t.is_wide:
+        return ColVal(K.where_valid(ok, I128.pack(h, l)), ok)
+    return ColVal(K.where_valid(ok, l), ok)
 
 
 def _scale_of(dt: T.DataType) -> int:
@@ -169,6 +241,44 @@ def _decimal_compare(expr: E.BinaryComparison, l: ColVal, r: ColVal,
     return _compare_result(expr, lt_m, eq_m, l.validity & r.validity)
 
 
+def _wide_floor_div_pow10(h, l, k: int):
+    """FLOOR((hi, lo) / 10^k) and a remainder-nonzero flag, for the
+    overflow-free comparison at mixed scales."""
+    ah, al = I128.abs_(h, l)
+    neg = I128.is_neg(h, l)
+    rem_any = torch.zeros_like(h, dtype=torch.bool)
+    while k > 0:
+        step = min(k, 9)
+        ah, al, rr = I128._udivmod_small(ah, al, 10 ** step)
+        rem_any = rem_any | (rr != 0)
+        k -= step
+    # floor of a negative: -(q + (remainder ? 1 : 0))
+    nh, nl = I128.neg(ah, al)
+    nh, nl = I128.sub(nh, nl, torch.zeros_like(nh), rem_any.long())
+    return torch.where(neg, nh, ah), torch.where(neg, nl, al), rem_any
+
+
+def _compare_wide(expr: E.BinaryComparison, l: ColVal, r: ColVal,
+                  lt: T.DataType, rt: T.DataType) -> ColVal:
+    """Exact comparison where an operand is DECIMAL128, at mixed scales
+    without scaling anything up."""
+    sa, sb = _scale_of(lt), _scale_of(rt)
+    ah, al = _as_wide(l, lt, sa)
+    bh, bl = _as_wide(r, rt, sb)
+    if sa == sb:
+        lt_m, eq_m = I128.cmp_lt(ah, al, bh, bl), I128.cmp_eq(ah, al, bh, bl)
+    elif sa > sb:
+        qh, ql, rem = _wide_floor_div_pow10(ah, al, sa - sb)
+        lt_m = I128.cmp_lt(qh, ql, bh, bl)
+        eq_m = I128.cmp_eq(qh, ql, bh, bl) & ~rem
+    else:
+        qh, ql, rem = _wide_floor_div_pow10(bh, bl, sb - sa)
+        eq0 = I128.cmp_eq(ah, al, qh, ql)
+        lt_m = I128.cmp_lt(ah, al, qh, ql) | (eq0 & rem)
+        eq_m = eq0 & ~rem
+    return _compare_result(expr, lt_m, eq_m, l.validity & r.validity)
+
+
 def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
     if expr.left.dtype == T.STRING or expr.right.dtype == T.STRING:
         if not isinstance(expr, E.EqualTo):
@@ -190,6 +300,8 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
     valid = l.validity & r.validity
     if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
         if E.decimal_operands(lt, rt) is not None:
+            if _is_wide(l) or _is_wide(r):
+                return _compare_wide(expr, l, r, lt, rt)
             return _decimal_compare(expr, l, r, lt, rt)
         # decimal against a double: both sides as double
         a = (_decimal_to_double(l.data, lt) if isinstance(lt, T.DecimalType)
@@ -208,6 +320,40 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
     return _compare_result(expr, _nan_aware_lt(a, b), eq, valid)
 
 
+def _eval_arith_wide(expr: E.BinaryArithmetic, out_t: T.DecimalType, lt,
+                     rt, l: ColVal, r: ColVal, valid) -> ColVal:
+    """DECIMAL128 Add/Subtract/Multiply, and every decimal Divide, over
+    (hi, lo) limbs; overflow and a zero divisor give null."""
+    s1, s2 = _scale_of(lt), _scale_of(rt)
+    if isinstance(expr, (E.Add, E.Subtract)):
+        s = out_t.scale
+        ah, al, ovf_l = _as_wide_checked(l, lt, s, out_t.precision)
+        bh, bl, ovf_r = _as_wide_checked(r, rt, s, out_t.precision)
+        op = I128.add if isinstance(expr, E.Add) else I128.sub
+        h, lo = op(ah, al, bh, bl)
+        ovf = I128.overflow_mask(h, lo, out_t.precision) | ovf_l | ovf_r
+        return _wide_result(h, lo, ovf, valid, out_t)
+    if isinstance(expr, E.Multiply):
+        # the result scale is s1 + s2: the product of the unscaled values
+        if not _is_wide(l) and not _is_wide(r):
+            h, lo = I128.mul_64x64(l.data, r.data)
+            ovf = I128.overflow_mask(h, lo, out_t.precision)
+        else:
+            h, lo, ovf = I128.mul_128_exact(*_as_wide(l, lt, s1),
+                                            *_as_wide(r, rt, s2),
+                                            out_t.precision)
+        return _wide_result(h, lo, ovf, valid, out_t)
+    if isinstance(expr, E.Divide):
+        # HALF_UP(a * 10^(s_out - s1 + s2) / b), plan/overrides gating the
+        # rescale to [0, 76]
+        k = out_t.scale - s1 + s2
+        h, lo, ovf = I128.decimal_divide_128(*_as_wide(l, lt, s1),
+                                             *_as_wide(r, rt, s2), k,
+                                             out_t.precision)
+        return _wide_result(h, lo, ovf, valid, out_t)
+    raise NotImplementedError(f"decimal128 {expr.symbol}")
+
+
 def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
     out_t = expr.dtype
     lt, rt = expr.left.dtype, expr.right.dtype
@@ -215,6 +361,9 @@ def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
     r = eval_expr(expr.right, ctx)
     valid = l.validity & r.validity
     if isinstance(out_t, T.DecimalType):
+        if (out_t.is_wide or _is_wide(l) or _is_wide(r)
+                or isinstance(expr, E.Divide)):
+            return _eval_arith_wide(expr, out_t, lt, rt, l, r, valid)
         a, b = l.data.long(), r.data.long()
         if isinstance(expr, E.Multiply):
             return ColVal(a * b, valid)  # result scale = sa + sb
@@ -237,7 +386,78 @@ def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
         return ColVal(a - b, valid)
     if isinstance(expr, E.Multiply):
         return ColVal(a * b, valid)
+    if isinstance(expr, E.Divide):
+        # Spark's non-ANSI Divide: null for any zero divisor, doubles too
+        zero = b == 0
+        q = a.double() / torch.where(zero, torch.ones_like(b), b).double()
+        return ColVal(torch.where(zero, torch.zeros_like(q), q),
+                      valid & ~zero)
     raise NotImplementedError(type(expr).__name__)
+
+
+def _cast_wide(v: ColVal, src: T.DataType, dst: T.DataType) -> ColVal:
+    """Casts into or out of DECIMAL128: a rescale up checked for overflow
+    before it multiplies, a rescale down rounded HALF_UP (decimals) or
+    truncated (integers), then null where the value does not fit."""
+    if T.is_wide_decimal(dst):
+        diff = dst.scale - _scale_of(src)
+        h, l = _wide_parts(v)
+        if diff >= 0:
+            h, l, ovf = I128.rescale10_checked(h, l, diff, dst.precision)
+        else:
+            h, l = _wide_div_pow10_half_up(h, l, -diff)
+            ovf = torch.zeros_like(v.validity)
+        ovf = ovf | I128.overflow_mask(h, l, dst.precision)
+        return _wide_result(h, l, ovf, v.validity, dst)
+    if dst == T.DOUBLE:
+        return ColVal(_decimal_to_double(v.data, src), v.validity)
+    s_dst = _scale_of(dst)
+    diff = s_dst - src.scale
+    h, l = I128.split(v.data)
+    valid = v.validity
+    if diff > 0:
+        h, l, ovf = I128.rescale10_checked(h, l, diff, 38)
+        valid = valid & ~ovf
+    elif diff < 0:
+        if isinstance(dst, T.DecimalType):
+            h, l = _wide_div_pow10_half_up(h, l, -diff)
+        else:  # an integral cast truncates toward zero
+            ah, al = I128.abs_(h, l)
+            k = -diff
+            while k > 0:
+                step = min(k, 9)
+                ah, al, _ = I128._udivmod_small(ah, al, 10 ** step)
+                k -= step
+            nh, nl = I128.neg(ah, al)
+            m = I128.is_neg(h, l)
+            h, l = torch.where(m, nh, ah), torch.where(m, nl, al)
+    # the value must fit one int64
+    valid = valid & (h == torch.where(l < 0, -1, 0))
+    if isinstance(dst, T.DecimalType):
+        valid = valid & (l.abs() < 10 ** min(dst.precision, 18))
+        return ColVal(K.where_valid(valid, l), valid)
+    return ColVal(K.where_valid(valid, l).to(dst.torch_dtype), valid)
+
+
+def _wide_div_pow10_half_up(h, l, k: int):
+    """(hi, lo) / 10^k rounded HALF_UP once at the full divisor, 0 < k <=
+    18: the steps' remainders at their place values add up exactly in
+    int64."""
+    assert 0 < k <= 18, "a scale reduction past 18 digits is not on device"
+    ah, al = I128.abs_(h, l)
+    neg = I128.is_neg(h, l)
+    rem = torch.zeros_like(h)
+    place, kk = 1, k
+    while kk > 0:
+        step = min(kk, 9)
+        ah, al, rr = I128._udivmod_small(ah, al, 10 ** step)
+        rem = rem + rr * place
+        place *= 10 ** step
+        kk -= step
+    up = (2 * rem >= 10 ** k).long()
+    qh, ql = I128.add(ah, al, torch.zeros_like(up), up)
+    nh, nl = I128.neg(qh, ql)
+    return torch.where(neg, nh, qh), torch.where(neg, nl, ql)
 
 
 def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
@@ -245,6 +465,8 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
     v = eval_expr(expr.child, ctx)
     if src == dst:
         return v
+    if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
+        return _cast_wide(v, src, dst)
     if isinstance(src, T.DecimalType) and dst == T.DOUBLE:
         return ColVal(_decimal_to_double(v.data, src), v.validity)
     if src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE):
@@ -423,7 +645,8 @@ def _eval_conditional(expr: E.Expression, ctx: EvalContext) -> Val:
             return eval_expr(e, ctx)
 
         def select(take, a, b):
-            return ColVal(torch.where(take, a.data, b.data),
+            t = take[:, None] if a.data.dim() == 2 else take
+            return ColVal(torch.where(t, a.data, b.data),
                           torch.where(take, a.validity, b.validity))
     out = value(last)
     for pred, v in reversed(arms):
@@ -470,6 +693,13 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
     if isinstance(expr, E.Not):
         c = eval_expr(expr.child, ctx)
         return ColVal(~c.data & c.validity, c.validity)
+    if isinstance(expr, (E.UnaryMinus, E.Abs)):
+        c = eval_expr(expr.child, ctx)
+        if _is_wide(c):
+            fn = I128.neg if isinstance(expr, E.UnaryMinus) else I128.abs_
+            return ColVal(I128.pack(*fn(*I128.split(c.data))), c.validity)
+        return ColVal(-c.data if isinstance(expr, E.UnaryMinus)
+                      else c.data.abs(), c.validity)
     if isinstance(expr, (E.IsNull, E.IsNotNull)):
         valid = eval_expr(expr.child, ctx).validity
         return ColVal(~valid if isinstance(expr, E.IsNull) else valid,
@@ -489,9 +719,9 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
 def val_to_column(v: Val, dt: T.DataType) -> DeviceColumn:
     if isinstance(v, DeviceColumn):
         return v
-    data = v.data.to(dt.torch_dtype)
-    return DeviceColumn(dt, torch.where(v.validity, data,
-                                        torch.zeros_like(data)), v.validity)
+    return DeviceColumn(dt, K.where_valid(v.validity,
+                                          v.data.to(dt.torch_dtype)),
+                        v.validity)
 
 
 def bind_projection(exprs: Sequence[E.Expression],

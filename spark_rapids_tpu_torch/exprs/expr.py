@@ -1,7 +1,8 @@
 """Expression trees with Spark typing rules (host-only; counterpart of
 spark_rapids_tpu/exprs/expr.py for the nodes the port's TPC-H and TPC-DS
 queries build): column references, literals (DATE and DECIMAL included),
-Alias, Cast, Add/Subtract/Multiply, the comparisons LessThan,
+Alias, Cast, Add/Subtract/Multiply/Divide, Abs and UnaryMinus, the
+comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
 IsNull, IsNotNull and In, the conditionals If, CaseWhen and Coalesce, the
 string functions Substring and Like, and the aggregates Sum, Average,
@@ -15,9 +16,14 @@ Decimal typing follows Spark's DecimalPrecision rules: an integral operand
 of a decimal operation is an implicit decimal(d, 0), a float operand turns
 the whole operation into double, Add/Subtract give
 decimal(max(p1-s1, p2-s2) + max(s1, s2) + 1, max(s1, s2)), Multiply gives
-decimal(p1 + p2 + 1, s1 + s2), Sum gives decimal(p + 10, s) and Average
-decimal(p + 4, s + 4), each capped at 38 digits. A result wider than 18
-digits is DECIMAL128, which only the CPU engine evaluates.
+decimal(p1 + p2 + 1, s1 + s2), Divide gives scale s = max(6, s1 + p2 + 1)
+and precision p1 - s1 + s2 + s, brought back to 38 digits by Spark's
+precision-loss rule (keep the integral digits, cut the scale to no less
+than min(s, 6)), Sum gives decimal(p + 10, s) and Average decimal(p + 4,
+s + 4), each capped at 38 digits. A result wider than 18 digits is
+DECIMAL128 (two int64 limbs a row on the device). Divide of anything but
+decimals is a double; every Divide is nullable (a zero divisor gives
+null, as Spark's non-ANSI mode does, doubles included).
 
 Null semantics: every expression evaluates to (data, validity); arithmetic
 and comparisons are null-intolerant, And/Or/Not follow three-valued logic
@@ -312,6 +318,34 @@ class Multiply(BinaryArithmetic):
                              lt.scale + rt.scale)
 
 
+class Divide(BinaryArithmetic):
+    """Spark's Divide: a decimal quotient of decimal (or decimal and
+    integral) operands, else a double; null where the divisor is zero."""
+
+    symbol = "/"
+
+    @property
+    def dtype(self):
+        pair = decimal_operands(self.left.dtype, self.right.dtype)
+        if pair is None:
+            return T.DOUBLE
+        lt, rt = pair
+        s = max(6, lt.scale + rt.precision + 1)
+        p = lt.precision - lt.scale + rt.scale + s
+        if p > T.DecimalType.MAX_PRECISION:
+            # adjustPrecisionScale (allowPrecisionLoss, Spark's default):
+            # keep the integral digits, shrink the scale to no less than
+            # min(s, 6)
+            int_digits = p - s
+            s = max(T.DecimalType.MAX_PRECISION - int_digits, min(s, 6))
+            p = T.DecimalType.MAX_PRECISION
+        return T.DecimalType(p, s)
+
+    @property
+    def nullable(self):
+        return True
+
+
 class BinaryComparison(_Binary):
     symbol = "?"
 
@@ -359,6 +393,22 @@ class _Unary(Expression):
     def __init__(self, child: Expression):
         self.child = child
         self.children = (child,)
+
+
+class UnaryMinus(_Unary):
+    """-x (integers wrap, as Java's)."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+class Abs(_Unary):
+    """|x| (the integer minimum stays itself, as Java's Math.abs)."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
 
 
 class Not(_Unary):
@@ -642,10 +692,10 @@ class CountDistinct(AggregateExpression):
 
 # expressions the device evaluates
 SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
-             Subtract, Multiply, EqualTo, LessThan, LessThanOrEqual,
-             GreaterThan, GreaterThanOrEqual, And, Or, Not, IsNull,
-             IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like, Sum,
-             Count, Average, Min, Max)
+             Subtract, Multiply, Divide, UnaryMinus, Abs, EqualTo, LessThan,
+             LessThanOrEqual, GreaterThan, GreaterThanOrEqual, And, Or, Not,
+             IsNull, IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like,
+             Sum, Count, Average, Min, Max)
 # expressions only the CPU engine evaluates
 CPU_ONLY = (CountDistinct,)
 
@@ -759,15 +809,17 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
 
 # type_support declarations of the device path (spark_rapids_tpu_torch.support)
 from spark_rapids_tpu_torch.support import (  # noqa: E402
-    DECIMAL64, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
+    DECIMAL, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
 
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
     _cls.type_support = ts(DEVICE_SCALAR)
-# decimal -> double and widening integral casts only: check_expr refuses
-# the rest
-Cast.type_support = ts(NUMERIC, DECIMAL64)
-BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL64)
+# the casts plan/overrides._device_cast names; check_expr refuses the rest
+Cast.type_support = ts(NUMERIC, DECIMAL)
+# Divide inherits; check_expr gates the decimal divide's rescale
+BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL)
+UnaryMinus.type_support = ts(NUMERIC, DECIMAL)
+Abs.type_support = ts(NUMERIC, DECIMAL)
 # check_expr places string ordering comparisons and string equality of two
 # columns on the CPU engine
 BinaryComparison.type_support = ts(DEVICE_SCALAR, out="boolean")
@@ -783,8 +835,8 @@ CaseWhen.type_support = ts(DEVICE_SCALAR)
 Coalesce.type_support = ts(DEVICE_SCALAR)
 Substring.type_support = ts("string")
 Like.type_support = ts("string", out="boolean")
-Sum.type_support = ts(NUMERIC, DECIMAL64)
-Average.type_support = ts(NUMERIC, DECIMAL64, out="fractional decimal64")
+Sum.type_support = ts(NUMERIC, DECIMAL)
+Average.type_support = ts(NUMERIC, DECIMAL, out="fractional " + DECIMAL)
 Count.type_support = ts(DEVICE_SCALAR, out="integral")
 Min.type_support = ts(ORDERABLE)
 Max.type_support = ts(ORDERABLE)

@@ -10,8 +10,11 @@ null slots hold zero (an empty string for strings), and every expression
 follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
 greater than every other double, non-ANSI decimal overflow to null).
 Decimals are exact: int64 unscaled values where the precision allows
-(p <= 18), Python ints in object arrays for DECIMAL128, and averages round
-HALF_UP with integer arithmetic only.
+(p <= 18), Python ints in object arrays for DECIMAL128, and averages and
+decimal quotients round HALF_UP with integer arithmetic only. Divide
+follows Spark's non-ANSI mode: null for a zero divisor, doubles included
+(the reference's CPU engine gives IEEE inf/NaN for a fractional ``x /
+0.0``).
 
 Transitions are explicit and one each way: a CPU operator reads a device
 child through ``batch_to_arrow`` (device to host), and a device operator
@@ -249,6 +252,22 @@ def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
     valid = am & bm
     lt, rt, out_t = expr.left.dtype, expr.right.dtype, expr.dtype
     if isinstance(out_t, T.DecimalType):
+        if isinstance(expr, E.Divide):
+            # exact HALF_UP at the result scale: a * 10^k / b, null on 0
+            shift = 10 ** (out_t.scale - _scale(lt) + _scale(rt))
+            out = np.zeros(len(av), dtype=object)
+            ok = valid.copy()
+            for i, (x, y) in enumerate(zip(av.tolist(), bv.tolist())):
+                if y == 0:
+                    ok[i] = False
+                elif ok[i]:
+                    num = int(x) * shift
+                    q = _half_up_div(num if y > 0 else -num, abs(int(y)))
+                    if abs(q) < 10 ** out_t.precision:
+                        out[i] = q
+                    else:  # past the precision: null (non-ANSI)
+                        ok[i] = False
+            return (out if out_t.is_wide else out.astype(np.int64)), ok
         if isinstance(expr, E.Multiply):
             if out_t.is_wide:
                 out = np.empty(len(av), dtype=object)
@@ -274,6 +293,10 @@ def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
             out = x - y
         elif isinstance(expr, E.Multiply):
             out = x * y
+        elif isinstance(expr, E.Divide):
+            zero = y == 0
+            valid = valid & ~zero
+            out = x / np.where(zero, 1.0, y)
         else:
             raise NotImplementedError(type(expr).__name__)
     return np.where(valid, out, np.zeros((), np_t)), valid
@@ -318,9 +341,15 @@ def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
     if src == T.DOUBLE:
         return _double_to_integral(vals, np_t), valid
     if isinstance(src, T.DecimalType):
-        # whole part, truncated toward zero (non-ANSI wraps past the type)
+        # whole part, truncated toward zero (non-ANSI wraps past the type;
+        # a DECIMAL128 whole part past int64 is null, as on the device)
         p = 10 ** src.scale
         whole = [(abs(int(v)) // p) * (1 if v >= 0 else -1) for v in vals]
+        if src.is_wide:
+            fits = np.array([-(1 << 63) <= w < (1 << 63) for w in whole],
+                            np.bool_)
+            whole = [w if f else 0 for w, f in zip(whole, fits)]
+            valid = valid & fits
         return (np.array([w & _MASK64 for w in whole], np.uint64)
                 .view(np.int64).astype(np_t), valid)
     return vals.astype(np_t), valid
@@ -403,6 +432,16 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
     if isinstance(expr, E.Not):
         a, m = ev(expr.child)
         return ~a.astype(np.bool_) & m, m
+    if isinstance(expr, (E.UnaryMinus, E.Abs)):
+        a, m = ev(expr.child)
+        if a.dtype == object:  # DECIMAL128: Python ints
+            fn = (lambda v: -v) if isinstance(expr, E.UnaryMinus) else abs
+            out = np.empty(len(a), dtype=object)
+            out[:] = [fn(int(v)) for v in a]
+            return out, m
+        with np.errstate(over="ignore"):
+            return (np.negative(a) if isinstance(expr, E.UnaryMinus)
+                    else np.abs(a)), m
     if isinstance(expr, (E.IsNull, E.IsNotNull)):
         _, m = ev(expr.child)
         return (~m if isinstance(expr, E.IsNull) else m.copy()), \

@@ -6,9 +6,12 @@
              transitions live in CpuExec) --> explain string
 
 Tagging holds every bound expression to the device's declarations
-(``check_expr``: the expression set, each class's ``type_support``,
-DECIMAL128, and the device's own refusals such as string ordering
-comparisons). A node with reasons runs on the CPU engine when
+(``check_expr``: the expression set, each class's ``type_support``, the
+expressions with a DECIMAL128 implementation (``WIDE_OK``), the decimal
+Divide's rescale range, and the device's own refusals such as string
+ordering comparisons), and each node to its operator's: a DECIMAL128
+group key, join key or window Min/Max stays on the CPU engine, as in the
+reference. A node with reasons runs on the CPU engine when
 ``spark.rapids.gpu.sql.fallback.enabled`` is true (the default) and raises
 NotImplementedError naming them when it is false; with
 ``spark.rapids.gpu.sql.enabled`` false every node runs on the CPU engine.
@@ -59,6 +62,7 @@ from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cpu as CPU
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.cpu_agg import CpuAggregateExec, CpuJoinExec
+from spark_rapids_tpu_torch.plan.cpu_window import CpuWindowExec
 
 
 # uploaded batches per (arrow table, batch_rows, device), so plans over one
@@ -96,10 +100,26 @@ _ORDERING = (E.LessThan, E.LessThanOrEqual, E.GreaterThan,
              E.GreaterThanOrEqual)
 
 
+# the expressions with a DECIMAL128 device implementation (the reference's
+# ``_WIDE_OK``, limited to the port's expressions): any other expression
+# that takes or gives a DECIMAL128 value runs on the CPU engine
+WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
+           E.Add, E.Subtract, E.Multiply, E.Divide, E.Abs, E.UnaryMinus,
+           E.BinaryComparison, E.IsNull, E.IsNotNull, E.If, E.CaseWhen,
+           E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count)
+
+# the window functions with a DECIMAL128 device implementation
+_WIDE_WINDOW_OK = (E.Sum, E.Average, E.Count)
+
+
 def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
     """Casts ``exprs/eval.py`` evaluates on the device."""
-    numeric = (src in T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES
-               or isinstance(src, T.DecimalType))
+    exact = src in T.INTEGRAL_TYPES or isinstance(src, T.DecimalType)
+    if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
+        # ``_cast_wide``: integers and decimals to and from DECIMAL128
+        return exact and (isinstance(dst, T.DecimalType)
+                          or dst in T.INTEGRAL_TYPES or dst == T.DOUBLE)
+    numeric = exact or src in T.FRACTIONAL_TYPES
     return (src == dst or (numeric and dst in T.INTEGRAL_TYPES)
             or (dst == T.DOUBLE and src not in T.FRACTIONAL_TYPES
                 and numeric) or T.is_exact_decimal_widening(src, dst))
@@ -117,7 +137,6 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
         name = type(bound).__name__
         decl = type(bound).type_support
         if not isinstance(bound, E.Alias):
-            # no declaration lists decimal128: the device refuses it here
             bad_in = [c.dtype for c in bound.children
                       if not decl.ok(c.dtype)]
             if bad_in:
@@ -126,10 +145,26 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
             if not decl.ok(bound.dtype, output=True):
                 reasons.append(f"{name} does not support "
                                f"{support.classify(bound.dtype)} outputs")
+        if ((T.is_wide_decimal(bound.dtype) or any(
+                T.is_wide_decimal(c.dtype) for c in bound.children))
+                and not isinstance(bound, WIDE_OK)):
+            reasons.append(f"{name} not on device for decimal128")
         if isinstance(bound, E.Cast) and not _device_cast(
                 bound.child.dtype, bound.to):
             reasons.append(f"cast {bound.child.dtype} -> {bound.to} not "
                            f"on device")
+        elif (isinstance(bound, E.Cast)
+              and T.is_wide_decimal(bound.child.dtype)
+              and isinstance(bound.to, T.DecimalType)
+              and bound.child.dtype.scale - bound.to.scale > 18):
+            reasons.append("decimal128 scale reduction > 18 not on device")
+        if isinstance(bound, E.Divide) and isinstance(bound.dtype,
+                                                      T.DecimalType):
+            s1 = getattr(bound.left.dtype, "scale", 0)
+            s2 = getattr(bound.right.dtype, "scale", 0)
+            k = bound.dtype.scale - s1 + s2
+            if not 0 <= k <= 76:
+                reasons.append("decimal divide rescale outside device range")
         if isinstance(bound, E.BinaryComparison) and T.STRING in (
                 bound.left.dtype, bound.right.dtype):
             if isinstance(bound, _ORDERING):
@@ -165,9 +200,11 @@ def _node_exprs(node: L.LogicalPlan) -> List[E.Expression]:
     return []
 
 
-def _window_reasons(node: L.Window) -> List[str]:
-    """Why the device's WindowExec cannot run this node (it has no CPU
-    counterpart yet)."""
+def _window_reasons(node: L.Window, device: bool = True) -> List[str]:
+    """Why the device's WindowExec (``device``) or the CPU engine's
+    window operator cannot run this node: both have the window surface of
+    ``exec/window.py``, and the device no DECIMAL128 Min/Max."""
+    check = check_expr if device else CPU.cpu_unsupported
     schema = node.child.schema
     reasons: List[str] = []
     for e in node.window_exprs:
@@ -180,7 +217,13 @@ def _window_reasons(node: L.Window) -> List[str]:
         for x in (list(spec.partition_by) + [o.child for o in spec.order_by]
                   + ([fn] if isinstance(fn, E.AggregateExpression)
                      else list(fn.children))):
-            reasons.extend(check_expr(x, schema))
+            reasons.extend(check(x, schema))
+        if device and isinstance(fn, E.AggregateExpression) and fn.children:
+            bound = E.resolve(fn, schema)
+            if (T.is_wide_decimal(bound.dtype) or T.is_wide_decimal(
+                    bound.children[0].dtype)) and not isinstance(
+                    bound, _WIDE_WINDOW_OK):
+                reasons.append("decimal128 window function not on device")
         try:
             _check_window_supported(fn, spec.resolved_frame())
         except NotImplementedError as ex:
@@ -267,13 +310,6 @@ class Overrides:
     def _tag(self, meta: PlanMeta) -> None:
         node = meta.node
         child_schema = node.children[0].schema if node.children else None
-        # no device batch holds a DECIMAL128 column, in or out (this also
-        # covers scans, joins and limits, which evaluate no expression)
-        for s in [node.schema] + [c.schema for c in node.children]:
-            for f in s:
-                if T.is_wide_decimal(f.dtype):
-                    meta.will_not_work(f"column {f.name} is {f.dtype.name}, "
-                                       f"which needs DECIMAL128")
         for e in _node_exprs(node):
             for r in check_expr(e, child_schema):
                 meta.will_not_work(r)
@@ -283,6 +319,10 @@ class Overrides:
                                             E.ColumnRef)):
                     meta.will_not_work(f"sort key {o.child!r} is not a "
                                        f"column reference")
+        elif isinstance(node, L.Aggregate):
+            for g in node.group_exprs:
+                if T.is_wide_decimal(E.resolve(g, child_schema).dtype):
+                    meta.will_not_work("decimal128 group key not on device")
         elif isinstance(node, L.Join):
             if node.join_type not in JOIN_TYPES:
                 meta.will_not_work(f"{node.join_type} join not on device")
@@ -291,6 +331,8 @@ class Overrides:
                             for k in node.right_keys]):
                 for r in check_expr(k, s):
                     meta.will_not_work(r)
+                if T.is_wide_decimal(E.resolve(k, s).dtype):
+                    meta.will_not_work("decimal128 join key not on device")
                 if not isinstance(k, (E.UnresolvedColumn, E.ColumnRef)):
                     meta.will_not_work(f"join key {k!r} is not a column "
                                        f"reference")
@@ -323,7 +365,7 @@ class Overrides:
     def _cpu_reasons(self, node: L.LogicalPlan) -> List[str]:
         """Why the CPU engine cannot run this node (empty: it can)."""
         if isinstance(node, L.Window):
-            return ["the CPU engine has no window operator yet"]
+            return _window_reasons(node, device=False)
         if isinstance(node, L.Join) and node.join_type not in JOIN_TYPES:
             return [f"{node.join_type} join is not in the port yet"]
         schema = node.children[0].schema if node.children else None
@@ -367,6 +409,8 @@ class Overrides:
             return HashAggregateExec(node.group_exprs, node.agg_exprs,
                                      kids[0], mode="complete")
         if isinstance(node, L.Window):
+            if not on_dev:
+                return CpuWindowExec(node.window_exprs, kids[0], dev)
             return WindowExec(node.window_exprs, kids[0])
         if isinstance(node, L.Sort):
             if not on_dev:

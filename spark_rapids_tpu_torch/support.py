@@ -15,8 +15,9 @@ The vocabulary is the reference's type classes that the port has:
 ``integral``   IntegerType, LongType
 ``fractional`` DoubleType
 ``decimal64``  DecimalType with precision <= 18 (one int64 on the device)
-``decimal128`` DecimalType with precision > 18 (CPU engine only: no
-               declaration lists it)
+``decimal128`` DecimalType with precision > 18 (two int64 limbs a row on
+               the device; ``plan/overrides.py`` also holds every
+               expression that touches one to ``WIDE_OK``)
 ``date``       DateType
 ``string``     StringType
 =============  ========================================================
@@ -33,9 +34,12 @@ TYPE_CLASSES = ("boolean", "integral", "fractional", "decimal64",
 
 # named groups of the port's device
 NUMERIC = "integral fractional"
+DECIMAL = "decimal64 decimal128"
 DECIMAL64 = "decimal64"
-ORDERABLE = "boolean integral fractional decimal64 date"
-DEVICE_SCALAR = "boolean integral fractional decimal64 date string"
+DECIMAL128 = "decimal128"
+ORDERABLE = "boolean integral fractional decimal64 decimal128 date"
+DEVICE_SCALAR = ("boolean integral fractional decimal64 decimal128 date "
+                 "string")
 
 
 def classify(dtype: T.DataType) -> str:

@@ -3,9 +3,10 @@
 Counterpart of ``spark_rapids_tpu/types.py`` for the types the port's
 TPC-H and TPC-DS queries use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days
 since the epoch), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
-unscaled value) and STRING (dictionary codes or int32 offsets + uint8
-bytes). DECIMAL128 (precision 19-38) is a type of the plan and of the CPU
-engine only: no device column holds one (``check_device_type``).
+unscaled value), DECIMAL128 (precision 19-38, one ``(n, 2)`` int64
+tensor ``[lo, hi]`` a column: two's complement limbs, Arrow's own 16-byte
+little-endian layout; arithmetic in ``exec/int128.py``) and STRING
+(dictionary codes or int32 offsets + uint8 bytes).
 """
 
 from __future__ import annotations
@@ -87,8 +88,8 @@ class DecimalType(DataType):
 
     Precision <= 18 (DECIMAL64) is stored on the device as the int64
     unscaled value (value * 10**scale). Wider decimals (DECIMAL128, up to
-    38 digits) type plans and run on the CPU engine; the device refuses
-    them (``check_device_type``)."""
+    38 digits) hold the unscaled value as two int64 limbs a row: a
+    column's data is ``(n, 2)`` ``[lo, hi]`` (``device_shape``)."""
 
     MAX_PRECISION = 38
     MAX_LONG_DIGITS = 18
@@ -123,6 +124,12 @@ class DecimalType(DataType):
     def is_wide(self) -> bool:
         """DECIMAL128: more digits than one int64 holds."""
         return self.precision > self.MAX_LONG_DIGITS
+
+
+def device_shape(dt: DataType, n: int):
+    """The shape of a fixed-width column's data of ``n`` rows: ``(n, 2)``
+    for DECIMAL128 (``[lo, hi]`` limbs), else ``(n,)``."""
+    return (n, 2) if is_wide_decimal(dt) else (n,)
 
 
 class StringType(DataType):
@@ -165,12 +172,13 @@ def is_exact_decimal_widening(src: DataType, dst: DataType) -> bool:
 
 
 def check_device_type(dt: DataType) -> None:
-    """Raise NotImplementedError for a type no device column can hold."""
-    if is_wide_decimal(dt):
+    """Raise NotImplementedError for a type no device column can hold: the
+    NULL type of an untyped literal (every other type of the port has a
+    device layout, DECIMAL128 included)."""
+    if isinstance(dt, NullType):
         raise NotImplementedError(
-            f"{dt.name} needs DECIMAL128 (precision > "
-            f"{DecimalType.MAX_LONG_DIGITS}), which the port's device does "
-            f"not hold")
+            "an untyped NULL has no device column; give it a type with "
+            "lit(None, dtype)")
 
 
 BOOLEAN = BooleanType()

@@ -14,7 +14,11 @@ the CPU, the CPU engine and the sorted-hash path; Substring, LIKE and
 string-column equality, residual join conditions (all six types, both
 join paths) and the union slice's 25 queries on the card against the
 CPU (the queries also against the CPU engine, and the six that join with
-a condition against the sorted-hash path).
+a condition against the sorted-hash path); the 128-bit arithmetic, a
+DECIMAL128 window sum through the segmented-scan kernel, decimal Divide,
+Abs and UnaryMinus, and the decimal slice's 21 queries and
+q1/q30/q65/q81 on the card against the CPU, the CPU engine and the
+sorted-hash path.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -649,3 +653,152 @@ def test_tpcds_union_query_on_card_matches_cpu(q):
         assert Q.check_rows(q, execute_to_arrow(off).to_pylist(),
                             got) == (True, "")
         assert "ht" not in join_paths(off)
+
+
+def _wide_values(n, seed):
+    """Seeded signed 128-bit values of every magnitude, as (hi, lo)."""
+    from spark_rapids_tpu_torch.exec import int128 as I128
+
+    rng = np.random.default_rng(seed)
+    vals = []
+    for bits in rng.integers(1, 127, n).tolist():
+        v = int(rng.integers(0, 1 << 62)) << 64 | int(rng.integers(0, 1 << 62))
+        v >>= 126 - bits
+        vals.append(-v if rng.random() < 0.5 else v)
+    vals[:6] = [0, 1, -1, (1 << 127) - 1, -(1 << 127), 10**38 - 1]
+    return I128.from_py_ints(vals)
+
+
+@pytest.mark.parametrize("fn", ["mul_128_exact", "decimal_divide_128",
+                                "decimal_avg_128", "rescale10_checked",
+                                "mul_64x64"])
+def test_int128_on_card_matches_cpu(fn):
+    """The 128-bit arithmetic's torch operations on the card give the
+    CPU's bits (shifts, wraparound and floor division included)."""
+    _card()
+    from spark_rapids_tpu_torch.exec import int128 as I128
+
+    ah, al = _wide_values(20000, 1)
+    bh, bl = _wide_values(20000, 2)
+    cnt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1 << 31, 20000))
+
+    def run(dev):
+        a = (ah.to(dev), al.to(dev))
+        b = (bh.to(dev), bl.to(dev))
+        if fn == "mul_128_exact":
+            return I128.mul_128_exact(*a, *b, 38)
+        if fn == "decimal_divide_128":
+            return (I128.decimal_divide_128(*a, *b, 20, 38)
+                    + I128.decimal_divide_128(*a, *b, 50, 38))
+        if fn == "decimal_avg_128":
+            return I128.decimal_avg_128(*a, cnt.to(dev), 4, 21)
+        if fn == "rescale10_checked":
+            return I128.rescale10_checked(*a, 18, 38)
+        return I128.mul_64x64(a[1], b[1])
+    for g, c in zip(run("cuda"), run("cpu")):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_wide_window_sum_on_card_matches_cpu():
+    """A DECIMAL128 window Sum and Average (three add-scans through the
+    segmented-scan kernel, joined with carries) on the card against the
+    same window on the CPU."""
+    _card()
+    import decimal
+
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.exprs import window as W
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    rng = np.random.default_rng(21)
+    n = 300_000
+    u = rng.integers(-10**17 + 1, 10**17, n)
+    t = pa.table({"g": pa.array(rng.integers(0, 40, n), pa.int64()),
+                  "o": pa.array(rng.integers(0, 1000, n), pa.int64()),
+                  "m": pa.array([decimal.Decimal(f"{int(x)}E-2") for x in u],
+                                pa.decimal128(17, 2))})
+
+    def q(device):
+        spec = W.window_spec(partition_by=["g"], order_by=["o"],
+                             frame=W.WindowFrame("rows", None, 0))
+        full = W.window_spec(partition_by=["g"])
+        df = from_arrow(t, batch_rows=1 << 17, device=device)
+        return df.with_window(
+            W.over(E.Sum(E.col("m")), spec).alias("run"),
+        ).with_window(W.over(E.Average(E.col("m")), full).alias("avg")
+                      ).sort("g", "o", "run").collect()
+    before = PK.KERNEL_LAUNCHES["segscan"]
+    got = q("cuda")
+    assert PK.KERNEL_LAUNCHES["segscan"] > before
+    assert got == q("cpu")
+
+
+def test_decimal_divide_on_card_matches_cpu():
+    """Divide, Abs and UnaryMinus over decimal(17,2) columns (a
+    decimal(38,20) quotient, zero divisors) and a double divide by zero on
+    the card against the CPU and the CPU engine."""
+    _card()
+    import decimal
+
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    rng = np.random.default_rng(5)
+    n = 100_000
+    a = rng.integers(-10**17 + 1, 10**17, n)
+    b = rng.integers(-10**6, 10**6, n)
+    b[::97] = 0
+    t = pa.table({"a": pa.array([decimal.Decimal(f"{int(x)}E-2") for x in a],
+                                pa.decimal128(17, 2)),
+                  "b": pa.array([decimal.Decimal(f"{int(x)}E-2") for x in b],
+                                pa.decimal128(17, 2)),
+                  "x": pa.array(rng.normal(0, 1, n)),
+                  "y": pa.array(np.where(b == 0, 0.0, 1.5))})
+
+    def q(device, conf=None):
+        return from_arrow(t, RapidsConf(conf or {}), batch_rows=1 << 16,
+                          device=device).select(
+            E.Divide(E.col("a"), E.col("b")).alias("q"),
+            E.Abs(E.Divide(E.col("b"), E.col("a"))).alias("r"),
+            E.UnaryMinus(E.col("a")).alias("m"),
+            E.Divide(E.col("x"), E.col("y")).alias("f")).collect()
+    got = q("cuda")
+    assert got == q("cpu")
+    assert got == q("cuda", {"spark.rapids.gpu.sql.enabled": "false"})
+    assert sum(r["q"] is None for r in got) == sum(b == 0)
+
+
+@pytest.mark.parametrize("q", ["q2", "q4", "q11", "q12", "q20", "q21",
+                               "q31", "q54", "q58", "q59", "q61", "q74",
+                               "q75", "q83", "q90", "q98", "q36", "q49",
+                               "q51", "q53", "q63", "q1", "q30", "q65",
+                               "q81"])
+def test_tpcds_decimal_query_on_card_matches_cpu(q):
+    """The decimal slice's queries (and q1/q30/q65/q81, whose decimal(21,6)
+    averages now run on the device) on the card, wholly on the device,
+    against the same query on the CPU, on the CPU engine and with the hash
+    table off (the sorted-hash path on the card)."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t = S.tables_for(0.1, seed=3, names=Q.TABLES[q])
+    df = Q.QUERIES[q](Q.df_tables(t, batch_rows=1 << 22, device="cuda"))
+    assert "!" not in df.explain()
+    got = df.to_arrow().to_pylist()
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu")).to_arrow().to_pylist()
+    assert Q.check_rows(q, got, exp) == (True, "")
+    on_cpu = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda"))
+    assert Q.check_rows(q, on_cpu.to_arrow().to_pylist(), got) == (True, "")
+    off = Q.QUERIES[q](Q.df_tables(t, RapidsConf(
+        {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+        batch_rows=1 << 22, device="cuda")).physical_plan()
+    assert Q.check_rows(q, execute_to_arrow(off).to_pylist(), got) == (True,
+                                                                     "")
+    assert "ht" not in join_paths(off)

@@ -88,21 +88,28 @@ def test_arrow_round_trip(p, s):
 
 
 def test_decimal128_raises():
-    """DECIMAL128 (p > 18) types plans and the CPU engine only: the device
-    refuses it at upload and in its operators."""
-    t = pa.table({"x": pa.array([D("1.00")], pa.decimal128(19, 2))})
-    with pytest.raises(NotImplementedError, match="DECIMAL128"):
-        PB.batch_from_arrow(t, "cpu")
+    """DECIMAL128 (p > 18) uploads as (n, 2) ``[lo, hi]`` limbs and plans on
+    the device; what the device still refuses raises naming DECIMAL128: a
+    DECIMAL128 join key (the reference's device refuses it too)."""
+    from spark_rapids_tpu_torch.exec.join import HashJoinExec as PJoin
+
+    t = pa.table({"x": pa.array([D("1.00"), None, D("-2.50")],
+                                pa.decimal128(19, 2))})
+    b = PB.batch_from_arrow(t, "cpu")
+    assert b.columns[0].data.shape == (3, 2)
+    assert b.columns[0].data.tolist() == [[100, 0], [0, 0], [-250, -1]]
     wide = PE.Sum(PE.ColumnRef(0, PT.DecimalType(9, 2))).dtype
     assert repr(wide) == repr(
         JE.Sum(JE.ColumnRef(0, JT.DecimalType(9, 2))).dtype)
-    with pytest.raises(NotImplementedError, match="DECIMAL128"):
-        PT.check_device_type(wide)
+    PT.check_device_type(wide)  # a device type now
     narrow = pa.table({"x": pa.array([D("1.00")], pa.decimal128(9, 2))})
     src = PSource([[PB.batch_from_arrow(narrow, "cpu")]],
                   PT.Schema.from_arrow(narrow.schema))
+    agg = PAgg([], [PE.Sum(PE.col("x")).alias("s")], src)
+    assert agg.output_schema["s"].dtype == wide
+    wsrc = PSource([[b]], PT.Schema.from_arrow(t.schema))
     with pytest.raises(NotImplementedError, match="DECIMAL128"):
-        PAgg([], [PE.Sum(PE.col("x")).alias("s")], src)
+        PJoin([PE.col("x")], [PE.col("x")], "inner", wsrc, wsrc)
 
 
 def _typed(M, T, name):

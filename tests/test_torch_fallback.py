@@ -207,10 +207,10 @@ def _trigger_query(M, which, df):
 
 # (explain mark, reason) of each trigger; None: the case runs wholly on
 # the device (string equality of two columns: codes or bytes compared
-# there)
+# there; a DECIMAL128 sum: two int64 limbs a row there)
 TRIGGERS = {"string_ordering": ("! Filter", "string ordering comparison"),
             "string_equality_of_columns": None,
-            "decimal128_result": ("! Aggregate", "DECIMAL128")}
+            "decimal128_result": None}
 
 
 @pytest.mark.parametrize("which", sorted(TRIGGERS))
@@ -226,9 +226,13 @@ def test_fallback_trigger_gives_mixed_plan_equal_to_jax(which):
     if TRIGGERS[which] is None:
         assert not bad, text
         got = q.collect()
-        assert len(got) == len(exp) == 5 and got == exp
-        assert _trigger_query(PE, which, port_from_arrow(
-            t, RapidsConf(NO_FALLBACK), device="cpu")).collect() == exp
+        assert len(got) == len(exp) == 5
+        # no ORDER BY over the wide sum: its rows as a multiset
+        same = rows_match if which == "decimal128_result" else (
+            lambda a, b: a == b)
+        assert same(got, exp)
+        assert same(_trigger_query(PE, which, port_from_arrow(
+            t, RapidsConf(NO_FALLBACK), device="cpu")).collect(), exp)
         return
     mark, reason = TRIGGERS[which]
     assert len(bad) == 1 and bad[0].lstrip().startswith(mark), text
@@ -237,24 +241,33 @@ def test_fallback_trigger_gives_mixed_plan_equal_to_jax(which):
     assert q.explain("NOT_ON_GPU").strip() == bad[0].strip()
     got = q.collect()
     assert len(got) == len(exp) == 5
-    if which == "decimal128_result":  # no ORDER BY: rows as a multiset
-        assert rows_match(got, exp)
-    else:
-        assert got == exp
+    assert got == exp
     with pytest.raises(NotImplementedError, match=reason):
         _trigger_query(PE, which, port_from_arrow(
             t, RapidsConf(NO_FALLBACK), device="cpu")).collect()
 
 
 def test_decimal128_column_keeps_its_consumers_on_the_cpu():
-    # a wide column in a node's input or output keeps that node on the
-    # CPU engine too: the sort above the wide aggregate is tagged as well
+    # a wide column whose consumer the device refuses keeps that node on
+    # the CPU engine: the decimal(28,2) sums are made on the device, and an
+    # aggregate grouped by them (a DECIMAL128 group key, which the
+    # reference's device refuses too) runs on the CPU engine, the sort
+    # above it on the device again
     t = _mixed_table()
-    q = _trigger_query(PE, "decimal128_result",
-                       port_from_arrow(t, device="cpu")).sort("g")
+    q = (_trigger_query(PE, "decimal128_result",
+                        port_from_arrow(t, device="cpu"))
+         .group_by("sw").agg(PE.Count().alias("k")).sort("sw"))
     text = q.explain()
-    assert "! Sort" in text and "! Aggregate" in text
-    assert str(q.to_arrow().schema.field("sw").type) == "decimal128(28, 2)"
+    off = [ln for ln in text.splitlines() if ln.lstrip().startswith("!")]
+    assert len(off) == 1 and "decimal128 group key" in off[0], text
+    assert "* Sort" in text and "* Aggregate" in text
+    got = q.to_arrow()
+    assert str(got.schema.field("sw").type) == "decimal128(28, 2)"
+    on_cpu = (_trigger_query(PE, "decimal128_result", port_from_arrow(
+        t, RapidsConf({"spark.rapids.gpu.sql.enabled": "false"}),
+        device="cpu")).group_by("sw").agg(PE.Count().alias("k")).sort("sw"))
+    assert got.to_pylist() == on_cpu.to_arrow().to_pylist()
+    assert sum(r["k"] for r in got.to_pylist()) == 5
 
 
 def _cpu_engine_query(M, which, d):
@@ -388,9 +401,17 @@ def test_nodes_neither_side_runs_raise_naming_the_reason():
     with pytest.raises(NotImplementedError, match="lead/lag"):
         df.with_window(PW.over(PW.Lead(PE.col("x")), spec).alias("w")
                        ).collect()
-    with pytest.raises(NotImplementedError, match="window"):
-        port_from_arrow(t, RapidsConf(CPU_ONLY), device="cpu").with_window(
-            PW.over(PW.Rank(), spec).alias("w")).collect()
+    # the CPU engine's window operator has the device's window surface:
+    # lead/lag raises there too, a rank runs and gives the device's rows
+    cpu = port_from_arrow(t, RapidsConf(CPU_ONLY), device="cpu")
+    with pytest.raises(NotImplementedError, match="lead/lag"):
+        cpu.with_window(PW.over(PW.Lead(PE.col("x")), spec).alias("w")
+                        ).collect()
+    rank = cpu.with_window(PW.over(PW.Rank(), spec).alias("w"))
+    assert all(ln.lstrip().startswith("!")
+               for ln in rank.explain().splitlines())
+    assert rank.collect() == df.with_window(
+        PW.over(PW.Rank(), spec).alias("w")).collect()
 
 
 @pytest.mark.parametrize("conf", [None, CPU_ONLY])

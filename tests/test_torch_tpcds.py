@@ -24,8 +24,13 @@ a condition (``PQ.CONDITION_JOINS``) also with the hash table off; q8,
 q46 and q68 are held again at the SF where they show values, q76 (empty
 at every SF: no null promotion key is generated) on tables with seeded
 null promotion keys, and q23/q24's threshold both ways: forced to the
-reference's and computed as Spark types it. The port's generated tables
-equal the reference's."""
+reference's and computed as Spark types it. The decimal slice's 21
+queries (``PQ.DECIMAL_SLICE``: Divide, Abs and DECIMAL128 on the device,
+window Sums and Averages into DECIMAL128) are held the same way against
+the JAX package's CPU engine, wholly on the device path, on the CPU engine
+(windows on its window operator) and on the sorted-hash path; q58, empty
+below SF 0.2, is held again there. The port's generated tables equal the
+reference's."""
 
 import pytest
 
@@ -60,7 +65,7 @@ def _breadth_tables():
     either reads; the same tables as each slice's own)."""
     if "b" not in _CACHE:
         _CACHE["b"] = PS.tables_for(SF, names=PQ.tables_of(
-            PQ.BREADTH + PQ.UNION_SLICE))
+            PQ.BREADTH + PQ.UNION_SLICE + PQ.DECIMAL_SLICE))
     return _CACHE["b"]
 
 
@@ -94,8 +99,12 @@ def _release_jax_programs():
 
 # the JAX package's planner with its device disabled: every node on its
 # numpy CPU engine (``spark_rapids_tpu/plan/cpu.py``), which the JAX
-# package holds equal to its device path
-JAX_CPU_ENGINE = {"spark.rapids.tpu.sql.enabled": "false"}
+# package holds equal to its device path. Its plan-rewrite memo is off:
+# the memo's key recomputes every logical node's schema, which takes
+# minutes on q75's three-channel union of left joins (a memo of the
+# physical plan, it changes no row)
+JAX_CPU_ENGINE = {"spark.rapids.tpu.sql.enabled": "false",
+                  "spark.rapids.tpu.plan.cache.enabled": "false"}
 
 
 def _jax_frames(tables, conf=None):
@@ -108,8 +117,8 @@ def _jax_frames(tables, conf=None):
 
 def _jax_rows(q, tables=None, variant=None):
     """The JAX package's answer, once per query per process: on the
-    test's tables, or on ``tables`` named by ``variant``. The union
-    slice's queries run on the JAX package's CPU engine
+    test's tables, or on ``tables`` named by ``variant``. The union and
+    decimal slices' queries run on the JAX package's CPU engine
     (``JAX_CPU_ENGINE``): its device path costs 10-60 s of XLA
     compilation a query here, and the slice's expressions are held
     against that path in ``test_torch_strings.py``,
@@ -120,11 +129,13 @@ def _jax_rows(q, tables=None, variant=None):
     assert (tables is None) == (variant is None)
     key = ("jax", q, variant)
     if key not in _CACHE:
+        wide = PQ.BREADTH + PQ.UNION_SLICE + PQ.DECIMAL_SLICE
         tables = tables or (
             _tables() if q not in PQ.TABLES else
-            {k: (_breadth_tables() if q in PQ.BREADTH + PQ.UNION_SLICE
-                 else _join_tables())[k] for k in PQ.TABLES[q]})
-        conf = JAX_CPU_ENGINE if q in PQ.UNION_SLICE else None
+            {k: (_breadth_tables() if q in wide else _join_tables())[k]
+             for k in PQ.TABLES[q]})
+        conf = (JAX_CPU_ENGINE if q in PQ.UNION_SLICE + PQ.DECIMAL_SLICE
+                else None)
         _CACHE[key] = JQ.QUERIES[q](_jax_frames(tables, conf)).collect()
         _release_jax_programs()
     return _CACHE[key]
@@ -233,18 +244,14 @@ def test_tpcds_breadth_query_matches_jax(q):
     """Each breadth query against the JAX package: exact for integers,
     decimals, strings and nulls, rel 1e-6 on doubles, ORDER BY order per
     ``ORDER_KEYS`` (``TIED_AT_LIMIT`` queries: the last tie group by its
-    count). Mixed plans (q1/q30/q65/q81: a decimal(21,6) average) name
-    DECIMAL128 for their CPU-engine nodes; the rest run wholly on the
-    device path."""
+    count). Every plan runs wholly on the device path, q1/q30/q65/q81's
+    decimal(21,6) averages (DECIMAL128) included."""
     tables = {k: _breadth_tables()[k] for k in PQ.TABLES[q]}
     d = PQ.df_tables(tables, batch_rows=8192, device="cpu")
     df = PQ.QUERIES[q](d)
     off = [ln for ln in df.explain().splitlines()
            if ln.lstrip().startswith("!")]
-    if q in ("q1", "q30", "q65", "q81"):
-        assert off and all("DECIMAL128" in ln for ln in off)
-    else:
-        assert not off
+    assert not off, off
     got = df.to_arrow().to_pylist()
     exp = _jax_rows(q)
     assert len(got) == len(exp)
@@ -278,7 +285,7 @@ def test_tpcds_breadth_query_matches_jax(q):
 # the smallest SF of seed 0 at which each query of EMPTY_AT_SF[SF] has
 # values (q76, empty at every SF, is held below on other tables)
 _NONEMPTY_SF = {"q32": 0.1, "q41": 0.1, "q65": 0.1, "q92": 0.15,
-                "q8": 0.15, "q46": 0.07, "q68": 0.07}
+                "q8": 0.15, "q46": 0.07, "q68": 0.07, "q58": 0.2}
 
 
 @pytest.mark.parametrize("q", sorted(_NONEMPTY_SF))
@@ -375,6 +382,47 @@ def test_tpcds_union_query_matches_jax(q):
             assert PQ.QUERIES[q](PQ.df_tables(
                 plain, RapidsConf(conf), batch_rows=8192,
                 device="cpu")).collect() == []
+
+
+@pytest.mark.parametrize("q", PQ.DECIMAL_SLICE)
+def test_tpcds_decimal_query_matches_jax(q):
+    """Each decimal-slice query against the JAX package's CPU engine
+    (exact for integers, decimals, strings and nulls, rel 1e-6 on doubles,
+    ORDER BY order per ``ORDER_KEYS``), wholly on the device path, wholly
+    on the CPU engine (window queries on its window operator) and on the
+    sorted-hash path, every device join taking it."""
+    tables = {k: _breadth_tables()[k] for k in PQ.TABLES[q]}
+    d = PQ.df_tables(tables, batch_rows=8192, device="cpu")
+    df = PQ.QUERIES[q](d)
+    off = [ln for ln in df.explain().splitlines()
+           if ln.lstrip().startswith("!")]
+    assert not off, off
+    got = df.to_arrow().to_pylist()
+    exp = _jax_rows(q)
+    assert len(got) == len(exp)
+    assert PQ.informative(got) == (q not in PQ.EMPTY_AT_SF[SF])
+    assert PQ.check_rows(q, got, exp) == (True, "")
+
+    def exact(r):
+        return repr([v for v in r.values() if not isinstance(v, float)])
+    if q not in PQ.TIED_AT_LIMIT or len(got) < PQ.TIED_AT_LIMIT[q]:
+        for rg, re_ in zip(sorted(got, key=exact), sorted(exp, key=exact)):
+            for k, v in rg.items():
+                if not isinstance(v, float):
+                    assert v == re_[k]  # keys, decimals, strings, nulls
+    on_cpu = PQ.QUERIES[q](PQ.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu"))
+    assert all(ln.lstrip().startswith("!")
+               for ln in on_cpu.explain().splitlines())
+    assert PQ.check_rows(q, on_cpu.to_arrow().to_pylist(), exp) == (True,
+                                                                     "")
+    off_ht = PQ.QUERIES[q](PQ.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+        batch_rows=8192, device="cpu")).physical_plan()
+    assert PQ.check_rows(q, execute_to_arrow(off_ht).to_pylist(), exp) == (
+        True, "")
+    paths = join_paths(off_ht)
+    assert "sorted" in paths and "ht" not in paths
 
 
 def _hold_other_threshold(q, d, cpu, tables, at_ref):
