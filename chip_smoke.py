@@ -129,6 +129,30 @@ Phases, in order; any failure exits non-zero before the last line:
    kernel launches and device time (one profiled call), its host time
    (median of 5 calls, each ending in a synchronise), and its rows equal
    to the same Divide on the CPU (the first 100,000);
+12. TPC-DS window slice: q47/q57/q89 (decimal(21,6) window averages
+   partitioned by plain strings) and q70/q86 (ranks over sums) at SF
+   ``--sf-ds`` on the same tables, each as phase 11 runs a query: wholly
+   on the device, held against the CPU engine (its first rows printed),
+   with values, the probe and the segmented scan launched; every probe
+   and segmented-scan call of the path held against the plain version,
+   the path's largest table probe checked as in phase 8
+   (``window_rest_largest``); warm walls; then all five with the hash
+   table off (the same rows, no probe launch). Last, a window-surface
+   pass over store_sales (2,880,000 rows at SF1, one batch), partitioned
+   by (ss_store_sk, ss_item_sk) and ordered by ss_sold_date_sk: lead/lag
+   with defaults, ntile(4), percent_rank, cume_dist, first/last and
+   Sum/Min/Max over ROWS 3 PRECEDING..3 FOLLOWING on a double, an int and
+   a decimal(7,2) column, a Sum over RANGE 30 PRECEDING..CURRENT ROW of
+   the date key and a DECIMAL128 Sum over the ROWS frame, in one window
+   node with the launch counts zeroed before and read after, each column
+   equal to the CPU engine's; every segmented-scan call of the pass (its
+   prefix and suffix min/max scans among them) held against the plain
+   version; each window's warm wall alone (rows left on the card, a
+   row_number over the same spec beside them) and its launches; the largest
+   min scan's times against its byte bound (``window_min_scan``); and
+   the torch kernels and device time the bounded RANGE window's
+   bisection adds to a running sum of the same column (one profiled run
+   each);
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -455,25 +479,30 @@ def check_segscan_main_input(values, is_start, op: str) -> dict:
     if op != "max" or not torch.equal(lib, k):
         raise AssertionError("torch.cummax differs from the kernel on the "
                              "main path's largest geometry scan")
-    kernel_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op))
-    call_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
-                      queued=False)
-    host = host_us(lambda: K.segmented_scan_kernel(values, is_start, op))
-    plain_ms = cuda_ms(lambda: K.segmented_scan(values, is_start, op))
-    library_ms = cuda_ms(lambda: torch.cummax(values, 0))
-    cold_ms = cuda_ms(lambda: K.segmented_scan_kernel(values, is_start, op),
-                      cold=True)
+    res = {"shape": "main_path_largest", "exact": True, "max_abs_err": err,
+           **segscan_times(values, is_start, op),
+           "library_ms": cuda_ms(lambda: torch.cummax(values, 0))}
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
-    n = values.numel()
-    res = {"shape": "main_path_largest", "rows": n,
-           "dtype": str(values.dtype), "op": op,
-           "heads": int(is_start.sum()), "exact": True,
-           "max_abs_err": err, "kernel_ms": kernel_ms, "call_ms": call_ms,
-           "host_us": host, "cold_ms": cold_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms,
-           "bound_ms": segscan_bound_ms(n, values.element_size())}
     log("segscan main_path_largest: " + json.dumps(res))
     return res
+
+
+def segscan_times(values, is_start, op: str) -> dict:
+    """The scan kernel's times on one input (warm device time, the call
+    with its host cost, host time a call, cold-L2 device time), the plain
+    version's, and the byte bound."""
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    def kernel():
+        return K.segmented_scan_kernel(values, is_start, op)
+    n = values.numel()
+    return {"rows": n, "dtype": str(values.dtype), "op": op,
+            "heads": int(is_start.sum()), "kernel_ms": cuda_ms(kernel),
+            "call_ms": cuda_ms(kernel, queued=False),
+            "host_us": host_us(kernel), "cold_ms": cuda_ms(kernel, cold=True),
+            "plain_ms": cuda_ms(lambda: K.segmented_scan(values, is_start,
+                                                          op)),
+            "bound_ms": segscan_bound_ms(n, values.element_size())}
 
 
 def check_segscan_stress() -> dict:
@@ -907,17 +936,22 @@ def run_joins_path(tables) -> dict:
             "largest_probe": largest.get("args"), "rows": rows}
 
 
-def run_breadth_path(tables, sf: float) -> dict:
-    """The breadth slice's 33 queries on the card in batches of 2^22 rows:
+def run_query_slice(tables, sf: float, queries, what: str, *,
+                    device_only: bool, scan_queries=(),
+                    extra=None) -> dict:
+    """A slice's TPC-DS ``queries`` on the card in batches of 2^22 rows:
     each plan's CPU-engine nodes printed with their reasons (a query with
-    any is "mixed"), one run with the launch counts zeroed before and read
-    after, held against the same query on the CPU engine; each result must
-    show values (``Q.informative``) unless ``Q.EMPTY_AT_SF`` names it at
-    ``sf``, and the probe must launch in every query (each joins on the
-    device). Records the probe into the path's largest table and its
-    largest probe; then runs every query once more with each probe call
-    held exactly against the plain version on the same inputs; then warm
-    walls and the path each join took."""
+    any is "mixed"; ``device_only`` makes one fail), one run with the
+    launch counts zeroed before and read after, held against the same
+    query on the CPU engine. Each result must show values
+    (``Q.informative``) unless ``Q.EMPTY_AT_SF`` names it at ``sf``; the
+    probe must launch in every query (each joins on the device) unless
+    ``Q.EMPTY_ALWAYS`` names it, and the segmented scan in each of
+    ``scan_queries``. ``extra(d, cpu)``, if given, runs the slice's own
+    checks and returns more result entries. Records the probe into the
+    slice's largest table and its largest probe; then runs every query
+    once more with each probe call, and each segmented-scan call of
+    ``scan_queries``, held against the plain version; then warm walls."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -930,6 +964,7 @@ def run_breadth_path(tables, sf: float) -> dict:
     cpu = Q.df_tables(tables, RapidsConf(
         {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
     empty_ok = Q.EMPTY_AT_SF.get(sf, ())
+    queries = list(queries)
     by_table, by_rows = {}, {}
     real_probe = K.probe_hash_table_kernel
 
@@ -945,232 +980,35 @@ def run_breadth_path(tables, sf: float) -> dict:
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
     K.probe_hash_table_kernel = recording_probe
     try:
-        for q in Q.BREADTH:
-            df = Q.QUERIES[q](d)
-            off = [ln.strip() for ln in df.explain("ALL").splitlines()
-                   if ln.lstrip().startswith("!")]
-            for ln in off:
-                log(f"{q}: on the CPU engine: {ln}")
-            plan = df.physical_plan()
-            K.reset_kernel_launches()
-            t1 = time.perf_counter()
-            out = execute_to_arrow(plan)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t1
-            launches = dict(K.KERNEL_LAUNCHES)
-            for k, v in launches.items():
-                total[k] += v
-            paths = join_paths(plan)
-            got = out.to_pylist()
-            # q76's probe sides are empty (no null promotion key): its
-            # joins probe nothing here, and below where they do
-            if ((launches["hashtbl_probe"] <= 0 and q not in
-                 Q.EMPTY_ALWAYS) or "ht" not in paths):
-                raise AssertionError(f"{q} launched no probe kernel (join "
-                                     f"paths {paths})")
-            if not Q.informative(got) and q not in empty_ok:
-                raise AssertionError(f"{q} shows no value at SF {sf}: "
-                                     f"{got[:3]}")
-            t1 = time.perf_counter()
-            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
-            cpu_s = time.perf_counter() - t1
-            ok, why = Q.check_rows(q, on_cpu, got)
-            if not ok:
-                raise AssertionError(f"{q} on the CPU engine differs from "
-                                     f"the card ({why}):\n{got[:3]}\n"
-                                     f"{on_cpu[:3]}")
-            results[q] = {"rows": len(got), "informative":
-                          Q.informative(got), "first_s": first_s,
-                          "launches": launches, "cpu_engine_s": cpu_s,
-                          "placement": "mixed" if off else "device",
-                          "cpu_nodes": off, "join_paths": paths}
-            rows[q] = got
-            log(f"{q}: {len(got)} rows match the CPU engine; "
-                f"{results[q]['placement']}; launches {launches}; join "
-                f"paths {paths}; first run {first_s:.3f}s; CPU engine "
-                f"{cpu_s:.3f}s")
-    finally:
-        K.probe_hash_table_kernel = real_probe
-    checked = check_every_probe(d, Q.BREADTH)
-    for q in Q.BREADTH:
-        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
-                                          .to_arrow())
-        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
-            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
-            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
-    return {"queries": results, "launches": total, "rows": rows,
-            "probe_calls_checked": checked,
-            "largest_table_probe": by_table.get("args"),
-            "largest_probe": by_rows.get("args")}
-
-
-def run_union_path(tables, sf: float) -> dict:
-    """The union slice's 25 queries on the card in batches of 2^22 rows,
-    as ``run_breadth_path`` runs the breadth queries, then q76 on tables
-    with null promotion keys; records the probe into the path's largest
-    table."""
-    import torch
-
-    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
-    from spark_rapids_tpu_torch.config.conf import RapidsConf
-    from spark_rapids_tpu_torch.exec import kernels as K
-    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
-    from spark_rapids_tpu_torch.plan.overrides import join_paths
-
-    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
-    cpu = Q.df_tables(tables, RapidsConf(
-        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
-    empty_ok = Q.EMPTY_AT_SF.get(sf, ())
-    by_table = {}
-    real_probe = K.probe_hash_table_kernel
-
-    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
-        size = (capacity, h1.numel())
-        if size > by_table.get("size", (-1, -1)):
-            by_table.update(size=size, args=(tbl, h1, h2, capacity, seed))
-        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
-
-    results, rows = {}, {}
-    total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    K.probe_hash_table_kernel = recording_probe
-    try:
-        for q in Q.UNION_SLICE:
-            K.reset_kernel_launches()
-            t1 = time.perf_counter()
-            df = Q.QUERIES[q](d)
-            plan = df.physical_plan()
-            out = execute_to_arrow(plan)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t1
-            launches = dict(K.KERNEL_LAUNCHES)
-            for k, v in launches.items():
-                total[k] += v
-            off = [ln.strip() for ln in df.explain("ALL").splitlines()
-                   if ln.lstrip().startswith("!")]
-            for ln in off:
-                log(f"{q}: on the CPU engine: {ln}")
-            paths = join_paths(plan)
-            got = out.to_pylist()
-            # q76's probe sides are empty (no null promotion key): its
-            # joins probe nothing here, and below where they do
-            if ((launches["hashtbl_probe"] <= 0 and q not in
-                 Q.EMPTY_ALWAYS) or "ht" not in paths):
-                raise AssertionError(f"{q} launched no probe kernel (join "
-                                     f"paths {paths})")
-            if not Q.informative(got) and q not in empty_ok:
-                raise AssertionError(f"{q} shows no value at SF {sf}: "
-                                     f"{got[:3]}")
-            t1 = time.perf_counter()
-            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
-            cpu_s = time.perf_counter() - t1
-            ok, why = Q.check_rows(q, on_cpu, got)
-            if not ok:
-                raise AssertionError(f"{q} on the CPU engine differs from "
-                                     f"the card ({why}):\n{got[:3]}\n"
-                                     f"{on_cpu[:3]}")
-            results[q] = {"rows": len(got), "informative":
-                          Q.informative(got), "first_s": first_s,
-                          "launches": launches, "cpu_engine_s": cpu_s,
-                          "placement": "mixed" if off else "device",
-                          "cpu_nodes": off, "join_paths": paths}
-            rows[q] = got
-            log(f"{q}: {len(got)} rows match the CPU engine; "
-                f"{results[q]['placement']}; launches {launches}; join "
-                f"paths {paths}; first run {first_s:.3f}s; CPU engine "
-                f"{cpu_s:.3f}s")
-        # q76 where it has rows to count
-        nulled = Q.with_null_promotions(tables)
-        dn = Q.df_tables(nulled, batch_rows=1 << 22, device="cuda")
-        K.reset_kernel_launches()
-        got = Q.QUERIES["q76"](dn).to_arrow().to_pylist()
-        launches = dict(K.KERNEL_LAUNCHES)
-        on_cpu = Q.QUERIES["q76"](Q.df_tables(nulled, RapidsConf(
-            {"spark.rapids.gpu.sql.enabled": "false"}),
-            device="cuda")).to_arrow().to_pylist()
-        ok, why = Q.check_rows("q76", on_cpu, got)
-        if not ok or not Q.informative(got) or not launches["hashtbl_probe"]:
-            raise AssertionError(f"q76 with null promotion keys: {why}; "
-                                 f"{len(got)} rows; launches {launches}")
-        results["q76_null_promotions"] = {"rows": len(got),
-                                          "launches": launches}
-        log(f"q76 with 10% null promotion keys: {len(got)} rows match the "
-            f"CPU engine; launches {launches}")
-    finally:
-        K.probe_hash_table_kernel = real_probe
-    checked = check_every_probe(d, Q.UNION_SLICE)
-    for q in Q.UNION_SLICE:
-        results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
-                                          .to_arrow())
-        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
-            f"probe launches {results[q]['launches']['hashtbl_probe']}, "
-            f"CPU engine {results[q]['cpu_engine_s']:.3f}s")
-    return {"queries": results, "launches": total, "rows": rows,
-            "probe_calls_checked": checked,
-            "largest_table_probe": by_table.get("args")}
-
-
-# the decimal slice's queries that compute a window (their geometry and
-# window sums run through the segmented-scan kernel)
-DECIMAL_WINDOWS = ("q12", "q20", "q98", "q36", "q49", "q51", "q53", "q63")
-
-
-def run_decimal_path(tables, sf: float) -> dict:
-    """The decimal slice's 21 queries and q1/q30/q65/q81 on the card in
-    batches of 2^22 rows, as ``run_union_path`` runs the union queries,
-    every plan wholly on the device, the segmented scan launched in each
-    window query; then q24's threshold subquery; records the probe into
-    the path's largest table."""
-    import torch
-
-    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
-    from spark_rapids_tpu_torch.config.conf import RapidsConf
-    from spark_rapids_tpu_torch.exec import kernels as K
-    from spark_rapids_tpu_torch.exprs.expr import Average, col
-    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
-    from spark_rapids_tpu_torch.plan.overrides import join_paths
-
-    d = Q.df_tables(tables, batch_rows=1 << 22, device="cuda")
-    cpu = Q.df_tables(tables, RapidsConf(
-        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
-    empty_ok = Q.EMPTY_AT_SF.get(sf, ())
-    queries = list(Q.DECIMAL_SLICE) + list(Q.WIDE_AVERAGES)
-    by_table = {}
-    real_probe = K.probe_hash_table_kernel
-
-    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
-        size = (capacity, h1.numel())
-        if size > by_table.get("size", (-1, -1)):
-            by_table.update(size=size, args=(tbl, h1, h2, capacity, seed))
-        return real_probe(tbl, h1, h2, capacity, seed, max_probes)
-
-    results, rows = {}, {}
-    total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    K.probe_hash_table_kernel = recording_probe
-    try:
         for q in queries:
+            # counted and timed from the query's construction: q23/q24
+            # run their threshold subqueries there
+            K.reset_kernel_launches()
+            t1 = time.perf_counter()
             df = Q.QUERIES[q](d)
+            plan = df.physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
             off = [ln.strip() for ln in df.explain("ALL").splitlines()
                    if ln.lstrip().startswith("!")]
             for ln in off:
                 log(f"{q}: on the CPU engine: {ln}")
-            if off:
+            if off and device_only:
                 raise AssertionError(f"{q} places {len(off)} nodes on the "
                                      f"CPU engine")
-            plan = df.physical_plan()
-            K.reset_kernel_launches()
-            t1 = time.perf_counter()
-            out = execute_to_arrow(plan)
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t1
-            launches = dict(K.KERNEL_LAUNCHES)
-            for k, v in launches.items():
-                total[k] += v
             paths = join_paths(plan)
             got = out.to_pylist()
-            if launches["hashtbl_probe"] <= 0 or "ht" not in paths:
+            # q76's probe sides are empty (no null promotion key): its
+            # joins probe nothing here
+            if ((launches["hashtbl_probe"] <= 0 and q not in
+                 Q.EMPTY_ALWAYS) or "ht" not in paths):
                 raise AssertionError(f"{q} launched no probe kernel (join "
                                      f"paths {paths})")
-            if q in DECIMAL_WINDOWS and launches["segscan"] <= 0:
+            if q in scan_queries and launches["segscan"] <= 0:
                 raise AssertionError(f"{q} launched no segscan kernel")
             if not Q.informative(got) and q not in empty_ok:
                 raise AssertionError(f"{q} shows no value at SF {sf}: "
@@ -1186,56 +1024,101 @@ def run_decimal_path(tables, sf: float) -> dict:
             results[q] = {"rows": len(got), "informative":
                           Q.informative(got), "first_s": first_s,
                           "launches": launches, "cpu_engine_s": cpu_s,
-                          "placement": "device", "join_paths": paths}
+                          "placement": "mixed" if off else "device",
+                          "cpu_nodes": off, "join_paths": paths,
+                          "shown": [{k: str(v) for k, v in r.items()}
+                                    for r in got[:2]]}
             rows[q] = got
-            log(f"{q}: {len(got)} rows match the CPU engine; wholly on the "
-                f"device; launches {launches}; join paths {paths}; first "
-                f"run {first_s:.3f}s; CPU engine {cpu_s:.3f}s")
-        # q24's threshold subquery: a decimal(21,6) average
-        sub = Q._q24_paid(d).agg(Average(col("netpaid")).alias("m"))
-        off = [ln.strip() for ln in sub.explain("ALL").splitlines()
-               if ln.lstrip().startswith("!")]
-        K.reset_kernel_launches()
-        thresh = Q.q24_threshold(d)
-        launches = dict(K.KERNEL_LAUNCHES)
-        on_cpu = Q.q24_threshold(cpu)
-        if off or thresh != on_cpu or not thresh or not launches[
-                "hashtbl_probe"]:
-            raise AssertionError(f"q24's threshold subquery: CPU nodes "
-                                 f"{off}; {thresh} against the CPU "
-                                 f"engine's {on_cpu}; launches {launches}")
-        results["q24_threshold"] = {"value": str(thresh),
-                                    "launches": launches}
-        log(f"q24 threshold subquery wholly on the device: {thresh} equals "
-            f"the CPU engine's; launches {launches}")
+            log(f"{q}: {len(got)} rows match the CPU engine; "
+                f"{results[q]['placement']}; launches {launches}; join "
+                f"paths {paths}; first run {first_s:.3f}s; CPU engine "
+                f"{cpu_s:.3f}s; first rows {results[q]['shown']}")
+        if extra is not None:
+            results.update(extra(d, cpu))
     finally:
         K.probe_hash_table_kernel = real_probe
-    checked = check_every_probe(d, queries)
-    scans = check_every_segscan(d, DECIMAL_WINDOWS)
+    res = {"queries": results, "launches": total, "rows": rows,
+           "probe_calls_checked": check_every_probe(d, queries),
+           "largest_table_probe": by_table.get("args"),
+           "largest_probe": by_rows.get("args")}
+    if scan_queries:
+        res["segscan_calls_checked"] = check_every_segscan(
+            [lambda q=q: Q.QUERIES[q](d).to_arrow() for q in scan_queries],
+            f"{len(scan_queries)} window queries of the {what} slice")
     for q in queries:
         results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
                                           .to_arrow())
         log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
             f"launches {results[q]['launches']}, CPU engine "
             f"{results[q]['cpu_engine_s']:.3f}s")
-    return {"queries": results, "launches": total, "rows": rows,
-            "probe_calls_checked": checked, "segscan_calls_checked": scans,
-            "largest_table_probe": by_table.get("args")}
+    return res
 
 
-def check_every_segscan(d, queries) -> int:
-    """Runs each query once more with every segmented-scan call held
+def q76_with_null_promotions(tables):
+    """Phase 10's extra check: q76 on tables with null promotion keys,
+    where its joins have rows to probe, against the CPU engine."""
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    nulled = Q.with_null_promotions(tables)
+    dn = Q.df_tables(nulled, batch_rows=1 << 22, device="cuda")
+    K.reset_kernel_launches()
+    got = Q.QUERIES["q76"](dn).to_arrow().to_pylist()
+    launches = dict(K.KERNEL_LAUNCHES)
+    on_cpu = Q.QUERIES["q76"](Q.df_tables(nulled, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}),
+        device="cuda")).to_arrow().to_pylist()
+    ok, why = Q.check_rows("q76", on_cpu, got)
+    if not ok or not Q.informative(got) or not launches["hashtbl_probe"]:
+        raise AssertionError(f"q76 with null promotion keys: {why}; "
+                             f"{len(got)} rows; launches {launches}")
+    log(f"q76 with 10% null promotion keys: {len(got)} rows match the "
+        f"CPU engine; launches {launches}")
+    return {"q76_null_promotions": {"rows": len(got), "launches": launches}}
+
+
+def q24_threshold_check(d, cpu):
+    """Phase 11's extra check: q24's threshold subquery (a decimal(21,6)
+    average) wholly on the device and equal to the CPU engine's."""
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exprs.expr import Average, col
+
+    sub = Q._q24_paid(d).agg(Average(col("netpaid")).alias("m"))
+    off = [ln.strip() for ln in sub.explain("ALL").splitlines()
+           if ln.lstrip().startswith("!")]
+    K.reset_kernel_launches()
+    thresh = Q.q24_threshold(d)
+    launches = dict(K.KERNEL_LAUNCHES)
+    on_cpu = Q.q24_threshold(cpu)
+    if off or thresh != on_cpu or not thresh or not launches[
+            "hashtbl_probe"]:
+        raise AssertionError(f"q24's threshold subquery: CPU nodes "
+                             f"{off}; {thresh} against the CPU "
+                             f"engine's {on_cpu}; launches {launches}")
+    log(f"q24 threshold subquery wholly on the device: {thresh} equals "
+        f"the CPU engine's; launches {launches}")
+    return {"q24_threshold": {"value": str(thresh), "launches": launches}}
+
+
+# the decimal slice's queries that compute a window (their geometry and
+# window sums run through the segmented-scan kernel)
+DECIMAL_WINDOWS = ("q12", "q20", "q98", "q36", "q49", "q51", "q53", "q63")
+
+
+def check_every_segscan(runs, what: str) -> dict:
+    """Calls each of ``runs`` once more with every segmented-scan call held
     against the plain version on the same inputs: integers and min/max
     exactly (NaN equal to NaN), float adds within
     ``segscan_add_tolerance``. These launches are not counted. Returns the
-    number of calls checked."""
+    number of calls checked by op."""
     import torch
 
-    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
     from spark_rapids_tpu_torch.exec import kernels as K
 
     real_scan = K.segmented_scan_kernel
-    calls = [0]
+    calls = {"add": 0, "min": 0, "max": 0}
 
     def checking_scan(values, is_start, op_name="add"):
         k = real_scan(values, is_start, op_name)
@@ -1253,20 +1136,20 @@ def check_every_segscan(d, queries) -> int:
             raise AssertionError(
                 f"segscan kernel differs from its plain version on a "
                 f"{values.numel()}-row {values.dtype} {op_name} scan")
-        calls[0] += 1
+        calls[op_name] += 1
         return k
 
     saved = dict(K.KERNEL_LAUNCHES)
     K.segmented_scan_kernel = checking_scan
     try:
-        for q in queries:
-            Q.QUERIES[q](d).to_arrow()
+        for run in runs:
+            run()
     finally:
         K.segmented_scan_kernel = real_scan
         K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
-    log(f"segscan: all {calls[0]} calls of {len(queries)} window queries "
+    log(f"segscan: all {sum(calls.values())} calls ({calls}) of {what} "
         f"equal the plain version")
-    return calls[0]
+    return calls
 
 
 def decimal_divide_cost(n: int = 2_880_000, checked: int = 100_000) -> dict:
@@ -1337,6 +1220,192 @@ def decimal_divide_cost(n: int = 2_880_000, checked: int = 100_000) -> dict:
         f"{res['device_ms']:.3f} ms, call {res['host_ms']:.3f} ms (median "
         f"of 5); first {checked} rows equal the CPU's")
     return res
+
+
+def window_surface_exprs():
+    """Phase 12's window-surface pass over store_sales, as (alias, window
+    expression): one (partition, order) spec, partitioned by store and
+    item and ordered by the sale date, with lead/lag (with defaults),
+    ntile, percent_rank, cume_dist, first/last and Sum/Min/Max over ROWS 3
+    PRECEDING..3 FOLLOWING on a double, an int and a decimal(7,2) column,
+    a Sum over RANGE 30 PRECEDING..CURRENT ROW of the date key and a
+    DECIMAL128 Sum over the ROWS frame."""
+    import decimal
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.exprs import window as W
+
+    parts, order = ["ss_store_sk", "ss_item_sk"], ["ss_sold_date_sk"]
+    spec = W.window_spec(parts, order)
+    rows = W.window_spec(parts, order, W.WindowFrame("rows", -3, 3))
+    dates = W.window_spec(parts, order, W.WindowFrame("range", -30, 0))
+    wide = E.Cast(E.col("ss_ext_sales_price"), T.DecimalType(20, 2))
+    fs = (("lead_price", W.Lead(E.col("ss_sales_price"), 1, E.Literal(
+              decimal.Decimal("0.00"), T.DecimalType(7, 2))), spec),
+          ("lag_qty", W.Lag(E.col("ss_quantity"), 2, E.lit(-1.0)), spec),
+          ("ntile4", W.NTile(4), spec),
+          ("percent_rank", W.PercentRank(), spec),
+          ("cume_dist", W.CumeDist(), spec),
+          ("first_profit", E.First(E.col("ss_net_profit")), rows),
+          ("last_customer", E.Last(E.col("ss_customer_sk")), rows),
+          ("sum_qty", E.Sum(E.col("ss_quantity")), rows),
+          ("min_qty", E.Min(E.col("ss_quantity")), rows),
+          ("max_qty", E.Max(E.col("ss_quantity")), rows),
+          ("sum_ticket", E.Sum(E.col("ss_ticket_number")), rows),
+          ("min_ticket", E.Min(E.col("ss_ticket_number")), rows),
+          ("max_ticket", E.Max(E.col("ss_ticket_number")), rows),
+          ("sum_price", E.Sum(E.col("ss_sales_price")), rows),
+          ("min_price", E.Min(E.col("ss_sales_price")), rows),
+          ("max_price", E.Max(E.col("ss_sales_price")), rows),
+          ("range_sum_price", E.Sum(E.col("ss_sales_price")), dates),
+          ("sum_wide", E.Sum(wide), rows))
+    return [(a, W.over(f, sp).alias(a)) for a, f, sp in fs]
+
+
+def _columns_agree(a, b, rel: float = 1e-6) -> bool:
+    """Two Arrow columns equal (nulls in the same rows; doubles within
+    ``rel`` of each other, NaN equal to NaN)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    a, b = a.combine_chunks(), b.combine_chunks()
+    if a.type != b.type or len(a) != len(b):
+        return False
+    va = np.asarray(a.is_valid(), dtype=bool)
+    if not (va == np.asarray(b.is_valid(), dtype=bool)).all():
+        return False
+    if pa.types.is_floating(a.type):
+        x = a.fill_null(0).to_numpy(zero_copy_only=False)
+        y = b.fill_null(0).to_numpy(zero_copy_only=False)
+        same = (x == y) | (np.isnan(x) & np.isnan(y))
+        close = np.abs(x - y) <= rel * np.maximum(
+            1.0, np.maximum(np.abs(x), np.abs(y)))
+        return bool((same | close).all())
+    return bool(pc.all(pc.equal(a, b).fill_null(True)).as_py())
+
+
+def window_surface_pass(tables) -> dict:
+    """Phase 12's window-surface pass over store_sales (2,880,000 rows at
+    SF1, one batch): all of ``window_surface_exprs`` in one window node,
+    with the launch counts zeroed before and read after, each column held
+    against the CPU engine's; every segmented-scan call of the pass held
+    against the plain version; each window's wall alone (median of 3, its
+    rows left on the card; a row_number over the same spec beside them)
+    and its launches; the largest min scan's (in bytes) times against its
+    byte bound;
+    and the torch kernels and device time one bounded RANGE window adds
+    to a running sum of the same column."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench.profile_tpch import device_events
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.exprs import window as W
+    from spark_rapids_tpu_torch.plan import from_arrow
+    from torch.profiler import ProfilerActivity, profile
+
+    ss = tables["store_sales"]
+    dev = from_arrow(ss, batch_rows=1 << 22, device="cuda")
+    cpu = from_arrow(ss, RapidsConf({"spark.rapids.gpu.sql.enabled":
+                                     "false"}), device="cuda")
+    exprs = window_surface_exprs()
+    windows = [w for _a, w in exprs]
+    largest = {}
+    real_scan = K.segmented_scan_kernel
+
+    def recording_scan(values, is_start, op_name="add"):
+        size = values.numel() * values.element_size()
+        if op_name == "min" and size > largest.get("bytes", -1):
+            largest.update(bytes=size, args=(values, is_start))
+        return real_scan(values, is_start, op_name)
+
+    df = dev.with_window(*windows)
+    if any(ln.lstrip().startswith("!") for ln in df.explain().splitlines()):
+        raise AssertionError("the window-surface pass is not wholly on the "
+                             "device:\n" + df.explain())
+    plan = df.physical_plan()
+    K.segmented_scan_kernel = recording_scan
+    try:
+        from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+        K.reset_kernel_launches()
+        t1 = time.perf_counter()
+        got = execute_to_arrow(plan)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launches = dict(K.KERNEL_LAUNCHES)
+    finally:
+        K.segmented_scan_kernel = real_scan
+    if launches["segscan"] <= 0:
+        raise AssertionError("the window-surface pass launched no segscan")
+    t1 = time.perf_counter()
+    exp = cpu.with_window(*windows).to_arrow()
+    cpu_s = time.perf_counter() - t1
+    columns = {}
+    for a, _w in exprs:
+        ok = _columns_agree(got.column(a), exp.column(a))
+        if not ok:
+            raise AssertionError(f"window-surface column {a} differs from "
+                                 f"the CPU engine's")
+        columns[a] = {"nulls": got.column(a).null_count}
+    for name in ("ss_store_sk", "ss_item_sk", "ss_sold_date_sk"):
+        if not _columns_agree(got.column(name), exp.column(name)):
+            raise AssertionError(f"window-surface rows differ from the CPU "
+                                 f"engine's in {name}")
+    log(f"window surface over {ss.num_rows} store_sales rows: all "
+        f"{len(exprs)} columns equal the CPU engine's; launches "
+        f"{launches}; first run {first_s:.3f}s; CPU engine {cpu_s:.3f}s")
+    scans = check_every_segscan([lambda: df.to_arrow()],
+                                "the window-surface pass")
+    # each window alone, its rows left on the card (no Arrow out): the
+    # device wall of the scan and the window node; a row_number over the
+    # same spec is the sort, gathers and geometry every window pays
+    spec = W.window_spec(["ss_store_sk", "ss_item_sk"], ["ss_sold_date_sk"])
+    alone = [("row_number", W.over(W.RowNumber(), spec).alias("rn"))]
+    columns["row_number"] = {}
+    for a, w in alone + exprs:
+        one = dev.with_window(w).physical_plan()
+        K.reset_kernel_launches()
+        list(one.execute_all())
+        torch.cuda.synchronize()
+        columns[a]["launches"] = dict(K.KERNEL_LAUNCHES)
+        columns[a]["warm_s"] = _warm_wall(
+            lambda one=one: list(one.execute_all()))
+        log(f"window {a}: warm wall {columns[a]['warm_s']:.4f}s (median of "
+            f"3, rows left on the card), launches {columns[a]['launches']}")
+    min_scan = segscan_times(*largest["args"], "min")
+    log("segscan bounded-window min scan: " + json.dumps(min_scan))
+
+    def profiled(w):
+        one = dev.with_window(w)
+        one.to_arrow()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one.to_arrow()
+            torch.cuda.synchronize()
+        ks = [us for name, us in device_events(prof)
+              if "memcpy" not in name.lower()
+              and "memset" not in name.lower()]
+        return len(ks), sum(ks) / 1e3
+    ranged = dict(exprs)["range_sum_price"]
+    running = W.over(E.Sum(E.col("ss_sales_price")), W.window_spec(
+        ["ss_store_sk", "ss_item_sk"], ["ss_sold_date_sk"],
+        W.WindowFrame("rows", None, 0))).alias("running_sum_price")
+    (rk, rms), (bk, bms) = profiled(ranged), profiled(running)
+    range_cost = {"kernels": rk, "device_ms": rms, "running_kernels": bk,
+                  "running_device_ms": bms, "added_kernels": rk - bk,
+                  "added_device_ms": rms - bms}
+    log(f"bounded RANGE window: {rk} torch kernels, {rms:.3f} ms of device "
+        f"time; a running ROWS sum of the same column {bk}, {bms:.3f} ms: "
+        f"the bisection adds {rk - bk} kernels, {rms - bms:.3f} ms")
+    return {"rows": ss.num_rows, "first_s": first_s, "cpu_engine_s": cpu_s,
+            "launches": launches, "columns": columns,
+            "segscan_calls_checked": scans, "min_scan": min_scan,
+            "range_window": range_cost}
 
 
 def check_every_probe(d, queries) -> int:
@@ -1555,7 +1624,11 @@ def main(argv=None) -> int:
     scan_real = check_segscan_main_input(*ds_res.pop("largest_segscan"))
     torch.cuda.synchronize()
 
-    breadth_res = run_breadth_path(ds_tables, args.sf_ds)
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+
+    # phase 9: the breadth slice (mixed plans allowed and printed)
+    breadth_res = run_query_slice(ds_tables, args.sf_ds, Q.BREADTH,
+                                  "breadth", device_only=False)
     breadth_probe = check_probe("breadth_largest",
                                 *breadth_res.pop("largest_table_probe"),
                                 cold=True)
@@ -1568,9 +1641,9 @@ def main(argv=None) -> int:
     join_rows.update(breadth_res.pop("rows"))
     sorted_res = run_sorted_hash(ds_tables, join_rows)
 
-    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
-
-    union_res = run_union_path(ds_tables, args.sf_ds)
+    union_res = run_query_slice(
+        ds_tables, args.sf_ds, Q.UNION_SLICE, "union", device_only=False,
+        extra=lambda d, cpu: q76_with_null_promotions(ds_tables))
     union_probe = check_probe("union_largest",
                               *union_res.pop("largest_table_probe"),
                               cold=True)
@@ -1579,12 +1652,25 @@ def main(argv=None) -> int:
     sorted_res.update(run_sorted_hash(ds_tables, {
         q: union_rows[q] for q in Q.CONDITION_JOINS}))
 
-    dec_res = run_decimal_path(ds_tables, args.sf_ds)
+    dec_res = run_query_slice(
+        ds_tables, args.sf_ds,
+        list(Q.DECIMAL_SLICE) + list(Q.WIDE_AVERAGES), "decimal",
+        device_only=True, scan_queries=DECIMAL_WINDOWS,
+        extra=q24_threshold_check)
     dec_probe = check_probe("decimal_largest",
                             *dec_res.pop("largest_table_probe"), cold=True)
     shapes.append(dec_probe)
     sorted_res.update(run_sorted_hash(ds_tables, dec_res.pop("rows")))
     divide_res = decimal_divide_cost()
+
+    win_res = run_query_slice(ds_tables, args.sf_ds, Q.WINDOW_SLICE,
+                              "window", device_only=True,
+                              scan_queries=Q.WINDOW_SLICE)
+    win_probe = check_probe("window_rest_largest",
+                            *win_res.pop("largest_table_probe"), cold=True)
+    shapes.append(win_probe)
+    sorted_res.update(run_sorted_hash(ds_tables, win_res.pop("rows")))
+    surface_res = window_surface_pass(ds_tables)
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -1592,7 +1678,9 @@ def main(argv=None) -> int:
                       "tpcds_joins": joins_res["launches"][name],
                       "tpcds_breadth": breadth_res["launches"][name],
                       "tpcds_union": union_res["launches"][name],
-                      "tpcds_decimal": dec_res["launches"][name]}
+                      "tpcds_decimal": dec_res["launches"][name],
+                      "tpcds_window_rest": win_res["launches"][name],
+                      "window_surface": surface_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -1624,6 +1712,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "decimal_calls_checked": dec_res["probe_calls_checked"],
+        "window_rest_largest": {k: win_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "window_rest_calls_checked": win_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -1639,6 +1731,10 @@ def main(argv=None) -> int:
         "library_ms": scan_real["library_ms"],
         "library_call": "torch.cummax",
         "decimal_calls_checked": dec_res["segscan_calls_checked"],
+        "window_rest_calls_checked": win_res["segscan_calls_checked"],
+        "window_surface_calls_checked": surface_res[
+            "segscan_calls_checked"],
+        "window_min_scan": surface_res["min_scan"],
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -1653,6 +1749,8 @@ def main(argv=None) -> int:
               "tpcds_union": union_res["queries"],
               "tpcds_decimal": dec_res["queries"],
               "decimal_divide": divide_res,
+              "tpcds_window_rest": win_res["queries"],
+              "window_surface": surface_res,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

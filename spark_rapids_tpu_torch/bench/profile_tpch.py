@@ -12,6 +12,8 @@
         [--sf 1.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch --suite tpcds_decimal
         [--sf 1.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch \
+        --suite tpcds_window_rest [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
 tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
@@ -27,7 +29,9 @@ q24 collect their threshold inside each run), and ``--suite
 tpcds_decimal`` the decimal slice's 21 queries
 (``tpcds_queries.DECIMAL_SLICE``: Divide and DECIMAL128 on the device)
 and q1/q30/q65/q81 (their decimal(21,6) averages now on the device) the
-same way. For each query (after
+same way, and ``--suite tpcds_window_rest`` the window slice's five
+(``tpcds_queries.WINDOW_SLICE``: window averages partitioned by plain
+strings, ranks over sums) the same way. For each query (after
 one warm-up run): the warm wall time (host clock around a run that ends in
 a synchronise, median of 3), then one run under ``torch.profiler`` giving
 the device time summed over kernels and copies, the host-to-device copy
@@ -127,7 +131,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins",
                                         "tpcds_breadth", "tpcds_union",
-                                        "tpcds_decimal"),
+                                        "tpcds_decimal",
+                                        "tpcds_window_rest"),
                     default="tpch")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 2 for tpch, 1 for tpcds)")
@@ -170,7 +175,8 @@ def main(argv=None) -> int:
                      "tpcds_breadth": suite.BREADTH,
                      "tpcds_union": suite.UNION_SLICE,
                      "tpcds_decimal": suite.DECIMAL_SLICE
-                     + suite.WIDE_AVERAGES}[args.suite]
+                     + suite.WIDE_AVERAGES,
+                     "tpcds_window_rest": suite.WINDOW_SLICE}[args.suite]
             names = suite.tables_of(group)
             order, batched = list(group), group
         tables = tpcds_schema.tables_for(sf, seed=0, names=names)

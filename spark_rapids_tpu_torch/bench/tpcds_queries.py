@@ -37,6 +37,11 @@ They have no pandas reference: they are held against the JAX package
 query's ORDER BY keys do not order every row and its LIMIT cuts a tie
 group (``TIED_AT_LIMIT``), ``check_rows`` holds that group by its count.
 
+``UNION_SLICE`` (Union, Substring, Like), ``DECIMAL_SLICE`` (Divide and
+DECIMAL128 on the device) and ``WINDOW_SLICE`` (q47/q57/q89: decimal(21,6)
+window averages partitioned by plain-string columns; q70/q86: ranks over
+sums) complete the reference's 99 queries, held the same way.
+
 The pandas references compute the same answers independently: decimal
 sums and HALF_UP averages exactly in integers, double sums and averages in
 float64. Results are compared with ``tpch.rows_match`` (rel 1e-6 on
@@ -2734,6 +2739,124 @@ def q90(d: D):
                            Cast(col("pmc"), T.DOUBLE)).alias("am_pm_ratio"))
 
 
+
+# ---------------------------------------------------------------------------
+# the window slice: the rest of the window surface (plain-string partition
+# keys) and the last two rank queries
+# ---------------------------------------------------------------------------
+
+
+def _monthly_vs_average(d: D, fact: str, date_col: str, item_col: str,
+                        price: str, dim: str, dim_key: str, fact_dim: str,
+                        dim_name: str):
+    """q47/q57: the 1999 monthly sales of each (category, brand, store or
+    call center) against their yearly average (a window Average of
+    decimal(17,2) sums into decimal(21,6), partitioned by plain strings),
+    kept where they differ from it by more than 10%."""
+    j = (d[fact]
+         .join(d["date_dim"].filter(EqualTo(col("d_year"), lit(1999))),
+               left_on=date_col, right_on="d_date_sk")
+         .join(d["item"], left_on=item_col, right_on="i_item_sk")
+         .join(d[dim], left_on=fact_dim, right_on=dim_key))
+    g = (j.group_by("i_category", "i_brand", dim_name, "d_year", "d_moy")
+         .agg(Sum(col(price)).alias("sum_sales")))
+    out = _vs_window_average(g, ["i_category", "i_brand", dim_name,
+                                 "d_year"], "sum_sales", "avg_monthly_sales")
+    return out.select("i_category", "i_brand", dim_name, "d_year", "d_moy",
+                      "sum_sales", "avg_monthly_sales")
+
+
+@q("q47")
+def q47(d: D):
+    """Monthly brand sales in each store against their yearly average
+    (the reference's simplification of the lead/lag months to the average
+    comparison)."""
+    out = _monthly_vs_average(d, "store_sales", "ss_sold_date_sk",
+                              "ss_item_sk", "ss_sales_price", "store",
+                              "s_store_sk", "ss_store_sk", "s_store_name")
+    return out.sort(asc("i_category"), asc("i_brand"), asc("s_store_name"),
+                    asc("d_moy"), limit=100)
+
+
+@q("q57")
+def q57(d: D):
+    """q47 on catalog sales and call centers."""
+    out = _monthly_vs_average(d, "catalog_sales", "cs_sold_date_sk",
+                              "cs_item_sk", "cs_sales_price", "call_center",
+                              "cc_call_center_sk", "cs_call_center_sk",
+                              "cc_name")
+    return out.sort(desc("sum_sales"), asc("cc_name"), limit=100)
+
+
+def _ranked_sums(d: D, j, parent: str, child: str, value: str):
+    """q70/q86: the sum of ``value`` per (parent, child), ranked within
+    the parent by the sum, descending (the base grouping of the official
+    ROLLUP)."""
+    g = (j.group_by(parent, child)
+         .agg(Sum(col(value)).alias("total_sum")))
+    w = g.with_window(
+        over(Rank(), window_spec(partition_by=[parent],
+                                 order_by=[desc("total_sum")]))
+        .alias("rank_within_parent"))
+    return w.sort(asc(parent), asc("rank_within_parent"), limit=100)
+
+
+@q("q70")
+def q70(d: D):
+    """Store profit by state and county, ranked within the state."""
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+    return _ranked_sums(d, j, "s_state", "s_county", "ss_net_profit")
+
+
+@q("q86")
+def q86(d: D):
+    """Web revenue by category and class, ranked within the category."""
+    j = (d["web_sales"]
+         .join(d["date_dim"].filter(_between(col("d_month_seq"), 12, 23)),
+               left_on="ws_sold_date_sk", right_on="d_date_sk")
+         .join(d["item"], left_on="ws_item_sk", right_on="i_item_sk"))
+    return _ranked_sums(d, j, "i_category", "i_class", "ws_net_paid")
+
+
+@q("q89")
+def q89(d: D):
+    """Monthly class sales in each store against their yearly average,
+    kept where they differ from it by more than 10% of it."""
+    it = d["item"].filter(Or(
+        And(In(col("i_category"), [lit(c) for c in ("Books", "Electronics",
+                                                    "Sports")]),
+            In(col("i_class"), [lit(c) for c in ("fiction", "history",
+                                                 "fishing")])),
+        And(In(col("i_category"), [lit(c) for c in ("Men", "Jewelry",
+                                                    "Women")]),
+            In(col("i_class"), [lit(c) for c in ("shirts", "birdal",
+                                                 "dresses")]))))
+    j = (d["store_sales"]
+         .join(d["date_dim"].filter(EqualTo(col("d_year"), lit(1999))),
+               left_on="ss_sold_date_sk", right_on="d_date_sk")
+         .join(it, left_on="ss_item_sk", right_on="i_item_sk")
+         .join(d["store"], left_on="ss_store_sk", right_on="s_store_sk"))
+    g = (j.group_by("i_category", "i_class", "i_brand", "s_store_name",
+                    "s_company_name", "d_moy")
+         .agg(Sum(col("ss_sales_price")).alias("sum_sales")))
+    w = g.with_window(
+        over(Average(col("sum_sales")),
+             window_spec(partition_by=["i_category", "i_brand",
+                                       "s_store_name", "s_company_name"],
+                         frame=WindowFrame("rows", None, None)))
+        .alias("avg_monthly_sales"))
+    out = w.filter(GreaterThan(Abs(Subtract(col("sum_sales"),
+                                            col("avg_monthly_sales"))),
+                               Multiply(lit(0.1),
+                                        col("avg_monthly_sales"))))
+    return (out.select("i_category", "i_class", "i_brand", "s_store_name",
+                       "d_moy", "sum_sales", "avg_monthly_sales")
+            .sort(asc("s_store_name"), asc("i_category"), asc("i_class"),
+                  asc("i_brand"), asc("d_moy"), limit=100))
+
 # the threshold each of q23 and q24 computes by default
 THRESHOLDS = {"q23": q23_threshold, "q24": q24_threshold}
 
@@ -2760,11 +2883,15 @@ CONDITION_JOINS = ("q19", "q24", "q46", "q68", "q72", "q95")
 # and q90 divide; q12, q20 and q98 divide by a window Sum over a
 # decimal(17,2) sum (decimal(27,2)); q36, q49, q51, q53 and q63 add ranks
 # over quotients, running window sums into DECIMAL128 and window averages
-# (decimal(21,6)) under Abs. (q47, q57 and q89 partition their windows by
-# plain-string columns, which the device's window does not order yet.)
+# (decimal(21,6)) under Abs. (q47, q57 and q89, which partition their
+# windows by plain-string columns, came with the window slice.)
 DECIMAL_SLICE = ("q2", "q4", "q11", "q12", "q20", "q21", "q31", "q54",
                  "q58", "q59", "q61", "q74", "q75", "q83", "q90", "q98",
                  "q36", "q49", "q51", "q53", "q63")
+# the window slice: q47, q57 and q89 average decimal(17,2) sums over
+# windows partitioned by plain strings (i_brand, s_store_name, cc_name,
+# s_company_name); q70 and q86 rank sums. With it all 99 TPC-DS queries run
+WINDOW_SLICE = ("q47", "q57", "q70", "q86", "q89")
 # the breadth queries whose decimal(21,6) averages (DECIMAL128) ran on the
 # CPU engine before the decimal slice, wholly on the device since
 WIDE_AVERAGES = ("q1", "q30", "q65", "q81")
@@ -2912,6 +3039,12 @@ TABLES = {
             "item"),
     "q90": ("web_sales", "time_dim", "household_demographics", "web_page"),
     "q98": ("store_sales", "date_dim", "item"),
+    # the window slice
+    "q47": ("store_sales", "date_dim", "item", "store"),
+    "q57": ("catalog_sales", "date_dim", "item", "call_center"),
+    "q70": ("store_sales", "date_dim", "store"),
+    "q86": ("web_sales", "date_dim", "item"),
+    "q89": ("store_sales", "date_dim", "item", "store"),
 }
 
 
@@ -3010,20 +3143,30 @@ ORDER_KEYS = {"q3": ("d_year", "sum_agg", "i_brand_id"),
               "q49": ("channel", "return_rank", "item"),
               "q51": ("w_item", "w_date"),
               "q53": ("avg_quarterly_sales", "sum_sales", "i_manufact_id"),
-              "q63": ("i_manager_id", "avg_monthly_sales", "sum_sales")}
+              "q63": ("i_manager_id", "avg_monthly_sales", "sum_sales"),
+              # the window slice
+              "q47": ("i_category", "i_brand", "s_store_name", "d_moy"),
+              "q57": ("sum_sales", "cc_name"),
+              "q70": ("s_state", "rank_within_parent"),
+              "q86": ("i_category", "rank_within_parent"),
+              "q89": ("s_store_name", "i_category", "i_class", "i_brand",
+                      "d_moy")}
 
 # queries whose ORDER BY keys do not order every row totally, with their
 # LIMIT: where rows tie at the cut, two correct engines may keep different
 # rows of the last tie group. q64 and q65 sort by the store's name, which
 # several stores share; q73 by (cnt, c_last_name), shared by many tickets;
 # q68 by (c_last_name, ss_ticket_number), which a ticket's rows of several
-# bought cities share.
+# bought cities share. q57 sorts by (sum_sales, cc_name), which call
+# centers of one name may share; q86 by (category, rank), which tied sums
+# share; q89 by keys without s_company_name, which its groups add.
 # (q1, q30 and q81 tie only on rows whose every column is equal; q34 and
 # q79 end in the ticket number, which fixes the row.) ``check_rows``
 # compares the rows before the last tie group exactly and the group by
 # its count.
 TIED_AT_LIMIT = {"q64": 100, "q65": 100, "q73": 100, "q68": 100,
-                 "q75": 100, "q36": 100}
+                 "q75": 100, "q36": 100, "q57": 100, "q86": 100,
+                 "q89": 100}
 
 # ORDER BY specs checked on a result's own values, where a key is a double
 # sum whose last bits depend on the order of the additions

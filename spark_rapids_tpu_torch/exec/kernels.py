@@ -605,6 +605,35 @@ def segment_ends(group_starts: torch.Tensor, n: int) -> torch.Tensor:
     return nxt - 1
 
 
+def sparse_table(m: torch.Tensor, op, ident, levels: int) -> torch.Tensor:
+    """Doubling sparse table of ``op`` (torch.minimum or torch.maximum):
+    level k holds, at each row, ``op`` over the 2^k rows from it (rows past
+    the end read ``ident``); ``levels`` rows, so ranges up to
+    2^levels - 1 rows wide. The reference's ``_sparse_table``."""
+    out = [m]
+    k = 1
+    for _ in range(1, levels):
+        prev = out[-1]
+        pad = prev.new_full((min(k, prev.numel()),), ident)
+        out.append(op(prev, torch.cat([prev[k:], pad])))
+        k *= 2
+    return torch.stack(out)
+
+
+def sparse_query(tbl: torch.Tensor, op, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """``op`` over rows lo..hi (inclusive, in range) of the table's input,
+    per row: two overlapping power-of-two blocks of the level that fits
+    the range (the reference's ``_sparse_query``)."""
+    n = tbl.shape[1]
+    width = (hi - lo + 1).clamp(min=1)
+    kk = (torch.frexp(width.double()).exponent.long() - 1).clamp(
+        max=tbl.shape[0] - 1)
+    second = (hi - (torch.ones_like(kk) << kk) + 1).clamp(min=0)
+    flat = tbl.reshape(-1)
+    return op(flat[kk * n + lo], flat[kk * n + second])
+
+
 def _sorted_segment_reducers(seg: torch.Tensor, starts: torch.Tensor):
     """(sum, min, max) reducers over sorted segment ids.
 

@@ -2,32 +2,54 @@
 
 The partition's batches are concatenated on the device (as ``SortExec``
 does) and the window columns are computed over that one batch: one sort by
-the (partition, order) keys, ``keys_equal`` flags for the segment and peer
-boundaries, and four segmented ``max`` scans through the segmented-scan
-kernel's wrapper that carry each row's segment start and end and peer-run
-start and end. Every window column is a function of that shared geometry
-(rows come out partition-sorted, as Spark's WindowExec emits them).
+the (partition, order) keys (a plain-string key sorts on its byte words
+and its length, as ORDER BY does), ``keys_equal`` flags for the segment
+and peer boundaries, and four segmented ``max`` scans through the
+segmented-scan kernel's wrapper that carry each row's segment start and
+end and peer-run start and end. Every window column is a function of that
+shared geometry (rows come out partition-sorted, as Spark's WindowExec
+emits them):
 
-Supported: RowNumber, Rank and DenseRank; Sum, Count, Average, Min and Max
-over ROWS or RANGE frames UNBOUNDED PRECEDING..UNBOUNDED FOLLOWING and
-UNBOUNDED PRECEDING..CURRENT ROW, over non-string inputs, DECIMAL64 and
-DECIMAL128 (Sum, Count and Average; a decimal(17,2) sum windows into
-decimal(27,2), its average into decimal(21,6)). A DECIMAL128 window sum
-splits each value into three int64 lanes (lo's two 32-bit halves and hi),
-add-scans each through the segmented-scan kernel (a half's sums stay below
-2^63 for any partition under 2^31 rows; hi wraps mod 2^64, as its place
-value allows) and joins them with carries: exact mod 2^128, null past the
-result's precision. DECIMAL128 partition and order keys sort and compare
-both limbs. Everything else raises NotImplementedError naming what is
-missing: lead/lag, ntile, percent_rank, cume_dist, bounded frames,
-first/last, the sparse-table frames, streaming windows and Min/Max over
-DECIMAL128. A plain (non-dictionary) string partition or order key raises
-too; it is never ordered by its hash.
+- RowNumber, Rank, DenseRank, NTile, PercentRank and CumeDist from the
+  segment and peer-run bounds;
+- Lead and Lag: a gather at the row ``offset`` rows away, the default
+  (cast to the input's type) where that row lies outside the partition;
+  any column kind (numbers, DECIMAL64, DECIMAL128 rows, dictionary and
+  plain strings);
+- Sum, Count, Average, Min, Max, First and Last over a frame: each row's
+  frame is a row range [lo, hi] inside its partition (``_frame_bounds``:
+  ROWS offsets, a RANGE frame's peers, or a bounded RANGE frame's rows
+  found by a bisection of the sorted integral/date order key with a fixed
+  step count, so no host read). Sums and counts are differences of
+  segmented add-scans (a frame that starts at the partition's first row
+  reads the running sum at its last row, with no subtraction); a
+  DECIMAL128 sum add-scans lo's two 32-bit halves and hi apart and joins
+  them with carries (exact mod 2^128; null past the result's precision).
+  Min and Max: a segment reduction (UNBOUNDED frames), a running min/max
+  scan read at the frame's last row (frames from UNBOUNDED PRECEDING) or
+  over the reversed rows read at its first row (frames to UNBOUNDED
+  FOLLOWING), the prefix/suffix block scans of the reference's
+  ``_bounded_minmax`` (bounded ROWS frames) or a sparse table (bounded
+  RANGE frames); Spark's order for floats (NaN above
+  every value, -0.0 equal to 0.0) comes from scanning canonical, NaN-free
+  values beside a NaN count. First and Last (the first or last non-null
+  value, as the reference's) read a min (max) scan of the non-null rows'
+  positions, so they need no sparse table.
+
+Every add, min and max scan goes through ``kernels.segmented_scan_kernel``.
+Raising NotImplementedError, as in the reference: window Min/Max over
+DECIMAL128 (on the device only: the CPU engine runs it), window aggregates
+over strings but Count, a bounded RANGE frame over
+anything but one ascending INT, LONG or DATE order key, and the variance
+family (no such aggregate in the port yet). The streaming windows (the
+reference's batch carries and out-of-core sort) are not in the port yet:
+this operator reads its whole partition.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+import math
+from typing import (Iterator, List, NamedTuple, Optional, Sequence, Tuple)
 
 import torch
 
@@ -43,27 +65,66 @@ from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 
-_AGGS = (E.Sum, E.Count, E.Average, E.Min, E.Max)
+_AGGS = (E.Sum, E.Count, E.Average, E.Min, E.Max, E.First, E.Last)
+_RANKING = (W.RowNumber, W.Rank, W.DenseRank, W.NTile, W.PercentRank,
+            W.CumeDist)
+# order key types a bounded RANGE frame bisects (the reference's gate)
+RANGE_KEY_TYPES = (T.INT, T.LONG, T.DATE)
 
 
-def _check_window_supported(f: E.Expression, frame: W.WindowFrame) -> None:
-    """Raise NotImplementedError for a window function or frame outside the
-    port."""
-    if isinstance(f, (W.RowNumber, W.Rank, W.DenseRank)):
-        return
-    missing = {W.Lead: "lead/lag", W.NTile: "ntile",
-               W.PercentRank: "percent_rank", W.CumeDist: "cume_dist"}
-    for cls, what in missing.items():
-        if isinstance(f, cls):
-            raise NotImplementedError(f"window function {what} is not in "
-                                      f"the port yet")
-    if not isinstance(f, _AGGS):
-        raise NotImplementedError(f"window function {type(f).__name__} "
-                                  f"(first/last and others) is not in the "
-                                  f"port yet")
-    if not (frame.is_unbounded_both or frame.is_running):
-        raise NotImplementedError(f"bounded window frame {frame!r} is not in "
-                                  f"the port yet")
+def bind_function(f: E.Expression, schema: T.Schema) -> E.Expression:
+    """A window function with its inputs resolved against ``schema``: an
+    aggregate's input, and Lead/Lag's input and default, the default
+    brought to the input's type (a literal re-typed, else a Cast)."""
+    if isinstance(f, W.Lead):
+        child = E.resolve(f.child, schema)
+        d = f.default
+        if isinstance(d, E.Literal) and d.value is None:
+            d = E.Literal(None, child.dtype)
+        elif d is not None:
+            d = E.value_as(E.resolve(d, schema), child.dtype)
+        return type(f)(child, f.offset, d)
+    if isinstance(f, E.AggregateExpression) and f.children:
+        return type(f)(E.resolve(f.children[0], schema))
+    return f
+
+
+def check_window(f: E.Expression, frame: W.WindowFrame,
+                 order_keys: Sequence[Tuple[E.Expression, bool]] = ()
+                 ) -> None:
+    """Raise NotImplementedError for a bound window function or frame
+    outside the port (both engines share this surface). ``order_keys``:
+    the spec's bound (order expression, ascending) pairs."""
+    if not isinstance(f, _RANKING + (W.Lead,) + _AGGS):
+        raise NotImplementedError(f"window function {type(f).__name__} is "
+                                  f"not in the port yet")
+    if isinstance(f, _AGGS) and f.children:
+        in_t = f.children[0].dtype
+        if in_t == T.STRING and not isinstance(f, E.Count):
+            raise NotImplementedError(
+                f"window {type(f).__name__} over a string column is not in "
+                f"the port (nor in the reference's window)")
+    if isinstance(f, _AGGS) and frame.is_bounded_range:
+        ok = (len(order_keys) == 1 and order_keys[0][1]
+              and order_keys[0][0].dtype in RANGE_KEY_TYPES)
+        if not ok:
+            raise NotImplementedError(
+                "bounded RANGE frame needs one ascending integral/date "
+                "order key")
+
+
+class _Geometry(NamedTuple):
+    """Per sorted row (int64): its position, its partition's first and
+    last rows and its peer run's first and last rows."""
+    idx: torch.Tensor
+    seg_start: torch.Tensor
+    seg_end: torch.Tensor
+    run_start: torch.Tensor
+    run_end: torch.Tensor
+
+    @property
+    def seg_flag(self) -> torch.Tensor:
+        return self.idx == self.seg_start
 
 
 class WindowExec(UnaryExec):
@@ -99,22 +160,16 @@ class WindowExec(UnaryExec):
         self._order_bound = tuple((E.resolve(o.child, cs), o.ascending,
                                    o.nulls_first)
                                   for o in self._spec.order_by)
+        order_keys = [(o, asc) for o, asc, _nf in self._order_bound]
         bound = []
         for func, name in wins:
-            f = func.function
+            f = bind_function(func.function, cs)
             frame = func.spec.resolved_frame()
-            _check_window_supported(f, frame)
-            if isinstance(f, _AGGS) and f.children:
-                f = type(f)(E.resolve(f.children[0], cs))
-                if f.children[0].dtype == T.STRING:
-                    raise NotImplementedError(
-                        "window aggregate over a string column is not in "
-                        "the port yet")
-                if isinstance(f, (E.Min, E.Max)) and T.is_wide_decimal(
-                        f.dtype):
-                    raise NotImplementedError(
-                        "window min/max over DECIMAL128 is not in the port "
-                        "yet")
+            check_window(f, frame, order_keys)
+            if isinstance(f, (E.Min, E.Max)) and T.is_wide_decimal(f.dtype):
+                # the CPU engine runs it; the reference's device does not
+                raise NotImplementedError(
+                    "window min/max over DECIMAL128 is not on the device")
             T.check_device_type(f.dtype)
             bound.append((f, frame, name))
         self._bound_wins = bound
@@ -158,10 +213,6 @@ class WindowExec(UnaryExec):
             key_cols.append(EV.val_to_column(EV.eval_expr(ob, ctx),
                                              ob.dtype))
             specs.append(K.SortSpec(len(key_cols) - 1, asc, nf))
-        if any(c.offsets is not None for c in key_cols):
-            raise NotImplementedError(
-                "window partition/order key on a plain (non-dictionary) "
-                "string column is not in the port yet")
         if key_cols:
             key_batch = ColumnarBatch(key_cols, n)
             order = K.sort_indices(key_batch, specs)
@@ -189,70 +240,153 @@ class WindowExec(UnaryExec):
         # ends come from the same scan over the reversed rows
         def carry(flags):
             return K.segmented_scan_kernel(torch.where(flags, idx, -1),
-                                           flags, "max")
+                                           flags, "max").long()
 
         rev_idx = idx.flip(0)
 
         def carry_rev(flags):
             rf = _rev_flags(flags)
             return K.segmented_scan_kernel(torch.where(rf, rev_idx, -1), rf,
-                                           "max").flip(0)
+                                           "max").flip(0).long()
 
-        seg_start = carry(seg_start_flag)
-        run_start = carry(run_start_flag)
-        seg_end = carry_rev(seg_start_flag)
-        run_end = carry_rev(run_start_flag)
-
+        geo = _Geometry(idx.long(), carry(seg_start_flag),
+                        carry_rev(seg_start_flag), carry(run_start_flag),
+                        carry_rev(run_start_flag))
         sctx = EV.EvalContext(sbatch)
         out_cols = list(sbatch.columns)
         for f, frame, _name in self._bound_wins:
-            out_cols.append(self._one_window(f, frame, sctx, idx, seg_start,
-                                             seg_end, run_start, run_end))
+            out_cols.append(self._one_window(f, frame, sctx, geo))
         return ColumnarBatch(out_cols, n)
 
-    def _one_window(self, f, frame: W.WindowFrame, sctx, idx, seg_start,
-                    seg_end, run_start, run_end) -> DeviceColumn:
-        every = torch.ones_like(idx, dtype=torch.bool)
+    def _one_window(self, f, frame: W.WindowFrame, sctx,
+                    g: _Geometry) -> DeviceColumn:
+        every = torch.ones_like(g.idx, dtype=torch.bool)
         if isinstance(f, W.RowNumber):
-            return _win_out(T.INT, idx - seg_start + 1, every)
+            return _win_out(T.INT, g.idx - g.seg_start + 1, every)
         if isinstance(f, W.Rank):
-            return _win_out(T.INT, run_start - seg_start + 1, every)
+            return _win_out(T.INT, g.run_start - g.seg_start + 1, every)
         if isinstance(f, W.DenseRank):
-            runs_before = torch.cumsum((idx == run_start).int(), 0,
+            runs_before = torch.cumsum((g.idx == g.run_start).int(), 0,
                                        dtype=torch.int32)
-            at_seg_start = runs_before[seg_start.long()]
+            at_seg_start = runs_before[g.seg_start]
             return _win_out(T.INT, runs_before - at_seg_start + 1, every)
-        return self._agg_window(f, frame, sctx, idx, seg_start, seg_end,
-                                run_end)
+        if isinstance(f, W.PercentRank):
+            rank0 = (g.run_start - g.seg_start).double()
+            others = (g.seg_end - g.seg_start).double()
+            return _win_out(T.DOUBLE, torch.where(
+                others > 0, rank0 / others.clamp(min=1.0),
+                torch.zeros_like(rank0)), every)
+        if isinstance(f, W.CumeDist):
+            return _win_out(T.DOUBLE, (g.run_end - g.seg_start + 1).double()
+                            / (g.seg_end - g.seg_start + 1).double(), every)
+        if isinstance(f, W.NTile):
+            # Spark's tiles: the first (rows % n) tiles hold one row more
+            count = g.seg_end - g.seg_start + 1
+            r = g.idx - g.seg_start
+            base, rem = count // f.n, count % f.n
+            big = rem * (base + 1)
+            tile = torch.where(r < big, r // (base + 1),
+                               rem + (r - big) // base.clamp(min=1))
+            return _win_out(T.INT, tile + 1, every)
+        if isinstance(f, W.Lead):
+            return self._offset_window(f, sctx, g)
+        return self._agg_window(f, frame, sctx, g)
 
     @staticmethod
-    def _frame_end(frame: W.WindowFrame, idx, seg_end, run_end):
-        """Per-row last frame row of the supported frames, which all start
-        at the segment's first row."""
-        if frame.is_unbounded_both:
-            return seg_end
-        if frame.kind == "rows":
-            return idx
-        return run_end  # RANGE: the current row's peers too
+    def _offset_window(f: W.Lead, sctx, g: _Geometry) -> DeviceColumn:
+        """Lead/Lag: the input at the row ``offset`` rows after (before)
+        each row; where that row is outside the partition, the default (or
+        null)."""
+        off = -f.offset if isinstance(f, W.Lag) else f.offset
+        col = EV.val_to_column(EV.eval_expr(f.child, sctx), f.child.dtype)
+        src = g.idx + off
+        ok = (src >= g.seg_start) & (src <= g.seg_end)
+        src = src.clamp(0, g.idx.numel() - 1)
+        if col.offsets is not None:
+            out = K.gather_string(col, src, ok)
+        else:
+            got = K.gather_column(col, src)
+            out = DeviceColumn(col.dtype, K.where_valid(ok, got.data),
+                               got.validity & ok, None, got.dictionary)
+        if f.default is None:
+            return out
+        if col.dtype == T.STRING:
+            return EV._string_select(ok, out, EV._string_value(
+                f.default, sctx, like=out))
+        dv = EV.eval_expr(f.default, sctx)
+        take = ok[:, None] if out.data.dim() == 2 else ok
+        return DeviceColumn(col.dtype, torch.where(
+            take, out.data, dv.data.to(out.data.dtype)),
+            torch.where(ok, out.validity, dv.validity))
 
-    def _agg_window(self, f, frame, sctx, idx, seg_start, seg_end,
-                    run_end) -> DeviceColumn:
-        n = idx.numel()
+    def _frame_bounds(self, frame: W.WindowFrame, sctx, g: _Geometry
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per row, the first and last rows of its frame (int64; empty
+        where last < first)."""
+        if frame.is_unbounded_both:
+            return g.seg_start, g.seg_end
+        if frame.kind == "rows":
+            lo = (g.seg_start if frame.start is W.UNBOUNDED
+                  else torch.maximum(g.idx + frame.start, g.seg_start))
+            hi = (g.seg_end if frame.end is W.UNBOUNDED
+                  else torch.minimum(g.idx + frame.end, g.seg_end))
+            return lo, hi
+        if frame.is_running:
+            return g.seg_start, g.run_end
+        if frame.start == 0 and frame.end is W.UNBOUNDED:
+            return g.run_start, g.seg_end
+        # bounded RANGE: bisect the sorted order key inside each partition,
+        # a fixed number of steps (no host read); one ascending integral or
+        # date key (check_window)
+        ob, _asc, nf = self._order_bound[0]
+        v = EV.eval_expr(ob, sctx)
+        key, null = v.data.long(), ~v.validity
+        nulls_first = True if nf is None else nf
+        n = g.idx.numel()
+        steps = math.ceil(math.log2(max(n, 2))) + 1
+
+        def first_at_or_after(target, strict: bool):
+            """First row of the partition whose key is >= target (>
+            target when ``strict``)."""
+            lo, hi = g.seg_start, g.seg_end + 1
+            for _ in range(steps):
+                live = lo < hi
+                mid = (lo + hi) // 2
+                at = mid.clamp(0, n - 1)
+                below = key[at] <= target if strict else key[at] < target
+                kn = null[at]
+                right = (kn | below) if nulls_first else (~kn & below)
+                lo = torch.where(live & right, mid + 1, lo)
+                hi = torch.where(live & ~right, mid, hi)
+            return lo
+
+        lo = (g.seg_start if frame.start is W.UNBOUNDED
+              else first_at_or_after(key + frame.start, False))
+        hi = (g.seg_end if frame.end is W.UNBOUNDED
+              else first_at_or_after(key + frame.end, True) - 1)
+        # a null key's frame is its peers (the partition's null keys)
+        return (torch.where(null, g.run_start, lo),
+                torch.where(null, g.run_end, hi))
+
+    def _agg_window(self, f, frame: W.WindowFrame, sctx,
+                    g: _Geometry) -> DeviceColumn:
+        n = g.idx.numel()
         if f.children:
             v = EV.eval_expr(f.children[0], sctx)
             vals, valid = v.data, v.validity
         else:
-            vals = torch.ones(n, dtype=torch.int64, device=idx.device)
-            valid = torch.ones(n, dtype=torch.bool, device=idx.device)
+            vals = torch.ones(n, dtype=torch.int64, device=g.idx.device)
+            valid = torch.ones(n, dtype=torch.bool, device=g.idx.device)
         out_t = f.dtype
         count_all = isinstance(f, E.Count) and not f.children
         contributing = torch.ones_like(valid) if count_all else valid
-        seg_flag = idx == seg_start
-        hi = self._frame_end(frame, idx, seg_end, run_end).long()
-        if T.is_wide_decimal(out_t) and isinstance(f, (E.Sum, E.Average)):
-            return _wide_agg_window(f, out_t, vals, contributing, seg_flag,
-                                    hi)
-
+        seg_flag = g.seg_flag
+        lo, hi = self._frame_bounds(frame, sctx, g)
+        fr = _Frame(lo, hi, g.seg_start, seg_flag)
+        if isinstance(f, E.Count):
+            return _finish_agg(f, out_t, None, fr.count(contributing))
+        if isinstance(f, (E.First, E.Last)):
+            return _first_last(f, out_t, vals, valid, fr)
         if isinstance(f, (E.Min, E.Max)):
             op = "min" if isinstance(f, E.Min) else "max"
             if frame.is_unbounded_both:
@@ -261,78 +395,182 @@ class WindowExec(UnaryExec):
                 red, rvalid = K.segment_agg(vals, valid, seg_id, starts, op)
                 sid = seg_id.long()
                 return _win_out(out_t, red[sid], rvalid[sid])
-            c_run = K.segmented_scan_kernel(contributing.long(), seg_flag,
-                                            "add")
-            return self._scan_minmax(f, vals, valid, seg_flag, c_run, out_t,
-                                     None if frame.kind == "rows" else hi)
+            # a frame that reaches its partition's first (last) row on
+            # every row; a bounded RANGE frame's null keys frame their peers
+            if not frame.is_bounded_range and (frame.start is W.UNBOUNDED
+                                               or frame.end is W.UNBOUNDED):
+                return _scan_minmax(f, vals, valid, fr, out_t,
+                                    from_end=frame.start is not W.UNBOUNDED)
+            if frame.is_bounded_rows:
+                return _bounded_minmax(f, vals, valid, fr, g.idx, g.seg_end,
+                                       frame.start, frame.end, out_t)
+            return _rmq_minmax(f, vals, valid, fr, out_t,
+                               max(n, 1).bit_length())
+        if T.is_wide_decimal(out_t) or vals.dim() == 2:
+            return _wide_agg_window(f, out_t, vals, contributing, fr)
 
-        # sum family. Every supported frame starts at the segment's first
-        # row, so a frame's sum is the segment's running sum at its last
-        # row. The reference takes a global prefix difference
-        # pre[hi] - pre[lo] + x[lo]: the same for integers (exact under
-        # wraparound), but for floats it loses a small segment's sum under
-        # a large prefix, which the segmented scan does not.
+        # sum family: differences of segmented running sums. A frame from
+        # the partition's first row reads the running sum at its last row;
+        # the reference takes global prefix differences, which for floats
+        # lose a small frame's sum under a large prefix
         if vals.is_floating_point():
             d, is_nan = K._float_canonical(vals)
             clean = contributing & ~is_nan
-            nan_row = (contributing & is_nan).long()
             masked = torch.where(clean, d, torch.zeros_like(d))
         else:
-            nan_row = None
+            is_nan = None
             v64 = vals.long()
             masked = torch.where(contributing, v64, torch.zeros_like(v64))
-
-        def win(x):
-            return K.segmented_scan_kernel(x, seg_flag, "add")[hi]
-
-        s = win(masked)
-        c = win(contributing.long())
-        if nan_row is not None:
-            s = torch.where(win(nan_row) > 0,
+        s = fr.sum(masked)
+        if is_nan is not None:
+            s = torch.where(fr.count(contributing & is_nan) > 0,
                             torch.full_like(s, float("nan")), s)
-        return _finish_agg(f, out_t, s, c)
+        return _finish_agg(f, out_t, s, fr.count(contributing))
 
-    @staticmethod
-    def _scan_minmax(f, vals, valid, seg_flag, cnt, out_t,
-                     gather_at: Optional[torch.Tensor]) -> DeviceColumn:
-        op = "min" if isinstance(f, E.Min) else "max"
-        if vals.is_floating_point():
-            # Spark orders NaN above every value: scan the clean values with
-            # an infinite identity and NaN-seen / clean-seen flags beside
-            d, is_nan = K._float_canonical(vals)
-            live_clean = valid & ~is_nan
-            ident = float("inf") if op == "min" else float("-inf")
-            m = torch.where(live_clean, d, torch.full_like(d, ident))
-            red = K.segmented_scan_kernel(m, seg_flag, op)
-            nan_seen = K.segmented_scan_kernel((valid & is_nan).int(),
-                                               seg_flag, "max") > 0
-            clean_seen = K.segmented_scan_kernel(live_clean.int(), seg_flag,
-                                                 "max") > 0
-            if gather_at is not None:
-                red, cnt = red[gather_at], cnt[gather_at]
-                nan_seen, clean_seen = nan_seen[gather_at], clean_seen[
-                    gather_at]
-            nan = torch.full_like(red, float("nan"))
-            dec = (torch.where(nan_seen, nan, red) if op == "max"
-                   else torch.where(clean_seen, red, nan))
-            return _win_out(out_t, dec.to(vals.dtype), cnt > 0)
-        work = vals.int() if vals.dtype == torch.bool else vals
-        info = torch.iinfo(work.dtype)
-        ident = info.max if op == "min" else info.min
-        m = torch.where(valid, work, torch.full_like(work, ident))
-        red = K.segmented_scan_kernel(m, seg_flag, op)
-        if gather_at is not None:
-            red, cnt = red[gather_at], cnt[gather_at]
-        return _win_out(out_t, red, cnt > 0)
+
+class _Frame:
+    """Each row's frame [lo, hi] inside its partition, and sums over it
+    as differences of segmented add-scans (through the kernel's wrapper)."""
+
+    def __init__(self, lo: torch.Tensor, hi: torch.Tensor,
+                 seg_start: torch.Tensor, seg_flag: torch.Tensor):
+        last = lo.numel() - 1
+        self.empty = hi < lo
+        self.lo, self.hi = lo.clamp(0, last), hi.clamp(0, last)
+        self.seg_flag = seg_flag
+        # rows whose frame starts after the partition's first row subtract
+        # the running sum just before it
+        self.inner = lo > seg_start
+        self.before = (lo - 1).clamp(0, last)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        run = K.segmented_scan_kernel(x.contiguous(), self.seg_flag, "add")
+        s = run[self.hi] - torch.where(self.inner, run[self.before],
+                                       torch.zeros_like(run[self.hi]))
+        return torch.where(self.empty, torch.zeros_like(s), s)
+
+    def count(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.sum(rows.long())
+
+
+def _minmax_input(f, vals: torch.Tensor, valid: torch.Tensor):
+    """(scan values, identity, live rows, NaN rows or None) of a Min or
+    Max input: floats canonical (-0.0 as 0.0) with NaN and null rows at the
+    identity, since Spark orders NaN above every value (a NaN count is
+    kept beside); narrow integers and booleans widened to int32."""
+    is_min = isinstance(f, E.Min)
+    if vals.is_floating_point():
+        d, is_nan = K._float_canonical(vals)
+        live = valid & ~is_nan
+        ident = float("inf") if is_min else float("-inf")
+        return (torch.where(live, d, torch.full_like(d, ident)), ident, live,
+                valid & is_nan)
+    work = vals.int() if vals.dtype in (torch.bool, torch.int8,
+                                        torch.int16) else vals
+    info = torch.iinfo(work.dtype)
+    ident = info.max if is_min else info.min
+    return (torch.where(valid, work, torch.full_like(work, ident)), ident,
+            valid, None)
+
+
+def _minmax_out(f, out_t, vals, red, has, nan_seen) -> DeviceColumn:
+    """A Min/Max column from the reduction of the live values, whether
+    any was live, and (floats) whether a NaN was seen: a max with a NaN is
+    NaN, a min of NaNs only is NaN."""
+    if nan_seen is None:
+        return _win_out(out_t, red, has)
+    nan = torch.full_like(red, float("nan"))
+    dec = (torch.where(nan_seen, nan, red) if isinstance(f, E.Max)
+           else torch.where(has, red, nan))
+    return _win_out(out_t, dec.to(vals.dtype), has | nan_seen)
+
+
+def _scan_minmax(f, vals, valid, fr: _Frame, out_t,
+                 from_end: bool) -> DeviceColumn:
+    """Min/Max over frames that reach one end of their partition: a
+    running min/max scan read at the frame's last row (frames from
+    UNBOUNDED PRECEDING), or (``from_end``: frames to UNBOUNDED FOLLOWING)
+    the same scan over the reversed rows, read at the frame's first row."""
+    op = "min" if isinstance(f, E.Min) else "max"
+    m, _ident, live, nan_row = _minmax_input(f, vals, valid)
+    if from_end:
+        red = K.segmented_scan_kernel(m.flip(0), _rev_flags(fr.seg_flag),
+                                      op).flip(0)[fr.lo]
+    else:
+        red = K.segmented_scan_kernel(m, fr.seg_flag, op)[fr.hi]
+    has = fr.count(live) > 0  # false for an empty frame: its row is null
+    nan_seen = None if nan_row is None else fr.count(nan_row) > 0
+    return _minmax_out(f, out_t, vals, red, has, nan_seen)
+
+
+def _bounded_minmax(f, vals, valid, fr: _Frame, idx, seg_end, a: int,
+                    b: int, out_t) -> DeviceColumn:
+    """Min/Max over ROWS a..b (the reference's ``_bounded_minmax``): a
+    frame of width w = b - a + 1 spans at most two w-aligned blocks, so a
+    prefix scan that restarts at block and partition starts and a suffix
+    scan (over the reversed rows) that restarts at block and partition
+    ends cover it: one scan's value where the frame lies in one block and
+    starts (or ends) on that scan's restart, else both combined."""
+    op = "min" if isinstance(f, E.Min) else "max"
+    comb = torch.minimum if op == "min" else torch.maximum
+    w = max(b - a + 1, 1)
+    block = idx % w
+    m, _ident, live, nan_row = _minmax_input(f, vals, valid)
+    pre = K.segmented_scan_kernel(m, fr.seg_flag | (block == 0), op)
+    suf_start = ((idx == seg_end) | (block == w - 1)).flip(0)
+    suf = K.segmented_scan_kernel(m.flip(0), suf_start, op).flip(0)
+    lo, hi = fr.lo, fr.hi
+    block_start = (hi // w) * w
+    one_block = block_start <= lo
+    # pre[hi] covers max(block start, partition start)..hi: exact when that
+    # is lo, i.e. lo is the block start or the partition start
+    from_pre = (block_start == lo) | fr.seg_flag[lo]
+    red = torch.where(one_block, torch.where(from_pre, pre[hi], suf[lo]),
+                      comb(suf[lo], pre[hi]))
+    has = fr.count(live) > 0  # false for an empty frame: its row is null
+    nan_seen = None if nan_row is None else fr.count(nan_row) > 0
+    return _minmax_out(f, out_t, vals, red, has, nan_seen)
+
+
+def _rmq_minmax(f, vals, valid, fr: _Frame, out_t,
+                levels: int) -> DeviceColumn:
+    """Min/Max over frames with no scan shape (bounded RANGE frames,
+    whose null keys frame their peers): a sparse-table range query per
+    row."""
+    comb = torch.minimum if isinstance(f, E.Min) else torch.maximum
+    m, ident, live, nan_row = _minmax_input(f, vals, valid)
+    red = K.sparse_query(K.sparse_table(m, comb, ident, levels), comb,
+                         fr.lo, fr.hi)
+    has = fr.count(live) > 0
+    nan_seen = None if nan_row is None else fr.count(nan_row) > 0
+    return _minmax_out(f, out_t, vals, red, has, nan_seen)
+
+
+def _first_last(f, out_t, vals, valid, fr: _Frame) -> DeviceColumn:
+    """First/Last over any frame: the first non-null row at or after the
+    frame's first row (a min scan of the non-null rows' positions over the
+    reversed rows, read at lo), found where it is not past the frame's last
+    row; Last the mirror (a max scan read at hi, found where not before
+    lo)."""
+    n = valid.numel()
+    pos = torch.arange(n, dtype=torch.int32, device=valid.device)
+    if isinstance(f, E.First):
+        at = K.segmented_scan_kernel(
+            torch.where(valid, pos, n).flip(0), _rev_flags(fr.seg_flag),
+            "min").flip(0)[fr.lo].long()
+        found = ~fr.empty & (at <= fr.hi)
+    else:
+        at = K.segmented_scan_kernel(torch.where(valid, pos, -1),
+                                     fr.seg_flag, "max")[fr.hi].long()
+        found = ~fr.empty & (at >= fr.lo)
+    return _win_out(out_t, vals[at.clamp(0, n - 1)], found)
 
 
 def _wide_agg_window(f, out_t: T.DecimalType, vals: torch.Tensor,
-                     contributing: torch.Tensor, seg_flag: torch.Tensor,
-                     hi: torch.Tensor) -> DeviceColumn:
-    """A DECIMAL128 window Sum or Average: the segment's running 128-bit
-    sum at each row's last frame row, from three add-scans of the
-    segmented-scan kernel (lo's 32-bit halves and hi), joined with
-    carries."""
+                     contributing: torch.Tensor, fr: _Frame) -> DeviceColumn:
+    """A DECIMAL128 window Sum or Average: the frame's 128-bit sum from
+    three add-scans of the segmented-scan kernel (lo's 32-bit halves and
+    hi), each differenced over the frame and joined with carries."""
     if vals.dim() == 2:
         h, l = I128.split(vals)
     else:  # a DECIMAL64 input whose window sum is DECIMAL128
@@ -340,13 +578,9 @@ def _wide_agg_window(f, out_t: T.DecimalType, vals: torch.Tensor,
     zero = torch.zeros((), dtype=torch.int64, device=vals.device)
     h = torch.where(contributing, h, zero)
     l = torch.where(contributing, l, zero)
-
-    def win(x):
-        return K.segmented_scan_kernel(x.contiguous(), seg_flag, "add")[hi]
-
     l0, l1 = I128.lo_halves(l)
-    th, tl = I128.from_part_sums(win(l0), win(l1), win(h))
-    c = win(contributing.long())
+    th, tl = I128.from_part_sums(fr.sum(l0), fr.sum(l1), fr.sum(h))
+    c = fr.count(contributing)
     nz = c > 0
     if isinstance(f, E.Average):
         d = out_t.scale - f.children[0].dtype.scale
@@ -374,7 +608,7 @@ def _win_out(out_t: T.DataType, data: torch.Tensor,
                         valid)
 
 
-def _finish_agg(f, out_t: T.DataType, s: torch.Tensor,
+def _finish_agg(f, out_t: T.DataType, s: Optional[torch.Tensor],
                 c: torch.Tensor) -> DeviceColumn:
     if isinstance(f, E.Count):
         return _win_out(T.LONG, c, torch.ones_like(c, dtype=torch.bool))

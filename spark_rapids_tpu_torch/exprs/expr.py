@@ -672,6 +672,17 @@ class Average(AggregateExpression):
         return True
 
 
+class First(_Extremum):
+    """first(x) as the reference computes it: the first non-null value of
+    the frame (Spark's first(x, ignoreNulls = true)). A window function
+    only: neither engine's group-by has it."""
+
+
+class Last(_Extremum):
+    """last(x): the last non-null value of the frame (Spark's last(x,
+    ignoreNulls = true)). A window function only."""
+
+
 class CountDistinct(AggregateExpression):
     """COUNT(DISTINCT x): the number of distinct non-null values. The CPU
     engine reduces it natively; on the device the planner rewrites it

@@ -2,10 +2,10 @@
 (host-only; counterpart of spark_rapids_tpu/exprs/window.py).
 
 exec/window.py computes every window column over partition-sorted rows
-from one shared segment/peer geometry, built with segmented scans. It runs
-RowNumber, Rank, DenseRank and Sum/Count/Average/Min/Max over ROWS/RANGE
-UNBOUNDED..UNBOUNDED and UNBOUNDED..CURRENT ROW; the other functions and
-frames here are typed but raise NotImplementedError when executed.
+from one shared segment/peer geometry, built with segmented scans: every
+function here, and Sum/Count/Average/Min/Max/First/Last (exprs/expr.py)
+over UNBOUNDED, running and bounded ROWS and RANGE frames
+(``exec.window.check_window`` names what it refuses).
 """
 
 from __future__ import annotations
@@ -41,6 +41,21 @@ class WindowFrame:
     def is_running(self) -> bool:
         """UNBOUNDED PRECEDING .. CURRENT ROW."""
         return self.start is UNBOUNDED and self.end == 0
+
+    @property
+    def is_bounded_rows(self) -> bool:
+        """ROWS a..b with both offsets given."""
+        return (self.kind == "rows" and self.start is not UNBOUNDED
+                and self.end is not UNBOUNDED)
+
+    @property
+    def is_bounded_range(self) -> bool:
+        """A RANGE frame whose rows depend on the order key's values (all
+        but UNBOUNDED..UNBOUNDED, UNBOUNDED..CURRENT ROW and CURRENT
+        ROW..UNBOUNDED FOLLOWING, which follow the peer runs)."""
+        return (self.kind == "range" and not self.is_unbounded_both
+                and not self.is_running
+                and not (self.start == 0 and self.end is UNBOUNDED))
 
     def __repr__(self):
         def b(x, side):

@@ -1,24 +1,29 @@
 """The CPU engine's window operator (counterpart of the reference's
-CpuWindowExec in spark_rapids_tpu/plan/cpu.py), for the device's window
-surface: RowNumber, Rank and DenseRank, and Sum, Count, Average, Min and
-Max over ROWS or RANGE frames UNBOUNDED PRECEDING..UNBOUNDED FOLLOWING and
-UNBOUNDED PRECEDING..CURRENT ROW.
+CpuWindowExec in spark_rapids_tpu/plan/cpu_agg.py), for the device's window
+surface (``exec.window.check_window``): RowNumber, Rank, DenseRank, NTile,
+PercentRank, CumeDist, Lead and Lag, and Sum, Count, Average, Min, Max,
+First and Last over UNBOUNDED, running and bounded ROWS and RANGE frames.
 
 Like the device's ``WindowExec`` it reads every row of its child, orders
 them by the (partition, order) keys (``cpu.sort_permutation``: Spark's
-null and NaN order, stable) and appends the window columns, so its rows
-come out partition-sorted too. Each segment (a partition) is folded on
-its own with numpy; decimals add as Python ints (exact at any precision,
-null past the result's), and a decimal average is HALF_UP at the result
-scale, as on the device. A frame that starts at the segment's first row
-ends at the segment's last row (UNBOUNDED FOLLOWING), the current row
-(ROWS) or the current row's last peer (RANGE), so every aggregate is a
-running fold read at that row.
+null and NaN order, strings by their characters, stable) and appends the
+window columns, so its rows come out partition-sorted too. Each row's
+frame is a row range inside its partition: ROWS offsets clipped to the
+partition, the peers of a RANGE frame, or for a bounded RANGE frame a
+``np.searchsorted`` of the order key within each partition (null keys
+frame their peers). Counts are prefix-count differences; decimal and
+integer sums are differences of exact Python-int prefix sums, float sums
+of per-partition running sums (null past a decimal result's precision; a
+decimal average is HALF_UP at the result scale, as on the device). Min
+and Max read a per-partition running min/max where the frame starts at
+the partition's first row and reduce each frame otherwise, in Spark's
+order (NaN above every double). First and Last take the first (last)
+non-null row of the frame; Lead and Lag the row ``offset`` rows away.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import pyarrow as pa
@@ -26,8 +31,7 @@ import pyarrow as pa
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
 from spark_rapids_tpu_torch.exec.base import DeviceExec
-from spark_rapids_tpu_torch.exec.window import (
-    _AGGS, _check_window_supported)
+from spark_rapids_tpu_torch.exec.window import bind_function, check_window
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan.cpu import (
@@ -44,7 +48,7 @@ class CpuWindowExec(CpuExec):
         super().__init__(child, device=device)
         self.window_exprs = list(window_exprs)
         cs = child.output_schema
-        self._bound = []
+        wins = []
         spec = None
         for e in self.window_exprs:
             w, name = _strip_alias(e)
@@ -56,15 +60,17 @@ class CpuWindowExec(CpuExec):
                   or repr(spec.order_by) != repr(w.spec.order_by)):
                 raise ValueError("one window operator handles one "
                                  "(partition, order) spec")
-            f, frame = w.function, w.spec.resolved_frame()
-            _check_window_supported(f, frame)
-            if isinstance(f, _AGGS) and f.children:
-                f = type(f)(E.resolve(f.children[0], cs))
-            self._bound.append((f, frame, name))
+            wins.append((w, name))
         self._spec = spec or W.WindowSpec()
         self._parts = [E.resolve(p, cs) for p in self._spec.partition_by]
         self._orders = [(E.resolve(o.child, cs), o.ascending, o.nulls_first)
                         for o in self._spec.order_by]
+        order_keys = [(o, asc) for o, asc, _nf in self._orders]
+        self._bound = []
+        for w, name in wins:
+            f, frame = bind_function(w.function, cs), w.spec.resolved_frame()
+            check_window(f, frame, order_keys)
+            self._bound.append((f, frame, name))
 
     @property
     def output_schema(self) -> T.Schema:
@@ -82,18 +88,39 @@ class CpuWindowExec(CpuExec):
         perm = sort_permutation(t, [(p, True, None) for p in self._parts]
                                 + self._orders)
         t = t.take(pa.array(perm, pa.int64()))
-        seg_start = _run_starts(t, [p for p in self._parts], n)
+        seg_start = _run_starts(t, self._parts, n)
         run_start = seg_start | _run_starts(
             t, [o for o, _a, _nf in self._orders], n)
-        starts = np.flatnonzero(seg_start) if n else np.zeros(0, np.int64)
-        ends = np.append(starts[1:], n)
+        g = _geometry(seg_start, run_start, n)
         arrays = list(t.columns)
         for f, frame, _name in self._bound:
-            vals, valid = _window_column(f, frame, t, starts, ends,
-                                         run_start, n)
+            vals, valid = _window_column(f, frame, t, g, self._orders)
             arrays.append(values_to_arrow(vals, valid, f.dtype))
         yield pa.Table.from_arrays(arrays,
                                    schema=self.output_schema.to_arrow())
+
+
+class _Geo(NamedTuple):
+    """Per sorted row: its position, its partition's first and last rows
+    and its peer run's first and last rows; the partitions' bounds."""
+    idx: np.ndarray
+    seg_first: np.ndarray
+    seg_last: np.ndarray
+    peer_first: np.ndarray
+    peer_last: np.ndarray
+    starts: np.ndarray
+    ends: np.ndarray
+
+
+def _geometry(seg_start: np.ndarray, run_start: np.ndarray, n: int) -> _Geo:
+    starts = np.flatnonzero(seg_start)
+    ends = np.append(starts[1:], n)[:len(starts)].astype(np.int64)
+    rstarts = np.flatnonzero(run_start)
+    rends = np.append(rstarts[1:], n)[:len(rstarts)].astype(np.int64)
+    return _Geo(np.arange(n), np.repeat(starts, ends - starts),
+                np.repeat(ends - 1, ends - starts),
+                np.repeat(rstarts, rends - rstarts),
+                np.repeat(rends - 1, rends - rstarts), starts, ends)
 
 
 def _run_starts(t: pa.Table, keys: Sequence[E.Expression],
@@ -111,108 +138,193 @@ def _run_starts(t: pa.Table, keys: Sequence[E.Expression],
     return flags
 
 
-def _window_column(f, frame: W.WindowFrame, t: pa.Table, starts, ends,
-                   run_start: np.ndarray, n: int):
+def _window_column(f, frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
     """(values, valid) of one window function over the sorted rows."""
-    idx = np.arange(n)
-    seg_first = np.repeat(starts, ends - starts)
-    if isinstance(f, (W.RowNumber, W.Rank, W.DenseRank)):
-        peer_first = np.maximum.accumulate(np.where(run_start, idx, 0)) \
-            if n else idx
-        if isinstance(f, W.RowNumber):
-            out = idx - seg_first + 1
-        elif isinstance(f, W.Rank):
-            out = peer_first - seg_first + 1
-        else:
-            runs = np.cumsum(run_start)
-            out = runs - runs[seg_first] + 1
-        return out.astype(np.int32), np.ones(n, np.bool_)
-    # the last row of each row's frame
+    n = len(g.idx)
+    every = np.ones(n, np.bool_)
+    if isinstance(f, W.RowNumber):
+        return (g.idx - g.seg_first + 1).astype(np.int32), every
+    if isinstance(f, W.Rank):
+        return (g.peer_first - g.seg_first + 1).astype(np.int32), every
+    if isinstance(f, W.DenseRank):
+        runs = np.cumsum(g.peer_first == g.idx)
+        return (runs - runs[g.seg_first] + 1).astype(np.int32), every
+    if isinstance(f, W.PercentRank):
+        others = g.seg_last - g.seg_first
+        return np.where(others > 0, (g.peer_first - g.seg_first)
+                        / np.maximum(others, 1), 0.0), every
+    if isinstance(f, W.CumeDist):
+        return ((g.peer_last - g.seg_first + 1)
+                / (g.seg_last - g.seg_first + 1)), every
+    if isinstance(f, W.NTile):
+        size = g.seg_last - g.seg_first + 1
+        r = g.idx - g.seg_first
+        base, rem = size // f.n, size % f.n
+        big = rem * (base + 1)  # rows in the (rem) tiles one row larger
+        tile = np.where(r < big, r // (base + 1),
+                        rem + (r - big) // np.maximum(base, 1))
+        return (tile + 1).astype(np.int32), every
+    if isinstance(f, W.Lead):
+        return _offset(f, t, g)
+    return _frame_agg(f, frame, t, g, orders)
+
+
+def _offset(f: W.Lead, t: pa.Table, g: _Geo):
+    vals, valid = cpu_eval(f.child, t)
+    off = -f.offset if isinstance(f, W.Lag) else f.offset
+    src = g.idx + off
+    ok = (src >= g.seg_first) & (src <= g.seg_last)
+    src = np.clip(src, 0, max(len(g.idx) - 1, 0))
+    out, out_valid = vals[src], valid[src] & ok
+    if f.default is not None:
+        dv, dvalid = cpu_eval(f.default, t)
+        out = np.where(ok, out, dv)
+        out_valid = np.where(ok, out_valid, dvalid)
+    return out, out_valid
+
+
+def _frame_rows(frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
+    """Per row, the first and last rows of its frame (empty where last <
+    first)."""
     if frame.is_unbounded_both:
-        last = np.repeat(ends - 1, ends - starts)
-    elif frame.kind == "rows":
-        last = idx
-    else:  # RANGE: the current row's last peer
-        nxt = np.append(np.flatnonzero(run_start)[1:], n) if n else idx
-        run_id = np.cumsum(run_start) - 1
-        last = nxt[run_id] - 1
+        return g.seg_first, g.seg_last
+    if frame.kind == "rows":
+        lo = (g.seg_first if frame.start is None
+              else np.maximum(g.idx + frame.start, g.seg_first))
+        hi = (g.seg_last if frame.end is None
+              else np.minimum(g.idx + frame.end, g.seg_last))
+        return lo, hi
+    if frame.is_running:
+        return g.seg_first, g.peer_last
+    if frame.start == 0 and frame.end is None:
+        return g.peer_first, g.seg_last
+    # bounded RANGE: the rows whose key lies in [key + start, key + end],
+    # searched among each partition's non-null keys (ascending, contiguous)
+    vals, valid = cpu_eval(orders[0][0], t)
+    key = np.asarray(vals, np.int64)
+    lo, hi = g.peer_first.copy(), g.peer_last.copy()  # null keys: peers
+    for s, e in zip(g.starts, g.ends):
+        nn = s + np.flatnonzero(valid[s:e])
+        if not len(nn):
+            continue
+        k = key[nn]
+        if frame.start is not None:
+            lo[nn] = nn[0] + np.searchsorted(k, k + frame.start, "left")
+        else:
+            lo[nn] = s
+        if frame.end is not None:
+            hi[nn] = nn[0] + np.searchsorted(k, k + frame.end, "right") - 1
+        else:
+            hi[nn] = e - 1
+    return lo, hi
+
+
+def _frame_agg(f, frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
+    n = len(g.idx)
+    lo, hi = _frame_rows(frame, t, g, orders)
+    empty = hi < lo
+    lo_c, hi_c = np.clip(lo, 0, max(n - 1, 0)), np.clip(hi, 0, max(n - 1, 0))
     if f.children:
         vals, valid = cpu_eval(f.children[0], t)
         in_t = f.children[0].dtype
     else:  # count(*)
         vals, valid, in_t = np.zeros(n, np.int64), np.ones(n, np.bool_), \
             T.LONG
+
+    def count(rows):
+        pre = np.concatenate([[0], np.cumsum(rows)])
+        return np.where(empty, 0, pre[hi_c + 1] - pre[lo_c])
+
+    cnt = count(valid)
+    ok = cnt > 0
     out_t = f.dtype
-    counts = np.zeros(n, np.int64)
     if isinstance(f, E.Count):
-        for s, e in zip(starts, ends):
-            counts[s:e] = np.cumsum(valid[s:e])
-        return counts[last], np.ones(n, np.bool_)
+        return cnt, np.ones(n, np.bool_)
+    if isinstance(f, (E.First, E.Last)):
+        rows = np.flatnonzero(valid)
+        before = np.concatenate([[0], np.cumsum(valid)])
+        k = before[lo_c] if isinstance(f, E.First) else before[hi_c + 1] - 1
+        at = rows[np.clip(k, 0, max(len(rows) - 1, 0))] if len(rows) \
+            else lo_c
+        return vals[at], ok
     exact = (isinstance(in_t, T.DecimalType)
              or in_t in T.INTEGRAL_TYPES + (T.DATE, T.BOOLEAN))
-    acc = np.zeros(n, dtype=object if exact else np.float64)
-    for s, e in zip(starts, ends):
-        v, m = vals[s:e], valid[s:e]
-        counts[s:e] = np.cumsum(m)
-        if isinstance(f, (E.Sum, E.Average)):
-            if exact:
-                acc[s:e] = np.cumsum(np.array(
-                    [int(x) if ok else 0 for x, ok in zip(v, m)],
-                    dtype=object))
-            else:
-                acc[s:e] = np.cumsum(np.where(m, v, 0.0))
-        else:
-            acc[s:e] = _running_extremum(v, m, isinstance(f, E.Min),
-                                         exact)
-    cnt = counts[last]
-    got = acc[last]
-    ok = cnt > 0
+    if isinstance(f, (E.Min, E.Max)):
+        from_first = bool((np.where(empty, g.seg_first, lo)
+                           == g.seg_first).all())
+        return _frame_extremum(f, vals, valid, exact, lo_c, hi_c, g,
+                               from_first, count)
+    if exact:  # exact prefix sums: any difference is the frame's sum
+        pre = np.cumsum(np.concatenate(
+            [[0], np.where(valid, vals, 0)]).astype(object))
+        got = np.where(empty, 0, pre[hi_c + 1] - pre[lo_c])
+        nan_in = None
+    else:
+        d = _canonical_float(np.asarray(vals, np.float64))
+        is_nan = valid & np.isnan(d)
+        run = np.zeros(n)
+        clean = np.where(valid & ~is_nan, d, 0.0)
+        for s, e in zip(g.starts, g.ends):
+            run[s:e] = np.cumsum(clean[s:e])
+        got = run[hi_c] - np.where(lo > g.seg_first, run[lo_c - 1], 0.0)
+        got = np.where(empty, 0.0, got)
+        nan_in = count(is_nan) > 0
     if isinstance(f, E.Average):
         if isinstance(out_t, T.DecimalType):
             k = 10 ** (out_t.scale - in_t.scale)
             out = np.array([_half_up_div(int(x) * k, int(c)) if c else 0
                             for x, c in zip(got, cnt)], dtype=object)
             return _fit(out, ok, out_t)
-        with np.errstate(invalid="ignore", divide="ignore"):
-            return np.where(ok, got.astype(np.float64)
-                            / np.maximum(cnt, 1), 0.0), ok
+        got = got.astype(np.float64)
+        if nan_in is not None:
+            got = np.where(nan_in, np.nan, got)
+        return got / np.maximum(cnt, 1), ok
     if isinstance(out_t, T.DecimalType):
         return _fit(got, ok, out_t)
     if exact:  # a long sum wraps, as Java's
         return np.array([(int(x) + (1 << 63)) % (1 << 64) - (1 << 63)
                          for x in got], np.int64), ok
-    return got.astype(np.float64), ok
+    return np.where(nan_in, np.nan, got), ok
 
 
-def _running_extremum(v: np.ndarray, m: np.ndarray, is_min: bool,
-                      exact: bool) -> np.ndarray:
-    """Running min or max of the valid values of one segment (Spark's
-    order: NaN above every double); rows before the first valid one hold
-    an unused value."""
-    out = np.empty(len(v), dtype=object if exact else np.float64)
-    best = None
-    for i, (x, ok) in enumerate(zip(v.tolist(), m.tolist())):
-        if ok:
-            if exact:
-                x = int(x)
-            if best is None:
-                best = x
-            elif exact:
-                best = min(best, x) if is_min else max(best, x)
-            else:
-                best = _float_extremum(best, x, is_min)
-        out[i] = 0 if best is None else best
-    if not exact:
-        out = _canonical_float(out.astype(np.float64))
-    return out
-
-
-def _float_extremum(a: float, b: float, is_min: bool) -> float:
-    if np.isnan(a) or np.isnan(b):
-        if is_min:
-            return b if np.isnan(a) else a
-        return a if np.isnan(a) else b
-    return min(a, b) if is_min else max(a, b)
+def _frame_extremum(f, vals, valid, exact: bool, lo_c, hi_c, g: _Geo,
+                    from_first: bool, count):
+    """Min or Max of each frame in Spark's order (NaN above every
+    double): a running min/max per partition read at the frame's last row
+    where every frame starts at its partition's first row (``from_first``),
+    else one reduction per frame. ``count`` counts flagged rows per
+    frame."""
+    is_min = isinstance(f, E.Min)
+    if exact:
+        m = np.asarray(vals)
+        m = m.astype(np.int64) if m.dtype == np.bool_ else m
+        if m.dtype == object:  # DECIMAL128: Python ints, past any 38 digits
+            ident = 10 ** 39 if is_min else -10 ** 39
+        else:
+            info = np.iinfo(m.dtype)
+            ident = info.max if is_min else info.min
+        m = np.where(valid, m, ident)
+        nan_row = None
+    else:
+        d = _canonical_float(np.asarray(vals, np.float64))
+        nan_row = valid & np.isnan(d)
+        m = np.where(valid & ~nan_row, d, np.inf if is_min else -np.inf)
+    fold = np.minimum if is_min else np.maximum
+    if from_first:
+        run = np.empty_like(m)
+        for s, e in zip(g.starts, g.ends):
+            run[s:e] = fold.accumulate(m[s:e])
+        red = run[hi_c]
+    else:
+        bounds = np.stack([lo_c, hi_c + 1], 1).reshape(-1)
+        red = fold.reduceat(np.append(m, m[:1]), bounds)[::2]
+    has = count(valid & ~nan_row if nan_row is not None else valid) > 0
+    if nan_row is None:
+        return red.astype(np.asarray(vals).dtype), has
+    nan_seen = count(nan_row) > 0
+    out = (np.where(has, red, np.nan) if is_min
+           else np.where(nan_seen, np.nan, red))
+    return out, has | nan_seen
 
 
 def _fit(vals: np.ndarray, ok: np.ndarray, dt: T.DecimalType):
@@ -223,4 +335,3 @@ def _fit(vals: np.ndarray, ok: np.ndarray, dt: T.DecimalType):
     out = np.array([int(x) if k else 0 for x, k in zip(vals, ok)],
                    dtype=object)
     return (out if dt.is_wide else out.astype(np.int64)), ok
-

@@ -56,7 +56,7 @@ from spark_rapids_tpu_torch.exec.misc import UnionExec
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
 from spark_rapids_tpu_torch.exec.window import (
-    WindowExec, _check_window_supported)
+    WindowExec, bind_function, check_window)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cpu as CPU
@@ -108,8 +108,9 @@ WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
            E.BinaryComparison, E.IsNull, E.IsNotNull, E.If, E.CaseWhen,
            E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count)
 
-# the window functions with a DECIMAL128 device implementation
-_WIDE_WINDOW_OK = (E.Sum, E.Average, E.Count)
+# the window functions with a DECIMAL128 device implementation (Lead covers
+# Lag)
+_WIDE_WINDOW_OK = (E.Sum, E.Average, E.Count, E.First, E.Last, W.Lead)
 
 
 def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
@@ -203,7 +204,8 @@ def _node_exprs(node: L.LogicalPlan) -> List[E.Expression]:
 def _window_reasons(node: L.Window, device: bool = True) -> List[str]:
     """Why the device's WindowExec (``device``) or the CPU engine's
     window operator cannot run this node: both have the window surface of
-    ``exec/window.py``, and the device no DECIMAL128 Min/Max."""
+    ``exec/window.py`` (``check_window``: the bounded-RANGE order-key rule
+    among them), and the device no DECIMAL128 window Min/Max."""
     check = check_expr if device else CPU.cpu_unsupported
     schema = node.child.schema
     reasons: List[str] = []
@@ -213,22 +215,29 @@ def _window_reasons(node: L.Window, device: bool = True) -> List[str]:
             reasons.append(f"not a window expression: {e!r}")
             continue
         spec = inner.spec
-        fn = inner.function
-        for x in (list(spec.partition_by) + [o.child for o in spec.order_by]
-                  + ([fn] if isinstance(fn, E.AggregateExpression)
-                     else list(fn.children))):
-            reasons.extend(check(x, schema))
-        if device and isinstance(fn, E.AggregateExpression) and fn.children:
-            bound = E.resolve(fn, schema)
-            if (T.is_wide_decimal(bound.dtype) or T.is_wide_decimal(
-                    bound.children[0].dtype)) and not isinstance(
-                    bound, _WIDE_WINDOW_OK):
-                reasons.append("decimal128 window function not on device")
         try:
-            _check_window_supported(fn, spec.resolved_frame())
+            fn = bind_function(inner.function, schema)
         except NotImplementedError as ex:
             reasons.append(str(ex))
-    return reasons
+            continue
+        # an aggregate is checked whole (its type support), First/Last and
+        # the other window functions by their inputs
+        whole = isinstance(fn, E.AggregateExpression) and not isinstance(
+            fn, (E.First, E.Last))
+        for x in (list(spec.partition_by) + [o.child for o in spec.order_by]
+                  + ([fn] if whole else list(fn.children))):
+            reasons.extend(check(x, schema))
+        if device and (T.is_wide_decimal(fn.dtype) or any(
+                T.is_wide_decimal(c.dtype) for c in fn.children)) and \
+                not isinstance(fn, _WIDE_WINDOW_OK):
+            reasons.append("decimal128 window function not on device")
+        order_keys = [(E.resolve(o.child, schema), o.ascending)
+                      for o in spec.order_by]
+        try:
+            check_window(fn, spec.resolved_frame(), order_keys)
+        except NotImplementedError as ex:
+            reasons.append(str(ex))
+    return list(dict.fromkeys(reasons))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import decimal
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.exprs import expr as JE
@@ -31,6 +32,9 @@ from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.config.conf import RapidsConf
 from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 D = decimal.Decimal
 ENGINES = {"device": None, "cpu_engine": {"spark.rapids.gpu.sql.enabled":

@@ -8,11 +8,15 @@ import jax
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar import batch as JB
 from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.columnar import batch as PB
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 
 def _table(n, seed):

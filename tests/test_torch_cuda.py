@@ -18,7 +18,10 @@ a condition against the sorted-hash path); the 128-bit arithmetic, a
 DECIMAL128 window sum through the segmented-scan kernel, decimal Divide,
 Abs and UnaryMinus, and the decimal slice's 21 queries and
 q1/q30/q65/q81 on the card against the CPU, the CPU engine and the
-sorted-hash path.
+sorted-hash path; the window slice's surface (ntile, percent_rank,
+cume_dist, lead/lag, first/last, bounded ROWS and RANGE frames, the
+min/max scans, plain-string partition keys) and its five queries
+q47/q57/q70/q86/q89 the same way.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -777,9 +780,14 @@ def test_decimal_divide_on_card_matches_cpu():
                                "q81"])
 def test_tpcds_decimal_query_on_card_matches_cpu(q):
     """The decimal slice's queries (and q1/q30/q65/q81, whose decimal(21,6)
-    averages now run on the device) on the card, wholly on the device,
-    against the same query on the CPU, on the CPU engine and with the hash
-    table off (the sorted-hash path on the card)."""
+    averages now run on the device) on the card."""
+    _slice_query_on_card(q)
+
+
+def _slice_query_on_card(q):
+    """A slice's query on the card, wholly on the device, against the same
+    query on the CPU, on the CPU engine and with the hash table off (the
+    sorted-hash path on the card); returns the card's rows."""
     _card()
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
     from spark_rapids_tpu_torch.bench import tpcds_schema as S
@@ -802,3 +810,94 @@ def test_tpcds_decimal_query_on_card_matches_cpu(q):
     assert Q.check_rows(q, execute_to_arrow(off).to_pylist(), got) == (True,
                                                                      "")
     assert "ht" not in join_paths(off)
+    return got
+
+
+def test_window_rest_on_card_matches_cpu():
+    """The window slice's surface on the card (ntile, percent_rank,
+    cume_dist, lead/lag with defaults over doubles, decimals, DECIMAL128
+    and both string kinds, first/last, bounded ROWS Sum/Min/Max through
+    the prefix/suffix min/max scans, bounded RANGE Sum and Max, a
+    DECIMAL128 Sum over a bounded frame, a plain-string partition key)
+    against the same window on the CPU and on the CPU engine; the
+    segmented-scan kernel runs its min and max ops."""
+    _card()
+    import decimal
+
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.exprs import window as W
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    rng = np.random.default_rng(31)
+    n = 200_000
+    v = rng.normal(0, 10, n)
+    v[rng.random(n) < 0.02] = np.nan
+    t = pa.table({
+        "g": pa.array(rng.integers(0, 500, n), pa.int64()),
+        "o": pa.array(rng.integers(0, 400, n).astype(np.int32), pa.int32(),
+                      mask=rng.random(n) < 0.01),
+        "v": pa.array(v, pa.float64(), mask=rng.random(n) < 0.05),
+        "i": pa.array(rng.integers(-1000, 1000, n), pa.int64()),
+        "m": pa.array([decimal.Decimal(int(x)).scaleb(-2) for x in
+                       rng.integers(-10**6, 10**6, n)], pa.decimal128(7, 2)),
+        "w": pa.array([decimal.Decimal(int(x) * 10**5).scaleb(-2) for x in
+                       rng.integers(-10**14, 10**14, n)],
+                      pa.decimal128(24, 2)),
+        # more distinct values than half the rows: a plain string column
+        "s": pa.array([f"store name {k} " + "x" * (k % 13)
+                       for k in rng.integers(0, 150_000, n)])})
+    seen = []
+    real = PK.segmented_scan_kernel
+
+    def spy(values, is_start, op_name="add"):
+        seen.append(op_name)
+        return real(values, is_start, op_name)
+
+    def q(device, conf=None, part="g"):
+        spec = W.window_spec(partition_by=[part], order_by=["o"])
+        rows = W.window_spec([part], ["o"], W.WindowFrame("rows", -3, 3))
+        rng_ = W.window_spec([part], ["o"], W.WindowFrame("range", -5, 5))
+        df = from_arrow(t, RapidsConf(conf or {}), batch_rows=1 << 16,
+                        device=device)
+        ws = [W.over(f, sp).alias(a) for a, f, sp in (
+            ("nt", W.NTile(4), spec), ("pr", W.PercentRank(), spec),
+            ("cd", W.CumeDist(), spec),
+            ("ld", W.Lead(E.col("v"), 1, E.lit(0.0)), spec),
+            ("lg", W.Lag(E.col("m"), 2), spec),
+            ("lw", W.Lag(E.col("w"), 1), spec),
+            ("ls", W.Lead(E.col("s"), 1, E.lit("none")), spec),
+            ("f", E.First(E.col("v")), rows), ("l", E.Last(E.col("i")), rows),
+            ("sv", E.Sum(E.col("v")), rows), ("mn", E.Min(E.col("v")), rows),
+            ("mx", E.Max(E.col("i")), rows), ("sm", E.Sum(E.col("m")), rows),
+            ("sw", E.Sum(E.col("w")), rows),
+            ("rs", E.Sum(E.col("i")), rng_), ("rx", E.Max(E.col("m")), rng_))]
+        return df.with_window(*ws).collect()
+
+    PK.segmented_scan_kernel = spy
+    try:
+        got = q("cuda")
+        got_s = q("cuda", part="s")
+    finally:
+        PK.segmented_scan_kernel = real
+    assert {"add", "min", "max"} <= set(seen)
+    for g, c in ((got, q("cpu")), (got_s, q("cpu", part="s")),
+                 (got, q("cuda", {"spark.rapids.gpu.sql.enabled":
+                                  "false"}))):
+        assert len(g) == len(c) == n
+        for a, b in zip(g, c):
+            for k, x in a.items():
+                y = b[k]
+                if isinstance(x, float) and isinstance(y, float):
+                    assert (x == y or (x != x and y != y)
+                            or abs(x - y) <= 1e-9 * max(1.0, abs(y))), k
+                else:
+                    assert x == y, k
+
+
+@pytest.mark.parametrize("q", ["q47", "q57", "q70", "q86", "q89"])
+def test_tpcds_window_rest_query_on_card_matches_cpu(q):
+    """The window slice's queries on the card, each with values."""
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+
+    assert Q.informative(_slice_query_on_card(q))

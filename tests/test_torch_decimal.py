@@ -10,6 +10,7 @@ import decimal
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar import batch as JB
@@ -26,6 +27,9 @@ from spark_rapids_tpu_torch.exec.base import BatchSourceExec as PSource
 from spark_rapids_tpu_torch.exec.project import (FilterExec as PFilter,
                                                  ProjectExec as PProject)
 from spark_rapids_tpu_torch.exprs import expr as PE
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 D = decimal.Decimal
 

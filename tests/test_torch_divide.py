@@ -19,6 +19,7 @@ import math
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar import batch as JB
@@ -43,6 +44,9 @@ from spark_rapids_tpu_torch.exec.window import WindowExec as PWindow
 from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.exprs import window as PW
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 D = decimal.Decimal
 

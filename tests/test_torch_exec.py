@@ -6,6 +6,7 @@ and Sort with a limit."""
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar import batch as JB
@@ -29,6 +30,9 @@ from spark_rapids_tpu_torch.exec.project import (FilterExec as PFilter,
 from spark_rapids_tpu_torch.exec.sort import SortExec as PSort
 from spark_rapids_tpu_torch.exec.sort import SortOrder as POrd
 from spark_rapids_tpu_torch.exprs import expr as PE
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 # the JAX join takes its general hash-table path under these
 HT_CONF = {"spark.rapids.tpu.sql.join.denseKey.maxDomain": "0",

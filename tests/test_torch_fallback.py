@@ -44,6 +44,9 @@ from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.plan import cpu as PCPU
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 D = decimal.Decimal
 CPU_ONLY = {"spark.rapids.gpu.sql.enabled": "false"}
 NO_FALLBACK = {"spark.rapids.gpu.sql.fallback.enabled": "false"}
@@ -270,6 +273,51 @@ def test_decimal128_column_keeps_its_consumers_on_the_cpu():
     assert sum(r["k"] for r in got.to_pylist()) == 5
 
 
+def test_decimal128_window_min_max_runs_on_the_cpu_engine():
+    """A window Min/Max over decimal(22,2) is not on the device (the
+    reference's rule); the Window node runs on the CPU engine in a mixed
+    plan, its values exact, equal to the JAX planner's (whose CPU engine
+    runs it too)."""
+    from spark_rapids_tpu.exprs import window as JW
+    from spark_rapids_tpu_torch.exprs import window as PW
+
+    rng = np.random.default_rng(17)
+    n = 120
+    t = pa.table({
+        "r": pa.array(np.arange(n), pa.int64()),
+        "g": pa.array(rng.integers(0, 4, n), pa.int64()),
+        "w": pa.array([D(int(u) * 10**7 + int(v)).scaleb(-2) for u, v in zip(
+            rng.integers(-10**12, 10**12, n), rng.integers(0, 10**7, n))],
+            pa.decimal128(22, 2), mask=rng.random(n) < 0.15)})
+
+    def q(M, W, Ord, df):
+        order = [Ord(M.col("r"))]
+        return df.with_window(
+            W.over(M.Max(M.col("w")), W.window_spec(["g"], order)).alias(
+                "run_mx"),
+            W.over(M.Min(M.col("w")), W.window_spec(
+                ["g"], order, W.WindowFrame("rows", -2, 1))).alias("mn"),
+            W.over(M.Max(M.col("w")), W.window_spec(
+                ["g"], order, W.WindowFrame("rows", None, None))).alias(
+                "mx")).select("r", "g", "w", "run_mx", "mn", "mx").sort("r")
+
+    jdf = jax_from_arrow(t)
+    jdf.shuffle_partitions = 1
+    exp = q(JE, JW, JOrd, jdf).collect()
+    port = q(PE, PW, POrd, port_from_arrow(t, batch_rows=32, device="cpu"))
+    text = port.explain()
+    off = [ln for ln in text.splitlines() if ln.lstrip().startswith("!")]
+    assert len(off) == 1 and off[0].lstrip().startswith("! Window"), text
+    assert "decimal128 window function not on device" in off[0]
+    got = port.collect()
+    assert len(got) == n and got == exp
+    assert any(r["mn"] is not None and abs(r["mn"]) > 2**63 / 100
+               for r in got)
+    with pytest.raises(NotImplementedError, match="decimal128 window"):
+        q(PE, PW, POrd, port_from_arrow(t, RapidsConf(NO_FALLBACK),
+                                        device="cpu")).collect()
+
+
 def _cpu_engine_query(M, which, d):
     col, lit = M.col, M.lit
     Ord, T = (JOrd, JT) if M is JE else (POrd, PT)
@@ -398,20 +446,24 @@ def test_nodes_neither_side_runs_raise_naming_the_reason():
     from spark_rapids_tpu_torch.exprs import window as PW
 
     spec = PW.window_spec(partition_by=["g"], order_by=[POrd(PE.col("x"))])
-    with pytest.raises(NotImplementedError, match="lead/lag"):
-        df.with_window(PW.over(PW.Lead(PE.col("x")), spec).alias("w")
+    bounded = PW.window_spec(["g"], [POrd(PE.col("x"), False)],
+                             PW.WindowFrame("range", -1, 1))
+    with pytest.raises(NotImplementedError, match="bounded RANGE"):
+        df.with_window(PW.over(PE.Sum(PE.col("x")), bounded).alias("w")
                        ).collect()
-    # the CPU engine's window operator has the device's window surface:
-    # lead/lag raises there too, a rank runs and gives the device's rows
+    # the CPU engine's window operator has the device's window surface: a
+    # bounded RANGE frame over a descending order key raises there too, a
+    # rank and a lead/lag run and give the device's rows
     cpu = port_from_arrow(t, RapidsConf(CPU_ONLY), device="cpu")
-    with pytest.raises(NotImplementedError, match="lead/lag"):
-        cpu.with_window(PW.over(PW.Lead(PE.col("x")), spec).alias("w")
+    with pytest.raises(NotImplementedError, match="bounded RANGE"):
+        cpu.with_window(PW.over(PE.Sum(PE.col("x")), bounded).alias("w")
                         ).collect()
-    rank = cpu.with_window(PW.over(PW.Rank(), spec).alias("w"))
-    assert all(ln.lstrip().startswith("!")
-               for ln in rank.explain().splitlines())
-    assert rank.collect() == df.with_window(
-        PW.over(PW.Rank(), spec).alias("w")).collect()
+    for f in (PW.Rank(), PW.Lead(PE.col("x")), PW.Lag(PE.col("x"), 2)):
+        on_cpu = cpu.with_window(PW.over(f, spec).alias("w"))
+        assert all(ln.lstrip().startswith("!")
+                   for ln in on_cpu.explain().splitlines())
+        assert on_cpu.collect() == df.with_window(
+            PW.over(f, spec).alias("w")).collect()
 
 
 @pytest.mark.parametrize("conf", [None, CPU_ONLY])

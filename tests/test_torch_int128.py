@@ -13,6 +13,9 @@ import torch
 from spark_rapids_tpu.exec import int128 as JI
 from spark_rapids_tpu_torch.exec import int128 as PI
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 _EDGES = [0, 1, -1, 2, -2, 5, -5, 10, -10, (1 << 63) - 1, -(1 << 63),
           1 << 63, -(1 << 63) - 1, (1 << 64) - 1, 1 << 64, -(1 << 64),
           (1 << 127) - 1, -(1 << 127) + 1, -(1 << 127), 10 ** 18,

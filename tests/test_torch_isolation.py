@@ -9,6 +9,10 @@ import sys
 
 import pyarrow as pa
 import pytest
+import torch
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "spark_rapids_tpu_torch")

@@ -29,6 +29,7 @@ import decimal
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu import types as JT
 from spark_rapids_tpu.columnar import batch as JB
@@ -49,6 +50,9 @@ from spark_rapids_tpu_torch.exec.join import HashJoinExec as PJoin
 from spark_rapids_tpu_torch.exec.project import ProjectExec as PProject
 from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 D = decimal.Decimal
 JOIN_TYPES = ["inner", "left", "right", "full", "left_semi", "left_anti"]

@@ -22,6 +22,9 @@ from spark_rapids_tpu_torch import types as PT
 from spark_rapids_tpu_torch.columnar import batch as PB
 from spark_rapids_tpu_torch.exec import kernels as PK
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 
 def _np(x):
     a = np.asarray(jax.device_get(x))

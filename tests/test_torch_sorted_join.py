@@ -21,6 +21,7 @@ CPU:
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu.columnar import batch as JB
 from spark_rapids_tpu.config import conf as JC
@@ -36,6 +37,9 @@ from spark_rapids_tpu_torch.exprs import expr as PE
 
 from test_torch_joins import (CASES, CHUNK_KEY, HT_CONF, JOIN_TYPES, _rows,
                               _port_cpu_engine, _sources)
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 SORTED = {"spark.rapids.tpu.sql.join.hashTable.enabled": "false"}
 PORT_OFF = {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}

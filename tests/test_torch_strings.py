@@ -22,6 +22,7 @@ and nulls), rows in order where the query orders them.
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu.exec.sort import SortOrder as JOrd
 from spark_rapids_tpu.exprs import expr as JE
@@ -35,6 +36,9 @@ from spark_rapids_tpu_torch.exec.sort import SortOrder as POrd
 from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.exprs import regex as PRX
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 CPU_ONLY = {"spark.rapids.gpu.sql.enabled": "false"}
 ENGINES = ["device", "cpu_engine"]

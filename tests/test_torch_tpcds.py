@@ -29,10 +29,13 @@ queries (``PQ.DECIMAL_SLICE``: Divide, Abs and DECIMAL128 on the device,
 window Sums and Averages into DECIMAL128) are held the same way against
 the JAX package's CPU engine, wholly on the device path, on the CPU engine
 (windows on its window operator) and on the sorted-hash path; q58, empty
-below SF 0.2, is held again there. The port's generated tables equal the
-reference's."""
+below SF 0.2, is held again there. The window slice's five queries
+(``PQ.WINDOW_SLICE``: q47/q57/q89's window averages partitioned by plain
+strings, q70/q86's ranks) are held the same way. The port's generated
+tables equal the reference's."""
 
 import pytest
+import torch
 
 from spark_rapids_tpu.bench import tpcds_queries as JQ
 from spark_rapids_tpu.bench import tpcds_schema as JS
@@ -43,6 +46,9 @@ from spark_rapids_tpu_torch.bench import tpcds_schema as PS
 from spark_rapids_tpu_torch.config.conf import RapidsConf
 from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
 from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 SF = 0.01
 _CACHE = {}
@@ -65,7 +71,8 @@ def _breadth_tables():
     either reads; the same tables as each slice's own)."""
     if "b" not in _CACHE:
         _CACHE["b"] = PS.tables_for(SF, names=PQ.tables_of(
-            PQ.BREADTH + PQ.UNION_SLICE + PQ.DECIMAL_SLICE))
+            PQ.BREADTH + PQ.UNION_SLICE + PQ.DECIMAL_SLICE
+            + PQ.WINDOW_SLICE))
     return _CACHE["b"]
 
 
@@ -129,13 +136,13 @@ def _jax_rows(q, tables=None, variant=None):
     assert (tables is None) == (variant is None)
     key = ("jax", q, variant)
     if key not in _CACHE:
-        wide = PQ.BREADTH + PQ.UNION_SLICE + PQ.DECIMAL_SLICE
+        late = PQ.UNION_SLICE + PQ.DECIMAL_SLICE + PQ.WINDOW_SLICE
+        wide = PQ.BREADTH + late
         tables = tables or (
             _tables() if q not in PQ.TABLES else
             {k: (_breadth_tables() if q in wide else _join_tables())[k]
              for k in PQ.TABLES[q]})
-        conf = (JAX_CPU_ENGINE if q in PQ.UNION_SLICE + PQ.DECIMAL_SLICE
-                else None)
+        conf = JAX_CPU_ENGINE if q in late else None
         _CACHE[key] = JQ.QUERIES[q](_jax_frames(tables, conf)).collect()
         _release_jax_programs()
     return _CACHE[key]
@@ -384,13 +391,13 @@ def test_tpcds_union_query_matches_jax(q):
                 device="cpu")).collect() == []
 
 
-@pytest.mark.parametrize("q", PQ.DECIMAL_SLICE)
-def test_tpcds_decimal_query_matches_jax(q):
-    """Each decimal-slice query against the JAX package's CPU engine
-    (exact for integers, decimals, strings and nulls, rel 1e-6 on doubles,
-    ORDER BY order per ``ORDER_KEYS``), wholly on the device path, wholly
-    on the CPU engine (window queries on its window operator) and on the
-    sorted-hash path, every device join taking it."""
+def _hold_slice_query(q):
+    """One query of the decimal or window slice against the JAX package's
+    CPU engine (exact for integers, decimals, strings and nulls, rel 1e-6
+    on doubles, ORDER BY order per ``ORDER_KEYS``), wholly on the device
+    path, wholly on the CPU engine (window queries on its window operator)
+    and on the sorted-hash path, every device join taking it; with values
+    unless ``EMPTY_AT_SF`` names it."""
     tables = {k: _breadth_tables()[k] for k in PQ.TABLES[q]}
     d = PQ.df_tables(tables, batch_rows=8192, device="cpu")
     df = PQ.QUERIES[q](d)
@@ -423,6 +430,19 @@ def test_tpcds_decimal_query_matches_jax(q):
         True, "")
     paths = join_paths(off_ht)
     assert "sorted" in paths and "ht" not in paths
+
+
+@pytest.mark.parametrize("q", PQ.DECIMAL_SLICE)
+def test_tpcds_decimal_query_matches_jax(q):
+    _hold_slice_query(q)
+
+
+@pytest.mark.parametrize("q", PQ.WINDOW_SLICE)
+def test_tpcds_window_rest_query_matches_jax(q):
+    """q47/q57/q89: decimal(21,6) window averages partitioned by
+    plain-string columns; q70/q86: ranks over sums. Each shows values."""
+    assert q not in PQ.EMPTY_AT_SF[SF]
+    _hold_slice_query(q)
 
 
 def _hold_other_threshold(q, d, cpu, tables, at_ref):

@@ -4,9 +4,13 @@ package's planner on the same tables: exact keys, counts and ORDER BY
 order, doubles within rel 1e-6 (another summation order)."""
 
 import pytest
+import torch
 
 from spark_rapids_tpu.bench import tpch as JTPCH
 from spark_rapids_tpu_torch.bench import tpch as PTPCH
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 _TABLES = {}
 _JAX = {}

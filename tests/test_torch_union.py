@@ -21,6 +21,7 @@ import decimal
 import numpy as np
 import pyarrow as pa
 import pytest
+import torch
 
 from spark_rapids_tpu.exec.sort import SortOrder as JOrd
 from spark_rapids_tpu.exprs import expr as JE
@@ -32,6 +33,9 @@ from spark_rapids_tpu_torch.exec.sort import SortOrder as POrd
 from spark_rapids_tpu_torch.exprs import expr as PE
 from spark_rapids_tpu_torch.plan import from_arrow as port_from_arrow
 from spark_rapids_tpu_torch.plan import logical as PL
+
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
 
 D = decimal.Decimal
 CPU_ONLY = {"spark.rapids.gpu.sql.enabled": "false"}
