@@ -82,14 +82,15 @@ Phases, in order; any failure exits non-zero before the last line:
    held against the same query on the CPU engine; each result must show
    values (``tpcds_queries.informative``) unless ``EMPTY_AT_SF`` names it
    at that SF; the probe must launch in every query; the warm wall
-   (median of 3), the CPU engine's wall and the path each join took.
+   (one warm run), the CPU engine's wall and the path each join took.
    Every query runs once more with each probe call held exactly against
    the plain version, and the path's largest table probe and its largest
    probe are checked as in phase 8; the kernels line reports the first
    under ``breadth_largest``. Then every join query of phases 6, 7 and 9
    runs again with ``spark.rapids.gpu.sql.join.hashTable.enabled=false``:
    every device join must report the sorted-hash path, none may launch
-   the probe, and the rows must equal the hash-table run's;
+   the probe, and the rows must equal the hash-table run's (no warm
+   wall);
 10. TPC-DS union slice: the 25 queries of ``tpcds_queries.UNION_SLICE``
    (Union, Substring, Like, string-column equality, projected string
    literals and residual join conditions) at SF ``--sf-ds`` on the same
@@ -102,12 +103,16 @@ Phases, in order; any failure exits non-zero before the last line:
    whose probe sides are empty); every probe
    call of the path held against the plain version, the path's largest
    table probe checked as in phase 8 (``union_largest`` on the kernels
-   line); warm walls. q76, empty at every SF (no null promotion key is
-   generated), runs once more on the same tables with 10% of the
-   promotion keys nulled, where it must show values and equal the CPU
-   engine. Then the six queries that join with a condition
-   (``CONDITION_JOINS``) run with the hash table off: the same rows, no
-   probe launch, every device join on the sorted-hash path;
+   line); warm walls (medians of 3); each query's exchanges, joins by
+   strategy and shuffle bytes and times (``plan_strategy``: a union of
+   one-split children has a partition per child, so an aggregate or a
+   join above it plans exchanges). q76, empty at every SF
+   (no null promotion key is generated), runs once more on the same
+   tables with 10% of the promotion keys nulled, where it must show
+   values and equal the CPU engine. Then the six queries that join with
+   a condition (``CONDITION_JOINS``) run with the hash table off: the
+   same rows, no probe launch, every device join on the sorted-hash
+   path;
 11. TPC-DS decimal slice: the 21 queries of ``tpcds_queries.DECIMAL_SLICE``
    (Divide, Abs and DECIMAL128 on the device, window Sums and Averages
    into DECIMAL128) and q1/q30/q65/q81 (``WIDE_AVERAGES``, whose
@@ -121,9 +126,10 @@ Phases, in order; any failure exits non-zero before the last line:
    give the CPU engine's value. Every probe call of the path and every
    segmented-scan call of its window queries is held against the plain
    version (the scan: integers and min/max exactly, float adds within
-   ``segscan_add_tolerance``); the path's largest table probe is checked as
-   in phase 8 (``decimal_largest``); warm walls. Every query runs again
-   with the hash table off: the same rows, no probe launch. Last, one
+   ``segscan_add_tolerance``); the path's largest table probe is checked
+   as in phase 8 (``decimal_largest``); warm walls and exchanges as in
+   phase 10. Every query runs again with the hash table off: the same
+   rows, no probe launch. Last, one
    decimal(17,2) / decimal(17,2) Divide over 2,880,000 rows (a
    decimal(37,20) quotient through the 128-bit long division): its torch
    kernel launches and device time (one profiled call), its host time
@@ -153,6 +159,30 @@ Phases, in order; any failure exits non-zero before the last line:
    the torch kernels and device time the bounded RANGE window's
    bisection adds to a running sum of the same column (one profiled run
    each);
+13. partitioned execution: TPC-H Q1/Q3/Q5/Q6 at SF ``--sf`` (12 batches
+   of 2^20 lineitem rows at SF2, in 4 source splits), the TPC-DS queries
+   of ``PARTITIONED_DS`` at SF ``--sf-ds`` in batches of 2^19 rows
+   (store_sales' 6 in 4 splits), q38 again with a broadcast threshold
+   under which its two string-keyed semi joins are shuffled joins
+   (``SHUFFLED_Q38_BROADCAST_ROWS``), and one global ORDER BY
+   ss_net_paid over store_sales' rows with no limit (a range exchange),
+   all with 4 source splits and 4 shuffle partitions. For each:
+   ``explain("ALL")`` must mark no node for the CPU engine; one run with
+   the launch counts zeroed before and read after, held against the same
+   query in one partition (one source split, one shuffle partition) and
+   on the CPU engine (TPC-H and TPC-DS: ``rows_match``/``check_rows``,
+   each result required to show values (``Q.informative``); the sort:
+   all of store_sales' rows, the key column in the same order and the
+   rows as a multiset); its exchanges by partitioner, broadcast and
+   shuffled joins, shuffle bytes written and read and the exchanges'
+   times (``plan_strategy``); the probe must launch in every query that
+   joins (q38 with shuffled joins among them) and the segmented scan in
+   q67 and q47. Every probe and segmented-scan call of those runs is held
+   against the plain version (which launches no kernel, so the counts
+   stay the kernels' own); the path's largest table probe is checked as
+   in phase 8 (``partitioned_largest``), and the warm walls (median of
+   3) of each query partitioned and in one partition are printed side by
+   side;
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -693,7 +723,7 @@ def run_main_path(sf: float, tables_seed: int = 0) -> dict:
     K.KERNEL_LAUNCHES.update(main_launches)
     return {"queries": results, "launches": main_launches,
             "largest_probe": largest.get("args"),
-            "lineitem_rows": tables["lineitem"].num_rows}
+            "lineitem_rows": tables["lineitem"].num_rows, "tables": tables}
 
 
 def tpcds_tables(sf: float, seed: int = 0):
@@ -767,11 +797,11 @@ def run_tpcds_path(tables) -> dict:
             "store_sales_rows": tables["store_sales"].num_rows}
 
 
-def _warm_wall(run) -> float:
+def _warm_wall(run, reps: int = 3) -> float:
     import torch
 
     walls = []
-    for _ in range(3):
+    for _ in range(reps):
         t1 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -938,7 +968,7 @@ def run_joins_path(tables) -> dict:
 
 def run_query_slice(tables, sf: float, queries, what: str, *,
                     device_only: bool, scan_queries=(),
-                    extra=None) -> dict:
+                    extra=None, warm_reps: int = 3) -> dict:
     """A slice's TPC-DS ``queries`` on the card in batches of 2^22 rows:
     each plan's CPU-engine nodes printed with their reasons (a query with
     any is "mixed"; ``device_only`` makes one fail), one run with the
@@ -951,7 +981,8 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
     checks and returns more result entries. Records the probe into the
     slice's largest table and its largest probe; then runs every query
     once more with each probe call, and each segmented-scan call of
-    ``scan_queries``, held against the plain version; then warm walls."""
+    ``scan_queries``, held against the plain version; then warm walls
+    (the median of ``warm_reps`` runs)."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -986,7 +1017,11 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
             K.reset_kernel_launches()
             t1 = time.perf_counter()
             df = Q.QUERIES[q](d)
+            t2 = time.perf_counter()
+            # a range exchange samples its child's partitions here
             plan = df.physical_plan()
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t2
             out = execute_to_arrow(plan)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t1
@@ -1001,6 +1036,7 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                 raise AssertionError(f"{q} places {len(off)} nodes on the "
                                      f"CPU engine")
             paths = join_paths(plan)
+            strategy = plan_strategy(plan)
             got = out.to_pylist()
             # q76's probe sides are empty (no null promotion key): its
             # joins probe nothing here
@@ -1023,9 +1059,11 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                                      f"{on_cpu[:3]}")
             results[q] = {"rows": len(got), "informative":
                           Q.informative(got), "first_s": first_s,
+                          "plan_s": plan_s,
                           "launches": launches, "cpu_engine_s": cpu_s,
                           "placement": "mixed" if off else "device",
                           "cpu_nodes": off, "join_paths": paths,
+                          "strategy": strategy,
                           "shown": [{k: str(v) for k, v in r.items()}
                                     for r in got[:2]]}
             rows[q] = got
@@ -1033,6 +1071,15 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                 f"{results[q]['placement']}; launches {launches}; join "
                 f"paths {paths}; first run {first_s:.3f}s; CPU engine "
                 f"{cpu_s:.3f}s; first rows {results[q]['shown']}")
+            if strategy["exchanges"] or strategy["broadcast_joins"]:
+                log(f"{q}: planned in {plan_s:.3f}s; exchanges "
+                    f"{strategy['exchanges']}, broadcast "
+                    f"joins {strategy['broadcast_joins']}, shuffle "
+                    f"{strategy['shuffle_bytes_written']} B written; split "
+                    f"{strategy['split_ms']:.1f} ms, serialize "
+                    f"{strategy['serialize_ms']:.1f} ms, wait "
+                    f"{strategy['wait_ms']:.1f} ms, read "
+                    f"{strategy['read_ms']:.1f} ms")
         if extra is not None:
             results.update(extra(d, cpu))
     finally:
@@ -1047,9 +1094,9 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
             f"{len(scan_queries)} window queries of the {what} slice")
     for q in queries:
         results[q]["warm_s"] = _warm_wall(lambda q=q: Q.QUERIES[q](d)
-                                          .to_arrow())
-        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of 3), "
-            f"launches {results[q]['launches']}, CPU engine "
+                                          .to_arrow(), warm_reps)
+        log(f"{q}: warm wall {results[q]['warm_s']:.4f}s (median of "
+            f"{warm_reps}), launches {results[q]['launches']}, CPU engine "
             f"{results[q]['cpu_engine_s']:.3f}s")
     return res
 
@@ -1113,14 +1160,33 @@ def check_every_segscan(runs, what: str) -> dict:
     exactly (NaN equal to NaN), float adds within
     ``segscan_add_tolerance``. These launches are not counted. Returns the
     number of calls checked by op."""
-    import torch
-
     from spark_rapids_tpu_torch.exec import kernels as K
 
     real_scan = K.segmented_scan_kernel
     calls = {"add": 0, "min": 0, "max": 0}
+    saved = dict(K.KERNEL_LAUNCHES)
+    K.segmented_scan_kernel = checking_scan(real_scan, calls)
+    try:
+        for run in runs:
+            run()
+    finally:
+        K.segmented_scan_kernel = real_scan
+        K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    log(f"segscan: all {sum(calls.values())} calls ({calls}) of {what} "
+        f"equal the plain version")
+    return calls
 
-    def checking_scan(values, is_start, op_name="add"):
+
+def checking_scan(real_scan, calls):
+    """A segmented-scan wrapper that holds every call of ``real_scan``
+    against the plain version (integers and min/max exactly, NaN equal to
+    NaN, float adds within ``segscan_add_tolerance``) and counts it by op
+    in ``calls``."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    def scan(values, is_start, op_name="add"):
         k = real_scan(values, is_start, op_name)
         p = K.segmented_scan(values, is_start, op_name)
         if values.is_floating_point() and op_name == "add":
@@ -1139,17 +1205,7 @@ def check_every_segscan(runs, what: str) -> dict:
         calls[op_name] += 1
         return k
 
-    saved = dict(K.KERNEL_LAUNCHES)
-    K.segmented_scan_kernel = checking_scan
-    try:
-        for run in runs:
-            run()
-    finally:
-        K.segmented_scan_kernel = real_scan
-        K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
-    log(f"segscan: all {sum(calls.values())} calls ({calls}) of {what} "
-        f"equal the plain version")
-    return calls
+    return scan
 
 
 def decimal_divide_cost(n: int = 2_880_000, checked: int = 100_000) -> dict:
@@ -1412,27 +1468,13 @@ def check_every_probe(d, queries) -> int:
     """Runs each query once more with every probe call held against the
     plain version on the same inputs: slots and hits must be equal. These
     launches are not counted. Returns the number of calls checked."""
-    import torch
-
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
     from spark_rapids_tpu_torch.exec import kernels as K
 
     real_probe = K.probe_hash_table_kernel
     calls = [0]
-
-    def checking_probe(tbl, h1, h2, capacity, seed, max_probes):
-        ks, kh = real_probe(tbl, h1, h2, capacity, seed, max_probes)
-        ps, ph = K.probe_hash_table(tbl, h1, h2, capacity, seed,
-                                    max_probes)
-        if not (torch.equal(ks, ps) and torch.equal(kh, ph)):
-            raise AssertionError(
-                f"probe kernel differs from its plain version on a "
-                f"{h1.numel()}-row probe into {capacity} slots")
-        calls[0] += 1
-        return ks, kh
-
     saved = dict(K.KERNEL_LAUNCHES)
-    K.probe_hash_table_kernel = checking_probe
+    K.probe_hash_table_kernel = checking_probe(real_probe, calls)
     try:
         for q in queries:
             Q.QUERIES[q](d).to_arrow()
@@ -1444,12 +1486,32 @@ def check_every_probe(d, queries) -> int:
     return calls[0]
 
 
+def checking_probe(real_probe, calls):
+    """A probe wrapper that holds every call of ``real_probe`` exactly
+    against the plain version and counts it in ``calls[0]``."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    def probe(tbl, h1, h2, capacity, seed, max_probes):
+        ks, kh = real_probe(tbl, h1, h2, capacity, seed, max_probes)
+        ps, ph = K.probe_hash_table(tbl, h1, h2, capacity, seed,
+                                    max_probes)
+        if not (torch.equal(ks, ps) and torch.equal(kh, ph)):
+            raise AssertionError(
+                f"probe kernel differs from its plain version on a "
+                f"{h1.numel()}-row probe into {capacity} slots")
+        calls[0] += 1
+        return ks, kh
+
+    return probe
+
+
 def run_sorted_hash(tables, rows: dict) -> dict:
     """Every join query of phases 6, 7 and 9 again with
     ``spark.rapids.gpu.sql.join.hashTable.enabled=false``: every device
     join must take the sorted-hash path (no probe launch), and the rows
-    must equal the hash-table run's (``rows``); with the warm wall (median
-    of 3) of each."""
+    must equal the hash-table run's (``rows``)."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -1479,11 +1541,9 @@ def run_sorted_hash(tables, rows: dict) -> dict:
         if not ok:
             raise AssertionError(f"{q} on the sorted-hash path differs from "
                                  f"the hash-table path ({why})")
-        warm = _warm_wall(lambda q=q: Q.QUERIES[q](d).to_arrow())
-        results[q] = {"rows": len(got), "join_paths": paths,
-                      "warm_s": warm}
+        results[q] = {"rows": len(got), "join_paths": paths}
         log(f"{q}: sorted-hash path, {len(got)} rows equal the hash-table "
-            f"run's; join paths {paths}; warm wall {warm:.4f}s")
+            f"run's; join paths {paths}")
     return results
 
 
@@ -1559,6 +1619,234 @@ def run_mixed_plan(tables, d) -> dict:
     return {"rows": len(got), "wall_s": wall, "launches": launches,
             "cpu_nodes": off}
 
+# phase 13's TPC-DS queries: the headline, a window over a partial
+# aggregate (q67), a window partitioned by plain strings (q47), left and
+# full joins (q93, q97), string keys through distinct exchanges and semi
+# joins (q38; q87, its EXCEPT twin, counts 0 at every SF of the
+# generators, since every name pair is in every channel), a lone
+# COUNT(DISTINCT) (q16) and a union (q77)
+PARTITIONED_DS = ("q3", "q7", "q42", "q52", "q96", "q67", "q47", "q93",
+                  "q97", "q38", "q16", "q77")
+PARTITIONED_WINDOWS = ("q67", "q47")
+# q38 once more with this broadcast threshold: customer (100,000 rows at
+# SF1) and the filtered date_dim still broadcast, the two channels'
+# distinct name pairs (estimates 360,000 and 180,000) do not, so both
+# string-keyed semi joins are shuffled joins of two hash exchanges
+SHUFFLED_Q38_BROADCAST_ROWS = 150_000
+SORT_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number",
+                "ss_net_paid")
+
+
+def plan_strategy(plan) -> dict:
+    """An executed physical plan's exchanges by partitioner, its joins by
+    strategy, and its exchanges' shuffle bytes and times: the device
+    passes (split), waiting for the writer threads and the reads on the
+    calling thread, serialization summed over the writer threads."""
+    from spark_rapids_tpu_torch.exec.join import HashJoinExec
+    from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
+    from spark_rapids_tpu_torch.shuffle.exchange_exec import (
+        ShuffleExchangeExec)
+
+    out = {"exchanges": {}, "broadcast_joins": 0, "shuffled_joins": 0,
+           "one_partition_joins": 0, "shuffle_bytes_written": 0,
+           "shuffle_bytes_read": 0, "split_ms": 0.0, "serialize_ms": 0.0,
+           "wait_ms": 0.0, "read_ms": 0.0}
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children)
+        if isinstance(n, ShuffleExchangeExec):
+            k = n.partitioner.describe()
+            out["exchanges"][k] = out["exchanges"].get(k, 0) + 1
+            m = n.metrics
+            out["shuffle_bytes_written"] += m["shuffleBytesWritten"].value
+            out["shuffle_bytes_read"] += m["shuffleBytesRead"].value
+            for k in ("split", "serialize", "wait", "read"):
+                out[f"{k}_ms"] += m[f"{k}TimeNs"].value / 1e6
+        elif isinstance(n, BroadcastHashJoinExec):
+            out["broadcast_joins"] += 1
+        elif isinstance(n, HashJoinExec):
+            key = ("shuffled_joins" if isinstance(n.left, ShuffleExchangeExec)
+                   else "one_partition_joins")
+            out[key] += 1
+    return out
+
+
+def sorted_store_sales(d):
+    """One global ORDER BY ss_net_paid over store_sales, no limit."""
+    return d["store_sales"].select(*SORT_COLUMNS).sort("ss_net_paid")
+
+
+def same_sorted_rows(got, exp) -> bool:
+    """The key column in the same order, the rows as a multiset."""
+    if not got.column("ss_net_paid").equals(exp.column("ss_net_paid")):
+        return False
+    keys = [(c, "ascending") for c in SORT_COLUMNS]
+    return got.sort_by(keys).equals(exp.sort_by(keys))
+
+
+def run_partitioned_path(tpch_tables, ds_tables) -> dict:
+    """Phase 13: each query with 4 source splits and 4 shuffle partitions,
+    wholly on the device, against one partition and the CPU engine, with
+    its exchanges, joins, shuffle bytes and times and kernel launches;
+    every kernel call of the path against its plain version; warm walls
+    partitioned and in one partition."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    off = RapidsConf({"spark.rapids.gpu.sql.enabled": "false"})
+    tpch_order = {"q1": ("l_returnflag", "l_linestatus"),
+                  "q3": ("l_orderkey",), "q5": ("n_name",), "q6": ()}
+
+    def tpch_check(q, got, exp):
+        keys = tpch_order[q]
+        ok = tpch.rows_match(got, exp) and (
+            [tuple(r[k] for k in keys) for r in got]
+            == [tuple(r[k] for k in keys) for r in exp])
+        return ok, "" if ok else "rows or ORDER BY order differ"
+
+    h = {"one": tpch.df_tables(tpch_tables, batch_rows=1 << 20,
+                               device="cuda", shuffle_partitions=1),
+         "four": tpch.df_tables(tpch_tables, batch_rows=1 << 20,
+                                device="cuda", partitions=4),
+         "cpu": tpch.df_tables(tpch_tables, off, device="cuda")}
+    ds = {"one": Q.df_tables(ds_tables, batch_rows=1 << 19, device="cuda",
+                             shuffle_partitions=1),
+          "four": Q.df_tables(ds_tables, batch_rows=1 << 19, device="cuda",
+                              partitions=4),
+          "cpu": Q.df_tables(ds_tables, off, device="cuda")}
+    ds_shuffled = dict(ds, four=Q.df_tables(
+        ds_tables, RapidsConf({"spark.rapids.gpu.sql.join."
+                               "broadcastRowThreshold":
+                               SHUFFLED_Q38_BROADCAST_ROWS}),
+        batch_rows=1 << 19, device="cuda", partitions=4))
+    cases = ([(f"tpch_{q}", tpch.DF_QUERIES[q], h,
+               lambda g, e, q=q: tpch_check(q, g, e), q in ("q3", "q5"),
+               False) for q in ("q1", "q3", "q5", "q6")]
+             + [(q, Q.QUERIES[q], ds,
+                 lambda g, e, q=q: Q.check_rows(q, g, e), True,
+                 q in PARTITIONED_WINDOWS) for q in PARTITIONED_DS]
+             + [("q38_shuffled_joins", Q.QUERIES["q38"], ds_shuffled,
+                 lambda g, e: Q.check_rows("q38", g, e), True, False)]
+             + [("order_by_ss_net_paid", sorted_store_sales, ds, None,
+                 False, False)])
+
+    # every probe and segmented-scan call of the counted runs is held
+    # against the plain version (which launches no kernel, so the counts
+    # stay the kernels' own)
+    largest = {}
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+
+    def recording_probe(tbl, h1, h2, capacity, seed, max_probes):
+        size = (capacity, h1.numel())
+        if size > largest.get("size", (-1, -1)):
+            largest.update(size=size, args=(tbl, h1, h2, capacity, seed))
+        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    results = {}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    for name, build, d, check, joins, window in cases:
+        t1 = time.perf_counter()
+        exp = execute_to_arrow(build(d["one"]).physical_plan())
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        df = build(d["four"])
+        cpu_marks = [ln.strip() for ln in df.explain("ALL").splitlines()
+                     if ln.lstrip().startswith("!")]
+        if cpu_marks:
+            raise AssertionError(f"{name} partitioned has nodes on the CPU "
+                                 f"engine: {cpu_marks}")
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = recording_probe
+        K.segmented_scan_kernel = check_scan_call
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        strategy = plan_strategy(plan)
+        t1 = time.perf_counter()
+        on_cpu = build(d["cpu"]).to_arrow()
+        cpu_s = time.perf_counter() - t1
+        if check is None:
+            if out.num_rows != ds_tables["store_sales"].num_rows:
+                raise AssertionError(f"{name} gave {out.num_rows} rows")
+            for other, what in ((exp, "one partition"),
+                                (on_cpu, "the CPU engine")):
+                if not same_sorted_rows(out, other):
+                    raise AssertionError(f"{name} partitioned differs from "
+                                         f"{what}")
+        else:
+            got = out.to_pylist()
+            # rows equal to an empty result prove nothing of the exchanges
+            if not Q.informative(got):
+                raise AssertionError(f"{name} shows no value: {got[:3]}")
+            for other, what in ((exp, "one partition"),
+                                (on_cpu, "the CPU engine")):
+                ok, why = check(got, other.to_pylist())
+                if not ok:
+                    raise AssertionError(f"{name} partitioned differs from "
+                                         f"{what} ({why}):\n{got[:3]}")
+        if not strategy["exchanges"] and not strategy["broadcast_joins"]:
+            raise AssertionError(f"{name} planned no exchange and no "
+                                 f"broadcast join")
+        if name == "q38_shuffled_joins" and strategy["shuffled_joins"] < 2:
+            raise AssertionError(f"{name} shuffled "
+                                 f"{strategy['shuffled_joins']} joins, not "
+                                 f"its two semi joins")
+        if joins and launches["hashtbl_probe"] <= 0:
+            raise AssertionError(f"{name} launched no probe kernel")
+        if window and launches["segscan"] <= 0:
+            raise AssertionError(f"{name} launched no segscan kernel")
+        results[name] = dict(strategy, rows=out.num_rows, first_s=first_s,
+                             one_partition_first_s=one_s,
+                             cpu_engine_s=cpu_s, launches=launches)
+        log(f"{name}: {out.num_rows} rows, 4 splits equal one partition "
+            f"and the CPU engine; exchanges {strategy['exchanges']}; "
+            f"joins broadcast {strategy['broadcast_joins']} shuffled "
+            f"{strategy['shuffled_joins']} one-partition "
+            f"{strategy['one_partition_joins']}; shuffle "
+            f"{strategy['shuffle_bytes_written']} B written "
+            f"{strategy['shuffle_bytes_read']} B read; split "
+            f"{strategy['split_ms']:.1f} ms, serialize "
+            f"{strategy['serialize_ms']:.1f} ms, wait "
+            f"{strategy['wait_ms']:.1f} ms, read {strategy['read_ms']:.1f} "
+            f"ms; launches {launches}; first run {first_s:.3f}s; CPU "
+            f"engine {cpu_s:.3f}s")
+
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of the "
+        f"partitioned path equal the plain version")
+    for name, build, d, _c, _j, _w in cases:
+        r = results[name]
+        r["warm_s"] = _warm_wall(lambda: build(d["four"]).to_arrow())
+        r["one_partition_warm_s"] = _warm_wall(
+            lambda: build(d["one"]).to_arrow())
+        log(f"{name}: warm wall {r['warm_s']:.4f}s partitioned, "
+            f"{r['one_partition_warm_s']:.4f}s in one partition (medians "
+            f"of 3)")
+    return {"queries": results, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls,
+            "largest_table_probe": largest.get("args")}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1628,7 +1916,7 @@ def main(argv=None) -> int:
 
     # phase 9: the breadth slice (mixed plans allowed and printed)
     breadth_res = run_query_slice(ds_tables, args.sf_ds, Q.BREADTH,
-                                  "breadth", device_only=False)
+                                  "breadth", device_only=False, warm_reps=1)
     breadth_probe = check_probe("breadth_largest",
                                 *breadth_res.pop("largest_table_probe"),
                                 cold=True)
@@ -1672,6 +1960,11 @@ def main(argv=None) -> int:
     sorted_res.update(run_sorted_hash(ds_tables, win_res.pop("rows")))
     surface_res = window_surface_pass(ds_tables)
 
+    part_res = run_partitioned_path(main_res.pop("tables"), ds_tables)
+    part_probe = check_probe("partitioned_largest",
+                             *part_res.pop("largest_table_probe"), cold=True)
+    shapes.append(part_probe)
+
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
                       "tpcds_headline": head_res["launches"][name],
@@ -1680,7 +1973,8 @@ def main(argv=None) -> int:
                       "tpcds_union": union_res["launches"][name],
                       "tpcds_decimal": dec_res["launches"][name],
                       "tpcds_window_rest": win_res["launches"][name],
-                      "window_surface": surface_res["launches"][name]}
+                      "window_surface": surface_res["launches"][name],
+                      "partitioned": part_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -1716,6 +2010,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "window_rest_calls_checked": win_res["probe_calls_checked"],
+        "partitioned_largest": {k: part_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "partitioned_calls_checked": part_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -1735,6 +2033,7 @@ def main(argv=None) -> int:
         "window_surface_calls_checked": surface_res[
             "segscan_calls_checked"],
         "window_min_scan": surface_res["min_scan"],
+        "partitioned_calls_checked": part_res["segscan_calls_checked"],
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -1751,6 +2050,7 @@ def main(argv=None) -> int:
               "decimal_divide": divide_res,
               "tpcds_window_rest": win_res["queries"],
               "window_surface": surface_res,
+              "partitioned": part_res["queries"],
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

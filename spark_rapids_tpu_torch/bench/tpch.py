@@ -132,12 +132,20 @@ def tables_for(sf: float, seed: int = 0) -> Dict[str, pa.Table]:
 
 
 def df_tables(tables: Dict[str, pa.Table], conf=None,
-              batch_rows: int = 1 << 20, device=None) -> Dict[str, object]:
-    """One DataFrame per table, each on ``device`` (``cuda`` by default)."""
+              batch_rows: int = 1 << 20, device=None, partitions: int = 1,
+              shuffle_partitions: int = 4) -> Dict[str, object]:
+    """One DataFrame per table, each on ``device`` (``cuda`` by default),
+    read as ``partitions`` source splits and planned with
+    ``shuffle_partitions`` reduce partitions."""
     from spark_rapids_tpu_torch.plan import from_arrow
 
-    return {k: from_arrow(v, conf, batch_rows=batch_rows, device=device)
-            for k, v in tables.items()}
+    out = {}
+    for k, v in tables.items():
+        df = from_arrow(v, conf, batch_rows=batch_rows, device=device,
+                        partitions=partitions)
+        df.shuffle_partitions = shuffle_partitions
+        out[k] = df
+    return out
 
 
 def df_q1(d) -> "object":

@@ -84,7 +84,58 @@ JOIN_CHUNK_TARGET_ROWS = conf(
         "batches.")
 
 
+JOIN_BROADCAST_ROWS = conf(
+    "spark.rapids.gpu.sql.join.broadcastRowThreshold", default=500_000,
+    doc="Estimated build-side row count at or below which a multi-partition "
+        "hash join uses a broadcast build instead of co-partitioning both "
+        "sides (reference: spark.sql.autoBroadcastJoinThreshold).")
+
+SHUFFLE_TARGET_BATCH_ROWS = conf(
+    "spark.rapids.gpu.shuffle.targetBatchRows", default=1 << 20,
+    doc="Rows per device batch a shuffle read uploads (reference: "
+        "GpuShuffleCoalesceExec target size).")
+
+SHUFFLE_WRITE_THREADS = conf(
+    "spark.rapids.gpu.shuffle.writeThreads", default=4,
+    doc="Map outputs a shuffle exchange serializes and writes concurrently. "
+        "Each map's device pass runs on the calling thread, in map order; "
+        "1 restores the fully serial write.")
+
+SHUFFLE_MODE = conf(
+    "spark.rapids.gpu.shuffle.mode", default="MULTITHREADED",
+    doc="Shuffle manager mode: MULTITHREADED (serialized blocks in one host "
+        "file per map output) or CACHE_ONLY (serialized blocks kept in "
+        "memory). Reference: RapidsConf.scala RapidsShuffleManagerMode.")
+
+SHUFFLE_COMPRESS = conf(
+    "spark.rapids.gpu.shuffle.compression.codec", default="none",
+    doc="Codec for serialized shuffle blocks: none, zlib, lz4, zstd.")
+
+SHUFFLE_INTEGRITY = conf(
+    "spark.rapids.gpu.shuffle.integrity.enabled", default=True,
+    doc="Append a per-block CRC trailer to serialized shuffle blocks and "
+        "verify it on read; a mismatch raises BlockCorruption.")
+
+FASTPATH_ENABLED = conf(
+    "spark.rapids.gpu.fastpath.enabled", default=True,
+    doc="Plan one partition (no shuffle) when every scan leaf's rows and "
+        "bytes sit below fastpath.maxRows/maxBytes: the per-query fixed "
+        "costs dominate such queries, not the data.")
+
+FASTPATH_MAX_ROWS = conf(
+    "spark.rapids.gpu.fastpath.maxRows", default=100_000,
+    doc="Row ceiling (summed over scan leaves) of the small-query fast "
+        "path.")
+
+FASTPATH_MAX_BYTES = conf(
+    "spark.rapids.gpu.fastpath.maxBytes", default=32 << 20,
+    doc="Byte ceiling (summed over scan leaves) of the small-query fast "
+        "path.")
+
+
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
+SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
+SHUFFLE_CODECS = ("none", "zlib", "lz4", "zstd")
 
 
 class RapidsConf:
@@ -101,6 +152,13 @@ class RapidsConf:
         if explain not in EXPLAIN_MODES:
             raise ValueError(f"{EXPLAIN.key} must be one of {EXPLAIN_MODES}, "
                              f"not {explain!r}")
+        for entry, allowed in ((SHUFFLE_MODE, SHUFFLE_MODES),
+                               (SHUFFLE_COMPRESS, SHUFFLE_CODECS)):
+            if self[entry] not in allowed:
+                raise ValueError(f"{entry.key} must be one of {allowed}, "
+                                 f"not {self[entry]!r}")
+        if self[SHUFFLE_WRITE_THREADS] < 1:
+            raise ValueError(f"{SHUFFLE_WRITE_THREADS.key} must be >= 1")
 
     def get(self, key: str):
         if key in self._values:

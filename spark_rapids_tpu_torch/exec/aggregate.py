@@ -1,11 +1,19 @@
-"""Hash aggregation in mode ``complete`` (counterpart of
-spark_rapids_tpu/exec/aggregate.py on its hash-grouping path).
+"""Hash aggregation (counterpart of spark_rapids_tpu/exec/aggregate.py on
+its hash-grouping path), in the reference's three modes:
+
+- ``complete``: input rows -> results, in one stage;
+- ``partial``: input rows -> (keys + buffers), one batch per partition;
+- ``final``: (keys + buffers) -> results (``final_from_partial``), the
+  reduce side of a shuffle: every buffer batch of its partition is merged
+  once, as map tasks' buffers may hold the same key.
 
 Per input batch, a first pass pre-projects the group keys and aggregate
 inputs, clusters rows with ``kernels.group_rows`` and reduces each group
 with the sorted segment reducers into partial buffers. The partials of all
 batches are then concatenated on the device and merged by one more grouped
-reduction, and a final projection turns buffers into results.
+reduction, and a final projection turns buffers into results. A partial
+buffer column is named ``<aggregate>#b<i>``; a split into partial and
+final changes only the order of float additions.
 
 Buffer layout per function (Spark result types):
   Sum -> [sum]    Count -> [count]    Average -> [sum, count]
@@ -87,10 +95,13 @@ def _strip_alias(e: E.Expression) -> Tuple[E.Expression, str]:
 class HashAggregateExec(UnaryExec):
     def __init__(self, group_exprs: Sequence[E.Expression],
                  agg_exprs: Sequence[E.Expression], child: DeviceExec,
-                 mode: str = "complete"):
-        if mode != "complete":
-            raise NotImplementedError(f"aggregate mode {mode} is not in the "
-                                      f"port yet")
+                 mode: str = "complete",
+                 specs: Optional[List[_AggSpec]] = None):
+        if mode not in ("complete", "partial", "final"):
+            raise ValueError(f"aggregate mode {mode!r}")
+        if (mode == "final") != (specs is not None):
+            raise ValueError("a final aggregate takes its partial's specs "
+                             "(final_from_partial), and only it does")
         super().__init__(child)
         self.mode = mode
         self.group_exprs = list(group_exprs)
@@ -99,8 +110,8 @@ class HashAggregateExec(UnaryExec):
         self._group_bound = [E.resolve(e, in_schema) for e in group_exprs]
         self._n_keys = len(self._group_bound)
         pre: List[E.Expression] = list(self._group_bound)
-        self._specs: List[_AggSpec] = []
-        for e in self.agg_exprs:
+        self._specs: List[_AggSpec] = list(specs or [])
+        for e in (self.agg_exprs if specs is None else ()):
             func, name = _strip_alias(e)
             if not isinstance(func, E.AggregateExpression):
                 raise NotImplementedError(f"not an aggregate: {e!r}")
@@ -115,15 +126,36 @@ class HashAggregateExec(UnaryExec):
             T.check_device_type(f.dtype)
         self._register_metric("numAggBatches")
 
-    @property
-    def output_schema(self) -> T.Schema:
+    @staticmethod
+    def final_from_partial(partial: "HashAggregateExec",
+                           child: DeviceExec) -> "HashAggregateExec":
+        """The reduce-side aggregate of a partial's buffers (``child``
+        yields the partial's buffer schema, e.g. through an exchange)."""
+        keys = [E.col(f.name) for f in list(partial.output_schema)
+                [: partial._n_keys]]
+        return HashAggregateExec(keys, partial.agg_exprs, child,
+                                 mode="final", specs=partial._specs)
+
+    def _key_fields(self) -> List[T.Field]:
         fields = []
         for e in self._group_bound:
             inner, name = _strip_alias(e)
             fields.append(T.Field(name, inner.dtype, inner.nullable))
-        for s in self._specs:
-            fields.append(T.Field(s.name, s.func.dtype, s.func.nullable))
-        return T.Schema(fields)
+        return fields
+
+    def buffer_schema(self) -> T.Schema:
+        """Keys, then each aggregate's buffers (what a partial yields)."""
+        return T.Schema(self._key_fields() + [
+            T.Field(f"{s.name}#b{i}", bt, True) for s in self._specs
+            for i, bt in enumerate(s.buffer_types)])
+
+    @property
+    def output_schema(self) -> T.Schema:
+        if self.mode == "partial":
+            return self.buffer_schema()
+        return T.Schema(self._key_fields() + [
+            T.Field(s.name, s.func.dtype, s.func.nullable)
+            for s in self._specs])
 
     def node_description(self) -> str:
         return (f"HashAggregate(mode={self.mode}) "
@@ -179,7 +211,7 @@ class HashAggregateExec(UnaryExec):
                                         perm[gi.group_starts])
         buf_idx = self._n_keys
         for s, ops in zip(self._specs, ops_per_spec):
-            for op, bt in zip(ops, s.buffer_types):
+            for op, first_op, bt in zip(ops, s.ops, s.buffer_types):
                 if buffers_input:
                     src_i = buf_idx
                     buf_idx += 1
@@ -198,6 +230,10 @@ class HashAggregateExec(UnaryExec):
                         vals = I128.pack(*I128.from_i64(vals))
                 data, avalid = K.segment_agg(vals, valid, gi.segment_ids,
                                              gi.group_starts, op)
+                if buffers_input and first_op in ("count", "count_all"):
+                    # a merged count is a count: 0 for a group of no row
+                    # (the global group of a final aggregate over nothing)
+                    avalid = torch.ones_like(avalid)
                 out_cols.append(DeviceColumn(
                     bt, K.where_valid(avalid, data.to(bt.torch_dtype)),
                     avalid))
@@ -243,12 +279,24 @@ class HashAggregateExec(UnaryExec):
         return ColumnarBatch(out_cols, buffers.num_rows)
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
+        if self.mode == "final":
+            buffers = list(self.child.execute(partition))
+            if not buffers and self._n_keys:
+                return
+            if not buffers:
+                # a global aggregate over no input is one row: counts 0,
+                # every other function null
+                buffers = [empty_batch(self.child.output_schema.types(),
+                                       self.plan_device())]
+            yield self._final_project(self._merge_pass(
+                K.concat_device(buffers)))
+            return
         partials = []
         for batch in self.child.execute(partition):
             partials.append(self._first_pass(batch))
             self.metrics["numAggBatches"].add(1)
         if not partials:
-            if self._n_keys == 0:
+            if self._n_keys == 0 and self.mode == "complete":
                 # a global aggregate over no input is one row, as over an
                 # empty batch: counts 0, every other function null
                 empty = empty_batch(self.child.output_schema.types(),
@@ -257,7 +305,8 @@ class HashAggregateExec(UnaryExec):
             return
         merged = (partials[0] if len(partials) == 1
                   else self._merge_pass(K.concat_device(partials)))
-        yield self._final_project(merged)
+        yield merged if self.mode == "partial" else self._final_project(
+            merged)
 
 
 def _wide_average(ssum: DeviceColumn, cnt: DeviceColumn, valid, sum_t,

@@ -2,7 +2,8 @@
 
 An operator produces an iterator of device ``ColumnarBatch`` per partition:
 ``execute`` wraps the subclass's ``do_execute`` with the operator's output
-metrics. The slice plans one partition.
+metrics. An operator has its first child's partitions unless it says
+otherwise; a ``BatchSourceExec`` has one per source split.
 """
 
 from __future__ import annotations

@@ -224,15 +224,32 @@ class HashJoinExec(BinaryExec):
                                               K.HASHTBL_MAX_PROBES)
         return K.hashtbl_candidate_ranges(tbl, slot, hit & pvalid)
 
+    def _build_side(self, partition: int):
+        """(build batch, its probe structure or None when it has no row)
+        of one partition: the right side's partition of the same number,
+        so both sides must have one partition count (the planner
+        co-partitions them by exchanges, or keeps both at one)."""
+        nl, nr = self.left.num_partitions(), self.right.num_partitions()
+        if nl != nr:
+            raise ValueError(
+                f"{self.node_description()}: the left side has {nl} "
+                f"partitions and the right side {nr}; a partitioned hash "
+                f"join needs co-partitioned sides")
+        with self.timer("buildTimeNs"):
+            return self._build(self.right.execute(partition))
+
+    def _build(self, batches):
+        """(the build batches concatenated, their probe structure or None
+        when they have no row)."""
+        parts = list(batches)
+        build = (K.concat_device(parts) if parts else empty_batch(
+            self.right.output_schema.types(), self.plan_device()))
+        return build, (self._prepare_build(build) if build.num_rows
+                       else None)
+
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         jt = self.join_type
-        with self.timer("buildTimeNs"):
-            parts = list(self.right.execute(partition))
-            build = (K.concat_device(parts) if parts else empty_batch(
-                self.right.output_schema.types(), self.plan_device()))
-            prep = None
-            if build.num_rows:
-                prep = self._prepare_build(build)
+        build, prep = self._build_side(partition)
         # inner and semi joins with an empty build side emit nothing
         if prep is None and jt in ("inner", "left_semi"):
             return

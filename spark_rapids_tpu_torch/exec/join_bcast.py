@@ -1,0 +1,45 @@
+"""Broadcast hash join (counterpart of ``BroadcastHashJoinExec`` in
+spark_rapids_tpu/exec/join_bcast.py, GpuBroadcastHashJoinExecBase).
+
+The build (right) side executes once, under a lock, across all of its
+partitions; its probe structure (the hash table, or the sorted hashes) is
+prepared once and probed by every left partition, so the join has the
+left side's partitions and neither side is exchanged. Join types follow
+the broadcast restriction: inner, left, left_semi and left_anti, which
+need no flag over build rows across probe partitions. Every probe path
+and output rule is ``HashJoinExec``'s.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from spark_rapids_tpu_torch.exec.join import HashJoinExec
+
+
+class BroadcastHashJoinExec(HashJoinExec):
+    BROADCAST_TYPES = ("inner", "left", "left_semi", "left_anti")
+
+    def __init__(self, left_keys, right_keys, join_type, left, right,
+                 max_candidate_rows=None, condition=None):
+        if join_type not in self.BROADCAST_TYPES:
+            raise ValueError(f"a broadcast build side does not support a "
+                             f"{join_type} join")
+        super().__init__(left_keys, right_keys, join_type, left, right,
+                         max_candidate_rows, condition)
+        self._broadcast = None
+        self._bcast_lock = threading.Lock()
+        self._register_metric("broadcastTimeNs")
+
+    def num_partitions(self) -> int:
+        return self.left.num_partitions()
+
+    def node_description(self) -> str:
+        return "Broadcast" + super().node_description()
+
+    def _build_side(self, partition: int):
+        with self._bcast_lock:
+            if self._broadcast is None:
+                with self.timer("broadcastTimeNs"):
+                    self._broadcast = self._build(self.right.execute_all())
+            return self._broadcast

@@ -974,17 +974,21 @@ def reset_kernel_launches() -> None:
 
 
 _bound_fns = {}  # (kernel source, C function) -> (library, bound function)
+# guards the module's caches (bound functions, the scan's scratch): a
+# shuffle's writer threads may reach them concurrently
+_cache_lock = threading.Lock()
 
 
 def _kernel_fn(source: str, name: str):
     """(library, bound C function) of one kernel source, built and loaded
     on first use and cached."""
-    got = _bound_fns.get((source, name))
-    if got is None:
-        from spark_rapids_tpu_torch import native
+    with _cache_lock:
+        got = _bound_fns.get((source, name))
+        if got is None:
+            from spark_rapids_tpu_torch import native
 
-        lib = native.load(source)
-        got = _bound_fns[(source, name)] = (lib, getattr(lib, name))
+            lib = native.load(source)
+            got = _bound_fns[(source, name)] = (lib, getattr(lib, name))
     return got
 
 
@@ -1248,12 +1252,15 @@ def _segscan_scratch_for(lib, n: int, idx: int, stream: int):
     """The stream's zeroed scratch, grown to fit an n-row scan."""
     tile, header, per_tile = _segscan_layout(lib)
     nbytes = header + per_tile * -(-n // tile)
-    buf = _segscan_scratch.get((idx, stream))
-    if buf is None or buf.numel() < nbytes:
-        # zeroed on the device's current stream, the one the scan runs on
-        grown = 2 * buf.numel() if buf is not None else 0
-        buf = torch.zeros(max(nbytes, grown), dtype=torch.uint8, device=idx)
-        _segscan_scratch[(idx, stream)] = buf
+    with _cache_lock:
+        buf = _segscan_scratch.get((idx, stream))
+        if buf is None or buf.numel() < nbytes:
+            # zeroed on the device's current stream, the one the scan runs
+            # on
+            grown = 2 * buf.numel() if buf is not None else 0
+            buf = torch.zeros(max(nbytes, grown), dtype=torch.uint8,
+                              device=idx)
+            _segscan_scratch[(idx, stream)] = buf
     return buf
 
 

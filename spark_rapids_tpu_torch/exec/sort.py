@@ -1,6 +1,6 @@
-"""In-core sort with an optional limit (counterpart of
-spark_rapids_tpu/exec/sort.py, plus the top-k shape of its
-take_ordered_and_project).
+"""In-core sort of one partition, with an optional limit (counterpart of
+spark_rapids_tpu/exec/sort.py). The planner's sort with a limit is
+``misc.take_ordered_and_project``.
 
 The partition's batches are concatenated on the device, one stable
 lexicographic argsort orders the rows (Spark null and NaN order), and one
@@ -13,8 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Iterator, Optional, Sequence
-
-import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec import kernels as K
@@ -63,28 +61,3 @@ class SortExec(UnaryExec):
                 idx = idx[: self.limit]
             out = K.gather_batch(batch, idx)
         yield out
-
-
-class LimitExec(UnaryExec):
-    """First ``n`` rows of the partition, after ``offset`` rows."""
-
-    def __init__(self, n: int, child: DeviceExec, offset: int = 0):
-        super().__init__(child)
-        self.n = n
-        self.offset = offset
-
-    def node_description(self) -> str:
-        return f"Limit {self.n} offset={self.offset}"
-
-    def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
-        skip, remaining = self.offset, self.n
-        for b in self.child.execute(partition):
-            if remaining <= 0:
-                return
-            lo = min(skip, b.num_rows)
-            skip -= lo
-            hi = min(b.num_rows, lo + remaining)
-            if hi > lo:
-                idx = torch.arange(lo, hi, device=b.columns[0].device)
-                remaining -= hi - lo
-                yield K.gather_batch(b, idx)

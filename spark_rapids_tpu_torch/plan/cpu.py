@@ -580,8 +580,10 @@ class CpuExec(DeviceExec):
             yield batch_to_arrow(b, schema)
 
     def all_child_rows(self, child: DeviceExec) -> pa.Table:
-        """Every row of a child as one host table."""
-        tables = list(self.child_tables(child))
+        """Every row of a child, all its partitions in order, as one host
+        table."""
+        tables = [t for p in range(child.num_partitions())
+                  for t in self.child_tables(child, p)]
         if not tables:
             return child.output_schema.to_arrow().empty_table()
         return pa.concat_tables(tables).combine_chunks()
@@ -697,8 +699,8 @@ def sort_permutation(table: pa.Table, keys: Sequence[Tuple[E.Expression,
 
 
 class CpuSortExec(CpuExec):
-    """Sort of all the child's rows on the host, cut to ``limit`` rows
-    when given."""
+    """Sort of all the child's rows (every partition) on the host, cut to
+    ``limit`` rows when given: one partition."""
 
     def __init__(self, orders: Sequence[SortOrder], child: DeviceExec,
                  device, limit: Optional[int] = None):
@@ -713,6 +715,9 @@ class CpuSortExec(CpuExec):
     def output_schema(self) -> T.Schema:
         return self.children[0].output_schema
 
+    def num_partitions(self) -> int:
+        return 1
+
     def node_description(self) -> str:
         lim = f" limit={self.limit}" if self.limit is not None else ""
         return f"CpuSort [{', '.join(map(repr, self.orders))}]{lim}"
@@ -726,7 +731,8 @@ class CpuSortExec(CpuExec):
 
 
 class CpuLimitExec(CpuExec):
-    """First ``n`` rows after ``offset`` rows."""
+    """First ``n`` rows after ``offset`` rows, across the child's
+    partitions in order: one partition."""
 
     def __init__(self, n: int, child: DeviceExec, device, offset: int = 0):
         super().__init__(child, device=device)
@@ -737,12 +743,17 @@ class CpuLimitExec(CpuExec):
     def output_schema(self) -> T.Schema:
         return self.children[0].output_schema
 
+    def num_partitions(self) -> int:
+        return 1
+
     def node_description(self) -> str:
         return f"CpuLimit {self.n} offset={self.offset}"
 
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
         skip, remaining = self.offset, self.n
-        for t in self.child_tables(self.children[0], partition):
+        child = self.children[0]
+        for t in (t for p in range(child.num_partitions())
+                  for t in self.child_tables(child, p)):
             if remaining <= 0:
                 return
             lo = min(skip, t.num_rows)
@@ -754,9 +765,10 @@ class CpuLimitExec(CpuExec):
 
 
 class CpuUnionExec(CpuExec):
-    """UNION ALL on the host: every child's tables in child order, under
-    the union's names and nullability (the planner has cast each child to
-    the union's types)."""
+    """UNION ALL on the host, under the union's names and nullability (the
+    planner has cast each child to the union's types). The partitions of
+    each child become partitions of the union, child by child, as the
+    reference's ``CpuUnionExec`` numbers them."""
 
     def __init__(self, schema: T.Schema, *children: DeviceExec, device):
         super().__init__(*children, device=device)
@@ -766,11 +778,19 @@ class CpuUnionExec(CpuExec):
     def output_schema(self) -> T.Schema:
         return self._schema
 
+    def num_partitions(self) -> int:
+        return sum(c.num_partitions() for c in self.children)
+
     def node_description(self) -> str:
         return f"CpuUnion [{len(self.children)} children]"
 
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
         target = self._schema.to_arrow()
         for c in self.children:
-            for t in self.child_tables(c, partition):
-                yield pa.Table.from_arrays(list(t.columns), schema=target)
+            n = c.num_partitions()
+            if partition < n:
+                for t in self.child_tables(c, partition):
+                    yield pa.Table.from_arrays(list(t.columns),
+                                               schema=target)
+                return
+            partition -= n

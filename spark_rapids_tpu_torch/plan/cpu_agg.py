@@ -205,6 +205,9 @@ class CpuAggregateExec(CpuExec):
     def output_schema(self) -> T.Schema:
         return self._schema
 
+    def num_partitions(self) -> int:
+        return 1  # it reads every partition of its child (or children)
+
     def node_description(self) -> str:
         return (f"CpuAggregate keys=[{', '.join(map(repr, self.group_exprs))}"
                 f"] aggs=[{', '.join(map(repr, self.agg_exprs))}]")
@@ -305,6 +308,9 @@ class CpuJoinExec(CpuExec):
     @property
     def output_schema(self) -> T.Schema:
         return self._schema
+
+    def num_partitions(self) -> int:
+        return 1  # it reads every partition of its child (or children)
 
     def node_description(self) -> str:
         cond = (f" condition={self.condition!r}"

@@ -78,6 +78,9 @@ class CpuWindowExec(CpuExec):
                         + [T.Field(name, f.dtype, f.nullable)
                            for f, _frame, name in self._bound])
 
+    def num_partitions(self) -> int:
+        return 1  # it reads every partition of its child (or children)
+
     def node_description(self) -> str:
         return (f"CpuWindow [{', '.join(n for _, _, n in self._bound)}] "
                 f"{self._spec!r}")

@@ -1,5 +1,6 @@
 """DataFrame front end (counterpart of spark_rapids_tpu/plan/dataframe.py):
-builders over the logical plan, executed as one partition on the batches'
+builders over the logical plan, planned with ``shuffle_partitions`` reduce
+partitions (4 by default, as the reference's) and executed on the batches'
 device.
 """
 
@@ -25,12 +26,14 @@ def _cols(ks) -> List[E.Expression]:
 
 class DataFrame:
     def __init__(self, plan: L.LogicalPlan,
-                 conf: Optional[C.RapidsConf] = None):
+                 conf: Optional[C.RapidsConf] = None,
+                 shuffle_partitions: int = 4):
         self.plan = plan
         self.conf = conf
+        self.shuffle_partitions = shuffle_partitions
 
     def _with(self, plan: L.LogicalPlan) -> "DataFrame":
-        return DataFrame(plan, self.conf)
+        return DataFrame(plan, self.conf, self.shuffle_partitions)
 
     def select(self, *exprs) -> "DataFrame":
         return self._with(L.Project(_cols(list(exprs)), self.plan))
@@ -109,7 +112,7 @@ class DataFrame:
     def physical_plan(self):
         from spark_rapids_tpu_torch.plan.overrides import Overrides
 
-        return Overrides(self.conf).apply(self.plan)
+        return Overrides(self.conf, self.shuffle_partitions).apply(self.plan)
 
     def explain(self, mode: str = "ALL") -> str:
         """The planner's tag tree: ``*`` for a node on the device, ``!`` for
@@ -117,7 +120,8 @@ class DataFrame:
         only those)."""
         from spark_rapids_tpu_torch.plan.overrides import Overrides, explain
 
-        return explain(Overrides(self.conf).prepare(self.plan), mode)
+        return explain(Overrides(self.conf, self.shuffle_partitions)
+                       .prepare(self.plan), mode)
 
     def to_arrow(self) -> pa.Table:
         return execute_to_arrow(self.physical_plan())
@@ -128,15 +132,25 @@ class DataFrame:
 
 def execute_to_arrow(node) -> pa.Table:
     """Run a physical plan (``DataFrame.physical_plan``) and gather its
-    rows; the caller keeps the plan, so it can read the operators'
-    metrics after the run."""
+    rows, partition by partition; then release its shuffles' blocks. The
+    caller keeps the plan, so it can read the operators' metrics after the
+    run."""
     from spark_rapids_tpu_torch.plan.cpu import CpuExec
+    from spark_rapids_tpu_torch.shuffle.exchange_exec import (
+        ShuffleExchangeExec)
 
     schema = node.output_schema
     if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
-        tables = list(node.execute_host())
+        tables = [t for p in range(node.num_partitions())
+                  for t in node.execute_host(p)]
     else:
         tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, ShuffleExchangeExec):
+            n.cleanup()
+        stack.extend(n.children)
     if not tables:
         return schema.to_arrow().empty_table()
     return pa.concat_tables(tables)
@@ -153,8 +167,12 @@ class GroupedDataFrame:
 
 
 def from_arrow(table: pa.Table, conf: Optional[C.RapidsConf] = None,
-               batch_rows: int = 1 << 20, device=None) -> DataFrame:
+               batch_rows: int = 1 << 20, device=None,
+               partitions: int = 1) -> DataFrame:
     """A DataFrame over an Arrow table, uploaded in ``batch_rows`` batches
-    to ``device`` (``cuda`` by default; raises when no card is present)."""
+    to ``device`` (``cuda`` by default; raises when no card is present)
+    and read as ``min(partitions, batches)`` source splits, batch ``i``
+    in split ``i % splits``."""
     dev = resolve_device(device)
-    return DataFrame(L.InMemoryScan(table, batch_rows, str(dev)), conf)
+    return DataFrame(L.InMemoryScan(table, batch_rows, str(dev), partitions),
+                     conf)

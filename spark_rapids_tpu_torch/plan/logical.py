@@ -35,6 +35,7 @@ class InMemoryScan(LogicalPlan):
     table: pa.Table
     batch_rows: int = 1 << 20
     device: str = "cuda"
+    partitions: int = 1  # source splits (Spark: one task per input split)
 
     @property
     def schema(self) -> T.Schema:

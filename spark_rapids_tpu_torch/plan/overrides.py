@@ -1,5 +1,5 @@
 """Plan rewrite: tag -> convert -> explain, with per-operator CPU fallback
-(counterpart of spark_rapids_tpu/plan/overrides.py for one partition).
+(counterpart of spark_rapids_tpu/plan/overrides.py).
 
   LogicalPlan -> PlanMeta tree --tag--> device-or-CPU decision per node
              --convert--> device operators and CpuExec nodes (the
@@ -18,8 +18,33 @@ NotImplementedError naming them when it is false; with
 Placement is decided here, at plan time, and nowhere else. A node that
 neither side can run (a window the device refuses, a join type outside
 inner/left/right/full/left_semi/left_anti, an expression outside the port)
-raises NotImplementedError with the reasons. Every plan is a single
-partition with no exchange.
+raises NotImplementedError with the reasons.
+
+Partitions are planned as the reference plans them (without its AQE,
+dynamic partition pruning, exchange reuse, fusion and prefetch). A scan
+has ``min(partitions, batches)`` source splits; a query whose scan leaves
+all sit under the fast path's row and byte bounds plans one shuffle
+partition instead of ``shuffle_partitions``. Above a child with more than
+one partition the planner places:
+
+- an aggregate: partial, a hash exchange on the keys (a single-partition
+  exchange when there is no key), final;
+- a window: a hash exchange on its partition keys when they are columns,
+  else a single-partition exchange; every window reads one batch per
+  partition (``CoalesceBatchesExec``);
+- a global sort: a range exchange on one numeric or date key sampled
+  from the first batch of each child partition, else a single-partition
+  exchange; a sort with a limit is a top-k per partition, gathered and
+  merged (``take_ordered_and_project``) at any partition count;
+- a join: a broadcast hash join (inner, left, semi, anti) when the right
+  side's estimated rows (``cbo.estimate_rows``) are at most
+  ``spark.rapids.gpu.sql.join.broadcastRowThreshold``, else a shuffled
+  hash join over two hash exchanges; a multi-partition right side under a
+  one-partition left side takes a single-partition exchange.
+
+A union has the partitions of all its children, and a limit one.
+``explain`` shows, on each converted node's line, the exchanges and the
+join strategy the conversion placed.
 
 Before tagging, every union branch whose column types differ from the
 union's (``L.union_widen``) gets a Project of Casts to them
@@ -41,7 +66,9 @@ from __future__ import annotations
 import dataclasses
 import threading
 import weakref
-from typing import List, Optional
+from typing import List, Optional, Set
+
+import numpy as np
 
 from spark_rapids_tpu_torch import support
 from spark_rapids_tpu_torch import types as T
@@ -52,30 +79,40 @@ from spark_rapids_tpu_torch.exec.aggregate import (
     HashAggregateExec, _strip_alias)
 from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
 from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, HashJoinExec
-from spark_rapids_tpu_torch.exec.misc import UnionExec
+from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
+from spark_rapids_tpu_torch.exec.misc import (
+    CoalesceBatchesExec, GlobalLimitExec, UnionExec,
+    take_ordered_and_project)
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
-from spark_rapids_tpu_torch.exec.sort import LimitExec, SortExec
+from spark_rapids_tpu_torch.exec.sort import SortExec
 from spark_rapids_tpu_torch.exec.window import (
     WindowExec, bind_function, check_window)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
+from spark_rapids_tpu_torch.plan import cbo as CBO
 from spark_rapids_tpu_torch.plan import cpu as CPU
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.cpu_agg import CpuAggregateExec, CpuJoinExec
 from spark_rapids_tpu_torch.plan.cpu_window import CpuWindowExec
+from spark_rapids_tpu_torch.shuffle.exchange_exec import ShuffleExchangeExec
+from spark_rapids_tpu_torch.shuffle.partition import (
+    HashPartitioner, RangePartitioner, SinglePartitioner)
 
 
-# uploaded batches per (arrow table, batch_rows, device), so plans over one
-# table reuse one upload; an entry drops when its table is collected
+# uploaded batches per (arrow table, batch_rows, device, partitions), so
+# plans over one table reuse one upload; an entry drops when its table is
+# collected
 _SOURCE_CACHE: dict = {}
 _SOURCE_LOCK = threading.Lock()
 
 
 def source_batches(node: L.InMemoryScan):
-    """Upload a table as device batches of ``batch_rows`` rows. Strings are
-    dictionary-encoded once for the whole table, so every batch shares one
-    device dictionary."""
-    key = (id(node.table), node.batch_rows, node.device)
+    """Upload a table as device batches of ``batch_rows`` rows, split into
+    ``min(partitions, batches)`` source partitions, batch ``i`` in split
+    ``i % splits`` (the reference's split). Strings are dictionary-encoded
+    once for the whole table, so every batch shares one device
+    dictionary."""
+    key = (id(node.table), node.batch_rows, node.device, node.partitions)
     with _SOURCE_LOCK:
         ent = _SOURCE_CACHE.get(key)
         if ent is not None and ent[0]() is node.table:
@@ -85,11 +122,13 @@ def source_batches(node: L.InMemoryScan):
     batches = [batch_from_arrow(t.slice(i, node.batch_rows), node.device,
                                 dict_cache=cache)
                for i in range(0, max(t.num_rows, 1), node.batch_rows)]
+    n_parts = max(1, min(node.partitions, len(batches)))
+    parts = [batches[p::n_parts] for p in range(n_parts)]
     ref = weakref.ref(node.table,
                       lambda _r, k=key: _SOURCE_CACHE.pop(k, None))
     with _SOURCE_LOCK:
-        _SOURCE_CACHE[key] = (ref, batches)
-    return batches
+        _SOURCE_CACHE[key] = (ref, parts)
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +289,8 @@ class PlanMeta:
     node: L.LogicalPlan
     children: List["PlanMeta"]
     reasons: List[str] = dataclasses.field(default_factory=list)
+    # the exchanges and join strategy the conversion placed for this node
+    physical: List[str] = dataclasses.field(default_factory=list)
 
     def will_not_work(self, reason: str) -> None:
         if reason not in self.reasons:
@@ -272,6 +313,8 @@ def explain(meta: PlanMeta, mode: str = "ALL") -> str:
                     f"{m.node.describe()}")
             if m.reasons:
                 line += "  cannot run on GPU because " + "; ".join(m.reasons)
+            if m.physical:
+                line += "  [" + "; ".join(m.physical) + "]"
             lines.append(line)
         for c in m.children:
             walk(c, depth + 1)
@@ -304,8 +347,11 @@ _APPLY_LOCK = threading.RLock()
 
 
 class Overrides:
-    def __init__(self, conf: Optional[C.RapidsConf] = None):
+    def __init__(self, conf: Optional[C.RapidsConf] = None,
+                 shuffle_partitions: int = 4):
         self.conf = conf or C.RapidsConf()
+        self.shuffle_partitions = shuffle_partitions
+        self._parts = shuffle_partitions  # this plan's, after the fast path
 
     # -- tag ---------------------------------------------------------------
     def wrap_and_tag(self, plan: L.LogicalPlan) -> PlanMeta:
@@ -366,10 +412,33 @@ class Overrides:
         with _APPLY_LOCK:
             C.set_active(self.conf)
             meta = self.prepare(plan)
+            self._parts = (1 if self._fastpath_eligible(plan)
+                           else self.shuffle_partitions)
+            node = self._convert(meta)
             mode = C.EXPLAIN.get(self.conf)
             if mode != "NONE":
                 print(explain(meta, mode))
-            return self._convert(meta)
+            return node
+
+    def _fastpath_eligible(self, plan: L.LogicalPlan) -> bool:
+        """True when the scan leaves' rows and bytes, summed, sit at or
+        under the fast path's bounds: the query then plans one shuffle
+        partition."""
+        if not C.FASTPATH_ENABLED.get(self.conf):
+            return False
+        rows = nbytes = 0
+        stack = [plan]
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children)
+            elif isinstance(n, L.InMemoryScan):
+                rows += n.table.num_rows
+                nbytes += n.table.nbytes
+            else:
+                return False
+        return (rows <= C.FASTPATH_MAX_ROWS.get(self.conf)
+                and nbytes <= C.FASTPATH_MAX_BYTES.get(self.conf))
 
     def _cpu_reasons(self, node: L.LogicalPlan) -> List[str]:
         """Why the CPU engine cannot run this node (empty: it can)."""
@@ -385,6 +454,13 @@ class Overrides:
         return out
 
     def _convert(self, meta: PlanMeta) -> DeviceExec:
+        kids_out: List[DeviceExec] = []
+        ex = self._convert_node(meta, kids_out)
+        meta.physical = _placed(ex, {id(k) for k in kids_out})
+        return ex
+
+    def _convert_node(self, meta: PlanMeta,
+                      kids_out: List[DeviceExec]) -> DeviceExec:
         node = meta.node
         on_dev = meta.can_run_on_device
         if not on_dev:
@@ -400,11 +476,12 @@ class Overrides:
                     f"{node.describe()} runs neither on the GPU nor on the "
                     f"CPU engine: {'; '.join(meta.reasons + cpu_reasons)}")
         kids = [self._convert(c) for c in meta.children]
+        kids_out.extend(kids)
         dev = self._device(node)
         if isinstance(node, L.InMemoryScan):
             if not on_dev:
                 return CPU.CpuInMemoryScanExec(node.table, dev)
-            return BatchSourceExec([source_batches(node)], node.schema, dev)
+            return BatchSourceExec(source_batches(node), node.schema, dev)
         if isinstance(node, L.Project):
             return (ProjectExec(node.exprs, kids[0]) if on_dev
                     else CPU.CpuProjectExec(node.exprs, kids[0], dev))
@@ -415,35 +492,123 @@ class Overrides:
             if not on_dev:
                 return CpuAggregateExec(node.group_exprs, node.agg_exprs,
                                         kids[0], dev)
-            return HashAggregateExec(node.group_exprs, node.agg_exprs,
-                                     kids[0], mode="complete")
+            return self._convert_aggregate(node, kids[0])
         if isinstance(node, L.Window):
             if not on_dev:
                 return CpuWindowExec(node.window_exprs, kids[0], dev)
-            return WindowExec(node.window_exprs, kids[0])
+            return self._convert_window(node, kids[0])
         if isinstance(node, L.Sort):
             if not on_dev:
                 return CPU.CpuSortExec(node.orders, kids[0], dev,
                                        limit=node.limit)
-            return SortExec(node.orders, kids[0], limit=node.limit)
+            return self._convert_sort(node, kids[0])
         if isinstance(node, L.Join):
             if not on_dev:
                 return CpuJoinExec(node.left_keys, node.right_keys,
                                    node.join_type, kids[0], kids[1], dev,
                                    condition=node.condition)
-            return HashJoinExec(node.left_keys, node.right_keys,
-                                node.join_type, kids[0], kids[1],
-                                max_candidate_rows=C.JOIN_MAX_OUTPUT_ROWS.get(
-                                    self.conf), condition=node.condition)
+            return self._convert_join(node, kids[0], kids[1])
         if isinstance(node, L.Union):
             if not on_dev:
                 return CPU.CpuUnionExec(node.schema, *kids, device=dev)
             return UnionExec(node.schema, *kids)
         if isinstance(node, L.Limit):
-            return (LimitExec(node.n, kids[0], node.offset) if on_dev
+            return (GlobalLimitExec(node.n, kids[0], node.offset) if on_dev
                     else CPU.CpuLimitExec(node.n, kids[0], dev, node.offset))
         raise NotImplementedError(
             f"plan node {type(node).__name__} is not in the port yet")
+
+    def _convert_aggregate(self, node: L.Aggregate,
+                           child: DeviceExec) -> DeviceExec:
+        if child.num_partitions() == 1:
+            return HashAggregateExec(node.group_exprs, node.agg_exprs, child,
+                                     mode="complete")
+        partial = HashAggregateExec(node.group_exprs, node.agg_exprs, child,
+                                    mode="partial")
+        n_keys = len(node.group_exprs)
+        part = (HashPartitioner(range(n_keys), self._parts) if n_keys
+                else SinglePartitioner())
+        return HashAggregateExec.final_from_partial(
+            partial, ShuffleExchangeExec(part, partial))
+
+    def _convert_window(self, node: L.Window,
+                        child: DeviceExec) -> DeviceExec:
+        if child.num_partitions() > 1:
+            # co-partition rows by the window's partition keys: a hash
+            # exchange when they are all columns, else one partition
+            first = node.window_exprs[0]
+            spec = (first.child if isinstance(first, E.Alias)
+                    else first).spec
+            cs = child.output_schema
+            key_idx = []
+            for p in spec.partition_by:
+                b = E.resolve(p, cs)
+                if not isinstance(b, E.ColumnRef):
+                    key_idx = []
+                    break
+                key_idx.append(b.index)
+            part = (HashPartitioner(key_idx, self._parts) if key_idx
+                    else SinglePartitioner())
+            child = ShuffleExchangeExec(part, child)
+        return WindowExec(node.window_exprs,
+                          CoalesceBatchesExec(child, require_single=True))
+
+    def _convert_sort(self, node: L.Sort, child: DeviceExec) -> DeviceExec:
+        if node.limit is not None:
+            return take_ordered_and_project(node.orders, node.limit, child)
+        if child.num_partitions() > 1:
+            child = ShuffleExchangeExec(self._range_partitioner(node, child),
+                                        child)
+        return SortExec(node.orders, child)
+
+    def _range_partitioner(self, node: L.Sort, child: DeviceExec):
+        """Range bounds of the first sort key, sampled from the first batch
+        of each child partition (GpuRangePartitioner's sample); one
+        partition for a string, DECIMAL128 or boolean key, or several
+        keys. Samples are the device's values (a decimal's unscaled
+        integers, a date's days), the units the partitioner compares."""
+        first = node.orders[0]
+        bound = E.resolve(first.child, child.output_schema)
+        if (len(node.orders) > 1 or bound.dtype in (T.STRING, T.BOOLEAN)
+                or T.is_wide_decimal(bound.dtype)):
+            return SinglePartitioner()
+        samples = []
+        for p in range(child.num_partitions()):
+            for b in child.execute(p):
+                col = b.columns[bound.index]
+                vals = col.data[col.validity].double().cpu().numpy()
+                vals = vals[~np.isnan(vals)]
+                if len(vals):
+                    samples.append(np.random.default_rng(0).choice(
+                        vals, min(len(vals), 256)))
+                break  # the first batch of each partition only
+        values = np.concatenate(samples) if samples else np.zeros(0)
+        return RangePartitioner.from_sample(
+            values, self._parts, bound.index, first.ascending,
+            first.nulls_first)
+
+    def _convert_join(self, node: L.Join, left: DeviceExec,
+                      right: DeviceExec) -> DeviceExec:
+        max_rows = C.JOIN_MAX_OUTPUT_ROWS.get(self.conf)
+        if left.num_partitions() > 1:
+            if (node.join_type in BroadcastHashJoinExec.BROADCAST_TYPES
+                    and CBO.estimate_rows(node.right)
+                    <= C.JOIN_BROADCAST_ROWS.get(self.conf)):
+                return BroadcastHashJoinExec(
+                    node.left_keys, node.right_keys, node.join_type, left,
+                    right, max_rows, condition=node.condition)
+            lk = [E.resolve(k, left.output_schema).index
+                  for k in node.left_keys]
+            rk = [E.resolve(k, right.output_schema).index
+                  for k in node.right_keys]
+            left = ShuffleExchangeExec(HashPartitioner(lk, self._parts), left)
+            right = ShuffleExchangeExec(HashPartitioner(rk, self._parts),
+                                        right)
+        elif right.num_partitions() > 1:
+            right = ShuffleExchangeExec(SinglePartitioner(), right)
+        return HashJoinExec(node.left_keys, node.right_keys, node.join_type,
+                            left, right, max_candidate_rows=max_rows,
+                            condition=node.condition)
 
     @staticmethod
     def _device(node: L.LogicalPlan) -> str:
@@ -452,6 +617,28 @@ class Overrides:
         while node.children:
             node = node.children[0]
         return node.device
+
+
+def _placed(node: DeviceExec, kid_ids: Set[int]) -> List[str]:
+    """The exchanges and the join strategy in a converted node's subtree
+    above its children's conversions (``explain``'s annotation)."""
+    out: List[str] = []
+
+    def walk(n):
+        if id(n) in kid_ids:
+            return
+        if isinstance(n, ShuffleExchangeExec):
+            out.append(f"Exchange {n.partitioner.describe()}")
+        elif isinstance(n, BroadcastHashJoinExec):
+            out.append("BroadcastHashJoin")
+        elif isinstance(n, HashJoinExec):
+            out.append("ShuffledHashJoin" if isinstance(
+                n.left, ShuffleExchangeExec) else "HashJoin")
+        for c in n.children:
+            walk(c)
+
+    walk(node)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,5 @@
+"""Columnar shuffle (counterpart of spark_rapids_tpu/shuffle/): the kudo
+wire format (``serializer``) with its integrity trailer (``integrity``),
+device-side partitioners (``partition``), the multithreaded shuffle
+manager with its CACHE_ONLY mode (``manager``) and the exchange operator
+(``exchange_exec``)."""

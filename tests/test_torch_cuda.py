@@ -21,7 +21,11 @@ q1/q30/q65/q81 on the card against the CPU, the CPU engine and the
 sorted-hash path; the window slice's surface (ntile, percent_rank,
 cume_dist, lead/lag, first/last, bounded ROWS and RANGE frames, the
 min/max scans, plain-string partition keys) and its five queries
-q47/q57/q70/q86/q89 the same way.
+q47/q57/q70/q86/q89 the same way; partitioned execution: partition ids
+on the card against the CPU, the shuffle exchange uploading to the card
+in map order with one and four writer threads, and TPC-H and TPC-DS
+queries with 4 source splits on the card against one partition on the
+CPU.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -901,3 +905,107 @@ def test_tpcds_window_rest_query_on_card_matches_cpu(q):
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
 
     assert Q.informative(_slice_query_on_card(q))
+
+
+# ---------------------------------------------------------------------------
+# partitioned execution: partitioners, the exchange and partitioned plans
+# ---------------------------------------------------------------------------
+
+
+def _partition_table(n=20000, seed=21):
+    rng = np.random.default_rng(seed)
+    mask = rng.random(n) < 0.1
+    words = [f"w{i}" for i in range(40)]
+    return pa.table({
+        "k": pa.array(rng.integers(-1000, 1000, n), pa.int64(), mask=mask),
+        "f": pa.array(rng.normal(0, 50, n)),
+        "s": pa.array([words[int(i)] for i in rng.integers(0, 40, n)],
+                      mask=mask),
+    })
+
+
+@pytest.mark.parametrize("part", ["hash_int", "hash_string", "hash_pair",
+                                  "range", "round_robin"])
+def test_partition_ids_on_card_match_cpu(part):
+    _card()
+    from spark_rapids_tpu_torch.shuffle import partition as PP
+
+    t = PB.dictionary_encode_table(_partition_table())
+    p = {"hash_int": PP.HashPartitioner([0], 7),
+         "hash_string": PP.HashPartitioner([2], 4),
+         "hash_pair": PP.HashPartitioner([2, 0], 5),
+         "range": PP.RangePartitioner.from_sample(
+             np.linspace(-100, 100, 64), 4, 1),
+         "round_robin": PP.RoundRobinPartitioner(3, 1)}[part]
+    got = p.partition_ids(PB.batch_from_arrow(t, "cuda"))
+    assert got.is_cuda
+    exp = p.partition_ids(PB.batch_from_arrow(t, "cpu"))
+    assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_exchange_on_card_uploads_to_the_card_and_keeps_map_order(
+        threads, tmp_path):
+    _card()
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+    from spark_rapids_tpu_torch.shuffle import partition as PP
+    from spark_rapids_tpu_torch.shuffle.exchange_exec import (
+        ShuffleExchangeExec)
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+
+    t = _partition_table()
+    sch = PT.Schema.from_arrow(t.schema)
+
+    def rows(device):
+        src = BatchSourceExec([[PB.batch_from_arrow(
+            t.slice(i * 5000, 5000), device)] for i in range(4)], sch)
+        ex = ShuffleExchangeExec(
+            PP.HashPartitioner([2], 3), src,
+            manager=ShuffleManager(local_dir=str(tmp_path / device),
+                                   writer_threads=threads),
+            target_batch_rows=4096)
+        out = []
+        for p in range(3):
+            for b in ex.execute(p):
+                assert b.columns[0].device.type == device
+                out.append(PB.batch_to_arrow(b, sch).to_pylist())
+        return out
+
+    assert rows("cuda") == rows("cpu")
+
+
+@pytest.mark.parametrize("q", ["q3", "q38", "q47", "q67", "q77", "q93"])
+def test_tpcds_partitioned_query_on_card_matches_one_partition(q):
+    """TPC-DS queries with 4 source splits and 4 shuffle partitions on the
+    card against the same query in one partition on the CPU."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = S.tables_for(0.1, seed=3, names=Q.TABLES.get(q, S.BASE_TABLES))
+    df = Q.QUERIES[q](Q.df_tables(
+        t, RapidsConf({"spark.rapids.gpu.fastpath.enabled": "false"}),
+        batch_rows=1 << 14, device="cuda", partitions=4))
+    assert "!" not in df.explain()
+    got = df.to_arrow().to_pylist()
+    exp = Q.QUERIES[q](Q.df_tables(t, device="cpu", shuffle_partitions=1)
+                       ).to_arrow().to_pylist()
+    assert Q.informative(got)
+    assert Q.check_rows(q, got, exp) == (True, "")
+
+
+@pytest.mark.parametrize("q", ["q1", "q3", "q5", "q6"])
+def test_tpch_partitioned_query_on_card_matches_one_partition(q):
+    _card()
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = tpch.tables_for(0.1, seed=7)
+    got = tpch.DF_QUERIES[q](tpch.df_tables(
+        t, RapidsConf({"spark.rapids.gpu.fastpath.enabled": "false"}),
+        batch_rows=1 << 16, device="cuda", partitions=4)).collect()
+    exp = tpch.DF_QUERIES[q](tpch.df_tables(
+        t, device="cpu", shuffle_partitions=1)).collect()
+    assert len(got) == len(exp) > 0 and tpch.rows_match(got, exp)

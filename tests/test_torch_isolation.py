@@ -204,3 +204,35 @@ def test_no_exception_handler_moves_work_elsewhere():
                             else "")
                     assert not name.startswith("Cpu"), (path, node.lineno)
                     assert name not in plain, (path, node.lineno)
+
+
+def test_the_partitioned_slice_modules_are_covered():
+    """The modules that carry partitioned execution (the shuffle package,
+    the broadcast join, the limits and coalesce, the row estimate) are
+    walked by the import checks above, and hold the names the slice
+    adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.shuffle.serializer",
+             ("serialize_table", "deserialize_table", "merge_tables")),
+            ("spark_rapids_tpu_torch.shuffle.integrity",
+             ("seal", "unseal", "BlockCorruption")),
+            ("spark_rapids_tpu_torch.shuffle.partition",
+             ("HashPartitioner", "RoundRobinPartitioner",
+              "SinglePartitioner", "RangePartitioner")),
+            ("spark_rapids_tpu_torch.shuffle.manager",
+             ("ShuffleManager", "get_manager", "set_manager")),
+            ("spark_rapids_tpu_torch.shuffle.exchange_exec",
+             ("ShuffleExchangeExec",)),
+            ("spark_rapids_tpu_torch.exec.join_bcast",
+             ("BroadcastHashJoinExec",)),
+            ("spark_rapids_tpu_torch.exec.misc",
+             ("CoalesceBatchesExec", "LocalLimitExec", "GlobalLimitExec",
+              "take_ordered_and_project", "UnionExec")),
+            ("spark_rapids_tpu_torch.plan.cbo", ("estimate_rows",))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
