@@ -183,6 +183,35 @@ Phases, in order; any failure exits non-zero before the last line:
    in phase 8 (``partitioned_largest``), and the warm walls (median of
    3) of each query partitioned and in one partition are printed side by
    side;
+14. adaptive reads and reuse. Phases 9-13 run at the port's defaults:
+   AQE readers (coalesced and skew-split reads), exchange and broadcast
+   reuse and prefetch on; ``plan_strategy`` prints each AQE reader's
+   specs, the reused exchanges and broadcasts, the bytes reuse saved
+   (``exec/reuse.counters``) and the prefetch boundaries. This phase
+   holds them against the three switches off (``SWITCHES_OFF``, the
+   plan shape without them): every query of phases 10-11 that plans an
+   exchange and every case of phase 13 runs once with them off, its rows
+   equal to the defaults' run (the query's check: ORDER BY order, rel
+   1e-6 on doubles), with its probe launches on and off; q2, q75, Q3 and
+   Q5's warm walls (median of 3, the checked run with them off the first
+   of the three) with them off beside the defaults', and Q3 and Q5's with
+   prefetch alone off (the read-ahead isolated). Then q2, q4, q11,
+   q74 and q75 with 4 source splits, reuse on against off:
+   equal rows, with values; q2 and q75 must reuse an exchange (the
+   reference's plans of q4, q11 and q74 reuse broadcasts only, and so
+   must theirs). Last, a skewed shuffled join (``skewed_tables``: 2^24
+   fact rows in 4 splits of 2^22, 60% on one key, the rest uniform over
+   2^20 keys, an int64 and a float64 payload; 2^20 dimension keys) with
+   ``broadcastRowThreshold`` 0 and ``skewedPartitionThresholdBytes`` 64
+   MB: inner, left and left_semi, each planning skew-split specs on the
+   fact side with paired readers that line up, the probe launched and
+   every probe call held against the plain version, the rows equal to
+   AQE off as multisets sorted on the card by every column and their
+   count equal to numpy's, and the warm walls on and off (medians of 3,
+   the tables uploaded first, each checked run the first of its three).
+   Every probe and segmented-scan call of the phase's counted runs is
+   held against the plain version (``adaptive_calls_checked``), and the
+   checked calls must cover every counted launch;
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -196,6 +225,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -797,11 +827,13 @@ def run_tpcds_path(tables) -> dict:
             "store_sales_rows": tables["store_sales"].num_rows}
 
 
-def _warm_wall(run, reps: int = 3) -> float:
+def _warm_wall(run, reps: int = 3, first=None) -> float:
+    """The median of ``reps`` timed runs of ``run``; ``first``, the wall of
+    a run just made (tables uploaded, kernels built), counts as one."""
     import torch
 
-    walls = []
-    for _ in range(reps):
+    walls = [] if first is None else [first]
+    while len(walls) < reps:
         t1 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -988,6 +1020,8 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
     from spark_rapids_tpu_torch.config.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exec import pipeline as PP
+    from spark_rapids_tpu_torch.exec import reuse as R
     from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
     from spark_rapids_tpu_torch.plan.overrides import join_paths
 
@@ -1015,6 +1049,8 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
             # counted and timed from the query's construction: q23/q24
             # run their threshold subqueries there
             K.reset_kernel_launches()
+            R.reset_counters()
+            PP.STATS.reset()
             t1 = time.perf_counter()
             df = Q.QUERIES[q](d)
             t2 = time.perf_counter()
@@ -1037,6 +1073,7 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                                      f"CPU engine")
             paths = join_paths(plan)
             strategy = plan_strategy(plan)
+            strategy["bytes_saved"] = R.counters()["reuse_bytes_saved_total"]
             got = out.to_pylist()
             # q76's probe sides are empty (no null promotion key): its
             # joins probe nothing here
@@ -1072,14 +1109,8 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                 f"paths {paths}; first run {first_s:.3f}s; CPU engine "
                 f"{cpu_s:.3f}s; first rows {results[q]['shown']}")
             if strategy["exchanges"] or strategy["broadcast_joins"]:
-                log(f"{q}: planned in {plan_s:.3f}s; exchanges "
-                    f"{strategy['exchanges']}, broadcast "
-                    f"joins {strategy['broadcast_joins']}, shuffle "
-                    f"{strategy['shuffle_bytes_written']} B written; split "
-                    f"{strategy['split_ms']:.1f} ms, serialize "
-                    f"{strategy['serialize_ms']:.1f} ms, wait "
-                    f"{strategy['wait_ms']:.1f} ms, read "
-                    f"{strategy['read_ms']:.1f} ms")
+                log(f"{q}: planned in {plan_s:.3f}s; "
+                    f"{strategy_line(strategy)}")
         if extra is not None:
             results.update(extra(d, cpu))
     finally:
@@ -1202,9 +1233,11 @@ def checking_scan(real_scan, calls):
             raise AssertionError(
                 f"segscan kernel differs from its plain version on a "
                 f"{values.numel()}-row {values.dtype} {op_name} scan")
-        calls[op_name] += 1
+        with lock:
+            calls[op_name] += 1
         return k
 
+    lock = threading.Lock()  # prefetch workers call it too
     return scan
 
 
@@ -1501,9 +1534,11 @@ def checking_probe(real_probe, calls):
             raise AssertionError(
                 f"probe kernel differs from its plain version on a "
                 f"{h1.numel()}-row probe into {capacity} slots")
-        calls[0] += 1
+        with lock:
+            calls[0] += 1
         return ks, kh
 
+    lock = threading.Lock()  # prefetch workers call it too
     return probe
 
 
@@ -1639,18 +1674,33 @@ SORT_COLUMNS = ("ss_sold_date_sk", "ss_item_sk", "ss_ticket_number",
 
 def plan_strategy(plan) -> dict:
     """An executed physical plan's exchanges by partitioner, its joins by
-    strategy, and its exchanges' shuffle bytes and times: the device
-    passes (split), waiting for the writer threads and the reads on the
-    calling thread, serialization summed over the writer threads."""
+    strategy, its exchanges' shuffle bytes and times (the device passes
+    (split), waiting for the writer threads and the reads on the calling
+    thread, AQE readers' reads included, and the part of the reads spent
+    waiting for a read-ahead; serialization summed over the
+    writer threads), each AQE reader's specs, its reused exchanges and
+    broadcasts, its prefetch boundaries and the prefetch counters
+    (``exec/pipeline.STATS``: batches handed over and consumer stalls,
+    since the caller's ``reset``)."""
+    from spark_rapids_tpu_torch.exec import pipeline as PP
     from spark_rapids_tpu_torch.exec.join import HashJoinExec
-    from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
+    from spark_rapids_tpu_torch.exec.pipeline import PrefetchExec
+    from spark_rapids_tpu_torch.exec.reuse import (
+        ReusedBroadcastExec, ReusedExchangeExec)
+    from spark_rapids_tpu_torch.plan.overrides import join_strategy
+    from spark_rapids_tpu_torch.shuffle.aqe import (
+        AQEShuffleReadExec, CoalescedPartitionSpec)
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
         ShuffleExchangeExec)
 
     out = {"exchanges": {}, "broadcast_joins": 0, "shuffled_joins": 0,
            "one_partition_joins": 0, "shuffle_bytes_written": 0,
            "shuffle_bytes_read": 0, "split_ms": 0.0, "serialize_ms": 0.0,
-           "wait_ms": 0.0, "read_ms": 0.0}
+           "wait_ms": 0.0, "read_ms": 0.0, "read_ahead_wait_ms": 0.0,
+           "aqe_readers": [],
+           "coalesced_specs": 0, "skew_split_specs": 0,
+           "reused_exchanges": 0, "reused_broadcasts": 0, "prefetch": 0,
+           "prefetch_stats": PP.STATS.snapshot()}
     stack = [plan]
     while stack:
         n = stack.pop()
@@ -1663,13 +1713,46 @@ def plan_strategy(plan) -> dict:
             out["shuffle_bytes_read"] += m["shuffleBytesRead"].value
             for k in ("split", "serialize", "wait", "read"):
                 out[f"{k}_ms"] += m[f"{k}TimeNs"].value / 1e6
-        elif isinstance(n, BroadcastHashJoinExec):
-            out["broadcast_joins"] += 1
+            out["read_ahead_wait_ms"] += m["readAheadWaitNs"].value / 1e6
+        elif isinstance(n, AQEShuffleReadExec):
+            specs = n.planned_specs() or []
+            co = sum(isinstance(sp, CoalescedPartitionSpec) for sp in specs)
+            out["coalesced_specs"] += co
+            out["skew_split_specs"] += len(specs) - co
+            out["aqe_readers"].append(
+                f"{type(n).__name__}: " + " ".join(sp.describe()
+                                                   for sp in specs))
+            out["shuffle_bytes_read"] += n.metrics["shuffleBytesRead"].value
+            out["read_ms"] += n.metrics["readTimeNs"].value / 1e6
+            out["read_ahead_wait_ms"] += (
+                n.metrics["readAheadWaitNs"].value / 1e6)
+        elif isinstance(n, ReusedExchangeExec):
+            out["reused_exchanges"] += 1
+        elif isinstance(n, ReusedBroadcastExec):
+            out["reused_broadcasts"] += 1
+        elif isinstance(n, PrefetchExec):
+            out["prefetch"] += 1
         elif isinstance(n, HashJoinExec):
-            key = ("shuffled_joins" if isinstance(n.left, ShuffleExchangeExec)
-                   else "one_partition_joins")
-            out[key] += 1
+            out[f"{join_strategy(n)}_joins"] += 1
     return out
+
+
+def strategy_line(s: dict) -> str:
+    """plan_strategy's record as one log line."""
+    return (f"exchanges {s['exchanges']}, joins broadcast "
+            f"{s['broadcast_joins']} shuffled {s['shuffled_joins']} "
+            f"one-partition {s['one_partition_joins']}; shuffle "
+            f"{s['shuffle_bytes_written']} B written "
+            f"{s['shuffle_bytes_read']} B read; split {s['split_ms']:.1f} "
+            f"ms, serialize {s['serialize_ms']:.1f} ms, wait "
+            f"{s['wait_ms']:.1f} ms, read {s['read_ms']:.1f} ms (of it "
+            f"{s['read_ahead_wait_ms']:.1f} ms waiting for a read-ahead); "
+            f"AQE "
+            f"{s['aqe_readers']}; reused {s['reused_exchanges']} exchanges "
+            f"{s['reused_broadcasts']} broadcasts, "
+            f"{s.get('bytes_saved', 0)} B saved; {s['prefetch']} prefetch "
+            f"boundaries ({s['prefetch_stats']['prefetch_items']} batches, "
+            f"{s['prefetch_stats']['prefetch_stalls']} stalls)")
 
 
 def sorted_store_sales(d):
@@ -1697,6 +1780,8 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
     from spark_rapids_tpu_torch.config.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exec import pipeline as PP
+    from spark_rapids_tpu_torch.exec import reuse as R
     from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
 
     off = RapidsConf({"spark.rapids.gpu.sql.enabled": "false"})
@@ -1710,21 +1795,31 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
             == [tuple(r[k] for k in keys) for r in exp])
         return ok, "" if ok else "rows or ORDER BY order differ"
 
+    def four(extra=None):
+        """The 4-split frames of the cases: TPC-H, TPC-DS, and TPC-DS with
+        q38's string-keyed semi joins shuffled."""
+        conf = RapidsConf(extra or {})
+        shuffled = RapidsConf(dict(extra or {}, **{
+            "spark.rapids.gpu.sql.join.broadcastRowThreshold":
+                SHUFFLED_Q38_BROADCAST_ROWS}))
+        return {"h": tpch.df_tables(tpch_tables, conf, batch_rows=1 << 20,
+                                    device="cuda", partitions=4),
+                "ds": Q.df_tables(ds_tables, conf, batch_rows=1 << 19,
+                                  device="cuda", partitions=4),
+                "ds_shuffled": Q.df_tables(ds_tables, shuffled,
+                                           batch_rows=1 << 19,
+                                           device="cuda", partitions=4)}
+
+    frames = four()
     h = {"one": tpch.df_tables(tpch_tables, batch_rows=1 << 20,
                                device="cuda", shuffle_partitions=1),
-         "four": tpch.df_tables(tpch_tables, batch_rows=1 << 20,
-                                device="cuda", partitions=4),
+         "four": frames["h"],
          "cpu": tpch.df_tables(tpch_tables, off, device="cuda")}
     ds = {"one": Q.df_tables(ds_tables, batch_rows=1 << 19, device="cuda",
                              shuffle_partitions=1),
-          "four": Q.df_tables(ds_tables, batch_rows=1 << 19, device="cuda",
-                              partitions=4),
+          "four": frames["ds"],
           "cpu": Q.df_tables(ds_tables, off, device="cuda")}
-    ds_shuffled = dict(ds, four=Q.df_tables(
-        ds_tables, RapidsConf({"spark.rapids.gpu.sql.join."
-                               "broadcastRowThreshold":
-                               SHUFFLED_Q38_BROADCAST_ROWS}),
-        batch_rows=1 << 19, device="cuda", partitions=4))
+    ds_shuffled = dict(ds, four=frames["ds_shuffled"])
     cases = ([(f"tpch_{q}", tpch.DF_QUERIES[q], h,
                lambda g, e, q=q: tpch_check(q, g, e), q in ("q3", "q5"),
                False) for q in ("q1", "q3", "q5", "q6")]
@@ -1735,6 +1830,7 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
                  lambda g, e: Q.check_rows("q38", g, e), True, False)]
              + [("order_by_ss_net_paid", sorted_store_sales, ds, None,
                  False, False)])
+    frame_of = {id(h): "h", id(ds): "ds", id(ds_shuffled): "ds_shuffled"}
 
     # every probe and segmented-scan call of the counted runs is held
     # against the plain version (which launches no kernel, so the counts
@@ -1753,7 +1849,7 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
             largest.update(size=size, args=(tbl, h1, h2, capacity, seed))
         return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
 
-    results = {}
+    results, rows = {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
     for name, build, d, check, joins, window in cases:
         t1 = time.perf_counter()
@@ -1767,6 +1863,8 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
             raise AssertionError(f"{name} partitioned has nodes on the CPU "
                                  f"engine: {cpu_marks}")
         K.reset_kernel_launches()
+        R.reset_counters()
+        PP.STATS.reset()
         K.probe_hash_table_kernel = recording_probe
         K.segmented_scan_kernel = check_scan_call
         try:
@@ -1782,6 +1880,7 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
         for k, v in launches.items():
             total[k] += v
         strategy = plan_strategy(plan)
+        strategy["bytes_saved"] = R.counters()["reuse_bytes_saved_total"]
         t1 = time.perf_counter()
         on_cpu = build(d["cpu"]).to_arrow()
         cpu_s = time.perf_counter() - t1
@@ -1818,18 +1917,11 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
         results[name] = dict(strategy, rows=out.num_rows, first_s=first_s,
                              one_partition_first_s=one_s,
                              cpu_engine_s=cpu_s, launches=launches)
+        rows[name] = out
         log(f"{name}: {out.num_rows} rows, 4 splits equal one partition "
-            f"and the CPU engine; exchanges {strategy['exchanges']}; "
-            f"joins broadcast {strategy['broadcast_joins']} shuffled "
-            f"{strategy['shuffled_joins']} one-partition "
-            f"{strategy['one_partition_joins']}; shuffle "
-            f"{strategy['shuffle_bytes_written']} B written "
-            f"{strategy['shuffle_bytes_read']} B read; split "
-            f"{strategy['split_ms']:.1f} ms, serialize "
-            f"{strategy['serialize_ms']:.1f} ms, wait "
-            f"{strategy['wait_ms']:.1f} ms, read {strategy['read_ms']:.1f} "
-            f"ms; launches {launches}; first run {first_s:.3f}s; CPU "
-            f"engine {cpu_s:.3f}s")
+            f"and the CPU engine; {strategy_line(strategy)}; launches "
+            f"{launches}; first run {first_s:.3f}s; CPU engine "
+            f"{cpu_s:.3f}s")
 
     log(f"probe: all {probe_calls[0]} calls and segscan: all "
         f"{sum(scan_calls.values())} calls ({scan_calls}) of the "
@@ -1845,7 +1937,376 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
     return {"queries": results, "launches": total,
             "probe_calls_checked": probe_calls[0],
             "segscan_calls_checked": scan_calls,
-            "largest_table_probe": largest.get("args")}
+            "largest_table_probe": largest.get("args"),
+            # for phase 14: each case's query, frame and check, the frames
+            # under another conf, and the rows
+            "cases": [(name, build, frame_of[id(d)], check)
+                      for name, build, d, check, _j, _w in cases],
+            "four": four, "rows": rows}
+
+
+# phase 14: the three switches off give the plan shape without them
+SWITCHES_OFF = {"spark.rapids.gpu.sql.adaptive.enabled": "false",
+                "spark.rapids.gpu.sql.exchange.reuse.enabled": "false",
+                "spark.rapids.gpu.sql.prefetch.enabled": "false"}
+# the queries whose warm walls run with the switches off too: q2 and q75
+# (phases 10-11) and TPC-H Q3 and Q5 (phase 13)
+SWITCHES_OFF_WALLS = ("q2", "q75", "tpch_q3", "tpch_q5")
+# the queries whose warm walls run with prefetch alone off (the read-ahead
+# and the prefetch boundaries; AQE and reuse on): the phase 13 cases whose
+# AQE readers read several specs
+PREFETCH_OFF_WALLS = ("tpch_q3", "tpch_q5")
+# phase 14's reuse queries at SF ``--sf-ds`` with 4 source splits: q2 and
+# q75 read one exchange twice; q4, q11 and q74 total each channel and year
+# on its own (no exchange repeats, as in the reference's plans) and
+# repeat their broadcast builds
+REUSE_QUERIES = ("q2", "q4", "q11", "q74", "q75")
+REUSED_EXCHANGE_QUERIES = ("q2", "q75")
+# the skewed shuffled join: 2^24 fact rows in 4 splits of 2^22, 60% of
+# them on one key, the rest uniform over 2^20 keys (the even ones in the
+# dimension's 2^20 keys, 0, 2, ..., 2^21 - 2, the hot key among them)
+SKEW_FACT_ROWS = 1 << 24
+SKEW_BATCH_ROWS = 1 << 22
+SKEW_KEYS = 1 << 20
+SKEW_HOT_KEY = 1 << 19
+SKEW_CONF = {"spark.rapids.gpu.sql.join.broadcastRowThreshold": 0,
+             "spark.rapids.gpu.sql.adaptive.skewJoin."
+             "skewedPartitionThresholdBytes": 64 << 20}
+SKEW_JOINS = ("inner", "left", "left_semi")
+
+
+def same_rows_as(name, check, got, exp) -> None:
+    """Phase 14's row check of a switched-off run against the default
+    run: the query's own check (ORDER BY order, rel 1e-6 on doubles), the
+    sort's key order and multiset."""
+    if check is None:
+        ok, why = same_sorted_rows(got, exp), "rows differ"
+    else:
+        ok, why = check(got.to_pylist(), exp if isinstance(exp, list)
+                        else exp.to_pylist())
+    if not ok:
+        raise AssertionError(f"{name} with AQE, reuse and prefetch off "
+                             f"differs from the defaults ({why})")
+
+
+def skewed_tables(seed: int = 0):
+    """The skewed join's fact and dimension tables, from ``seed``."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    n = SKEW_FACT_ROWS
+    keys = rng.integers(0, SKEW_KEYS, n)
+    keys[rng.random(n) < 0.6] = SKEW_HOT_KEY
+    facts = pa.table({"fk": keys,
+                      "fv": rng.integers(-10**9, 10**9, n),
+                      "fx": rng.normal(0, 1, n)})
+    dims = pa.table({"dk": np.arange(SKEW_KEYS, dtype=np.int64) * 2,
+                     "dv": rng.integers(0, 1000, SKEW_KEYS)})
+    return facts, dims
+
+
+def sorted_on_card(table):
+    """A result's columns on the card, its rows sorted by every column
+    (validity, then value, column by column): a multiset's one order."""
+    import torch
+
+    cols = []
+    for name in table.column_names:
+        arr = table.column(name).combine_chunks()
+        valid = torch.tensor(arr.is_valid().to_numpy(zero_copy_only=False),
+                             device="cuda")
+        vals = torch.tensor(arr.fill_null(0).to_numpy(zero_copy_only=False),
+                            device="cuda")
+        cols += [valid, vals]
+    perm = torch.arange(table.num_rows, device="cuda")
+    for key in reversed(cols):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    return [c[perm] for c in cols]
+
+
+def skewed_join_case(facts, dims, how, probe_calls) -> dict:
+    """Phase 14's skewed join ``how``: planned with skew-split specs on
+    the fact side, every probe call held against the plain version, rows
+    equal to AQE off as multisets sorted on the card, the row count equal
+    to numpy's; warm walls on and off (medians of 3)."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan import from_arrow
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.shuffle import aqe as A
+
+    def query(extra=None):
+        conf = RapidsConf(dict(SKEW_CONF, **(extra or {})))
+        f = from_arrow(facts, conf, batch_rows=SKEW_BATCH_ROWS,
+                       device="cuda", partitions=4)
+        d = from_arrow(dims, conf, batch_rows=SKEW_BATCH_ROWS, device="cuda")
+        return f.join(d, left_on="fk", right_on="dk", how=how)
+
+    off = {"spark.rapids.gpu.sql.adaptive.enabled": "false"}
+    runs = {}
+    real_probe = K.probe_hash_table_kernel
+    query().physical_plan()  # uploads the tables: every run below is warm
+    for name, extra in (("on", None), ("off", off)):
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = checking_probe(real_probe, probe_calls)
+        try:
+            t1 = time.perf_counter()
+            plan = query(extra).physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+        runs[name] = {"plan": plan, "out": out, "first_s": first_s,
+                      "launches": dict(K.KERNEL_LAUNCHES)}
+        if K.KERNEL_LAUNCHES["hashtbl_probe"] <= 0:
+            raise AssertionError(f"skewed {how} join ({name}) launched no "
+                                 f"probe kernel")
+    readers = [n for n in _walk_plan(runs["on"]["plan"])
+               if isinstance(n, A.SkewAwareShuffleReadExec)]
+    if len(readers) != 2:
+        raise AssertionError(f"skewed {how} join has {len(readers)} "
+                             f"skew-aware readers")
+    lspecs, rspecs = readers[0].specs(), readers[1].specs()
+    if len(lspecs) != len(rspecs):
+        raise AssertionError(f"skewed {how} join's readers have "
+                             f"{len(lspecs)} and {len(rspecs)} specs")
+    for ls, rs in zip(lspecs, rspecs):
+        coalesced = (isinstance(ls, A.CoalescedPartitionSpec),
+                     isinstance(rs, A.CoalescedPartitionSpec))
+        if coalesced == (True, True):
+            if ls != rs:
+                raise AssertionError(f"unpaired specs {ls} {rs}")
+        elif True in coalesced or ls.reducer != rs.reducer:
+            raise AssertionError(f"unpaired specs {ls} {rs}")
+    split = sum(isinstance(sp, A.PartialReducerPartitionSpec)
+                for sp in lspecs)
+    if not split:
+        raise AssertionError(f"skewed {how} join planned no skew split: "
+                             f"{[sp.describe() for sp in lspecs]}")
+    keys = facts.column("fk").to_numpy()
+    want = (len(keys) if how == "left"
+            else int(np.count_nonzero(keys % 2 == 0)))
+    on, off_out = runs["on"]["out"], runs["off"]["out"]
+    if on.num_rows != want or off_out.num_rows != want:
+        raise AssertionError(f"skewed {how} join gave {on.num_rows} rows "
+                             f"(AQE off {off_out.num_rows}), numpy {want}")
+    a, b = sorted_on_card(on), sorted_on_card(off_out)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"skewed {how} join differs from AQE off")
+    del a, b
+    # each checked run (its probe calls also run the plain version, a few
+    # ms in all) is the first of its three
+    walls = {name: _warm_wall(lambda extra=extra: query(extra).to_arrow(),
+                              first=runs[name]["first_s"])
+             for name, extra in (("on", None), ("off", off))}
+    lsizes, rsizes = readers[0].planner.sizes
+    res = {"rows": want, "left_specs": [sp.describe() for sp in lspecs],
+           "right_specs": [sp.describe() for sp in rspecs],
+           "left_sizes": lsizes, "right_sizes": rsizes,
+           "skew_split_specs": split,
+           "first_s": {k: v["first_s"] for k, v in runs.items()},
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "warm_s": walls}
+    log(f"skewed {how} join: {want} rows, equal to AQE off and numpy; "
+        f"reduce partitions {lsizes} B (facts), {rsizes} B (dimension); "
+        f"left specs {res['left_specs']}, right specs "
+        f"{res['right_specs']}; probe launches on "
+        f"{res['launches']['on']['hashtbl_probe']} off "
+        f"{res['launches']['off']['hashtbl_probe']}; warm wall on "
+        f"{walls['on']:.4f}s off {walls['off']:.4f}s (medians of 3)")
+    return res
+
+
+def _walk_plan(node):
+    yield node
+    for c in node.children:
+        yield from _walk_plan(c)
+
+
+def run_adaptive_path(ds_tables, slices, part_res) -> dict:
+    """Phase 14: every query of phases 10-11 that plans an exchange and
+    every case of phase 13 once with AQE, reuse and prefetch off, its rows
+    equal to the defaults', with its AQE specs, reuse and probe launches
+    on and off; q2/q75/Q3/Q5's warm walls off beside the defaults', and
+    Q3/Q5's with prefetch alone off; q2, q4, q11, q74 and q75 with 4
+    splits, reuse on against off; the skewed shuffled join. Every kernel
+    call of the counted runs is held against its plain version."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exec import pipeline as PP
+    from spark_rapids_tpu_torch.exec import reuse as R
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    results = {}
+    # every probe and segmented-scan call of the counted runs is held
+    # against the plain version (which launches no kernel)
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+
+    def counted(build):
+        """One run of ``build()``'s plan, launches and reuse counted and
+        every kernel call checked, and its wall."""
+        K.reset_kernel_launches()
+        R.reset_counters()
+        PP.STATS.reset()
+        K.probe_hash_table_kernel = check_probe_call
+        K.segmented_scan_kernel = check_scan_call
+        try:
+            t1 = time.perf_counter()
+            plan = build().physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        strategy = plan_strategy(plan)
+        strategy["bytes_saved"] = R.counters()["reuse_bytes_saved_total"]
+        strategy["wall_s"] = wall
+        return out, launches, strategy
+
+    # 1. every query that plans an exchange, switches off against on
+    off_one = Q.df_tables(ds_tables, RapidsConf(SWITCHES_OFF),
+                          batch_rows=1 << 22, device="cuda")
+    walls_off = {}
+    for slice_res, slice_rows in slices:
+        for q, r in slice_res["queries"].items():
+            # the slices' extra checks (q76 with null keys, q24's
+            # threshold) have no plan of their own here
+            st = r.get("strategy")
+            if st is None or not (st["exchanges"]
+                                  or st["reused_exchanges"]):
+                continue
+            out, launches, off_st = counted(lambda q=q: Q.QUERIES[q](off_one))
+            same_rows_as(q, lambda g, e, q=q: Q.check_rows(q, g, e), out,
+                         slice_rows[q])
+            results[q] = {"on": st, "off": off_st,
+                          "probe_on": r["launches"]["hashtbl_probe"],
+                          "probe_off": launches["hashtbl_probe"],
+                          "warm_s_on": r["warm_s"]}
+            if q in SWITCHES_OFF_WALLS:
+                walls_off[q] = _warm_wall(
+                    lambda q=q: Q.QUERIES[q](off_one).to_arrow(),
+                    first=off_st["wall_s"])
+    off_four = part_res["four"](SWITCHES_OFF)
+    for name, build, frame, check in part_res["cases"]:
+        out, launches, off_st = counted(
+            lambda build=build, frame=frame: build(off_four[frame]))
+        same_rows_as(name, check, out, part_res["rows"][name])
+        r = part_res["queries"][name]
+        results[name] = {"on": {k: r[k] for k in (
+            "exchanges", "aqe_readers", "coalesced_specs", "skew_split_specs",
+            "reused_exchanges", "reused_broadcasts", "bytes_saved",
+            "prefetch")}, "off": off_st,
+            "probe_on": r["launches"]["hashtbl_probe"],
+            "probe_off": launches["hashtbl_probe"], "warm_s_on": r["warm_s"]}
+        if name in SWITCHES_OFF_WALLS:
+            walls_off[name] = _warm_wall(
+                lambda build=build, frame=frame: build(
+                    off_four[frame]).to_arrow(), first=off_st["wall_s"])
+    for name, r in results.items():
+        on = r["on"]
+        log(f"{name}: AQE, reuse and prefetch off equal the defaults; AQE "
+            f"{on['aqe_readers']}; reused {on['reused_exchanges']} "
+            f"exchanges {on['reused_broadcasts']} broadcasts, "
+            f"{on['bytes_saved']} B saved; probe launches on "
+            f"{r['probe_on']} off {r['probe_off']}; exchanges on "
+            f"{on['exchanges']} off {r['off']['exchanges']}")
+    for name, w in walls_off.items():
+        results[name]["warm_s_off"] = w
+        log(f"{name}: warm wall {results[name]['warm_s_on']:.4f}s at the "
+            f"defaults, {w:.4f}s with AQE, reuse and prefetch off (medians "
+            f"of 3)")
+    missing = set(SWITCHES_OFF_WALLS) - set(walls_off)
+    if missing:
+        raise AssertionError(f"{sorted(missing)} planned no exchange")
+    # the read-ahead alone: prefetch off, AQE and reuse on
+    pf_off = part_res["four"]({"spark.rapids.gpu.sql.prefetch.enabled":
+                               "false"})
+    for name, build, frame, check in part_res["cases"]:
+        if name not in PREFETCH_OFF_WALLS:
+            continue
+        out, _l, st = counted(
+            lambda build=build, frame=frame: build(pf_off[frame]))
+        same_rows_as(name, check, out, part_res["rows"][name])
+        r = results[name]
+        r["prefetch_off"] = st
+        r["warm_s_prefetch_off"] = _warm_wall(
+            lambda build=build, frame=frame: build(
+                pf_off[frame]).to_arrow(), first=st["wall_s"])
+        log(f"{name}: warm wall {r['warm_s_on']:.4f}s at the defaults, "
+            f"{r['warm_s_prefetch_off']:.4f}s with prefetch off (medians of "
+            f"3); read {st['read_ms']:.1f} ms off against "
+            f"{part_res['queries'][name]['read_ms']:.1f} ms (of it "
+            f"{part_res['queries'][name]['read_ahead_wait_ms']:.1f} ms "
+            f"waiting for a read-ahead) at the defaults")
+
+    # 2. reuse with 4 source splits, on against off
+    reuse = {}
+    four = {name: Q.df_tables(ds_tables, RapidsConf(extra),
+                              batch_rows=1 << 19, device="cuda",
+                              partitions=4)
+            for name, extra in (("on", {}), ("off", {
+                "spark.rapids.gpu.sql.exchange.reuse.enabled": "false"}))}
+    for q in REUSE_QUERIES:
+        on, on_launches, on_st = counted(lambda q=q: Q.QUERIES[q](four["on"]))
+        off, _l, off_st = counted(lambda q=q: Q.QUERIES[q](four["off"]))
+        same_rows_as(q, lambda g, e, q=q: Q.check_rows(q, g, e), off, on)
+        if not Q.informative(on.to_pylist()):
+            raise AssertionError(f"{q} with 4 splits shows no value")
+        if q in REUSED_EXCHANGE_QUERIES and on_st["reused_exchanges"] < 1:
+            raise AssertionError(f"{q} with 4 splits reused no exchange")
+        if on_st["reused_exchanges"] + on_st["reused_broadcasts"] < 1:
+            raise AssertionError(f"{q} with 4 splits reused nothing")
+        if off_st["reused_exchanges"] or off_st["reused_broadcasts"]:
+            raise AssertionError(f"{q} reused with reuse off")
+        reuse[q] = {k: on_st[k] for k in (
+            "reused_exchanges", "reused_broadcasts", "bytes_saved",
+            "exchanges", "aqe_readers")}
+        reuse[q]["probe_launches"] = on_launches["hashtbl_probe"]
+        log(f"{q} with 4 splits: reuse on equals off; "
+            f"{strategy_line(on_st)}")
+
+    # 3. the skewed shuffled join
+    facts, dims = skewed_tables(0)
+    skew = {}
+    for how in SKEW_JOINS:
+        skew[how] = skewed_join_case(facts, dims, how, probe_calls)
+        for k in total:
+            total[k] += sum(skew[how]["launches"][r][k]
+                            for r in ("on", "off"))
+    del facts, dims
+    torch.cuda.empty_cache()
+    # a wrapper counts a launch only where it launches, so every counted
+    # launch of the phase lies in a checked call
+    if (probe_calls[0] < total["hashtbl_probe"]
+            or sum(scan_calls.values()) < total["segscan"]):
+        raise AssertionError(f"phase 14 checked {probe_calls[0]} probe and "
+                             f"{scan_calls} segscan calls for {total} "
+                             f"launches")
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 14 equal "
+        f"the plain version ({total} launches)")
+    return {"queries": results, "reuse_four_splits": reuse,
+            "skewed_join": skew, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls}
 
 
 def main(argv=None) -> int:
@@ -1948,7 +2409,8 @@ def main(argv=None) -> int:
     dec_probe = check_probe("decimal_largest",
                             *dec_res.pop("largest_table_probe"), cold=True)
     shapes.append(dec_probe)
-    sorted_res.update(run_sorted_hash(ds_tables, dec_res.pop("rows")))
+    dec_rows = dec_res.pop("rows")
+    sorted_res.update(run_sorted_hash(ds_tables, dec_rows))
     divide_res = decimal_divide_cost()
 
     win_res = run_query_slice(ds_tables, args.sf_ds, Q.WINDOW_SLICE,
@@ -1965,6 +2427,15 @@ def main(argv=None) -> int:
                              *part_res.pop("largest_table_probe"), cold=True)
     shapes.append(part_probe)
 
+    # phase 14: adaptive reads and reuse against the three switches off
+    t_adaptive = time.perf_counter()
+    adaptive_res = run_adaptive_path(
+        ds_tables, [(union_res, union_rows), (dec_res, dec_rows)], part_res)
+    adaptive_res["wall_s"] = time.perf_counter() - t_adaptive
+    log(f"phase 14 took {adaptive_res['wall_s']:.1f}s")
+    for k in ("four", "cases", "rows"):
+        part_res.pop(k)
+
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
                       "tpcds_headline": head_res["launches"][name],
@@ -1974,7 +2445,8 @@ def main(argv=None) -> int:
                       "tpcds_decimal": dec_res["launches"][name],
                       "tpcds_window_rest": win_res["launches"][name],
                       "window_surface": surface_res["launches"][name],
-                      "partitioned": part_res["launches"][name]}
+                      "partitioned": part_res["launches"][name],
+                      "adaptive": adaptive_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -2014,6 +2486,7 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "partitioned_calls_checked": part_res["probe_calls_checked"],
+        "adaptive_calls_checked": adaptive_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -2034,6 +2507,7 @@ def main(argv=None) -> int:
             "segscan_calls_checked"],
         "window_min_scan": surface_res["min_scan"],
         "partitioned_calls_checked": part_res["segscan_calls_checked"],
+        "adaptive_calls_checked": adaptive_res["segscan_calls_checked"],
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -2051,6 +2525,8 @@ def main(argv=None) -> int:
               "tpcds_window_rest": win_res["queries"],
               "window_surface": surface_res,
               "partitioned": part_res["queries"],
+              "adaptive": {k: v for k, v in adaptive_res.items()
+                           if k != "launches"},
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

@@ -133,6 +133,70 @@ FASTPATH_MAX_BYTES = conf(
         "path.")
 
 
+AQE_ENABLED = conf(
+    "spark.rapids.gpu.sql.adaptive.enabled", default=True,
+    doc="Adaptive query execution: once a shuffle stage is written, plan "
+        "the downstream read from its partitions' real sizes, coalescing "
+        "small partitions and splitting skewed join partitions (reference: "
+        "GpuCustomShuffleReaderExec, shuffle/aqe.py).")
+
+AQE_TARGET_PARTITION_BYTES = conf(
+    "spark.rapids.gpu.sql.adaptive.advisoryPartitionSizeBytes",
+    default=64 << 20,
+    doc="Advisory serialized size of a post-shuffle partition: adjacent "
+        "partitions below it are read by one task (Spark's "
+        "spark.sql.adaptive.advisoryPartitionSizeInBytes).")
+
+AQE_SKEW_ENABLED = conf(
+    "spark.rapids.gpu.sql.adaptive.skewJoin.enabled", default=True,
+    doc="Split skewed shuffled-join partitions into map-output ranges "
+        "(Spark's spark.sql.adaptive.skewJoin.enabled).")
+
+AQE_SKEW_FACTOR = conf(
+    "spark.rapids.gpu.sql.adaptive.skewJoin.skewedPartitionFactor",
+    default=5.0,
+    doc="A join partition is skewed when its size exceeds this multiple of "
+        "the median partition size and the threshold below.")
+
+AQE_SKEW_THRESHOLD_BYTES = conf(
+    "spark.rapids.gpu.sql.adaptive.skewJoin.skewedPartitionThresholdBytes",
+    default=256 << 20,
+    doc="Minimum serialized size of a join partition considered skewed.")
+
+REUSE_ENABLED = conf(
+    "spark.rapids.gpu.sql.exchange.reuse.enabled", default=True,
+    doc="Collapse equal exchange and broadcast subtrees of a physical plan "
+        "into ReusedExchange/ReusedBroadcast aliases of one surviving "
+        "materialization (Spark's ReuseExchangeAndSubquery, plan/reuse.py).")
+
+REUSE_CACHE_MAX_BYTES = conf(
+    "spark.rapids.gpu.sql.exchange.reuse.cache.maxBytes", default=2 << 30,
+    doc="Bytes of reduce-side device batches the reuse cache may hold over "
+        "all shared exchanges. An entry denied admission re-reads the "
+        "shuffle manager (still one map-side write): the cap bounds memory, "
+        "never correctness.")
+
+REUSE_CACHE_MAX_ENTRIES = conf(
+    "spark.rapids.gpu.sql.exchange.reuse.cache.maxEntries", default=64,
+    doc="Shared-exchange entries the reuse cache admits at once.")
+
+REUSE_EVICT_ENABLED = conf(
+    "spark.rapids.gpu.sql.exchange.reuse.eviction.enabled", default=True,
+    doc="When the reuse cache is full, evict idle entries (no reader "
+        "replaying) by ascending retention score instead of denying the "
+        "new entry; the score weighs cached bytes and recency.")
+
+PREFETCH_ENABLED = conf(
+    "spark.rapids.gpu.sql.prefetch.enabled", default=True,
+    doc="Run batch iterators ahead of their consumer at pipeline-breaking "
+        "boundaries (exchanges, AQE readers, CPU-to-device transitions) on "
+        "a background thread, and read the next reduce partition of an "
+        "exchange ahead (exec/pipeline.py).")
+
+PREFETCH_DEPTH = conf(
+    "spark.rapids.gpu.sql.prefetch.depth", default=2,
+    doc="Batches a prefetch boundary may hold ready ahead of its consumer.")
+
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
 SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
 SHUFFLE_CODECS = ("none", "zlib", "lz4", "zstd")
@@ -157,8 +221,13 @@ class RapidsConf:
             if self[entry] not in allowed:
                 raise ValueError(f"{entry.key} must be one of {allowed}, "
                                  f"not {self[entry]!r}")
-        if self[SHUFFLE_WRITE_THREADS] < 1:
-            raise ValueError(f"{SHUFFLE_WRITE_THREADS.key} must be >= 1")
+        for entry, ok, rule in (
+                (SHUFFLE_WRITE_THREADS, lambda v: v >= 1, ">= 1"),
+                (PREFETCH_DEPTH, lambda v: v >= 1, ">= 1"),
+                (REUSE_CACHE_MAX_BYTES, lambda v: v >= 0, ">= 0"),
+                (REUSE_CACHE_MAX_ENTRIES, lambda v: v >= 1, ">= 1")):
+            if not ok(self[entry]):
+                raise ValueError(f"{entry.key} must be {rule}")
 
     def get(self, key: str):
         if key in self._values:

@@ -202,23 +202,27 @@ class HashJoinExec(BinaryExec):
         """The build side's probe structure, as the reference's
         ``_choose_path``: the hash table when it is enabled and a seeded
         build fits its probe bound, else the sorted hashes, counted in the
-        metrics. Returns (order, candidates)."""
+        metrics. Returns (path, order, structure): ("ht", order, (table,
+        capacity, seed)) or ("sorted", order, the sorted join hashes)."""
         keys = tuple(self._rkeys)
         if self.hashtbl_enabled:
             ht = K.build_batch_hash_table(build, keys, K.HASHTBL_MAX_PROBES,
                                           K.HASHTBL_MAX_REHASH)
             if ht is not None:
                 self.metrics["hashTableJoins"].add(1)
-                return (ht[0].order,
-                        lambda probe: self._ht_candidates(probe, ht))
+                return ("ht", ht[0].order, ht)
             self.metrics["sortedHashFallbacks"].add(1)
         jh = K.prepare_join_side(build, keys)
         self.metrics["sortedHashJoins"].add(1)
-        return (jh.order, lambda probe: K.join_candidate_counts(
-            probe, self._lkeys, jh))
+        return ("sorted", jh.order, jh)
 
-    def _ht_candidates(self, probe: ColumnarBatch, ht):
-        tbl, capacity, seed = ht
+    def _candidates(self, prep, probe: ColumnarBatch):
+        """Each probe row's candidate range ``[lo, lo + cnt)`` of
+        positions in the prepared build's order."""
+        path, _order, structure = prep
+        if path == "sorted":
+            return K.join_candidate_counts(probe, self._lkeys, structure)
+        tbl, capacity, seed = structure
         ph1, ph2, pvalid = _ht_probe_hashes(probe, self._lkeys)
         slot, hit = K.probe_hash_table_kernel(tbl, ph1, ph2, capacity, seed,
                                               K.HASHTBL_MAX_PROBES)
@@ -289,13 +293,13 @@ class HashJoinExec(BinaryExec):
 
     def _join_batch(self, probe: ColumnarBatch, build: ColumnarBatch, prep,
                     build_matched: Optional[torch.Tensor]):
-        """One probe batch on either path: ``prep`` is (order, candidates),
-        where ``candidates(probe)`` gives each probe row's range
-        ``[lo, lo + cnt)`` of positions in ``order`` (build rows)."""
+        """One probe batch on either path: ``prep`` is the prepared build
+        (``_prepare_build``), whose ``order`` maps candidate positions to
+        build rows."""
         jt = self.join_type
-        order, candidates = prep
+        order = prep[1]
         self.metrics["numProbeBatches"].add(1)
-        lo, cnt = candidates(probe)
+        lo, cnt = self._candidates(prep, probe)
         ends = torch.cumsum(cnt.long(), 0)
         total = int(ends[-1])  # the one candidate-total read of this batch
         self.metrics["numCandidatePairs"].add(total)

@@ -8,12 +8,19 @@ left side's partitions and neither side is exchanged. Join types follow
 the broadcast restriction: inner, left, left_semi and left_anti, which
 need no flag over build rows across probe partitions. Every probe path
 and output rule is ``HashJoinExec``'s.
+
+When broadcast joins of one plan have equal build sides and build keys,
+the reuse rewrite gives them one ``SharedBroadcast`` (``plan/reuse.py``):
+the first to build publishes its prepared build, and the others adopt it
+instead of concatenating and hashing the same rows again (each counts the
+adopted build's path in its own metrics).
 """
 
 from __future__ import annotations
 
 import threading
 
+from spark_rapids_tpu_torch.exec import reuse
 from spark_rapids_tpu_torch.exec.join import HashJoinExec
 
 
@@ -29,6 +36,8 @@ class BroadcastHashJoinExec(HashJoinExec):
                          max_candidate_rows, condition)
         self._broadcast = None
         self._bcast_lock = threading.Lock()
+        # set by plan/reuse.py when other joins share this build
+        self._shared_broadcast = None
         self._register_metric("broadcastTimeNs")
 
     def num_partitions(self) -> int:
@@ -39,7 +48,21 @@ class BroadcastHashJoinExec(HashJoinExec):
 
     def _build_side(self, partition: int):
         with self._bcast_lock:
-            if self._broadcast is None:
-                with self.timer("broadcastTimeNs"):
-                    self._broadcast = self._build(self.right.execute_all())
+            if self._broadcast is not None:
+                return self._broadcast
+            holder = self._shared_broadcast
+            shared = holder.get() if holder is not None else None
+            if shared is not None:
+                build, prep = shared
+                if prep is not None:
+                    self.metrics["hashTableJoins" if prep[0] == "ht"
+                                 else "sortedHashJoins"].add(1)
+                reuse.note("reuse_bytes_saved_total",
+                           reuse.batch_nbytes(build))
+                self._broadcast = shared
+                return shared
+            with self.timer("broadcastTimeNs"):
+                self._broadcast = self._build(self.right.execute_all())
+            if holder is not None:
+                holder.put(self._broadcast)
             return self._broadcast

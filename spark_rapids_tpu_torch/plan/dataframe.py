@@ -132,10 +132,15 @@ class DataFrame:
 
 def execute_to_arrow(node) -> pa.Table:
     """Run a physical plan (``DataFrame.physical_plan``) and gather its
-    rows, partition by partition; then release its shuffles' blocks. The
-    caller keeps the plan, so it can read the operators' metrics after the
-    run."""
+    rows, partition by partition; then stop its AQE readers' read-ahead,
+    and release its shuffles' blocks and its reused exchanges' holds on
+    their shared entries. The caller keeps
+    the plan, so it can read the operators' metrics after the run, or run
+    it again: its exchanges are written again, and its AQE readers read
+    them through the specs they planned the first time."""
+    from spark_rapids_tpu_torch.exec.reuse import ReusedExchangeExec
     from spark_rapids_tpu_torch.plan.cpu import CpuExec
+    from spark_rapids_tpu_torch.shuffle.aqe import AQEShuffleReadExec
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
         ShuffleExchangeExec)
 
@@ -145,12 +150,18 @@ def execute_to_arrow(node) -> pa.Table:
                   for t in node.execute_host(p)]
     else:
         tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
-    stack = [node]
+    nodes, stack = [], [node]
     while stack:
         n = stack.pop()
-        if isinstance(n, ShuffleExchangeExec):
-            n.cleanup()
+        nodes.append(n)
         stack.extend(n.children)
+    # every reader stops before any exchange deletes blocks: a reader may
+    # read a reused exchange's blocks from another subtree
+    for kinds in ((AQEShuffleReadExec,),
+                  (ShuffleExchangeExec, ReusedExchangeExec)):
+        for n in nodes:
+            if isinstance(n, kinds):
+                n.cleanup()
     if not tables:
         return schema.to_arrow().empty_table()
     return pa.concat_tables(tables)

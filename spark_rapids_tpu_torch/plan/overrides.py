@@ -20,12 +20,14 @@ neither side can run (a window the device refuses, a join type outside
 inner/left/right/full/left_semi/left_anti, an expression outside the port)
 raises NotImplementedError with the reasons.
 
-Partitions are planned as the reference plans them (without its AQE,
-dynamic partition pruning, exchange reuse, fusion and prefetch). A scan
-has ``min(partitions, batches)`` source splits; a query whose scan leaves
-all sit under the fast path's row and byte bounds plans one shuffle
-partition instead of ``shuffle_partitions``. Above a child with more than
-one partition the planner places:
+Partitions are planned as the reference plans them, with its adaptive
+execution (AQE), exchange and broadcast reuse and prefetch, at its
+defaults; its dynamic partition pruning (which prunes file scans, and
+the port has none yet) and fusion are not in the port. A scan has
+``min(partitions, batches)`` source splits; a query whose scan leaves all
+sit under the fast path's row and byte bounds plans one shuffle partition
+instead of ``shuffle_partitions``. Above a child with more than one
+partition the planner places:
 
 - an aggregate: partial, a hash exchange on the keys (a single-partition
   exchange when there is no key), final;
@@ -38,13 +40,28 @@ one partition the planner places:
   merged (``take_ordered_and_project``) at any partition count;
 - a join: a broadcast hash join (inner, left, semi, anti) when the right
   side's estimated rows (``cbo.estimate_rows``) are at most
-  ``spark.rapids.gpu.sql.join.broadcastRowThreshold``, else a shuffled
-  hash join over two hash exchanges; a multi-partition right side under a
-  one-partition left side takes a single-partition exchange.
+  ``spark.rapids.gpu.sql.join.broadcastRowThreshold``, its build side a
+  ``ReplayExec`` run once, else a shuffled hash join over two hash
+  exchanges; a multi-partition right side under a one-partition left side
+  takes a single-partition exchange.
+
+With ``spark.rapids.gpu.sql.adaptive.enabled`` (the default) an AQE
+reader (``shuffle/aqe.py``) reads each hash exchange of an aggregate and
+a window and each range exchange, coalescing small reduce partitions, and
+a shuffled join reads its two exchanges through a pair of skew-aware
+readers. Every partition-count decision is made by ``_planned_parts``,
+inside ``planning_scope``, so planning writes no exchange (the range
+sample alone runs its child). After conversion, ``plan/reuse.apply_reuse``
+aliases equal exchange and broadcast-build subtrees
+(``spark.rapids.gpu.sql.exchange.reuse.enabled``), then, off the fast
+path, ``exec/pipeline.insert_prefetch`` places the prefetch boundaries
+(``spark.rapids.gpu.sql.prefetch.enabled``). The three keys false give
+the plan without them.
 
 A union has the partitions of all its children, and a limit one.
-``explain`` shows, on each converted node's line, the exchanges and the
-join strategy the conversion placed.
+``explain`` shows, on each converted node's line, the exchanges, AQE
+readers, reused exchanges and broadcasts, prefetch boundaries and the
+join strategy placed between it and its children's conversions.
 
 Before tagging, every union branch whose column types differ from the
 union's (``L.union_widen``) gets a Project of Casts to them
@@ -78,12 +95,16 @@ from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.aggregate import (
     HashAggregateExec, _strip_alias)
 from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
+from spark_rapids_tpu_torch.exec.dpp import ReplayExec
 from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, HashJoinExec
 from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.misc import (
     CoalesceBatchesExec, GlobalLimitExec, UnionExec,
     take_ordered_and_project)
+from spark_rapids_tpu_torch.exec.pipeline import PrefetchExec, insert_prefetch
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
+from spark_rapids_tpu_torch.exec.reuse import (
+    ReusedBroadcastExec, ReusedExchangeExec)
 from spark_rapids_tpu_torch.exec.sort import SortExec
 from spark_rapids_tpu_torch.exec.window import (
     WindowExec, bind_function, check_window)
@@ -94,6 +115,9 @@ from spark_rapids_tpu_torch.plan import cpu as CPU
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.cpu_agg import CpuAggregateExec, CpuJoinExec
 from spark_rapids_tpu_torch.plan.cpu_window import CpuWindowExec
+from spark_rapids_tpu_torch.plan.reuse import apply_reuse
+from spark_rapids_tpu_torch.shuffle.aqe import (
+    AQEShuffleReadExec, pair_for_skew_join, planning_scope)
 from spark_rapids_tpu_torch.shuffle.exchange_exec import ShuffleExchangeExec
 from spark_rapids_tpu_torch.shuffle.partition import (
     HashPartitioner, RangePartitioner, SinglePartitioner)
@@ -352,6 +376,7 @@ class Overrides:
         self.conf = conf or C.RapidsConf()
         self.shuffle_partitions = shuffle_partitions
         self._parts = shuffle_partitions  # this plan's, after the fast path
+        self._converted: list = []  # (meta, converted node, its kids' ids)
 
     # -- tag ---------------------------------------------------------------
     def wrap_and_tag(self, plan: L.LogicalPlan) -> PlanMeta:
@@ -412,9 +437,15 @@ class Overrides:
         with _APPLY_LOCK:
             C.set_active(self.conf)
             meta = self.prepare(plan)
-            self._parts = (1 if self._fastpath_eligible(plan)
-                           else self.shuffle_partitions)
+            fastpath = self._fastpath_eligible(plan)
+            self._parts = 1 if fastpath else self.shuffle_partitions
+            self._converted = []
             node = self._convert(meta)
+            node = apply_reuse(node, self.conf)
+            if not fastpath:
+                node = insert_prefetch(node, self.conf)
+            for m, ex, kid_ids in self._converted:
+                m.physical = _placed(ex, kid_ids)
             mode = C.EXPLAIN.get(self.conf)
             if mode != "NONE":
                 print(explain(meta, mode))
@@ -456,7 +487,8 @@ class Overrides:
     def _convert(self, meta: PlanMeta) -> DeviceExec:
         kids_out: List[DeviceExec] = []
         ex = self._convert_node(meta, kids_out)
-        meta.physical = _placed(ex, {id(k) for k in kids_out})
+        # annotated once the reuse and prefetch passes have run
+        self._converted.append((meta, ex, {id(k) for k in kids_out}))
         return ex
 
     def _convert_node(self, meta: PlanMeta,
@@ -518,22 +550,40 @@ class Overrides:
         raise NotImplementedError(
             f"plan node {type(node).__name__} is not in the port yet")
 
+    @staticmethod
+    def _planned_parts(node: DeviceExec) -> int:
+        """A node's partition count for a plan decision: an AQE reader
+        below answers with its estimate, and nothing is written."""
+        with planning_scope():
+            return node.num_partitions()
+
+    def _maybe_aqe_read(self, exchange: DeviceExec) -> DeviceExec:
+        """An AQE reader over a hash or range exchange when AQE is on: the
+        keys of a reduce partition stay together when adjacent partitions
+        are coalesced, so an aggregate, a window or a range sort may read
+        them coalesced."""
+        if not C.AQE_ENABLED.get(self.conf):
+            return exchange
+        return AQEShuffleReadExec(exchange, self.conf)
+
     def _convert_aggregate(self, node: L.Aggregate,
                            child: DeviceExec) -> DeviceExec:
-        if child.num_partitions() == 1:
+        if self._planned_parts(child) == 1:
             return HashAggregateExec(node.group_exprs, node.agg_exprs, child,
                                      mode="complete")
         partial = HashAggregateExec(node.group_exprs, node.agg_exprs, child,
                                     mode="partial")
         n_keys = len(node.group_exprs)
-        part = (HashPartitioner(range(n_keys), self._parts) if n_keys
-                else SinglePartitioner())
-        return HashAggregateExec.final_from_partial(
-            partial, ShuffleExchangeExec(part, partial))
+        if n_keys:
+            exchange = self._maybe_aqe_read(ShuffleExchangeExec(
+                HashPartitioner(range(n_keys), self._parts), partial))
+        else:
+            exchange = ShuffleExchangeExec(SinglePartitioner(), partial)
+        return HashAggregateExec.final_from_partial(partial, exchange)
 
     def _convert_window(self, node: L.Window,
                         child: DeviceExec) -> DeviceExec:
-        if child.num_partitions() > 1:
+        if self._planned_parts(child) > 1:
             # co-partition rows by the window's partition keys: a hash
             # exchange when they are all columns, else one partition
             first = node.window_exprs[0]
@@ -547,18 +597,26 @@ class Overrides:
                     key_idx = []
                     break
                 key_idx.append(b.index)
-            part = (HashPartitioner(key_idx, self._parts) if key_idx
-                    else SinglePartitioner())
-            child = ShuffleExchangeExec(part, child)
+            if key_idx:
+                child = self._maybe_aqe_read(ShuffleExchangeExec(
+                    HashPartitioner(key_idx, self._parts), child))
+            else:
+                child = ShuffleExchangeExec(SinglePartitioner(), child)
         return WindowExec(node.window_exprs,
                           CoalesceBatchesExec(child, require_single=True))
 
     def _convert_sort(self, node: L.Sort, child: DeviceExec) -> DeviceExec:
         if node.limit is not None:
-            return take_ordered_and_project(node.orders, node.limit, child)
-        if child.num_partitions() > 1:
-            child = ShuffleExchangeExec(self._range_partitioner(node, child),
-                                        child)
+            # the top-k reads its child's partition count
+            with planning_scope():
+                return take_ordered_and_project(node.orders, node.limit,
+                                                child)
+        if self._planned_parts(child) > 1:
+            part = self._range_partitioner(node, child)
+            child = ShuffleExchangeExec(part, child)
+            if isinstance(part, RangePartitioner):
+                # adjacent range partitions stay ordered when coalesced
+                child = self._maybe_aqe_read(child)
         return SortExec(node.orders, child)
 
     def _range_partitioner(self, node: L.Sort, child: DeviceExec):
@@ -590,13 +648,13 @@ class Overrides:
     def _convert_join(self, node: L.Join, left: DeviceExec,
                       right: DeviceExec) -> DeviceExec:
         max_rows = C.JOIN_MAX_OUTPUT_ROWS.get(self.conf)
-        if left.num_partitions() > 1:
+        if self._planned_parts(left) > 1:
             if (node.join_type in BroadcastHashJoinExec.BROADCAST_TYPES
                     and CBO.estimate_rows(node.right)
                     <= C.JOIN_BROADCAST_ROWS.get(self.conf)):
                 return BroadcastHashJoinExec(
                     node.left_keys, node.right_keys, node.join_type, left,
-                    right, max_rows, condition=node.condition)
+                    ReplayExec(right), max_rows, condition=node.condition)
             lk = [E.resolve(k, left.output_schema).index
                   for k in node.left_keys]
             rk = [E.resolve(k, right.output_schema).index
@@ -604,7 +662,10 @@ class Overrides:
             left = ShuffleExchangeExec(HashPartitioner(lk, self._parts), left)
             right = ShuffleExchangeExec(HashPartitioner(rk, self._parts),
                                         right)
-        elif right.num_partitions() > 1:
+            if C.AQE_ENABLED.get(self.conf):
+                left, right = pair_for_skew_join(left, right, node.join_type,
+                                                 self.conf)
+        elif self._planned_parts(right) > 1:
             right = ShuffleExchangeExec(SinglePartitioner(), right)
         return HashJoinExec(node.left_keys, node.right_keys, node.join_type,
                             left, right, max_candidate_rows=max_rows,
@@ -619,21 +680,44 @@ class Overrides:
         return node.device
 
 
+def join_strategy(join: HashJoinExec) -> str:
+    """``broadcast``, ``shuffled`` (both sides read from hash exchanges,
+    through AQE readers or prefetch boundaries or not) or
+    ``one_partition``."""
+    if isinstance(join, BroadcastHashJoinExec):
+        return "broadcast"
+    side = join.left
+    while isinstance(side, (PrefetchExec, AQEShuffleReadExec)):
+        side = side.children[0]
+    if (isinstance(side, (ShuffleExchangeExec, ReusedExchangeExec))
+            and isinstance(side.partitioner, HashPartitioner)):
+        return "shuffled"
+    return "one_partition"
+
+
 def _placed(node: DeviceExec, kid_ids: Set[int]) -> List[str]:
-    """The exchanges and the join strategy in a converted node's subtree
-    above its children's conversions (``explain``'s annotation)."""
+    """The exchanges, AQE readers, reused exchanges and broadcasts,
+    prefetch boundaries and the join strategy in a converted node's
+    subtree above its children's conversions (``explain``'s
+    annotation)."""
     out: List[str] = []
 
     def walk(n):
         if id(n) in kid_ids:
             return
         if isinstance(n, ShuffleExchangeExec):
-            out.append(f"Exchange {n.partitioner.describe()}")
-        elif isinstance(n, BroadcastHashJoinExec):
-            out.append("BroadcastHashJoin")
+            reuse = (f" [reuse #{n.reuse_id}]" if n.reuse_id is not None
+                     else "")
+            out.append(f"Exchange {n.partitioner.describe()}{reuse}")
+        elif isinstance(n, (AQEShuffleReadExec, ReusedExchangeExec,
+                            ReusedBroadcastExec, PrefetchExec)):
+            out.append(n.node_description())
+        elif isinstance(n, ReplayExec) and n.reuse_id is not None:
+            out.append(n.node_description())
         elif isinstance(n, HashJoinExec):
-            out.append("ShuffledHashJoin" if isinstance(
-                n.left, ShuffleExchangeExec) else "HashJoin")
+            out.append({"broadcast": "BroadcastHashJoin",
+                        "shuffled": "ShuffledHashJoin",
+                        "one_partition": "HashJoin"}[join_strategy(n)])
         for c in n.children:
             walk(c)
 

@@ -14,6 +14,13 @@ trailer (``integrity.BlockCorruption`` on a mismatch) and merges the
 blocks into one host Arrow table. Map outputs
 are kept by map index, so the rows a reduce partition reads do not depend
 on the order in which map tasks finished.
+
+The sizes AQE plans from (``partition_sizes``, ``partition_sizes_by_map``)
+are the stored block lengths, trailers included, as the reference counts
+them; ``read_spec`` reads several reduce partitions at once (a coalesced
+read) or one partition from a range of map outputs (a skew-split read),
+where a map range ``[map_start, map_end)`` counts map outputs in map
+order.
 """
 
 from __future__ import annotations
@@ -44,6 +51,16 @@ class _MapOutput:
         self.path = path
         self.index = index  # partition -> (offset, length) in the file
         self.cached = cached
+
+
+class ReadCounts:
+    """Bytes (trailers included) and blocks one read fetched."""
+
+    __slots__ = ("bytes", "blocks")
+
+    def __init__(self):
+        self.bytes = 0
+        self.blocks = 0
 
 
 class ShuffleRegistration:
@@ -138,12 +155,43 @@ class ShuffleManager:
             self.bytes_written += nbytes
             self.blocks_written += len(blocks)
 
-    # -- read side ---------------------------------------------------------
-    def _fetch_blocks(self, reg: ShuffleRegistration,
-                      partition: int) -> List[bytes]:
-        """A reduce partition's verified blocks, in map order."""
+    # -- stats (AQE) -------------------------------------------------------
+    def _outputs(self, reg: ShuffleRegistration) -> List[_MapOutput]:
         with reg.lock:
-            outputs = [reg.map_outputs[m] for m in sorted(reg.map_outputs)]
+            return [reg.map_outputs[m] for m in sorted(reg.map_outputs)]
+
+    @staticmethod
+    def _block_len(mo: _MapOutput, partition: int) -> int:
+        if mo.cached is not None:
+            return len(mo.cached.get(partition, b""))
+        loc = mo.index.get(partition)
+        return loc[1] if loc else 0
+
+    def num_map_outputs(self, reg: ShuffleRegistration) -> int:
+        with reg.lock:
+            return len(reg.map_outputs)
+
+    def partition_sizes(self, reg: ShuffleRegistration) -> List[int]:
+        """Stored bytes per reduce partition, summed over the map outputs
+        (Spark's MapOutputStatistics.bytesByPartitionId)."""
+        outputs = self._outputs(reg)
+        return [sum(self._block_len(mo, p) for mo in outputs)
+                for p in range(reg.n_reduce)]
+
+    def partition_sizes_by_map(self, reg: ShuffleRegistration,
+                               partition: int) -> List[int]:
+        """Stored bytes of one reduce partition per map output, in map
+        order (skew splitting)."""
+        return [self._block_len(mo, partition) for mo in self._outputs(reg)]
+
+    # -- read side ---------------------------------------------------------
+    def _fetch_blocks(self, reg: ShuffleRegistration, partition: int,
+                      map_start: int = 0, map_end: Optional[int] = None,
+                      counts: Optional[ReadCounts] = None) -> List[bytes]:
+        """A reduce partition's verified blocks from map outputs
+        ``[map_start, map_end)``, in map order; ``counts`` adds the bytes
+        and blocks read."""
+        outputs = self._outputs(reg)[map_start:map_end]
         blocks = []
         for mo in outputs:
             if mo.cached is not None:
@@ -165,12 +213,29 @@ class ShuffleManager:
             with self._lock:
                 self.bytes_read += len(blob)
                 self.blocks_read += 1
+            if counts is not None:
+                counts.bytes += len(blob)
+                counts.blocks += 1
         return blocks
 
-    def read_partition(self, reg: ShuffleRegistration,
-                       partition: int) -> Optional[pa.Table]:
+    def read_partition(self, reg: ShuffleRegistration, partition: int,
+                       counts: Optional[ReadCounts] = None
+                       ) -> Optional[pa.Table]:
         """A reduce partition merged into one host table (None: no row)."""
-        return merge_tables(self._fetch_blocks(reg, partition), reg.schema)
+        return self.read_spec(reg, [partition], counts=counts)
+
+    def read_spec(self, reg: ShuffleRegistration, partitions,
+                  map_start: int = 0, map_end: Optional[int] = None,
+                  counts: Optional[ReadCounts] = None
+                  ) -> Optional[pa.Table]:
+        """Reduce ``partitions`` (an AQE coalesced read), each from map
+        outputs ``[map_start, map_end)`` (an AQE skew-split read), merged
+        in partition then map order into one host table (None: no row)."""
+        blocks: List[bytes] = []
+        for p in partitions:
+            blocks.extend(self._fetch_blocks(reg, p, map_start, map_end,
+                                             counts))
+        return merge_tables(blocks, reg.schema)
 
     def cleanup(self, reg: ShuffleRegistration) -> None:
         """Delete a shuffle's files and blocks."""

@@ -25,7 +25,10 @@ q47/q57/q70/q86/q89 the same way; partitioned execution: partition ids
 on the card against the CPU, the shuffle exchange uploading to the card
 in map order with one and four writer threads, and TPC-H and TPC-DS
 queries with 4 source splits on the card against one partition on the
-CPU.
+CPU; adaptive reads and reuse: a skew-split shuffled join through the
+probe kernel, prefetch boundaries and the exchange's read-ahead
+delivering card batches in map order (on a side stream too), and a
+reused exchange replayed on the card, each against the CPU.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -1009,3 +1012,153 @@ def test_tpch_partitioned_query_on_card_matches_one_partition(q):
     exp = tpch.DF_QUERIES[q](tpch.df_tables(
         t, device="cpu", shuffle_partitions=1)).collect()
     assert len(got) == len(exp) > 0 and tpch.rows_match(got, exp)
+
+
+def _skewed(n=40000, seed=21):
+    rng = np.random.default_rng(seed)
+    k = np.where(rng.random(n) < 0.6, 4, rng.integers(0, 4000, n))
+    facts = pa.table({"k": pa.array(k, pa.int64()),
+                      "v": pa.array(rng.integers(-9, 9, n), pa.int64()),
+                      "x": pa.array(rng.normal(0, 1, n))})
+    dims = pa.table({"k": pa.array(np.arange(0, 6000, 2), pa.int64()),
+                     "w": pa.array(rng.integers(0, 9, 3000), pa.int64())})
+    return facts, dims
+
+
+_SKEW_CONF = {"spark.rapids.gpu.fastpath.enabled": "false",
+              "spark.rapids.gpu.sql.join.broadcastRowThreshold": 0,
+              "spark.rapids.gpu.sql.adaptive.advisoryPartitionSizeBytes":
+                  1 << 16,
+              "spark.rapids.gpu.sql.adaptive.skewJoin."
+              "skewedPartitionThresholdBytes": 1 << 16}
+
+
+def _sorted_rows(rows):
+    return sorted(rows, key=lambda r: tuple((v is None, v) for _, v in
+                                            sorted(r.items())))
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "left_semi"])
+def test_skew_split_join_on_card_matches_cpu(how):
+    _card()
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan import from_arrow
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.shuffle import aqe as PA
+
+    facts, dims = _skewed()
+
+    def run(device, extra=None):
+        conf = RapidsConf(dict(_SKEW_CONF, **(extra or {})))
+        df = from_arrow(facts, conf, batch_rows=10000, device=device,
+                        partitions=4).join(
+            from_arrow(dims, conf, device=device), on="k", how=how)
+        plan = df.physical_plan()
+        return plan, execute_to_arrow(plan).to_pylist()
+
+    PK.reset_kernel_launches()
+    plan, got = run("cuda")
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] > 0
+    readers = [n for n in _walk_plan(plan)
+               if isinstance(n, PA.SkewAwareShuffleReadExec)]
+    assert len(readers) == 2
+    lspecs, rspecs = readers[0].specs(), readers[1].specs()
+    assert len(lspecs) == len(rspecs)
+    assert any(isinstance(s, PA.PartialReducerPartitionSpec)
+               for s in lspecs)
+    _, exp = run("cpu")
+    _, off = run("cuda", {"spark.rapids.gpu.sql.adaptive.enabled": "false"})
+    assert got and _sorted_rows(got) == _sorted_rows(exp) == \
+        _sorted_rows(off)
+
+
+def _walk_plan(node):
+    yield node
+    for c in node.children:
+        yield from _walk_plan(c)
+
+
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_read_ahead_on_card_delivers_card_batches_in_map_order(
+        side_stream, tmp_path):
+    _card()
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+    from spark_rapids_tpu_torch.exec.pipeline import PrefetchExec
+    from spark_rapids_tpu_torch.shuffle import partition as PP
+    from spark_rapids_tpu_torch.shuffle.exchange_exec import (
+        ShuffleExchangeExec)
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+
+    t = _partition_table()
+    sch = PT.Schema.from_arrow(t.schema)
+
+    def rows(device):
+        src = BatchSourceExec([[PB.batch_from_arrow(
+            t.slice(i * 5000, 5000), device)] for i in range(4)], sch)
+        ex = ShuffleExchangeExec(
+            PP.HashPartitioner([2], 3), src,
+            manager=ShuffleManager(local_dir=str(tmp_path / device)),
+            target_batch_rows=2048)
+        assert ex.read_ahead
+        node = PrefetchExec(ex, depth=2)
+        out = []
+        for p in range(3):
+            for b in node.execute(p):
+                assert b.columns[0].device.type == device
+                # a kernel on the consumer's stream reads the batch
+                out.append(PB.batch_to_arrow(b, sch).to_pylist())
+            if p < 2:
+                assert ex._ahead.pending() == {p + 1}
+        ex.cleanup()
+        return out
+
+    exp = rows("cpu")
+    if side_stream:
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            got = rows("cuda")
+        stream.synchronize()
+    else:
+        got = rows("cuda")
+    assert got == exp
+
+
+def test_reused_exchange_replayed_on_card_matches_cpu():
+    """A global aggregate read twice: its single-partition exchange is
+    read once, through the shared entry, and replayed on the card."""
+    _card()
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import reuse as R
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.plan import from_arrow
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.shuffle.exchange_exec import (
+        ShuffleExchangeExec)
+
+    facts, _ = _skewed(20000, 22)
+
+    def run(device):
+        conf = RapidsConf({"spark.rapids.gpu.fastpath.enabled": "false"})
+        d = from_arrow(facts, conf, batch_rows=5000, device=device,
+                       partitions=4)
+        cte = d.agg(PE.Sum(PE.col("v")).alias("sv"), PE.Count().alias("n"))
+        q = cte.select(PE.Alias(PE.col("sv"), "a")).union(
+            cte.select(PE.Alias(PE.col("n"), "a")))
+        plan = q.physical_plan()
+        reused = [n for n in _walk_plan(plan)
+                  if isinstance(n, R.ReusedExchangeExec)]
+        assert len(reused) == 1 and reused[0].entry is not None
+        kept, = [n for n in _walk_plan(plan)
+                 if isinstance(n, ShuffleExchangeExec)]
+        rows = execute_to_arrow(plan).to_pylist()
+        # four map outputs, one block each, read once for both consumers
+        assert kept.metrics["shuffleBlocksRead"].value == 4
+        return rows, reused[0]
+
+    R.reset_counters()
+    got, alias = run("cuda")
+    assert R.counters()["reuse_bytes_saved_total"] > 0
+    assert alias.metrics["numOutputBatches"].value == 1
+    exp, _ = run("cpu")
+    assert got == exp and len(got) == 2

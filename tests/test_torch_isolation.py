@@ -236,3 +236,62 @@ def test_the_partitioned_slice_modules_are_covered():
         mod = importlib.import_module(m)
         for n in names:
             assert hasattr(mod, n), (m, n)
+
+
+def test_the_adaptive_reuse_and_prefetch_modules_are_covered():
+    """The modules that carry adaptive shuffle reads, exchange and
+    broadcast reuse and read-ahead are walked by the import checks above,
+    and hold the names the slice adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.shuffle.aqe",
+             ("CoalescedPartitionSpec", "PartialReducerPartitionSpec",
+              "pack_ranges", "coalesce_specs", "split_map_ranges",
+              "skew_threshold", "planning_scope", "AQEShuffleReadExec",
+              "SkewJoinPlanner", "SkewAwareShuffleReadExec",
+              "pair_for_skew_join")),
+            ("spark_rapids_tpu_torch.shuffle.manager",
+             ("ReadCounts",)),
+            ("spark_rapids_tpu_torch.exec.dpp", ("ReplayExec",)),
+            ("spark_rapids_tpu_torch.exec.reuse",
+             ("MaterializationCache", "SharedExchangeEntry",
+              "SharedBroadcast", "ReusedExchangeExec",
+              "ReusedBroadcastExec", "counters")),
+            ("spark_rapids_tpu_torch.plan.reuse",
+             ("plan_fingerprint", "duplicate_groups", "apply_reuse")),
+            ("spark_rapids_tpu_torch.exec.pipeline",
+             ("PrefetchStats", "PrefetchIterator", "PrefetchExec",
+              "prefetch_settings", "insert_prefetch")),
+            ("spark_rapids_tpu_torch.plan.overrides", ("join_strategy",))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleManager
+
+    for n in ("num_map_outputs", "partition_sizes", "partition_sizes_by_map",
+              "read_spec"):
+        assert hasattr(ShuffleManager, n), n
+
+
+def test_no_adaptive_reuse_or_prefetch_failure_falls_back():
+    """A failed AQE plan, read-ahead or reuse entry raises with its cause:
+    the modules that carry them catch no exception (the prefetch worker's
+    one handler hands the exception to its consumer)."""
+    for rel in ("shuffle/aqe.py", "exec/reuse.py", "plan/reuse.py",
+                "exec/dpp.py", "shuffle/exchange_exec.py",
+                "exec/pipeline.py"):
+        path = os.path.join(PKG, *rel.split("/"))
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        handlers = [n for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)]
+        if rel == "exec/pipeline.py":
+            # the queue's Full and Empty, and the worker's hand-over
+            names = sorted(ast.unparse(h.type) for h in handlers)
+            assert names == ["BaseException", "StopIteration", "queue.Empty",
+                             "queue.Empty", "queue.Full"], names
+        else:
+            assert not handlers, (rel, [h.lineno for h in handlers])

@@ -5,8 +5,10 @@ CPU:
 - plan shape: for a dozen small DataFrames, the port's physical tree as
   (operator kind, partitioner kind, partition count) equals the JAX
   package's, both with 4 source splits, 4 shuffle partitions and the fast
-  path off (the reference's AQE, dynamic partition pruning, exchange
-  reuse, fusion, prefetch and streaming windows off: the port has none);
+  path off: once with AQE, exchange reuse and prefetch off on both sides
+  (the plain shape), once with them at their defaults on both (the
+  reference's dynamic partition pruning, fusion, streaming windows and
+  plan cache off: the port has none);
 - TPC-H Q1/Q3/Q5/Q6 at SF 0.01 with 4 splits against the JAX package's
   device path with 4 splits;
 - all 99 TPC-DS queries at SF 0.01 with 4 splits and 4 shuffle
@@ -54,15 +56,22 @@ from spark_rapids_tpu_torch.shuffle.partition import SinglePartitioner
 torch.set_num_threads(1)
 
 NO_FASTPATH = {"spark.rapids.gpu.fastpath.enabled": "false"}
+# AQE, exchange reuse and prefetch off: the plain plan shape
+PLAIN = {"spark.rapids.gpu.sql.adaptive.enabled": "false",
+         "spark.rapids.gpu.sql.exchange.reuse.enabled": "false",
+         "spark.rapids.gpu.sql.prefetch.enabled": "false"}
 # the reference with the plan features the port does not have turned off
-JAX_PLAIN = {"spark.rapids.tpu.fastpath.enabled": "false",
-             "spark.rapids.tpu.sql.adaptive.enabled": "false",
-             "spark.rapids.tpu.sql.dynamicPartitionPruning.enabled": "false",
-             "spark.rapids.tpu.sql.exchange.reuse.enabled": "false",
-             "spark.rapids.tpu.sql.fusion.enabled": "false",
-             "spark.rapids.tpu.sql.prefetch.enabled": "false",
-             "spark.rapids.tpu.sql.window.streaming.enabled": "false",
-             "spark.rapids.tpu.plan.cache.enabled": "false"}
+JAX_DEFAULTS = {
+    "spark.rapids.tpu.fastpath.enabled": "false",
+    "spark.rapids.tpu.sql.dynamicPartitionPruning.enabled": "false",
+    "spark.rapids.tpu.sql.fusion.enabled": "false",
+    "spark.rapids.tpu.sql.window.streaming.enabled": "false",
+    "spark.rapids.tpu.plan.cache.enabled": "false"}
+# ... and AQE, exchange reuse and prefetch off too
+JAX_PLAIN = dict(JAX_DEFAULTS, **{
+    "spark.rapids.tpu.sql.adaptive.enabled": "false",
+    "spark.rapids.tpu.sql.exchange.reuse.enabled": "false",
+    "spark.rapids.tpu.sql.prefetch.enabled": "false"})
 BCAST = 1000  # broadcastRowThreshold of the plan-shape cases
 
 
@@ -129,8 +138,13 @@ SHAPES = _shape_cases()
 
 def plan_shape(node):
     """(kind, detail) of every operator of a physical tree, depth first;
-    projections, filters and the reference's replay cache are left out
-    (the reference folds a filter into a partial aggregate)."""
+    projections and filters are left out (the reference folds a filter
+    into a partial aggregate). Counts nothing that would write an
+    exchange: a union's partition count is read as the planner reads
+    it."""
+    from spark_rapids_tpu.shuffle.aqe import planning_scope as jscope
+    from spark_rapids_tpu_torch.shuffle.aqe import planning_scope as pscope
+
     out = []
 
     def walk(n, depth):
@@ -146,11 +160,15 @@ def plan_shape(node):
         elif name in ("BroadcastHashJoinExec", "HashJoinExec"):
             kind = (name, n.join_type)
         elif name in ("SortExec", "WindowExec", "LocalLimitExec",
-                      "GlobalLimitExec", "_Gather", "CoalesceBatchesExec"):
+                      "GlobalLimitExec", "_Gather", "CoalesceBatchesExec",
+                      "AQEShuffleReadExec", "SkewAwareShuffleReadExec",
+                      "PrefetchExec", "ReplayExec", "ReusedExchangeExec",
+                      "ReusedBroadcastExec"):
             kind = (name,)
         elif name == "UnionExec":
-            kind = ("union", n.num_partitions())
-        elif name not in ("ProjectExec", "FilterExec", "ReplayExec"):
+            with jscope(), pscope():
+                kind = ("union", n.num_partitions())
+        elif name not in ("ProjectExec", "FilterExec"):
             raise AssertionError(f"unexpected operator {name}")
         if kind is not None:
             out.append((depth,) + kind)
@@ -164,10 +182,21 @@ def plan_shape(node):
 
 @pytest.mark.parametrize("case", sorted(SHAPES))
 def test_plan_shape_matches_the_reference(case):
+    _check_plan_shape(case, dict(NO_FASTPATH, **PLAIN), JAX_PLAIN)
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_plan_shape_matches_the_reference_at_the_defaults(case):
+    """AQE readers, skew-paired readers, replayed broadcast builds and
+    prefetch boundaries where the reference's planner places them."""
+    _check_plan_shape(case, NO_FASTPATH, JAX_DEFAULTS)
+
+
+def _check_plan_shape(case, port_conf, jax_conf):
     f, small, big = _facts(), _dims(200), _dims(3000, 3)
-    pconf = RapidsConf(dict(NO_FASTPATH, **{
+    pconf = RapidsConf(dict(port_conf, **{
         "spark.rapids.gpu.sql.join.broadcastRowThreshold": BCAST}))
-    jconf = JConf(dict(JAX_PLAIN, **{
+    jconf = JConf(dict(jax_conf, **{
         "spark.rapids.tpu.sql.join.broadcastRowThreshold": BCAST}))
     pdf = [port_from_arrow(t, pconf, batch_rows=500, device="cpu",
                            partitions=4) for t in (f, small, big)]
@@ -340,7 +369,9 @@ def test_shuffled_join_on_string_keys_matches_one_partition(how):
     names = pa.table({
         "s": pa.array([f"s{i}" for i in range(0, 45, 3) for _ in range(4)]),
         "w": pa.array(rng.integers(0, 9, 60), pa.int64())})
-    shuffled = {"spark.rapids.gpu.sql.join.broadcastRowThreshold": 10}
+    # the plain plan shape: the sides are the exchanges themselves
+    shuffled = dict(PLAIN, **{
+        "spark.rapids.gpu.sql.join.broadcastRowThreshold": 10})
     q = _four(f, shuffled).join(_four(names, shuffled), on="s", how=how)
     plan = q.physical_plan()
     joins = [n for n in _walk(plan) if isinstance(n, HashJoinExec)]
