@@ -212,6 +212,41 @@ Phases, in order; any failure exits non-zero before the last line:
    Every probe and segmented-scan call of the phase's counted runs is
    held against the plain version (``adaptive_calls_checked``), and the
    checked calls must cover every counted launch;
+15. the memory path (``run_memory_path``). Phases 1-14 run at the
+   port's memory defaults: task semaphore, pool accounting, spillable
+   join builds, output chunks and aggregate partials, streaming windows
+   (q44 streams). (a) Three streaming window nodes over store_sales
+   (``tpcds_queries.streaming_windows``; 2,880,000 rows at SF1 in 2^17-row
+   batches, so 22 sorted runs, past the 16 of ``maxMergeRuns``, and a
+   pre-merge): a running and a bounded one partitioned by store, and a
+   running one with no partition, whose one partition spans every
+   streamed batch so that the carry continues across each edge; each
+   with streaming on and off, the columns equal to each other's and the
+   CPU engine's; runs, pre-merges, merged and streamed batches, and warm
+   walls both ways (one warm run each, not the checked one).
+   (b) Phase 13's Q3, Q5 and q67 (their frames, already uploaded) and
+   the unpartitioned running window (over the date, ticket, item and
+   quantity columns, in 2^20-row merged batches), each once uncapped on a fresh pool
+   (its largest handle, the most bytes it pinned at once, its peak
+   device memory, ``torch.cuda.max_memory_allocated`` above the tables
+   as ``bench/peak_memory.py`` takes it) and once under a pool capped at
+   the larger of the two (``memory.pool.maxBytes``: every handle and
+   every pinned set fits) with a host tier and an aggregate repartition
+   target of a sixteenth of it: rows equal to the uncapped ones; no
+   registration split; spill counts and bytes by tier, chunks,
+   repartition depth, prefetch sheds, wall and peak. Bytes must reach
+   host and disk, and q67's aggregate must repartition. (c) The capped
+   q67 again with two
+   injected RETRYs and one SPLIT on the main thread: equal rows, the
+   retry and split counters above zero. (d) Q1 and Q6 (4 splits) on two
+   threads at 1 and 2 task permits, two runs a thread: rows equal to
+   the serial runs, never
+   more holders than permits (the semaphore's own high-water mark and a
+   sampler), at least one wait at 1 permit. Both kernels must launch in
+   the phase, every call of its counted runs held against the plain
+   version (``memory_calls_checked``). After every query of phases 1-15
+   (``MemoryChecks``) the pool's used bytes are 0, ``cleaner.sweep()``
+   finds nothing and the spill directories hold no file;
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1942,7 +1977,7 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
             # under another conf, and the rows
             "cases": [(name, build, frame_of[id(d)], check)
                       for name, build, d, check, _j, _w in cases],
-            "four": four, "rows": rows}
+            "four": four, "frames": frames, "rows": rows}
 
 
 # phase 14: the three switches off give the plan shape without them
@@ -2309,6 +2344,445 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
             "segscan_calls_checked": scan_calls}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the memory path
+# ---------------------------------------------------------------------------
+
+# a case's capped pool is the least that its uncapped run shows every
+# handle and every set of handles an operator pins at once to fit in:
+# the larger of the largest handle and the most bytes pinned at once, so
+# no registration splits and whatever spills is state that outgrew the
+# pool. Its host tier and the aggregate's repartition target are a
+# sixteenth of the cap (the default target, a quarter, repartitions no
+# partition of q67)
+CAP_FRACTION = 16
+CAPPED_CASES = ("tpch_q3", "tpch_q5", "q67", "running_global_window")
+WINDOW_CASE = "running_global_window"
+# the capped window's merged batches: each one reads a slice of every run,
+# and under the cap the combined run and the others trade places, so
+# 2^20-row batches (14, not 109 at 2^17) keep that traffic in bounds
+CAPPED_WINDOW_TARGET_ROWS = 1 << 20
+STREAM_BATCH_ROWS = 1 << 17  # 22 runs of store_sales at SF1
+SEMAPHORE_RUNS = 2  # runs of Q1 and of Q6 on each of the two threads
+
+
+class MemoryChecks:
+    """After every query (``execute_to_arrow``, ``DataFrame.to_arrow``):
+    the pool's used bytes are 0, ``cleaner.sweep()`` finds nothing and
+    the spill directories hold no file. With queries in flight on other
+    threads the check waits for the last one."""
+
+    def __init__(self):
+        self.checked = 0
+        self._in_flight = 0
+        self._lock = threading.Lock()
+
+    def install(self) -> None:
+        from spark_rapids_tpu_torch.plan import dataframe as DF
+
+        real = DF.execute_to_arrow
+
+        def checked(node):
+            with self._lock:
+                self._in_flight += 1
+            try:
+                out = real(node)
+            finally:
+                with self._lock:
+                    self._in_flight -= 1
+                    last = self._in_flight == 0
+            if last:
+                self.check()
+            return out
+
+        DF.execute_to_arrow = checked
+
+    def check(self) -> None:
+        from spark_rapids_tpu_torch.mem import cleaner
+        from spark_rapids_tpu_torch.mem.pool import get_pool
+
+        used = get_pool().used
+        leaks = cleaner.sweep()
+        files = [os.path.join(fw.spill_dir, f) for fw in cleaner.frameworks()
+                 if os.path.isdir(fw.spill_dir)
+                 for f in os.listdir(fw.spill_dir)]
+        if used or leaks or files:
+            raise AssertionError(f"after a query: pool used {used} B, leaks "
+                                 f"{leaks}, spill files {files}")
+        with self._lock:
+            self.checked += 1
+
+
+def run_memory_path(ds_tables, part_res) -> dict:
+    """Phase 15: (a) streaming windows over store_sales against streaming
+    off and the CPU engine; (b) phase 13's Q3, Q5 and q67 under a capped
+    pool against their uncapped rows, with spill counters, walls and peak
+    device memory both ways; (c) the capped q67 with injected OOMs; (d)
+    Q1 and Q6 on two threads at 1 and 2 task permits. Every probe and
+    segmented-scan call of the counted runs is held against its plain
+    version."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config import conf as C
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.exec import pipeline as PP
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import retry as MR
+    from spark_rapids_tpu_torch.mem import semaphore as MS
+    from spark_rapids_tpu_torch.mem import spill as MSP
+    from spark_rapids_tpu_torch.plan import from_arrow
+    from spark_rapids_tpu_torch.plan import dataframe as DF
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+
+    def counted(df, peak=False):
+        """(rows, wall, launches, peak bytes above the start or None,
+        plan) of one planning and run of ``df`` (planning may run a range
+        sort's sample, and with it the exchanges below), every kernel
+        call checked."""
+        torch.cuda.synchronize()
+        if peak:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = check_probe_call
+        K.segmented_scan_kernel = check_scan_call
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = DF.execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        above = (torch.cuda.max_memory_allocated() - base) if peak else None
+        return out, wall, launches, above, plan
+
+    # (a) streaming windows over store_sales, on against off and the CPU
+    ss = ds_tables["store_sales"]
+    off_conf = {"spark.rapids.gpu.sql.window.streaming.enabled": "false"}
+    on_df = from_arrow(ss, batch_rows=STREAM_BATCH_ROWS, device="cuda")
+    off_df = from_arrow(ss, RapidsConf(off_conf),
+                        batch_rows=STREAM_BATCH_ROWS, device="cuda")
+    cpu_df = from_arrow(ss, RapidsConf({"spark.rapids.gpu.sql.enabled":
+                                        "false"}), device="cuda")
+    windows = {}
+    for name, exprs in Q.streaming_windows().items():
+        ws = [w for _a, w in exprs]
+        got, on_s, on_launch, _, on_plan = counted(on_df.with_window(*ws))
+        win = on_plan
+        while type(win).__name__ != "WindowExec":
+            win = win.children[0]
+        srt = win.children[0]
+        mode = name.split("_")[0]
+        if win._mode is None or win._mode[0] != mode or not getattr(
+                srt, "out_of_core", False):
+            raise AssertionError(f"the {name} window does not stream over "
+                                 f"an out-of-core sort:\n{on_plan.explain()}")
+        exp, off_s, off_launch, _, _ = counted(off_df.with_window(*ws))
+        t1 = time.perf_counter()
+        cpu = cpu_df.with_window(*ws).to_arrow()
+        cpu_s = time.perf_counter() - t1
+        for other, what in ((exp, "streaming off"), (cpu, "the CPU engine")):
+            for col in list(got.column_names):
+                if not _columns_agree(got.column(col), other.column(col)):
+                    raise AssertionError(f"the {name} streaming window's "
+                                         f"{col} differs from {what}")
+        if on_launch["segscan"] <= 0:
+            raise AssertionError(f"the {name} streaming window launched no "
+                                 f"segscan")
+        rec = {"rows": got.num_rows,
+               "runs": srt.metrics["sortRuns"].value,
+               "premerges": srt.metrics["sortPremerges"].value,
+               "merged_batches": srt.metrics["sortMergeBatches"].value,
+               "batches_streamed": win.metrics["streamedBatches"].value,
+               "first_s": on_s, "off_first_s": off_s,
+               "cpu_engine_s": cpu_s, "launches": on_launch,
+               "off_launches": off_launch}
+        if rec["runs"] <= C.SORT_OOC_MAX_MERGE_RUNS.default \
+                or rec["premerges"] < 1:
+            raise AssertionError(f"the {name} window's sort pre-merged "
+                                 f"nothing: {rec}")
+        if not win._part_bound and rec["batches_streamed"] < 2:
+            # one partition over every batch: the carry must continue
+            raise AssertionError(f"the {name} window streamed "
+                                 f"{rec['batches_streamed']} batch(es)")
+        # one warm run each (the checked runs compare every scan call
+        # with its plain version, so they time more than the window; the
+        # phase's repeats are cut to keep the whole run near 650 s)
+        rec["warm_s"] = _warm_wall(lambda: DF.execute_to_arrow(
+            on_df.with_window(*ws).physical_plan()), reps=1)
+        rec["off_warm_s"] = _warm_wall(lambda: DF.execute_to_arrow(
+            off_df.with_window(*ws).physical_plan()), reps=1)
+        windows[name] = rec
+        log(f"streaming {name} window over {got.num_rows} store_sales rows "
+            f"in {STREAM_BATCH_ROWS}-row batches: equal to streaming off and "
+            f"the CPU engine; {rec['runs']} runs, {rec['premerges']} "
+            f"pre-merge(s), {rec['merged_batches']} merged batches, "
+            f"{rec['batches_streamed']} batches streamed; warm "
+            f"{rec['warm_s']:.4f}s against {rec['off_warm_s']:.4f}s off "
+            f"(one warm run each); launches {on_launch}")
+    del on_df, off_df, cpu_df
+
+    # (b) phase 13's Q3, Q5 and q67 uncapped, then under a capped pool
+    cases = {name: (build, fkey, check)
+             for name, build, fkey, check in part_res["cases"]}
+    frames = part_res["frames"]
+    rows13 = part_res["rows"]
+
+    def same(name, out):
+        build, fkey, check = cases[name]
+        ok, why = check(out.to_pylist(), rows13[name].to_pylist())
+        if not ok:
+            raise AssertionError(f"{name} differs from phase 13 ({why})")
+
+    def fresh_pool(conf=None):
+        """A new pool and spill framework sized by ``conf`` (the defaults
+        when None: the active conf is the last plan's, capped or not)."""
+        conf = conf or RapidsConf()
+        pool = MP.HbmPool(MP.pool_limit(conf))
+        MP.set_pool(pool)
+        MSP.SpillFramework(pool,
+                           host_limit_bytes=C.HOST_SPILL_LIMIT.get(conf))
+        return pool
+
+    capped = {}
+    tiers = {"to_host": 0, "to_disk": 0}
+    global_window = [w for _a, w in Q.streaming_windows()["running_global"]]
+    # the window's columns and the item: each spill moves what the sort
+    # carries, not the 23 columns of store_sales
+    narrow_ss = ss.select(["ss_sold_date_sk", "ss_ticket_number",
+                           "ss_item_sk", "ss_quantity"])
+
+    def case_df(name, settings=None):
+        """The case's DataFrame, its plan under ``settings`` (phase 13's
+        frames hold the defaults)."""
+        if name == WINDOW_CASE:
+            return from_arrow(narrow_ss, RapidsConf(dict(
+                settings or {}, **{
+                    "spark.rapids.gpu.sql.sort.outOfCore.targetRows":
+                        CAPPED_WINDOW_TARGET_ROWS})),
+                              batch_rows=STREAM_BATCH_ROWS,
+                              device="cuda").with_window(*global_window)
+        build, fkey, _check = cases[name]
+        df = build(frames[fkey])
+        df.conf = RapidsConf(settings or {})
+        return df
+
+    for name in CAPPED_CASES:
+        pool = fresh_pool()
+        out, wall, launches, peak, _ = counted(case_df(name), peak=True)
+        if name == WINDOW_CASE:
+            window_rows = out
+        else:
+            same(name, out)
+        c0 = MSP.get_framework().counters()
+        largest, pinned = c0["max_handle_bytes"], c0["max_pinned_bytes"]
+        cap = max(largest, pinned)
+        settings = {"spark.rapids.gpu.memory.pool.maxBytes": cap,
+                    "spark.rapids.gpu.memory.host.spillStorageSize":
+                        cap // CAP_FRACTION,
+                    "spark.rapids.gpu.sql.agg.repartition.targetBytes":
+                        cap // CAP_FRACTION}
+        conf = RapidsConf(settings)
+        rec = capped[name] = {
+            "uncapped_wall_s": wall, "uncapped_launches": launches,
+            "uncapped_peak_above_bytes": peak,
+            "uncapped_largest_handle_bytes": largest,
+            "uncapped_max_pinned_bytes": pinned,
+            "uncapped_pool_max_used": pool.max_used,
+            "pool_limit_uncapped": pool.limit, "cap_bytes": cap,
+            "host_spill_bytes": cap // CAP_FRACTION,
+            "repartition_target_bytes": cap // CAP_FRACTION,
+            "settings": settings}
+        if name != WINDOW_CASE:
+            rec["phase13_warm_s"] = part_res["queries"][name]["warm_s"]
+        log(f"{name} uncapped: largest handle {largest} B, at most {pinned} "
+            f"B pinned and {pool.max_used} B accounted at once, peak {peak} "
+            f"B above the tables, {wall:.3f}s; capped: memory.pool.maxBytes "
+            f"{cap} B, memory.host.spillStorageSize and the repartition "
+            f"target {cap // CAP_FRACTION} B")
+        pool = fresh_pool(conf)
+        fw = MSP.get_framework()
+        PP.STATS.reset()
+        MR.STATS.reset()
+        s0 = AGG.repartition_snapshot()
+        out, wall, launches, peak, plan = counted(case_df(name, settings),
+                                                  peak=True)
+        if name == WINDOW_CASE:
+            if not out.equals(window_rows):
+                raise AssertionError("the capped global window differs from "
+                                     "its uncapped rows")
+        else:
+            same(name, out)
+        c = fw.counters()
+        splits = MR.STATS.snapshot()["splits"]
+        if splits:
+            raise AssertionError(f"{name} capped split {splits} "
+                                 f"registration(s): a handle did not fit")
+        depth = max([n.max_repartition_depth for n in _walk_plan(plan)
+                     if hasattr(n, "max_repartition_depth")] or [0])
+        rec.update(capped_wall_s=wall, capped_peak_above_bytes=peak,
+                   capped_launches=launches, spill=c, splits=splits,
+                   repartition_depth=depth,
+                   repartitions=AGG.repartition_snapshot()["total"]
+                   - s0["total"],
+                   prefetch_sheds=PP.STATS.snapshot()["prefetch_sheds"],
+                   pool_max_used=pool.max_used)
+        tiers["to_host"] += c["spilled_to_host"]
+        tiers["to_disk"] += c["spilled_to_disk"]
+        log(f"{name} capped: rows equal uncapped; no split; spilled "
+            f"{c['spilled_to_host']} x to host ({c['spilled_to_host_bytes']}"
+            f" B), {c['spilled_to_disk']} x to disk "
+            f"({c['spilled_to_disk_bytes']} B), {c['unspilled']} back "
+            f"({c['unspilled_bytes']} B), {c['chunks_written']} chunks; "
+            f"repartition depth {depth} ({rec['repartitions']} passes); "
+            f"prefetch sheds {rec['prefetch_sheds']}; {wall:.3f}s against "
+            f"{rec['uncapped_wall_s']:.3f}s uncapped; peak {peak} B against "
+            f"{rec['uncapped_peak_above_bytes']} B uncapped")
+    del window_rows, narrow_ss
+    capped_conf = RapidsConf(capped["q67"]["settings"])
+    if not (tiers["to_host"] and tiers["to_disk"]):
+        raise AssertionError(f"the capped runs spilled {tiers}: nothing "
+                             f"reached both tiers")
+    if capped["q67"]["repartition_depth"] < 1:
+        raise AssertionError("the capped q67's aggregate did not "
+                             "repartition")
+
+    # (c) the capped q67 with two injected RETRYs and one SPLIT
+    pool = fresh_pool(capped_conf)
+    me = threading.get_ident()
+    injectors = [MP.OomInjector("RETRY", skip=2, count=2, thread_id=me),
+                 MP.OomInjector("SPLIT", skip=1, count=1, thread_id=me)]
+
+    class Chain:
+        """The injectors in turn, each once its predecessor is spent."""
+
+        def on_alloc(self):
+            for inj in injectors:
+                if inj.count > 0:
+                    inj.on_alloc()
+                    return
+
+    pool.set_injector(Chain())
+    MR.STATS.reset()
+    out, wall, launches, _, _ = counted(case_df("q67",
+                                                capped["q67"]["settings"]))
+    pool.set_injector(None)
+    same("q67", out)
+    stats = MR.STATS.snapshot()
+    MP.set_pool(None)
+    C.set_active(None)
+    injected = [i.injected for i in injectors]
+    if injected != [2, 1] or stats["retries"] < 2 or stats["splits"] < 1:
+        raise AssertionError(f"injected OOMs {injected}, retries and "
+                             f"splits {stats}")
+    oom = {"injected_retry": injected[0], "injected_split": injected[1],
+           "retry_stats": stats, "wall_s": wall, "launches": launches}
+    log(f"q67 capped with 2 injected RETRY and 1 SPLIT: rows equal phase "
+        f"13; {stats['retries']} retries, {stats['splits']} splits")
+
+    # (d) Q1 and Q6 on two threads at 1 and 2 task permits
+    sem_res = {}
+    for permits in (1, 2):
+        fr = part_res["four"]({"spark.rapids.gpu.sql.concurrentGpuTasks":
+                               permits})["h"]
+        for q in ("q1", "q6"):  # uploads and serial rows
+            same(f"tpch_{q}", DF.execute_to_arrow(tpch_plan(q, fr)))
+        sem = MS.get_task_semaphore(RapidsConf(
+            {"spark.rapids.gpu.sql.concurrentGpuTasks": permits}))
+        sem.max_holders = 0
+        w0 = sem.snapshot()["wait_count"]
+        got, errors, samples = {}, [], []
+        stop = threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                samples.append(len(sem.snapshot()["holders"]))
+                time.sleep(0.0005)
+
+        def run(q):
+            # two runs a thread, so that the two overlap
+            try:
+                got[q] = [DF.execute_to_arrow(tpch_plan(q, fr))
+                          for _ in range(SEMAPHORE_RUNS)]
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(q,))
+                   for q in ("q1", "q6")]
+        watcher = threading.Thread(target=sample)
+        watcher.start()
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        stop.set()
+        watcher.join()
+        if errors:
+            raise errors[0]
+        for q in ("q1", "q6"):
+            for out in got[q]:
+                same(f"tpch_{q}", out)
+        snap = sem.snapshot()
+        waits = snap["wait_count"] - w0
+        if snap["max_holders"] > permits or max(samples) > permits:
+            raise AssertionError(f"{snap['max_holders']} holders at "
+                                 f"{permits} permits")
+        if permits == 1 and waits < 1:
+            raise AssertionError("two threads at one permit never waited")
+        sem_res[permits] = {"max_holders": snap["max_holders"],
+                            "sampled_max_holders": max(samples),
+                            "waits": waits, "wall_s": wall,
+                            "total_wait_ns": snap["total_wait_ns"]}
+        log(f"Q1 and Q6 on two threads at {permits} permit(s), "
+            f"{SEMAPHORE_RUNS} runs a thread: rows equal the serial runs; "
+            f"at most {snap['max_holders']} holders, {waits} waits; "
+            f"{wall:.3f}s")
+        del fr
+
+    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
+        raise AssertionError(f"phase 15 launched {total}: both kernels "
+                             f"must launch")
+    if (probe_calls[0] < total["hashtbl_probe"]
+            or sum(scan_calls.values()) < total["segscan"]):
+        raise AssertionError(f"phase 15 checked {probe_calls[0]} probe and "
+                             f"{scan_calls} segscan calls for {total} "
+                             f"launches")
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 15 equal "
+        f"the plain version ({total} launches)")
+    return {"windows": windows, "capped": capped, "injected": oom,
+            "semaphore": sem_res, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls,
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def tpch_plan(q, frames):
+    from spark_rapids_tpu_torch.bench import tpch
+
+    return tpch.DF_QUERIES[q](frames).physical_plan()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=2.0)
@@ -2330,6 +2804,8 @@ def main(argv=None) -> int:
     from spark_rapids_tpu_torch.exec import kernels as K
 
     t_all = time.perf_counter()
+    mem_checks = MemoryChecks()
+    mem_checks.install()
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {smi} | torch {torch.__version__} cuda "
@@ -2433,7 +2909,12 @@ def main(argv=None) -> int:
         ds_tables, [(union_res, union_rows), (dec_res, dec_rows)], part_res)
     adaptive_res["wall_s"] = time.perf_counter() - t_adaptive
     log(f"phase 14 took {adaptive_res['wall_s']:.1f}s")
-    for k in ("four", "cases", "rows"):
+    # phase 15: the memory path
+    memory_res = run_memory_path(ds_tables, part_res)
+    log(f"phase 15 took {memory_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked} queries")
+    for k in ("four", "cases", "rows", "frames"):
         part_res.pop(k)
 
     by_path = {name: {"tpch": main_res["launches"][name],
@@ -2446,7 +2927,8 @@ def main(argv=None) -> int:
                       "tpcds_window_rest": win_res["launches"][name],
                       "window_surface": surface_res["launches"][name],
                       "partitioned": part_res["launches"][name],
-                      "adaptive": adaptive_res["launches"][name]}
+                      "adaptive": adaptive_res["launches"][name],
+                      "memory": memory_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -2487,6 +2969,7 @@ def main(argv=None) -> int:
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "partitioned_calls_checked": part_res["probe_calls_checked"],
         "adaptive_calls_checked": adaptive_res["probe_calls_checked"],
+        "memory_calls_checked": memory_res["probe_calls_checked"],
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -2508,6 +2991,7 @@ def main(argv=None) -> int:
         "window_min_scan": surface_res["min_scan"],
         "partitioned_calls_checked": part_res["segscan_calls_checked"],
         "adaptive_calls_checked": adaptive_res["segscan_calls_checked"],
+        "memory_calls_checked": memory_res["segscan_calls_checked"],
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -2527,6 +3011,9 @@ def main(argv=None) -> int:
               "partitioned": part_res["queries"],
               "adaptive": {k: v for k, v in adaptive_res.items()
                            if k != "launches"},
+              "memory": {k: v for k, v in memory_res.items()
+                         if k != "launches"},
+              "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
               "segscan_stress": scan_stress, "segscan_beyond_l2": scan_big,

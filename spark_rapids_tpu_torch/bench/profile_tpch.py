@@ -14,6 +14,8 @@
         [--sf 1.0] [--out PATH.json]
     python -m spark_rapids_tpu_torch.bench.profile_tpch \
         --suite tpcds_window_rest [--sf 1.0] [--out PATH.json]
+    python -m spark_rapids_tpu_torch.bench.profile_tpch \
+        --suite streaming_windows [--sf 1.0] [--out PATH.json]
 
 ``--suite tpch`` profiles TPC-H Q1/Q3/Q5/Q6 (default SF 2), ``--suite
 tpcds`` the TPC-DS half of ``bench.py``'s headline, q3/q7/q42/q52/q96, in
@@ -31,7 +33,12 @@ tpcds_decimal`` the decimal slice's 21 queries
 and q1/q30/q65/q81 (their decimal(21,6) averages now on the device) the
 same way, and ``--suite tpcds_window_rest`` the window slice's five
 (``tpcds_queries.WINDOW_SLICE``: window averages partitioned by plain
-strings, ranks over sums) the same way. For each query (after
+strings, ranks over sums) the same way, and ``--suite
+streaming_windows`` the three window groups of ``chip_smoke.py``'s phase 15
+(``tpcds_queries.streaming_windows``) over store_sales in batches of
+2^17 rows, each streaming (an out-of-core sort under a streaming window)
+and with ``spark.rapids.gpu.sql.window.streaming.enabled`` false (the
+partition coalesced into one batch). For each query (after
 one warm-up run): the warm wall time (host clock around a run that ends in
 a synchronise, median of 3), then one run under ``torch.profiler`` giving
 the device time summed over kernels and copies, the host-to-device copy
@@ -132,7 +139,8 @@ def main(argv=None) -> int:
     ap.add_argument("--suite", choices=("tpch", "tpcds", "tpcds_joins",
                                         "tpcds_breadth", "tpcds_union",
                                         "tpcds_decimal",
-                                        "tpcds_window_rest"),
+                                        "tpcds_window_rest",
+                                        "streaming_windows"),
                     default="tpch")
     ap.add_argument("--sf", type=float, default=None,
                     help="scale factor (default 2 for tpch, 1 for tpcds)")
@@ -153,6 +161,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    if args.suite == "streaming_windows":
+        return profile_streaming_windows(1.0 if args.sf is None else args.sf,
+                                         smi, args.out)
     if args.suite == "tpch":
         from spark_rapids_tpu_torch.bench import tpch as suite
 
@@ -203,21 +214,57 @@ def main(argv=None) -> int:
             res["cpu_nodes"] = [ln.strip() for ln in queries[q](dq).explain(
                 "NOT_ON_GPU").splitlines() if ln.lstrip().startswith("!")]
         out["queries"][q] = res
-        print(json.dumps({"query": q, **{k: v for k, v in res.items()
-                                         if not k.startswith("top_")}}),
-              flush=True)
-        for op in res["top_device_ops"][:6]:
-            print(f"  {q} device {op['device_ms']:9.3f} ms "
-                  f"{op['calls']:6d}x {op['op'][:90]}", flush=True)
-        for op in res["top_host_ops"][:6]:
-            print(f"  {q} host {op['host_self_ms']:9.3f} ms "
-                  f"{op['calls']:6d}x {op['op'][:90]}", flush=True)
+        _print_query(q, res)
+    return report(out, smi, args.out)
+
+
+def report(out: dict, smi: str, path: str) -> int:
     print(smi, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             json.dump(out, f, indent=1)
     return 0
+
+
+def _print_query(q: str, res: dict) -> None:
+    print(json.dumps({"query": q, **{k: v for k, v in res.items()
+                                     if not k.startswith("top_")}}),
+          flush=True)
+    for op in res["top_device_ops"][:6]:
+        print(f"  {q} device {op['device_ms']:9.3f} ms "
+              f"{op['calls']:6d}x {op['op'][:90]}", flush=True)
+    for op in res["top_host_ops"][:6]:
+        print(f"  {q} host {op['host_self_ms']:9.3f} ms "
+              f"{op['calls']:6d}x {op['op'][:90]}", flush=True)
+
+
+def profile_streaming_windows(sf: float, smi: str, path: str) -> int:
+    """``--suite streaming_windows`` (see the module docstring)."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    ss = tpcds_schema.tables_for(sf, seed=0,
+                                 names=["store_sales"])["store_sales"]
+    frames = {"": from_arrow(ss, batch_rows=1 << 17, device="cuda"),
+              "_off": from_arrow(ss, RapidsConf(
+                  {"spark.rapids.gpu.sql.window.streaming.enabled":
+                   "false"}), batch_rows=1 << 17, device="cuda")}
+    out = {"device": smi, "torch": torch.__version__,
+           "suite": "streaming_windows", "sf": sf,
+           "store_sales_rows": ss.num_rows, "queries": {}}
+    for name, exprs in Q.streaming_windows().items():
+        ws = [w for _a, w in exprs]
+        for suffix, df in frames.items():
+            q = name + suffix
+            res = profile_query(lambda df=df: df.with_window(*ws).to_arrow())
+            out["queries"][q] = res
+            _print_query(q, res)
+    return report(out, smi, path)
 
 
 if __name__ == "__main__":

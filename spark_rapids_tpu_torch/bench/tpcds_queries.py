@@ -3048,6 +3048,45 @@ TABLES = {
 }
 
 
+def streaming_windows() -> Dict[str, list]:
+    """Three window groups over store_sales that stream (``exec/window.py``
+    ``plan_stream_mode``), each [(alias, window expression)], ordered by
+    the sale date and ticket: ``running`` (partitioned by store:
+    row_number, rank, dense_rank and ROWS UNBOUNDED PRECEDING..CURRENT ROW
+    Sum/Count/Min/Max of the quantity cast to INT; a running float Min/Max
+    does not stream), ``bounded`` (partitioned by store: lead, lag and a
+    ROWS 3 PRECEDING..3 FOLLOWING Sum) and ``running_global`` (no
+    partition, so its one partition spans every batch and the running
+    carry continues across each batch edge: row_number, rank, dense_rank,
+    a running Sum and Max). A name's first word is its stream mode.
+    ``chip_smoke.py`` phase 15 and ``profile_tpch --suite
+    streaming_windows`` run them."""
+    from spark_rapids_tpu_torch.exprs import window as W
+
+    parts, order = ["ss_store_sk"], ["ss_sold_date_sk", "ss_ticket_number"]
+    spec = W.window_spec(parts, order)
+    run = W.window_spec(parts, order, W.WindowFrame("rows", None, 0))
+    near = W.window_spec(parts, order, W.WindowFrame("rows", -3, 3))
+    whole = W.window_spec([], order)
+    whole_run = W.window_spec([], order, W.WindowFrame("rows", None, 0))
+    qty = Cast(col("ss_quantity"), T.INT)
+    running = (("row_number", W.RowNumber(), spec),
+               ("rank", W.Rank(), spec), ("dense_rank", W.DenseRank(), spec),
+               ("run_sum", Sum(qty), run), ("run_count", Count(qty), run),
+               ("run_min", Min(qty), run), ("run_max", Max(qty), run))
+    bounded = (("lead_qty", W.Lead(qty, 1), spec),
+               ("lag_qty", W.Lag(qty, 2), spec),
+               ("near_sum", Sum(qty), near))
+    running_global = (("row_number", W.RowNumber(), whole),
+                      ("rank", W.Rank(), whole),
+                      ("dense_rank", W.DenseRank(), whole),
+                      ("run_sum", Sum(qty), whole_run),
+                      ("run_max", Max(qty), whole_run))
+    return {name: [(a, W.over(f, sp).alias(a)) for a, f, sp in fs]
+            for name, fs in (("running", running), ("bounded", bounded),
+                             ("running_global", running_global))}
+
+
 def tables_of(queries) -> Tuple[str, ...]:
     """The tables a set of queries reads (``TABLES``), each once."""
     return tuple(sorted({t for q_ in queries for t in TABLES[q_]}))

@@ -197,6 +197,107 @@ PREFETCH_DEPTH = conf(
     "spark.rapids.gpu.sql.prefetch.depth", default=2,
     doc="Batches a prefetch boundary may hold ready ahead of its consumer.")
 
+CONCURRENT_TASKS = conf(
+    "spark.rapids.gpu.sql.concurrentGpuTasks", default=2,
+    doc="Tasks that may hold the GPU at once: each output partition's "
+        "drain holds a permit of the process's task semaphore "
+        "(reference: spark.rapids.sql.concurrentGpuTasks / GpuSemaphore).")
+
+POOL_FRACTION = conf(
+    "spark.rapids.gpu.memory.pool.fraction", default=0.85,
+    doc="Fraction of the device's memory the accounting pool may hold "
+        "before an allocation spills and then raises a retryable OOM "
+        "(reference: spark.rapids.memory.gpu.allocFraction).")
+
+POOL_MAX_BYTES = conf(
+    "spark.rapids.gpu.memory.pool.maxBytes", default=0,
+    doc="Absolute cap in bytes of the accounting pool; 0 derives it from "
+        "pool.fraction times the device's memory (16 GiB on the CPU). Read "
+        "when the process's pool is made (mem/pool.get_pool).")
+
+HOST_SPILL_LIMIT = conf(
+    "spark.rapids.gpu.memory.host.spillStorageSize", default=8 << 30,
+    doc="Bytes of host memory spilled device batches may hold before the "
+        "oldest cascade to disk (reference: "
+        "spark.rapids.memory.host.spillStorageSize).")
+
+SPILL_DIR = conf(
+    "spark.rapids.gpu.memory.spillDir", default="",
+    doc="Directory for disk-tier spill files; empty means srgpu_spill "
+        "under the process's temporary directory.")
+
+SPILL_CHUNK_BYTES = conf(
+    "spark.rapids.gpu.memory.spill.chunkBytes", default=8 << 20,
+    doc="Fixed size of the CRC-guarded chunks a spilled batch is cut into "
+        "on the host and disk tiers (reference: GpuDeviceManager bounce "
+        "buffer pools).")
+
+SPILL_CODEC = conf(
+    "spark.rapids.gpu.memory.spill.codec", default="none",
+    doc="Codec of each spill chunk: none, zlib, lz4, zstd. lz4 and zstd "
+        "need their python modules; a missing one fails when the spill "
+        "framework is made.")
+
+AGG_REPARTITION_ENABLED = conf(
+    "spark.rapids.gpu.sql.agg.repartition.enabled", default=True,
+    doc="When a hash aggregate's merge state outgrows the target (or the "
+        "pool refuses the merge), hash-repartition the partial buffers "
+        "into spillable buckets, recursively, and merge each bucket alone "
+        "(reference: GpuAggregateExec's repartition fallback).")
+
+AGG_REPARTITION_TARGET_BYTES = conf(
+    "spark.rapids.gpu.sql.agg.repartition.targetBytes", default=0,
+    doc="Merge-state bytes above which the aggregate repartitions; 0 "
+        "derives a quarter of the pool's limit.")
+
+AGG_REPARTITION_NUM_BUCKETS = conf(
+    "spark.rapids.gpu.sql.agg.repartition.numBuckets", default=16,
+    doc="Hash buckets per repartition level; each level re-seeds the "
+        "bucket hash, so a skewed bucket splits on another boundary.")
+
+AGG_REPARTITION_MAX_DEPTH = conf(
+    "spark.rapids.gpu.sql.agg.repartition.maxDepth", default=3,
+    doc="Deepest repartition level; past it a bucket merges piece by piece "
+        "under split-retry.")
+
+RETRY_BACKOFF_MS = conf(
+    "spark.rapids.gpu.memory.retry.backoffMs", default=0.0,
+    doc="Base of the jittered exponential pause between OOM retries "
+        "(capped at 32x); 0 retries at once.")
+
+RETRY_MAX_ATTEMPTS = conf(
+    "spark.rapids.gpu.memory.retry.maxAttempts", default=32,
+    doc="OOM retries of one input before the failure surfaces.")
+
+WINDOW_STREAMING_ENABLED = conf(
+    "spark.rapids.gpu.sql.window.streaming.enabled", default=True,
+    doc="Stream a window group across batches (a running carry, or a "
+        "bounded neighbour context) behind an out-of-core sort instead of "
+        "coalescing each partition into one batch (reference: "
+        "GpuRunningWindowExec / GpuBatchedBoundedWindowExec).")
+
+WINDOW_MAX_BOUNDED_CONTEXT = conf(
+    "spark.rapids.gpu.sql.window.streaming.maxContextRows", default=1024,
+    doc="Largest bounded-frame extent or lead/lag offset the streaming "
+        "window carries; larger ones coalesce to one batch.")
+
+SORT_OOC_TARGET_ROWS = conf(
+    "spark.rapids.gpu.sql.sort.outOfCore.targetRows", default=1 << 17,
+    doc="Rows per output batch of the out-of-core sort's merge "
+        "(reference: GpuSortExec targetSize).")
+
+SORT_OOC_MAX_MERGE_RUNS = conf(
+    "spark.rapids.gpu.sql.sort.outOfCore.maxMergeRuns", default=16,
+    doc="Most sorted runs the out-of-core sort merges per output batch; "
+        "runs past it are pre-merged into combined spillable runs.")
+
+SORT_MERGE_PATH_ENABLED = conf(
+    "spark.rapids.gpu.sql.sort.outOfCore.mergePath", default=True,
+    doc="The reference's binary-search merge of a one-key out-of-core "
+        "merge set. Accepted and without effect: the port merges every "
+        "set by a stable sort, which gives the same rows in the same "
+        "order.")
+
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
 SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
 SHUFFLE_CODECS = ("none", "zlib", "lz4", "zstd")
@@ -217,7 +318,8 @@ class RapidsConf:
             raise ValueError(f"{EXPLAIN.key} must be one of {EXPLAIN_MODES}, "
                              f"not {explain!r}")
         for entry, allowed in ((SHUFFLE_MODE, SHUFFLE_MODES),
-                               (SHUFFLE_COMPRESS, SHUFFLE_CODECS)):
+                               (SHUFFLE_COMPRESS, SHUFFLE_CODECS),
+                (SPILL_CODEC, SHUFFLE_CODECS)):
             if self[entry] not in allowed:
                 raise ValueError(f"{entry.key} must be one of {allowed}, "
                                  f"not {self[entry]!r}")
@@ -225,7 +327,16 @@ class RapidsConf:
                 (SHUFFLE_WRITE_THREADS, lambda v: v >= 1, ">= 1"),
                 (PREFETCH_DEPTH, lambda v: v >= 1, ">= 1"),
                 (REUSE_CACHE_MAX_BYTES, lambda v: v >= 0, ">= 0"),
-                (REUSE_CACHE_MAX_ENTRIES, lambda v: v >= 1, ">= 1")):
+                (REUSE_CACHE_MAX_ENTRIES, lambda v: v >= 1, ">= 1"),
+                (CONCURRENT_TASKS, lambda v: v >= 1, ">= 1"),
+                (POOL_MAX_BYTES, lambda v: v >= 0, ">= 0"),
+                (SPILL_CHUNK_BYTES, lambda v: v >= 4096, ">= 4096"),
+                (AGG_REPARTITION_TARGET_BYTES, lambda v: v >= 0, ">= 0"),
+                (AGG_REPARTITION_NUM_BUCKETS, lambda v: v >= 2, ">= 2"),
+                (AGG_REPARTITION_MAX_DEPTH, lambda v: v >= 1, ">= 1"),
+                (RETRY_MAX_ATTEMPTS, lambda v: v >= 1, ">= 1"),
+                (SORT_OOC_TARGET_ROWS, lambda v: v >= 1, ">= 1"),
+                (SORT_OOC_MAX_MERGE_RUNS, lambda v: v >= 2, ">= 2")):
             if not ok(self[entry]):
                 raise ValueError(f"{entry.key} must be {rule}")
 

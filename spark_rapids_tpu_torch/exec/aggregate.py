@@ -9,11 +9,18 @@ its hash-grouping path), in the reference's three modes:
 
 Per input batch, a first pass pre-projects the group keys and aggregate
 inputs, clusters rows with ``kernels.group_rows`` and reduces each group
-with the sorted segment reducers into partial buffers. The partials of all
-batches are then concatenated on the device and merged by one more grouped
-reduction, and a final projection turns buffers into results. A partial
-buffer column is named ``<aggregate>#b<i>``; a split into partial and
-final changes only the order of float additions.
+with the sorted segment reducers into partial buffers, each held as a
+spillable handle (``mem/spill.py``). The partials of all batches are then
+concatenated on the device, each pinned until the concat is made, and
+merged by one more grouped reduction, and a final projection turns
+buffers into results. When the partials' bytes are above
+``spark.rapids.gpu.sql.agg.repartition.targetBytes`` (a quarter of the
+pool's limit by default), or the pool cannot hold them all at once, they
+are hash-repartitioned into spillable buckets instead, recursively, and
+each bucket is merged alone (``_repartition_merge``); the operator then
+emits a batch per bucket. A partial buffer column is named
+``<aggregate>#b<i>``; a split into partial and final changes only the
+order of float additions.
 
 Buffer layout per function (Spark result types):
   Sum -> [sum]    Count -> [count]    Average -> [sum, count]
@@ -34,18 +41,23 @@ DECIMAL128 group keys hash, sort and compare both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
 from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.mem import retry, spill
+from spark_rapids_tpu_torch.mem.pool import (
+    RetryOOM, SplitAndRetryOOM, get_pool)
 
 
 @dataclasses.dataclass
@@ -124,7 +136,14 @@ class HashAggregateExec(UnaryExec):
         self._pre_bound = tuple(pre)
         for f in self.output_schema:
             T.check_device_type(f.dtype)
+        cf = C.get_active()
+        self._repart = (C.AGG_REPARTITION_ENABLED.get(cf) and self._n_keys > 0,
+                        C.AGG_REPARTITION_TARGET_BYTES.get(cf),
+                        C.AGG_REPARTITION_NUM_BUCKETS.get(cf),
+                        C.AGG_REPARTITION_MAX_DEPTH.get(cf))
         self._register_metric("numAggBatches")
+        self._register_metric("numRepartitions")
+        self.max_repartition_depth = 0  # deepest level reached, 1-based
 
     @staticmethod
     def final_from_partial(partial: "HashAggregateExec",
@@ -279,34 +298,214 @@ class HashAggregateExec(UnaryExec):
         return ColumnarBatch(out_cols, buffers.num_rows)
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
-        if self.mode == "final":
-            buffers = list(self.child.execute(partition))
-            if not buffers and self._n_keys:
-                return
-            if not buffers:
-                # a global aggregate over no input is one row: counts 0,
-                # every other function null
-                buffers = [empty_batch(self.child.output_schema.types(),
-                                       self.plan_device())]
-            yield self._final_project(self._merge_pass(
-                K.concat_device(buffers)))
-            return
-        partials = []
+        fw = spill.get_framework()
+        handles: List[spill.SpillableBatch] = []
+        try:
+            if self.mode == "final":
+                handles.extend(spill.spillable(
+                    self.child.execute(partition), fw))
+                if not handles and self._n_keys:
+                    return
+                if not handles:
+                    # a global aggregate over no input is one row: counts
+                    # 0, every other function null
+                    handles.extend(spill.spillable([empty_batch(
+                        self.child.output_schema.types(),
+                        self.plan_device())], fw))
+            else:
+                handles.extend(spill.spillable(
+                    self._first_passes(partition), fw))
+                if not handles:
+                    if self._n_keys == 0 and self.mode == "complete":
+                        # a global aggregate over no input is one row, as
+                        # over an empty batch: counts 0, every other
+                        # function null
+                        empty = empty_batch(self.child.output_schema.types(),
+                                            self.plan_device())
+                        yield self._final_project(self._first_pass(empty))
+                    return
+            for merged in self._merge_all(handles):
+                yield merged if self.mode == "partial" else \
+                    self._final_project(merged)
+        finally:
+            for h in handles:
+                h.close()
+
+    def _first_passes(self, partition: int) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute(partition):
-            partials.append(self._first_pass(batch))
             self.metrics["numAggBatches"].add(1)
-        if not partials:
-            if self._n_keys == 0 and self.mode == "complete":
-                # a global aggregate over no input is one row, as over an
-                # empty batch: counts 0, every other function null
-                empty = empty_batch(self.child.output_schema.types(),
-                                    self.plan_device())
-                yield self._final_project(self._first_pass(empty))
-            return
-        merged = (partials[0] if len(partials) == 1
-                  else self._merge_pass(K.concat_device(partials)))
-        yield merged if self.mode == "partial" else self._final_project(
-            merged)
+            yield self._first_pass(batch)
+
+    def _merge_to_one(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
+        """The partials merged into one batch of buffers: one concat and
+        one merge pass (a lone first-pass output is grouped already; a
+        final aggregate's input may hold a key from several map tasks)."""
+        if len(partials) == 1 and self.mode != "final":
+            return partials[0]
+        return self._merge_pass(K.concat_device(partials))
+
+    # -- the oversized-state fallback -----------------------------------------
+    # The reference's GpuAggregateExec repartition: when the merge state is
+    # above the target, hash-repartition the partials into buckets (the hash
+    # re-seeded per level, to a bounded depth) and merge each bucket alone.
+    # Buckets hold disjoint keys, so one merged batch per bucket is a
+    # correct result, and the operator may emit several batches.
+
+    def _repart_conf(self) -> Tuple[bool, int, int, int]:
+        """(enabled, target bytes, buckets per level, deepest level): the
+        conf read at planning; a target of 0 is a quarter of the pool's
+        limit (the merge's working set is its input and its output)."""
+        enabled, target, nbuckets, max_depth = self._repart
+        if target <= 0:
+            target = max(get_pool().limit // 4, 1)
+        return enabled, target, nbuckets, max_depth
+
+    def _merge_all(self, handles: List[spill.SpillableBatch]
+                   ) -> Iterator[ColumnarBatch]:
+        """The partials (spillable handles) merged into one batch, or,
+        when their bytes are above the target or the pool cannot hold them
+        all at once, into one batch per hash bucket by recursive
+        repartitioning. A direct merge keeps every partial pinned, and so
+        accounted, until the merged batch is made (the merge's own working
+        set is not accounted, as the reference's is not)."""
+        enabled, target, nbuckets, max_depth = self._repart_conf()
+        state = sum(h.nbytes for h in handles)
+        if not enabled or len(handles) == 1 or state <= target:
+            pinned: List[spill.SpillableBatch] = []
+            try:
+                partials = []
+                for h in handles:
+                    partials.append(retry.get_with_retry(h))
+                    pinned.append(h)
+                merged = self._merge_to_one(partials)
+            except (RetryOOM, SplitAndRetryOOM):
+                if not enabled or len(handles) == 1:
+                    raise
+                # the pool refused the whole state: repartition from the
+                # handles, as the reference does
+                merged = None
+            finally:
+                for h in pinned:
+                    h.unpin()
+                partials = None
+            if merged is not None:
+                for h in handles:
+                    h.close()
+                yield merged
+                return
+        yield from self._repartition_merge(list(handles), 0, target,
+                                           nbuckets, max_depth)
+
+    def _bucket_ids(self, batch: ColumnarBatch, level: int,
+                    nbuckets: int) -> torch.Tensor:
+        """Each row's bucket at ``level``: the key hash re-seeded through
+        splitmix64 with a per-level salt, so every level cuts the key
+        space on an independent boundary; the unsigned remainder."""
+        salt = K._s64(((level + 1) * 0x9E3779B97F4A7C15)
+                      & 0xFFFFFFFFFFFFFFFF)
+        h = K._splitmix64(K.hash_keys(batch, list(range(self._n_keys)))
+                          ^ salt)
+        return ((K._lsr(h, 1) % nbuckets) * 2 + (h & 1)) % nbuckets
+
+    def _scatter_one(self, batch: ColumnarBatch, level: int, nbuckets: int,
+                     buckets: List[List], fw) -> None:
+        """Split one batch across the buckets' lists of spillable
+        handles: one stable sort by bucket and one host read of the
+        counts, then a gather per non-empty bucket."""
+        ids = self._bucket_ids(batch, level, nbuckets)
+        perm = torch.sort(ids, stable=True).indices
+        counts = torch.bincount(ids, minlength=nbuckets).tolist()
+        start = 0
+        for b, n in enumerate(counts):
+            if n:
+                sub = K.gather_batch(batch, perm[start:start + n])
+                buckets[b].extend(spill.spillable([sub], fw))
+            start += n
+
+    def _repartition_merge(self, inputs: List, level: int, target: int,
+                           nbuckets: int, max_depth: int
+                           ) -> Iterator[ColumnarBatch]:
+        """Hash-repartition ``inputs`` (spillable handles, each closed once
+        it is read) into spillable buckets and merge each bucket: a bucket
+        above the target with more than one piece repartitions again,
+        while levels remain; one the pool cannot hold whole merges piece
+        by piece (``_merge_last_resort``)."""
+        _note_repartition(level)
+        self.metrics["numRepartitions"].add(1)
+        self.max_repartition_depth = max(self.max_repartition_depth,
+                                         level + 1)
+        fw = spill.get_framework()
+        buckets: List[List[spill.SpillableBatch]] = [
+            [] for _ in range(nbuckets)]
+        try:
+            for item in inputs:
+                batch = retry.get_with_retry(item)
+                # read: the source's handle goes before its buckets come
+                item.unpin()
+                item.close()
+                self._scatter_one(batch, level, nbuckets, buckets, fw)
+                del batch
+            del inputs
+            for hs in buckets:
+                if not hs:
+                    continue
+                bucket_bytes = sum(h.nbytes for h in hs)
+                if (bucket_bytes > target and len(hs) > 1
+                        and level + 1 < max_depth):
+                    yield from self._repartition_merge(
+                        hs, level + 1, target, nbuckets, max_depth)
+                    continue
+                pinned: List[spill.SpillableBatch] = []
+                try:
+                    batches = []
+                    for h in hs:
+                        batches.append(h.get())
+                        pinned.append(h)
+                    merged = self._merge_to_one(batches)
+                except (RetryOOM, SplitAndRetryOOM):
+                    batches = None
+                    for h in pinned:
+                        h.unpin()
+                    if level + 1 < max_depth and len(hs) > 1:
+                        yield from self._repartition_merge(
+                            hs, level + 1, target, nbuckets, max_depth)
+                    else:
+                        yield self._merge_last_resort(hs, fw)
+                    continue
+                for h in hs:
+                    h.unpin()
+                    h.close()
+                yield merged
+        finally:
+            for hs in buckets:
+                for h in hs:
+                    h.close()  # idempotent: frees survivors of an error
+
+    def _merge_last_resort(self, handles: List,
+                           fw) -> ColumnarBatch:
+        """The deepest level and still too big: merge each piece under
+        split-retry, then the merged pieces."""
+        merged = list(retry.with_retry(handles, self._merge_pass,
+                                       framework=fw))
+        return self._merge_to_one(merged)
+
+
+_repart_lock = threading.Lock()
+_repart_stats = {"total": 0, "max_depth": 0}
+
+
+def _note_repartition(level: int) -> None:
+    with _repart_lock:
+        _repart_stats["total"] += 1
+        _repart_stats["max_depth"] = max(_repart_stats["max_depth"],
+                                         level + 1)
+
+
+def repartition_snapshot() -> Dict[str, int]:
+    """The process's repartition counters, monotonic: repartition passes
+    (``total``) and the deepest level reached (``max_depth``, 1-based)."""
+    with _repart_lock:
+        return dict(_repart_stats)
 
 
 def _wide_average(ssum: DeviceColumn, cnt: DeviceColumn, valid, sum_t,

@@ -2,8 +2,11 @@
 spark_rapids_tpu/exec/join.py): inner, left, right and full outer, left
 semi and left anti.
 
-The build (right) side is concatenated once. On the hash-table path (the
-default) its key hash pair is inserted into a ``kernels.HashTable``; each
+The build (right) side is collected as spillable handles
+(``mem/spill.py``) and concatenated once, every handle pinned until the
+concat is made; the output chunks of a probe batch wait as spillable
+handles until each is yielded. On the hash-table path (the default) the
+build's key hash pair is inserted into a ``kernels.HashTable``; each
 probe batch hashes its keys, finds each row's slot through the probe
 kernel's wrapper and reads the slot's candidate range of build rows. On
 the sorted-hash path (``spark.rapids.gpu.sql.join.hashTable.enabled``
@@ -68,6 +71,7 @@ from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import BinaryExec, DeviceExec
 from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.mem import retry, spill
 
 JOIN_TYPES = ("inner", "left", "right", "full", "left_semi", "left_anti")
 
@@ -244,10 +248,26 @@ class HashJoinExec(BinaryExec):
 
     def _build(self, batches):
         """(the build batches concatenated, their probe structure or None
-        when they have no row)."""
-        parts = list(batches)
-        build = (K.concat_device(parts) if parts else empty_batch(
-            self.right.output_schema.types(), self.plan_device()))
+        when they have no row). The batches are collected as spillable
+        handles, so that earlier ones can shed to the host while later
+        ones are produced; every handle is read back and stays pinned,
+        and so accounted on the pool, until the concat is made, as in the
+        reference."""
+        handles = []
+        pinned = []
+        try:
+            handles.extend(spill.spillable(batches))
+            parts = []
+            for h in handles:
+                parts.append(retry.get_with_retry(h))
+                pinned.append(h)
+            build = (K.concat_device(parts) if parts else empty_batch(
+                self.right.output_schema.types(), self.plan_device()))
+        finally:
+            for h in pinned:
+                h.unpin()
+            for h in handles:
+                h.close()
         return build, (self._prepare_build(build) if build.num_rows
                        else None)
 
@@ -271,7 +291,19 @@ class HashJoinExec(BinaryExec):
                 else:
                     outs, build_matched = self._join_batch(
                         probe, build, prep, build_matched)
-            yield from outs
+            # the chunks wait as spillable handles until each is taken
+            waiting = []
+            try:
+                waiting.extend(spill.spillable(outs))
+                del outs
+                for h in waiting:
+                    out = retry.get_with_retry(h)
+                    h.unpin()
+                    h.close()
+                    yield out
+            finally:
+                for h in waiting:
+                    h.close()
         if build_matched is not None and build.num_rows:
             with self.timer("joinTimeNs"):
                 out = self._unmatched_build(build, build_matched, last_probe)

@@ -166,6 +166,25 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor) -> ColumnarBatch:
     return ColumnarBatch(gather_columns(batch.columns, idx), idx.numel())
 
 
+def slice_batch(batch: ColumnarBatch, start: int, stop: int
+                ) -> ColumnarBatch:
+    """Rows [start, stop) of a batch without a gather: fixed-width and
+    dictionary columns as views; a plain string column's bytes cut and
+    its offsets rebased (one host read of the two byte offsets)."""
+    cols = []
+    for c in batch.columns:
+        if c.offsets is None:
+            cols.append(DeviceColumn(c.dtype, c.data[start:stop],
+                                     c.validity[start:stop], None,
+                                     c.dictionary))
+            continue
+        lo, hi = c.offsets[[start, stop]].tolist()
+        cols.append(DeviceColumn(c.dtype, c.data[lo:hi],
+                                 c.validity[start:stop],
+                                 c.offsets[start:stop + 1] - lo))
+    return ColumnarBatch(cols, stop - start)
+
+
 def filter_indices(keep: torch.Tensor) -> torch.Tensor:
     """Order-preserving indices of the kept rows (stream compaction). The
     kept count is ``len`` of the result; reading it is one host sync."""

@@ -20,9 +20,14 @@ directly under an AQE reader stays bare: the reader reads its blocks, not
 its batches) and a CPU-engine node under a device parent (the
 CPU-to-device transition). File scans join the list when the port has
 them. With ``spark.rapids.gpu.sql.prefetch.enabled`` false it leaves the
-plan bare; the planner skips it on the fast path. The reference sheds a
-queue under memory pressure through its memory pool; the port has no
-pool yet, so a queue holds at most ``depth`` batches.
+plan bare; the planner skips it on the fast path.
+
+Each batch a queue holds is accounted on the device pool (``mem/pool.py``)
+from the worker's put to the consumer's take. When the pool refuses one
+(``RetryOOM``, after it spilled what it could, or a batch above its whole
+limit), the queue sheds: the worker hands the batch in hand over
+unaccounted and stops, and the consumer pulls the source itself from
+then on, so read-ahead only uses headroom the pool has.
 
 ``ReadAhead`` is the shuffle readers' read-ahead: while a consumer takes
 one reduce partition (or one AQE spec), the host fetch and merge of the
@@ -30,8 +35,9 @@ next runs on one background thread (``shuffle/exchange_exec.py``,
 ``shuffle/aqe.py``).
 
 ``STATS``: batches queued now (``depth``), consumer arrivals that found
-the queue empty (``stalls``), and batches handed over (``items``);
-``reset`` zeroes them before a run that reads them.
+the queue empty (``stalls``), batches handed over (``items``) and queues
+shed to synchronous pulls (``sheds``); ``reset`` zeroes them before a run
+that reads them.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
+from spark_rapids_tpu_torch.mem.pool import RetryOOM, get_pool
+from spark_rapids_tpu_torch.mem.spill import batch_nbytes
 
 
 class PrefetchStats:
@@ -56,6 +64,7 @@ class PrefetchStats:
         self.depth = 0
         self.stalls = 0
         self.items = 0
+        self.sheds = 0
 
     def add(self, field: str, v: int) -> None:
         with self._lock:
@@ -65,16 +74,17 @@ class PrefetchStats:
         with self._lock:
             return {"prefetch_depth": self.depth,
                     "prefetch_stalls": self.stalls,
-                    "prefetch_items": self.items}
+                    "prefetch_items": self.items,
+                    "prefetch_sheds": self.sheds}
 
     def reset(self) -> None:
         with self._lock:
-            self.depth = self.stalls = self.items = 0
+            self.depth = self.stalls = self.items = self.sheds = 0
 
 
 STATS = PrefetchStats()
 
-_ITEM, _DONE, _ERROR = "item", "done", "error"
+_ITEM, _DONE, _SHED, _ERROR = "item", "done", "shed", "error"
 
 
 class PrefetchIterator:
@@ -90,6 +100,8 @@ class PrefetchIterator:
         self._stop = threading.Event()
         self._finished = False
         self._closed = False
+        self._direct = False  # shed: the consumer pulls the source
+        self._pool = get_pool(device=device)
         device = None if device is None else torch.device(device)
         self._stream = (torch.cuda.current_stream(device)
                         if device is not None and device.type == "cuda"
@@ -109,20 +121,39 @@ class PrefetchIterator:
             else:
                 self._pump()
         except BaseException as e:  # noqa: BLE001 - raised in the consumer
-            self._put((_ERROR, e))
+            self._put((_ERROR, e, 0))
 
     def _pump(self) -> None:
         while not self._stop.is_set():
             try:
                 item = next(self._source)
             except StopIteration:
-                self._put((_DONE, None))
+                self._put((_DONE, None, 0))
                 return
-            if not self._put((_ITEM, item)):
+            nbytes = (batch_nbytes(item) if isinstance(item, ColumnarBatch)
+                      else 0)
+            if nbytes > self._pool.limit:
+                self._shed(item)  # it could never be admitted
+                return
+            if nbytes:
+                try:
+                    self._pool.allocate(nbytes)
+                except RetryOOM:
+                    self._shed(item)
+                    return
+            if not self._put((_ITEM, item, nbytes)):
                 return  # closed while waiting on a full queue
 
+    def _shed(self, item) -> None:
+        """No headroom to read ahead: hand over the batch in hand
+        unaccounted, and the source with it."""
+        STATS.add("sheds", 1)
+        if self._put((_ITEM, item, 0)):
+            self._put((_SHED, None, 0))
+
     def _put(self, entry) -> bool:
-        """A put that gives up when the iterator is closed; False then."""
+        """A put that gives up when the iterator is closed (giving an
+        item's accounted bytes back); False then."""
         while not self._stop.is_set():
             try:
                 self._q.put(entry, timeout=0.05)
@@ -131,6 +162,8 @@ class PrefetchIterator:
             if entry[0] == _ITEM:
                 STATS.add("depth", 1)
             return True
+        if entry[0] == _ITEM and entry[2]:
+            self._pool.release(entry[2])
         return False
 
     # -- consumer ----------------------------------------------------------
@@ -140,15 +173,24 @@ class PrefetchIterator:
     def __next__(self):
         if self._finished:
             raise StopIteration
+        if self._direct:
+            return next(self._source)
         try:
-            kind, payload = self._q.get_nowait()
+            kind, payload, nbytes = self._q.get_nowait()
         except queue.Empty:
             STATS.add("stalls", 1)
-            kind, payload = self._q.get()
+            kind, payload, nbytes = self._q.get()
         if kind == _ITEM:
             STATS.add("depth", -1)
             STATS.add("items", 1)
+            if nbytes:
+                self._pool.release(nbytes)
             return payload
+        if kind == _SHED:
+            # the worker has stopped and everything it made was taken
+            # (FIFO): the source is the consumer's now
+            self._direct = True
+            return next(self._source)
         self._finished = True
         if kind == _DONE:
             raise StopIteration
@@ -169,11 +211,13 @@ class PrefetchIterator:
     def _drain(self) -> None:
         while True:
             try:
-                kind, _ = self._q.get_nowait()
+                kind, _, nbytes = self._q.get_nowait()
             except queue.Empty:
                 return
             if kind == _ITEM:
                 STATS.add("depth", -1)
+                if nbytes:
+                    self._pool.release(nbytes)
 
     def __enter__(self) -> "PrefetchIterator":
         return self

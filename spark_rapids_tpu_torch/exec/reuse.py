@@ -21,9 +21,10 @@ its consumers). The plan-time rewrite is ``plan/reuse.py``.
   an entry with a replay in flight is never evicted. What still
   does not fit is not held: its later readers read the shuffle again
   (one map-side write all the same), so the caps bound memory, never
-  the rows. Batches are held as device batches: the port has no spill
-  framework yet. Only direct reads of a kept exchange go through its
-  entry: at the defaults an AQE reader reads a hash or range exchange's
+  the rows. Batches are held as spillable handles (``mem/spill.py``), so
+  pool pressure sheds them to the host like any operator's state; a
+  partition the pool refuses is not held either. Only direct reads of a
+  kept exchange go through its entry: at the defaults an AQE reader reads a hash or range exchange's
   blocks itself, so an entry holds the partition of a reused single
   exchange, or any kept exchange's partitions with AQE off.
 - ``SharedBroadcast``: one prepared broadcast build (the batch and its
@@ -49,6 +50,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.base import DeviceExec
+from spark_rapids_tpu_torch.mem import retry, spill
 
 # ---------------------------------------------------------------------------
 # counters
@@ -193,6 +195,14 @@ class MaterializationCache:
                 note("reuse_evict_total")
                 note("reuse_evict_bytes_total", freed)
 
+    def give_back(self, entry, nbytes: int) -> None:
+        """Return ``nbytes`` admitted for ``entry`` and not held."""
+        with self._lock:
+            rec = self._registry.get(id(entry))
+            if rec is not None:
+                rec["nbytes"] -= nbytes
+                self.bytes_used -= nbytes
+
     def evict(self, entry) -> None:
         """Drop an entry's accounting (it holds nothing any more)."""
         self._forget(id(entry))
@@ -214,13 +224,32 @@ MATERIALIZATION_CACHE = MaterializationCache()
 
 
 class _Held:
-    """One held reduce partition: its device batches and their bytes."""
+    """One held reduce partition: its batches' spillable handles and
+    their bytes."""
 
-    __slots__ = ("batches", "nbytes")
+    __slots__ = ("handles", "nbytes")
 
-    def __init__(self, batches: List[ColumnarBatch], nbytes: int):
-        self.batches = batches
+    def __init__(self, handles: List[spill.SpillableBatch], nbytes: int):
+        self.handles = handles
         self.nbytes = nbytes
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.close()
+
+
+def _hold(batches: List[ColumnarBatch], nbytes: int) -> Optional[_Held]:
+    """The batches as spillable handles, or None (nothing held) when the
+    pool refuses one of them."""
+    handles = []
+    for b in batches:
+        h = spill.try_spillable(b)
+        if h is None:
+            for held in handles:
+                held.close()
+            return None
+        handles.append(h)
+    return _Held(handles, nbytes)
 
 
 _UNCACHED = object()  # a partition the cache did not admit
@@ -278,10 +307,14 @@ class SharedExchangeEntry:
                 # consumers interleaved on one thread)
                 batches = list(producer())
                 nbytes = sum(batch_nbytes(b) for b in batches)
-                admitted = self._cache.admit(self, nbytes)
+                held = None
+                if self._cache.admit(self, nbytes):
+                    held = _hold(batches, nbytes)
+                    if held is None:  # the pool refused: hold nothing
+                        self._cache.give_back(self, nbytes)
                 with self._lock:
-                    self._parts[partition] = (_Held(batches, nbytes)
-                                              if admitted else _UNCACHED)
+                    self._parts[partition] = (held if held is not None
+                                              else _UNCACHED)
                 return iter(batches)
         if held is _UNCACHED:
             return producer()
@@ -297,7 +330,12 @@ class SharedExchangeEntry:
 
     def _replay(self, held: _Held) -> Iterator[ColumnarBatch]:
         try:
-            yield from held.batches
+            for h in held.handles:
+                b = retry.get_with_retry(h)
+                try:
+                    yield b
+                finally:
+                    h.unpin()
         finally:
             with self._lock:
                 self._active_readers -= 1
@@ -311,6 +349,8 @@ class SharedExchangeEntry:
             held = [v for v in self._parts.values() if v is not _UNCACHED]
             self._parts = {k: v for k, v in self._parts.items()
                            if v is _UNCACHED}
+        for h in held:
+            h.close()
         if held:
             self._cache.evict(self)
         return sum(h.nbytes for h in held)
@@ -320,9 +360,12 @@ class SharedExchangeEntry:
             self._refs -= 1
             if self._refs > 0:
                 return
-            self._parts = {}
+            parts, self._parts = self._parts, {}
             self._plocks = {}
             self._refs = self._initial_refs
+        for held in parts.values():
+            if held is not _UNCACHED:
+                held.close()
         self._cache.evict(self)
 
 

@@ -41,9 +41,30 @@ Raising NotImplementedError, as in the reference: window Min/Max over
 DECIMAL128 (on the device only: the CPU engine runs it), window aggregates
 over strings but Count, a bounded RANGE frame over
 anything but one ascending INT, LONG or DATE order key, and the variance
-family (no such aggregate in the port yet). The streaming windows (the
-reference's batch carries and out-of-core sort) are not in the port yet:
-this operator reads its whole partition.
+family (no such aggregate in the port yet).
+
+Streaming (``streaming=True``, the reference's GpuRunningWindowExec and
+GpuBatchedBoundedWindowExec): the planner gives a group that
+``plan_stream_mode`` classifies an out-of-core sort as its child, so the
+batches arrive sorted by (partition, order) across batches, and the
+operator computes them one at a time instead of reading its whole
+partition. ``running`` (row_number, rank, dense_rank and ROWS UNBOUNDED
+PRECEDING..CURRENT ROW Sum, Count, Min and Max, over fixed-width,
+non-float, non-DECIMAL128 keys): each batch is computed alone and the rows
+that continue the previous batch's last partition are fixed up from a
+carry of that batch's last row (its keys, each function's value, its row
+number, rank and dense rank), all on the device. ``bounded`` (lead/lag
+and bounded ROWS frames reaching at most
+``spark.rapids.gpu.sql.window.streaming.maxContextRows`` rows): each
+batch is computed with the previous batch's last K rows before it and the
+next batch's first K rows after it, and only its own rows are kept; the
+stream is first re-cut so that every batch but the last holds K rows at
+least. Any other group reads its whole partition as one batch. Behind the
+planner's out-of-core sort, whose batch boundaries fall only where the
+first sort key changes, a partitioned window gets each partition whole
+in one batch, so the carry and the context continue across a batch edge
+when the window has no PARTITION BY (one partition over every batch), or
+when a caller feeds batches cut elsewhere.
 """
 
 from __future__ import annotations
@@ -113,6 +134,67 @@ def check_window(f: E.Expression, frame: W.WindowFrame,
                 "order key")
 
 
+def plan_stream_mode(window_exprs, child_schema
+                     ) -> Optional[Tuple[str, int]]:
+    """How a window group streams across batches: ("running", 0) when
+    every function is a carried running computation (row_number, rank,
+    dense_rank; ROWS UNBOUNDED PRECEDING..CURRENT ROW Sum, Count, Min or
+    Max) over fixed-width, non-float, non-DECIMAL128 partition and order
+    keys (the carry compares them by value), with no float Min/Max and no
+    DECIMAL128 input or result; ("bounded", K) when every function needs
+    at most K neighbour rows (lead/lag, bounded ROWS frames) and K is
+    within ``spark.rapids.gpu.sql.window.streaming.maxContextRows``;
+    else None (one batch per partition). The reference's
+    ``WindowExec.plan_stream_mode``."""
+    spec = None
+    run_ok, bnd_ok, k = True, True, 0
+    for e in window_exprs:
+        func = e.child if isinstance(e, E.Alias) else e
+        if not isinstance(func, W.WindowExpression):
+            return None
+        spec = spec or func.spec
+        f = func.function
+        frame = func.spec.resolved_frame()
+        if isinstance(f, (W.RowNumber, W.Rank, W.DenseRank)):
+            bnd_ok = False
+        elif isinstance(f, W.Lead):  # Lag is a Lead
+            run_ok = False
+            k = max(k, abs(f.offset))
+        elif (isinstance(f, (E.Sum, E.Count, E.Min, E.Max))
+              and frame.kind == "rows" and frame.is_running):
+            bnd_ok = False
+        elif (isinstance(f, E.AggregateExpression) and frame.is_bounded_rows):
+            run_ok = False
+            k = max(k, abs(frame.start), abs(frame.end))
+        else:
+            return None
+    if spec is None:
+        return None
+    if run_ok:
+        for p in list(spec.partition_by) + [o.child for o in spec.order_by]:
+            dt = E.resolve(p, child_schema).dtype
+            if (not dt.fixed_width or dt in T.FRACTIONAL_TYPES
+                    or T.is_wide_decimal(dt)):
+                return None
+        for e in window_exprs:
+            func = e.child if isinstance(e, E.Alias) else e
+            f = func.function
+            if isinstance(f, E.AggregateExpression) and f.children:
+                ff = E.resolve(f, child_schema)
+                fdt = ff.children[0].dtype
+                if isinstance(f, (E.Min, E.Max)) and \
+                        fdt in T.FRACTIONAL_TYPES:
+                    return None
+                if T.is_wide_decimal(ff.dtype) or T.is_wide_decimal(fdt):
+                    return None
+        return ("running", 0)
+    from spark_rapids_tpu_torch.config import conf as C
+
+    if bnd_ok and k <= C.WINDOW_MAX_BOUNDED_CONTEXT.get(C.get_active()):
+        return ("bounded", max(k, 1))
+    return None
+
+
 class _Geometry(NamedTuple):
     """Per sorted row (int64): its position, its partition's first and
     last rows and its peer run's first and last rows."""
@@ -132,11 +214,18 @@ class WindowExec(UnaryExec):
     one (partition, order) spec."""
 
     def __init__(self, window_exprs: Sequence[E.Expression],
-                 child: DeviceExec):
+                 child: DeviceExec, streaming: bool = False):
         super().__init__(child)
         self.window_exprs = list(window_exprs)
+        # a planner contract: the child's batches are sorted by
+        # (partition, order) across batches (an out-of-core sort)
+        self.streaming = streaming
         self._prepare()
-        self._register_metric("windowTimeNs")
+        self._mode = (plan_stream_mode(self.window_exprs,
+                                       child.output_schema)
+                      if streaming else None)
+        for name in ("windowTimeNs", "streamedBatches"):
+            self._register_metric(name)
 
     # -- binding -----------------------------------------------------------
     def _prepare(self) -> None:
@@ -182,19 +271,217 @@ class WindowExec(UnaryExec):
         return T.Schema(fields)
 
     def node_description(self) -> str:
+        stream = (f" streaming={self._mode[0]}" if self._mode is not None
+                  else "")
         return (f"Window [{', '.join(n for _, _, n in self._bound_wins)}] "
-                f"{self._spec!r}")
+                f"{self._spec!r}{stream}")
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
-        batches = list(self.child.execute(partition))
-        if not batches:
+        if self._mode is None:
+            batches = list(self.child.execute(partition))
+            if not batches:
+                return
+            with self.timer("windowTimeNs"):
+                out = self._compute(K.concat_device(batches),
+                                    presorted=self.streaming)
+            yield out
             return
+        stream = (b for b in self.child.execute(partition) if b.num_rows)
+        if self._mode[0] == "running":
+            yield from self._exec_running(stream)
+        else:
+            yield from self._exec_bounded(stream, self._mode[1])
+
+    # -- streaming ---------------------------------------------------------
+    def _exec_bounded(self, stream, k: int) -> Iterator[ColumnarBatch]:
+        """Each batch computed between the previous batch's last ``k``
+        rows and the next batch's first ``k``; its own rows kept."""
+        def rechunked():
+            # a batch of fewer than k rows could leave a frame short of
+            # context, so batches are joined until each holds k rows
+            pending, rows = [], 0
+            for b in stream:
+                pending.append(b)
+                rows += b.num_rows
+                if rows >= k:
+                    yield K.concat_device(pending)
+                    pending, rows = [], 0
+            if pending:
+                yield K.concat_device(pending)
+
+        prev_tail = cur = None
+        for nxt in rechunked():
+            if cur is not None:
+                yield self._emit_bounded(
+                    prev_tail, cur,
+                    K.slice_batch(nxt, 0, min(k, nxt.num_rows)))
+                prev_tail = K.slice_batch(cur, max(cur.num_rows - k, 0),
+                                          cur.num_rows)
+            cur = nxt
+        if cur is not None:
+            yield self._emit_bounded(prev_tail, cur, None)
+
+    def _emit_bounded(self, prev_tail, cur, next_head) -> ColumnarBatch:
+        parts = [p for p in (prev_tail, cur, next_head) if p is not None]
         with self.timer("windowTimeNs"):
-            out = self._compute(K.concat_device(batches))
-        yield out
+            out = self._compute(K.concat_device(parts), presorted=True)
+            start = prev_tail.num_rows if prev_tail is not None else 0
+            out = K.slice_batch(out, start, start + cur.num_rows)
+        self.metrics["streamedBatches"].add(1)
+        return out
+
+    def _exec_running(self, stream) -> Iterator[ColumnarBatch]:
+        """Each batch computed alone, then the rows continuing the
+        previous batch's last partition fixed up from the carry."""
+        carry = None
+        for b in stream:
+            with self.timer("windowTimeNs"):
+                if carry is None:
+                    carry = self._init_carry(b)
+                out, carry = self._streaming_compute(b, carry)
+            self.metrics["streamedBatches"].add(1)
+            yield out
+
+    def _init_carry(self, batch: ColumnarBatch):
+        """A carry that continues nothing (``valid`` false): zero key,
+        function, row number and rank slots on the batch's device."""
+        dev = batch.columns[0].device
+
+        def slot(dtype):
+            return (torch.zeros(1, dtype=dtype, device=dev),
+                    torch.zeros(1, dtype=torch.bool, device=dev))
+
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        return {"valid": slot(torch.bool)[1],
+                "keys": [slot(p.dtype.torch_dtype) for p in self._part_bound],
+                "orders": [slot(ob.dtype.torch_dtype)
+                           for ob, _a, _nf in self._order_bound],
+                "funcs": [slot(f.dtype.torch_dtype)
+                          for f, _fr, _n in self._bound_wins],
+                "rn": zero, "rank": zero, "dense": zero}
+
+    def _streaming_compute(self, batch: ColumnarBatch, carry):
+        """(the batch's windows with the carry applied, the new carry).
+        The carry holds the last row's partition and order keys, each
+        function's value and validity, and its row number, rank and dense
+        rank, as one-element device tensors."""
+        out = self._compute(batch, presorted=True)
+        n = batch.num_rows
+        dev = batch.columns[0].device
+        ctx = EV.EvalContext(batch)
+
+        def pairs(exprs):
+            got = []
+            for e in exprs:
+                v = EV.eval_expr(e, ctx)
+                got.append((v.data, v.validity))
+            return got
+
+        kvals = pairs(self._part_bound)
+        ovals = pairs([ob for ob, _a, _nf in self._order_bound])
+        idx = torch.arange(n, device=dev)
+        prev = torch.cat([idx[:1], idx[:-1]])
+
+        def neq_prev(ps):
+            # a null's data is not compared (it may hold anything)
+            ne = torch.zeros(n, dtype=torch.bool, device=dev)
+            for d, va in ps:
+                ne = ne | (va != va[prev]) | (va & (d != d[prev]))
+            return ne
+
+        seg_start_flag = (idx == 0) | neq_prev(kvals)
+        run_start_flag = seg_start_flag | neq_prev(ovals)
+        in_seg0 = torch.cumsum(seg_start_flag.int(), 0) == 1
+        in_run0 = torch.cumsum(run_start_flag.int(), 0) == 1
+        last = n - 1
+
+        def key_match(ps, slots):
+            ok = carry["valid"]
+            for (d, va), (cd, cv) in zip(ps, slots):
+                ok = ok & ((va[:1] & cv & (d[:1] == cd)) | (~va[:1] & ~cv))
+            return ok
+
+        cont_part = key_match(kvals, carry["keys"])
+        cont_peer = cont_part & key_match(ovals, carry["orders"])
+        cont_rows = in_seg0 & cont_part
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def carried(name):
+            return torch.where(cont_part, carry[name], zero)
+
+        c_rn, c_rank, c_dense = carried("rn"), carried("rank"), \
+            carried("dense")
+        base = len(self.child.output_schema)
+        cols = list(out.columns)
+        funcs = []
+        rank_col = dense_col = None
+        for j, (f, _frame, _name) in enumerate(self._bound_wins):
+            c = cols[base + j]
+            d = c.data
+            cval, cvalid = carry["funcs"][j]
+            cv0 = cvalid & cont_part
+            if isinstance(f, W.RowNumber):
+                d = d + torch.where(cont_rows, c_rn, 0).to(d.dtype)
+                valid = c.validity
+            elif isinstance(f, W.Rank):
+                d64 = d.long()
+                d = torch.where(cont_rows, torch.where(
+                    cont_peer & in_run0, c_rank, d64 + c_rn), d64).to(
+                        d.dtype)
+                valid = c.validity
+                rank_col = d
+            elif isinstance(f, W.DenseRank):
+                adj = torch.where(cont_peer, c_dense - 1, c_dense)
+                d = torch.where(cont_rows, d.long() + adj.clamp(min=0),
+                                d.long()).to(d.dtype)
+                valid = c.validity
+                dense_col = d
+            elif isinstance(f, E.Count):
+                d = d + torch.where(cont_rows & cv0, cval, 0).to(d.dtype)
+                valid = c.validity
+            else:  # running Sum, Min or Max
+                cvs = cval.to(d.dtype)
+                both = cont_rows & c.validity & cv0
+                only_carry = cont_rows & ~c.validity & cv0
+                if isinstance(f, E.Sum):
+                    comb = d + cvs
+                else:
+                    comb = (torch.minimum if isinstance(f, E.Min)
+                            else torch.maximum)(d, cvs)
+                d = torch.where(both, comb, torch.where(only_carry, cvs, d))
+                valid = c.validity | (cont_rows & cv0)
+                if isinstance(f, E.Sum) and isinstance(f.dtype,
+                                                       T.DecimalType):
+                    # Spark's non-ANSI decimal sum overflow: null
+                    valid = valid & (d.abs() < 10 ** f.dtype.precision)
+                d = K.where_valid(valid, d)
+            cols[base + j] = DeviceColumn(c.dtype, d, valid, c.offsets,
+                                          c.dictionary)
+            funcs.append((d[last:], valid[last:]))
+        # the row number of the last row, for the next batch
+        seg_start = K.segmented_scan_kernel(
+            torch.where(seg_start_flag, idx.int(), -1), seg_start_flag,
+            "max")
+        rn_last = (last - seg_start[last:].long() + 1
+                   + torch.where(in_seg0[last:], c_rn, zero))
+        new = {
+            "valid": torch.ones(1, dtype=torch.bool, device=dev),
+            "keys": [(d[last:], va[last:]) for d, va in kvals],
+            "orders": [(d[last:], va[last:]) for d, va in ovals],
+            "funcs": funcs,
+            "rn": rn_last,
+            "rank": (rank_col[last:].long() if rank_col is not None
+                     else zero),
+            "dense": (dense_col[last:].long() if dense_col is not None
+                      else zero),
+        }
+        return ColumnarBatch(cols, n), new
 
     # -- computation -------------------------------------------------------
-    def _compute(self, batch: ColumnarBatch) -> ColumnarBatch:
+    def _compute(self, batch: ColumnarBatch,
+                 presorted: bool = False) -> ColumnarBatch:
+        """The window columns of one batch (rows sorted by partition and
+        order keys first, unless ``presorted``)."""
         n = batch.num_rows
         dev = batch.columns[0].device
         if n == 0:
@@ -213,7 +500,10 @@ class WindowExec(UnaryExec):
             key_cols.append(EV.val_to_column(EV.eval_expr(ob, ctx),
                                              ob.dtype))
             specs.append(K.SortSpec(len(key_cols) - 1, asc, nf))
-        if key_cols:
+        if key_cols and presorted:
+            sbatch = batch
+            skeys = ColumnarBatch(key_cols, n)
+        elif key_cols:
             key_batch = ColumnarBatch(key_cols, n)
             order = K.sort_indices(key_batch, specs)
             sbatch = K.gather_batch(batch, order)

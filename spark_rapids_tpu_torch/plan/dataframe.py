@@ -6,6 +6,7 @@ device.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 import pyarrow as pa
@@ -16,6 +17,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.mem.semaphore import get_task_semaphore
 from spark_rapids_tpu_torch.plan import logical as L
 
 
@@ -132,9 +134,11 @@ class DataFrame:
 
 def execute_to_arrow(node) -> pa.Table:
     """Run a physical plan (``DataFrame.physical_plan``) and gather its
-    rows, partition by partition; then stop its AQE readers' read-ahead,
-    and release its shuffles' blocks and its reused exchanges' holds on
-    their shared entries. The caller keeps
+    rows, partition by partition, each partition's drain holding a permit
+    of the task semaphore (``mem/semaphore.py``; not on the small-query
+    fast path); then stop its AQE readers' read-ahead, and release its
+    shuffles' blocks and its reused exchanges' holds on their shared
+    entries. The caller keeps
     the plan, so it can read the operators' metrics after the run, or run
     it again: its exchanges are written again, and its AQE readers read
     them through the specs they planned the first time."""
@@ -149,7 +153,21 @@ def execute_to_arrow(node) -> pa.Table:
         tables = [t for p in range(node.num_partitions())
                   for t in node.execute_host(p)]
     else:
-        tables = [batch_to_arrow(b, schema) for b in node.execute_all()]
+        sem = (None if getattr(node, "_fastpath", False)
+               else get_task_semaphore())
+        tables = []
+        for p in range(node.num_partitions()):
+            # a task is one partition of one run: two threads draining
+            # partition 0 are two holders, not one re-entrant one
+            task = (threading.get_ident(), id(node), p)
+            if sem is not None:
+                sem.acquire(task)
+            try:
+                tables.extend(batch_to_arrow(b, schema)
+                              for b in node.execute(p))
+            finally:
+                if sem is not None:
+                    sem.release(task)
     nodes, stack = [], [node]
     while stack:
         n = stack.pop()

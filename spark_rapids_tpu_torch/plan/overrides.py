@@ -32,8 +32,11 @@ partition the planner places:
 - an aggregate: partial, a hash exchange on the keys (a single-partition
   exchange when there is no key), final;
 - a window: a hash exchange on its partition keys when they are columns,
-  else a single-partition exchange; every window reads one batch per
-  partition (``CoalesceBatchesExec``);
+  else a single-partition exchange; a group that streams
+  (``exec/window.plan_stream_mode``, with
+  ``spark.rapids.gpu.sql.window.streaming.enabled``) reads an out-of-core
+  sort, every other one reads one batch per partition
+  (``CoalesceBatchesExec``);
 - a global sort: a range exchange on one numeric or date key sampled
   from the first batch of each child partition, else a single-partition
   exchange; a sort with a limit is a top-k per partition, gathered and
@@ -105,9 +108,9 @@ from spark_rapids_tpu_torch.exec.pipeline import PrefetchExec, insert_prefetch
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.reuse import (
     ReusedBroadcastExec, ReusedExchangeExec)
-from spark_rapids_tpu_torch.exec.sort import SortExec
+from spark_rapids_tpu_torch.exec.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.exec.window import (
-    WindowExec, bind_function, check_window)
+    WindowExec, bind_function, check_window, plan_stream_mode)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cbo as CBO
@@ -444,6 +447,8 @@ class Overrides:
             node = apply_reuse(node, self.conf)
             if not fastpath:
                 node = insert_prefetch(node, self.conf)
+            # the fast path's drains skip the task semaphore
+            node._fastpath = fastpath
             for m, ex, kid_ids in self._converted:
                 m.physical = _placed(ex, kid_ids)
             mode = C.EXPLAIN.get(self.conf)
@@ -583,12 +588,11 @@ class Overrides:
 
     def _convert_window(self, node: L.Window,
                         child: DeviceExec) -> DeviceExec:
+        first = node.window_exprs[0]
+        spec = (first.child if isinstance(first, E.Alias) else first).spec
         if self._planned_parts(child) > 1:
             # co-partition rows by the window's partition keys: a hash
             # exchange when they are all columns, else one partition
-            first = node.window_exprs[0]
-            spec = (first.child if isinstance(first, E.Alias)
-                    else first).spec
             cs = child.output_schema
             key_idx = []
             for p in spec.partition_by:
@@ -602,6 +606,20 @@ class Overrides:
                     HashPartitioner(key_idx, self._parts), child))
             else:
                 child = ShuffleExchangeExec(SinglePartitioner(), child)
+        # a group that streams (a running carry or a bounded context)
+        # reads a stream sorted across batches by an out-of-core sort, so
+        # a window partition never has to fit in one batch
+        orders = ([SortOrder(p) for p in spec.partition_by]
+                  + list(spec.order_by))
+        cs = child.output_schema
+        if (C.WINDOW_STREAMING_ENABLED.get(self.conf)
+                and plan_stream_mode(node.window_exprs, cs) is not None
+                and all(isinstance(E.resolve(o.child, cs), E.ColumnRef)
+                        for o in orders)):
+            return WindowExec(node.window_exprs, SortExec(
+                orders, child, out_of_core=True,
+                target_rows=C.SORT_OOC_TARGET_ROWS.get(self.conf)),
+                streaming=True)
         return WindowExec(node.window_exprs,
                           CoalesceBatchesExec(child, require_single=True))
 

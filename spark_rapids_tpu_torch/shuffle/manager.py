@@ -96,6 +96,16 @@ class ShuffleManager:
         self.blocks_written = 0
         self.bytes_read = 0
         self.blocks_read = 0
+        self._regs: Dict[int, ShuffleRegistration] = {}
+        from spark_rapids_tpu_torch.mem import cleaner
+
+        cleaner.register_manager(self)
+
+    def registrations(self) -> Dict[int, ShuffleRegistration]:
+        """The shuffles registered and not cleaned up yet (the leak
+        sweep's view, ``mem/cleaner.py``)."""
+        with self._lock:
+            return dict(self._regs)
 
     @property
     def local_dir(self) -> str:
@@ -110,6 +120,7 @@ class ShuffleManager:
         with self._lock:
             reg = ShuffleRegistration(self._next_id, schema, n_reduce)
             self._next_id += 1
+            self._regs[reg.shuffle_id] = reg
             return reg
 
     # -- write side --------------------------------------------------------
@@ -244,6 +255,8 @@ class ShuffleManager:
                 if mo.path and os.path.exists(mo.path):
                     os.unlink(mo.path)
             reg.map_outputs.clear()
+        with self._lock:
+            self._regs.pop(reg.shuffle_id, None)
 
 
 _managers: Dict[tuple, ShuffleManager] = {}

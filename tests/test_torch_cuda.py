@@ -1162,3 +1162,221 @@ def test_reused_exchange_replayed_on_card_matches_cpu():
     assert alias.metrics["numOutputBatches"].value == 1
     exp, _ = run("cpu")
     assert got == exp and len(got) == 2
+
+
+# ---------------------------------------------------------------------------
+# the memory runtime on the card
+# ---------------------------------------------------------------------------
+
+
+def test_spill_round_trip_of_a_card_batch_through_host_and_disk(tmp_path):
+    """A card batch (plain and dictionary strings, DECIMAL128 limbs,
+    nulls) spilled to pinned host memory and on to disk comes back on
+    the card bit-equal, its dictionary the same object."""
+    _card()
+    import decimal
+
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import spill as MS
+
+    n = 5000
+    rng = np.random.default_rng(3)
+    t = PB.dictionary_encode_table(pa.table({
+        "a": pa.array([None if i % 7 == 0 else int(x) for i, x in
+                       enumerate(rng.integers(-10**12, 10**12, n))],
+                      pa.int64()),
+        "s": pa.array(["x" * int(k) for k in rng.integers(0, 30, n)]),
+        "e": pa.array([["n", "s", None, "e"][i % 4] for i in range(n)]),
+        "w": pa.array([decimal.Decimal(int(x)).scaleb(-2) for x in
+                       rng.integers(-10**17, 10**17, n)],
+                      pa.decimal128(30, 2)),
+    }), ["e"])
+    b = PB.batch_from_arrow(t, "cuda")
+    for codec in ("none", "zlib"):
+        pool = MP.HbmPool(1 << 30)
+        fw = MS.SpillFramework(pool, host_limit_bytes=1,
+                               spill_dir=str(tmp_path), chunk_bytes=1 << 16,
+                               codec=codec)
+        h = MS.SpillableBatch(b, fw)
+        assert fw.spill_device_bytes(1) == h.nbytes
+        assert h.state == "DISK" and pool.used == 0
+        with h as got:
+            assert got.columns[0].data.is_cuda
+            for ca, cb in zip(b.columns, got.columns):
+                assert torch.equal(ca.data, cb.data)
+                assert torch.equal(ca.validity, cb.validity)
+                if ca.offsets is not None:
+                    assert torch.equal(ca.offsets, cb.offsets)
+                assert ca.dictionary is cb.dictionary
+        h.close()
+        assert pool.used == 0 and not list(tmp_path.iterdir())
+
+
+def test_capped_hash_join_on_card_matches_uncapped():
+    """A shuffled hash join on the card under the least pool that holds
+    every handle and every build set it pins (the most its uncapped run
+    pinned at once), with a handle of another operator live beside it:
+    that older handle spills to the host to make room, no registration
+    splits, and the rows equal the uncapped join's and the CPU's."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import retry as MR
+    from spark_rapids_tpu_torch.mem import spill as MS
+
+    tables = tpch.tables_for(0.05, seed=3)
+    conf = RapidsConf({"spark.rapids.gpu.fastpath.enabled": "false",
+                       "spark.rapids.gpu.sql.join.broadcastRowThreshold": 0})
+
+    def run(device, pool):
+        MP.set_pool(pool)
+        d = tpch.df_tables(tables, conf, batch_rows=8192, device=device,
+                           partitions=4)
+        return tpch.DF_QUERIES["q3"](d).to_arrow().to_pylist()
+
+    try:
+        exp = run("cpu", MP.HbmPool(1 << 34))
+        got = run("cuda", MP.HbmPool(1 << 34))
+        c = MS.get_framework().counters()
+        need = max(c["max_handle_bytes"], c["max_pinned_bytes"])
+        other = PB.batch_from_arrow(tables["orders"].slice(0, 20_000), "cuda")
+        pool = MP.HbmPool(need + MS.batch_nbytes(other) // 2)
+        MP.set_pool(pool)
+        fw = MS.SpillFramework(pool, host_limit_bytes=1 << 30)
+        held = MS.SpillableBatch(other, fw)
+        MR.STATS.reset()
+        capped = run("cuda", pool)
+        c = fw.counters()
+        state = held.state
+        with held as back:
+            assert torch.equal(back.columns[0].data, other.columns[0].data)
+        held.close()
+    finally:
+        MP.set_pool(None)
+    assert tpch.rows_match(got, exp) and tpch.rows_match(capped, exp)
+    assert state == "HOST" and c["spilled_to_host"] > 0
+    assert MR.STATS.snapshot()["splits"] == 0
+    assert pool.used == 0
+
+
+@pytest.mark.parametrize("kind", ["running", "bounded", "running_global"])
+def test_streaming_window_on_card_matches_streaming_off(kind):
+    """A running or bounded window over many card batches, sorted out of
+    core (runs pre-merged), against the same window over one batch and
+    on the CPU. Partitioned by g, each partition leaves the sort whole in
+    one batch (the sort's boundary takes every row of a first key at
+    once); ``running_global`` has no partition, so its one partition
+    spans every streamed batch and the carry continues across each
+    edge."""
+    _card()
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec.sort import SortOrder
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.exprs import window as PW
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    n = 200_000
+    rng = np.random.default_rng(9)
+    t = pa.table({
+        "g": pa.array([None if i % 101 == 0 else int(x) for i, x in
+                       enumerate(rng.integers(0, 7, n))], pa.int64()),
+        "o": pa.array(rng.integers(0, n // 3, n), pa.int64()),
+        "v": pa.array([None if i % 13 == 0 else int(x) for i, x in
+                       enumerate(rng.integers(-100, 100, n))], pa.int64())})
+    sp = PW.WindowSpec((PE.col("g"),) if kind != "running_global" else (),
+                       (SortOrder(PE.col("o")),))
+    if kind != "bounded":
+        fr = PW.WindowSpec(sp.partition_by, sp.order_by,
+                           PW.WindowFrame("rows", PW.UNBOUNDED, 0))
+        exprs = [PW.WindowExpression(PW.RowNumber(), sp).alias("rn"),
+                 PW.WindowExpression(PW.Rank(), sp).alias("rk"),
+                 PW.WindowExpression(PW.DenseRank(), sp).alias("dr"),
+                 PW.WindowExpression(PE.Sum(PE.col("v")), fr).alias("s"),
+                 PW.WindowExpression(PE.Min(PE.col("v")), fr).alias("m")]
+    else:
+        fr = PW.WindowSpec(sp.partition_by, sp.order_by,
+                           PW.WindowFrame("rows", -4, 2))
+        exprs = [PW.WindowExpression(PW.Lead(PE.col("v"), 3), sp).alias("l"),
+                 PW.WindowExpression(PW.Lag(PE.col("v"), 2), sp).alias("g2"),
+                 PW.WindowExpression(PE.Sum(PE.col("v")), fr).alias("s")]
+
+    def run(device, streaming, batch_rows):
+        conf = RapidsConf({
+            "spark.rapids.gpu.sql.window.streaming.enabled": streaming,
+            "spark.rapids.gpu.sql.sort.outOfCore.targetRows": 8192})
+        df = from_arrow(t, conf, batch_rows=batch_rows, device=device)
+        plan = df.with_window(*exprs).physical_plan()
+        from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+        return execute_to_arrow(plan).to_pylist(), plan
+
+    on, plan = run("cuda", True, 4096)
+    win = plan
+    while type(win).__name__ != "WindowExec":
+        win = win.children[0]
+    assert win._mode is not None
+    if kind == "running_global":
+        assert win.metrics["streamedBatches"].value > 1
+    assert on == run("cuda", False, 1 << 20)[0]
+    assert on == run("cpu", True, 4096)[0]
+
+
+@pytest.mark.parametrize("kind", ["running", "bounded"])
+def test_streaming_window_carries_across_card_batch_edges(kind):
+    """Presorted card batches cut so that partitions, peer runs and null
+    keys continue across their edges (one-row batches inside peer runs):
+    the streaming window equals the single-batch window on the card."""
+    _card()
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+    from spark_rapids_tpu_torch.exec.sort import SortOrder
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.exprs import window as PW
+
+    n = 20_000
+    rng = np.random.default_rng(4)
+    g = rng.integers(0, 4, n)
+    o = rng.integers(0, n // 5, n)
+    o_null = rng.random(n) < 0.03
+    order = np.lexsort((o, ~o_null, g, g != 3))
+    g, o, o_null = g[order], o[order], o_null[order]
+    t = pa.table({
+        "g": pa.array([None if x == 3 else int(x) for x in g], pa.int64()),
+        "o": pa.array([None if on else int(x) for x, on in zip(o, o_null)],
+                      pa.int64()),
+        "v": pa.array([None if i % 11 == 0 else int(x) for i, x in
+                       enumerate(rng.integers(-100, 100, n))], pa.int64())})
+    cuts, i, j = [], 0, 0
+    sizes = (1, 1, 700, 3, 2048, 1, 511, 96)
+    while i < n:
+        cuts.append(t.slice(i, sizes[j % len(sizes)]))
+        i, j = i + sizes[j % len(sizes)], j + 1
+    sp = PW.WindowSpec((PE.col("g"),), (SortOrder(PE.col("o")),))
+    if kind == "running":
+        fr = PW.WindowSpec(sp.partition_by, sp.order_by,
+                           PW.WindowFrame("rows", PW.UNBOUNDED, 0))
+        exprs = [PW.WindowExpression(PW.RowNumber(), sp).alias("rn"),
+                 PW.WindowExpression(PW.Rank(), sp).alias("rk"),
+                 PW.WindowExpression(PW.DenseRank(), sp).alias("dr"),
+                 PW.WindowExpression(PE.Sum(PE.col("v")), fr).alias("s"),
+                 PW.WindowExpression(PE.Count(PE.col("v")), fr).alias("c"),
+                 PW.WindowExpression(PE.Max(PE.col("v")), fr).alias("m")]
+    else:
+        fr = PW.WindowSpec(sp.partition_by, sp.order_by,
+                           PW.WindowFrame("rows", -3, 2))
+        exprs = [PW.WindowExpression(PW.Lead(PE.col("v"), 3), sp).alias("l"),
+                 PW.WindowExpression(PW.Lag(PE.col("v"), 2), sp).alias("g2"),
+                 PW.WindowExpression(PE.Sum(PE.col("v")), fr).alias("s")]
+    schema = PT.Schema.from_arrow(t.schema)
+
+    def run(slices, streaming):
+        node = WindowExec(exprs, BatchSourceExec(
+            [[PB.batch_from_arrow(x, "cuda") for x in slices]], schema),
+            streaming=streaming)
+        return [r for b in node.execute(0)
+                for r in PB.batch_to_arrow(b, node.output_schema)
+                .to_pylist()]
+
+    assert run(cuts, True) == run([t], False)

@@ -279,7 +279,8 @@ def test_the_adaptive_reuse_and_prefetch_modules_are_covered():
 def test_no_adaptive_reuse_or_prefetch_failure_falls_back():
     """A failed AQE plan, read-ahead or reuse entry raises with its cause:
     the modules that carry them catch no exception (the prefetch worker's
-    one handler hands the exception to its consumer)."""
+    one handler hands the exception to its consumer, and a pool refusal
+    sheds its queue)."""
     for rel in ("shuffle/aqe.py", "exec/reuse.py", "plan/reuse.py",
                 "exec/dpp.py", "shuffle/exchange_exec.py",
                 "exec/pipeline.py"):
@@ -289,9 +290,85 @@ def test_no_adaptive_reuse_or_prefetch_failure_falls_back():
         handlers = [n for n in ast.walk(tree)
                     if isinstance(n, ast.ExceptHandler)]
         if rel == "exec/pipeline.py":
-            # the queue's Full and Empty, and the worker's hand-over
+            # the queue's Full and Empty, the worker's hand-over, and the
+            # shed of a batch the pool refuses
             names = sorted(ast.unparse(h.type) for h in handlers)
-            assert names == ["BaseException", "StopIteration", "queue.Empty",
-                             "queue.Empty", "queue.Full"], names
+            assert names == ["BaseException", "RetryOOM", "StopIteration",
+                             "queue.Empty", "queue.Empty", "queue.Full"], \
+                names
         else:
             assert not handlers, (rel, [h.lineno for h in handlers])
+
+
+def test_the_memory_modules_are_covered():
+    """The memory runtime's modules are walked by the import checks
+    above and hold the names the slice adds, and the operators that shed
+    through it hold theirs."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.mem.pool",
+             ("HbmPool", "RetryOOM", "SplitAndRetryOOM", "CpuRetryOOM",
+              "QueryBudgetExceeded", "OomInjector", "get_pool",
+              "set_pool")),
+            ("spark_rapids_tpu_torch.mem.spill",
+             ("SpillableBatch", "SpillFramework", "BounceBufferPool",
+              "SpillCorruptionError", "get_framework", "spillable",
+              "try_spillable")),
+            ("spark_rapids_tpu_torch.mem.retry",
+             ("with_retry", "with_retry_no_split", "split_batch_half",
+              "_oom_backoff", "get_with_retry")),
+            ("spark_rapids_tpu_torch.mem.semaphore",
+             ("TaskSemaphore", "get_task_semaphore")),
+            ("spark_rapids_tpu_torch.mem.cleaner",
+             ("register_pool", "register_framework", "register_manager",
+              "sweep", "assert_clean")),
+            ("spark_rapids_tpu_torch.exec.sort",
+             ("OutOfCoreSortIterator", "_SortRun")),
+            ("spark_rapids_tpu_torch.exec.window", ("plan_stream_mode",)),
+            ("spark_rapids_tpu_torch.exec.aggregate",
+             ("repartition_snapshot",))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
+    from spark_rapids_tpu_torch.exec.window import WindowExec
+
+    for cls, names in (
+            (HashAggregateExec, ("_repart_conf", "_merge_all",
+                                 "_bucket_ids", "_repartition_merge",
+                                 "_merge_last_resort")),
+            (WindowExec, ("_exec_running", "_init_carry",
+                          "_streaming_compute", "_exec_bounded",
+                          "_emit_bounded"))):
+        for n in names:
+            assert hasattr(cls, n), (cls, n)
+
+
+def test_the_memory_modules_catch_only_pool_ooms():
+    """The memory runtime recovers the pool's own OOMs and nothing else:
+    each handler of ``mem/`` catches RetryOOM or SplitAndRetryOOM, or is
+    the codec import check (which raises), or cleans up and raises the
+    exception again; none catches torch's allocator error."""
+    allowed = {"RetryOOM", "SplitAndRetryOOM", "(RetryOOM, SplitAndRetryOOM)",
+               "ImportError"}
+    seen = set()
+    for f in ("pool.py", "spill.py", "retry.py", "semaphore.py",
+              "cleaner.py"):
+        path = os.path.join(PKG, "mem", f)
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for h in ast.walk(tree):
+            if not isinstance(h, ast.ExceptHandler):
+                continue
+            name = ast.unparse(h.type) if h.type is not None else "bare"
+            reraises = isinstance(h.body[-1], ast.Raise)
+            if name == "ImportError":
+                assert reraises, (f, h.lineno)
+            assert name in allowed or (reraises and h.body[-1].exc is None), \
+                (f, h.lineno, name)
+            assert "OutOfMemoryError" not in ast.unparse(h), (f, h.lineno)
+            seen.add(name)
+    assert {"RetryOOM", "SplitAndRetryOOM"} <= seen
