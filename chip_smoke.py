@@ -192,10 +192,11 @@ Phases, in order; any failure exits non-zero before the last line:
    plan shape without them): every query of phases 10-11 that plans an
    exchange and every case of phase 13 runs once with them off, its rows
    equal to the defaults' run (the query's check: ORDER BY order, rel
-   1e-6 on doubles), with its probe launches on and off; q2, q75, Q3 and
-   Q5's warm walls (median of 3, the checked run with them off the first
-   of the three) with them off beside the defaults', and Q3 and Q5's with
-   prefetch alone off (the read-ahead isolated). Then q2, q4, q11,
+   1e-6 on doubles), with its probe launches on and off; q2, q75 and
+   Q3's warm walls (median of 3, the checked run with them off the first
+   of the three) with them off beside the defaults', and Q3's with
+   prefetch alone off (the read-ahead isolated; Q5's off walls were cut
+   with phase 16). Then q2, q4, q11,
    q74 and q75 with 4 source splits, reuse on against off:
    equal rows, with values; q2 and q75 must reuse an exchange (the
    reference's plans of q4, q11 and q74 reuse broadcasts only, and so
@@ -244,9 +245,25 @@ Phases, in order; any failure exits non-zero before the last line:
    more holders than permits (the semaphore's own high-water mark and a
    sampler), at least one wait at 1 permit. Both kernels must launch in
    the phase, every call of its counted runs held against the plain
-   version (``memory_calls_checked``). After every query of phases 1-15
+   version (``memory_calls_checked``). After every query of phases 1-16
    (``MemoryChecks``) the pool's used bytes are 0, ``cleaner.sweep()``
    finds nothing and the spill directories hold no file;
+16. typed sales (``--out``'s ``typed_sales`` key): the SF ``--sf-ds``
+   store_sales retyped by pyarrow alone (``bench/typed_sales.py``: int8
+   quantity, int16 store, float32 money, a ``timestamp[us, UTC]`` of
+   sale) in one batch of 2^22 rows; T1 (hour x day-of-week profile
+   between two TIMESTAMP literals), T2 (one projection of all 32
+   date-time classes, summed), T3 (an aggregate per store and hour
+   bucket joined back on both keys, on the hash-table and the
+   sorted-hash paths) and T4 (a one-hour RANGE window and ROWS 10
+   PRECEDING Min/Max of the int8 quantity) wholly on the card, each
+   against the CPU engine (T1 also against pandas), then T5: T1 and T3
+   with 4 splits and 4 shuffle partitions and the global sorts (one key
+   through a range exchange, two keys in one partition) against one
+   partition. Each query's launches, probe and scan counts and warm wall
+   (median of 3); every probe and scan call of the counted runs held
+   against the plain version (``typed_calls_checked``), the phase's
+   largest probe timed (``typed_largest``).
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1985,12 +2002,13 @@ SWITCHES_OFF = {"spark.rapids.gpu.sql.adaptive.enabled": "false",
                 "spark.rapids.gpu.sql.exchange.reuse.enabled": "false",
                 "spark.rapids.gpu.sql.prefetch.enabled": "false"}
 # the queries whose warm walls run with the switches off too: q2 and q75
-# (phases 10-11) and TPC-H Q3 and Q5 (phase 13)
-SWITCHES_OFF_WALLS = ("q2", "q75", "tpch_q3", "tpch_q5")
+# (phases 10-11) and TPC-H Q3 (phase 13; Q5's off walls, 22 s of repeats,
+# were cut with phase 16's arrival to keep the whole run near 650 s)
+SWITCHES_OFF_WALLS = ("q2", "q75", "tpch_q3")
 # the queries whose warm walls run with prefetch alone off (the read-ahead
-# and the prefetch boundaries; AQE and reuse on): the phase 13 cases whose
-# AQE readers read several specs
-PREFETCH_OFF_WALLS = ("tpch_q3", "tpch_q5")
+# and the prefetch boundaries; AQE and reuse on): Q3, a phase 13 case
+# whose AQE readers read several specs
+PREFETCH_OFF_WALLS = ("tpch_q3",)
 # phase 14's reuse queries at SF ``--sf-ds`` with 4 source splits: q2 and
 # q75 read one exchange twice; q4, q11 and q74 total each channel and year
 # on its own (no exchange repeats, as in the reference's plans) and
@@ -2167,8 +2185,8 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
     """Phase 14: every query of phases 10-11 that plans an exchange and
     every case of phase 13 once with AQE, reuse and prefetch off, its rows
     equal to the defaults', with its AQE specs, reuse and probe launches
-    on and off; q2/q75/Q3/Q5's warm walls off beside the defaults', and
-    Q3/Q5's with prefetch alone off; q2, q4, q11, q74 and q75 with 4
+    on and off; q2/q75/Q3's warm walls off beside the defaults', and
+    Q3's with prefetch alone off; q2, q4, q11, q74 and q75 with 4
     splits, reuse on against off; the skewed shuffled join. Every kernel
     call of the counted runs is held against its plain version."""
     import torch
@@ -2777,6 +2795,173 @@ def run_memory_path(ds_tables, part_res) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+def run_typed_path(ds_tables) -> dict:
+    """Phase 16: the typed store_sales pass (``bench/typed_sales.py``)."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import typed_sales as TS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan import dataframe as DF
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tables = {"typed_store_sales": TS.typed_store_sales(ds_tables)}
+    typed = tables["typed_store_sales"]
+    n = typed.num_rows
+    log(f"typed store_sales: {n} rows ({typed.schema.types}) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+    largest = {}
+
+    def probe_and_record(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("rows", -1):
+            largest.update(rows=h1.numel(),
+                           args=(tbl, h1, h2, capacity, seed))
+        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    def counted(df):
+        """(table, wall, launches, plan) of one planning and run of
+        ``df`` with the counts zeroed before and read after, every kernel
+        call held against its plain version."""
+        torch.cuda.synchronize()
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = probe_and_record
+        K.segmented_scan_kernel = check_scan_call
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = DF.execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        return out, wall, launches, plan
+
+    def device_only(df, name):
+        off = [ln.strip() for ln in df.explain("ALL").splitlines()
+               if ln.lstrip().startswith("!")]
+        if off:
+            raise AssertionError(f"{name} places nodes on the CPU engine: "
+                                 f"{off}")
+
+    dev = TS.df_tables(tables, device="cuda")
+    cpu = TS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    res, rows = {}, {}
+    for q, build in TS.QUERIES.items():
+        df = build(dev)
+        device_only(df, q)
+        out, wall, launches, plan = counted(df)
+        got = out.to_pylist()
+        t1 = time.perf_counter()
+        exp = build(cpu).to_arrow().to_pylist()
+        cpu_s = time.perf_counter() - t1
+        ok, why = TS.check_rows(q, got, exp)
+        if not ok:
+            raise AssertionError(f"{q} on the card differs from the CPU "
+                                 f"engine ({why}):\n{got[:2]}\n{exp[:2]}")
+        if q == "T1":
+            ok, why = TS.check_rows(q, got, TS.pandas_t1(typed))
+            if not ok:
+                raise AssertionError(f"T1 differs from pandas ({why})")
+        if q == "T3" and (launches["hashtbl_probe"] <= 0
+                          or set(join_paths(plan)) != {"ht"}):
+            raise AssertionError(f"T3 launched {launches} on join paths "
+                                 f"{join_paths(plan)}")
+        if q == "T4" and launches["segscan"] <= 0:
+            raise AssertionError(f"T4 launched no segscan kernel")
+        warm = _warm_wall(lambda b=build: b(dev).to_arrow(), 3, first=wall)
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall, "warm_s": warm,
+                  "cpu_engine_s": cpu_s, "launches": launches,
+                  "probe_calls": launches["hashtbl_probe"],
+                  "scan_calls": launches["segscan"],
+                  "shown": [{k: str(v) for k, v in r.items()}
+                            for r in got[:2]]}
+        log(f"typed {q}: {len(got)} rows equal the CPU engine"
+            f"{' and pandas' if q == 'T1' else ''}; launches {launches}; "
+            f"warm wall {warm:.4f}s (median of 3); CPU engine {cpu_s:.3f}s;"
+            f" first rows {res[q]['shown']}")
+
+    # T3 on the sorted-hash path
+    sh = TS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.join.hashTable.enabled": "false"}),
+        device="cuda")
+    out, wall, launches, plan = counted(TS.t3(sh))
+    paths = join_paths(plan)
+    ok, why = TS.check_rows("T3", out.to_pylist(), rows["T3"])
+    if not ok or set(paths) != {"sorted"}:
+        raise AssertionError(f"T3 on the sorted-hash path: {why}, paths "
+                             f"{paths}")
+    res["T3_sorted_hash"] = {"first_s": wall, "launches": launches,
+                             "join_paths": paths}
+    log(f"typed T3 on the sorted-hash path: rows equal; paths {paths}; "
+        f"launches {launches}; {wall:.4f}s")
+
+    # T5: 4 splits and 4 shuffle partitions against one partition
+    # (the fast path, which plans one partition for small tables, off:
+    # past 100,000 rows it is off anyway)
+    four = TS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+        partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+    one = TS.df_tables(tables, device="cuda", shuffle_partitions=1)
+    for q in ("T1", "T3", "GLOBAL_SORT", "GLOBAL_SORT2"):
+        build = TS.QUERIES.get(q) or TS.GLOBAL_SORTS[q]
+        df = build(four)
+        out, wall, launches, plan = counted(df)
+        strategy = plan_strategy(plan)
+        shown = plan.explain()
+        want = {"GLOBAL_SORT": "RangePartitioner(4)",
+                "GLOBAL_SORT2": "SinglePartitioner"}.get(
+            q, "HashPartitioner(4)")
+        if want not in shown:
+            raise AssertionError(f"T5 {q} plans no {want}:\n{shown}")
+        if q in TS.QUERIES:
+            ok, why = TS.check_rows(q, out.to_pylist(), rows[q])
+        else:
+            ok, why = TS.check_sorted(q, out, build(one).to_arrow())
+        if not ok:
+            raise AssertionError(f"T5 {q} with 4 partitions differs from "
+                                 f"one partition ({why})")
+        warm = _warm_wall(lambda b=build: b(four).to_arrow(), 3, first=wall)
+        res[f"T5_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                          "warm_s": warm, "launches": launches,
+                          "strategy": strategy}
+        log(f"typed T5 {q}: 4 splits x 4 partitions equal one partition "
+            f"({out.num_rows} rows); {strategy_line(strategy)}; launches "
+            f"{launches}; warm wall {warm:.4f}s (median of 3)")
+
+    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
+        raise AssertionError(f"phase 16 launched {total}: both kernels "
+                             f"must launch")
+    if (probe_calls[0] < total["hashtbl_probe"]
+            or sum(scan_calls.values()) < total["segscan"]):
+        raise AssertionError(f"phase 16 checked {probe_calls[0]} probe and "
+                             f"{scan_calls} segscan calls for {total} "
+                             f"launches")
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 16 equal "
+        f"the plain version ({total} launches)")
+    nulls = {c: typed.column(c).null_count for c in typed.column_names}
+    return {"queries": res, "rows": n, "nulls": nulls, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls,
+            "largest_probe": largest.get("args"),
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def tpch_plan(q, frames):
     from spark_rapids_tpu_torch.bench import tpch
 
@@ -2916,6 +3101,15 @@ def main(argv=None) -> int:
         f"{mem_checks.checked} queries")
     for k in ("four", "cases", "rows", "frames"):
         part_res.pop(k)
+    # phase 16: the typed store_sales pass
+    checked_before = mem_checks.checked
+    typed_res = run_typed_path(ds_tables)
+    typed_probe = check_probe("typed_largest",
+                              *typed_res.pop("largest_probe"), cold=True)
+    shapes.append(typed_probe)
+    log(f"phase 16 took {typed_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -2928,7 +3122,8 @@ def main(argv=None) -> int:
                       "window_surface": surface_res["launches"][name],
                       "partitioned": part_res["launches"][name],
                       "adaptive": adaptive_res["launches"][name],
-                      "memory": memory_res["launches"][name]}
+                      "memory": memory_res["launches"][name],
+                      "typed_sales": typed_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -2970,6 +3165,12 @@ def main(argv=None) -> int:
         "partitioned_calls_checked": part_res["probe_calls_checked"],
         "adaptive_calls_checked": adaptive_res["probe_calls_checked"],
         "memory_calls_checked": memory_res["probe_calls_checked"],
+        "typed_largest": {k: typed_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "typed_calls_checked": typed_res["probe_calls_checked"],
+        "key_types": "int32 int64 double date decimal string tinyint "
+                     "smallint float timestamp (the 64-bit key hashes)",
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -2992,6 +3193,9 @@ def main(argv=None) -> int:
         "partitioned_calls_checked": part_res["segscan_calls_checked"],
         "adaptive_calls_checked": adaptive_res["segscan_calls_checked"],
         "memory_calls_checked": memory_res["segscan_calls_checked"],
+        "typed_calls_checked": typed_res["segscan_calls_checked"],
+        "value_types": "int32 int64 float32 float64 (int8 and int16 "
+                       "widened to int32 by the wrapper)",
         "exact": scan_shapes["int_and_minmax_exact"]}]}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
@@ -3013,6 +3217,8 @@ def main(argv=None) -> int:
                            if k != "launches"},
               "memory": {k: v for k, v in memory_res.items()
                          if k != "launches"},
+              "typed_sales": {k: v for k, v in typed_res.items()
+                              if k != "launches"},
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

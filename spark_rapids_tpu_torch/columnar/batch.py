@@ -82,6 +82,8 @@ def _arrow_fixed_to_numpy(arr: pa.Array, dt: T.DataType):
         values = limbs[0::2].copy()
     elif dt == T.DATE:
         values = np.asarray(arr.fill_null(0).cast(pa.int32()))
+    elif dt == T.TIMESTAMP:
+        values = timestamp_micros(arr)
     elif dt == T.BOOLEAN:
         values = np.asarray(arr.fill_null(False).cast(pa.int8())).astype(
             np.bool_)
@@ -91,6 +93,15 @@ def _arrow_fixed_to_numpy(arr: pa.Array, dt: T.DataType):
     if valid is not None:
         values = np.where(valid, values, np.zeros((), values.dtype))
     return values, valid
+
+
+def timestamp_micros(arr: pa.Array) -> np.ndarray:
+    """int64 microseconds since the epoch of an Arrow timestamp array of any
+    unit or zone (an instant: the zone does not move it); null slots read
+    as 0."""
+    if arr.type.unit != "us":
+        arr = arr.cast(pa.timestamp("us", tz=arr.type.tz))
+    return np.asarray(arr.cast(pa.int64()).fill_null(0))
 
 
 def _sort_remap_dictionary(enc: pa.DictionaryArray) -> pa.DictionaryArray:
@@ -266,9 +277,19 @@ def _column_to_arrow(col: DeviceColumn, dt: T.DataType) -> pa.Array:
     values = col.data.cpu().numpy()
     if isinstance(dt, T.DecimalType):
         return _decimal_array(values, dt, valid)
+    return fixed_array(values, dt, mask)
+
+
+def fixed_array(values: np.ndarray, dt: T.DataType,
+                mask: Optional[np.ndarray]) -> pa.Array:
+    """Arrow array of a fixed-width, non-decimal type from its device
+    values (a date's int32 days, a timestamp's int64 microseconds)."""
     if dt == T.DATE:
-        return pa.array(values.astype(np.int32), pa.int32(),
+        return pa.array(values.astype(np.int32, copy=False), pa.int32(),
                         mask=mask).cast(pa.date32())
+    if dt == T.TIMESTAMP:
+        return pa.array(values.astype(np.int64, copy=False), pa.int64(),
+                        mask=mask).cast(dt.arrow_type())
     return pa.array(values, type=dt.arrow_type(), mask=mask)
 
 

@@ -14,8 +14,12 @@ value. Every hash and table field comes out bit-equal to the reference's.
 
 Decimal columns (DECIMAL64) are int64 unscaled values and take the integer
 paths of ``sortable_keys``, ``hash_keys`` and ``keys_equal``, as in the
-reference. A DECIMAL128 column's ``(n, 2)`` ``[lo, hi]`` limbs sort on
-(hi, lo read unsigned), hash both limbs and compare both; their segment
+reference, and so do TINYINT, SMALLINT (sign-extended to the same 64-bit
+word) and TIMESTAMP (its microseconds). A FLOAT key takes the double
+path: its value widened exactly to float64, so -0.0 and NaN follow
+Spark's rules (NaN largest) and its hash is the reference's. A
+DECIMAL128 column's ``(n, 2)`` ``[lo, hi]`` limbs sort on (hi, lo read
+unsigned), hash both limbs and compare both; their segment
 sums are exact mod 2^128 and their min/max reduce hi, then lo among the
 rows that tie on hi (``segment_agg``).
 
@@ -319,7 +323,8 @@ def sortable_keys(col: DeviceColumn, ascending: bool = True,
         if not ascending:
             kh, kl = ~kh, ~kl
         return [where_valid(v, kl), where_valid(v, kh), null_key]
-    k = col.data.int() if dt in (T.INT, T.DATE) else col.data.long()
+    k = (col.data.int() if dt in (T.BYTE, T.SHORT, T.INT, T.DATE)
+         else col.data.long())
     if not ascending:
         k = ~k
     k = torch.where(v, k, torch.zeros_like(k))
@@ -1287,18 +1292,26 @@ def segmented_scan_kernel(values: torch.Tensor, is_start: torch.Tensor,
                           op_name: str = "add") -> torch.Tensor:
     """Segmented-scan wrapper: the CUDA kernel for CUDA tensors, the plain
     ``segmented_scan`` for CPU tensors. Same contract as the plain version;
-    on the card, values must be contiguous int32, int64, float32 or
-    float64 (any storage offset)."""
+    on the card, values must be contiguous int8, int16, int32, int64,
+    float32 or float64 (any storage offset). The kernel has int32, int64,
+    float32 and float64 instantiations: int8 and int16 values are scanned
+    widened to int32 and narrowed back, which is exact for min and max and,
+    since addition modulo 2^8 (2^16) commutes with narrowing, for the
+    wrapping add too."""
     _check_segscan_args(values, is_start, op_name)
     dev = values.device
     if dev.type == "cpu":
         return segmented_scan(values, is_start, op_name)
     if dev.type != "cuda":
         raise ValueError(f"no segmented-scan kernel for device {dev}")
+    if values.dtype in (torch.int8, torch.int16):
+        return segmented_scan_kernel(values.int(), is_start,
+                                     op_name).to(values.dtype)
     code = _SEGSCAN_DTYPE_CODES.get(values.dtype)
     if code is None:
-        raise TypeError(f"the segmented-scan kernel takes int32, int64, "
-                        f"float32 or float64 values, got {values.dtype}")
+        raise TypeError(f"the segmented-scan kernel takes int8, int16, "
+                        f"int32, int64, float32 or float64 values, got "
+                        f"{values.dtype}")
     if not (values.is_contiguous() and is_start.is_contiguous()):
         raise ValueError("values and is_start must be contiguous")
     n = values.numel()

@@ -39,9 +39,9 @@ emits them):
 Every add, min and max scan goes through ``kernels.segmented_scan_kernel``.
 Raising NotImplementedError, as in the reference: window Min/Max over
 DECIMAL128 (on the device only: the CPU engine runs it), window aggregates
-over strings but Count, a bounded RANGE frame over
-anything but one ascending INT, LONG or DATE order key, and the variance
-family (no such aggregate in the port yet).
+over strings but Count, a bounded RANGE frame over anything but one
+ascending integral, DATE or TIMESTAMP order key, and the variance family
+(no such aggregate in the port yet).
 
 Streaming (``streaming=True``, the reference's GpuRunningWindowExec and
 GpuBatchedBoundedWindowExec): the planner gives a group that
@@ -89,8 +89,9 @@ from spark_rapids_tpu_torch.exprs import window as W
 _AGGS = (E.Sum, E.Count, E.Average, E.Min, E.Max, E.First, E.Last)
 _RANKING = (W.RowNumber, W.Rank, W.DenseRank, W.NTile, W.PercentRank,
             W.CumeDist)
-# order key types a bounded RANGE frame bisects (the reference's gate)
-RANGE_KEY_TYPES = (T.INT, T.LONG, T.DATE)
+# order key types a bounded RANGE frame bisects (the reference's gate); a
+# TIMESTAMP key's offsets are microseconds
+RANGE_KEY_TYPES = (T.BYTE, T.SHORT, T.INT, T.LONG, T.DATE, T.TIMESTAMP)
 
 
 def bind_function(f: E.Expression, schema: T.Schema) -> E.Expression:

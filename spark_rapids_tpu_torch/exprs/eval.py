@@ -47,14 +47,20 @@ Divide of doubles or integers is a double, null where the divisor is zero
 fractional ``x / 0.0``, a known difference). Abs and UnaryMinus negate in
 place (integers wrap, as Java's).
 
-Casts follow the reference's non-ANSI numeric semantics (``Cast``): a
-narrowing integer cast wraps, a double becomes an integer as Java's
-``(int)``/``(long)`` (``double_to_integral``), a decimal keeps its whole
-part. An int or decimal cast to a decimal that holds all its digits
-(``T.is_exact_decimal_widening``, a union's widening) is a rescale. Casts
-into and out of DECIMAL128 (``_cast_wide``) rescale up with the overflow
-check, round HALF_UP down (by at most 18 digits), and null what does not
-fit the target; other casts to decimal run on the CPU engine.
+Casts follow the reference's non-ANSI ``cast_val`` (``_eval_cast``; the
+pairs of ``E.cast_supported``): a narrowing integer cast wraps, a float
+becomes an integer as Java's ``(int)``/``(long)`` (``double_to_integral``,
+saturating at the target's range), a decimal keeps its whole part; into
+DECIMAL64 an integer or decimal rescales (null past the precision,
+checked before the product), anything else goes through a double,
+HALF_UP. Casts into and out of DECIMAL128 (``_cast_wide``) rescale up
+with the overflow check, round HALF_UP down (by at most 18 digits), and
+null what does not fit the target; a float scales in float64 and splits
+at 2^64. Dates and timestamps cast as the reference's: midnight, floor
+to the day, seconds to and from BIGINT.
+
+IsNaN and Nanvl read floats; the date-and-time functions are
+``exprs/datetime.py``'s.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
+from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import regex as RX
 
@@ -310,7 +317,11 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
              else r.data.double())
         return _compare_result(expr, _nan_aware_lt(a, b), a == b, valid)
     a, b = l.data, r.data
-    if lt != rt:
+    if {lt, rt} == {T.DATE, T.TIMESTAMP}:
+        # Spark compares a date as its midnight
+        a, b = (x.long() * 86_400_000_000 if t == T.DATE else x
+                for x, t in ((a, lt), (b, rt)))
+    elif lt != rt:
         ct = E.numeric_widen(lt, rt)
         a, b = a.to(ct.torch_dtype), b.to(ct.torch_dtype)
     eq = a == b
@@ -399,6 +410,8 @@ def _cast_wide(v: ColVal, src: T.DataType, dst: T.DataType) -> ColVal:
     """Casts into or out of DECIMAL128: a rescale up checked for overflow
     before it multiplies, a rescale down rounded HALF_UP (decimals) or
     truncated (integers), then null where the value does not fit."""
+    if T.is_wide_decimal(dst) and src in T.FRACTIONAL_TYPES:
+        return _float_to_wide(v, dst)
     if T.is_wide_decimal(dst):
         diff = dst.scale - _scale_of(src)
         h, l = _wide_parts(v)
@@ -409,8 +422,9 @@ def _cast_wide(v: ColVal, src: T.DataType, dst: T.DataType) -> ColVal:
             ovf = torch.zeros_like(v.validity)
         ovf = ovf | I128.overflow_mask(h, l, dst.precision)
         return _wide_result(h, l, ovf, v.validity, dst)
-    if dst == T.DOUBLE:
-        return ColVal(_decimal_to_double(v.data, src), v.validity)
+    if dst in T.FRACTIONAL_TYPES:
+        return ColVal(_decimal_to_double(v.data, src).to(dst.torch_dtype),
+                      v.validity)
     s_dst = _scale_of(dst)
     diff = s_dst - src.scale
     h, l = I128.split(v.data)
@@ -439,6 +453,25 @@ def _cast_wide(v: ColVal, src: T.DataType, dst: T.DataType) -> ColVal:
     return ColVal(K.where_valid(valid, l).to(dst.torch_dtype), valid)
 
 
+def _float_to_wide(v: ColVal, dst: T.DecimalType) -> ColVal:
+    """A float into DECIMAL128, as the reference's: scaled in float64,
+    HALF_UP, split at 2^64 (a double's 53 bits are all it has); NaN,
+    infinities and magnitudes of 2^127 or more are null."""
+    x = v.data.double() * (10.0 ** dst.scale)
+    bad = ~torch.isfinite(x) | (x.abs() >= 2.0 ** 127)
+    ax = torch.floor(torch.where(bad, torch.zeros_like(x), x).abs() + 0.5)
+    hi_f = torch.floor(ax / 2.0 ** 64)
+    lo_f = ax - hi_f * 2.0 ** 64
+    # lo_f in [0, 2^64) as the int64 with its bits
+    lo = torch.where(lo_f >= 2.0 ** 63, lo_f - 2.0 ** 64, lo_f).long()
+    h, l = hi_f.long(), lo
+    nh, nl = I128.neg(h, l)
+    neg = x < 0
+    h, l = torch.where(neg, nh, h), torch.where(neg, nl, l)
+    ovf = I128.overflow_mask(h, l, dst.precision)
+    return _wide_result(h, l, ovf, v.validity & ~bad, dst)
+
+
 def _wide_div_pow10_half_up(h, l, k: int):
     """(hi, lo) / 10^k rounded HALF_UP once at the full divisor, 0 < k <=
     18: the steps' remainders at their place values add up exactly in
@@ -465,25 +498,71 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
     v = eval_expr(expr.child, ctx)
     if src == dst:
         return v
+    if not E.cast_supported(src, dst):
+        raise NotImplementedError(f"cast {src} -> {dst} is not in the port "
+                                  f"yet")
+    # the reference's cast_val (see E.Cast)
+    data, valid = v
     if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
         return _cast_wide(v, src, dst)
-    if isinstance(src, T.DecimalType) and dst == T.DOUBLE:
-        return ColVal(_decimal_to_double(v.data, src), v.validity)
-    if src in T.INTEGRAL_TYPES and dst in (T.LONG, T.DOUBLE):
-        return ColVal(v.data.to(dst.torch_dtype), v.validity)
-    if T.is_exact_decimal_widening(src, dst):  # a rescale, exact
-        return ColVal(v.data.long() * 10 ** (dst.scale - _scale_of(src)),
-                      v.validity)
-    if dst in T.INTEGRAL_TYPES:
-        if src == T.DOUBLE:
-            return ColVal(double_to_integral(v.data, dst), v.validity)
-        if isinstance(src, T.DecimalType):  # the whole part, then wrap
-            return ColVal(torch.div(v.data, 10 ** src.scale,
-                                    rounding_mode="trunc")
-                          .to(dst.torch_dtype), v.validity)
-        if src in T.INTEGRAL_TYPES:  # bigint -> int wraps, as Java's
-            return ColVal(v.data.to(dst.torch_dtype), v.validity)
-    raise NotImplementedError(f"cast {src} -> {dst} is not in the port yet")
+    if dst == T.BOOLEAN:
+        return ColVal(data != 0, valid)
+    if src == T.BOOLEAN:
+        return ColVal(data.to(dst.torch_dtype), valid)
+    if dst == T.TIMESTAMP:
+        scale = 86_400_000_000 if src == T.DATE else 1_000_000
+        return ColVal(data.long() * scale, valid)
+    if src == T.TIMESTAMP and dst in (T.DATE, T.LONG):
+        unit = 86_400_000_000 if dst == T.DATE else 1_000_000
+        return ColVal((data // unit).to(dst.torch_dtype), valid)
+    if isinstance(dst, T.DecimalType):
+        return _cast_to_decimal(data, valid, src, dst)
+    if isinstance(src, T.DecimalType):
+        if dst in T.FRACTIONAL_TYPES:
+            return ColVal(_decimal_to_double(data, src).to(dst.torch_dtype),
+                          valid)
+        # the whole part, then wrap
+        return ColVal(torch.div(data, 10 ** src.scale, rounding_mode="trunc")
+                      .to(dst.torch_dtype), valid)
+    if dst in T.INTEGRAL_TYPES and data.is_floating_point():
+        return ColVal(double_to_integral(data, dst), valid)
+    # integers (and a date's days, a timestamp's microseconds) wrap into a
+    # narrower integer, or convert to a float
+    return ColVal(data.to(dst.torch_dtype), valid)
+
+
+def _cast_to_decimal(data: torch.Tensor, valid: torch.Tensor,
+                     src: T.DataType, dst: T.DecimalType) -> ColVal:
+    """Into DECIMAL64: a decimal rescaled (HALF_UP when the scale drops),
+    an integer times 10**scale (null past the precision, checked before
+    the product), anything else (a float, a date's days, a
+    timestamp's microseconds) through a double, HALF_UP at the scale
+    (NaN, infinities and values past int64 null); null past the
+    precision."""
+    if isinstance(src, T.DecimalType) or src in T.INTEGRAL_TYPES:
+        diff = dst.scale - _scale_of(src)
+        d = data.long()
+        if diff >= 0:
+            # past the precision before the product can wrap: null
+            # (Spark's overflow; the reference's int64 product wraps)
+            fits = d.abs() <= (10 ** min(dst.precision, 18) - 1) // 10 ** diff
+            valid = valid & fits
+            scaled = torch.where(fits, d, torch.zeros_like(d)) * 10 ** diff
+        else:
+            div = 10 ** -diff
+            q = torch.div(d, div, rounding_mode="trunc")
+            r = d - q * div
+            scaled = q + torch.where(2 * r.abs() >= div, torch.sign(r),
+                                     torch.zeros_like(r))
+    else:
+        shifted = data.double() * (10.0 ** dst.scale)
+        bad = ~torch.isfinite(shifted) | (shifted.abs() >= 2.0 ** 63)
+        half_up = torch.sign(shifted) * torch.floor(shifted.abs() + 0.5)
+        scaled = torch.where(bad, torch.zeros_like(half_up), half_up).long()
+        valid = valid & ~bad
+    over = scaled.abs() >= 10 ** min(dst.precision, 18)
+    return ColVal(torch.where(over, torch.zeros_like(scaled), scaled),
+                  valid & ~over)
 
 
 def double_to_integral(d: torch.Tensor, dst: T.DataType) -> torch.Tensor:
@@ -706,6 +785,18 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
                       torch.ones_like(valid))
     if isinstance(expr, E.In):
         return _eval_in(expr, ctx)
+    if isinstance(expr, E.IsNaN):
+        c = eval_expr(expr.child, ctx)
+        return ColVal(torch.isnan(c.data) & c.validity,
+                      torch.ones_like(c.validity))
+    if isinstance(expr, E.Nanvl):
+        l, r = eval_expr(expr.left, ctx), eval_expr(expr.right, ctx)
+        a, b = l.data.double(), r.data.double()
+        take_b = torch.isnan(a)
+        return ColVal(torch.where(take_b, b, a),
+                      torch.where(take_b, r.validity, l.validity))
+    if isinstance(expr, E.DATETIME_FUNCTIONS):
+        return ColVal(*DT.eval_datetime(expr, lambda e: eval_expr(e, ctx)))
     if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
         return _eval_conditional(expr, ctx)
     if isinstance(expr, E.Substring):

@@ -4,16 +4,24 @@ queries build): column references, literals (DATE and DECIMAL included),
 Alias, Cast, Add/Subtract/Multiply/Divide, Abs and UnaryMinus, the
 comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
-IsNull, IsNotNull and In, the conditionals If, CaseWhen and Coalesce, the
-string functions Substring and Like, and the aggregates Sum, Average,
+IsNull, IsNotNull, In, IsNaN and Nanvl, the conditionals If, CaseWhen and
+Coalesce, the string functions Substring and Like, the 32 date-and-time
+functions of ``DATETIME_FUNCTIONS``, and the aggregates Sum, Average,
 Count, Min, Max and CountDistinct.
+
+Numeric typing is Spark's: BYTE < SHORT < INT < LONG < FLOAT < DOUBLE
+widen to the larger (TINYINT + TINYINT stays TINYINT and wraps), a Sum of
+an integer is BIGINT and of a float DOUBLE, a DATE compared with a
+TIMESTAMP is its midnight. ``cast_supported`` names the casts both
+engines evaluate.
 
 Substring and Like carry literal parameters (a position and a length, a
 pattern and an escape character) beside their one child, as the
 reference's nodes do; ``resolve`` keeps them.
 
 Decimal typing follows Spark's DecimalPrecision rules: an integral operand
-of a decimal operation is an implicit decimal(d, 0), a float operand turns
+of a decimal operation is an implicit decimal(d, 0) (d = 3, 5, 10 or 20
+for TINYINT, SMALLINT, INT or BIGINT), a float operand turns
 the whole operation into double, Add/Subtract give
 decimal(max(p1-s1, p2-s2) + max(s1, s2) + 1, max(s1, s2)), Multiply gives
 decimal(p1 + p2 + 1, s1 + s2), Divide gives scale s = max(6, s1 + p2 + 1)
@@ -184,6 +192,8 @@ class Literal(Expression):
                 dtype = T.STRING
             elif v is None:
                 dtype = T.NULL
+            elif isinstance(v, datetime.datetime):
+                dtype = T.TIMESTAMP
             elif isinstance(v, datetime.date):
                 dtype = T.DATE
             elif isinstance(v, decimal.Decimal):
@@ -192,7 +202,11 @@ class Literal(Expression):
                 dtype = T.DecimalType(max(len(digits), scale), scale)
             else:
                 raise TypeError(f"cannot infer literal type for {v!r}")
-        if dtype == T.DATE and isinstance(v, datetime.date):
+        if dtype == T.TIMESTAMP and isinstance(v, datetime.datetime):
+            v = timestamp_micros(v)
+        elif dtype == T.DATE and isinstance(v, datetime.date):
+            if isinstance(v, datetime.datetime):
+                v = v.date()
             v = (v - datetime.date(1970, 1, 1)).days
         return Literal(v, dtype)
 
@@ -202,6 +216,17 @@ class Literal(Expression):
 
 def lit(v, dtype: Optional[T.DataType] = None) -> Literal:
     return Literal.of(v, dtype)
+
+
+_EPOCH = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+
+
+def timestamp_micros(v: datetime.datetime) -> int:
+    """Microseconds since the epoch of a datetime (a naive one is UTC, the
+    session zone), exact: an integer delta, never float seconds."""
+    if v.tzinfo is None:
+        v = v.replace(tzinfo=datetime.timezone.utc)
+    return (v - _EPOCH) // datetime.timedelta(microseconds=1)
 
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
@@ -244,20 +269,21 @@ def numeric_widen(a: T.DataType, b: T.DataType) -> T.DataType:
         if other in T.INTEGRAL_TYPES:
             return dec
         raise TypeError(f"no common numeric type for {a}, {b}")
-    order = [T.INT, T.LONG, T.DOUBLE]
+    order = [T.BYTE, T.SHORT, T.INT, T.LONG, T.FLOAT, T.DOUBLE]
     if a not in order or b not in order:
         raise TypeError(f"no common numeric type for {a}, {b}")
     return order[max(order.index(a), order.index(b))]
 
 
-_INTEGRAL_DIGITS = {T.INT: 10, T.LONG: 20}
+_INTEGRAL_DIGITS = {T.BYTE: 3, T.SHORT: 5, T.INT: 10, T.LONG: 20}
 
 
 def decimal_operands(lt: T.DataType, rt: T.DataType):
     """Spark DecimalPrecision: an integral operand of a decimal operation is
-    an implicit decimal(d, 0) (d = 10 for int, 20 for bigint). Returns the
-    two operand types as decimals, or None when neither side is a decimal
-    or the other side is a float (then both sides go to double)."""
+    an implicit decimal(d, 0) (d = 3 for tinyint, 5 for smallint, 10 for
+    int, 20 for bigint). Returns the two operand types as decimals, or
+    None when neither side is a decimal or the other side is a float (then
+    both sides go to double)."""
     ld, rd = isinstance(lt, T.DecimalType), isinstance(rt, T.DecimalType)
     if not (ld or rd):
         return None
@@ -437,6 +463,27 @@ class IsNotNull(_Unary):
         return False
 
 
+class IsNaN(_Unary):
+    """isnan(x): true where a float is NaN; false where it is null."""
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return False
+
+
+class Nanvl(_Binary):
+    """nanvl(a, b): b where a is NaN, else a; a double, as the
+    reference's."""
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
 class In(Expression):
     """value IN (items)."""
 
@@ -491,13 +538,20 @@ class Like(Expression):
 
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class Cast(Expression):
-    """Non-ANSI cast. The port evaluates decimal -> double, the widening
-    numeric casts (int -> bigint -> double; int and decimal -> a decimal
-    that holds all their digits), the narrowing ones (bigint -> int wraps;
-    double -> int/bigint truncates, NaN is 0 and out-of-range values
-    saturate; decimal -> int/bigint keeps the whole part and wraps) and,
-    on the CPU engine only, the other integer and decimal -> decimal
-    casts; others (strings, double -> decimal) raise naming the cast."""
+    """Non-ANSI cast among BOOLEAN, the integers, FLOAT, DOUBLE, DECIMAL,
+    DATE and TIMESTAMP, with the reference's ``cast_val`` semantics
+    (``cast_supported`` says which pairs): anything -> boolean is ``!=
+    0``; a boolean is 0 or 1 of the target's storage (a decimal's unscaled
+    value, a date's days, a timestamp's microseconds, as the reference);
+    integers narrow by wrapping; a float becomes an integer as Java's
+    ``(int)``/``(long)`` (NaN 0, truncation, saturation at the target's
+    range); a decimal keeps its whole part and wraps; to a decimal:
+    rescaled (HALF_UP down), floats HALF_UP at the scale, null past the
+    precision; date -> timestamp is midnight UTC and timestamp -> date
+    floors; an integer -> timestamp is seconds and timestamp -> bigint
+    floors to seconds; the other casts out of a date or timestamp read its
+    storage (days, microseconds), as the reference's do. Casts to and from
+    strings, and into a date from a number, raise naming the cast."""
 
     child: Expression
     to: T.DataType
@@ -565,6 +619,42 @@ class Coalesce(Expression):
         return all(c.nullable for c in self.children)
 
 
+_CASTABLE = T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES + (T.BOOLEAN, T.DATE,
+                                                     T.TIMESTAMP)
+
+
+def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """Whether both engines evaluate ``Cast(src -> dst)``: every pair of
+    BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT, DOUBLE, DECIMAL, DATE and
+    TIMESTAMP that the reference's ``cast_val`` takes (not a number or a
+    decimal into a date, not a float or a decimal into a timestamp, not a
+    DECIMAL128 into a boolean, date or timestamp)."""
+    if src == dst:
+        return True
+    dec_s, dec_d = isinstance(src, T.DecimalType), isinstance(dst,
+                                                              T.DecimalType)
+    if not ((dec_s or src in _CASTABLE) and (dec_d or dst in _CASTABLE)):
+        return False
+    if dst == T.BOOLEAN:
+        return not T.is_wide_decimal(src)
+    if src == T.BOOLEAN:
+        return not T.is_wide_decimal(dst)
+    if dst == T.DATE:
+        return src == T.TIMESTAMP
+    if dst == T.TIMESTAMP:
+        return src == T.DATE or src in T.INTEGRAL_TYPES
+    if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
+        return (src in T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES
+                or dst in T.INTEGRAL_TYPES + (T.DOUBLE, T.FLOAT)
+                or (dec_s and dec_d))
+    return True
+
+
+def torch_bits(dt: T.DataType) -> int:
+    """Bits of an integral type's values."""
+    return {T.BYTE: 8, T.SHORT: 16, T.INT: 32, T.LONG: 64}[dt]
+
+
 def value_as(e: Expression, dt: T.DataType) -> Expression:
     """A conditional's value branch brought to the conditional's type
     ``dt``: unchanged when it has it, a literal re-typed when its value
@@ -587,10 +677,316 @@ def value_as(e: Expression, dt: T.DataType) -> Expression:
             return Literal(float(v), dt)
         elif dt in T.INTEGRAL_TYPES and isinstance(v, int) \
                 and not isinstance(v, bool):
-            bits = 31 if dt == T.INT else 63
+            bits = torch_bits(dt) - 1
             if -(2 ** bits) <= v < 2 ** bits:
                 return Literal(v, dt)
     return Cast(e, dt)
+
+
+# --- dates and timestamps (exprs/datetime.py on the device, plan/cpu.py on
+# the CPU engine). A DATE is int32 days and a TIMESTAMP int64 microseconds
+# since the epoch, UTC. ``resolve`` casts a TIMESTAMP input of a function
+# of days to DATE and a DATE input of a function of instants to TIMESTAMP
+# (midnight), as Spark's implicit casts do. ---
+class _DatePart(_Unary):
+    """A calendar field of a date (a timestamp's UTC date) as an INT."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class Year(_DatePart):
+    pass
+
+
+class Month(_DatePart):
+    pass
+
+
+class DayOfMonth(_DatePart):
+    pass
+
+
+class DayOfWeek(_DatePart):
+    """1 = Sunday ... 7 = Saturday."""
+
+
+class DayOfYear(_DatePart):
+    pass
+
+
+class Quarter(_DatePart):
+    pass
+
+
+class WeekOfYear(_DatePart):
+    """The ISO-8601 week (weeks start on Monday; week 1 holds the year's
+    first Thursday)."""
+
+
+class Hour(_Unary):
+    """The hour of a timestamp's UTC time of day (floor-mod, so instants
+    before the epoch read their own day's time)."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class Minute(Hour):
+    pass
+
+
+class Second(Hour):
+    pass
+
+
+class LastDay(_Unary):
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+class AddMonths(_Binary):
+    """add_months(date, n): the day clamped to the target month's
+    length."""
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+class MonthsBetween(_Binary):
+    """months_between(end, start): whole months, plus the difference of
+    the days and seconds over a 31-day month unless both days are equal
+    or both are their month's last; rounded HALF_UP to 8 places
+    (``roundOff``)."""
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+class TruncDate(Expression):
+    """trunc(date, fmt): the first day of the date's year ("year", "yyyy",
+    "yy"), quarter ("quarter"), month ("month", "mon", "mm") or ISO week
+    ("week")."""
+
+    FORMATS = {"year": "year", "yyyy": "year", "yy": "year",
+               "quarter": "quarter", "month": "month", "mon": "month",
+               "mm": "month", "week": "week"}
+
+    def __init__(self, child: Expression, fmt: str):
+        if fmt.lower() not in self.FORMATS:
+            raise NotImplementedError(f"trunc format {fmt!r} is not one of "
+                                      f"{sorted(self.FORMATS)}")
+        self.child = child
+        self.fmt = fmt
+        self.children = (child,)
+
+    @property
+    def unit(self) -> str:
+        return self.FORMATS[self.fmt.lower()]
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+    def __repr__(self):
+        return f"trunc({self.child!r}, {self.fmt!r})"
+
+
+class NextDay(Expression):
+    """next_day(date, day): the first date after ``date`` that falls on
+    ``day`` ("MO", "MON" or "MONDAY", any case, as Spark takes them)."""
+
+    _DOW = {"su": 1, "mo": 2, "tu": 3, "we": 4, "th": 5, "fr": 6, "sa": 7}
+    _NAMES = ("sunday", "monday", "tuesday", "wednesday", "thursday",
+              "friday", "saturday")
+
+    def __init__(self, child: Expression, day: str):
+        d = day.lower()
+        if not any(d in (n[:2], n[:3], n) for n in self._NAMES):
+            raise ValueError(f"next_day: {day!r} is not a day of the week")
+        self.child = child
+        self.day = day
+        self.children = (child,)
+
+    @property
+    def target(self) -> int:
+        """The day's number, 1 = Sunday ... 7 = Saturday."""
+        return self._DOW[self.day.lower()[:2]]
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+    def __repr__(self):
+        return f"next_day({self.child!r}, {self.day!r})"
+
+
+class DateAdd(_Binary):
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+class DateSub(_Binary):
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+class DateDiff(_Binary):
+    """datediff(end, start) in days."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class UnixTimestampOf(_Unary):
+    """to_unix_timestamp(ts): seconds since the epoch (floor)."""
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+
+class FromUnixTime(_Unary):
+    """Seconds since the epoch -> a TIMESTAMP (the reference's: its string
+    formatting is a cast downstream)."""
+
+    @property
+    def dtype(self):
+        return T.TIMESTAMP
+
+
+class MakeDate(Expression):
+    """make_date(y, m, d); null for a date that does not exist or a year
+    outside 1..9999 (non-ANSI)."""
+
+    def __init__(self, year: Expression, month: Expression,
+                 day: Expression):
+        self.children = (year, month, day)
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+    @property
+    def nullable(self):
+        return True
+
+
+class MakeTimestamp(Expression):
+    """make_timestamp(y, m, d, h, min, sec), sec a number with fractional
+    microseconds (rounded half to even); null for invalid fields."""
+
+    def __init__(self, *children: Expression):
+        if len(children) != 6:
+            raise TypeError("make_timestamp takes year, month, day, hour, "
+                            "minute and second")
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        return T.TIMESTAMP
+
+    @property
+    def nullable(self):
+        return True
+
+
+class TimestampSeconds(_Unary):
+    """timestamp_seconds(n): n * SCALE microseconds (wrapping)."""
+
+    SCALE = 1_000_000
+
+    @property
+    def dtype(self):
+        return T.TIMESTAMP
+
+
+class TimestampMillis(TimestampSeconds):
+    SCALE = 1_000
+
+
+class TimestampMicros(TimestampSeconds):
+    SCALE = 1
+
+
+class UnixSeconds(_Unary):
+    """unix_seconds(ts): the microseconds floor-divided by DIV."""
+
+    DIV = 1_000_000
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+
+class UnixMillis(UnixSeconds):
+    DIV = 1_000
+
+
+class UnixMicros(UnixSeconds):
+    DIV = 1
+
+
+class UnixDate(_Unary):
+    """unix_date(d): days since the epoch."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class DateFromUnixDate(_Unary):
+    """date_from_unix_date(n)."""
+
+    @property
+    def dtype(self):
+        return T.DATE
+
+
+class FromUTCTimestamp(Expression):
+    """from_utc_timestamp(ts, tz): the UTC instant as the zone's wall time
+    (``utils/tzdb.py``'s transition table)."""
+
+    def __init__(self, child: Expression, tz: str):
+        self.child = child
+        self.tz = tz
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.TIMESTAMP
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.child!r}, {self.tz!r})"
+
+
+class ToUTCTimestamp(FromUTCTimestamp):
+    """to_utc_timestamp(ts, tz): the zone's wall time as a UTC instant; a
+    wall time in a DST overlap takes the earlier offset (java.time's
+    default), one in a gap the offset after it."""
+
+
+# functions of days: a TIMESTAMP input is cast to its DATE first
+DAY_FUNCTIONS = (_DatePart, LastDay, AddMonths, TruncDate, NextDay,
+                 DateAdd, DateSub, DateDiff, UnixDate)
+# functions of instants: a DATE input is cast to midnight first
+INSTANT_FUNCTIONS = (Hour, FromUTCTimestamp, UnixSeconds)
+DATETIME_FUNCTIONS = (Year, Month, DayOfMonth, DayOfWeek, DayOfYear,
+                      Quarter, WeekOfYear, Hour, Minute, Second, LastDay,
+                      AddMonths, MonthsBetween, TruncDate, NextDay, DateAdd,
+                      DateSub, DateDiff, UnixTimestampOf, FromUnixTime,
+                      MakeDate, MakeTimestamp, TimestampSeconds,
+                      TimestampMillis, TimestampMicros, UnixSeconds,
+                      UnixMillis, UnixMicros, UnixDate, DateFromUnixDate,
+                      FromUTCTimestamp, ToUTCTimestamp)
 
 
 # --- aggregate functions (consumed by exec/aggregate.py) ---
@@ -706,7 +1102,7 @@ SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              Subtract, Multiply, Divide, UnaryMinus, Abs, EqualTo, LessThan,
              LessThanOrEqual, GreaterThan, GreaterThanOrEqual, And, Or, Not,
              IsNull, IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like,
-             Sum, Count, Average, Min, Max)
+             IsNaN, Nanvl, Sum, Count, Average, Min, Max) + DATETIME_FUNCTIONS
 # expressions only the CPU engine evaluates
 CPU_ONLY = (CountDistinct,)
 
@@ -808,6 +1204,8 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         if isinstance(expr, Substring):
             return Substring(child, expr.pos, expr.length)
         return Like(child, expr.pattern, expr.escape)
+    if isinstance(expr, DATETIME_FUNCTIONS):
+        return _resolve_datetime(expr, kids)
     check_supported(expr)
     if any(_is_null_type(k) for k in kids):
         if isinstance(expr, _Binary):
@@ -818,15 +1216,53 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
     return type(expr)(*kids)
 
 
+def _resolve_datetime(expr: Expression, kids: List[Expression]
+                      ) -> Expression:
+    """A date-time function over resolved children: an untyped NULL takes
+    the type the function reads, a TIMESTAMP input of a function of days
+    becomes its DATE and a DATE input of a function of instants its
+    midnight (Spark's implicit casts)."""
+    if isinstance(expr, DAY_FUNCTIONS):
+        first = _typed(kids[0], T.DATE)
+        if first.dtype == T.TIMESTAMP:
+            first = Cast(first, T.DATE)
+        rest = [_typed(k, T.DATE if isinstance(expr, DateDiff) else T.INT)
+                for k in kids[1:]]
+        if isinstance(expr, DateDiff) and rest[0].dtype == T.TIMESTAMP:
+            rest[0] = Cast(rest[0], T.DATE)
+        kids = [first] + rest
+    elif isinstance(expr, INSTANT_FUNCTIONS):
+        first = _typed(kids[0], T.TIMESTAMP)
+        if first.dtype == T.DATE:
+            first = Cast(first, T.TIMESTAMP)
+        kids = [first]
+    elif isinstance(expr, MonthsBetween):
+        kids = [_typed(k, T.TIMESTAMP) for k in kids]
+    elif isinstance(expr, (UnixTimestampOf,)):
+        kids = [_typed(kids[0], T.TIMESTAMP)]
+    else:
+        kids = [_typed(k, T.DOUBLE if isinstance(expr, MakeTimestamp)
+                       and i == 5 else T.INT if not isinstance(
+                           expr, (FromUnixTime, TimestampSeconds)) else
+                       T.LONG) for i, k in enumerate(kids)]
+    if isinstance(expr, TruncDate):
+        return TruncDate(kids[0], expr.fmt)
+    if isinstance(expr, NextDay):
+        return NextDay(kids[0], expr.day)
+    if isinstance(expr, FromUTCTimestamp):
+        return type(expr)(kids[0], expr.tz)
+    return type(expr)(*kids)
+
+
 # type_support declarations of the device path (spark_rapids_tpu_torch.support)
 from spark_rapids_tpu_torch.support import (  # noqa: E402
-    DECIMAL, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
+    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
 
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
     _cls.type_support = ts(DEVICE_SCALAR)
-# the casts plan/overrides._device_cast names; check_expr refuses the rest
-Cast.type_support = ts(NUMERIC, DECIMAL)
+# the casts cast_supported names; check_expr refuses the rest
+Cast.type_support = ts("boolean", NUMERIC, DECIMAL, DATETIME)
 # Divide inherits; check_expr gates the decimal divide's rescale
 BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL)
 UnaryMinus.type_support = ts(NUMERIC, DECIMAL)
@@ -844,6 +1280,27 @@ In.type_support = ts(DEVICE_SCALAR, out="boolean")
 If.type_support = ts(DEVICE_SCALAR)
 CaseWhen.type_support = ts(DEVICE_SCALAR)
 Coalesce.type_support = ts(DEVICE_SCALAR)
+IsNaN.type_support = ts("fractional", out="boolean")
+Nanvl.type_support = ts("fractional")
+_DatePart.type_support = ts("date", out="integral")
+Hour.type_support = ts("timestamp", out="integral")
+LastDay.type_support = ts("date")
+AddMonths.type_support = ts("date integral", out="date")
+MonthsBetween.type_support = ts(DATETIME, out="fractional")
+TruncDate.type_support = ts("date")
+NextDay.type_support = ts("date")
+DateAdd.type_support = ts("date integral", out="date")
+DateSub.type_support = ts("date integral", out="date")
+DateDiff.type_support = ts("date", out="integral")
+UnixTimestampOf.type_support = ts(DATETIME, out="integral")
+FromUnixTime.type_support = ts("integral", out="timestamp")
+MakeDate.type_support = ts("integral", out="date")
+MakeTimestamp.type_support = ts("integral fractional", out="timestamp")
+TimestampSeconds.type_support = ts("integral", out="timestamp")
+UnixSeconds.type_support = ts("timestamp", out="integral")
+UnixDate.type_support = ts("date", out="integral")
+DateFromUnixDate.type_support = ts("integral", out="date")
+FromUTCTimestamp.type_support = ts("timestamp")
 Substring.type_support = ts("string")
 Like.type_support = ts("string", out="boolean")
 Sum.type_support = ts(NUMERIC, DECIMAL)

@@ -4,7 +4,9 @@ Operators the planner tags off the device run here, on host Arrow tables,
 with numpy: a scan, Project, Filter, Sort (with an optional limit), Limit
 and Union in this module, the aggregate and the join in ``cpu_agg.py``.
 Substring and LIKE work on Python strings (characters), which equals the
-device's bytes on ASCII text.
+device's bytes on ASCII text; the date-and-time functions are
+``plan/cpu_datetime.py``'s (numpy ``datetime64``), and casts follow the
+reference's ``cast_val`` as the device's do (``E.cast_supported``).
 Values are ``(values, valid)`` numpy pairs with the device's null rules:
 null slots hold zero (an empty string for strings), and every expression
 follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
@@ -36,12 +38,13 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
     _arrow_fixed_to_numpy, _decimal_array, batch_from_arrow, batch_to_arrow,
-    dictionary_encode_table)
+    dictionary_encode_table, fixed_array)
 from spark_rapids_tpu_torch.exec.base import DeviceExec
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs.eval import (
     bind_projection, decimal_unscaled, output_schema)
+from spark_rapids_tpu_torch.plan import cpu_datetime as CDT
 
 Pair = Tuple[np.ndarray, np.ndarray]
 
@@ -106,11 +109,8 @@ def values_to_arrow(vals: np.ndarray, valid: np.ndarray,
             np.packbits(valid, bitorder="little").tobytes()))
         return pa.Array.from_buffers(dt.arrow_type(), len(ints),
                                      [vbuf, pa.py_buffer(limbs.tobytes())])
-    if dt == T.DATE:
-        return pa.array(np.asarray(vals, np.int32), pa.int32(),
-                        mask=mask).cast(pa.date32())
-    return pa.array(np.asarray(vals).astype(_np_dtype(dt)), dt.arrow_type(),
-                    mask=mask)
+    return fixed_array(np.asarray(vals).astype(_np_dtype(dt), copy=False),
+                       dt, mask)
 
 
 def _np_dtype(dt: T.DataType) -> np.dtype:
@@ -194,6 +194,10 @@ def comparable(a: np.ndarray, lt: T.DataType, b: np.ndarray,
     if _is_float(lt) or _is_float(rt):
         return (_canonical_float(_as_double(a, lt)),
                 _canonical_float(_as_double(b, rt)), True)
+    if {lt, rt} == {T.DATE, T.TIMESTAMP}:  # a date as its midnight
+        return tuple(np.asarray(x, np.int64) * (86_400_000_000 if t == T.DATE
+                                                else 1)
+                     for x, t in ((a, lt), (b, rt))) + (False,)
     if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
         s = max(_scale(lt), _scale(rt))
         return _rescale(a, s - _scale(lt)), _rescale(b, s - _scale(rt)), False
@@ -302,43 +306,36 @@ def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
     return np.where(valid, out, np.zeros((), np_t)), valid
 
 
-def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
-    """Casts the CPU engine evaluates."""
-    if src == dst:
-        return True
-    if src in T.INTEGRAL_TYPES or isinstance(src, T.DecimalType):
-        return dst in (T.INT, T.LONG, T.DOUBLE) or isinstance(
-            dst, T.DecimalType)
-    if src == T.DOUBLE:  # double -> decimal is not in the port yet
-        return dst in T.INTEGRAL_TYPES
-    return False
-
-
 def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
           dst: T.DataType) -> Pair:
+    """The reference's ``cast_val`` on the host (see ``E.Cast``)."""
     if src == dst:
         return vals, valid
-    if not cast_supported(src, dst):
+    if not E.cast_supported(src, dst):
         raise NotImplementedError(f"cast {src} -> {dst} is not in the CPU "
                                   f"engine yet")
-    if dst == T.DOUBLE:
-        return np.where(valid, _as_double(vals, src), 0.0), valid
+    vals = np.asarray(vals)
+    if dst == T.BOOLEAN:
+        return vals != 0, valid
+    if src == T.BOOLEAN and not isinstance(dst, T.DecimalType):
+        return vals.astype(_np_dtype(dst)), valid
+    if dst == T.TIMESTAMP:
+        scale = 86_400_000_000 if src == T.DATE else 1_000_000
+        with np.errstate(over="ignore"):
+            return vals.astype(np.int64) * np.int64(scale), valid
+    if src == T.TIMESTAMP and dst in (T.DATE, T.LONG):
+        unit = 86_400_000_000 if dst == T.DATE else 1_000_000
+        return np.floor_divide(vals.astype(np.int64), unit).astype(
+            _np_dtype(dst)), valid
+    if dst in T.FRACTIONAL_TYPES:
+        # a decimal through a double, anything else rounded once
+        out = (_as_double(vals, src) if isinstance(src, T.DecimalType)
+               else vals).astype(_np_dtype(dst))
+        return np.where(valid, out, 0.0).astype(_np_dtype(dst)), valid
     if isinstance(dst, T.DecimalType):
-        k = dst.scale - _scale(src)
-        if k >= 0:
-            out = _rescale(vals, k)
-        else:
-            out = np.empty(len(vals), dtype=object)
-            out[:] = [_half_up_div(int(v), 10 ** -k) for v in vals]
-        if not dst.is_wide:
-            bound = 10 ** dst.precision
-            ok = np.array([abs(int(v)) < bound for v in out], np.bool_)
-            out = np.where(ok, out, 0).astype(np.int64)
-            return out, valid & ok
-        out = out.astype(object)
-        return _decimal_overflow(out, valid, dst)
+        return _cast_to_decimal(vals, valid, src, dst)
     np_t = _np_dtype(dst)
-    if src == T.DOUBLE:
+    if src in T.FRACTIONAL_TYPES:
         return _double_to_integral(vals, np_t), valid
     if isinstance(src, T.DecimalType):
         # whole part, truncated toward zero (non-ANSI wraps past the type;
@@ -352,7 +349,46 @@ def _cast(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
             valid = valid & fits
         return (np.array([w & _MASK64 for w in whole], np.uint64)
                 .view(np.int64).astype(np_t), valid)
+    # integers, a date's days or a timestamp's microseconds: wrap
     return vals.astype(np_t), valid
+
+
+def _cast_to_decimal(vals: np.ndarray, valid: np.ndarray, src: T.DataType,
+                     dst: T.DecimalType) -> Pair:
+    """Into a decimal: exact rescaling of decimals and integers (HALF_UP
+    when the scale drops), everything else through a double HALF_UP at
+    the scale (NaN, infinities and magnitudes past the type's bound are
+    null; 2^63 for DECIMAL64 and 2^127 for DECIMAL128, as the device's);
+    null past the precision. A boolean is its 0 or 1 unscaled, as the
+    reference's."""
+    if isinstance(src, T.DecimalType) or src in T.INTEGRAL_TYPES \
+            or src == T.BOOLEAN:
+        if src == T.BOOLEAN:
+            k = 0
+            vals = vals.astype(np.int64)
+        else:
+            k = dst.scale - _scale(src)
+        if k >= 0:
+            out = _rescale(vals.astype(np.int64) if vals.dtype != object
+                           else vals, k)
+        else:
+            out = np.empty(len(vals), dtype=object)
+            out[:] = [_half_up_div(int(v), 10 ** -k) for v in vals]
+    else:
+        with np.errstate(invalid="ignore", over="ignore"):
+            shifted = np.asarray(vals, np.float64) * (10.0 ** dst.scale)
+            limit = 2.0 ** (127 if dst.is_wide else 63)
+            bad = ~np.isfinite(shifted) | (np.abs(shifted) >= limit)
+            mag = np.floor(np.abs(np.where(bad, 0.0, shifted)) + 0.5)
+        out = np.empty(len(vals), dtype=object)
+        out[:] = [int(x) if s >= 0 else -int(x)
+                  for x, s in zip(mag.tolist(), shifted.tolist())]
+        valid = valid & ~bad
+    if not dst.is_wide:
+        bound = 10 ** min(dst.precision, 18)
+        ok = np.array([abs(int(v)) < bound for v in out], np.bool_)
+        return np.where(ok, out, 0).astype(np.int64), valid & ok
+    return _decimal_overflow(out.astype(object), valid, dst)
 
 
 def _double_to_integral(d: np.ndarray, np_t: np.dtype) -> np.ndarray:
@@ -381,6 +417,12 @@ def expr_key(e: E.Expression):
         to = (e.pos, e.length)
     elif isinstance(e, E.Like):
         to = (e.pattern, e.escape)
+    elif isinstance(e, E.TruncDate):
+        to = e.unit
+    elif isinstance(e, E.NextDay):
+        to = e.target
+    elif isinstance(e, E.FromUTCTimestamp):
+        to = e.tz
     return (type(e).__name__, to, tuple(expr_key(c) for c in e.children))
 
 
@@ -458,6 +500,16 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return hit, hit | all_valid
     if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
         return _conditional(expr, ev)
+    if isinstance(expr, E.IsNaN):
+        v, m = ev(expr.child)
+        return np.isnan(np.asarray(v, np.float64)) & m, np.ones(n, np.bool_)
+    if isinstance(expr, E.Nanvl):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        take_b = np.isnan(a)
+        return np.where(take_b, b, a), np.where(take_b, bm, am)
+    if isinstance(expr, E.DATETIME_FUNCTIONS):
+        return CDT.eval_datetime(expr, ev)
     if isinstance(expr, E.Substring):
         v, m = ev(expr.child)
         return _per_value(v, lambda x: np.array(
@@ -538,7 +590,7 @@ def cpu_unsupported(expr: E.Expression, schema: T.Schema) -> List[str]:
                        f"engine yet")
             return
         bound = E.resolve(e, schema)
-        if isinstance(bound, E.Cast) and not cast_supported(
+        if isinstance(bound, E.Cast) and not E.cast_supported(
                 bound.child.dtype, bound.to):
             out.append(f"cast {bound.child.dtype} -> {bound.to} is not in "
                        f"the CPU engine yet")
@@ -637,12 +689,14 @@ class CpuProjectExec(CpuExec):
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
         for t in self.child_tables(self.children[0], partition):
             arrays = []
+            cache: dict = {}  # sub-expressions shared by the columns
             for e, f in zip(self._bound, self._schema):
                 inner = e.child if isinstance(e, E.Alias) else e
                 if isinstance(inner, E.ColumnRef):
                     arrays.append(t.column(inner.index))
                 else:
-                    arrays.append(values_to_arrow(*cpu_eval(e, t), f.dtype))
+                    arrays.append(values_to_arrow(*cpu_eval(e, t, cache),
+                                                  f.dtype))
             yield pa.Table.from_arrays(arrays, schema=self._schema.to_arrow())
 
 
@@ -679,17 +733,38 @@ def order_ranks(vals: np.ndarray, valid: np.ndarray,
     return ranks, len(uniq)
 
 
+def exact_order_key(vals: np.ndarray, valid: np.ndarray,
+                    dt: T.DataType) -> Optional[np.ndarray]:
+    """int64 values whose order is the type's, nulls 0, for the types
+    whose values are integers (the integers, booleans, dates, timestamps
+    and DECIMAL64's unscaled values); None for the others, which rank."""
+    if not (dt in T.INTEGRAL_TYPES + (T.BOOLEAN, T.DATE, T.TIMESTAMP)
+            or (isinstance(dt, T.DecimalType) and not dt.is_wide)):
+        return None
+    return np.where(valid, np.asarray(vals).astype(np.int64), 0)
+
+
 def sort_permutation(table: pa.Table, keys: Sequence[Tuple[E.Expression,
                                                            bool,
                                                            Optional[bool]]]
                      ) -> np.ndarray:
     """Stable ORDER BY permutation over bound (expr, ascending,
-    nulls_first) keys, Spark's default null order where None."""
+    nulls_first) keys, Spark's default null order where None: chained
+    stable sorts, least significant first; an integer key sorts on its
+    values and then on its null flag, any other on its dense ranks."""
     perm = np.arange(table.num_rows)
     for expr, ascending, nulls_first in reversed(list(keys)):
         if nulls_first is None:
             nulls_first = ascending
         vals, valid = cpu_eval(expr, table)
+        key = exact_order_key(vals, valid, expr.dtype)
+        if key is not None:
+            if not ascending:
+                key = ~key  # order-reversing, and no overflow
+            perm = perm[np.argsort(key[perm], kind="stable")]
+            late = (valid if nulls_first else ~valid).astype(np.int8)
+            perm = perm[np.argsort(late[perm], kind="stable")]
+            continue
         ranks, n_distinct = order_ranks(vals, valid, expr.dtype)
         if not ascending:
             ranks = n_distinct - 1 - ranks

@@ -35,8 +35,8 @@ from spark_rapids_tpu_torch.exec.window import bind_function, check_window
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan.cpu import (
-    CpuExec, _canonical_float, _half_up_div, cpu_eval, order_ranks,
-    sort_permutation, values_to_arrow)
+    CpuExec, _canonical_float, _half_up_div, cpu_eval, exact_order_key,
+    order_ranks, sort_permutation, values_to_arrow)
 
 
 class CpuWindowExec(CpuExec):
@@ -135,9 +135,10 @@ def _run_starts(t: pa.Table, keys: Sequence[E.Expression],
         flags[0] = True
     for k in keys:
         vals, valid = cpu_eval(k, t)
-        ranks, _ = order_ranks(vals, valid, k.dtype)
-        key = np.where(valid, ranks, -1)
-        flags[1:] |= key[1:] != key[:-1]
+        key = exact_order_key(vals, valid, k.dtype)
+        if key is None:
+            key = order_ranks(vals, valid, k.dtype)[0]
+        flags[1:] |= (key[1:] != key[:-1]) | (valid[1:] != valid[:-1])
     return flags
 
 
@@ -251,7 +252,8 @@ def _frame_agg(f, frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
             else lo_c
         return vals[at], ok
     exact = (isinstance(in_t, T.DecimalType)
-             or in_t in T.INTEGRAL_TYPES + (T.DATE, T.BOOLEAN))
+             or in_t in T.INTEGRAL_TYPES + (T.DATE, T.TIMESTAMP,
+                                            T.BOOLEAN))
     if isinstance(f, (E.Min, E.Max)):
         from_first = bool((np.where(empty, g.seg_first, lo)
                            == g.seg_first).all())

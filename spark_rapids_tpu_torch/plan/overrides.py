@@ -179,19 +179,6 @@ WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
 _WIDE_WINDOW_OK = (E.Sum, E.Average, E.Count, E.First, E.Last, W.Lead)
 
 
-def _device_cast(src: T.DataType, dst: T.DataType) -> bool:
-    """Casts ``exprs/eval.py`` evaluates on the device."""
-    exact = src in T.INTEGRAL_TYPES or isinstance(src, T.DecimalType)
-    if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
-        # ``_cast_wide``: integers and decimals to and from DECIMAL128
-        return exact and (isinstance(dst, T.DecimalType)
-                          or dst in T.INTEGRAL_TYPES or dst == T.DOUBLE)
-    numeric = exact or src in T.FRACTIONAL_TYPES
-    return (src == dst or (numeric and dst in T.INTEGRAL_TYPES)
-            or (dst == T.DOUBLE and src not in T.FRACTIONAL_TYPES
-                and numeric) or T.is_exact_decimal_widening(src, dst))
-
-
 def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
     """Reasons this expression cannot run on the device (empty: it can)."""
     reasons: List[str] = []
@@ -216,7 +203,7 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
                 T.is_wide_decimal(c.dtype) for c in bound.children))
                 and not isinstance(bound, WIDE_OK)):
             reasons.append(f"{name} not on device for decimal128")
-        if isinstance(bound, E.Cast) and not _device_cast(
+        if isinstance(bound, E.Cast) and not E.cast_supported(
                 bound.child.dtype, bound.to):
             reasons.append(f"cast {bound.child.dtype} -> {bound.to} not "
                            f"on device")

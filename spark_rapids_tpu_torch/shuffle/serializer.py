@@ -28,18 +28,20 @@ import numpy as np
 import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import timestamp_micros
 
 _MAGIC = 0x54505553
 
-# the reference's type codes (float, timestamp and binary are codes of
-# types the port does not have)
+# the reference's type codes (binary is the code of a type the port does
+# not have yet)
 _TYPE_CODES = {
     "boolean": 0, "tinyint": 1, "smallint": 2, "int": 3, "bigint": 4,
     "float": 5, "double": 6, "date": 7, "timestamp": 8, "string": 9,
     "binary": 10, "decimal128": 11,
 }
-_NUMPY = {T.INT: np.int32, T.LONG: np.int64, T.DOUBLE: np.float64,
-          T.DATE: np.int32}
+_NUMPY = {T.BYTE: np.int8, T.SHORT: np.int16, T.INT: np.int32,
+          T.LONG: np.int64, T.FLOAT: np.float32, T.DOUBLE: np.float64,
+          T.DATE: np.int32, T.TIMESTAMP: np.int64}
 CODECS = {"none": 0, "zlib": 1, "lz4": 2, "zstd": 3}
 _CODEC_NAMES = {v: k for k, v in CODECS.items()}
 
@@ -93,6 +95,8 @@ def serialize_table(table: pa.Table, codec: str = "none") -> bytes:
             data = _decimal_to_bytes(arr, dt)
         elif dt == T.DATE:
             data = np.asarray(arr.fill_null(0).cast(pa.int32())).tobytes()
+        elif dt == T.TIMESTAMP:  # any unit, as microseconds
+            data = timestamp_micros(arr).tobytes()
         elif dt.fixed_width:
             data = np.asarray(arr.fill_null(0)).astype(
                 _NUMPY[dt], copy=False).tobytes()
@@ -181,8 +185,8 @@ def deserialize_table(buf: bytes, schema: T.Schema,
         else:
             arr = pa.array(np.frombuffer(data, _NUMPY[dt]),
                            mask=_null_mask(validity, n_rows))
-            if dt == T.DATE:
-                arr = arr.cast(pa.date32())
+            if dt in (T.DATE, T.TIMESTAMP):
+                arr = arr.cast(dt.arrow_type())
         arrays.append(arr)
     return pa.table(arrays, schema=schema.to_arrow()), end
 

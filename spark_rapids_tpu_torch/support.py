@@ -12,13 +12,14 @@ The vocabulary is the reference's type classes that the port has:
 
 =============  ========================================================
 ``boolean``    BooleanType
-``integral``   IntegerType, LongType
-``fractional`` DoubleType
+``integral``   ByteType, ShortType, IntegerType, LongType
+``fractional`` FloatType, DoubleType
 ``decimal64``  DecimalType with precision <= 18 (one int64 on the device)
 ``decimal128`` DecimalType with precision > 18 (two int64 limbs a row on
                the device; ``plan/overrides.py`` also holds every
                expression that touches one to ``WIDE_OK``)
 ``date``       DateType
+``timestamp``  TimestampType
 ``string``     StringType
 =============  ========================================================
 """
@@ -30,30 +31,35 @@ from typing import FrozenSet, Optional
 from spark_rapids_tpu_torch import types as T
 
 TYPE_CLASSES = ("boolean", "integral", "fractional", "decimal64",
-                "decimal128", "date", "string")
+                "decimal128", "date", "timestamp", "string")
 
 # named groups of the port's device
 NUMERIC = "integral fractional"
 DECIMAL = "decimal64 decimal128"
 DECIMAL64 = "decimal64"
 DECIMAL128 = "decimal128"
-ORDERABLE = "boolean integral fractional decimal64 decimal128 date"
+DATETIME = "date timestamp"
+ORDERABLE = ("boolean integral fractional decimal64 decimal128 date "
+             "timestamp")
 DEVICE_SCALAR = ("boolean integral fractional decimal64 decimal128 date "
-                 "string")
+                 "timestamp string")
 
 
 def classify(dtype: T.DataType) -> str:
     """Map a concrete DataType to its support-vocabulary class."""
     if isinstance(dtype, T.BooleanType):
         return "boolean"
-    if isinstance(dtype, (T.IntegerType, T.LongType)):
+    if isinstance(dtype, (T.ByteType, T.ShortType, T.IntegerType,
+                          T.LongType)):
         return "integral"
-    if isinstance(dtype, T.DoubleType):
+    if isinstance(dtype, (T.FloatType, T.DoubleType)):
         return "fractional"
     if isinstance(dtype, T.DecimalType):
         return "decimal128" if dtype.is_wide else "decimal64"
     if isinstance(dtype, T.DateType):
         return "date"
+    if isinstance(dtype, T.TimestampType):
+        return "timestamp"
     if isinstance(dtype, T.StringType):
         return "string"
     raise TypeError(f"unclassifiable dtype {dtype!r}")

@@ -1,8 +1,10 @@
 """Spark SQL data types the port carries, mapped onto torch dtypes.
 
-Counterpart of ``spark_rapids_tpu/types.py`` for the types the port's
-TPC-H and TPC-DS queries use: BOOLEAN, INT, LONG, DOUBLE, DATE (int32 days
-since the epoch), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
+Counterpart of ``spark_rapids_tpu/types.py`` for its scalar types: BOOLEAN,
+BYTE, SHORT, INT and LONG (int8/16/32/64, Java's wraparound), FLOAT and
+DOUBLE (float32/float64), DATE (int32 days since the epoch), TIMESTAMP
+(int64 microseconds since the epoch, UTC; any Arrow timestamp unit or zone
+reads as it), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
 unscaled value), DECIMAL128 (precision 19-38, one ``(n, 2)`` int64
 tensor ``[lo, hi]`` a column: two's complement limbs, Arrow's own 16-byte
 little-endian layout; arithmetic in ``exec/int128.py``) and STRING
@@ -49,6 +51,22 @@ class BooleanType(DataType):
         return pa.bool_()
 
 
+class ByteType(DataType):
+    name = "tinyint"
+    torch_dtype = torch.int8
+
+    def arrow_type(self):
+        return pa.int8()
+
+
+class ShortType(DataType):
+    name = "smallint"
+    torch_dtype = torch.int16
+
+    def arrow_type(self):
+        return pa.int16()
+
+
 class IntegerType(DataType):
     name = "int"
     torch_dtype = torch.int32
@@ -63,6 +81,14 @@ class LongType(DataType):
 
     def arrow_type(self):
         return pa.int64()
+
+
+class FloatType(DataType):
+    name = "float"
+    torch_dtype = torch.float32
+
+    def arrow_type(self):
+        return pa.float32()
 
 
 class DoubleType(DataType):
@@ -81,6 +107,17 @@ class DateType(DataType):
 
     def arrow_type(self):
         return pa.date32()
+
+
+class TimestampType(DataType):
+    """Microseconds since 1970-01-01 00:00 UTC, stored int64 (Spark's
+    TimestampType)."""
+
+    name = "timestamp"
+    torch_dtype = torch.int64
+
+    def arrow_type(self):
+        return pa.timestamp("us", tz="UTC")
 
 
 class DecimalType(DataType):
@@ -160,15 +197,17 @@ def is_wide_decimal(dt: DataType) -> bool:
 
 
 def is_exact_decimal_widening(src: DataType, dst: DataType) -> bool:
-    """Whether casting ``src`` to the DECIMAL64 ``dst`` only rescales: an
-    int (10 digits) or a decimal whose integer digits and scale both fit
-    ``dst``'s, so no value rounds or overflows."""
+    """Whether casting ``src`` to the DECIMAL64 ``dst`` only rescales: a
+    tinyint, smallint or int (3, 5 or 10 digits) or a decimal whose
+    integer digits and scale both fit ``dst``'s, so no value rounds or
+    overflows."""
     if not isinstance(dst, DecimalType) or dst.is_wide:
         return False
     if isinstance(src, DecimalType):
         return (dst.scale >= src.scale and dst.precision - dst.scale
                 >= src.precision - src.scale)
-    return isinstance(src, IntegerType) and dst.precision - dst.scale >= 10
+    digits = {BYTE: 3, SHORT: 5, INT: 10}.get(src)
+    return digits is not None and dst.precision - dst.scale >= digits
 
 
 def check_device_type(dt: DataType) -> None:
@@ -182,15 +221,19 @@ def check_device_type(dt: DataType) -> None:
 
 
 BOOLEAN = BooleanType()
+BYTE = ByteType()
+SHORT = ShortType()
 INT = IntegerType()
 LONG = LongType()
+FLOAT = FloatType()
 DOUBLE = DoubleType()
 DATE = DateType()
+TIMESTAMP = TimestampType()
 STRING = StringType()
 NULL = NullType()
 
-INTEGRAL_TYPES = (INT, LONG)
-FRACTIONAL_TYPES = (DOUBLE,)
+INTEGRAL_TYPES = (BYTE, SHORT, INT, LONG)
+FRACTIONAL_TYPES = (FLOAT, DOUBLE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,14 +296,22 @@ def from_arrow_type(t: pa.DataType) -> DataType:
         return from_arrow_type(t.value_type)
     if pa.types.is_boolean(t):
         return BOOLEAN
+    if pa.types.is_int8(t):
+        return BYTE
+    if pa.types.is_int16(t):
+        return SHORT
     if pa.types.is_int32(t):
         return INT
     if pa.types.is_int64(t):
         return LONG
+    if pa.types.is_float32(t):
+        return FLOAT
     if pa.types.is_float64(t):
         return DOUBLE
     if pa.types.is_date32(t):
         return DATE
+    if pa.types.is_timestamp(t):
+        return TIMESTAMP
     if pa.types.is_decimal(t):
         return DecimalType(t.precision, t.scale)
     if pa.types.is_string(t) or pa.types.is_large_string(t):

@@ -28,7 +28,11 @@ queries with 4 source splits on the card against one partition on the
 CPU; adaptive reads and reuse: a skew-split shuffled join through the
 probe kernel, prefetch boundaries and the exchange's read-ahead
 delivering card batches in map order (on a side stream too), and a
-reused exchange replayed on the card, each against the CPU.
+reused exchange replayed on the card, each against the CPU; the scalar
+types: ingest and Arrow out of TINYINT, SMALLINT, FLOAT and TIMESTAMP,
+a typed spill round trip, int8/int16 scans launching the kernel, a
+BYTE/SHORT bounded ROWS Min/Max window and the typed sales' T4 through
+the planner.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -306,7 +310,7 @@ def test_segscan_kernel_rejects_what_it_does_not_take():
     _card()
     f = torch.zeros(8, dtype=torch.bool, device="cuda")
     with pytest.raises(TypeError):
-        PK.segmented_scan_kernel(torch.zeros(8, dtype=torch.int16,
+        PK.segmented_scan_kernel(torch.zeros(8, dtype=torch.float16,
                                              device="cuda"), f, "add")
     with pytest.raises(ValueError):
         PK.segmented_scan_kernel(torch.zeros(16, device="cuda")[::2], f,
@@ -1380,3 +1384,151 @@ def test_streaming_window_carries_across_card_batch_edges(kind):
                 .to_pylist()]
 
     assert run(cuts, True) == run([t], False)
+
+
+def _typed_table(n=4000, seed=21):
+    rng = np.random.default_rng(seed)
+    f = rng.normal(0, 100, n).astype(np.float32)
+    f[:4] = [np.nan, -0.0, np.inf, 0.0]
+    return pa.table({
+        "b": pa.array(rng.integers(-128, 128, n).astype(np.int8),
+                      mask=rng.random(n) < 0.1),
+        "h": pa.array(rng.integers(-2**15, 2**15, n).astype(np.int16),
+                      mask=rng.random(n) < 0.1),
+        "f": pa.array(f, mask=rng.random(n) < 0.1),
+        "t": pa.array(rng.integers(-4 * 10**15, 4 * 10**15, n), pa.int64(),
+                      mask=rng.random(n) < 0.1).cast(
+            pa.timestamp("us", tz="UTC")),
+        "tm": pa.array(rng.integers(-10**12, 10**12, n), pa.int64()).cast(
+            pa.timestamp("ms"))})
+
+
+def _same_storage(a: pa.Table, b: pa.Table):
+    for name in a.column_names:
+        x, y = a[name].combine_chunks(), b[name].combine_chunks()
+        assert x.type == y.type, name
+        assert x.is_valid().equals(y.is_valid()), name
+        if pa.types.is_floating(x.type):
+            vx = np.asarray(x.fill_null(0)).view(np.int32)
+            vy = np.asarray(y.fill_null(0)).view(np.int32)
+        else:
+            vx = np.asarray(x.cast(pa.int64()).fill_null(0))
+            vy = np.asarray(y.cast(pa.int64()).fill_null(0))
+        assert np.array_equal(vx, vy), name
+
+
+def test_typed_ingest_and_arrow_out_on_card():
+    """int8, int16, float32 and timestamps (us and ms) onto the card and
+    back: each column's own dtype on the card, nulls zeroed, the same
+    types and values out (the ms column as microseconds)."""
+    _card()
+    from spark_rapids_tpu_torch import types as PT
+
+    t = _typed_table()
+    b = PB.batch_from_arrow(t, "cuda")
+    assert [c.data.dtype for c in b.columns] == [
+        torch.int8, torch.int16, torch.float32, torch.int64, torch.int64]
+    assert all(c.data.is_cuda for c in b.columns)
+    for c in b.columns:
+        assert not bool(c.data[~c.validity].bool().any())
+    out = PB.batch_to_arrow(b, PT.Schema.from_arrow(t.schema))
+    exp = t.set_column(4, "tm", t["tm"].cast(pa.timestamp("us", tz="UTC")))
+    _same_storage(out, exp)
+
+
+def test_typed_spill_round_trip_on_card(tmp_path):
+    """A typed card batch spilled to host and disk comes back bit-equal,
+    its handle holding each type's element size."""
+    _card()
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import spill as MS
+
+    t = _typed_table(5000, 22)
+    b = PB.batch_from_arrow(t, "cuda")
+    pool = MP.HbmPool(1 << 30)
+    fw = MS.SpillFramework(pool, host_limit_bytes=1,
+                           spill_dir=str(tmp_path), chunk_bytes=1 << 16)
+    h = MS.SpillableBatch(b, fw)
+    assert h.nbytes == 5000 * (1 + 2 + 4 + 8 + 8 + 5)
+    assert fw.spill_device_bytes(1) == h.nbytes and h.state == "DISK"
+    with h as got:
+        for ca, cb in zip(b.columns, got.columns):
+            assert cb.data.is_cuda and cb.data.dtype == ca.data.dtype
+            assert torch.equal(ca.data.view(torch.uint8) if
+                               ca.data.dtype == torch.float32 else ca.data,
+                               cb.data.view(torch.uint8) if
+                               cb.data.dtype == torch.float32 else cb.data)
+            assert torch.equal(ca.validity, cb.validity)
+    h.close()
+    assert pool.used == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("op", ["add", "min", "max"])
+def test_narrow_int_scan_launches_the_kernel(dtype, op):
+    """An int8 or int16 scan on the card launches the kernel (widened to
+    int32 and narrowed back) and equals the plain version, the add
+    wrapping as the narrow type does."""
+    _card()
+    rng = np.random.default_rng(5)
+    n = 3 * 4096 + 17
+    info = torch.iinfo(dtype)
+    v = torch.from_numpy(rng.integers(info.min, info.max + 1, n)).to(
+        dtype).cuda()
+    f = torch.from_numpy(rng.random(n) < 0.01).cuda()
+    before = PK.KERNEL_LAUNCHES["segscan"]
+    k = PK.segmented_scan_kernel(v, f, op)
+    torch.cuda.synchronize()
+    assert PK.KERNEL_LAUNCHES["segscan"] == before + 1
+    assert k.dtype == dtype
+    assert torch.equal(k.cpu(), PK.segmented_scan(v.cpu(), f.cpu(), op))
+
+
+@pytest.mark.parametrize("col", ["b", "h"])
+def test_narrow_bounded_rows_minmax_on_card_launches_the_kernel(col):
+    """A BYTE/SHORT bounded ROWS Min/Max window on the card: its
+    prefix/suffix scans launch the kernel, rows equal the CPU."""
+    _card()
+    from spark_rapids_tpu_torch.exec.sort import SortOrder
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.exprs import window as PW
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    rng = np.random.default_rng(6)
+    t = _typed_table(20000, 23).append_column(
+        "g", pa.array(rng.integers(0, 7, 20000)))
+    t = t.append_column("o", pa.array(np.arange(20000)))
+    sp = PW.WindowSpec((PE.col("g"),), (SortOrder(PE.col("o")),),
+                       PW.WindowFrame("rows", -10, 3))
+    exprs = [PW.WindowExpression(PE.Min(PE.col(col)), sp).alias("mn"),
+             PW.WindowExpression(PE.Max(PE.col(col)), sp).alias("mx")]
+
+    def run(device):
+        return from_arrow(t, device=device).with_window(*exprs).sort(
+            SortOrder(PE.col("o"))).select("o", "mn", "mx").to_arrow()
+
+    before = PK.KERNEL_LAUNCHES["segscan"]
+    got = run("cuda")
+    assert PK.KERNEL_LAUNCHES["segscan"] > before
+    assert got.equals(run("cpu"))
+
+
+def test_typed_t4_through_the_planner_on_card():
+    """T4 (a one-hour RANGE window over a TIMESTAMP order key, a FLOAT
+    Sum and Count, ROWS 10 PRECEDING Min/Max of the int8 quantity) on the
+    card through the planner: the scans launch, rows equal the CPU and
+    the CPU engine."""
+    _card()
+    from spark_rapids_tpu_torch.bench import typed_sales as TS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = TS.tables_for(0.05)
+    before = PK.KERNEL_LAUNCHES["segscan"]
+    df = TS.t4(TS.df_tables(t, device="cuda"))
+    assert "!" not in df.explain()
+    got = df.to_arrow().to_pylist()
+    assert PK.KERNEL_LAUNCHES["segscan"] > before
+    for conf in (None, {"spark.rapids.gpu.sql.enabled": "false"}):
+        exp = TS.t4(TS.df_tables(t, RapidsConf(conf) if conf else None,
+                                 device="cpu")).to_arrow().to_pylist()
+        assert TS.check_rows("T4", got, exp) == (True, "")

@@ -372,3 +372,41 @@ def test_the_memory_modules_catch_only_pool_ooms():
             assert "OutOfMemoryError" not in ast.unparse(h), (f, h.lineno)
             seen.add(name)
     assert {"RetryOOM", "SplitAndRetryOOM"} <= seen
+
+
+def test_the_scalar_types_and_datetime_modules_are_covered():
+    """The utils package (the zone tables), the date-time modules and the
+    four scalar types are walked by the import checks above, and every
+    date-time class of the reference is in the port, with both engines'
+    evaluation."""
+    import importlib
+
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exprs import expr as PE
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.utils.tzdb",
+             ("utc_transitions", "local_transitions")),
+            ("spark_rapids_tpu_torch.exprs.datetime",
+             ("eval_datetime", "civil_from_days", "days_from_civil",
+              "iso_week")),
+            ("spark_rapids_tpu_torch.plan.cpu_datetime",
+             ("eval_datetime",)),
+            ("spark_rapids_tpu_torch.exprs.expr",
+             ("IsNaN", "Nanvl", "cast_supported", "DATETIME_FUNCTIONS")),
+            ("spark_rapids_tpu_torch.types",
+             ("BYTE", "SHORT", "FLOAT", "TIMESTAMP"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    for path in ("utils/tzdb.py", "exprs/datetime.py",
+                 "plan/cpu_datetime.py"):
+        assert os.path.exists(os.path.join(PKG, path)), path
+    assert PT.INTEGRAL_TYPES == (PT.BYTE, PT.SHORT, PT.INT, PT.LONG)
+    assert PT.FRACTIONAL_TYPES == (PT.FLOAT, PT.DOUBLE)
+    names = {c.__name__ for c in PE.DATETIME_FUNCTIONS}
+    assert len(names) == 32
+    for c in PE.DATETIME_FUNCTIONS + (PE.IsNaN, PE.Nanvl):
+        assert c in PE.SUPPORTED and c.type_support is not None, c

@@ -361,13 +361,16 @@ def test_conditional_typing_follows_the_first_value_branch():
     assert PE.Sum(PE.resolve(PE.If(col("b"), lit(1), lit(0)),
                              schema)).dtype == PT.LONG
     # a non-literal branch of another type becomes a Cast, which tagging
-    # holds to the device's casts
+    # holds to the device's casts: double -> decimal is one of them, so
+    # the projection runs on the device, as the CPU engine computes it
     r = PE.resolve(PE.If(col("b"), col("d"), col("f")), schema)
     assert isinstance(r.children[2], PE.Cast)
-    df = port_from_arrow(_cond_table(), device="cpu")
-    plan = df.select(PE.Alias(PE.If(col("b"), col("d"), col("f")), "x")
-                     ).explain()
-    assert "! Project" in plan and "cast double" in plan
+    sel = [PE.Alias(PE.If(col("b"), col("d"), col("f")), "x")]
+    df = port_from_arrow(_cond_table(), device="cpu").select(*sel)
+    assert "!" not in df.explain()
+    cpu = port_from_arrow(_cond_table(), PC.RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+    assert df.collect() == cpu.select(*sel).collect()
 
 
 # ---------------------------------------------------------------------------
