@@ -194,9 +194,10 @@ Phases, in order; any failure exits non-zero before the last line:
    equal to the defaults' run (the query's check: ORDER BY order, rel
    1e-6 on doubles), with its probe launches on and off; q2, q75 and
    Q3's warm walls (median of 3, the checked run with them off the first
-   of the three) with them off beside the defaults', and Q3's with
-   prefetch alone off (the read-ahead isolated; Q5's off walls were cut
-   with phase 16). Then q2, q4, q11,
+   of the three) with them off beside the defaults', and Q3's checked
+   run with prefetch alone off (the read-ahead isolated; Q5's off walls
+   were cut with phase 16, Q3's prefetch-off repeats with phase 17). Then
+   q2, q4, q11,
    q74 and q75 with 4 source splits, reuse on against off:
    equal rows, with values; q2 and q75 must reuse an exchange (the
    reference's plans of q4, q11 and q74 reuse broadcasts only, and so
@@ -225,7 +226,7 @@ Phases, in order; any failure exits non-zero before the last line:
    with streaming on and off, the columns equal to each other's and the
    CPU engine's; runs, pre-merges, merged and streamed batches, and warm
    walls both ways (one warm run each, not the checked one).
-   (b) Phase 13's Q3, Q5 and q67 (their frames, already uploaded) and
+   (b) Phase 13's Q3 and q67 (their frames, already uploaded) and
    the unpartitioned running window (over the date, ticket, item and
    quantity columns, in 2^20-row merged batches), each once uncapped on a fresh pool
    (its largest handle, the most bytes it pinned at once, its peak
@@ -245,7 +246,7 @@ Phases, in order; any failure exits non-zero before the last line:
    more holders than permits (the semaphore's own high-water mark and a
    sampler), at least one wait at 1 permit. Both kernels must launch in
    the phase, every call of its counted runs held against the plain
-   version (``memory_calls_checked``). After every query of phases 1-16
+   version (``memory_calls_checked``). After every query of phases 1-17
    (``MemoryChecks``) the pool's used bytes are 0, ``cleaner.sweep()``
    finds nothing and the spill directories hold no file;
 16. typed sales (``--out``'s ``typed_sales`` key): the SF ``--sf-ds``
@@ -263,7 +264,24 @@ Phases, in order; any failure exits non-zero before the last line:
    partition. Each query's launches, probe and scan counts and warm wall
    (median of 3); every probe and scan call of the counted runs held
    against the plain version (``typed_calls_checked``), the phase's
-   largest probe timed (``typed_largest``).
+   largest probe timed (``typed_largest``);
+17. the statistics pass (``--out``'s ``stat_sales`` key;
+   ``bench/stat_sales.py``) over the SF ``--sf-ds`` tables in batches of
+   2^22 rows: S1 (q17 with stddev_samp), S2a/S2b (q39a/b), S3 (every
+   device aggregate of the family per store and category over
+   store_sales joined with item), S4 (variance windows over UNBOUNDED,
+   running, RANGE 7 PRECEDING and ROWS 30 PRECEDING frames, summed per
+   store) wholly on the card, S5 (bit aggregates, percentile, median:
+   the aggregate on the CPU engine) and S4_SKEW (skewness and kurtosis
+   windows over one store: the windows on the CPU engine), each against
+   the CPU engine (S1, S2a and S2b also against pandas); then S1 and S3
+   with 4 splits and 4 shuffle partitions against one partition, and S3
+   in 2^18-row batches under the least pool its largest handle and
+   pinned set fit, which must spill and read back, against uncapped.
+   Each query's launches and warm wall (median of 3); every probe and
+   scan call of the counted runs held against the plain version
+   (``stat_calls_checked``), the phase's largest probe and largest scan
+   timed against their bounds (``stat_largest``).
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -2300,12 +2318,12 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
         same_rows_as(name, check, out, part_res["rows"][name])
         r = results[name]
         r["prefetch_off"] = st
-        r["warm_s_prefetch_off"] = _warm_wall(
-            lambda build=build, frame=frame: build(
-                pf_off[frame]).to_arrow(), first=st["wall_s"])
-        log(f"{name}: warm wall {r['warm_s_on']:.4f}s at the defaults, "
-            f"{r['warm_s_prefetch_off']:.4f}s with prefetch off (medians of "
-            f"3); read {st['read_ms']:.1f} ms off against "
+        # its checked run's wall alone (the two repeats were cut with
+        # phase 17's arrival)
+        r["wall_s_prefetch_off"] = st["wall_s"]
+        log(f"{name}: warm wall {r['warm_s_on']:.4f}s at the defaults "
+            f"(median of 3), {r['wall_s_prefetch_off']:.4f}s with prefetch "
+            f"off (one run); read {st['read_ms']:.1f} ms off against "
             f"{part_res['queries'][name]['read_ms']:.1f} ms (of it "
             f"{part_res['queries'][name]['read_ahead_wait_ms']:.1f} ms "
             f"waiting for a read-ahead) at the defaults")
@@ -2374,7 +2392,9 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
 # sixteenth of the cap (the default target, a quarter, repartitions no
 # partition of q67)
 CAP_FRACTION = 16
-CAPPED_CASES = ("tpch_q3", "tpch_q5", "q67", "running_global_window")
+# (Q5 was cut with phase 17's arrival: like Q3 it spills nothing, its
+# largest handle being its high-water mark, and its two runs took 10 s)
+CAPPED_CASES = ("tpch_q3", "q67", "running_global_window")
 WINDOW_CASE = "running_global_window"
 # the capped window's merged batches: each one reads a slice of every run,
 # and under the cap the combined run and the others trade places, so
@@ -2433,7 +2453,7 @@ class MemoryChecks:
 
 def run_memory_path(ds_tables, part_res) -> dict:
     """Phase 15: (a) streaming windows over store_sales against streaming
-    off and the CPU engine; (b) phase 13's Q3, Q5 and q67 under a capped
+    off and the CPU engine; (b) phase 13's Q3 and q67 under a capped
     pool against their uncapped rows, with spill counters, walls and peak
     device memory both ways; (c) the capped q67 with injected OOMs; (d)
     Q1 and Q6 on two threads at 1 and 2 task permits. Every probe and
@@ -2557,7 +2577,7 @@ def run_memory_path(ds_tables, part_res) -> dict:
             f"(one warm run each); launches {on_launch}")
     del on_df, off_df, cpu_df
 
-    # (b) phase 13's Q3, Q5 and q67 uncapped, then under a capped pool
+    # (b) phase 13's Q3 and q67 uncapped, then under a capped pool
     cases = {name: (build, fkey, check)
              for name, build, fkey, check in part_res["cases"]}
     frames = part_res["frames"]
@@ -2962,6 +2982,258 @@ def run_typed_path(ds_tables) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+# phase 17: the statistics pass; S3's capped run reads store_sales in
+# 2^18-row batches (11 at SF1), so the aggregate holds 11 partials
+STAT_CAPPED_BATCH_ROWS = 1 << 18
+
+
+def run_stat_path(ds_tables) -> dict:
+    """Phase 17: the statistics pass (``bench/stat_sales.py``): S1-S5 and
+    S4_SKEW on the card against the CPU engine (S1 and S2 also against
+    pandas), S1 and S3 with 4 splits and 4 shuffle partitions against one
+    partition, and S3 under a capped pool against uncapped. Every probe
+    and segmented-scan call of the counted runs is held against its plain
+    version; the largest of each is kept for timing."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import stat_sales as SS
+    from spark_rapids_tpu_torch.config import conf as C
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import aggregate as AGG
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import spill as MSP
+    from spark_rapids_tpu_torch.plan import dataframe as DF
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t_phase = time.perf_counter()
+    tables = {n: ds_tables[n] for n in SS.TABLES}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+    largest = {}
+
+    def probe_and_record(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("probe_rows", -1):
+            largest.update(probe_rows=h1.numel(),
+                           probe=(tbl, h1, h2, capacity, seed))
+        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    def scan_and_record(values, is_start, op_name="add"):
+        # the largest scan; among equal sizes a float add (a variance's)
+        key = (values.numel(), values.is_floating_point()
+               and op_name == "add")
+        if key > largest.get("scan_key", (-1, False)):
+            largest.update(scan_key=key, scan=(values, is_start, op_name))
+        return check_scan_call(values, is_start, op_name)
+
+    def counted(df):
+        """(table, wall, launches, plan) of one planning and run of
+        ``df`` with the counts zeroed before and read after, every kernel
+        call held against its plain version."""
+        torch.cuda.synchronize()
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = probe_and_record
+        K.segmented_scan_kernel = scan_and_record
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = DF.execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        return out, wall, launches, plan
+
+    def off_device(df):
+        return [ln.strip() for ln in df.explain("ALL").splitlines()
+                if ln.lstrip().startswith("!")]
+
+    dev = SS.df_tables(tables, device="cuda")
+    cpu = SS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    store = SS.first_store(tables)
+    queries = dict(SS.QUERIES)
+    queries["S4_SKEW"] = lambda d: SS.s4_skew(d, store=store)
+    res, rows = {}, {}
+    for q, build in queries.items():
+        df = build(dev)
+        off = off_device(df)
+        want = {"S5": "! Aggregate", "S4_SKEW": "! Window"}.get(q)
+        if (want is None and off) or (want is not None and (
+                len(off) != 1 or not off[0].startswith(want))):
+            raise AssertionError(f"{q} places {off} on the CPU engine")
+        out, wall, launches, plan = counted(df)
+        got = out.to_pylist()
+        t1 = time.perf_counter()
+        exp = build(cpu).to_arrow().to_pylist()
+        cpu_s = time.perf_counter() - t1
+        ok, why = SS.check_rows(q, got, exp)
+        if not ok:
+            raise AssertionError(f"{q} on the card differs from the CPU "
+                                 f"engine ({why}):\n{got[:2]}\n{exp[:2]}")
+        pandas_s = None
+        if q in SS.PANDAS:
+            t1 = time.perf_counter()
+            ok, why = SS.check_rows(q, got, SS.PANDAS[q](tables))
+            pandas_s = time.perf_counter() - t1
+            if not ok:
+                raise AssertionError(f"{q} differs from pandas ({why})")
+        if q in ("S1", "S2a", "S3") and (
+                launches["hashtbl_probe"] <= 0
+                or set(join_paths(plan)) != {"ht"}):
+            raise AssertionError(f"{q} launched {launches} on join paths "
+                                 f"{join_paths(plan)}")
+        if q == "S4" and launches["segscan"] <= 0:
+            raise AssertionError("S4 launched no segscan kernel")
+        if q not in ("S2b",) and not SS.informative(got):
+            raise AssertionError(f"{q} shows no values: {got[:2]}")
+        warm = _warm_wall(lambda b=build: b(dev).to_arrow(), 3, first=wall)
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall, "warm_s": warm,
+                  "cpu_engine_s": cpu_s, "pandas_s": pandas_s,
+                  "launches": launches, "off_device": off,
+                  "shown": [{k: str(v) for k, v in r.items()}
+                            for r in got[:1]]}
+        log(f"stat {q}: {len(got)} rows equal the CPU engine"
+            f"{' and pandas' if q in SS.PANDAS else ''}; launches "
+            f"{launches}; warm wall {warm:.4f}s (median of 3); CPU engine "
+            f"{cpu_s:.3f}s; on the CPU engine {off or 'nothing'}; first row "
+            f"{res[q]['shown']}")
+
+    # S6: S1 and S3 with 4 splits and 4 shuffle partitions (store_sales
+    # in 4 batches, one a split, so S3's First/Last read its rows in
+    # order) against one partition
+    n = tables["store_sales"].num_rows
+    four = SS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+        partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+    for q in ("S1", "S3"):
+        out, wall, launches, plan = counted(SS.QUERIES[q](four))
+        strategy = plan_strategy(plan)
+        shown = plan.explain()
+        if "HashPartitioner(4)" not in shown or "mode=partial" not in shown:
+            raise AssertionError(f"S6 {q} plans no partial aggregate over a "
+                                 f"hash exchange:\n{shown}")
+        ok, why = SS.check_rows(q, out.to_pylist(), rows[q])
+        if not ok:
+            raise AssertionError(f"S6 {q} with 4 partitions differs from "
+                                 f"one partition ({why})")
+        warm = _warm_wall(lambda q=q: SS.QUERIES[q](four).to_arrow(), 3,
+                          first=wall)
+        res[f"S6_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                          "warm_s": warm, "launches": launches,
+                          "strategy": strategy}
+        log(f"stat S6 {q}: 4 splits x 4 partitions equal one partition "
+            f"({out.num_rows} rows); {strategy_line(strategy)}; launches "
+            f"{launches}; warm wall {warm:.4f}s (median of 3)")
+
+    # S6: S3 in 2^18-row batches uncapped, then under the least pool its
+    # largest handle and pinned set fit (host tier and repartition target
+    # a sixteenth of it), as phase 15 caps its cases
+    def fresh_pool(conf):
+        pool = MP.HbmPool(MP.pool_limit(conf))
+        MP.set_pool(pool)
+        MSP.SpillFramework(pool,
+                           host_limit_bytes=C.HOST_SPILL_LIMIT.get(conf))
+        return pool
+
+    def s3_in_batches(settings):
+        return SS.s3(SS.df_tables(tables, RapidsConf(settings),
+                                  batch_rows=STAT_CAPPED_BATCH_ROWS,
+                                  device="cuda"))
+
+    try:
+        fresh_pool(RapidsConf())
+        out, wall, launches, _plan = counted(s3_in_batches({}))
+        base = out.to_pylist()
+        ok, why = SS.check_rows("S3", base, rows["S3"])
+        if not ok:
+            raise AssertionError(f"S3 in batches differs ({why})")
+        c0 = MSP.get_framework().counters()
+        cap = max(c0["max_handle_bytes"], c0["max_pinned_bytes"])
+        settings = {"spark.rapids.gpu.memory.pool.maxBytes": cap,
+                    "spark.rapids.gpu.memory.host.spillStorageSize":
+                        cap // CAP_FRACTION,
+                    "spark.rapids.gpu.sql.agg.repartition.targetBytes":
+                        cap // CAP_FRACTION}
+        fresh_pool(RapidsConf(settings))
+        s0 = AGG.repartition_snapshot()["total"]
+        out, cwall, claunches, _plan = counted(s3_in_batches(settings))
+        c = MSP.get_framework().counters()
+        repartitions = AGG.repartition_snapshot()["total"] - s0
+    finally:
+        MP.set_pool(None)
+        C.set_active(None)
+    ok, why = SS.check_rows("S3", out.to_pylist(), base)
+    if not ok:
+        raise AssertionError(f"S3 capped differs from uncapped ({why})")
+    if not (c["spilled_to_host"] and c["unspilled"]):
+        raise AssertionError(f"S3 capped spilled nothing back: {c}")
+    res["S6_S3_capped"] = {
+        "uncapped_s": wall, "capped_s": cwall, "cap_bytes": cap,
+        "uncapped_largest_handle_bytes": c0["max_handle_bytes"],
+        "uncapped_max_pinned_bytes": c0["max_pinned_bytes"], "spill": c,
+        "repartitions": repartitions, "launches": claunches,
+        "uncapped_launches": launches}
+    log(f"stat S6 S3 in {STAT_CAPPED_BATCH_ROWS}-row batches capped at "
+        f"{cap} B: rows equal uncapped; spilled {c['spilled_to_host']} x to "
+        f"host ({c['spilled_to_host_bytes']} B), {c['spilled_to_disk']} x "
+        f"to disk ({c['spilled_to_disk_bytes']} B), {c['unspilled']} back; "
+        f"{repartitions} repartition passes; {cwall:.3f}s against "
+        f"{wall:.3f}s uncapped")
+
+    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
+        raise AssertionError(f"phase 17 launched {total}: both kernels "
+                             f"must launch")
+    if (probe_calls[0] < total["hashtbl_probe"]
+            or sum(scan_calls.values()) < total["segscan"]):
+        raise AssertionError(f"phase 17 checked {probe_calls[0]} probe and "
+                             f"{scan_calls} segscan calls for {total} "
+                             f"launches")
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 17 equal "
+        f"the plain version ({total} launches)")
+    return {"queries": res, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls,
+            "largest_probe": largest.get("probe"),
+            "largest_scan": largest.get("scan"),
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def check_stat_scan(values, is_start, op: str) -> dict:
+    """The segmented-scan kernel on phase 17's largest scan: its output
+    against the plain version, its times and its byte bound."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import kernels as K
+
+    saved = dict(K.KERNEL_LAUNCHES)
+    k = K.segmented_scan_kernel(values, is_start, op)
+    torch.cuda.synchronize()
+    ok, err, ratio = segscan_compare(k, K.segmented_scan(values, is_start,
+                                                         op),
+                                     values, is_start, op)
+    if not ok:
+        raise AssertionError(f"segscan kernel differs from its plain version "
+                             f"on phase 17's largest scan ({err})")
+    res = {"shape": "stat_largest", "max_abs_err": err,
+           "err_over_tolerance": ratio,
+           **segscan_times(values, is_start, op)}
+    K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
+    log("segscan stat_largest: " + json.dumps(res))
+    return res
+
+
 def tpch_plan(q, frames):
     from spark_rapids_tpu_torch.bench import tpch
 
@@ -3110,6 +3382,16 @@ def main(argv=None) -> int:
     log(f"phase 16 took {typed_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    # phase 17: the statistics pass
+    checked_before = mem_checks.checked
+    stat_res = run_stat_path(ds_tables)
+    stat_probe = check_probe("stat_largest", *stat_res.pop("largest_probe"),
+                             cold=True)
+    shapes.append(stat_probe)
+    stat_scan = check_stat_scan(*stat_res.pop("largest_scan"))
+    log(f"phase 17 took {stat_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -3123,7 +3405,8 @@ def main(argv=None) -> int:
                       "partitioned": part_res["launches"][name],
                       "adaptive": adaptive_res["launches"][name],
                       "memory": memory_res["launches"][name],
-                      "typed_sales": typed_res["launches"][name]}
+                      "typed_sales": typed_res["launches"][name],
+                      "stat_sales": stat_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -3169,6 +3452,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "typed_calls_checked": typed_res["probe_calls_checked"],
+        "stat_largest": {k: stat_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "stat_calls_checked": stat_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
                      "smallint float timestamp (the 64-bit key hashes)",
         "exact": all(s["exact"] for s in shapes)}, {
@@ -3194,6 +3481,10 @@ def main(argv=None) -> int:
         "adaptive_calls_checked": adaptive_res["segscan_calls_checked"],
         "memory_calls_checked": memory_res["segscan_calls_checked"],
         "typed_calls_checked": typed_res["segscan_calls_checked"],
+        "stat_calls_checked": stat_res["segscan_calls_checked"],
+        "stat_largest": {k: stat_scan[k] for k in (
+            "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
         "value_types": "int32 int64 float32 float64 (int8 and int16 "
                        "widened to int32 by the wrapper)",
         "exact": scan_shapes["int_and_minmax_exact"]}]}
@@ -3219,6 +3510,9 @@ def main(argv=None) -> int:
                          if k != "launches"},
               "typed_sales": {k: v for k, v in typed_res.items()
                               if k != "launches"},
+              "stat_sales": {k: v for k, v in stat_res.items()
+                             if k != "launches"},
+              "segscan_stat": stat_scan,
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

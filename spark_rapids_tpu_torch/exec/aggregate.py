@@ -24,7 +24,30 @@ order of float additions.
 
 Buffer layout per function (Spark result types):
   Sum -> [sum]    Count -> [count]    Average -> [sum, count]
-  Min -> [min]    Max -> [max]
+  Min/Max -> [min]/[max]    First/Last/AnyValue -> [value]
+  BoolAnd/BoolOr -> [min]/[max] of the booleans    CountIf -> [count]
+  VarianceSamp/Pop, StddevSamp/Pop -> [n, mean, M2]
+  Skewness/Kurtosis -> [n, mean, M2, M3, M4]
+  CovarSamp/CovarPop -> [n, mean x, mean y, Cxy]
+  Corr -> [n, mean x, mean y, Cxy, M2x, M2y]
+  MinBy/MaxBy -> [value, ordering]
+
+The moment buffers are central moments (Spark's CentralMomentAgg,
+Covariance and Corr), not the reference's raw power sums, which lose
+every digit under a common offset: a group's rows (each a buffer of n = 1,
+mean x and no spread) and a merge's partial buffers combine by one
+formula (``_combine_moments``): the combined mean is taken about the
+group's first live mean (so identical values give M2 = 0 exactly), then
+each part's moments are shifted to it and summed. Variance, covariance and
+correlation inputs are cast to DOUBLE (decimals too), and a covariance
+takes only the pairs whose sides are both non-null.
+
+First, Last and AnyValue keep the first (last) non-null value in input
+order; MinBy/MaxBy the value at the first least (greatest) non-null
+ordering (an integral, boolean, date or timestamp one on the device). A
+string Min or Max is exact in byte order: a dictionary column reduces its
+codes (its dictionary is sorted) and keeps the dictionary; a plain one
+ranks its rows by a full sort of their bytes.
 
 Decimal sums are exact sums of the unscaled values: int64 for a DECIMAL64
 result, two int64 limbs exact mod 2^128 for a DECIMAL128 one (a
@@ -64,37 +87,74 @@ from spark_rapids_tpu_torch.mem.pool import (
 class _AggSpec:
     func: E.AggregateExpression
     name: str
-    input_index: Optional[int]  # into the pre-projection; None = count(*)
-    ops: List[str]
+    inputs: List[int]  # into the pre-projection; [] = count(*)
+    ops: List[str]  # one label a buffer
     buffer_types: List[T.DataType]
+    # "simple": each buffer reduced alone by its op (merged by _MERGE_OP);
+    # "moments", "comoments", "minby", "pick" and "string" reduce their
+    # buffers together, by one rule in the first pass and the merges
+    kind: str = "simple"
 
 
-_MERGE_OP = {"sum": "sum", "count": "sum", "count_all": "sum", "min": "min",
-             "max": "max"}
+_MERGE_OP = {"sum": "sum", "count": "sum", "count_all": "sum",
+             "count_true": "sum", "min": "min", "max": "max"}
+_COUNT_OPS = ("count", "count_all", "count_true")
+
+
+def agg_inputs(func: E.AggregateExpression) -> List[E.Expression]:
+    """The bound expressions an aggregate's first pass reads: its children,
+    a variance's or covariance's cast to DOUBLE (Spark's input cast)."""
+    if isinstance(func, (E._VarianceBase, E._CovarianceBase)):
+        return [c if c.dtype == T.DOUBLE else E.Cast(c, T.DOUBLE)
+                for c in func.children]
+    return list(func.children)
 
 
 def _lower_agg(func: E.AggregateExpression, name: str,
-               input_index: Optional[int]) -> _AggSpec:
+               inputs: List[int]) -> _AggSpec:
+    def spec(ops, types, kind="simple"):
+        return _AggSpec(func, name, inputs, ops, types, kind)
+
     if isinstance(func, E.Count):
-        op = "count" if func.children else "count_all"
-        return _AggSpec(func, name, input_index, [op], [T.LONG])
+        return spec(["count" if func.children else "count_all"], [T.LONG])
     if isinstance(func, E.Sum):
-        return _AggSpec(func, name, input_index, ["sum"], [func.dtype])
+        return spec(["sum"], [func.dtype])
     if isinstance(func, (E.Min, E.Max)):
-        if func.child.dtype == T.STRING:
-            raise NotImplementedError("string min/max is not in the port yet")
         op = "min" if isinstance(func, E.Min) else "max"
-        return _AggSpec(func, name, input_index, [op], [func.dtype])
+        return spec([op], [func.dtype],
+                    "string" if func.child.dtype == T.STRING else "simple")
+    if isinstance(func, (E.First, E.Last, E.AnyValue)):
+        return spec(["last" if isinstance(func, E.Last) else "first"],
+                    [func.dtype], "pick")
     if isinstance(func, E.Average):
         c = func.child.dtype
         if isinstance(c, T.DecimalType):
             sum_t = E.Sum(func.child).dtype
         else:
             sum_t = T.DOUBLE if c in T.FRACTIONAL_TYPES else T.LONG
-        return _AggSpec(func, name, input_index, ["sum", "count"],
-                        [sum_t, T.LONG])
+        return spec(["sum", "count"], [sum_t, T.LONG])
+    if isinstance(func, E._VarianceBase):
+        order = 4 if isinstance(func, (E.Skewness, E.Kurtosis)) else 2
+        return spec(["n", "mean"] + [f"m{p}" for p in range(2, order + 1)],
+                    [T.LONG] + [T.DOUBLE] * order, "moments")
+    if isinstance(func, E._CovarianceBase):
+        ops = ["n", "mean_x", "mean_y", "c_xy"]
+        if isinstance(func, E.Corr):
+            ops += ["m2_x", "m2_y"]
+        return spec(ops, [T.LONG] + [T.DOUBLE] * (len(ops) - 1),
+                    "comoments")
+    if isinstance(func, E.MinBy):
+        op = "max" if isinstance(func, E.MaxBy) else "min"
+        return spec([op + "by_value", op + "by_ordering"],
+                    [func.value.dtype, func.ordering.dtype], "minby")
+    if isinstance(func, E.BoolAnd):
+        return spec(["max" if isinstance(func, E.BoolOr) else "min"],
+                    [T.BOOLEAN])
+    if isinstance(func, E.CountIf):
+        return spec(["count_true"], [T.LONG])
     raise NotImplementedError(
-        f"aggregate {type(func).__name__} is not in the port yet")
+        f"aggregate {type(func).__name__} is not on the device (the CPU "
+        f"engine runs it)")
 
 
 def _strip_alias(e: E.Expression) -> Tuple[E.Expression, str]:
@@ -128,10 +188,10 @@ class HashAggregateExec(UnaryExec):
             if not isinstance(func, E.AggregateExpression):
                 raise NotImplementedError(f"not an aggregate: {e!r}")
             func = E.resolve(func, in_schema)
-            idx = None
-            if func.children:
-                idx = len(pre)
-                pre.append(func.children[0])
+            idx = []
+            for x in agg_inputs(func):
+                idx.append(len(pre))
+                pre.append(x)
             self._specs.append(_lower_agg(func, name, idx))
         self._pre_bound = tuple(pre)
         for f in self.output_schema:
@@ -212,51 +272,66 @@ class HashAggregateExec(UnaryExec):
                 torch.ones(batch.num_rows, dtype=torch.bool,
                            device=ctx.device)))
         pre = ColumnarBatch(pre_cols, batch.num_rows)
-        return self._aggregate_grouped(pre, self._grouping(pre),
-                                       [s.ops for s in self._specs])
+        return self._aggregate_grouped(pre, self._grouping(pre))
 
     def _merge_pass(self, buffers: ColumnarBatch) -> ColumnarBatch:
-        merge_ops = [[_MERGE_OP[op] for op in s.ops] for s in self._specs]
         return self._aggregate_grouped(buffers, self._grouping(buffers),
-                                       merge_ops, buffers_input=True)
+                                       buffers_input=True)
 
     def _aggregate_grouped(self, pre: ColumnarBatch, gi: K.GroupInfo,
-                           ops_per_spec, buffers_input: bool = False
-                           ) -> ColumnarBatch:
-        perm = gi.perm
+                           buffers_input: bool = False) -> ColumnarBatch:
         out_cols: List[DeviceColumn] = []
         if self._n_keys:
             out_cols = K.gather_columns(pre.columns[: self._n_keys],
-                                        perm[gi.group_starts])
+                                        gi.perm[gi.group_starts])
         buf_idx = self._n_keys
-        for s, ops in zip(self._specs, ops_per_spec):
-            for op, first_op, bt in zip(ops, s.ops, s.buffer_types):
-                if buffers_input:
-                    src_i = buf_idx
-                    buf_idx += 1
-                else:
-                    src_i = s.input_index
-                if src_i is None:  # count(*)
-                    vals = None
-                    valid = torch.ones(perm.numel(), dtype=torch.bool,
-                                       device=perm.device)
-                else:
-                    src = pre.columns[src_i]
-                    vals, valid = K.gather_lanes([src.data, src.validity],
-                                                 perm)
-                    if T.is_wide_decimal(bt) and vals.dim() == 1:
-                        # a DECIMAL64 sum into a DECIMAL128 buffer
-                        vals = I128.pack(*I128.from_i64(vals))
-                data, avalid = K.segment_agg(vals, valid, gi.segment_ids,
-                                             gi.group_starts, op)
-                if buffers_input and first_op in ("count", "count_all"):
-                    # a merged count is a count: 0 for a group of no row
-                    # (the global group of a final aggregate over nothing)
-                    avalid = torch.ones_like(avalid)
-                out_cols.append(DeviceColumn(
-                    bt, K.where_valid(avalid, data.to(bt.torch_dtype)),
-                    avalid))
+        for s in self._specs:
+            if buffers_input:
+                cols = pre.columns[buf_idx: buf_idx + len(s.ops)]
+                buf_idx += len(s.ops)
+            else:
+                cols = [pre.columns[i] for i in s.inputs]
+            if s.kind == "simple":
+                out_cols.extend(self._simple(s, cols, gi, buffers_input))
+            else:
+                out_cols.extend(_REDUCERS[s.kind](s, cols, gi,
+                                                  buffers_input))
         return ColumnarBatch(out_cols, gi.num_groups)
+
+    @staticmethod
+    def _simple(s: _AggSpec, cols: List[DeviceColumn], gi: K.GroupInfo,
+                buffers_input: bool) -> List[DeviceColumn]:
+        """Each buffer reduced alone: in the first pass by its op over the
+        spec's one input (none for count(*)), in a merge by its merge op
+        over its own buffer column."""
+        perm = gi.perm
+        out = []
+        for i, (first_op, bt) in enumerate(zip(s.ops, s.buffer_types)):
+            op = _MERGE_OP[first_op] if buffers_input else first_op
+            src = cols[i] if buffers_input else (cols[0] if cols else None)
+            if src is None:  # count(*)
+                vals = None
+                valid = torch.ones(perm.numel(), dtype=torch.bool,
+                                   device=perm.device)
+            elif op in ("count", "count_all"):
+                vals, valid = None, src.validity[perm.long()]
+            else:
+                vals, valid = K.gather_lanes([src.data, src.validity], perm)
+                if op == "count_true":
+                    valid = valid & vals
+                    op = "count"
+                if T.is_wide_decimal(bt) and vals.dim() == 1:
+                    # a DECIMAL64 sum into a DECIMAL128 buffer
+                    vals = I128.pack(*I128.from_i64(vals))
+            data, avalid = K.segment_agg(vals, valid, gi.segment_ids,
+                                         gi.group_starts, op)
+            if buffers_input and first_op in _COUNT_OPS:
+                # a merged count is a count: 0 for a group of no row
+                # (the global group of a final aggregate over nothing)
+                avalid = torch.ones_like(avalid)
+            out.append(DeviceColumn(
+                bt, K.where_valid(avalid, data.to(bt.torch_dtype)), avalid))
+        return out
 
     def _final_project(self, buffers: ColumnarBatch) -> ColumnarBatch:
         out_cols: List[DeviceColumn] = list(buffers.columns[: self._n_keys])
@@ -264,37 +339,7 @@ class HashAggregateExec(UnaryExec):
         for s in self._specs:
             bufs = buffers.columns[bi: bi + len(s.ops)]
             bi += len(s.ops)
-            rt = s.func.dtype
-            if isinstance(s.func, E.Average):
-                ssum, cnt = bufs
-                valid = ssum.validity & (cnt.data > 0)
-                if ssum.data.dim() == 2:
-                    out_cols.append(_wide_average(
-                        ssum, cnt, valid, s.buffer_types[0], rt,
-                        rt.scale - s.func.child.dtype.scale))
-                    continue
-                if isinstance(rt, T.DecimalType):
-                    in_t = s.func.child.dtype
-                    data = decimal_avg_half_up(ssum.data, cnt.data,
-                                               rt.scale - in_t.scale)
-                else:
-                    data = ssum.data.double() / torch.clamp(
-                        cnt.data, min=1).double()
-                out_cols.append(DeviceColumn(
-                    rt, torch.where(valid, data, torch.zeros_like(data)),
-                    valid))
-            elif isinstance(s.func, E.Sum) and isinstance(rt, T.DecimalType):
-                b = bufs[0]
-                if b.data.dim() == 2:
-                    ovf = I128.overflow_mask(*I128.split(b.data),
-                                             rt.precision)
-                else:
-                    ovf = b.data.abs() >= 10 ** rt.precision
-                valid = b.validity & ~ovf
-                out_cols.append(DeviceColumn(
-                    rt, K.where_valid(valid, b.data), valid))
-            else:
-                out_cols.append(bufs[0])
+            out_cols.append(_finish(s, bufs))
         return ColumnarBatch(out_cols, buffers.num_rows)
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
@@ -488,6 +533,231 @@ class HashAggregateExec(UnaryExec):
         merged = list(retry.with_retry(handles, self._merge_pass,
                                        framework=fw))
         return self._merge_to_one(merged)
+
+
+# ---------------------------------------------------------------------------
+# the reducers of the kinds that reduce their buffers together, and the
+# final projection of a spec's buffers
+# ---------------------------------------------------------------------------
+
+
+def _gather_picked(col: DeviceColumn, perm: torch.Tensor, at: torch.Tensor,
+                   found: torch.Tensor) -> DeviceColumn:
+    """The rows ``perm[at]`` of ``col`` (``at`` in group order), null where
+    not ``found``; all null when ``col`` has no row (a global group over
+    nothing)."""
+    if col.num_rows == 0:
+        return K.null_column(col.dtype, found.numel(), found.device,
+                             col.dictionary)
+    rows = perm.long()[at.clamp(0, perm.numel() - 1)]
+    if col.offsets is not None:
+        return K.gather_string(col, rows, found)
+    got = K.gather_column(col, rows)
+    valid = got.validity & found
+    return DeviceColumn(col.dtype, K.where_valid(valid, got.data), valid,
+                        None, got.dictionary)
+
+
+def _pick(s: _AggSpec, cols, gi: K.GroupInfo, buffers_input: bool):
+    """First/Last/AnyValue: the group's first (last) non-null row in
+    input order (a merge's partials arrive in input order)."""
+    col = cols[0]
+    at, found = K.segment_pick(col.validity[gi.perm.long()], gi.segment_ids,
+                               gi.group_starts, last=s.ops[0] == "last")
+    return [_gather_picked(col, gi.perm, at, found)]
+
+
+def _string_extreme(s: _AggSpec, cols, gi: K.GroupInfo,
+                    buffers_input: bool):
+    """String Min/Max, exact in byte order: a dictionary column's codes
+    (its dictionary is sorted), else each row's rank in a full sort of the
+    column's bytes."""
+    col, op = cols[0], s.ops[0]
+    perm = gi.perm.long()
+    valid = col.validity[perm]
+    if col.is_dict:
+        data, avalid = K.segment_agg(col.data[perm], valid, gi.segment_ids,
+                                     gi.group_starts, op)
+        return [DeviceColumn(col.dtype, K.where_valid(
+            avalid, data.to(torch.int32)), avalid, None, col.dictionary)]
+    rank = K.string_order_ranks(col)[perm]
+    at, found = K.segment_arg_extreme(rank, valid, gi.segment_ids,
+                                      gi.group_starts, op)
+    return [_gather_picked(col, gi.perm, at, found)]
+
+
+def _minby(s: _AggSpec, cols, gi: K.GroupInfo, buffers_input: bool):
+    """MinBy/MaxBy: the first row at the least (greatest) non-null
+    ordering; its value (null or not) and its ordering, so a merge picks
+    again among the partials."""
+    vcol, ocol = cols
+    perm = gi.perm.long()
+    at, found = K.segment_arg_extreme(
+        ocol.data[perm].long(), ocol.validity[perm], gi.segment_ids,
+        gi.group_starts, "max" if s.ops[0] == "maxby_value" else "min")
+    return [_gather_picked(vcol, gi.perm, at, found),
+            _gather_picked(ocol, gi.perm, at, found)]
+
+
+def _shifted_mean(n: torch.Tensor, mean: torch.Tensor, gi: K.GroupInfo):
+    """(count, mean and live flag per group; each part's distance from its
+    group's mean) of parts of ``n`` rows and mean ``mean`` each (in group
+    order). The group's mean is taken about its first live part's mean, so
+    parts of one value give exactly that value."""
+    seg_sum = K._sorted_segment_reducers(gi.segment_ids, gi.group_starts)[0]
+    live = n > 0
+    total = seg_sum(n)
+    sl = gi.segment_ids.long()
+    if mean.numel() == 0:
+        m0 = torch.zeros(gi.num_groups, dtype=torch.float64,
+                         device=mean.device)
+    else:
+        at, _any = K.segment_pick(live, gi.segment_ids, gi.group_starts)
+        m0 = mean[at.clamp(0, mean.numel() - 1)]
+    zero = torch.zeros((), dtype=torch.float64, device=mean.device)
+    nf = n.double()
+    d0 = torch.where(live, mean - m0[sl], zero)
+    m = m0 + seg_sum(nf * d0) / total.clamp(min=1).double()
+    m = torch.where(total > 0, m, zero)
+    return total, m, torch.where(live, mean - m[sl], zero), live
+
+
+def _moment_parts(cols, gi: K.GroupInfo, buffers_input: bool, k: int):
+    """(n, means, higher moments) of each part, in group order: a merge's
+    buffers, or the first pass's rows (n 1 where the row's inputs are all
+    non-null, its values as means, no spread). ``k`` means; the rest are
+    the moments."""
+    perm = gi.perm.long()
+    if buffers_input:
+        n = cols[0].data[perm].long()
+        means = [c.data[perm].double() for c in cols[1: 1 + k]]
+        rest = [c.data[perm].double() for c in cols[1 + k:]]
+        return n, means, rest
+    valid = cols[0].validity[perm]
+    for c in cols[1:k]:
+        valid = valid & c.validity[perm]
+    means = [c.data[perm].double() for c in cols[:k]]
+    return valid.long(), means, None
+
+
+def _moments_out(total: torch.Tensor, moments) -> List[DeviceColumn]:
+    ok = total > 0
+    return [DeviceColumn(T.LONG, total, torch.ones_like(ok))] + [
+        DeviceColumn(T.DOUBLE, K.where_valid(ok, m), ok) for m in moments]
+
+
+def _moments(s: _AggSpec, cols, gi: K.GroupInfo, buffers_input: bool):
+    """(n, mean, M2[, M3, M4]) per group: the parts' central moments
+    shifted to the group's mean and summed (Pebay's combination)."""
+    order = len(s.ops) - 1
+    n, (mean,), rest = _moment_parts(cols, gi, buffers_input, 1)
+    total, m, d, live = _shifted_mean(n, mean, gi)
+    zero = torch.zeros((), dtype=torch.float64, device=d.device)
+    if rest is None:
+        rest = [torch.zeros_like(d)] * (order - 1)
+    rest = [torch.where(live, r, zero) for r in rest]
+    seg_sum = K._sorted_segment_reducers(gi.segment_ids, gi.group_starts)[0]
+    nf = n.double()
+    m2 = rest[0] + nf * d * d
+    out = [m, seg_sum(m2)]
+    if order == 4:
+        p2, p3, p4 = rest
+        out.append(seg_sum(p3 + 3 * d * p2 + nf * d ** 3))
+        out.append(seg_sum(p4 + 4 * d * p3 + 6 * d * d * p2 + nf * d ** 4))
+    return _moments_out(total, out)
+
+
+def _comoments(s: _AggSpec, cols, gi: K.GroupInfo, buffers_input: bool):
+    """(n, mean x, mean y, Cxy[, M2x, M2y]) per group over the pairs whose
+    sides are both non-null."""
+    n, (mx, my), rest = _moment_parts(cols, gi, buffers_input, 2)
+    total, ax, dx, live = _shifted_mean(n, mx, gi)
+    _t, ay, dy, _l = _shifted_mean(n, my, gi)
+    zero = torch.zeros((), dtype=torch.float64, device=dx.device)
+    k = len(s.ops) - 3
+    if rest is None:
+        rest = [torch.zeros_like(dx)] * k
+    rest = [torch.where(live, r, zero) for r in rest]
+    seg_sum = K._sorted_segment_reducers(gi.segment_ids, gi.group_starts)[0]
+    nf = n.double()
+    out = [ax, ay, seg_sum(rest[0] + nf * dx * dy)]
+    if k == 3:
+        out.append(seg_sum(rest[1] + nf * dx * dx))
+        out.append(seg_sum(rest[2] + nf * dy * dy))
+    return _moments_out(total, out)
+
+
+_REDUCERS = {"pick": _pick, "string": _string_extreme, "minby": _minby,
+             "moments": _moments, "comoments": _comoments}
+
+
+def _finish_moments(f, bufs) -> DeviceColumn:
+    n = bufs[0].data
+    nf = n.double()
+    m2 = bufs[2].data.clamp(min=0.0)  # NaN stays NaN
+    nan = torch.full_like(m2, float("nan"))
+    if isinstance(f, (E.Skewness, E.Kurtosis)):
+        if isinstance(f, E.Skewness):
+            data = nf.sqrt() * bufs[3].data / m2 ** 1.5
+        else:
+            data = nf * bufs[4].data / (m2 * m2) - 3.0
+        data = torch.where(m2 == 0, nan, data)
+        valid = n > 0
+    else:
+        samp = isinstance(f, (E.VarianceSamp, E.StddevSamp))
+        data = m2 / ((nf - 1) if samp else nf).clamp(min=1.0)
+        if isinstance(f, (E.StddevSamp, E.StddevPop)):
+            data = data.sqrt()
+        # modern Spark: the sample variance of one row is null
+        valid = n > 1 if samp else n > 0
+    return DeviceColumn(T.DOUBLE, K.where_valid(valid, data), valid)
+
+
+def _finish_comoments(f, bufs) -> DeviceColumn:
+    n = bufs[0].data
+    nf = n.double()
+    c = bufs[3].data
+    if isinstance(f, E.CovarPop):
+        data, valid = c / nf.clamp(min=1.0), n > 0
+    elif isinstance(f, E.CovarSamp):
+        data, valid = c / (nf - 1).clamp(min=1.0), n > 1
+    else:
+        den = (bufs[4].data.clamp(min=0.0) * bufs[5].data.clamp(min=0.0)
+               ).sqrt()
+        # null where either variance is 0 (or NaN), as the reference's
+        data, valid = c / den, (n > 0) & (den > 0)
+    return DeviceColumn(T.DOUBLE, K.where_valid(valid, data), valid)
+
+
+def _finish(s: _AggSpec, bufs: Sequence[DeviceColumn]) -> DeviceColumn:
+    """One spec's result column from its buffers."""
+    f, rt = s.func, s.func.dtype
+    if s.kind == "moments":
+        return _finish_moments(f, bufs)
+    if s.kind == "comoments":
+        return _finish_comoments(f, bufs)
+    if isinstance(f, E.Average):
+        ssum, cnt = bufs
+        valid = ssum.validity & (cnt.data > 0)
+        if ssum.data.dim() == 2:
+            return _wide_average(ssum, cnt, valid, s.buffer_types[0], rt,
+                                 rt.scale - f.child.dtype.scale)
+        if isinstance(rt, T.DecimalType):
+            data = decimal_avg_half_up(ssum.data, cnt.data,
+                                       rt.scale - f.child.dtype.scale)
+        else:
+            data = ssum.data.double() / torch.clamp(cnt.data, min=1).double()
+        return DeviceColumn(rt, torch.where(valid, data,
+                                            torch.zeros_like(data)), valid)
+    if isinstance(f, E.Sum) and isinstance(rt, T.DecimalType):
+        b = bufs[0]
+        if b.data.dim() == 2:
+            ovf = I128.overflow_mask(*I128.split(b.data), rt.precision)
+        else:
+            ovf = b.data.abs() >= 10 ** rt.precision
+        valid = b.validity & ~ovf
+        return DeviceColumn(rt, K.where_valid(valid, b.data), valid)
+    return bufs[0]  # the value buffer (MinBy/MaxBy's first)
 
 
 _repart_lock = threading.Lock()

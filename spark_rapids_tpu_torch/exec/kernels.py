@@ -778,6 +778,48 @@ def segment_agg(values: Optional[torch.Tensor], validity: torch.Tensor,
     raise NotImplementedError(f"segment op {op}")
 
 
+def segment_pick(valid: torch.Tensor, seg: torch.Tensor,
+                 starts: torch.Tensor, last: bool = False):
+    """Per sorted segment: the position of its first (``last``: its last)
+    row where ``valid``, and whether it has one (positions in the
+    segments' row order; a segment without one gives a position inside
+    no row of it)."""
+    seg_sum, seg_min, seg_max = _sorted_segment_reducers(seg, starts)
+    n = valid.numel()
+    pos = torch.arange(n, device=valid.device)
+    if last:
+        at = seg_max(torch.where(valid, pos, torch.full_like(pos, -1)))
+    else:
+        at = seg_min(torch.where(valid, pos, torch.full_like(pos, n)))
+    return at, seg_sum(valid.long()) > 0
+
+
+def segment_arg_extreme(key: torch.Tensor, valid: torch.Tensor,
+                        seg: torch.Tensor, starts: torch.Tensor, op: str):
+    """Per sorted segment: the first position holding the least (``op``
+    "min") or greatest ("max") int64 ``key`` among the valid rows, and
+    whether any row is valid (min_by/max_by's pick, the reference's
+    ``_minmax_by_agg``)."""
+    _seg_sum, seg_min, seg_max = _sorted_segment_reducers(seg, starts)
+    info = torch.iinfo(torch.int64)
+    ident = info.max if op == "min" else info.min
+    k = torch.where(valid, key.long(), torch.full_like(key, ident,
+                                                       dtype=torch.int64))
+    best = (seg_min if op == "min" else seg_max)(k)
+    tie = valid & (k == best[seg.long()])
+    return segment_pick(tie, seg, starts)
+
+
+def string_order_ranks(col: DeviceColumn) -> torch.Tensor:
+    """Each row's position in the byte order of a plain string column (a
+    proper prefix first; nulls first, their ranks unused): int64."""
+    order = sort_indices(ColumnarBatch([col], col.num_rows),
+                         [SortSpec(0, True, True)])
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    return rank
+
+
 # ---------------------------------------------------------------------------
 # Device concatenation
 # ---------------------------------------------------------------------------

@@ -38,10 +38,16 @@ emits them):
 
 Every add, min and max scan goes through ``kernels.segmented_scan_kernel``.
 Raising NotImplementedError, as in the reference: window Min/Max over
-DECIMAL128 (on the device only: the CPU engine runs it), window aggregates
-over strings but Count, a bounded RANGE frame over anything but one
-ascending integral, DATE or TIMESTAMP order key, and the variance family
-(no such aggregate in the port yet).
+DECIMAL128 and Skewness/Kurtosis windows (on the device only: the CPU
+engine runs them), window aggregates over strings but Count, and a
+bounded RANGE frame over anything but one ascending integral, DATE or
+TIMESTAMP order key.
+
+VarianceSamp/Pop and StddevSamp/Pop run over every frame
+(``_variance_window``): add-scans of the values (cast to DOUBLE) shifted
+by their partition's first finite value, and of their squares, each
+differenced over the frame. Bounded ROWS frames stream with their
+context as the Sum does; a running variance reads its whole partition.
 
 Streaming (``streaming=True``, the reference's GpuRunningWindowExec and
 GpuBatchedBoundedWindowExec): the planner gives a group that
@@ -86,7 +92,8 @@ from spark_rapids_tpu_torch.exprs import eval as EV
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import window as W
 
-_AGGS = (E.Sum, E.Count, E.Average, E.Min, E.Max, E.First, E.Last)
+_AGGS = (E.Sum, E.Count, E.Average, E.Min, E.Max, E.First,
+         E.Last) + E.VARIANCE_FAMILY
 _RANKING = (W.RowNumber, W.Rank, W.DenseRank, W.NTile, W.PercentRank,
             W.CumeDist)
 # order key types a bounded RANGE frame bisects (the reference's gate); a
@@ -260,6 +267,11 @@ class WindowExec(UnaryExec):
                 # the CPU engine runs it; the reference's device does not
                 raise NotImplementedError(
                     "window min/max over DECIMAL128 is not on the device")
+            if isinstance(f, (E.Skewness, E.Kurtosis)):
+                # the CPU engine runs them; the reference's device does not
+                raise NotImplementedError(
+                    "skewness/kurtosis window functions are not on the "
+                    "device")
             T.check_device_type(f.dtype)
             bound.append((f, frame, name))
         self._bound_wins = bound
@@ -662,6 +674,14 @@ class WindowExec(UnaryExec):
     def _agg_window(self, f, frame: W.WindowFrame, sctx,
                     g: _Geometry) -> DeviceColumn:
         n = g.idx.numel()
+        if isinstance(f, E._VarianceBase):
+            x = f.children[0]
+            v = EV.eval_expr(x if x.dtype == T.DOUBLE
+                             else E.Cast(x, T.DOUBLE), sctx)
+            lo, hi = self._frame_bounds(frame, sctx, g)
+            return _variance_window(f, v.data, v.validity,
+                                    _Frame(lo, hi, g.seg_start, g.seg_flag),
+                                    g.seg_start)
         if f.children:
             v = EV.eval_expr(f.children[0], sctx)
             vals, valid = v.data, v.validity
@@ -855,6 +875,37 @@ def _first_last(f, out_t, vals, valid, fr: _Frame) -> DeviceColumn:
                                      fr.seg_flag, "max")[fr.hi].long()
         found = ~fr.empty & (at >= fr.lo)
     return _win_out(out_t, vals[at.clamp(0, n - 1)], found)
+
+
+def _variance_window(f, x: torch.Tensor, valid: torch.Tensor, fr: _Frame,
+                     seg_start: torch.Tensor) -> DeviceColumn:
+    """VarianceSamp/Pop and StddevSamp/Pop over any frame: add-scans of
+    the values shifted by their partition's first finite value (variance
+    does not change under a shift, and what cancels is then the spread
+    within the partition, not its distance from zero: the reference scans
+    the raw values and loses every digit under a common offset), and of
+    their squares, differenced over the frame; M2 = S2 - S1^2 / n. A
+    frame holding a NaN or an infinity is NaN, as Spark's update gives."""
+    n = x.numel()
+    finite = valid & torch.isfinite(x)
+    pos = torch.arange(n, dtype=torch.int32, device=x.device)
+    first = K.segmented_scan_kernel(
+        torch.where(finite, pos, n).flip(0), _rev_flags(fr.seg_flag),
+        "min").flip(0)[seg_start].long()
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    shift = torch.where(first < n, x[first.clamp(max=n - 1)], zero)
+    y = torch.where(finite, x - shift, zero)
+    s1, s2 = fr.sum(y), fr.sum(y * y)
+    c = fr.count(finite).double()
+    m2 = (s2 - s1 * s1 / c.clamp(min=1.0)).clamp(min=0.0)
+    samp = isinstance(f, (E.VarianceSamp, E.StddevSamp))
+    data = m2 / ((c - 1) if samp else c).clamp(min=1.0)
+    if isinstance(f, (E.StddevSamp, E.StddevPop)):
+        data = data.sqrt()
+    bad = fr.count(valid & ~finite) > 0
+    data = torch.where(bad, torch.full_like(data, float("nan")), data)
+    rows = fr.count(valid)
+    return _win_out(T.DOUBLE, data, rows > 1 if samp else rows > 0)
 
 
 def _wide_agg_window(f, out_t: T.DecimalType, vals: torch.Tensor,

@@ -6,8 +6,12 @@ comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
 IsNull, IsNotNull, In, IsNaN and Nanvl, the conditionals If, CaseWhen and
 Coalesce, the string functions Substring and Like, the 32 date-and-time
-functions of ``DATETIME_FUNCTIONS``, and the aggregates Sum, Average,
-Count, Min, Max and CountDistinct.
+functions of ``DATETIME_FUNCTIONS``, and the aggregates of
+``AGGREGATES``: Sum, Average, Count, Min, Max, First, Last, AnyValue, the
+variance family (VarianceSamp/Pop, StddevSamp/Pop, Skewness, Kurtosis),
+CovarSamp, CovarPop and Corr, MinBy/MaxBy, BoolAnd/BoolOr, CountIf, and
+the CPU engine's CountDistinct, BitAndAgg/BitOrAgg/BitXorAgg and
+Percentile/Median.
 
 Numeric typing is Spark's: BYTE < SHORT < INT < LONG < FLOAT < DOUBLE
 widen to the larger (TINYINT + TINYINT stays TINYINT and wraps), a Sum of
@@ -1070,13 +1074,17 @@ class Average(AggregateExpression):
 
 class First(_Extremum):
     """first(x) as the reference computes it: the first non-null value of
-    the frame (Spark's first(x, ignoreNulls = true)). A window function
-    only: neither engine's group-by has it."""
+    the group or frame (Spark's first(x, ignoreNulls = true)), in input
+    order (across partitions, by map index)."""
 
 
 class Last(_Extremum):
-    """last(x): the last non-null value of the frame (Spark's last(x,
-    ignoreNulls = true)). A window function only."""
+    """last(x): the last non-null value of the group or frame (Spark's
+    last(x, ignoreNulls = true))."""
+
+
+class AnyValue(_Extremum):
+    """any_value(x): First's value, as the reference's."""
 
 
 class CountDistinct(AggregateExpression):
@@ -1097,14 +1105,218 @@ class CountDistinct(AggregateExpression):
         return False
 
 
+class _VarianceBase(AggregateExpression):
+    """The moment aggregates over a double (a number or decimal input is
+    cast to DOUBLE). Both engines keep central moments (n, mean, M2[, M3,
+    M4]), merged by the pairwise (Chan/Pebay) formulas, as Spark's
+    CentralMomentAgg does: the reference's raw power sums lose every digit
+    under a common offset. ``_samp`` of one row is null; Skewness and
+    Kurtosis are NaN where M2 is 0."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return True
+
+
+class VarianceSamp(_VarianceBase):
+    pass
+
+
+class VariancePop(_VarianceBase):
+    pass
+
+
+class StddevSamp(_VarianceBase):
+    pass
+
+
+class StddevPop(_VarianceBase):
+    pass
+
+
+class Skewness(_VarianceBase):
+    """sqrt(n) * M3 / M2^1.5."""
+
+
+class Kurtosis(_VarianceBase):
+    """Excess kurtosis n * M4 / M2^2 - 3."""
+
+
+class _CovarianceBase(AggregateExpression):
+    """covar_samp, covar_pop and corr over the (x, y) pairs whose sides
+    are both non-null, each cast to DOUBLE; buffers (n, mean x, mean y,
+    Cxy[, M2x, M2y]). CovarSamp of fewer than 2 pairs is null, Corr is
+    null where either M2 is 0 (or NaN, as the reference's)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.left, self.right = left, right
+        self.children = (left, right)
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return True
+
+
+class CovarSamp(_CovarianceBase):
+    pass
+
+
+class CovarPop(_CovarianceBase):
+    pass
+
+
+class Corr(_CovarianceBase):
+    pass
+
+
+class MinBy(AggregateExpression):
+    """min_by(value, ordering): the value at the least non-null ordering,
+    the first row among ties (which may hold a null value)."""
+
+    def __init__(self, value: Expression, ordering: Expression):
+        self.value, self.ordering = value, ordering
+        self.children = (value, ordering)
+
+    @property
+    def dtype(self):
+        return self.value.dtype
+
+    @property
+    def nullable(self):
+        return True
+
+
+class MaxBy(MinBy):
+    """max_by(value, ordering): the value at the greatest ordering."""
+
+
+class BoolAnd(AggregateExpression):
+    """bool_and / every: null when no value is non-null."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self):
+        return True
+
+
+class BoolOr(BoolAnd):
+    """bool_or / any / some."""
+
+
+class CountIf(AggregateExpression):
+    """count_if(p): the rows where ``p`` is true (null is not)."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+
+class BitAndAgg(AggregateExpression):
+    """bit_and over an integral column (the CPU engine only, as in the
+    reference)."""
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    @property
+    def nullable(self):
+        return True
+
+
+class BitOrAgg(BitAndAgg):
+    pass
+
+
+class BitXorAgg(BitAndAgg):
+    pass
+
+
+class Percentile(AggregateExpression):
+    """percentile(x, p): Spark's exact percentile, linear interpolation at
+    rank p * (n - 1) of the sorted non-null values (a decimal read as its
+    double). The CPU engine only, as in the reference; it does not merge
+    by partial buffers."""
+
+    def __init__(self, child: Expression, percentage: float):
+        self.child = child
+        self.children = (child,)
+        self.percentage = float(percentage)
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return True
+
+    def __repr__(self):
+        return f"Percentile({self.child!r}, {self.percentage})"
+
+
+class Median(Percentile):
+    """median(x) = percentile(x, 0.5)."""
+
+    def __init__(self, child: Expression):
+        super().__init__(child, 0.5)
+
+    def __repr__(self):
+        return f"Median({self.child!r})"
+
+
+VARIANCE_FAMILY = (VarianceSamp, VariancePop, StddevSamp, StddevPop,
+                   Skewness, Kurtosis)
+# every aggregate of the port, device and CPU engine
+AGGREGATES = (Sum, Count, Average, Min, Max, First, Last, AnyValue,
+              CountDistinct, CovarSamp, CovarPop, Corr, MinBy, MaxBy,
+              BoolAnd, BoolOr, CountIf, BitAndAgg, BitOrAgg, BitXorAgg,
+              Percentile, Median) + VARIANCE_FAMILY
+
+
 # expressions the device evaluates
 SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              Subtract, Multiply, Divide, UnaryMinus, Abs, EqualTo, LessThan,
              LessThanOrEqual, GreaterThan, GreaterThanOrEqual, And, Or, Not,
              IsNull, IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like,
-             IsNaN, Nanvl, Sum, Count, Average, Min, Max) + DATETIME_FUNCTIONS
-# expressions only the CPU engine evaluates
-CPU_ONLY = (CountDistinct,)
+             IsNaN, Nanvl, Sum, Count, Average, Min, Max, First, Last,
+             AnyValue, CovarSamp, CovarPop, Corr, MinBy, MaxBy, BoolAnd,
+             BoolOr, CountIf) + VARIANCE_FAMILY + DATETIME_FUNCTIONS
+# expressions only the CPU engine evaluates (the reference's
+# device_supported = False aggregates among them)
+CPU_ONLY = (CountDistinct, BitAndAgg, BitOrAgg, BitXorAgg, Percentile,
+            Median)
 
 
 def check_supported(expr: Expression) -> None:
@@ -1139,8 +1351,9 @@ def resolve(expr: Expression, schema: T.Schema) -> Expression:
     """Replace UnresolvedColumn with a typed ColumnRef against a schema,
     and type every untyped NULL literal (``lit(None)``) from its parent:
     a conditional's value takes the type of its first typed branch, an
-    ``IN`` item the value's type, a Cast its target type, And/Or/Not and
-    IsNull/IsNotNull a boolean, Sum, Average and Count a double (as the
+    ``IN`` item the value's type, a Cast its target type, And/Or/Not,
+    IsNull/IsNotNull, BoolAnd/BoolOr and CountIf a boolean, Sum, Average,
+    Count, the variance family and the covariances a double (as the
     reference, Spark's sum(NULL) is a double). Arithmetic, comparisons,
     Min, Max and a bare projected NULL raise TypeError, as the reference
     types them ("no common numeric type")."""
@@ -1171,8 +1384,14 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Cast(kids[0], expr.to)
     if isinstance(expr, Count):
         return Count(_typed(kids[0], T.BOOLEAN) if kids else None)
-    if isinstance(expr, (Sum, Average)):
-        return type(expr)(_typed(kids[0], T.DOUBLE))
+    if isinstance(expr, (Sum, Average, _VarianceBase, _CovarianceBase)):
+        return type(expr)(*[_typed(k, T.DOUBLE) for k in kids])
+    if isinstance(expr, (BoolAnd, CountIf)):
+        return type(expr)(_typed(kids[0], T.BOOLEAN))
+    if isinstance(expr, Median):
+        return Median(kids[0])
+    if isinstance(expr, Percentile):
+        return Percentile(kids[0], expr.percentage)
     if isinstance(expr, (And, Or, Not, IsNull, IsNotNull)):
         return type(expr)(*[_typed(k, T.BOOLEAN) for k in kids])
     if isinstance(expr, In):
@@ -1256,7 +1475,7 @@ def _resolve_datetime(expr: Expression, kids: List[Expression]
 
 # type_support declarations of the device path (spark_rapids_tpu_torch.support)
 from spark_rapids_tpu_torch.support import (  # noqa: E402
-    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, ORDERABLE, ts)
+    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, ts)
 
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
@@ -1306,7 +1525,20 @@ Like.type_support = ts("string", out="boolean")
 Sum.type_support = ts(NUMERIC, DECIMAL)
 Average.type_support = ts(NUMERIC, DECIMAL, out="fractional " + DECIMAL)
 Count.type_support = ts(DEVICE_SCALAR, out="integral")
-Min.type_support = ts(ORDERABLE)
-Max.type_support = ts(ORDERABLE)
+# strings reduce exactly in byte order (a dictionary's codes are in it)
+Min.type_support = ts(DEVICE_SCALAR)
+Max.type_support = ts(DEVICE_SCALAR)
+First.type_support = ts(DEVICE_SCALAR)
+Last.type_support = ts(DEVICE_SCALAR)
+AnyValue.type_support = ts(DEVICE_SCALAR)
+_VarianceBase.type_support = ts(NUMERIC, DECIMAL, out="fractional")
+_CovarianceBase.type_support = ts(NUMERIC, DECIMAL, out="fractional")
+# overrides.check_expr gates the ordering's and the value's types further
+MinBy.type_support = ts(DEVICE_SCALAR)
+BoolAnd.type_support = ts("boolean")
+CountIf.type_support = ts("boolean", out="integral")
 # not on the device (not in SUPPORTED): the distinct rewrite replaces it
 CountDistinct.type_support = ts(DEVICE_SCALAR, out="integral")
+# the CPU engine's (not in SUPPORTED), declared as the reference's
+BitAndAgg.type_support = ts("integral")
+Percentile.type_support = ts(NUMERIC, DECIMAL, out="fractional")

@@ -32,6 +32,7 @@ import re
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import pandas as pd
 import pyarrow as pa
 import torch
 
@@ -164,9 +165,14 @@ def _decimal_overflow(vals: np.ndarray, valid: np.ndarray,
 
 def _per_value(vals: np.ndarray, fn) -> np.ndarray:
     """``fn`` over the values; a broadcast literal (stride 0) is mapped
-    once and broadcast again."""
+    once and broadcast again, and a long column of Python objects
+    (strings) is mapped once per distinct value."""
     if vals.ndim == 1 and len(vals) > 1 and vals.strides[0] == 0:
         return np.broadcast_to(fn(vals[:1]), vals.shape)
+    if vals.dtype == object and len(vals) > 4096:
+        codes, uniq = pd.factorize(vals, use_na_sentinel=False)
+        if 2 * len(uniq) < len(vals):
+            return fn(np.asarray(uniq, dtype=object))[codes]
     return fn(vals)
 
 
@@ -727,8 +733,17 @@ def order_ranks(vals: np.ndarray, valid: np.ndarray,
     v = vals[valid]
     if _is_float(dt):
         v = _canonical_float(v)
-    uniq, inv = np.unique(v, return_inverse=True)
     ranks = np.zeros(len(vals), np.int64)
+    if v.dtype == object:
+        # strings (or DECIMAL128 ints): hash-factorise, then sort only the
+        # distinct values (Python's order of str is code point order, which
+        # is UTF-8 byte order)
+        codes, uniq = pd.factorize(v, use_na_sentinel=False)
+        rank_of = np.empty(len(uniq), np.int64)
+        rank_of[np.argsort(uniq, kind="stable")] = np.arange(len(uniq))
+        ranks[valid] = rank_of[codes]
+        return ranks, len(uniq)
+    uniq, inv = np.unique(v, return_inverse=True)
     ranks[valid] = inv.reshape(-1)
     return ranks, len(uniq)
 
@@ -749,10 +764,12 @@ def sort_permutation(table: pa.Table, keys: Sequence[Tuple[E.Expression,
                                                            Optional[bool]]]
                      ) -> np.ndarray:
     """Stable ORDER BY permutation over bound (expr, ascending,
-    nulls_first) keys, Spark's default null order where None: chained
-    stable sorts, least significant first; an integer key sorts on its
-    values and then on its null flag, any other on its dense ranks."""
-    perm = np.arange(table.num_rows)
+    nulls_first) keys, Spark's default null order where None: each key is
+    a digit (an integer key its values, then its null flag; any other key
+    its dense ranks, nulls at one end), least significant first, and runs
+    of digits whose ranges fit 62 bits together are packed into one int64
+    and sorted by one stable argsort (equal to a stable sort per digit)."""
+    digits: List[np.ndarray] = []  # least significant first
     for expr, ascending, nulls_first in reversed(list(keys)):
         if nulls_first is None:
             nulls_first = ascending
@@ -761,15 +778,34 @@ def sort_permutation(table: pa.Table, keys: Sequence[Tuple[E.Expression,
         if key is not None:
             if not ascending:
                 key = ~key  # order-reversing, and no overflow
-            perm = perm[np.argsort(key[perm], kind="stable")]
-            late = (valid if nulls_first else ~valid).astype(np.int8)
-            perm = perm[np.argsort(late[perm], kind="stable")]
+            digits.append(key)
+            if not valid.all():
+                digits.append((valid if nulls_first else ~valid).astype(
+                    np.int64))
             continue
         ranks, n_distinct = order_ranks(vals, valid, expr.dtype)
         if not ascending:
             ranks = n_distinct - 1 - ranks
-        key = np.where(valid, ranks, -1 if nulls_first else n_distinct)
-        perm = perm[np.argsort(key[perm], kind="stable")]
+        digits.append(np.where(valid, ranks + 1,
+                               0 if nulls_first else n_distinct + 1))
+    perm = np.arange(table.num_rows)
+    if not table.num_rows:
+        return perm
+    packed, bits = None, 0
+    for d in digits:
+        lo = int(d.min())
+        width = (int(d.max()) - lo).bit_length()
+        if packed is not None and bits + width > 62:
+            perm = perm[np.argsort(packed[perm], kind="stable")]
+            packed, bits = None, 0
+        if width > 62:  # a digit of its own (its values, not offsets)
+            perm = perm[np.argsort(d[perm], kind="stable")]
+            continue
+        digit = d - lo
+        packed = digit if packed is None else (digit << bits) | packed
+        bits += width
+    if packed is not None:
+        perm = perm[np.argsort(packed[perm], kind="stable")]
     return perm
 
 

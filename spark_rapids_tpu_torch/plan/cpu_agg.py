@@ -14,6 +14,18 @@ scale in integer arithmetic; CountDistinct counts each group's distinct
 non-null values. A global aggregate over no rows is one row (counts 0,
 everything else null).
 
+The rest of the family follows the device's rules (``exec/aggregate.py``):
+the variance family and the covariances take central moments over the
+inputs cast to DOUBLE, about each group's first non-null value (so a
+common offset costs no digit and identical values give M2 = 0 exactly);
+First/Last/AnyValue the first (last) non-null value in row order;
+MinBy/MaxBy the value at the first least (greatest) non-null ordering of
+any type (Spark's order: NaN above every double); string Min/Max in byte
+order; BoolAnd/BoolOr and CountIf over the non-null booleans. The
+reference's CPU-only aggregates run here alone: BitAndAgg/BitOrAgg/
+BitXorAgg over the non-null integers, Percentile/Median by Spark's linear
+interpolation at rank p * (n - 1) of the sorted non-null values.
+
 ``CpuJoinExec`` is the equi-join of every type the device runs (inner,
 left, right, full, left_semi, left_anti): both sides' keys are factorised
 together and null keys never match. Pairs come out in left-row order, each
@@ -35,14 +47,14 @@ import pandas as pd
 import pyarrow as pa
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
+from spark_rapids_tpu_torch.exec.aggregate import _strip_alias, agg_inputs
 from spark_rapids_tpu_torch.exec.base import DeviceExec
 from spark_rapids_tpu_torch.exec.join import (
     JOIN_TYPES, PairCondition, join_schema)
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.plan.cpu import (
     CpuExec, _canonical_float, _half_up_div, _is_float, comparable,
-    cpu_eval, order_ranks, values_to_arrow)
+    cpu_eval, expr_key, order_ranks, values_to_arrow)
 
 
 def _factorize(vals: np.ndarray, valid: np.ndarray,
@@ -133,23 +145,16 @@ def _count_distinct(codes: np.ndarray, k: int, valid: np.ndarray,
     return np.bincount(pair // k, minlength=ng)
 
 
-def _group_extreme(vals: np.ndarray, valid: np.ndarray, dt: T.DataType,
-                   gid: np.ndarray, ng: int, want_max: bool):
-    """(min or max, any valid) per group in Spark order."""
-    ranks, _ = order_ranks(vals, valid, dt)
-    rows = np.flatnonzero(valid)
-    order = rows[np.lexsort((ranks[rows], gid[rows]))]
-    g = gid[order]
-    present, first = np.unique(g, return_index=True)
-    pick = first
-    if want_max:
-        pick = np.append(first[1:], len(order)) - 1
-    out = np.zeros(ng, vals.dtype)
+def _group_extreme(vals: np.ndarray, valid: np.ndarray, ranks: np.ndarray,
+                   dt: T.DataType, groups: "_Groups", want_max: bool):
+    """(min or max, any valid) per group in Spark order (``ranks``:
+    ``order_ranks``'s)."""
+    at = _arg_extreme_rows(ranks, valid, groups, want_max)
+    has = at >= 0
+    out = np.zeros(groups.ng, vals.dtype)
     if vals.dtype == object and dt == T.STRING:
         out[:] = ""
-    out[present] = vals[order[pick]]
-    has = np.zeros(ng, np.bool_)
-    has[present] = True
+    out[has] = vals[at[has]]
     return out, has
 
 
@@ -187,8 +192,7 @@ class CpuAggregateExec(CpuExec):
         self._aggs = []
         for e in self.agg_exprs:
             func, name = _strip_alias(e)
-            if not isinstance(func, (E.Sum, E.Count, E.Average, E.Min,
-                                     E.Max, E.CountDistinct)):
+            if not isinstance(func, E.AGGREGATES):
                 raise NotImplementedError(
                     f"aggregate {type(func).__name__} is not in the CPU "
                     f"engine yet")
@@ -241,18 +245,21 @@ class CpuAggregateExec(CpuExec):
             arrays.append(values_to_arrow(v[first], m[first], f.dtype))
         for (func, _name), f in zip(self._aggs,
                                     list(self._schema)[len(key_vals):]):
-            arrays.append(self._reduce(func, f.dtype, n, groups, evaluate))
+            arrays.append(self._reduce(func, f.dtype, n, groups, evaluate,
+                                       cache))
         yield pa.Table.from_arrays(arrays, schema=self._schema.to_arrow())
 
     @staticmethod
     def _reduce(func, out_t: T.DataType, n: int, groups: _Groups,
-                evaluate) -> pa.Array:
+                evaluate, memo: dict) -> pa.Array:
         gid, ng = groups.gid, groups.ng
         if isinstance(func, E.Count):
             valid = (evaluate(func.children[0])[1] if func.children
                      else np.ones(n, np.bool_))
             return values_to_arrow(groups.counts(valid),
                                    np.ones(ng, np.bool_), out_t)
+        if not isinstance(func, _BASIC):
+            return _reduce_family(func, out_t, groups, evaluate, memo)
         in_t = func.children[0].dtype
         vals, valid = evaluate(func.children[0])
         if isinstance(func, E.CountDistinct):
@@ -262,7 +269,8 @@ class CpuAggregateExec(CpuExec):
         if in_t in T.FRACTIONAL_TYPES:
             vals = _canonical_float(vals)
         if isinstance(func, (E.Min, E.Max)):
-            out, has = _group_extreme(vals, valid, in_t, gid, ng,
+            ranks = _memo_ranks(memo, func.children[0], vals, valid)
+            out, has = _group_extreme(vals, valid, ranks, in_t, groups,
                                       isinstance(func, E.Max))
             return values_to_arrow(out, has, out_t)
         total, has = _group_sum(vals, valid, groups,
@@ -280,6 +288,224 @@ class CpuAggregateExec(CpuExec):
             return values_to_arrow(avg, has, out_t)
         avg = total.astype(np.float64) / np.maximum(count, 1)
         return values_to_arrow(np.where(has, avg, 0.0), has, out_t)
+
+
+_BASIC = (E.Sum, E.Count, E.Average, E.Min, E.Max, E.CountDistinct)
+
+
+def _memo_ranks(memo: dict, e: E.Expression, vals: np.ndarray,
+                valid: np.ndarray) -> np.ndarray:
+    """``order_ranks`` of the bound expression ``e``'s values, once per
+    node (a Min and a Max, or a MinBy and a MaxBy, share them)."""
+    key = ("#ranks", expr_key(e))
+    if key not in memo:
+        memo[key] = order_ranks(vals, valid, e.dtype)[0]
+    return memo[key]
+
+
+def _first_sorted(v: np.ndarray, groups: _Groups,
+                  last: bool = False) -> np.ndarray:
+    """Each group's first (``last``: last) row where ``v`` (given in the
+    groups' row order) holds, as a row index, -1 where none."""
+    n = len(v)
+    if n == 0:
+        return np.full(groups.ng, -1, np.int64)
+    pos = np.arange(n)
+    if last:
+        at = np.maximum.reduceat(np.where(v, pos, -1), groups.starts)
+    else:
+        at = np.minimum.reduceat(np.where(v, pos, n), groups.starts)
+    found = (at >= 0) & (at < n)
+    at = np.clip(at, 0, n - 1)
+    rows = at if groups.order is None else groups.order[at]
+    return np.where(found, rows, -1)
+
+
+def _sorted(a: np.ndarray, groups: _Groups) -> np.ndarray:
+    """``a`` in the groups' row order."""
+    return a if groups.order is None else a[groups.order]
+
+
+def _first_rows(valid: np.ndarray, groups: _Groups,
+                last: bool = False) -> np.ndarray:
+    """Each group's first (``last``: last) row where ``valid``, -1 where
+    none."""
+    return _first_sorted(_sorted(valid, groups), groups, last)
+
+
+def _shifted_mean(x: np.ndarray, valid: np.ndarray, groups: _Groups):
+    """(count, mean, each row's distance from its group's mean; 0 where
+    not valid): the mean taken about the group's first valid value."""
+    gid, ng = groups.gid, groups.ng
+    first = _first_rows(valid, groups)
+    x0 = np.where(first >= 0, x[np.maximum(first, 0)] if len(x) else 0.0,
+                  0.0)
+    n = np.bincount(gid[valid], minlength=ng)
+    with np.errstate(invalid="ignore"):
+        y = np.where(valid, x - x0[gid], 0.0)
+        mean = x0 + np.bincount(gid, weights=y, minlength=ng) / np.maximum(
+            n, 1)
+        return n, mean, np.where(valid, x - mean[gid], 0.0)
+
+
+def _central_moments(x: np.ndarray, valid: np.ndarray, groups: _Groups):
+    """(count, M2, M3, M4) per group: the sums of the powers of each valid
+    value's distance from its group's mean."""
+    gid, ng = groups.gid, groups.ng
+    n, _mean, d = _shifted_mean(np.asarray(x, np.float64), valid, groups)
+    with np.errstate(invalid="ignore", over="ignore"):
+        d2 = d * d
+        return (n,) + tuple(np.bincount(gid, weights=v, minlength=ng)
+                            for v in (d2, d2 * d, d2 * d2))
+
+
+def _moments(func, moments):
+    """A variance-family result from ``_central_moments``: (values,
+    valid)."""
+    n, m2, m3, m4 = moments
+    nf = n.astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        m2 = np.where(m2 < 0, 0.0, m2)  # NaN stays NaN
+        if isinstance(func, (E.Skewness, E.Kurtosis)):
+            if isinstance(func, E.Skewness):
+                out = np.sqrt(nf) * m3 / m2 ** 1.5
+            else:
+                out = nf * m4 / (m2 * m2) - 3.0
+            return np.where(m2 == 0, np.nan, out), n > 0
+        samp = isinstance(func, (E.VarianceSamp, E.StddevSamp))
+        out = m2 / np.maximum(nf - 1 if samp else nf, 1.0)
+        if isinstance(func, (E.StddevSamp, E.StddevPop)):
+            out = np.sqrt(out)
+    return out, (n > 1) if samp else (n > 0)
+
+
+def _comoments(func, cols, groups: _Groups):
+    """A covariance or correlation over the pairs with both sides non-null:
+    (values, valid)."""
+    gid, ng = groups.gid, groups.ng
+    (x, vx), (y, vy) = cols
+    pair = vx & vy
+    n, _mx, dx = _shifted_mean(np.asarray(x, np.float64), pair, groups)
+    _n, _my, dy = _shifted_mean(np.asarray(y, np.float64), pair, groups)
+
+    def total(v):
+        return np.bincount(gid, weights=v, minlength=ng)
+
+    nf = n.astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        c = total(dx * dy)
+        if isinstance(func, E.CovarPop):
+            return c / np.maximum(nf, 1.0), n > 0
+        if isinstance(func, E.CovarSamp):
+            return c / np.maximum(nf - 1, 1.0), n > 1
+        mx, my = total(dx * dx), total(dy * dy)
+        den = np.sqrt(np.where(mx < 0, 0.0, mx) * np.where(my < 0, 0.0, my))
+        # null where either variance is 0 (or NaN), as the reference's
+        ok = (n > 0) & (den > 0)
+        return np.where(ok, c / np.where(ok, den, 1.0), 0.0), ok
+
+
+def _arg_extreme_rows(ranks: np.ndarray, ovalid, groups: _Groups,
+                      want_max: bool) -> np.ndarray:
+    """Each group's first row at its least (greatest) non-null ordering
+    (``ranks``: ``order_ranks``'s, in Spark's order), -1 where none."""
+    big = np.iinfo(np.int64).max
+    k = _sorted(np.where(ovalid, -ranks if want_max else ranks, big), groups)
+    if not len(k):
+        return np.full(groups.ng, -1, np.int64)
+    best = np.minimum.reduceat(k, groups.starts)
+    seg = np.repeat(np.arange(len(groups.starts)),
+                    np.diff(np.append(groups.starts, len(k))))
+    return _first_sorted((k == best[seg]) & _sorted(ovalid, groups), groups)
+
+
+def _bit_reduce(func, vals, valid, groups: _Groups):
+    """bit_and/or/xor of each group's non-null values (null where none):
+    one reduction over the rows in group order, null rows at the
+    operation's identity."""
+    ufunc = (np.bitwise_xor if isinstance(func, E.BitXorAgg) else
+             np.bitwise_or if isinstance(func, E.BitOrAgg) else
+             np.bitwise_and)
+    v = np.asarray(vals)
+    ident = -1 if ufunc is np.bitwise_and else 0
+    has = groups.counts(valid) > 0
+    if not len(v):
+        return np.zeros(groups.ng, v.dtype), has
+    out = ufunc.reduceat(_sorted(np.where(valid, v, v.dtype.type(ident)),
+                                 groups), groups.starts)
+    return np.where(has, out, 0).astype(v.dtype), has
+
+
+def _percentile(func, x, valid, gid: np.ndarray, ng: int):
+    """Spark's exact percentile: linear interpolation at rank p * (n - 1)
+    of each group's sorted non-null values."""
+    x = np.asarray(x, np.float64)
+    rows = np.flatnonzero(valid)
+    rows = rows[np.argsort(x[rows])]
+    rows = rows[np.argsort(gid[rows], kind="stable")]
+    xs = x[rows]
+    n = np.bincount(gid[rows], minlength=ng)
+    start = np.cumsum(n) - n
+    has = n > 0
+    r = func.percentage * np.maximum(n - 1, 0)
+    lo, hi = np.floor(r).astype(np.int64), np.ceil(r).astype(np.int64)
+    if not len(xs):
+        return np.zeros(ng), has
+    a = xs[np.clip(start + lo, 0, len(xs) - 1)]
+    b = xs[np.clip(start + hi, 0, len(xs) - 1)]
+    with np.errstate(invalid="ignore"):
+        return np.where(has, a + (b - a) * (r - lo), 0.0), has
+
+
+def _reduce_family(func, out_t: T.DataType, groups: _Groups, evaluate,
+                   memo: dict) -> pa.Array:
+    """The aggregates beyond Sum/Count/Average/Min/Max/CountDistinct
+    (``memo`` keeps what several of them share)."""
+    gid, ng = groups.gid, groups.ng
+    inputs = agg_inputs(func)
+    cols = [evaluate(e) for e in inputs]
+    if isinstance(func, E._VarianceBase):
+        # one set of central moments for every function of one input
+        key = ("#moments", expr_key(inputs[0]))
+        if key not in memo:
+            memo[key] = _central_moments(*cols[0], groups)
+        return values_to_arrow(*_moments(func, memo[key]), out_t)
+    if isinstance(func, E._CovarianceBase):
+        return values_to_arrow(*_comoments(func, cols, groups), out_t)
+    if isinstance(func, E.MinBy):
+        (vals, valid), (ovals, ovalid) = cols
+        at = _arg_extreme_rows(_memo_ranks(memo, inputs[1], ovals, ovalid),
+                               ovalid, groups, isinstance(func, E.MaxBy))
+        safe = np.maximum(at, 0)
+        return values_to_arrow(vals[safe] if len(vals) else
+                               np.zeros(ng, vals.dtype),
+                               (at >= 0) & (valid[safe] if len(valid)
+                                            else False), out_t)
+    (vals, valid), = cols
+    if isinstance(func, (E.First, E.Last, E.AnyValue)):
+        at = _first_rows(valid, groups, last=isinstance(func, E.Last))
+        safe = np.maximum(at, 0)
+        return values_to_arrow(vals[safe] if len(vals) else
+                               np.zeros(ng, vals.dtype), at >= 0, out_t)
+    if isinstance(func, E.CountIf):
+        return values_to_arrow(groups.counts(valid & vals.astype(np.bool_)),
+                               np.ones(ng, np.bool_), out_t)
+    if isinstance(func, E.BoolAnd):
+        has = groups.counts(valid) > 0
+        if isinstance(func, E.BoolOr):
+            out = groups.counts(valid & vals.astype(np.bool_)) > 0
+        else:
+            out = groups.counts(valid & ~vals.astype(np.bool_)) == 0
+        return values_to_arrow(out & has, has, out_t)
+    if isinstance(func, E.BitAndAgg):
+        return values_to_arrow(*_bit_reduce(func, vals, valid, groups),
+                               out_t)
+    if isinstance(func, E.Percentile):
+        x, xv = evaluate(E.Cast(func.child, T.DOUBLE)
+                         if func.child.dtype != T.DOUBLE else func.child)
+        return values_to_arrow(*_percentile(func, x, xv, gid, ng), out_t)
+    raise NotImplementedError(
+        f"aggregate {type(func).__name__} is not in the CPU engine yet")
 
 
 class CpuJoinExec(CpuExec):

@@ -2,7 +2,9 @@
 CpuWindowExec in spark_rapids_tpu/plan/cpu_agg.py), for the device's window
 surface (``exec.window.check_window``): RowNumber, Rank, DenseRank, NTile,
 PercentRank, CumeDist, Lead and Lag, and Sum, Count, Average, Min, Max,
-First and Last over UNBOUNDED, running and bounded ROWS and RANGE frames.
+First, Last, the variance family and (here alone, as in the reference)
+Skewness and Kurtosis over UNBOUNDED, running and bounded ROWS and RANGE
+frames.
 
 Like the device's ``WindowExec`` it reads every row of its child, orders
 them by the (partition, order) keys (``cpu.sort_permutation``: Spark's
@@ -228,6 +230,12 @@ def _frame_agg(f, frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
     lo, hi = _frame_rows(frame, t, g, orders)
     empty = hi < lo
     lo_c, hi_c = np.clip(lo, 0, max(n - 1, 0)), np.clip(hi, 0, max(n - 1, 0))
+    if isinstance(f, E._VarianceBase):
+        x = f.children[0]
+        vals, valid = cpu_eval(x if x.dtype == T.DOUBLE
+                               else E.Cast(x, T.DOUBLE), t)
+        return _frame_moments(f, np.asarray(vals, np.float64), valid, lo,
+                              empty, lo_c, hi_c, g)
     if f.children:
         vals, valid = cpu_eval(f.children[0], t)
         in_t = f.children[0].dtype
@@ -290,6 +298,62 @@ def _frame_agg(f, frame: W.WindowFrame, t: pa.Table, g: _Geo, orders):
         return np.array([(int(x) + (1 << 63)) % (1 << 64) - (1 << 63)
                          for x in got], np.int64), ok
     return np.where(nan_in, np.nan, got), ok
+
+
+def _frame_moments(f, x: np.ndarray, valid: np.ndarray, lo, empty, lo_c,
+                   hi_c, g: _Geo):
+    """The variance family, Skewness and Kurtosis over each frame, as the
+    device's ``_variance_window``: per-partition running sums of the
+    values shifted by their partition's first finite value and of their
+    powers, differenced over the frame, give the frame's central moments
+    (NaN where the frame holds a NaN or an infinity)."""
+    n = len(x)
+    finite = valid & np.isfinite(x)
+    shift = np.zeros(n)
+    for s, e in zip(g.starts, g.ends):
+        at = np.flatnonzero(finite[s:e])
+        shift[s:e] = x[s + at[0]] if len(at) else 0.0
+    y = np.where(finite, x - shift, 0.0)
+
+    def frame_count(rows):
+        pre = np.concatenate([[0], np.cumsum(rows)])
+        return np.where(empty, 0, pre[hi_c + 1] - pre[lo_c])
+
+    def frame_sum(v):
+        run = np.zeros(n)
+        for s, e in zip(g.starts, g.ends):
+            run[s:e] = np.cumsum(v[s:e])
+        got = run[hi_c] - np.where(lo > g.seg_first, run[lo_c - 1], 0.0)
+        return np.where(empty, 0.0, got)
+
+    c = frame_count(finite).astype(np.float64)
+    cc = np.maximum(c, 1.0)
+    s1, s2 = frame_sum(y), frame_sum(y * y)
+    m2 = np.maximum(s2 - s1 * s1 / cc, 0.0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        if isinstance(f, (E.Skewness, E.Kurtosis)):
+            s3 = frame_sum(y ** 3)
+            m3 = s3 - 3 * s1 * s2 / cc + 2 * s1 ** 3 / cc ** 2
+            if isinstance(f, E.Skewness):
+                out = np.sqrt(c) * m3 / m2 ** 1.5
+            else:
+                s4 = frame_sum(y ** 4)
+                m4 = (s4 - 4 * s1 * s3 / cc + 6 * s1 * s1 * s2 / cc ** 2
+                      - 3 * s1 ** 4 / cc ** 3)
+                out = c * m4 / (m2 * m2) - 3.0
+            out = np.where(m2 == 0, np.nan, out)
+            samp = False
+        else:
+            samp = isinstance(f, (E.VarianceSamp, E.StddevSamp))
+            out = m2 / np.maximum(c - 1 if samp else c, 1.0)
+            if isinstance(f, (E.StddevSamp, E.StddevPop)):
+                out = np.sqrt(out)
+    if finite.all():  # no null, NaN or infinity: the counts are c
+        bad, rows = np.zeros(n, np.bool_), c
+    else:
+        bad, rows = frame_count(valid & ~finite) > 0, frame_count(valid)
+    return (np.where(bad, np.nan, out),
+            rows > 1 if samp else rows > 0)
 
 
 def _frame_extremum(f, vals, valid, exact: bool, lo_c, hi_c, g: _Geo,

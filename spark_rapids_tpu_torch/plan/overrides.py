@@ -9,9 +9,13 @@ Tagging holds every bound expression to the device's declarations
 (``check_expr``: the expression set, each class's ``type_support``, the
 expressions with a DECIMAL128 implementation (``WIDE_OK``), the decimal
 Divide's rescale range, and the device's own refusals such as string
-ordering comparisons), and each node to its operator's: a DECIMAL128
-group key, join key or window Min/Max stays on the CPU engine, as in the
-reference. A node with reasons runs on the CPU engine when
+ordering comparisons and MinBy/MaxBy over a float, string or decimal
+ordering or a string or decimal value), and each node to its operator's:
+a DECIMAL128 group key, join key or window Min/Max, and a Skewness or
+Kurtosis window, stay on the CPU engine, as in the reference. The
+reference's CPU-only aggregates (BitAndAgg/BitOrAgg/BitXorAgg,
+Percentile/Median) are outside the device's expression set. A node with
+reasons runs on the CPU engine when
 ``spark.rapids.gpu.sql.fallback.enabled`` is true (the default) and raises
 NotImplementedError naming them when it is false; with
 ``spark.rapids.gpu.sql.enabled`` false every node runs on the CPU engine.
@@ -172,7 +176,8 @@ _ORDERING = (E.LessThan, E.LessThanOrEqual, E.GreaterThan,
 WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
            E.Add, E.Subtract, E.Multiply, E.Divide, E.Abs, E.UnaryMinus,
            E.BinaryComparison, E.IsNull, E.IsNotNull, E.If, E.CaseWhen,
-           E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count)
+           E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count, E.First,
+           E.Last)
 
 # the window functions with a DECIMAL128 device implementation (Lead covers
 # Lag)
@@ -226,6 +231,16 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
         if (isinstance(bound, E.In) and bound.value.dtype == T.STRING
                 and not all(isinstance(i, E.Literal) for i in bound.items)):
             reasons.append("string IN over non-literal items not on device")
+        if isinstance(bound, E.MinBy):
+            # the device picks by an integral, boolean, date or timestamp
+            # ordering and gathers a fixed-width value (the reference's
+            # gate)
+            odt, vdt = bound.ordering.dtype, bound.value.dtype
+            if (odt in T.FRACTIONAL_TYPES or T.STRING in (odt, vdt)
+                    or isinstance(odt, T.DecimalType)
+                    or isinstance(vdt, T.DecimalType)):
+                reasons.append(
+                    "min_by/max_by ordering/value type not on device")
         # the bound children: resolve may add Casts (conditional branches)
         for c in bound.children:
             walk(c)
@@ -284,6 +299,9 @@ def _window_reasons(node: L.Window, device: bool = True) -> List[str]:
                 T.is_wide_decimal(c.dtype) for c in fn.children)) and \
                 not isinstance(fn, _WIDE_WINDOW_OK):
             reasons.append("decimal128 window function not on device")
+        if device and isinstance(fn, (E.Skewness, E.Kurtosis)):
+            reasons.append("skewness/kurtosis window functions not on "
+                           "device")
         order_keys = [(E.resolve(o.child, schema), o.ascending)
                       for o in spec.order_by]
         try:

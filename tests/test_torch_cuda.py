@@ -32,7 +32,11 @@ reused exchange replayed on the card, each against the CPU; the scalar
 types: ingest and Arrow out of TINYINT, SMALLINT, FLOAT and TIMESTAMP,
 a typed spill round trip, int8/int16 scans launching the kernel, a
 BYTE/SHORT bounded ROWS Min/Max window and the typed sales' T4 through
-the planner.
+the planner; the aggregate family: every device aggregate on the card
+(one split and 4) against the CPU engine, the variance windows over all
+four frames with every scan call held against the plain version, and the
+statistics pass's S3 under a capped pool, its spilled partials read back
+equal.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -1532,3 +1536,188 @@ def test_typed_t4_through_the_planner_on_card():
         exp = TS.t4(TS.df_tables(t, RapidsConf(conf) if conf else None,
                                  device="cpu")).to_arrow().to_pylist()
         assert TS.check_rows("T4", got, exp) == (True, "")
+
+
+# ---------------------------------------------------------------------------
+# the aggregate family
+# ---------------------------------------------------------------------------
+
+
+def _family_table(n=20000, seed=31):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(1e6, 3.0, n)
+    return pa.table({
+        "k": pa.array(rng.integers(0, 37, n), pa.int64()),
+        "x": pa.array([None if i % 11 == 0 else float(v)
+                       for i, v in enumerate(x)], pa.float64()),
+        "y": pa.array([None if i % 13 == 0 else float(v)
+                       for i, v in enumerate(2 * x + rng.normal(0, 1, n))],
+                      pa.float64()),
+        "o": pa.array(rng.integers(0, 500, n), pa.int64()),
+        "b": pa.array([None if i % 17 == 0 else bool(v) for i, v in
+                       enumerate(rng.integers(0, 2, n))], pa.bool_()),
+        "s": pa.array([f"{'p' * 18}{v:04d}" for v in
+                       rng.integers(0, 3000, n)], pa.string()),
+    })
+
+
+def _family_aggs():
+    from spark_rapids_tpu_torch.exprs import expr as PE
+
+    c = PE.col
+    plain = PE.Substring(c("s"), 1, 30)
+    return [
+        PE.VarianceSamp(c("x")).alias("var_samp"),
+        PE.VariancePop(c("x")).alias("var_pop"),
+        PE.StddevSamp(c("x")).alias("stddev_samp"),
+        PE.StddevPop(c("o")).alias("stddev_pop"),
+        PE.Skewness(c("x")).alias("skew"), PE.Kurtosis(c("x")).alias("kurt"),
+        PE.Corr(c("x"), c("y")).alias("corr"),
+        PE.CovarSamp(c("x"), c("y")).alias("covar_samp"),
+        PE.CovarPop(c("x"), c("o")).alias("covar_pop"),
+        PE.MinBy(c("x"), c("o")).alias("min_by"),
+        PE.MaxBy(c("y"), c("o")).alias("max_by"),
+        PE.BoolAnd(c("b")).alias("bool_and"),
+        PE.BoolOr(c("b")).alias("bool_or"),
+        PE.CountIf(c("b")).alias("count_if"),
+        PE.AnyValue(c("o")).alias("any_o"),
+        PE.First(c("x")).alias("first_x"), PE.Last(c("s")).alias("last_s"),
+        PE.Min(c("s")).alias("min_s"), PE.Max(plain).alias("max_plain"),
+        PE.First(plain).alias("first_plain")]
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+def test_aggregate_family_on_card_matches_the_cpu_engine(splits):
+    """Every device aggregate of the family on the card (one split, and 4
+    splits through the partial/final exchange) against the CPU engine
+    and the CPU device path: doubles within relative 1e-9 (the central
+    moments about a 1e6 offset keep their digits), the rest exactly."""
+    _card()
+    from spark_rapids_tpu_torch.bench.tpch import rows_match
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    t = _family_table()
+
+    def run(device, conf):
+        df = from_arrow(t, RapidsConf(conf), batch_rows=-(-20000 // splits),
+                        device=device, partitions=splits)
+        q = df.group_by("k").agg(*_family_aggs()).sort("k")
+        return q, q.to_arrow().to_pylist()
+
+    fast = {"spark.rapids.gpu.fastpath.enabled": "false"} if splits > 1 \
+        else {}
+    q, got = run("cuda", fast)
+    assert "!" not in q.explain()
+    assert len(got) == 37 and all(v is not None for v in got[0].values())
+    for device, conf in (("cpu", fast),
+                         ("cuda", {"spark.rapids.gpu.sql.enabled": "false"})):
+        assert rows_match(got, run(device, conf)[1], rel=1e-9)
+
+
+def test_variance_windows_on_card_hold_every_scan_against_plain():
+    """The variance family over UNBOUNDED, running, bounded ROWS and
+    bounded RANGE frames on the card: every segmented-scan call held
+    against the plain version on the same inputs, the rows against the
+    CPU engine."""
+    _card()
+    from spark_rapids_tpu_torch.bench.tpch import rows_match
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec.sort import SortOrder
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.exprs import window as PW
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    t = _family_table().append_column("rid", pa.array(np.arange(20000)))
+    exprs = []
+    for tag, fr in (("unb", PW.WindowFrame("rows", None, None)),
+                    ("run", PW.WindowFrame("range", None, 0)),
+                    ("rows", PW.WindowFrame("rows", -30, 0)),
+                    ("range", PW.WindowFrame("range", -7, 0))):
+        order = (SortOrder(PE.col("o")),) + (
+            (SortOrder(PE.col("rid")),) if tag == "rows" else ())
+        sp = PW.WindowSpec((PE.col("k"),), order, fr)
+        exprs += [PW.WindowExpression(PE.VarianceSamp(PE.col("x")),
+                                      sp).alias(f"vs_{tag}"),
+                  PW.WindowExpression(PE.StddevPop(PE.col("o")),
+                                      sp).alias(f"sp_{tag}")]
+    calls = []
+    real = PK.segmented_scan_kernel
+
+    def checked(values, is_start, op_name="add"):
+        k = real(values, is_start, op_name)
+        p = PK.segmented_scan(values, is_start, op_name)
+        if values.is_floating_point() and op_name == "add":
+            run = PK.segmented_scan(values.abs(), is_start, "add")
+            tol = PK.segscan_add_tolerance(run, values.numel(), values.dtype)
+            assert bool(((k - p).abs() <= tol).all())
+        else:
+            assert torch.equal(k, p)
+        calls.append(op_name)
+        return k
+
+    def run(device, conf=None):
+        df = from_arrow(t, RapidsConf(conf or {}), device=device)
+        out = df
+        for i in range(0, len(exprs), 2):
+            out = out.with_window(*exprs[i:i + 2])
+        return out.sort(SortOrder(PE.col("rid"))).to_arrow().to_pylist()
+
+    before = PK.KERNEL_LAUNCHES["segscan"]
+    PK.segmented_scan_kernel = checked
+    try:
+        got = run("cuda")
+    finally:
+        PK.segmented_scan_kernel = real
+    assert PK.KERNEL_LAUNCHES["segscan"] - before == len(calls) > 0
+    assert rows_match(got, run("cpu", {"spark.rapids.gpu.sql.enabled":
+                                       "false"}))
+
+
+def test_capped_s3_on_card_spills_partials_and_reads_them_back(tmp_path):
+    """The statistics pass's S3 on the card in 8,192-row batches under the
+    least pool its uncapped run's largest handle and pinned set fit: its
+    partials spill to host and disk and come back, and the rows equal the
+    uncapped run's and the CPU engine's."""
+    _card()
+    from spark_rapids_tpu_torch.bench import stat_sales as SS
+    from spark_rapids_tpu_torch.config import conf as C
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.mem import pool as MP
+    from spark_rapids_tpu_torch.mem import spill as MS
+
+    t = SS.tables_for(0.05)
+
+    def fresh(conf):
+        pool = MP.HbmPool(MP.pool_limit(conf))
+        MP.set_pool(pool)
+        MS.SpillFramework(pool, host_limit_bytes=C.HOST_SPILL_LIMIT.get(conf),
+                          spill_dir=str(tmp_path))
+        return pool
+
+    def run(settings, device="cuda"):
+        return SS.s3(SS.df_tables(t, RapidsConf(settings), batch_rows=8192,
+                                  device=device)).to_arrow().to_pylist()
+
+    try:
+        fresh(RapidsConf())
+        base = run({})
+        c0 = MS.get_framework().counters()
+        cap = max(c0["max_handle_bytes"], c0["max_pinned_bytes"])
+        settings = {"spark.rapids.gpu.memory.pool.maxBytes": cap,
+                    "spark.rapids.gpu.memory.host.spillStorageSize":
+                        cap // 16,
+                    "spark.rapids.gpu.sql.agg.repartition.targetBytes":
+                        cap // 16}
+        pool = fresh(RapidsConf(settings))
+        got = run(settings)
+        c = MS.get_framework().counters()
+        assert pool.used == 0
+    finally:
+        MP.set_pool(None)
+        C.set_active(None)
+    assert c["spilled_to_host"] > 0 and c["spilled_to_disk"] > 0
+    assert c["unspilled"] > 0
+    assert SS.check_rows("S3", got, base) == (True, "")
+    cpu = run({"spark.rapids.gpu.sql.enabled": "false"}, "cpu")
+    assert SS.check_rows("S3", got, cpu) == (True, "")

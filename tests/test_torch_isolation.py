@@ -410,3 +410,28 @@ def test_the_scalar_types_and_datetime_modules_are_covered():
     assert len(names) == 32
     for c in PE.DATETIME_FUNCTIONS + (PE.IsNaN, PE.Nanvl):
         assert c in PE.SUPPORTED and c.type_support is not None, c
+
+
+def test_the_aggregate_family_modules_are_covered():
+    """The modules that carry the aggregate family and the statistics pass
+    are walked by the import checks above, and hold the names the slice
+    adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exprs.expr",
+             ("VarianceSamp", "Kurtosis", "Corr", "MinBy", "BoolOr",
+              "CountIf", "AnyValue", "BitXorAgg", "Median", "AGGREGATES")),
+            ("spark_rapids_tpu_torch.exec.kernels",
+             ("segment_pick", "segment_arg_extreme", "string_order_ranks")),
+            ("spark_rapids_tpu_torch.exec.aggregate", ("agg_inputs",)),
+            ("spark_rapids_tpu_torch.exec.window", ("_variance_window",)),
+            ("spark_rapids_tpu_torch.plan.cpu_agg", ("_reduce_family",)),
+            ("spark_rapids_tpu_torch.plan.cpu_window", ("_frame_moments",)),
+            ("spark_rapids_tpu_torch.bench.stat_sales",
+             ("QUERIES", "PANDAS", "s4_skew", "check_rows"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)

@@ -15,7 +15,8 @@ against its device path over the same surface (lead/lag defaults over
 every column kind, DECIMAL128 lead/lag among them), the min/max scans
 through the segmented-scan wrapper, the reference's
 First (the first non-null value, not Spark's default first) and the
-group-by First/Last that neither engine has."""
+group-by First/Last on both engines against the JAX package's CPU
+engine."""
 
 import decimal
 import math
@@ -392,9 +393,20 @@ def test_reference_lag_reads_ahead():
 
 @pytest.mark.parametrize("agg", ["First", "Last"])
 def test_group_by_first_last_raises_on_both_engines(agg):
+    """Group-by First/Last raised on both engines until the aggregate
+    family was ported; now both engines run them and give the first
+    (last) non-null value of each group in row order, as the JAX
+    package's CPU engine does."""
+    from spark_rapids_tpu.config.conf import RapidsConf as JConf
+    from spark_rapids_tpu.plan import from_arrow as jax_from_arrow
+
     t = _data(40)
+    jdf = jax_from_arrow(t, JConf({"spark.rapids.tpu.sql.enabled": False}))
+    exp = jdf.group_by("g").agg(getattr(JE, agg)(JE.col("iv")).alias(
+        "x")).sort("g").collect()
+    assert any(r["x"] is not None for r in exp)
     for conf in ({}, {"spark.rapids.gpu.sql.enabled": "false"}):
-        df = from_arrow(t, RapidsConf(conf), device="cpu")
-        with pytest.raises(NotImplementedError, match=agg):
-            df.group_by("g").agg(getattr(PE, agg)(PE.col("iv")).alias(
-                "x")).collect()
+        df = from_arrow(t, RapidsConf(conf), batch_rows=16, device="cpu")
+        got = df.group_by("g").agg(getattr(PE, agg)(PE.col("iv")).alias(
+            "x")).sort("g").collect()
+        assert got == exp
