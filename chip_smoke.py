@@ -223,8 +223,9 @@ Phases, in order; any failure exits non-zero before the last line:
    pre-merge): a running and a bounded one partitioned by store, and a
    running one with no partition, whose one partition spans every
    streamed batch so that the carry continues across each edge; each
-   with streaming on and off, the columns equal to each other's and the
-   CPU engine's; runs, pre-merges, merged and streamed batches, and warm
+   with streaming on and off, the columns equal to each other's (the CPU
+   engine's runs were cut with phase 18); runs, pre-merges, merged and
+   streamed batches, and warm
    walls both ways (one warm run each, not the checked one).
    (b) Phase 13's Q3 and q67 (their frames, already uploaded) and
    the unpartitioned running window (over the date, ticket, item and
@@ -281,7 +282,38 @@ Phases, in order; any failure exits non-zero before the last line:
    Each query's launches and warm wall (median of 3); every probe and
    scan call of the counted runs held against the plain version
    (``stat_calls_checked``), the phase's largest probe and largest scan
-   timed against their bounds (``stat_largest``).
+   timed against their bounds (``stat_largest``);
+18. the scalar sales pass (``--out``'s ``scalar_sales`` key;
+   ``bench/scalar_sales.py``) over the SF ``--sf-ds`` store_sales (typed,
+   with 4% null customer and promotion keys, and untyped: its keys,
+   quantity, money and sale date as strings) in one batch of 2^22 rows:
+   N1 (the strings cast to BIGINT, INT, DOUBLE and DATE, joined with item
+   and summed per category and month), N2 (every device class of the
+   scalar families, summed and counted per store), N3 (hash buckets of
+   pmod(hash(...), 64) and xxhash64 over store_sales left-joined with
+   customer, with the rounding, greatest/least and null functions), N4
+   (keys, dates, timestamps and both decimal widths cast to strings,
+   grouped by the date string, every cast back equal) and N5 (running and
+   ROWS 30 PRECEDING sums of round(ss_net_paid * 1.07, 2) over a
+   projected pmod partition) wholly on the card, N6 (a float -> string
+   cast and decimal round/floor/pmod: its projection alone on the CPU
+   engine, named with the reference's reasons), each against the CPU
+   engine (N1 also against its typed twin and pyarrow's parse), N4
+   against pyarrow's text; then N7: N1 and
+   N3 with 4 splits and 4 shuffle partitions against one partition. The
+   CPU engine's runs go to worker processes (spawned, reading the tables
+   from Arrow files) that overlap the card's runs. Each query's
+   launches, probe and scan counts and warm wall (median of 3, after the
+   workers end);
+   every probe and scan call of the counted runs held against the plain
+   version (``scalar_calls_checked``), the phase's largest probe and
+   largest scan timed against their bounds (``scalar_largest``).
+
+The CPU engine's comparison runs of phases 9-12 and 18 go to spawned
+worker processes (``check_workers``, the tables read from Arrow files
+written once) that overlap the card's runs: one after another on the
+host's CPU they took a third of the whole run. Every such phase takes
+its warm walls after its workers end.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1068,6 +1100,75 @@ def run_joins_path(tables) -> dict:
             "largest_probe": largest.get("args"), "rows": rows}
 
 
+# worker processes of a query slice's CPU-engine checks (the card's
+# machine has 8 cores)
+CHECK_WORKERS = 6
+# tables written once as Arrow IPC files for the check workers, by the
+# identity of the dict they came from: {id: (dict, directory)}
+_TABLE_FILES: dict = {}
+
+
+def table_files(tables: dict, names) -> str:
+    """A directory holding ``names`` of ``tables`` as Arrow IPC files (each
+    written once a run; removed when the process exits)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+
+    ent = _TABLE_FILES.get(id(tables))
+    if ent is None or ent[0] is not tables:
+        d = tempfile.mkdtemp(prefix="chip_smoke_tables_")
+        atexit.register(shutil.rmtree, d, True)
+        ent = _TABLE_FILES[id(tables)] = (tables, d)
+    for name in names:
+        path = os.path.join(ent[1], f"{name}.arrow")
+        if not os.path.exists(path):
+            with pa.OSFile(path, "wb") as f:
+                with pa.ipc.new_file(f, tables[name].schema) as w:
+                    w.write_table(tables[name])
+    return ent[1]
+
+
+def read_table_files(table_dir: str, names) -> dict:
+    """The tables ``table_files`` wrote, memory-mapped."""
+    import pyarrow as pa
+
+    out = {}
+    for name in names:
+        with pa.memory_map(os.path.join(table_dir, f"{name}.arrow")) as f:
+            out[name] = pa.ipc.open_file(f).read_all()
+    return out
+
+
+def check_workers(n: int):
+    """A pool of ``n`` spawned worker processes for the CPU engine's check
+    runs: run one after another on the host's CPU, they, not the card,
+    set a phase's wall. The caller closes and joins it."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(n)
+
+
+def tpcds_cpu_rows(q: str, table_dir: str) -> tuple:
+    """A worker's check: TPC-DS query ``q`` on the CPU engine over the
+    tables in ``table_dir``: (rows, seconds)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    tables = read_table_files(table_dir, Q.TABLES[q])
+    t0 = time.perf_counter()
+    cpu = Q.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+    rows = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+    return rows, time.perf_counter() - t0
+
+
 def run_query_slice(tables, sf: float, queries, what: str, *,
                     device_only: bool, scan_queries=(),
                     extra=None, warm_reps: int = 3) -> dict:
@@ -1084,7 +1185,9 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
     slice's largest table and its largest probe; then runs every query
     once more with each probe call, and each segmented-scan call of
     ``scan_queries``, held against the plain version; then warm walls
-    (the median of ``warm_reps`` runs)."""
+    (the median of ``warm_reps`` runs). The CPU engine's runs go to
+    worker processes started first (``check_workers``), which overlap
+    the card's runs; the warm walls come after they end."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -1113,6 +1216,11 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
 
     results, rows = {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    table_dir = table_files(tables, Q.tables_of(queries))
+    pool = check_workers(min(CHECK_WORKERS, len(queries)))
+    pending = {q: pool.apply_async(tpcds_cpu_rows, (q, table_dir))
+               for q in queries}
+    pool.close()
     K.probe_hash_table_kernel = recording_probe
     try:
         for q in queries:
@@ -1156,9 +1264,7 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
             if not Q.informative(got) and q not in empty_ok:
                 raise AssertionError(f"{q} shows no value at SF {sf}: "
                                      f"{got[:3]}")
-            t1 = time.perf_counter()
-            on_cpu = Q.QUERIES[q](cpu).to_arrow().to_pylist()
-            cpu_s = time.perf_counter() - t1
+            on_cpu, cpu_s = pending[q].get(timeout=900)
             ok, why = Q.check_rows(q, on_cpu, got)
             if not ok:
                 raise AssertionError(f"{q} on the CPU engine differs from "
@@ -1183,8 +1289,11 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                     f"{strategy_line(strategy)}")
         if extra is not None:
             results.update(extra(d, cpu))
+        pool.join()
     finally:
         K.probe_hash_table_kernel = real_probe
+        pool.terminate()
+        pool.join()
     res = {"queries": results, "launches": total, "rows": rows,
            "probe_calls_checked": check_every_probe(d, queries),
            "largest_table_probe": by_table.get("args"),
@@ -2453,7 +2562,7 @@ class MemoryChecks:
 
 def run_memory_path(ds_tables, part_res) -> dict:
     """Phase 15: (a) streaming windows over store_sales against streaming
-    off and the CPU engine; (b) phase 13's Q3 and q67 under a capped
+    off; (b) phase 13's Q3 and q67 under a capped
     pool against their uncapped rows, with spill counters, walls and peak
     device memory both ways; (c) the capped q67 with injected OOMs; (d)
     Q1 and Q6 on two threads at 1 and 2 task permits. Every probe and
@@ -2517,8 +2626,6 @@ def run_memory_path(ds_tables, part_res) -> dict:
     on_df = from_arrow(ss, batch_rows=STREAM_BATCH_ROWS, device="cuda")
     off_df = from_arrow(ss, RapidsConf(off_conf),
                         batch_rows=STREAM_BATCH_ROWS, device="cuda")
-    cpu_df = from_arrow(ss, RapidsConf({"spark.rapids.gpu.sql.enabled":
-                                        "false"}), device="cuda")
     windows = {}
     for name, exprs in Q.streaming_windows().items():
         ws = [w for _a, w in exprs]
@@ -2533,14 +2640,13 @@ def run_memory_path(ds_tables, part_res) -> dict:
             raise AssertionError(f"the {name} window does not stream over "
                                  f"an out-of-core sort:\n{on_plan.explain()}")
         exp, off_s, off_launch, _, _ = counted(off_df.with_window(*ws))
-        t1 = time.perf_counter()
-        cpu = cpu_df.with_window(*ws).to_arrow()
-        cpu_s = time.perf_counter() - t1
-        for other, what in ((exp, "streaming off"), (cpu, "the CPU engine")):
-            for col in list(got.column_names):
-                if not _columns_agree(got.column(col), other.column(col)):
-                    raise AssertionError(f"the {name} streaming window's "
-                                         f"{col} differs from {what}")
+        # (held against streaming off on the card; the CPU engine's runs,
+        # 9.2 s of the host's CPU, were cut with phase 18's arrival: the
+        # CPU tests hold both engines' windows)
+        for col in list(got.column_names):
+            if not _columns_agree(got.column(col), exp.column(col)):
+                raise AssertionError(f"the {name} streaming window's "
+                                     f"{col} differs from streaming off")
         if on_launch["segscan"] <= 0:
             raise AssertionError(f"the {name} streaming window launched no "
                                  f"segscan")
@@ -2550,7 +2656,7 @@ def run_memory_path(ds_tables, part_res) -> dict:
                "merged_batches": srt.metrics["sortMergeBatches"].value,
                "batches_streamed": win.metrics["streamedBatches"].value,
                "first_s": on_s, "off_first_s": off_s,
-               "cpu_engine_s": cpu_s, "launches": on_launch,
+               "launches": on_launch,
                "off_launches": off_launch}
         if rec["runs"] <= C.SORT_OOC_MAX_MERGE_RUNS.default \
                 or rec["premerges"] < 1:
@@ -2569,13 +2675,13 @@ def run_memory_path(ds_tables, part_res) -> dict:
             off_df.with_window(*ws).physical_plan()), reps=1)
         windows[name] = rec
         log(f"streaming {name} window over {got.num_rows} store_sales rows "
-            f"in {STREAM_BATCH_ROWS}-row batches: equal to streaming off and "
-            f"the CPU engine; {rec['runs']} runs, {rec['premerges']} "
+            f"in {STREAM_BATCH_ROWS}-row batches: equal to streaming off; "
+            f"{rec['runs']} runs, {rec['premerges']} "
             f"pre-merge(s), {rec['merged_batches']} merged batches, "
             f"{rec['batches_streamed']} batches streamed; warm "
             f"{rec['warm_s']:.4f}s against {rec['off_warm_s']:.4f}s off "
             f"(one warm run each); launches {on_launch}")
-    del on_df, off_df, cpu_df
+    del on_df, off_df
 
     # (b) phase 13's Q3 and q67 uncapped, then under a capped pool
     cases = {name: (build, fkey, check)
@@ -3210,8 +3316,248 @@ def run_stat_path(ds_tables) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
-def check_stat_scan(values, is_start, op: str) -> dict:
-    """The segmented-scan kernel on phase 17's largest scan: its output
+SCALAR_CHECKS = ("N1", "N2a", "N2b", "N3", "N5", "N6", "pyarrow_N1")
+
+
+def scalar_check(q: str, table_dir: str, store: int) -> tuple:
+    """Phase 18's check of one query in a worker process of its own, over
+    the scalar tables in ``table_dir`` (``table_files``): the query's rows
+    on the CPU engine (``q`` "N2a" and "N2b" are N2's two halves of
+    columns, "pyarrow_N1" N1 by pyarrow's parse and pandas) and its
+    seconds."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import scalar_sales as SS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    tables = read_table_files(table_dir, [f[:-len(".arrow")] for f in
+                                          os.listdir(table_dir)])
+    t0 = time.perf_counter()
+    if q == "pyarrow_N1":
+        rows = SS.pandas_n1(tables)
+    else:
+        cpu = SS.df_tables(tables, RapidsConf(
+            {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+        df = (SS.n6(cpu, store=store) if q == "N6"
+              else SS.n2(cpu, part="ab".index(q[2])) if q.startswith("N2")
+              else SS.QUERIES[q](cpu))
+        rows = df.to_arrow().to_pylist()
+    return rows, time.perf_counter() - t0
+
+
+def run_scalar_path(ds_tables) -> dict:
+    """Phase 18: the scalar sales pass (``bench/scalar_sales.py``): N1-N6
+    on the card against the CPU engine (N1 also against its typed twin and
+    pyarrow's parse; N4 against pyarrow's text), then N1 and N3 with 4
+    splits and 4 shuffle partitions against one partition. Every probe
+    and segmented-scan call of the counted runs is held against its plain
+    version; the largest of each is kept for timing. The CPU engine's
+    runs (N2's in two halves of its columns) go to worker processes
+    started first (``check_workers``), which read the tables from Arrow
+    files, so that they overlap the card's counted runs; the warm walls
+    are taken after the workers have ended."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import scalar_sales as SS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan import dataframe as DF
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t_phase = time.perf_counter()
+    tables = {n: ds_tables[n] for n in ("item", "customer", "date_dim")}
+    tables.update(SS.scalar_tables(ds_tables))
+    n = tables["store_sales"].num_rows
+    store = SS.first_store(tables)
+    table_dir = table_files(tables, list(tables))
+    log(f"scalar store_sales: {n} rows typed and untyped, written for the "
+        f"check workers, in {time.perf_counter() - t_phase:.2f}s")
+    pool = check_workers(len(SCALAR_CHECKS))
+    pending = {q: pool.apply_async(scalar_check, (q, table_dir, store))
+               for q in SCALAR_CHECKS}
+    pool.close()
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    probe_calls = [0]
+    scan_calls = {"add": 0, "min": 0, "max": 0}
+    real_probe = K.probe_hash_table_kernel
+    real_scan = K.segmented_scan_kernel
+    check_probe_call = checking_probe(real_probe, probe_calls)
+    check_scan_call = checking_scan(real_scan, scan_calls)
+    largest = {}
+
+    def probe_and_record(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("probe_rows", -1):
+            largest.update(probe_rows=h1.numel(),
+                           probe=(tbl, h1, h2, capacity, seed))
+        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    def scan_and_record(values, is_start, op_name="add"):
+        if values.numel() > largest.get("scan_rows", -1):
+            largest.update(scan_rows=values.numel(),
+                           scan=(values, is_start, op_name))
+        return check_scan_call(values, is_start, op_name)
+
+    def counted(df):
+        """(table, wall, launches, plan) of one planning and run of
+        ``df`` with the counts zeroed before and read after, every kernel
+        call held against its plain version."""
+        torch.cuda.synchronize()
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = probe_and_record
+        K.segmented_scan_kernel = scan_and_record
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = DF.execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        return out, wall, launches, plan
+
+    def off_device(df):
+        return [ln.strip() for ln in df.explain("ALL").splitlines()
+                if ln.lstrip().startswith("!")]
+
+    try:
+        dev = SS.df_tables(tables, device="cuda")
+        queries = dict(SS.QUERIES)
+        queries["N6"] = lambda d: SS.n6(d, store=store)
+        res, rows = {}, {}
+        for q, build in queries.items():
+            df = build(dev)
+            off = off_device(df)
+            if q == "N6":
+                want = ("float to string cast not on device",
+                        "decimal floor/ceil/round not on device",
+                        "decimal division not on device")
+                if (len(off) != 1 or not off[0].startswith("! Project")
+                        or not all(w in off[0] for w in want)):
+                    raise AssertionError(f"N6 places {off} on the CPU "
+                                         f"engine")
+            elif off:
+                raise AssertionError(f"{q} places {off} on the CPU engine")
+            out, wall, launches, plan = counted(df)
+            got = out.to_pylist()
+            if q in ("N1", "N3") and (launches["hashtbl_probe"] <= 0
+                                      or set(join_paths(plan)) != {"ht"}):
+                raise AssertionError(f"{q} launched {launches} on join "
+                                     f"paths {join_paths(plan)}")
+            if q == "N5" and launches["segscan"] <= 0:
+                raise AssertionError("N5 launched no segscan kernel")
+            if not SS.informative(got):
+                raise AssertionError(f"{q} shows no values: {got[:2]}")
+            rows[q] = got
+            res[q] = {"rows": len(got), "first_s": wall,
+                      "launches": launches,
+                      "probe_calls": launches["hashtbl_probe"],
+                      "scan_calls": launches["segscan"], "off_device": off,
+                      "shown": [{k: str(v) for k, v in r.items()}
+                                for r in got[:1]]}
+        typed = SS.n1(dev, typed=True).to_arrow().to_pylist()
+        ok, why = SS.check_rows("N1", rows["N1"], typed)
+        if not ok:
+            raise AssertionError(f"N1 differs from its typed twin ({why})")
+        # N4 formats and parses every row twice over: it is held against
+        # pyarrow's text (in this process: a few tenths of a second)
+        t1 = time.perf_counter()
+        exp4 = SS.arrow_n4(tables)
+        res["N4"]["check_s"] = time.perf_counter() - t1
+        ok, why = SS.check_rows("N4", rows["N4"], exp4)
+        if not ok:
+            raise AssertionError(f"N4 differs from pyarrow's text ({why}):"
+                                 f"\n{rows['N4'][:2]}\n{exp4[:2]}")
+
+        # N7: N1 and N3 with 4 splits and 4 shuffle partitions against one
+        # partition (the fast path off)
+        four = SS.df_tables(tables, RapidsConf(
+            {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+            partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+        for q in SS.PARTITIONED:
+            out, wall, launches, plan = counted(SS.QUERIES[q](four))
+            strategy = plan_strategy(plan)
+            shown = plan.explain()
+            if ("HashPartitioner(4)" not in shown
+                    or "mode=partial" not in shown):
+                raise AssertionError(f"N7 {q} plans no partial aggregate "
+                                     f"over a hash exchange:\n{shown}")
+            ok, why = SS.check_rows(q, out.to_pylist(), rows[q])
+            if not ok:
+                raise AssertionError(f"N7 {q} with 4 partitions differs "
+                                     f"from one partition ({why})")
+            res[f"N7_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                              "launches": launches, "strategy": strategy}
+            log(f"scalar N7 {q}: 4 splits x 4 partitions equal one "
+                f"partition ({out.num_rows} rows); "
+                f"{strategy_line(strategy)}; launches {launches}")
+
+        # the CPU engine's rows (and pyarrow's N1) from the workers
+        t1 = time.perf_counter()
+        for q in SCALAR_CHECKS:
+            exp, check_s = pending[q].get(timeout=600)
+            name = "N1" if q == "pyarrow_N1" else q[:2]
+            got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
+                if exp else rows[name]  # N2's half of the columns
+            ok, why = SS.check_rows(name, got, exp)
+            if not ok:
+                raise AssertionError(
+                    f"{q} on the card differs from "
+                    f"{'pyarrow' if q == 'pyarrow_N1' else 'the CPU engine'}"
+                    f" ({why}):\n{got[:2]}\n{exp[:2]}")
+            key = ("pyarrow_s" if q == "pyarrow_N1" else "check_s")
+            res[name][key] = res[name].get(key, 0.0) + check_s
+        pool.join()
+        log(f"scalar: the CPU engine's rows (N1 also pyarrow's) equal the "
+            f"card's; waited {time.perf_counter() - t1:.2f}s for the "
+            f"workers")
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # the warm walls, with the workers gone
+    for q, build in queries.items():
+        res[q]["warm_s"] = _warm_wall(lambda b=build: b(dev).to_arrow(), 3,
+                                      first=res[q]["first_s"])
+    for q in SS.PARTITIONED:
+        res[f"N7_{q}"]["warm_s"] = _warm_wall(
+            lambda q=q: SS.QUERIES[q](four).to_arrow(), 3,
+            first=res[f"N7_{q}"]["first_s"])
+    for q, r in res.items():
+        log(f"scalar {q}: {r['rows']} rows; launches {r['launches']}; "
+            f"warm wall {r['warm_s']:.4f}s (median of 3); check "
+            f"{r.get('check_s', 0.0):.3f}s; on the CPU engine "
+            f"{r.get('off_device') or 'nothing'}")
+
+    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
+        raise AssertionError(f"phase 18 launched {total}: both kernels "
+                             f"must launch")
+    if (probe_calls[0] < total["hashtbl_probe"]
+            or sum(scan_calls.values()) < total["segscan"]):
+        raise AssertionError(f"phase 18 checked {probe_calls[0]} probe and "
+                             f"{scan_calls} segscan calls for {total} "
+                             f"launches")
+    log(f"probe: all {probe_calls[0]} calls and segscan: all "
+        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 18 equal "
+        f"the plain version ({total} launches)")
+    nulls = {c: tables["store_sales"].column(c).null_count
+             for c in ("ss_customer_sk", "ss_promo_sk")}
+    return {"queries": res, "rows": n, "nulls": nulls, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "segscan_calls_checked": scan_calls,
+            "largest_probe": largest.get("probe"),
+            "largest_scan": largest.get("scan"),
+            "wall_s": time.perf_counter() - t_phase}
+
+
+def check_stat_scan(values, is_start, op: str, shape: str = "stat_largest",
+                    phase: str = "phase 17") -> dict:
+    """The segmented-scan kernel on a phase's largest scan: its output
     against the plain version, its times and its byte bound."""
     import torch
 
@@ -3225,12 +3571,12 @@ def check_stat_scan(values, is_start, op: str) -> dict:
                                      values, is_start, op)
     if not ok:
         raise AssertionError(f"segscan kernel differs from its plain version "
-                             f"on phase 17's largest scan ({err})")
-    res = {"shape": "stat_largest", "max_abs_err": err,
+                             f"on {phase}'s largest scan ({err})")
+    res = {"shape": shape, "max_abs_err": err,
            "err_over_tolerance": ratio,
            **segscan_times(values, is_start, op)}
     K.KERNEL_LAUNCHES.update(saved)  # comparison launches do not count
-    log("segscan stat_largest: " + json.dumps(res))
+    log(f"segscan {shape}: " + json.dumps(res))
     return res
 
 
@@ -3392,6 +3738,17 @@ def main(argv=None) -> int:
     log(f"phase 17 took {stat_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    # phase 18: the scalar sales pass
+    checked_before = mem_checks.checked
+    scalar_res = run_scalar_path(ds_tables)
+    scalar_probe = check_probe("scalar_largest",
+                               *scalar_res.pop("largest_probe"), cold=True)
+    shapes.append(scalar_probe)
+    scalar_scan = check_stat_scan(*scalar_res.pop("largest_scan"),
+                                  shape="scalar_largest", phase="phase 18")
+    log(f"phase 18 took {scalar_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -3406,7 +3763,8 @@ def main(argv=None) -> int:
                       "adaptive": adaptive_res["launches"][name],
                       "memory": memory_res["launches"][name],
                       "typed_sales": typed_res["launches"][name],
-                      "stat_sales": stat_res["launches"][name]}
+                      "stat_sales": stat_res["launches"][name],
+                      "scalar_sales": scalar_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -3456,6 +3814,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "stat_calls_checked": stat_res["probe_calls_checked"],
+        "scalar_largest": {k: scalar_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "scalar_calls_checked": scalar_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
                      "smallint float timestamp (the 64-bit key hashes)",
         "exact": all(s["exact"] for s in shapes)}, {
@@ -3483,6 +3845,10 @@ def main(argv=None) -> int:
         "typed_calls_checked": typed_res["segscan_calls_checked"],
         "stat_calls_checked": stat_res["segscan_calls_checked"],
         "stat_largest": {k: stat_scan[k] for k in (
+            "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
+        "scalar_calls_checked": scalar_res["segscan_calls_checked"],
+        "scalar_largest": {k: scalar_scan[k] for k in (
             "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
         "value_types": "int32 int64 float32 float64 (int8 and int16 "
@@ -3513,6 +3879,9 @@ def main(argv=None) -> int:
               "stat_sales": {k: v for k, v in stat_res.items()
                              if k != "launches"},
               "segscan_stat": stat_scan,
+              "scalar_sales": {k: v for k, v in scalar_res.items()
+                               if k != "launches"},
+              "segscan_scalar": scalar_scan,
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

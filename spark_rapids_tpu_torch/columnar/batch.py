@@ -89,7 +89,9 @@ def _arrow_fixed_to_numpy(arr: pa.Array, dt: T.DataType):
             np.bool_)
     else:
         np_dtype = torch.empty(0, dtype=dt.torch_dtype).numpy().dtype
-        values = np.asarray(arr.fill_null(0)).astype(np_dtype, copy=False)
+        if arr.null_count:
+            arr = arr.fill_null(0)
+        values = np.asarray(arr).astype(np_dtype, copy=False)
     if valid is not None:
         values = np.where(valid, values, np.zeros((), values.dtype))
     return values, valid

@@ -59,6 +59,20 @@ null what does not fit the target; a float scales in float64 and splits
 at 2^64. Dates and timestamps cast as the reference's: midnight, floor
 to the day, seconds to and from BIGINT.
 
+Casts to and from strings are ``exprs/cast_strings.py``'s: a dictionary
+column is parsed through its dictionary once and the values gathered by
+code, a plain column from its bytes; a value becomes a plain column.
+
+IntegralDivide, Remainder and Pmod of numbers follow Java (truncated
+division, the dividend's sign; Spark's pmod adds the divisor only to a
+negative remainder): a zero divisor (or a NaN one) gives null, the divisor
+is replaced before torch divides (its CPU integer division raises on 0),
+and ``Long.MIN_VALUE div -1`` (a trap on the card's integer division)
+divides by 1 instead, which is its wrapped answer. EqualNullSafe is
+equality with null equal to null; NullIf nulls the rows where its sides
+are equal; Nvl2 selects by the first value's nullness. The other scalar
+functions are ``exprs/math.py``'s.
+
 IsNaN and Nanvl read floats; the date-and-time functions are
 ``exprs/datetime.py``'s.
 """
@@ -75,8 +89,10 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import int128 as I128
 from spark_rapids_tpu_torch.exec import kernels as K
+from spark_rapids_tpu_torch.exprs import cast_strings as CS
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import math as MATH
 from spark_rapids_tpu_torch.exprs import regex as RX
 
 
@@ -123,24 +139,6 @@ def decimal_unscaled(value, scale: int) -> int:
         return int(decimal.Decimal(str(value) if isinstance(value, float)
                                    else value).scaleb(scale).quantize(
             decimal.Decimal(1), rounding=decimal.ROUND_HALF_UP))
-
-
-def _wide_to_f64(data: torch.Tensor) -> torch.Tensor:
-    """DECIMAL128 limbs as doubles: the magnitude's hi * 2^64 + lo (read
-    unsigned), then the sign. The reference adds the signed limbs, which
-    cancels catastrophically for a small negative value (hi = -1, lo
-    near 2^64: -1.5 at scale 2 reads as 0.0); the magnitude keeps every
-    value within a few ulps of its exact double."""
-    hi, lo = I128.abs_(*I128.split(data))
-    lo_u = lo.double() + (lo < 0).double() * (2.0 ** 64)
-    mag = hi.double() * (2.0 ** 64) + lo_u
-    return torch.where(data[:, 1] < 0, -mag, mag)
-
-
-def _decimal_to_double(data: torch.Tensor, dt: T.DecimalType) -> torch.Tensor:
-    if data.dim() == 2:
-        return _wide_to_f64(data) / (10.0 ** dt.scale)
-    return data.double() / (10.0 ** dt.scale)
 
 
 def _is_wide(v: ColVal) -> bool:
@@ -286,7 +284,21 @@ def _compare_wide(expr: E.BinaryComparison, l: ColVal, r: ColVal,
     return _compare_result(expr, lt_m, eq_m, l.validity & r.validity)
 
 
+def _validity_of(expr: E.Expression, ctx: EvalContext) -> torch.Tensor:
+    """The validity of one operand (a literal's without building it)."""
+    if isinstance(expr, E.Literal):
+        return torch.full((ctx.num_rows,), expr.value is not None,
+                          dtype=torch.bool, device=ctx.device)
+    return eval_expr(expr, ctx).validity
+
+
 def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
+    if isinstance(expr, E.EqualNullSafe):
+        eq = _eval_compare(E.EqualTo(expr.left, expr.right), ctx)
+        neither = ~_validity_of(expr.left, ctx) & ~_validity_of(expr.right,
+                                                               ctx)
+        return ColVal((eq.data & eq.validity) | neither,
+                      torch.ones_like(neither))
     if expr.left.dtype == T.STRING or expr.right.dtype == T.STRING:
         if not isinstance(expr, E.EqualTo):
             raise NotImplementedError("string ordering comparison")
@@ -311,9 +323,9 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
                 return _compare_wide(expr, l, r, lt, rt)
             return _decimal_compare(expr, l, r, lt, rt)
         # decimal against a double: both sides as double
-        a = (_decimal_to_double(l.data, lt) if isinstance(lt, T.DecimalType)
+        a = (MATH.as_double(l.data, lt) if isinstance(lt, T.DecimalType)
              else l.data.double())
-        b = (_decimal_to_double(r.data, rt) if isinstance(rt, T.DecimalType)
+        b = (MATH.as_double(r.data, rt) if isinstance(rt, T.DecimalType)
              else r.data.double())
         return _compare_result(expr, _nan_aware_lt(a, b), a == b, valid)
     a, b = l.data, r.data
@@ -365,12 +377,60 @@ def _eval_arith_wide(expr: E.BinaryArithmetic, out_t: T.DecimalType, lt,
     raise NotImplementedError(f"decimal128 {expr.symbol}")
 
 
+_INT64_MIN = torch.iinfo(torch.int64).min
+
+
+def _java_rem(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a % b of int64s with the dividend's sign; b is never 0 (x % -1 is
+    0, computed as x % 1: the card's MIN % -1 traps)."""
+    safe = torch.where(b == -1, torch.ones_like(b), b)
+    return a - torch.div(a, safe, rounding_mode="trunc") * safe
+
+
+def _eval_division(expr: E.BinaryArithmetic, l: ColVal, r: ColVal,
+                   valid: torch.Tensor) -> ColVal:
+    """IntegralDivide, Remainder and Pmod of numbers (see the module
+    docstring)."""
+    if isinstance(expr, E.IntegralDivide):  # resolve made both BIGINT
+        a, b = l.data.long(), r.data.long()
+        zero = b == 0
+        safe = torch.where(zero | ((a == _INT64_MIN) & (b == -1)),
+                           torch.ones_like(b), b)
+        q = torch.div(a, safe, rounding_mode="trunc")
+        return ColVal(torch.where(zero, torch.zeros_like(q), q),
+                      valid & ~zero)
+    dt = expr.dtype.torch_dtype
+    a, b = l.data.to(dt), r.data.to(dt)
+    if a.is_floating_point():
+        zero = (b == 0) | torch.isnan(b)
+        safe = torch.where(zero, torch.ones_like(b), b)
+        rem = torch.fmod(a, safe)
+        if isinstance(expr, E.Pmod):
+            rem = torch.where(rem < 0, torch.fmod(rem + safe, safe), rem)
+    else:
+        zero = b == 0
+        a64 = a.long()
+        b64 = torch.where(zero, torch.ones_like(b), b).long()
+        rem = _java_rem(a64, b64)
+        if isinstance(expr, E.Pmod):
+            # (r + b) % b where r < 0, the sum wrapping in the type
+            shifted = (rem + b64).to(dt).long()
+            rem = torch.where(rem < 0, _java_rem(shifted, b64), rem)
+        rem = rem.to(dt)
+    return ColVal(torch.where(zero, torch.zeros_like(rem), rem),
+                  valid & ~zero)
+
+
 def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
     out_t = expr.dtype
     lt, rt = expr.left.dtype, expr.right.dtype
     l = eval_expr(expr.left, ctx)
     r = eval_expr(expr.right, ctx)
     valid = l.validity & r.validity
+    if isinstance(expr, (E.IntegralDivide, E.Remainder)):
+        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+            raise NotImplementedError("decimal division is not on device")
+        return _eval_division(expr, l, r, valid)
     if isinstance(out_t, T.DecimalType):
         if (out_t.is_wide or _is_wide(l) or _is_wide(r)
                 or isinstance(expr, E.Divide)):
@@ -387,9 +447,9 @@ def _eval_arith(expr: E.BinaryArithmetic, ctx: EvalContext) -> ColVal:
             return ColVal(a - b, valid)
         raise NotImplementedError(f"decimal {type(expr).__name__}")
     # decimal with a double: Spark casts the decimal side to double
-    a = (_decimal_to_double(l.data, lt) if isinstance(lt, T.DecimalType)
+    a = (MATH.as_double(l.data, lt) if isinstance(lt, T.DecimalType)
          else l.data).to(out_t.torch_dtype)
-    b = (_decimal_to_double(r.data, rt) if isinstance(rt, T.DecimalType)
+    b = (MATH.as_double(r.data, rt) if isinstance(rt, T.DecimalType)
          else r.data).to(out_t.torch_dtype)
     if isinstance(expr, E.Add):
         return ColVal(a + b, valid)
@@ -423,7 +483,7 @@ def _cast_wide(v: ColVal, src: T.DataType, dst: T.DataType) -> ColVal:
         ovf = ovf | I128.overflow_mask(h, l, dst.precision)
         return _wide_result(h, l, ovf, v.validity, dst)
     if dst in T.FRACTIONAL_TYPES:
-        return ColVal(_decimal_to_double(v.data, src).to(dst.torch_dtype),
+        return ColVal(MATH.as_double(v.data, src).to(dst.torch_dtype),
                       v.validity)
     s_dst = _scale_of(dst)
     diff = s_dst - src.scale
@@ -501,6 +561,21 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
     if not E.cast_supported(src, dst):
         raise NotImplementedError(f"cast {src} -> {dst} is not in the port "
                                   f"yet")
+    if src == T.STRING:
+        if expr.ansi or isinstance(dst, T.DecimalType):
+            raise NotImplementedError(f"cast string -> {dst} is the CPU "
+                                      f"engine's")
+        if v.is_dict:  # parse the dictionary once, gather by code
+            data, valid = CS.from_string(v.dictionary, dst)
+            codes = v.data.long()
+            ok = v.validity & valid[codes]
+            return ColVal(K.where_valid(ok, data[codes]), ok)
+        return ColVal(*CS.from_string(v, dst))
+    if dst == T.STRING:
+        if src in T.FRACTIONAL_TYPES:
+            raise NotImplementedError("cast of a float to string is the CPU "
+                                      "engine's")
+        return CS.to_string(v.data, v.validity, src)
     # the reference's cast_val (see E.Cast)
     data, valid = v
     if T.is_wide_decimal(src) or T.is_wide_decimal(dst):
@@ -519,13 +594,13 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
         return _cast_to_decimal(data, valid, src, dst)
     if isinstance(src, T.DecimalType):
         if dst in T.FRACTIONAL_TYPES:
-            return ColVal(_decimal_to_double(data, src).to(dst.torch_dtype),
+            return ColVal(MATH.as_double(data, src).to(dst.torch_dtype),
                           valid)
         # the whole part, then wrap
         return ColVal(torch.div(data, 10 ** src.scale, rounding_mode="trunc")
                       .to(dst.torch_dtype), valid)
     if dst in T.INTEGRAL_TYPES and data.is_floating_point():
-        return ColVal(double_to_integral(data, dst), valid)
+        return ColVal(MATH.double_to_integral(data, dst), valid)
     # integers (and a date's days, a timestamp's microseconds) wrap into a
     # narrower integer, or convert to a float
     return ColVal(data.to(dst.torch_dtype), valid)
@@ -563,21 +638,6 @@ def _cast_to_decimal(data: torch.Tensor, valid: torch.Tensor,
     over = scaled.abs() >= 10 ** min(dst.precision, 18)
     return ColVal(torch.where(over, torch.zeros_like(scaled), scaled),
                   valid & ~over)
-
-
-def double_to_integral(d: torch.Tensor, dst: T.DataType) -> torch.Tensor:
-    """Java's (int)/(long) of a double, Spark's non-ANSI cast: NaN is 0,
-    values at or past the type's range saturate at its min/max (infinities
-    included), the rest truncate toward zero. The bounds are exact powers
-    of two: the type's max itself does not round-trip through a double."""
-    info = torch.iinfo(dst.torch_dtype)
-    hi = float(2 ** (info.bits - 1))
-    over, under = d >= hi, d < -hi
-    inside = torch.where(torch.isnan(d) | over | under,
-                         torch.zeros_like(d), d)
-    out = torch.trunc(inside).to(dst.torch_dtype)
-    out = torch.where(over, torch.full_like(out, info.max), out)
-    return torch.where(under, torch.full_like(out, info.min), out)
 
 
 def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:
@@ -646,6 +706,24 @@ def substring_bytes(c: DeviceColumn, pos: int, length: int) -> DeviceColumn:
     rel = torch.arange(total, device=c.device) - offsets[:-1][rows]
     src = c.offsets[:-1].long()[rows] + start[rows] + rel
     return DeviceColumn(T.STRING, c.data[src], c.validity, offsets.int())
+
+
+def _null_if(expr: E.NullIf, ctx: EvalContext) -> Val:
+    """nullif(a, b): a, null where a = b."""
+    a = (_string_value(expr.left, ctx) if expr.dtype == T.STRING
+         else eval_expr(expr.left, ctx))
+    eq = _eval_compare(E.EqualTo(expr.left, expr.right), ctx)
+    keep = ~(eq.data & eq.validity)
+    if expr.dtype != T.STRING:
+        ok = a.validity & keep
+        return ColVal(K.where_valid(ok, a.data), ok)
+    if a.is_dict:
+        ok = a.validity & keep
+        return DeviceColumn(T.STRING, torch.where(ok, a.data,
+                                                  torch.zeros_like(a.data)),
+                            ok, None, a.dictionary)
+    return K.gather_string(a, torch.arange(a.num_rows, device=a.device),
+                           keep)
 
 
 def _like(expr: E.Like, ctx: EvalContext) -> ColVal:
@@ -797,6 +875,21 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
                       torch.where(take_b, r.validity, l.validity))
     if isinstance(expr, E.DATETIME_FUNCTIONS):
         return ColVal(*DT.eval_datetime(expr, lambda e: eval_expr(e, ctx)))
+    if isinstance(expr, E.NullIf):
+        return _null_if(expr, ctx)
+    if isinstance(expr, E.Nvl2):
+        ref, a, b = expr.children
+        take = eval_expr(ref, ctx).validity
+        if expr.dtype == T.STRING:
+            return _string_select(take, _string_value(a, ctx),
+                                  _string_value(b, ctx))
+        x, y = eval_expr(a, ctx), eval_expr(b, ctx)
+        t = take[:, None] if x.data.dim() == 2 else take
+        return ColVal(torch.where(t, x.data, y.data),
+                      torch.where(take, x.validity, y.validity))
+    if isinstance(expr, E.SCALAR_FUNCTIONS):
+        return ColVal(*MATH.eval_scalar(expr, lambda e: eval_expr(e, ctx),
+                                        ctx.num_rows, ctx.device))
     if isinstance(expr, (E.If, E.CaseWhen, E.Coalesce)):
         return _eval_conditional(expr, ctx)
     if isinstance(expr, E.Substring):

@@ -6,7 +6,11 @@ comparisons LessThan,
 LessThanOrEqual, GreaterThan, GreaterThanOrEqual and EqualTo, And, Or, Not,
 IsNull, IsNotNull, In, IsNaN and Nanvl, the conditionals If, CaseWhen and
 Coalesce, the string functions Substring and Like, the 32 date-and-time
-functions of ``DATETIME_FUNCTIONS``, and the aggregates of
+functions of ``DATETIME_FUNCTIONS``, the 56 scalar functions of
+``SCALAR_FUNCTIONS`` (integral division, remainder and pmod, the null-safe
+and null functions, greatest/least, rounding, the math, bitwise and hash
+families and rand; ``exprs/math.py`` on the device, ``plan/cpu_math.py``
+on the CPU engine), and the aggregates of
 ``AGGREGATES``: Sum, Average, Count, Min, Max, First, Last, AnyValue, the
 variance family (VarianceSamp/Pop, StddevSamp/Pop, Skewness, Kurtosis),
 CovarSamp, CovarPop and Corr, MinBy/MaxBy, BoolAnd/BoolOr, CountIf, and
@@ -17,7 +21,8 @@ Numeric typing is Spark's: BYTE < SHORT < INT < LONG < FLOAT < DOUBLE
 widen to the larger (TINYINT + TINYINT stays TINYINT and wraps), a Sum of
 an integer is BIGINT and of a float DOUBLE, a DATE compared with a
 TIMESTAMP is its midnight. ``cast_supported`` names the casts both
-engines evaluate.
+engines evaluate, casts to and from strings among them
+(``exprs/cast_strings.py``, ``plan/cpu_cast_strings.py``).
 
 Substring and Like carry literal parameters (a position and a length, a
 pattern and an escape character) beside their one child, as the
@@ -376,6 +381,49 @@ class Divide(BinaryArithmetic):
         return True
 
 
+class IntegralDivide(BinaryArithmetic):
+    """a div b: Java's truncated division as a BIGINT, null where b is 0
+    (``Long.MIN_VALUE div -1`` wraps). A non-decimal operand is cast to
+    BIGINT first (Spark's implicit cast, so a fractional divisor in (-1, 1)
+    is 0 and gives null); decimals divide exactly on the CPU engine, a
+    quotient past BIGINT null."""
+
+    symbol = "div"
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Remainder(BinaryArithmetic):
+    """a % b with the dividend's sign (Java's ``%``; ``fmod`` for floats),
+    null where b is 0 (or NaN). Decimals: decimal(min(p1 - s1, p2 - s2) +
+    s, s), s = max(s1, s2), on the CPU engine."""
+
+    symbol = "%"
+
+    def _decimal_result(self, lt, rt):
+        s = max(lt.scale, rt.scale)
+        p = min(lt.precision - lt.scale, rt.precision - rt.scale) + s
+        return T.DecimalType(min(max(p, 1), T.DecimalType.MAX_PRECISION),
+                             min(s, T.DecimalType.MAX_PRECISION))
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Pmod(Remainder):
+    """pmod(a, b), Spark's: r = a % b, and (r + b) % b where r < 0 (in the
+    operands' type, wrapping as Java's does)."""
+
+    symbol = "pmod"
+
+
 class BinaryComparison(_Binary):
     symbol = "?"
 
@@ -389,6 +437,17 @@ class BinaryComparison(_Binary):
 
 class EqualTo(BinaryComparison):
     symbol = "="
+
+
+class EqualNullSafe(BinaryComparison):
+    """a <=> b: equality where null equals null and nothing else; never
+    null."""
+
+    symbol = "<=>"
+
+    @property
+    def nullable(self):
+        return False
 
 
 class LessThan(BinaryComparison):
@@ -554,11 +613,20 @@ class Cast(Expression):
     precision; date -> timestamp is midnight UTC and timestamp -> date
     floors; an integer -> timestamp is seconds and timestamp -> bigint
     floors to seconds; the other casts out of a date or timestamp read its
-    storage (days, microseconds), as the reference's do. Casts to and from
-    strings, and into a date from a number, raise naming the cast."""
+    storage (days, microseconds), as the reference's do. Casts into a date
+    from a number raise naming the cast.
+
+    Casts to and from strings (``exprs/cast_strings.py`` documents the
+    formats): a trimmed literal longer than ``PARSE_WINDOW`` (64) bytes, or
+    one outside its type's grammar or range, is null. ``ansi`` makes a
+    string that does not parse an error; the CPU engine runs such casts
+    (and float -> string, string -> decimal), as the reference places
+    them. An ANSI cast between two non-string types is not in the port
+    (``resolve`` raises)."""
 
     child: Expression
     to: T.DataType
+    ansi: bool = False
 
     @property
     def children(self):  # type: ignore[override]
@@ -623,6 +691,429 @@ class Coalesce(Expression):
         return all(c.nullable for c in self.children)
 
 
+# --- the scalar function families (exprs/math.py on the device,
+# plan/cpu_math.py on the CPU engine) ---
+class _UnaryMath(_Unary):
+    """A function of a double: a number or a decimal is read as its double
+    (java.lang.Math's functions)."""
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+class Sqrt(_UnaryMath):
+    """sqrt(x): NaN below 0."""
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Cbrt(_UnaryMath):
+    pass
+
+
+class Exp(_UnaryMath):
+    pass
+
+
+class Expm1(_UnaryMath):
+    pass
+
+
+class Log(_UnaryMath):
+    """ln(x): null where x <= 0 (Spark's Logarithm)."""
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Log10(Log):
+    pass
+
+
+class Log2(Log):
+    pass
+
+
+class Log1p(Log):
+    """ln(1 + x): null where x <= -1."""
+
+
+class Sin(_UnaryMath):
+    pass
+
+
+class Cos(_UnaryMath):
+    pass
+
+
+class Tan(_UnaryMath):
+    pass
+
+
+class Cot(_UnaryMath):
+    """1 / tan(x)."""
+
+
+class Sec(_UnaryMath):
+    """1 / cos(x)."""
+
+
+class Csc(_UnaryMath):
+    """1 / sin(x)."""
+
+
+class Asin(_UnaryMath):
+    pass
+
+
+class Acos(_UnaryMath):
+    pass
+
+
+class Atan(_UnaryMath):
+    pass
+
+
+class Sinh(_UnaryMath):
+    pass
+
+
+class Cosh(_UnaryMath):
+    pass
+
+
+class Tanh(_UnaryMath):
+    pass
+
+
+class Asinh(_UnaryMath):
+    pass
+
+
+class Acosh(_UnaryMath):
+    pass
+
+
+class Atanh(_UnaryMath):
+    pass
+
+
+class ToDegrees(_UnaryMath):
+    pass
+
+
+class ToRadians(_UnaryMath):
+    pass
+
+
+class Rint(_UnaryMath):
+    """java.lang.Math.rint: the nearest integer as a double, ties to
+    even."""
+
+
+class Signum(_UnaryMath):
+    """The sign of x as a double (NaN stays NaN)."""
+
+
+class Atan2(_Binary):
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+
+class Hypot(Atan2):
+    pass
+
+
+class Pow(Atan2):
+    pass
+
+
+class Floor(_Unary):
+    """floor(x): a BIGINT of a number (a double through Java's (long):
+    NaN 0, saturating); of a decimal(p, s) a decimal(p - s + 1, 0) (the CPU
+    engine, as the reference places it)."""
+
+    @property
+    def dtype(self):
+        c = self.child.dtype
+        if isinstance(c, T.DecimalType):
+            if c.scale == 0:
+                return c
+            return T.DecimalType(min(c.precision - c.scale + 1,
+                                     T.DecimalType.MAX_PRECISION), 0)
+        return T.LONG
+
+
+class Ceil(Floor):
+    pass
+
+
+def round_decimal_type(c: T.DecimalType, scale: int) -> T.DecimalType:
+    """The type of a decimal rounded at ``scale`` (the reference's BRound
+    rule, which Round shares in the port)."""
+    s = min(scale, c.scale) if scale >= 0 else 0
+    p = c.precision - (c.scale - s) + (1 if s < c.scale else 0)
+    return T.DecimalType(min(max(p, 1), T.DecimalType.MAX_PRECISION),
+                         max(s, 0))
+
+
+class Round(Expression):
+    """round(x, scale), HALF_UP at a literal scale. A double rounds the
+    decimal text of its shortest representation, as Spark's
+    ``BigDecimal(d)`` does (``round(1.005, 2)`` is 1.01); an integer at a
+    negative scale rounds to a multiple of 10**-scale in its own type
+    (wrapping); a decimal becomes ``round_decimal_type`` (the CPU
+    engine)."""
+
+    HALF_EVEN = False
+
+    def __init__(self, child: Expression, scale: int = 0):
+        self.child = child
+        self.scale = int(scale)
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        c = self.child.dtype
+        if isinstance(c, T.DecimalType):
+            return round_decimal_type(c, self.scale)
+        return c
+
+    @property
+    def nullable(self):
+        return self.child.nullable or isinstance(self.child.dtype,
+                                                 T.DecimalType)
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.child!r}, {self.scale})"
+
+
+class BRound(Round):
+    """bround(x, scale): Round with HALF_EVEN."""
+
+    HALF_EVEN = True
+
+
+class Factorial(_Unary):
+    """factorial(n) of an INT n in 0..20, else null."""
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Positive(_Unary):
+    """+x."""
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+class BitCount(_Unary):
+    """bit_count(x): the set bits of x sign-extended to 64 bits (Java's
+    ``Long.bitCount``), an INT; a boolean counts 1 or 0."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class BitGet(_Binary):
+    """bit_get(x, pos): bit ``pos`` of x as a TINYINT; null where pos is
+    outside [0, bits of x's type) (the reference's; Spark raises)."""
+
+    @property
+    def dtype(self):
+        return T.BYTE
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Murmur3Hash(Expression):
+    """hash(...): the engine's own splitmix64 mix of the argument tuple (as
+    the reference's: not Spark's murmur3_x86_32), equal to the key hash
+    ``kernels.hash_keys`` gives the same columns; never null (a null
+    argument mixes a fixed word)."""
+
+    VARIANT = 0
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+
+class XxHash64(Murmur3Hash):
+    """xxhash64(...): the engine hash's second, independent variant (not
+    Spark's xxHash64)."""
+
+    VARIANT = 1
+
+
+class Rand(Expression):
+    """rand(seed): a uniform double in [0, 1), the splitmix64 of (seed, row
+    index in the batch): equal to the reference at the same batching. The
+    reference's planner keeps it on the CPU engine (rows are numbered per
+    batch), and so does the port's."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = int(seed)
+        self.children = ()
+
+    @property
+    def dtype(self):
+        return T.DOUBLE
+
+    @property
+    def nullable(self):
+        return False
+
+    def __repr__(self):
+        return f"Rand({self.seed})"
+
+
+def _least_common(a: T.DataType, b: T.DataType) -> T.DataType:
+    """Spark's least common type of greatest/least: decimals keep the most
+    integral digits and the largest scale (an integer is decimal(d, 0)),
+    numbers widen, equal types stay."""
+    if a == b:
+        return a
+    pair = decimal_operands(a, b)
+    if pair is not None:
+        lt, rt = pair
+        s = max(lt.scale, rt.scale)
+        p = max(lt.precision - lt.scale, rt.precision - rt.scale) + s
+        return T.DecimalType(min(p, T.DecimalType.MAX_PRECISION), s)
+    return numeric_widen(a, b)
+
+
+class Greatest(Expression):
+    """greatest(...): the largest non-null value (NaN above every double);
+    null only where every value is. ``resolve`` casts each value to the
+    least common type."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    @property
+    def dtype(self):
+        out = self.children[0].dtype
+        for c in self.children[1:]:
+            out = _least_common(out, c.dtype)
+        return out
+
+    @property
+    def nullable(self):
+        return all(c.nullable for c in self.children)
+
+
+class Least(Greatest):
+    """least(...): the smallest non-null value."""
+
+
+class NullIf(_Binary):
+    """nullif(a, b): null where a = b (both non-null), else a."""
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Nvl2(Expression):
+    """nvl2(x, a, b): a where x is not null, else b; ``resolve`` brings a
+    and b to one type."""
+
+    def __init__(self, ref: Expression, a: Expression, b: Expression):
+        self.children = (ref, a, b)
+
+    @property
+    def dtype(self):
+        a, b = self.children[1].dtype, self.children[2].dtype
+        if a == b or a == T.STRING:
+            return a
+        return _least_common(a, b)
+
+    @property
+    def nullable(self):
+        return self.children[1].nullable or self.children[2].nullable
+
+
+class BitwiseAnd(_Binary):
+    """a & b over the wider integral type."""
+
+    @property
+    def dtype(self):
+        return numeric_widen(self.left.dtype, self.right.dtype)
+
+
+class BitwiseOr(BitwiseAnd):
+    pass
+
+
+class BitwiseXor(BitwiseAnd):
+    pass
+
+
+class BitwiseNot(_Unary):
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+
+class ShiftLeft(_Binary):
+    """shiftleft(x, n) of an INT or BIGINT x (a TINYINT or SMALLINT x is
+    cast to INT, Spark's implicit cast) by n masked to the type's width
+    (Java's ``<<``: n & 31 or n & 63)."""
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+class ShiftRight(ShiftLeft):
+    """Java's ``>>`` (arithmetic)."""
+
+
+class ShiftRightUnsigned(ShiftLeft):
+    """Java's ``>>>`` (logical)."""
+
+
+UNARY_MATH = (Sqrt, Cbrt, Exp, Expm1, Log, Log10, Log2, Log1p, Sin, Cos,
+              Tan, Cot, Sec, Csc, Asin, Acos, Atan, Sinh, Cosh, Tanh, Asinh,
+              Acosh, Atanh, ToDegrees, ToRadians)
+BITWISE = (BitwiseAnd, BitwiseOr, BitwiseXor, BitwiseNot, ShiftLeft,
+           ShiftRight, ShiftRightUnsigned, BitCount, BitGet)
+# the 56 scalar functions of the division, null, rounding, math, bitwise
+# and hash families
+SCALAR_FUNCTIONS = ((IntegralDivide, Remainder, Pmod, EqualNullSafe, NullIf,
+                     Nvl2, Greatest, Least, Round, BRound, Floor, Ceil,
+                     Rint) + UNARY_MATH
+                    + (Signum, Atan2, Hypot, Pow, Factorial, Positive)
+                    + BITWISE + (Murmur3Hash, XxHash64, Rand))
+
+
 _CASTABLE = T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES + (T.BOOLEAN, T.DATE,
                                                      T.TIMESTAMP)
 
@@ -632,9 +1123,14 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT, DOUBLE, DECIMAL, DATE and
     TIMESTAMP that the reference's ``cast_val`` takes (not a number or a
     decimal into a date, not a float or a decimal into a timestamp, not a
-    DECIMAL128 into a boolean, date or timestamp)."""
+    DECIMAL128 into a boolean, date or timestamp), and every one of them to
+    and from STRING (float -> string and string -> decimal on the CPU
+    engine only, as ``plan/overrides.py`` places them)."""
     if src == dst:
         return True
+    if T.STRING in (src, dst):
+        other = dst if src == T.STRING else src
+        return other in _CASTABLE or isinstance(other, T.DecimalType)
     dec_s, dec_d = isinstance(src, T.DecimalType), isinstance(dst,
                                                               T.DecimalType)
     if not ((dec_s or src in _CASTABLE) and (dec_d or dst in _CASTABLE)):
@@ -1312,11 +1808,12 @@ SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              IsNull, IsNotNull, In, If, CaseWhen, Coalesce, Substring, Like,
              IsNaN, Nanvl, Sum, Count, Average, Min, Max, First, Last,
              AnyValue, CovarSamp, CovarPop, Corr, MinBy, MaxBy, BoolAnd,
-             BoolOr, CountIf) + VARIANCE_FAMILY + DATETIME_FUNCTIONS
+             BoolOr, CountIf) + VARIANCE_FAMILY + DATETIME_FUNCTIONS + tuple(
+                 c for c in SCALAR_FUNCTIONS if c is not Rand)
 # expressions only the CPU engine evaluates (the reference's
-# device_supported = False aggregates among them)
+# device_supported = False aggregates and Rand among them)
 CPU_ONLY = (CountDistinct, BitAndAgg, BitOrAgg, BitXorAgg, Percentile,
-            Median)
+            Median, Rand)
 
 
 def check_supported(expr: Expression) -> None:
@@ -1379,9 +1876,12 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
                             f"lit(None, dtype)")
         return Alias(kids[0], expr.name)
     if isinstance(expr, Cast):
+        if expr.ansi and T.STRING not in (kids[0].dtype, expr.to):
+            raise NotImplementedError(
+                f"ANSI cast {kids[0].dtype} -> {expr.to} is not in the port")
         if _is_null_type(kids[0]):
             return Literal(None, expr.to)
-        return Cast(kids[0], expr.to)
+        return Cast(kids[0], expr.to, expr.ansi)
     if isinstance(expr, Count):
         return Count(_typed(kids[0], T.BOOLEAN) if kids else None)
     if isinstance(expr, (Sum, Average, _VarianceBase, _CovarianceBase)):
@@ -1425,6 +1925,8 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Like(child, expr.pattern, expr.escape)
     if isinstance(expr, DATETIME_FUNCTIONS):
         return _resolve_datetime(expr, kids)
+    if isinstance(expr, SCALAR_FUNCTIONS):
+        return _resolve_scalar(expr, kids)
     check_supported(expr)
     if any(_is_null_type(k) for k in kids):
         if isinstance(expr, _Binary):
@@ -1433,6 +1935,70 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         raise TypeError(f"{type(expr).__name__} of an untyped NULL literal "
                         f"has no type; give it one with lit(None, dtype)")
     return type(expr)(*kids)
+
+
+def _common_type(kids: Sequence[Expression], what: str) -> T.DataType:
+    """The least common type of typed values (untyped NULLs skipped)."""
+    typed = [k.dtype for k in kids if not _is_null_type(k)]
+    if not typed:
+        raise TypeError(f"{what} has only untyped NULL values; give one a "
+                        f"type with lit(None, dtype)")
+    out = typed[0]
+    for t in typed[1:]:
+        out = _least_common(out, t)
+    return out
+
+
+def _resolve_scalar(expr: Expression, kids: List[Expression]) -> Expression:
+    """A scalar function over resolved children with Spark's implicit casts:
+    untyped NULLs take the type the function reads, IntegralDivide reads
+    BIGINTs unless an operand is a decimal, a shift or a factorial an INT
+    (a TINYINT or SMALLINT shifted value too), and Greatest, Least and
+    Nvl2's values one common type."""
+    name = type(expr).__name__
+    if isinstance(expr, (Round, BRound)):
+        return type(expr)(_typed(kids[0], T.DOUBLE), expr.scale)
+    if isinstance(expr, Rand):
+        return Rand(expr.seed)
+    if isinstance(expr, (Murmur3Hash,)):
+        return type(expr)(*[_typed(k, T.INT) for k in kids])
+    if isinstance(expr, (Greatest,)):
+        dt = _common_type(kids, name)
+        return type(expr)(*[value_as(_typed(k, dt), dt) for k in kids])
+    if isinstance(expr, Nvl2):
+        dt = _common_type(kids[1:], "NVL2")
+        a, b = (_typed(k, dt) for k in kids[1:])
+        dt = Nvl2(kids[0], a, b).dtype
+        return Nvl2(_typed(kids[0], T.BOOLEAN), value_as(a, dt),
+                    value_as(b, dt))
+    if isinstance(expr, (NullIf, EqualNullSafe)):
+        dt = _value_type(kids, name)
+        return type(expr)(*[_typed(k, dt) for k in kids])
+    if isinstance(expr, IntegralDivide):
+        kids = [_typed(k, T.LONG) for k in kids]
+        dts = [k.dtype for k in kids]
+        if (not any(isinstance(t, T.DecimalType) for t in dts)
+                or any(t in T.FRACTIONAL_TYPES for t in dts)):
+            kids = [value_as(k, T.LONG) for k in kids]
+        return IntegralDivide(*kids)
+    if isinstance(expr, ShiftLeft):
+        x = _typed(kids[0], T.INT)
+        if x.dtype in (T.BYTE, T.SHORT):
+            x = value_as(x, T.INT)
+        return type(expr)(x, value_as(_typed(kids[1], T.INT), T.INT))
+    if isinstance(expr, BitGet):
+        return BitGet(_typed(kids[0], T.LONG),
+                      value_as(_typed(kids[1], T.INT), T.INT))
+    if isinstance(expr, Factorial):
+        return Factorial(value_as(_typed(kids[0], T.INT), T.INT))
+    if isinstance(expr, (BitwiseNot, BitCount)):
+        return type(expr)(_typed(kids[0], T.LONG))
+    if isinstance(expr, (BinaryArithmetic, BitwiseAnd)):
+        if any(_is_null_type(k) for k in kids):
+            raise TypeError(f"no common numeric type for {kids[0].dtype}, "
+                            f"{kids[1].dtype}")
+        return type(expr)(*kids)
+    return type(expr)(*[_typed(k, T.DOUBLE) for k in kids])
 
 
 def _resolve_datetime(expr: Expression, kids: List[Expression]
@@ -1480,8 +2046,9 @@ from spark_rapids_tpu_torch.support import (  # noqa: E402
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
     _cls.type_support = ts(DEVICE_SCALAR)
-# the casts cast_supported names; check_expr refuses the rest
-Cast.type_support = ts("boolean", NUMERIC, DECIMAL, DATETIME)
+# the casts cast_supported names; check_expr refuses the rest and places
+# float -> string, string -> decimal and ANSI string casts on the CPU engine
+Cast.type_support = ts("boolean", NUMERIC, DECIMAL, DATETIME, "string")
 # Divide inherits; check_expr gates the decimal divide's rescale
 BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL)
 UnaryMinus.type_support = ts(NUMERIC, DECIMAL)
@@ -1521,6 +2088,23 @@ UnixDate.type_support = ts("date", out="integral")
 DateFromUnixDate.type_support = ts("integral", out="date")
 FromUTCTimestamp.type_support = ts("timestamp")
 Substring.type_support = ts("string")
+# the scalar families, as the reference declares them; check_expr places
+# decimal floor/ceil/round and decimal division on the CPU engine
+Positive.type_support = ts(NUMERIC, DECIMAL)
+NullIf.type_support = ts(DEVICE_SCALAR)
+Nvl2.type_support = ts(DEVICE_SCALAR)
+_UnaryMath.type_support = ts(NUMERIC, DECIMAL, out="fractional")
+Floor.type_support = ts(NUMERIC)
+Round.type_support = ts(NUMERIC)
+Atan2.type_support = ts(NUMERIC, DECIMAL, out="fractional")
+Factorial.type_support = ts("integral")
+Greatest.type_support = ts(NUMERIC, DECIMAL)
+BitCount.type_support = ts("integral", "boolean", out="integral")
+BitGet.type_support = ts("integral")
+BitwiseAnd.type_support = ts("integral")
+BitwiseNot.type_support = ts("integral")
+ShiftLeft.type_support = ts("integral")
+Murmur3Hash.type_support = ts(DEVICE_SCALAR, out="integral")
 Like.type_support = ts("string", out="boolean")
 Sum.type_support = ts(NUMERIC, DECIMAL)
 Average.type_support = ts(NUMERIC, DECIMAL, out="fractional " + DECIMAL)

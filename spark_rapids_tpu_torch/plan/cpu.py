@@ -5,8 +5,13 @@ with numpy: a scan, Project, Filter, Sort (with an optional limit), Limit
 and Union in this module, the aggregate and the join in ``cpu_agg.py``.
 Substring and LIKE work on Python strings (characters), which equals the
 device's bytes on ASCII text; the date-and-time functions are
-``plan/cpu_datetime.py``'s (numpy ``datetime64``), and casts follow the
-reference's ``cast_val`` as the device's do (``E.cast_supported``).
+``plan/cpu_datetime.py``'s (numpy ``datetime64``), the scalar function
+families ``plan/cpu_math.py``'s and casts to and from strings
+``plan/cpu_cast_strings.py``'s; the other casts follow the reference's
+``cast_val`` as the device's do (``E.cast_supported``). IntegralDivide,
+Remainder and Pmod follow Java as on the device, decimals exactly in
+Python integers (Spark's pmod: the divisor added only to a negative
+remainder).
 Values are ``(values, valid)`` numpy pairs with the device's null rules:
 null slots hold zero (an empty string for strings), and every expression
 follows Spark semantics (three-valued And/Or/Not, NaN equal to NaN and
@@ -45,7 +50,9 @@ from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs.eval import (
     bind_projection, decimal_unscaled, output_schema)
+from spark_rapids_tpu_torch.plan import cpu_cast_strings as CCS
 from spark_rapids_tpu_torch.plan import cpu_datetime as CDT
+from spark_rapids_tpu_torch.plan import cpu_math as CM
 
 Pair = Tuple[np.ndarray, np.ndarray]
 
@@ -257,10 +264,95 @@ def _literal(expr: E.Literal, n: int) -> Pair:
     return np.broadcast_to(np.array(expr.value, _np_dtype(dt)), (n,)), ones
 
 
+def _java_rem(x: int, y: int) -> int:
+    """x % y with x's sign (Java), Python integers, y != 0."""
+    r = abs(x) % abs(y)
+    return -r if x < 0 else r
+
+
+def _decimal_division(expr: E.BinaryArithmetic, av, bv, valid,
+                      lt: T.DataType, rt: T.DataType) -> Pair:
+    """IntegralDivide, Remainder and Pmod with a decimal operand, exact:
+    both at the larger scale, Java's truncation; a BIGINT quotient past
+    its range, or a remainder past the result's precision, is null."""
+    s = max(_scale(lt), _scale(rt))
+    fa, fb = 10 ** (s - _scale(lt)), 10 ** (s - _scale(rt))
+    divide = isinstance(expr, E.IntegralDivide)
+    pmod = isinstance(expr, E.Pmod)
+    lo, hi = ((-(1 << 63), 1 << 63) if divide
+              else (1 - 10 ** expr.dtype.precision,
+                    10 ** expr.dtype.precision))
+    out, ok = [], valid.copy()
+    for i, (x, y) in enumerate(zip(av.tolist(), bv.tolist())):
+        x, y = int(x) * fa, int(y) * fb
+        if y == 0 or not ok[i]:
+            ok[i] = False
+            out.append(0)
+            continue
+        if divide:
+            v = abs(x) // abs(y) * (1 if (x >= 0) == (y >= 0) else -1)
+        else:
+            v = _java_rem(x, y)
+            if pmod and v < 0:
+                v = _java_rem(v + y, y)
+        ok[i] = lo <= v < hi
+        out.append(v if ok[i] else 0)
+    if divide:
+        return np.array(out, np.int64), ok
+    arr = np.empty(len(out), dtype=object)
+    arr[:] = out
+    return (arr if expr.dtype.is_wide else arr.astype(np.int64)), ok
+
+
+def _division(expr: E.BinaryArithmetic, av, bv, valid) -> Pair:
+    """IntegralDivide, Remainder and Pmod of numbers (Java's semantics, a
+    zero or NaN divisor null)."""
+    if isinstance(expr, E.IntegralDivide):
+        a, b = np.asarray(av).astype(np.int64), np.asarray(bv).astype(
+            np.int64)
+        zero = b == 0
+        # x div -1 is -x, wrapping at Long.MIN_VALUE
+        safe = np.where(zero | (b == -1), 1, b)
+        with np.errstate(over="ignore"):
+            q = np.where(b == -1, -a, _trunc_div(a, safe))
+        return np.where(zero, 0, q), valid & ~zero
+    nt = _np_dtype(expr.dtype)
+    a, b = np.asarray(av).astype(nt), np.asarray(bv).astype(nt)
+    if a.dtype.kind == "f":
+        zero = (b == 0) | np.isnan(b)
+        safe = np.where(zero, 1.0, b).astype(nt)
+        with np.errstate(invalid="ignore"):
+            r = np.fmod(a, safe)
+            if isinstance(expr, E.Pmod):
+                r = np.where(r < 0, np.fmod(r + safe, safe), r)
+        return np.where(zero, 0.0, r).astype(nt), valid & ~zero
+    zero = b == 0
+    a64 = a.astype(np.int64)
+    b64 = np.where(zero | (b == -1), 1, b).astype(np.int64)
+    r = np.where(b == -1, 0, a64 - _trunc_div(a64, b64) * b64)
+    if isinstance(expr, E.Pmod):
+        with np.errstate(over="ignore"):
+            shifted = (r + b.astype(np.int64)).astype(nt).astype(np.int64)
+        r2 = shifted - _trunc_div(shifted, b64) * b64
+        r = np.where((r < 0) & (b != -1), r2, r)
+    return np.where(zero, 0, r).astype(nt), valid & ~zero
+
+
+def _trunc_div(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Java's truncated int64 division (b != 0, no b == -1 with MIN)."""
+    q = np.floor_divide(a, b)
+    fix = (q * b != a) & ((a < 0) != (b < 0))
+    return q + fix
+
+
 def _arith(expr: E.BinaryArithmetic, a: Pair, b: Pair) -> Pair:
     (av, am), (bv, bm) = a, b
     valid = am & bm
     lt, rt, out_t = expr.left.dtype, expr.right.dtype, expr.dtype
+    if isinstance(expr, (E.IntegralDivide, E.Remainder)):
+        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
+            return _decimal_division(expr, av, bv, valid, lt, rt)
+        return _division(expr, av, bv, valid)
     if isinstance(out_t, T.DecimalType):
         if isinstance(expr, E.Divide):
             # exact HALF_UP at the result scale: a * 10^k / b, null on 0
@@ -418,8 +510,12 @@ def expr_key(e: E.Expression):
         return ("col", e.index)
     if isinstance(e, E.Alias):
         return expr_key(e.child)
-    to = e.to.name if isinstance(e, E.Cast) else None
-    if isinstance(e, E.Substring):
+    to = (e.to.name, e.ansi) if isinstance(e, E.Cast) else None
+    if isinstance(e, E.Round):
+        to = e.scale
+    elif isinstance(e, E.Rand):
+        to = e.seed
+    elif isinstance(e, E.Substring):
         to = (e.pos, e.length)
     elif isinstance(e, E.Like):
         to = (e.pattern, e.escape)
@@ -462,9 +558,18 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return _literal(expr, n)
     if isinstance(expr, E.Cast):
         v, m = ev(expr.child)
+        if expr.child.dtype == T.STRING and expr.to != T.STRING:
+            return CCS.from_string(v, m, expr.to, expr.ansi)
+        if expr.to == T.STRING and expr.child.dtype != T.STRING:
+            return CCS.to_string(v, m, expr.child.dtype)
         return _cast(v, m, expr.child.dtype, expr.to)
     if isinstance(expr, E.BinaryArithmetic):
         return _arith(expr, ev(expr.left), ev(expr.right))
+    if isinstance(expr, E.EqualNullSafe):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        a, b, fl = comparable(a, expr.left.dtype, b, expr.right.dtype)
+        eq = _compare(E.EqualTo, a, b, fl) & am & bm
+        return eq | (~am & ~bm), np.ones(n, np.bool_)
     if isinstance(expr, E.BinaryComparison):
         (a, am), (b, bm) = ev(expr.left), ev(expr.right)
         a, b, fl = comparable(a, expr.left.dtype, b, expr.right.dtype)
@@ -516,6 +621,17 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return np.where(take_b, b, a), np.where(take_b, bm, am)
     if isinstance(expr, E.DATETIME_FUNCTIONS):
         return CDT.eval_datetime(expr, ev)
+    if isinstance(expr, E.NullIf):
+        (a, am), (b, bm) = ev(expr.left), ev(expr.right)
+        x, y, fl = comparable(a, expr.left.dtype, b, expr.right.dtype)
+        ok = am & ~(_compare(E.EqualTo, x, y, fl) & am & bm)
+        return np.where(ok, a, "" if expr.dtype == T.STRING else 0), ok
+    if isinstance(expr, E.Nvl2):
+        _r, rm = ev(expr.children[0])
+        (a, am), (b, bm) = ev(expr.children[1]), ev(expr.children[2])
+        return np.where(rm, a, b), np.where(rm, am, bm)
+    if isinstance(expr, E.SCALAR_FUNCTIONS):
+        return CM.eval_scalar(expr, ev, n)
     if isinstance(expr, E.Substring):
         v, m = ev(expr.child)
         return _per_value(v, lambda x: np.array(

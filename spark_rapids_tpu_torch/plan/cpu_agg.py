@@ -97,7 +97,13 @@ class _Groups:
         else:
             self.starts = np.zeros(min(len(gid), 1), np.int64)
 
+        self._all_counts = None
+
     def counts(self, valid: np.ndarray) -> np.ndarray:
+        if valid.all():  # the rows' own counts, kept for the next function
+            if self._all_counts is None:
+                self._all_counts = np.bincount(self.gid, minlength=self.ng)
+            return self._all_counts
         return np.bincount(self.gid[valid], minlength=self.ng)
 
 
@@ -109,6 +115,8 @@ def _group_sum(vals: np.ndarray, valid: np.ndarray, groups: _Groups,
     ng, gid = groups.ng, groups.gid
     has = groups.counts(valid) > 0
     if vals.dtype.kind == "f":
+        if valid.all():
+            return np.bincount(gid, weights=vals, minlength=ng), has
         return np.bincount(gid[valid], weights=vals[valid],
                            minlength=ng), has
     live = vals[valid]

@@ -150,8 +150,16 @@ def execute_to_arrow(node) -> pa.Table:
 
     schema = node.output_schema
     if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
-        tables = [t for p in range(node.num_partitions())
-                  for t in node.execute_host(p)]
+        tables = []
+        for p in range(node.num_partitions()):
+            rows = node.execute_host(p)
+            try:
+                tables.extend(rows)
+            finally:
+                # a run that raises closes its operators now (their
+                # registrations in the pool end with them), not whenever
+                # the traceback that holds them is collected
+                rows.close()
     else:
         sem = (None if getattr(node, "_fastpath", False)
                else get_task_semaphore())
@@ -162,10 +170,11 @@ def execute_to_arrow(node) -> pa.Table:
             task = (threading.get_ident(), id(node), p)
             if sem is not None:
                 sem.acquire(task)
+            batches = node.execute(p)
             try:
-                tables.extend(batch_to_arrow(b, schema)
-                              for b in node.execute(p))
+                tables.extend(batch_to_arrow(b, schema) for b in batches)
             finally:
+                batches.close()
                 if sem is not None:
                     sem.release(task)
     nodes, stack = [], [node]

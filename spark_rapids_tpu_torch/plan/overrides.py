@@ -9,8 +9,12 @@ Tagging holds every bound expression to the device's declarations
 (``check_expr``: the expression set, each class's ``type_support``, the
 expressions with a DECIMAL128 implementation (``WIDE_OK``), the decimal
 Divide's rescale range, and the device's own refusals such as string
-ordering comparisons and MinBy/MaxBy over a float, string or decimal
-ordering or a string or decimal value), and each node to its operator's:
+ordering comparisons, MinBy/MaxBy over a float, string or decimal
+ordering or a string or decimal value, float -> string, string -> decimal
+and ANSI string casts, decimal floor/ceil/round and decimal IntegralDivide,
+Remainder and Pmod, each with the reference's reason; Rand is outside the
+device's set, as the reference's planner keeps it), and each node to its
+operator's:
 a DECIMAL128 group key, join key or window Min/Max, and a Skewness or
 Kurtosis window, stay on the CPU engine, as in the reference. The
 reference's CPU-only aggregates (BitAndAgg/BitOrAgg/BitXorAgg,
@@ -177,7 +181,7 @@ WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
            E.Add, E.Subtract, E.Multiply, E.Divide, E.Abs, E.UnaryMinus,
            E.BinaryComparison, E.IsNull, E.IsNotNull, E.If, E.CaseWhen,
            E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count, E.First,
-           E.Last)
+           E.Last, E.Greatest)
 
 # the window functions with a DECIMAL128 device implementation (Lead covers
 # Lag)
@@ -217,6 +221,21 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
               and isinstance(bound.to, T.DecimalType)
               and bound.child.dtype.scale - bound.to.scale > 18):
             reasons.append("decimal128 scale reduction > 18 not on device")
+        if isinstance(bound, E.Cast):
+            # the casts the reference's device does not format or parse
+            cdt = bound.child.dtype
+            if cdt in T.FRACTIONAL_TYPES and bound.to == T.STRING:
+                reasons.append("float to string cast not on device")
+            if cdt == T.STRING and isinstance(bound.to, T.DecimalType):
+                reasons.append("string to decimal cast not on device")
+            if cdt == T.STRING and bound.ansi:
+                reasons.append("ANSI string cast not on device")
+        if isinstance(bound, (E.Floor, E.Round)) and isinstance(
+                bound.child.dtype, T.DecimalType):
+            reasons.append("decimal floor/ceil/round not on device")
+        if isinstance(bound, (E.IntegralDivide, E.Remainder)) and any(
+                isinstance(c.dtype, T.DecimalType) for c in bound.children):
+            reasons.append("decimal division not on device")
         if isinstance(bound, E.Divide) and isinstance(bound.dtype,
                                                       T.DecimalType):
             s1 = getattr(bound.left.dtype, "scale", 0)

@@ -14,8 +14,8 @@ engine (``spark.rapids.gpu.sql.enabled=false``):
   under And/Or/Not and IsNull, a double under Sum and Average, and a
   TypeError on both engines where the reference raises one (arithmetic
   and comparisons with an untyped NULL);
-- casts the port does not have (double -> timestamp, bigint -> date, to
-  and from strings) raise on both engines naming the cast.
+- casts the port does not have (double or decimal -> timestamp, bigint or
+  decimal -> date) raise on both engines naming the cast.
 """
 
 import decimal
@@ -219,7 +219,7 @@ def test_unported_casts_raise_naming_them(engine):
     conf = ENGINES[engine]
     df = port_from_arrow(_table(), None if conf is None
                          else RapidsConf(conf), device="cpu")
-    for src, dst in (("d", PT.TIMESTAMP), ("d", PT.STRING),
-                     ("l", PT.STRING), ("l", PT.DATE)):
+    for src, dst in (("d", PT.TIMESTAMP), ("m", PT.TIMESTAMP),
+                     ("m", PT.DATE), ("l", PT.DATE)):
         with pytest.raises(NotImplementedError, match="cast"):
             df.select(PE.Cast(PE.col(src), dst).alias("x")).collect()

@@ -36,7 +36,10 @@ the planner; the aggregate family: every device aggregate on the card
 (one split and 4) against the CPU engine, the variance windows over all
 four frames with every scan call held against the plain version, and the
 statistics pass's S3 under a capped pool, its spilled partials read back
-equal.
+equal; the scalar families: every device class over seeded edge values on
+the card against the CPU, the string casts over a 2^20-row dictionary
+column and a plain one, and the scalar sales pass's N3 on one split and
+on four against the CPU engine.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -1721,3 +1724,235 @@ def test_capped_s3_on_card_spills_partials_and_reads_them_back(tmp_path):
     assert SS.check_rows("S3", got, base) == (True, "")
     cpu = run({"spark.rapids.gpu.sql.enabled": "false"}, "cpu")
     assert SS.check_rows("S3", got, cpu) == (True, "")
+
+
+# ---------------------------------------------------------------------------
+# the scalar function families and the string casts
+# ---------------------------------------------------------------------------
+
+_TRANSCENDENTAL = ("sqrt", "cbrt", "exp", "log", "sin", "cos", "tan", "cot",
+                   "sec", "csc", "asin", "acos", "atan", "sinh", "cosh",
+                   "tanh", "asinh", "acosh", "atanh", "degrees", "radians",
+                   "hypot", "pow")
+
+
+def _scalar_edge_table(n=4096):
+    """Seeded edge values: each integral type's ends, zero divisors, NaN,
+    the infinities, signed zeros, .5 ties, shift counts past the width,
+    decimals of both widths, nulls in every column."""
+    import decimal
+
+    rng = np.random.default_rng(15)
+
+    def pick(edges, rand):
+        vals = np.where(rng.random(n) < 0.3, rng.choice(edges, n), rand)
+        return vals
+
+    def nulls(arr, typ):
+        return pa.array(arr, typ, mask=rng.random(n) < 0.05)
+
+    i64 = np.array([-2 ** 63, 2 ** 63 - 1, 0, 1, -1, 2 ** 53 + 1, 25, -15],
+                   np.int64)
+    i32 = np.array([-2 ** 31, 2 ** 31 - 1, 0, 1, -1, 7, -7], np.int32)
+    f64 = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 2.5, -2.5, 0.125,
+                    1.005, 1e300], np.float64)
+    return pa.table({
+        "i": nulls(pick(i32, rng.integers(-10 ** 6, 10 ** 6, n)).astype(
+            np.int32), pa.int32()),
+        "j": nulls(pick(np.array([0, -1, 1, 3], np.int32),
+                        rng.integers(-50, 50, n)).astype(np.int32),
+                   pa.int32()),
+        "l": nulls(pick(i64, rng.integers(-2 ** 62, 2 ** 62, n)), pa.int64()),
+        "m": nulls(pick(np.array([0, -1, 1, 10], np.int64),
+                        rng.integers(-10 ** 9, 10 ** 9, n)), pa.int64()),
+        "d": nulls(pick(f64, rng.standard_normal(n) * 100), pa.float64()),
+        "e": nulls(pick(np.array([0.0, np.nan, -2.0, 0.5]),
+                        rng.standard_normal(n) * 10), pa.float64()),
+        "f": nulls(pick(f64[:-1], rng.standard_normal(n)).astype(
+            np.float32), pa.float32()),
+        "sh": nulls(pick(np.array([-1, 0, 31, 32, 63, 64, 65], np.int32),
+                         rng.integers(0, 64, n)).astype(np.int32),
+                    pa.int32()),
+        "p": pa.array([None if k % 17 == 3 else decimal.Decimal(int(x))
+                       .scaleb(-2) for k, x in enumerate(
+                           rng.integers(-10 ** 6, 10 ** 6, n))],
+                      pa.decimal128(9, 2)),
+        "w": pa.array([None if k % 13 == 5 else decimal.Decimal(int(x))
+                       .scaleb(-3) for k, x in enumerate(
+                           rng.integers(-10 ** 17, 10 ** 17, n))],
+                      pa.decimal128(24, 3)),
+        "s": nulls(np.array([f"s{x}" for x in rng.integers(0, 50, n)],
+                            dtype=object), pa.string()),
+    })
+
+
+def _scalar_exprs():
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    c, lit = E.col, E.lit
+    out = [E.IntegralDivide(c("l"), c("m")).alias("div"),
+           E.Remainder(c("i"), c("j")).alias("rem"),
+           E.Pmod(c("l"), c("m")).alias("pmod"),
+           E.Pmod(c("d"), c("e")).alias("pmod_d"),
+           E.EqualNullSafe(c("i"), c("j")).alias("ens"),
+           E.NullIf(c("s"), lit("s7")).alias("nullif"),
+           E.Nvl2(c("i"), c("d"), c("e")).alias("nvl2"),
+           E.Greatest(c("p"), c("w")).alias("greatest"),
+           E.Least(c("d"), c("e")).alias("least"),
+           E.Floor(c("d")).alias("floor"), E.Ceil(c("f")).alias("ceil"),
+           E.Rint(c("d")).alias("rint"),
+           E.Factorial(c("j")).alias("factorial"),
+           E.Signum(c("d")).alias("signum"),
+           E.BitwiseXor(c("i"), c("l")).alias("xor"),
+           E.BitwiseNot(c("i")).alias("bnot"),
+           E.BitCount(c("l")).alias("bitcount"),
+           E.BitGet(c("i"), c("sh")).alias("bitget"),
+           E.Murmur3Hash(c("l"), c("s"), c("d"), c("p")).alias("hash"),
+           E.XxHash64(c("w"), c("f")).alias("xxhash"),
+           E.Rand(5).alias("rand")]
+    for s in (-2, 0, 2, 5):
+        out += [E.Round(c("d"), s).alias(f"round{s}"),
+                E.BRound(c("f"), s).alias(f"bround{s}"),
+                E.Round(c("l"), -abs(s) - 1).alias(f"round_l{s}")]
+    for cls in ("ShiftLeft", "ShiftRight", "ShiftRightUnsigned"):
+        out += [getattr(E, cls)(c(x), c("sh")).alias(f"{cls}_{x}")
+                for x in ("i", "l")]
+    for name in ("Sqrt", "Cbrt", "Exp", "Log", "Log1p", "Sin", "Cos", "Tan",
+                 "Cot", "Sec", "Csc", "Asin", "Acos", "Atan", "Sinh",
+                 "Cosh", "Tanh", "Asinh", "Acosh", "Atanh", "ToDegrees",
+                 "ToRadians"):
+        out.append(getattr(E, name)(c("d")).alias(name.lower()))
+    out += [E.Sqrt(c("p")).alias("sqrt_p"),
+            E.Hypot(c("d"), c("e")).alias("hypot"),
+            E.Pow(c("d"), c("e")).alias("pow")]
+    return out
+
+
+def _close(a, b, name):
+    import math
+
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        if name.startswith(_TRANSCENDENTAL) and a != b:
+            return (abs(a - b) <= 1e-15 if abs(b) < 1e-3
+                    else abs(a - b) <= 1e-12 * abs(b))
+    return a == b
+
+
+def test_scalar_families_on_card_match_the_cpu():
+    """Every device class of the scalar families (Rand through the device
+    evaluator directly) on the card against the same projection on the
+    CPU: exact, the transcendental functions within relative 1e-12."""
+    _card()
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs import eval as EV
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    t = _scalar_edge_table()
+    bound = EV.bind_projection(_scalar_exprs(), T.Schema.from_arrow(t.schema))
+    schema = EV.output_schema(bound)
+    out = {}
+    for device in ("cuda", "cpu"):
+        b = PB.batch_from_arrow(PB.dictionary_encode_table(t), device)
+        out[device] = PB.batch_to_arrow(EV.project_batch(b, bound),
+                                        schema).to_pylist()
+    assert len(out["cuda"]) == t.num_rows
+    for g, c in zip(out["cuda"], out["cpu"]):
+        for k in c:
+            assert _close(g[k], c[k], k), (k, g[k], c[k])
+    assert E.SCALAR_FUNCTIONS  # the families' classes, all in the list
+
+
+@pytest.mark.parametrize("layout", ["dict", "plain"])
+def test_string_casts_on_card_match_the_cpu(layout):
+    """Casts from strings (integers with fractions and signs, doubles in
+    every form, dates, timestamps, booleans and junk: a 2^20-row column
+    over a 4,000-entry dictionary, and 2^16 plain rows, the CPU's side
+    being the slow one) and back to strings, on the card against the CPU:
+    exact, doubles within 1 ulp."""
+    _card()
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs import eval as EV
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    n = 1 << 20 if layout == "dict" else 1 << 16
+    rng = np.random.default_rng(20)
+    pool_n = 4000 if layout == "dict" else n
+    ints = rng.integers(-2 ** 62, 2 ** 62, pool_n)
+    floats = rng.standard_normal(pool_n) * 10.0 ** rng.integers(-20, 20,
+                                                               pool_n)
+    days = rng.integers(-300000, 2900000, pool_n)
+    forms = [lambda k: str(ints[k]), lambda k: f" {ints[k] % 1000}.5 ",
+             lambda k: repr(float(floats[k])), lambda k: f"{floats[k]:.3e}",
+             lambda k: str(np.datetime64(int(days[k]), "D")),
+             lambda k: f"{np.datetime64(int(days[k]), 'D')} "
+                       f"{k % 24}:{k % 60:02d}:{k % 60:02d}.{k % 999}",
+             lambda k: ["true", "N", "yes", "0"][k % 4],
+             lambda k: ["", "x1", "1e", "+", "inf", "-NaN"][k % 6]]
+    pool = [forms[k % len(forms)](k) for k in range(pool_n)]
+    vals = ([pool[k] for k in rng.integers(0, pool_n, n)]
+            if layout == "dict" else pool)
+    t = pa.table({"s": pa.array(vals, pa.string())})
+    enc = PB.dictionary_encode_table(t)
+    assert pa.types.is_dictionary(enc.column("s").type) == (layout == "dict")
+    exprs = [E.Cast(E.col("s"), getattr(T, x)).alias(x.lower()) for x in (
+        "LONG", "INT", "SHORT", "BYTE", "BOOLEAN", "DATE", "TIMESTAMP",
+        "DOUBLE", "FLOAT")]
+    exprs += [E.Cast(E.Cast(E.col("s"), T.LONG), T.STRING).alias("ls"),
+              E.Cast(E.Cast(E.col("s"), T.DATE), T.STRING).alias("ds"),
+              E.Cast(E.Cast(E.col("s"), T.TIMESTAMP), T.STRING).alias("ts"),
+              E.Cast(E.Cast(E.Cast(E.col("s"), T.LONG),
+                            T.DecimalType(30, 4)), T.STRING).alias("ws")]
+    bound = EV.bind_projection(exprs, T.Schema.from_arrow(t.schema))
+    schema = EV.output_schema(bound)
+    got = {}
+    for device in ("cuda", "cpu"):
+        b = PB.batch_from_arrow(enc, device)
+        got[device] = PB.batch_to_arrow(EV.project_batch(b, bound), schema)
+    for name in got["cpu"].column_names:
+        a, c = got["cuda"].column(name), got["cpu"].column(name)
+        if pa.types.is_timestamp(a.type):
+            # as microseconds: Python datetimes with a zone are slow to
+            # make where pyarrow has no pytz
+            a, c = a.cast(pa.int64()), c.cast(pa.int64())
+        a, c = a.to_pylist(), c.to_pylist()
+        if name in ("double", "float"):
+            x = np.array([np.nan if v is None else v for v in a])
+            y = np.array([np.nan if v is None else v for v in c])
+            assert np.array_equal(np.isnan(x), np.isnan(y))
+            typ = np.float32 if name == "float" else np.float64
+            ok = ~np.isnan(y) & np.isfinite(y)
+            ulp = np.spacing(np.abs(y[ok]).astype(typ)).astype(np.float64)
+            assert (np.abs(x[ok] - y[ok]) <= ulp).all(), name
+        else:
+            assert a == c, name
+    assert got["cuda"].column("date").null_count < n
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+def test_scalar_sales_n3_on_card_matches_the_cpu_engine(splits):
+    """N3 of the scalar sales pass (hash buckets, rounding, greatest/least,
+    the null functions, a left join through the probe kernel) on the card,
+    on one split and on four, against the CPU engine."""
+    _card()
+    from spark_rapids_tpu_torch.bench import scalar_sales as SS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = SS.tables_for(0.1)
+    rows = t["store_sales"].num_rows
+    conf = {"spark.rapids.gpu.fastpath.enabled": "false"} if splits > 1 \
+        else {}
+    PK.reset_kernel_launches()
+    d = SS.df_tables(t, RapidsConf(conf), device="cuda", partitions=splits,
+                     batch_rows=-(-rows // splits))
+    df = SS.n3(d)
+    assert "!" not in df.explain()
+    got = df.to_arrow().to_pylist()
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] > 0
+    cpu = SS.df_tables(t, RapidsConf({"spark.rapids.gpu.sql.enabled":
+                                      "false"}), device="cuda")
+    assert SS.check_rows("N3", got, SS.n3(cpu).to_arrow().to_pylist()) == (
+        True, "")

@@ -435,3 +435,48 @@ def test_the_aggregate_family_modules_are_covered():
         mod = importlib.import_module(m)
         for n in names:
             assert hasattr(mod, n), (m, n)
+
+
+def test_the_scalar_family_and_string_cast_modules_are_covered():
+    """The modules that carry the scalar function families and the casts to
+    and from strings are walked by the import checks above, hold the names
+    the slice adds, and every one of the 56 classes is declared for the
+    device (Rand, which the reference's planner keeps off it, for the CPU
+    engine)."""
+    import importlib
+
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.plan import cpu as PCPU
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exprs.expr",
+             ("SCALAR_FUNCTIONS", "IntegralDivide", "Pmod", "EqualNullSafe",
+              "Greatest", "BRound", "Murmur3Hash", "Rand",
+              "round_decimal_type")),
+            ("spark_rapids_tpu_torch.exprs.math",
+             ("eval_scalar", "round_fractional", "round_integral",
+              "column_hash", "rand")),
+            ("spark_rapids_tpu_torch.exprs.strings",
+             ("row_ids", "make_offsets", "emit")),
+            ("spark_rapids_tpu_torch.exprs.cast_strings",
+             ("PARSE_WINDOW", "Literals", "from_string", "to_string")),
+            ("spark_rapids_tpu_torch.plan.cpu_math",
+             ("eval_scalar", "round_fractional", "engine_hash")),
+            ("spark_rapids_tpu_torch.plan.cpu_cast_strings",
+             ("PARSE_WINDOW", "from_string", "to_string", "java_text")),
+            ("spark_rapids_tpu_torch.bench.scalar_sales",
+             ("QUERIES", "scalar_tables", "pandas_n1", "check_rows"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    assert len(PE.SCALAR_FUNCTIONS) == 56
+    for c in PE.SCALAR_FUNCTIONS:
+        assert c in PCPU.CPU_EXPRS, c
+        if c is PE.Rand:
+            assert c not in PE.SUPPORTED and c in PE.CPU_ONLY
+        else:
+            assert c in PE.SUPPORTED and c.type_support is not None, c
+    assert importlib.import_module(
+        "spark_rapids_tpu_torch.exprs.cast_strings").PARSE_WINDOW == 64
