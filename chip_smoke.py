@@ -308,12 +308,34 @@ Phases, in order; any failure exits non-zero before the last line:
    every probe and scan call of the counted runs held against the plain
    version (``scalar_calls_checked``), the phase's largest probe and
    largest scan timed against their bounds (``scalar_largest``).
+19. the string sales pass (``bench/string_sales.py``) over the SF1
+   tables, none cut (store_sales 2,880,000 rows in one 2^22-row batch,
+   item 18,000, customer 100,000, and phase 18's untyped store_sales):
+   G1 (store_sales joined with item, grouped by upper(i_brand) and
+   concat_ws('/', i_category, i_class), one aggregate of every device
+   class of the string family over item's dictionary columns), G2 (the
+   same classes over the untyped store_sales' 2,880,000 plain rows,
+   summed and counted per store, the hex/unhex and base64/unbase64 round
+   trips counted as mismatches), G3 (RLIKE filters over c_email_address
+   and i_item_desc around two joins) and G5 (running and ROWS 30 sums
+   over a projected lower(i_brand) partition) wholly on the card; G3R (a
+   back-reference pattern: its filter alone on the CPU engine) and G4
+   (the CPU engine's classes over one store's rows: its projection alone
+   there), each node named with its reasons; each against the CPU engine
+   (G1 also against pandas and Python's str); then G6: G1 and G2 with 4
+   splits and 4 shuffle partitions against one partition. Launches,
+   probe and scan counts and warm walls as phase 18's; every probe and
+   scan call of the counted runs held against the plain version
+   (``string_calls_checked``), the largest probe and scan timed against
+   their bounds (``string_largest``).
 
-The CPU engine's comparison runs of phases 9-12 and 18 go to spawned
-worker processes (``check_workers``, the tables read from Arrow files
-written once) that overlap the card's runs: one after another on the
-host's CPU they took a third of the whole run. Every such phase takes
-its warm walls after its workers end.
+The CPU engine's comparison runs of phases 9-13, the window-surface pass
+and phases 18-19 go to spawned worker processes (``check_workers``, the
+tables read from Arrow files written once; a result of millions of rows
+comes back as an Arrow file, ``cpu_engine_table``) that overlap the
+card's runs: one after another on the host's CPU they took a third of
+the whole run. Every such phase takes its warm walls after its workers
+end.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -1554,7 +1576,18 @@ def _columns_agree(a, b, rel: float = 1e-6) -> bool:
     return bool(pc.all(pc.equal(a, b).fill_null(True)).as_py())
 
 
-def window_surface_pass(tables) -> dict:
+def start_window_surface_check(tables):
+    """The window-surface pass's CPU-engine run in a worker process of
+    its own, started phases ahead of the pass (it runs for tens of seconds
+    on the host's CPU): (pool, pending result)."""
+    pool = check_workers(1)
+    pending = pool.apply_async(cpu_engine_table, (
+        "window", "surface", table_files(tables, ["store_sales"])))
+    pool.close()
+    return pool, pending
+
+
+def window_surface_pass(tables, check) -> dict:
     """Phase 12's window-surface pass over store_sales (2,880,000 rows at
     SF1, one batch): all of ``window_surface_exprs`` in one window node,
     with the launch counts zeroed before and read after, each column held
@@ -1564,11 +1597,12 @@ def window_surface_pass(tables) -> dict:
     and its launches; the largest min scan's (in bytes) times against its
     byte bound;
     and the torch kernels and device time one bounded RANGE window adds
-    to a running sum of the same column."""
+    to a running sum of the same column. The CPU engine's pass runs in a
+    worker process (``check``, from ``start_window_surface_check``)
+    while the card runs."""
     import torch
 
     from spark_rapids_tpu_torch.bench.profile_tpch import device_events
-    from spark_rapids_tpu_torch.config.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import kernels as K
     from spark_rapids_tpu_torch.exprs import expr as E
     from spark_rapids_tpu_torch.exprs import window as W
@@ -1577,8 +1611,7 @@ def window_surface_pass(tables) -> dict:
 
     ss = tables["store_sales"]
     dev = from_arrow(ss, batch_rows=1 << 22, device="cuda")
-    cpu = from_arrow(ss, RapidsConf({"spark.rapids.gpu.sql.enabled":
-                                     "false"}), device="cuda")
+    pool, pending = check  # ``start_window_surface_check``'s
     exprs = window_surface_exprs()
     windows = [w for _a, w in exprs]
     largest = {}
@@ -1610,8 +1643,15 @@ def window_surface_pass(tables) -> dict:
     if launches["segscan"] <= 0:
         raise AssertionError("the window-surface pass launched no segscan")
     t1 = time.perf_counter()
-    exp = cpu.with_window(*windows).to_arrow()
-    cpu_s = time.perf_counter() - t1
+    try:
+        path, cpu_s = pending.get(timeout=900)
+        pool.join()
+    finally:
+        pool.terminate()
+        pool.join()
+    exp = read_cpu_table(path)
+    log(f"window surface: waited {time.perf_counter() - t1:.2f}s for the "
+        f"CPU engine's worker")
     columns = {}
     for a, _w in exprs:
         ok = _columns_agree(got.column(a), exp.column(a))
@@ -1947,6 +1987,69 @@ def same_sorted_rows(got, exp) -> bool:
     return got.sort_by(keys).equals(exp.sort_by(keys))
 
 
+def cpu_engine_table(kind: str, name: str, table_dir: str) -> tuple:
+    """A worker's check of phase 12 or 13: the CPU engine's result of a
+    case over the tables in ``table_dir``, written there as an Arrow file
+    (its path and seconds are returned; the rows may be millions). ``kind``
+    "tpch" runs TPC-H ``name``, "sort" store_sales by SORT_COLUMNS,
+    "window" the window-surface pass, "tpcds" TPC-DS ``name`` (q38 for
+    "q38_shuffled_joins")."""
+    import pyarrow as pa
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import tpch
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan import from_arrow
+
+    off = RapidsConf({"spark.rapids.gpu.sql.enabled": "false"})
+    names = [f[:-len(".arrow")] for f in os.listdir(table_dir)
+             if f.endswith(".arrow") and not f.startswith("cpu_")]
+    t0 = time.perf_counter()
+    if kind == "tpch":
+        tables = read_table_files(table_dir, names)
+        out = tpch.DF_QUERIES[name](tpch.df_tables(
+            tables, off, device="cpu")).to_arrow()
+    elif kind == "window":
+        ss = read_table_files(table_dir, ["store_sales"])["store_sales"]
+        out = from_arrow(ss, off, device="cpu").with_window(
+            *[w for _a, w in window_surface_exprs()]).to_arrow()
+    else:
+        q = "q38" if name == "q38_shuffled_joins" else name
+        need = ["store_sales"] if kind == "sort" else query_tables(q)
+        d = Q.df_tables(read_table_files(table_dir, need), off,
+                        device="cpu")
+        out = (sorted_store_sales(d) if kind == "sort"
+               else Q.QUERIES[q](d)).to_arrow()
+    secs = time.perf_counter() - t0
+    path = os.path.join(table_dir, f"cpu_{kind}_{name}.arrow")
+    with pa.OSFile(path, "wb") as f:
+        with pa.ipc.new_file(f, out.schema) as w:
+            w.write_table(out)
+    return path, secs
+
+
+def query_tables(q: str):
+    """The TPC-DS tables query ``q`` reads (the headline queries read the
+    generator's eight base tables)."""
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+
+    return Q.TABLES.get(q, S.BASE_TABLES)
+
+
+def read_cpu_table(path: str):
+    """A worker's result (``cpu_engine_table``), read whole and removed."""
+    import pyarrow as pa
+
+    with pa.memory_map(path) as f:
+        out = pa.ipc.open_file(f).read_all()
+    os.remove(path)
+    return out
+
+
 def run_partitioned_path(tpch_tables, ds_tables) -> dict:
     """Phase 13: each query with 4 source splits and 4 shuffle partitions,
     wholly on the device, against one partition and the CPU engine, with
@@ -1963,7 +2066,6 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
     from spark_rapids_tpu_torch.exec import reuse as R
     from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
 
-    off = RapidsConf({"spark.rapids.gpu.sql.enabled": "false"})
     tpch_order = {"q1": ("l_returnflag", "l_linestatus"),
                   "q3": ("l_orderkey",), "q5": ("n_name",), "q6": ()}
 
@@ -1992,12 +2094,10 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
     frames = four()
     h = {"one": tpch.df_tables(tpch_tables, batch_rows=1 << 20,
                                device="cuda", shuffle_partitions=1),
-         "four": frames["h"],
-         "cpu": tpch.df_tables(tpch_tables, off, device="cuda")}
+         "four": frames["h"]}
     ds = {"one": Q.df_tables(ds_tables, batch_rows=1 << 19, device="cuda",
                              shuffle_partitions=1),
-          "four": frames["ds"],
-          "cpu": Q.df_tables(ds_tables, off, device="cuda")}
+          "four": frames["ds"]}
     ds_shuffled = dict(ds, four=frames["ds_shuffled"])
     cases = ([(f"tpch_{q}", tpch.DF_QUERIES[q], h,
                lambda g, e, q=q: tpch_check(q, g, e), q in ("q3", "q5"),
@@ -2028,80 +2128,115 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
             largest.update(size=size, args=(tbl, h1, h2, capacity, seed))
         return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
 
-    results, rows = {}, {}
+    # the CPU engine's results come from worker processes started first,
+    # over the tables written as Arrow files
+    t1 = time.perf_counter()
+    tpch_dir = table_files(tpch_tables, list(tpch_tables))
+    ds_dir = table_files(ds_tables, sorted(
+        {"store_sales"} | {t for q in PARTITIONED_DS
+                           for t in query_tables(q)}))
+    log(f"partitioned: tables written for the check workers in "
+        f"{time.perf_counter() - t1:.2f}s")
+    pool = check_workers(CHECK_WORKERS)
+    pending = {}
+    for name, _b, d, check, _j, _w in cases:
+        kind = ("tpch" if d is h else "sort" if check is None else "tpcds")
+        pending[name] = pool.apply_async(cpu_engine_table, (
+            kind, name[len("tpch_"):] if kind == "tpch" else name,
+            tpch_dir if kind == "tpch" else ds_dir))
+    pool.close()
+    results, rows, outs = {}, {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    for name, build, d, check, joins, window in cases:
-        t1 = time.perf_counter()
-        exp = execute_to_arrow(build(d["one"]).physical_plan())
-        torch.cuda.synchronize()
-        one_s = time.perf_counter() - t1
-        df = build(d["four"])
-        cpu_marks = [ln.strip() for ln in df.explain("ALL").splitlines()
-                     if ln.lstrip().startswith("!")]
-        if cpu_marks:
-            raise AssertionError(f"{name} partitioned has nodes on the CPU "
-                                 f"engine: {cpu_marks}")
-        K.reset_kernel_launches()
-        R.reset_counters()
-        PP.STATS.reset()
-        K.probe_hash_table_kernel = recording_probe
-        K.segmented_scan_kernel = check_scan_call
-        try:
+    try:
+        for name, build, d, check, joins, window in cases:
             t1 = time.perf_counter()
-            plan = df.physical_plan()
-            out = execute_to_arrow(plan)
+            exp = execute_to_arrow(build(d["one"]).physical_plan())
             torch.cuda.synchronize()
-            first_s = time.perf_counter() - t1
-        finally:
-            K.probe_hash_table_kernel = real_probe
-            K.segmented_scan_kernel = real_scan
-        launches = dict(K.KERNEL_LAUNCHES)
-        for k, v in launches.items():
-            total[k] += v
-        strategy = plan_strategy(plan)
-        strategy["bytes_saved"] = R.counters()["reuse_bytes_saved_total"]
-        t1 = time.perf_counter()
-        on_cpu = build(d["cpu"]).to_arrow()
-        cpu_s = time.perf_counter() - t1
-        if check is None:
-            if out.num_rows != ds_tables["store_sales"].num_rows:
-                raise AssertionError(f"{name} gave {out.num_rows} rows")
-            for other, what in ((exp, "one partition"),
-                                (on_cpu, "the CPU engine")):
-                if not same_sorted_rows(out, other):
+            one_s = time.perf_counter() - t1
+            df = build(d["four"])
+            cpu_marks = [ln.strip() for ln in df.explain("ALL").splitlines()
+                         if ln.lstrip().startswith("!")]
+            if cpu_marks:
+                raise AssertionError(f"{name} partitioned has nodes on the "
+                                     f"CPU engine: {cpu_marks}")
+            K.reset_kernel_launches()
+            R.reset_counters()
+            PP.STATS.reset()
+            K.probe_hash_table_kernel = recording_probe
+            K.segmented_scan_kernel = check_scan_call
+            try:
+                t1 = time.perf_counter()
+                plan = df.physical_plan()
+                out = execute_to_arrow(plan)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t1
+            finally:
+                K.probe_hash_table_kernel = real_probe
+                K.segmented_scan_kernel = real_scan
+            launches = dict(K.KERNEL_LAUNCHES)
+            for k, v in launches.items():
+                total[k] += v
+            strategy = plan_strategy(plan)
+            strategy["bytes_saved"] = R.counters()[
+                "reuse_bytes_saved_total"]
+            if check is None:
+                if out.num_rows != ds_tables["store_sales"].num_rows:
+                    raise AssertionError(f"{name} gave {out.num_rows} rows")
+                if not same_sorted_rows(out, exp):
                     raise AssertionError(f"{name} partitioned differs from "
-                                         f"{what}")
-        else:
-            got = out.to_pylist()
-            # rows equal to an empty result prove nothing of the exchanges
-            if not Q.informative(got):
-                raise AssertionError(f"{name} shows no value: {got[:3]}")
-            for other, what in ((exp, "one partition"),
-                                (on_cpu, "the CPU engine")):
-                ok, why = check(got, other.to_pylist())
+                                         f"one partition")
+            else:
+                got = out.to_pylist()
+                # rows equal to an empty result prove nothing of the
+                # exchanges
+                if not Q.informative(got):
+                    raise AssertionError(f"{name} shows no value: "
+                                         f"{got[:3]}")
+                ok, why = check(got, exp.to_pylist())
                 if not ok:
                     raise AssertionError(f"{name} partitioned differs from "
-                                         f"{what} ({why}):\n{got[:3]}")
-        if not strategy["exchanges"] and not strategy["broadcast_joins"]:
-            raise AssertionError(f"{name} planned no exchange and no "
-                                 f"broadcast join")
-        if name == "q38_shuffled_joins" and strategy["shuffled_joins"] < 2:
-            raise AssertionError(f"{name} shuffled "
-                                 f"{strategy['shuffled_joins']} joins, not "
-                                 f"its two semi joins")
-        if joins and launches["hashtbl_probe"] <= 0:
-            raise AssertionError(f"{name} launched no probe kernel")
-        if window and launches["segscan"] <= 0:
-            raise AssertionError(f"{name} launched no segscan kernel")
-        results[name] = dict(strategy, rows=out.num_rows, first_s=first_s,
-                             one_partition_first_s=one_s,
-                             cpu_engine_s=cpu_s, launches=launches)
-        rows[name] = out
-        log(f"{name}: {out.num_rows} rows, 4 splits equal one partition "
-            f"and the CPU engine; {strategy_line(strategy)}; launches "
-            f"{launches}; first run {first_s:.3f}s; CPU engine "
-            f"{cpu_s:.3f}s")
-
+                                         f"one partition ({why}):\n"
+                                         f"{got[:3]}")
+            if not strategy["exchanges"] and not strategy["broadcast_joins"]:
+                raise AssertionError(f"{name} planned no exchange and no "
+                                     f"broadcast join")
+            if (name == "q38_shuffled_joins"
+                    and strategy["shuffled_joins"] < 2):
+                raise AssertionError(f"{name} shuffled "
+                                     f"{strategy['shuffled_joins']} joins, "
+                                     f"not its two semi joins")
+            if joins and launches["hashtbl_probe"] <= 0:
+                raise AssertionError(f"{name} launched no probe kernel")
+            if window and launches["segscan"] <= 0:
+                raise AssertionError(f"{name} launched no segscan kernel")
+            results[name] = dict(strategy, rows=out.num_rows,
+                                 first_s=first_s,
+                                 one_partition_first_s=one_s,
+                                 launches=launches)
+            rows[name] = outs[name] = out
+            log(f"{name}: {out.num_rows} rows, 4 splits equal one "
+                f"partition; {strategy_line(strategy)}; launches "
+                f"{launches}; first run {first_s:.3f}s")
+        # the CPU engine's results, from the workers
+        t1 = time.perf_counter()
+        for name, _b, _d, check, _j, _w in cases:
+            path, cpu_s = pending[name].get(timeout=900)
+            on_cpu = read_cpu_table(path)
+            out = outs[name]
+            if check is None:
+                ok, why = same_sorted_rows(out, on_cpu), "rows differ"
+            else:
+                ok, why = check(out.to_pylist(), on_cpu.to_pylist())
+            if not ok:
+                raise AssertionError(f"{name} partitioned differs from the "
+                                     f"CPU engine ({why})")
+            results[name]["cpu_engine_s"] = cpu_s
+        pool.join()
+        log(f"partitioned: every case equals the CPU engine's rows; waited "
+            f"{time.perf_counter() - t1:.2f}s for the workers")
+    finally:
+        pool.terminate()
+        pool.join()
     log(f"probe: all {probe_calls[0]} calls and segscan: all "
         f"{sum(scan_calls.values())} calls ({scan_calls}) of the "
         f"partitioned path equal the plain version")
@@ -3088,6 +3223,94 @@ def run_typed_path(ds_tables) -> dict:
             "wall_s": time.perf_counter() - t_phase}
 
 
+class CountedRuns:
+    """A pass phase's counted runs (phases 17-19): each run plans and runs
+    a query with the launch counts zeroed before and read after, every
+    probe and segmented-scan call held against its plain version; the
+    totals, the checked calls and the largest probe and scan (by rows,
+    or by ``scan_key(values, op)``) are kept for the phase's checks."""
+
+    def __init__(self, scan_key=None):
+        from spark_rapids_tpu_torch.exec import kernels as K
+
+        self.K = K
+        self.total = {k: 0 for k in K.KERNEL_LAUNCHES}
+        self.probe_calls = [0]
+        self.scan_calls = {"add": 0, "min": 0, "max": 0}
+        self.real_probe = K.probe_hash_table_kernel
+        self.real_scan = K.segmented_scan_kernel
+        self._check_probe = checking_probe(self.real_probe, self.probe_calls)
+        self._check_scan = checking_scan(self.real_scan, self.scan_calls)
+        self._scan_key = scan_key or (lambda values, op: values.numel())
+        self.largest = {}
+
+    def _probe(self, tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > self.largest.get("probe_rows", -1):
+            self.largest.update(probe_rows=h1.numel(),
+                                probe=(tbl, h1, h2, capacity, seed))
+        return self._check_probe(tbl, h1, h2, capacity, seed, max_probes)
+
+    def _scan(self, values, is_start, op_name="add"):
+        key = self._scan_key(values, op_name)
+        if "scan_key" not in self.largest or key > self.largest["scan_key"]:
+            self.largest.update(scan_key=key,
+                                scan=(values, is_start, op_name))
+        return self._check_scan(values, is_start, op_name)
+
+    def run(self, df):
+        """(table, wall, launches, plan) of one planning and run of
+        ``df``."""
+        import torch
+
+        from spark_rapids_tpu_torch.plan import dataframe as DF
+
+        K = self.K
+        torch.cuda.synchronize()
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = self._probe
+        K.segmented_scan_kernel = self._scan
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = DF.execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = self.real_probe
+            K.segmented_scan_kernel = self.real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            self.total[k] += v
+        return out, wall, launches, plan
+
+    def finish(self, phase: str) -> dict:
+        """Both kernels launched and every launch in a checked call; the
+        phase's result entries."""
+        total, scans = self.total, self.scan_calls
+        if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
+            raise AssertionError(f"{phase} launched {total}: both kernels "
+                                 f"must launch")
+        if (self.probe_calls[0] < total["hashtbl_probe"]
+                or sum(scans.values()) < total["segscan"]):
+            raise AssertionError(f"{phase} checked {self.probe_calls[0]} "
+                                 f"probe and {scans} segscan calls for "
+                                 f"{total} launches")
+        log(f"probe: all {self.probe_calls[0]} calls and segscan: all "
+            f"{sum(scans.values())} calls ({scans}) of {phase} equal the "
+            f"plain version ({total} launches)")
+        return {"launches": total,
+                "probe_calls_checked": self.probe_calls[0],
+                "segscan_calls_checked": scans,
+                "largest_probe": self.largest.get("probe"),
+                "largest_scan": self.largest.get("scan")}
+
+
+def off_device(df):
+    """The plan's nodes marked for the CPU engine (``explain("ALL")``)."""
+    return [ln.strip() for ln in df.explain("ALL").splitlines()
+            if ln.lstrip().startswith("!")]
+
+
 # phase 17: the statistics pass; S3's capped run reads store_sales in
 # 2^18-row batches (11 at SF1), so the aggregate holds 11 partials
 STAT_CAPPED_BATCH_ROWS = 1 << 18
@@ -3100,69 +3323,18 @@ def run_stat_path(ds_tables) -> dict:
     partition, and S3 under a capped pool against uncapped. Every probe
     and segmented-scan call of the counted runs is held against its plain
     version; the largest of each is kept for timing."""
-    import torch
 
     from spark_rapids_tpu_torch.bench import stat_sales as SS
     from spark_rapids_tpu_torch.config import conf as C
     from spark_rapids_tpu_torch.config.conf import RapidsConf
     from spark_rapids_tpu_torch.exec import aggregate as AGG
-    from spark_rapids_tpu_torch.exec import kernels as K
     from spark_rapids_tpu_torch.mem import pool as MP
     from spark_rapids_tpu_torch.mem import spill as MSP
-    from spark_rapids_tpu_torch.plan import dataframe as DF
     from spark_rapids_tpu_torch.plan.overrides import join_paths
 
     t_phase = time.perf_counter()
     tables = {n: ds_tables[n] for n in SS.TABLES}
-    total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    probe_calls = [0]
-    scan_calls = {"add": 0, "min": 0, "max": 0}
-    real_probe = K.probe_hash_table_kernel
-    real_scan = K.segmented_scan_kernel
-    check_probe_call = checking_probe(real_probe, probe_calls)
-    check_scan_call = checking_scan(real_scan, scan_calls)
-    largest = {}
-
-    def probe_and_record(tbl, h1, h2, capacity, seed, max_probes):
-        if h1.numel() > largest.get("probe_rows", -1):
-            largest.update(probe_rows=h1.numel(),
-                           probe=(tbl, h1, h2, capacity, seed))
-        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
-
-    def scan_and_record(values, is_start, op_name="add"):
-        # the largest scan; among equal sizes a float add (a variance's)
-        key = (values.numel(), values.is_floating_point()
-               and op_name == "add")
-        if key > largest.get("scan_key", (-1, False)):
-            largest.update(scan_key=key, scan=(values, is_start, op_name))
-        return check_scan_call(values, is_start, op_name)
-
-    def counted(df):
-        """(table, wall, launches, plan) of one planning and run of
-        ``df`` with the counts zeroed before and read after, every kernel
-        call held against its plain version."""
-        torch.cuda.synchronize()
-        K.reset_kernel_launches()
-        K.probe_hash_table_kernel = probe_and_record
-        K.segmented_scan_kernel = scan_and_record
-        try:
-            t1 = time.perf_counter()
-            plan = df.physical_plan()
-            out = DF.execute_to_arrow(plan)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        finally:
-            K.probe_hash_table_kernel = real_probe
-            K.segmented_scan_kernel = real_scan
-        launches = dict(K.KERNEL_LAUNCHES)
-        for k, v in launches.items():
-            total[k] += v
-        return out, wall, launches, plan
-
-    def off_device(df):
-        return [ln.strip() for ln in df.explain("ALL").splitlines()
-                if ln.lstrip().startswith("!")]
-
+    runs = CountedRuns(lambda values, op: (values.numel(), values.is_floating_point() and op == "add"))
     dev = SS.df_tables(tables, device="cuda")
     cpu = SS.df_tables(tables, RapidsConf(
         {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
@@ -3177,7 +3349,7 @@ def run_stat_path(ds_tables) -> dict:
         if (want is None and off) or (want is not None and (
                 len(off) != 1 or not off[0].startswith(want))):
             raise AssertionError(f"{q} places {off} on the CPU engine")
-        out, wall, launches, plan = counted(df)
+        out, wall, launches, plan = runs.run(df)
         got = out.to_pylist()
         t1 = time.perf_counter()
         exp = build(cpu).to_arrow().to_pylist()
@@ -3223,7 +3395,7 @@ def run_stat_path(ds_tables) -> dict:
         {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
         partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
     for q in ("S1", "S3"):
-        out, wall, launches, plan = counted(SS.QUERIES[q](four))
+        out, wall, launches, plan = runs.run(SS.QUERIES[q](four))
         strategy = plan_strategy(plan)
         shown = plan.explain()
         if "HashPartitioner(4)" not in shown or "mode=partial" not in shown:
@@ -3259,7 +3431,7 @@ def run_stat_path(ds_tables) -> dict:
 
     try:
         fresh_pool(RapidsConf())
-        out, wall, launches, _plan = counted(s3_in_batches({}))
+        out, wall, launches, _plan = runs.run(s3_in_batches({}))
         base = out.to_pylist()
         ok, why = SS.check_rows("S3", base, rows["S3"])
         if not ok:
@@ -3273,7 +3445,7 @@ def run_stat_path(ds_tables) -> dict:
                         cap // CAP_FRACTION}
         fresh_pool(RapidsConf(settings))
         s0 = AGG.repartition_snapshot()["total"]
-        out, cwall, claunches, _plan = counted(s3_in_batches(settings))
+        out, cwall, claunches, _plan = runs.run(s3_in_batches(settings))
         c = MSP.get_framework().counters()
         repartitions = AGG.repartition_snapshot()["total"] - s0
     finally:
@@ -3297,23 +3469,8 @@ def run_stat_path(ds_tables) -> dict:
         f"{repartitions} repartition passes; {cwall:.3f}s against "
         f"{wall:.3f}s uncapped")
 
-    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
-        raise AssertionError(f"phase 17 launched {total}: both kernels "
-                             f"must launch")
-    if (probe_calls[0] < total["hashtbl_probe"]
-            or sum(scan_calls.values()) < total["segscan"]):
-        raise AssertionError(f"phase 17 checked {probe_calls[0]} probe and "
-                             f"{scan_calls} segscan calls for {total} "
-                             f"launches")
-    log(f"probe: all {probe_calls[0]} calls and segscan: all "
-        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 17 equal "
-        f"the plain version ({total} launches)")
-    return {"queries": res, "launches": total,
-            "probe_calls_checked": probe_calls[0],
-            "segscan_calls_checked": scan_calls,
-            "largest_probe": largest.get("probe"),
-            "largest_scan": largest.get("scan"),
-            "wall_s": time.perf_counter() - t_phase}
+    return dict(runs.finish("phase 17"), queries=res,
+                wall_s=time.perf_counter() - t_phase)
 
 
 SCALAR_CHECKS = ("N1", "N2a", "N2b", "N3", "N5", "N6", "pyarrow_N1")
@@ -3347,7 +3504,7 @@ def scalar_check(q: str, table_dir: str, store: int) -> tuple:
     return rows, time.perf_counter() - t0
 
 
-def run_scalar_path(ds_tables) -> dict:
+def run_scalar_path(ds_tables, started=None) -> dict:
     """Phase 18: the scalar sales pass (``bench/scalar_sales.py``): N1-N6
     on the card against the CPU engine (N1 also against its typed twin and
     pyarrow's parse; N4 against pyarrow's text), then N1 and N3 with 4
@@ -3357,13 +3514,12 @@ def run_scalar_path(ds_tables) -> dict:
     runs (N2's in two halves of its columns) go to worker processes
     started first (``check_workers``), which read the tables from Arrow
     files, so that they overlap the card's counted runs; the warm walls
-    are taken after the workers have ended."""
-    import torch
+    are taken after the workers have ended. ``started``, if given, is
+    called with the phase's tables once its workers are started (phase
+    19 starts its own workers then)."""
 
     from spark_rapids_tpu_torch.bench import scalar_sales as SS
     from spark_rapids_tpu_torch.config.conf import RapidsConf
-    from spark_rapids_tpu_torch.exec import kernels as K
-    from spark_rapids_tpu_torch.plan import dataframe as DF
     from spark_rapids_tpu_torch.plan.overrides import join_paths
 
     t_phase = time.perf_counter()
@@ -3378,53 +3534,9 @@ def run_scalar_path(ds_tables) -> dict:
     pending = {q: pool.apply_async(scalar_check, (q, table_dir, store))
                for q in SCALAR_CHECKS}
     pool.close()
-    total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    probe_calls = [0]
-    scan_calls = {"add": 0, "min": 0, "max": 0}
-    real_probe = K.probe_hash_table_kernel
-    real_scan = K.segmented_scan_kernel
-    check_probe_call = checking_probe(real_probe, probe_calls)
-    check_scan_call = checking_scan(real_scan, scan_calls)
-    largest = {}
-
-    def probe_and_record(tbl, h1, h2, capacity, seed, max_probes):
-        if h1.numel() > largest.get("probe_rows", -1):
-            largest.update(probe_rows=h1.numel(),
-                           probe=(tbl, h1, h2, capacity, seed))
-        return check_probe_call(tbl, h1, h2, capacity, seed, max_probes)
-
-    def scan_and_record(values, is_start, op_name="add"):
-        if values.numel() > largest.get("scan_rows", -1):
-            largest.update(scan_rows=values.numel(),
-                           scan=(values, is_start, op_name))
-        return check_scan_call(values, is_start, op_name)
-
-    def counted(df):
-        """(table, wall, launches, plan) of one planning and run of
-        ``df`` with the counts zeroed before and read after, every kernel
-        call held against its plain version."""
-        torch.cuda.synchronize()
-        K.reset_kernel_launches()
-        K.probe_hash_table_kernel = probe_and_record
-        K.segmented_scan_kernel = scan_and_record
-        try:
-            t1 = time.perf_counter()
-            plan = df.physical_plan()
-            out = DF.execute_to_arrow(plan)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        finally:
-            K.probe_hash_table_kernel = real_probe
-            K.segmented_scan_kernel = real_scan
-        launches = dict(K.KERNEL_LAUNCHES)
-        for k, v in launches.items():
-            total[k] += v
-        return out, wall, launches, plan
-
-    def off_device(df):
-        return [ln.strip() for ln in df.explain("ALL").splitlines()
-                if ln.lstrip().startswith("!")]
-
+    if started is not None:
+        started(tables)
+    runs = CountedRuns()
     try:
         dev = SS.df_tables(tables, device="cuda")
         queries = dict(SS.QUERIES)
@@ -3443,7 +3555,7 @@ def run_scalar_path(ds_tables) -> dict:
                                          f"engine")
             elif off:
                 raise AssertionError(f"{q} places {off} on the CPU engine")
-            out, wall, launches, plan = counted(df)
+            out, wall, launches, plan = runs.run(df)
             got = out.to_pylist()
             if q in ("N1", "N3") and (launches["hashtbl_probe"] <= 0
                                       or set(join_paths(plan)) != {"ht"}):
@@ -3480,7 +3592,7 @@ def run_scalar_path(ds_tables) -> dict:
             {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
             partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
         for q in SS.PARTITIONED:
-            out, wall, launches, plan = counted(SS.QUERIES[q](four))
+            out, wall, launches, plan = runs.run(SS.QUERIES[q](four))
             strategy = plan_strategy(plan)
             shown = plan.explain()
             if ("HashPartitioner(4)" not in shown
@@ -3534,25 +3646,196 @@ def run_scalar_path(ds_tables) -> dict:
             f"{r.get('check_s', 0.0):.3f}s; on the CPU engine "
             f"{r.get('off_device') or 'nothing'}")
 
-    if total["hashtbl_probe"] <= 0 or total["segscan"] <= 0:
-        raise AssertionError(f"phase 18 launched {total}: both kernels "
-                             f"must launch")
-    if (probe_calls[0] < total["hashtbl_probe"]
-            or sum(scan_calls.values()) < total["segscan"]):
-        raise AssertionError(f"phase 18 checked {probe_calls[0]} probe and "
-                             f"{scan_calls} segscan calls for {total} "
-                             f"launches")
-    log(f"probe: all {probe_calls[0]} calls and segscan: all "
-        f"{sum(scan_calls.values())} calls ({scan_calls}) of phase 18 equal "
-        f"the plain version ({total} launches)")
     nulls = {c: tables["store_sales"].column(c).null_count
              for c in ("ss_customer_sk", "ss_promo_sk")}
-    return {"queries": res, "rows": n, "nulls": nulls, "launches": total,
-            "probe_calls_checked": probe_calls[0],
-            "segscan_calls_checked": scan_calls,
-            "largest_probe": largest.get("probe"),
-            "largest_scan": largest.get("scan"),
-            "wall_s": time.perf_counter() - t_phase}
+    return dict(runs.finish("phase 18"), queries=res, rows=n, nulls=nulls,
+                wall_s=time.perf_counter() - t_phase)
+
+
+# phase 19: the string sales pass; G2 is checked in two halves of its
+# columns, G1 also by pandas
+STRING_CHECKS = ("G1a", "G1b", "G2a", "G2b", "G3", "G3R", "G4", "G5",
+                 "pandas_G1")
+
+
+def string_check(q: str, table_dir: str, store: str) -> tuple:
+    """Phase 19's check of one query in a worker process of its own, over
+    the string tables in ``table_dir``: the query's rows on the CPU engine
+    ("G1a"/"G1b" and "G2a"/"G2b" are G1's and G2's two halves of columns,
+    "pandas_G1" G1 by pandas and Python's ``str``) and its seconds."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import string_sales as G
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    tables = read_table_files(table_dir, ("store_sales", "item", "customer",
+                                          "untyped_store_sales"))
+    t0 = time.perf_counter()
+    if q == "pandas_G1":
+        rows = G.pandas_g1(tables)
+    else:
+        cpu = G.df_tables(tables, RapidsConf(
+            {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+        df = (G.g4(cpu, store=store) if q == "G4"
+              else G.QUERIES[q[:2]](cpu, part="ab".index(q[2]))
+              if q[:2] in ("G1", "G2") else G.QUERIES[q](cpu))
+        rows = df.to_arrow().to_pylist()
+    return rows, time.perf_counter() - t0
+
+
+def start_string_checks(ds_tables, untyped) -> dict:
+    """Phase 19's tables (the SF1 store_sales, item and customer, and
+    phase 18's untyped store_sales) written as Arrow files, and its
+    CPU-engine checks started in worker processes (``STRING_CHECKS``),
+    ahead of the phase: (the phase's state for ``run_string_path``)."""
+    from spark_rapids_tpu_torch.bench import string_sales as G
+
+    t0 = time.perf_counter()
+    tables = {n: ds_tables[n] for n in ("store_sales", "item", "customer")}
+    tables["untyped_store_sales"] = untyped
+    store = G.first_store(tables)
+    table_dir = table_files(tables, list(tables))
+    log(f"string tables: {tables['store_sales'].num_rows} store_sales rows "
+        f"typed and untyped, written for the check workers, in "
+        f"{time.perf_counter() - t0:.2f}s")
+    pool = check_workers(len(STRING_CHECKS))
+    pending = {q: pool.apply_async(string_check, (q, table_dir, store))
+               for q in STRING_CHECKS}
+    pool.close()
+    return {"tables": tables, "store": store, "pool": pool,
+            "pending": pending, "started_s": time.perf_counter() - t0}
+
+
+def run_string_path(state) -> dict:
+    """Phase 19: the string sales pass (``bench/string_sales.py``): G1-G5
+    on the card against the CPU engine (G1 also against pandas), the
+    placement of G3R's rejected pattern and of G4's CPU-engine classes
+    named by ``explain``, then G6: G1 and G2 with 4 splits and 4 shuffle
+    partitions against one partition. Every probe and segmented-scan call
+    of the counted runs is held against its plain version; the largest of
+    each is kept for timing. The CPU engine's runs go to worker processes
+    started before phase 18's card runs (``start_string_checks``); the
+    warm walls are taken after the workers have ended."""
+
+    from spark_rapids_tpu_torch.bench import string_sales as G
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t_phase = time.perf_counter()
+    tables, store = state["tables"], state["store"]
+    pool, pending = state["pool"], state["pending"]
+    n = tables["store_sales"].num_rows
+    runs = CountedRuns()
+    # the one node each query places on the CPU engine, and its reasons
+    placed = {"G3R": ("! Filter", ["regex not on device: unknown escape "
+                                   "\\1"]),
+              "G4": ("! Project", [f"expression {c} not on device" for c in (
+                  "Md5", "Sha1", "Sha2", "Crc32", "Levenshtein",
+                  "FormatNumber", "StringSpace", "Bin", "Overlay",
+                  "RegexpExtract", "RegexpReplace")])}
+    try:
+        dev = G.df_tables(tables, device="cuda")
+        queries = dict(G.QUERIES)
+        queries["G4"] = lambda d: G.g4(d, store=store)
+        res, rows = {}, {}
+        for q, build in queries.items():
+            df = build(dev)
+            off = off_device(df)
+            if q in placed:
+                node, reasons = placed[q]
+                if (len(off) != 1 or not off[0].startswith(node)
+                        or not all(r in off[0] for r in reasons)):
+                    raise AssertionError(f"{q} places {off} on the CPU "
+                                         f"engine")
+            elif off:
+                raise AssertionError(f"{q} places {off} on the CPU engine")
+            out, wall, launches, plan = runs.run(df)
+            got = out.to_pylist()
+            if q in ("G1", "G3", "G3R", "G5") and (
+                    launches["hashtbl_probe"] <= 0
+                    or set(join_paths(plan)) != {"ht"}):
+                raise AssertionError(f"{q} launched {launches} on join "
+                                     f"paths {join_paths(plan)}")
+            if q == "G5" and launches["segscan"] <= 0:
+                raise AssertionError("G5 launched no segscan kernel")
+            if not G.informative(got):
+                raise AssertionError(f"{q} shows no values: {got[:2]}")
+            rows[q] = got
+            res[q] = {"rows": len(got), "first_s": wall,
+                      "launches": launches,
+                      "probe_calls": launches["hashtbl_probe"],
+                      "scan_calls": launches["segscan"], "off_device": off,
+                      "shown": [{k: str(v) for k, v in r.items()}
+                                for r in got[:1]]}
+        bad = [{b: r[b] for b in G.G2_BAD} for r in rows["G2"]]
+        if any(v for r in bad for v in r.values()):
+            raise AssertionError(f"G2's round trips changed values: {bad}")
+
+        # G6: G1 and G2 with 4 splits and 4 shuffle partitions against one
+        # partition (the fast path off)
+        four = G.df_tables(tables, RapidsConf(
+            {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+            partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+        for q in G.PARTITIONED:
+            out, wall, launches, plan = runs.run(G.QUERIES[q](four))
+            strategy = plan_strategy(plan)
+            shown = plan.explain()
+            if ("HashPartitioner(4)" not in shown
+                    or "mode=partial" not in shown):
+                raise AssertionError(f"G6 {q} plans no partial aggregate "
+                                     f"over a hash exchange:\n{shown}")
+            ok, why = G.check_rows(q, out.to_pylist(), rows[q])
+            if not ok:
+                raise AssertionError(f"G6 {q} with 4 partitions differs "
+                                     f"from one partition ({why})")
+            res[f"G6_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                              "launches": launches, "strategy": strategy}
+            log(f"string G6 {q}: 4 splits x 4 partitions equal one "
+                f"partition ({out.num_rows} rows); "
+                f"{strategy_line(strategy)}; launches {launches}")
+
+        # the CPU engine's rows (and pandas' G1) from the workers
+        t1 = time.perf_counter()
+        for q in STRING_CHECKS:
+            exp, check_s = pending[q].get(timeout=600)
+            name = "G1" if q == "pandas_G1" else q[:2] if q[:2] in (
+                "G1", "G2") else q
+            got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
+                if exp else rows[name]  # a half of the columns
+            ok, why = G.check_rows(name, got, exp)
+            if not ok:
+                raise AssertionError(
+                    f"{q} on the card differs from "
+                    f"{'pandas' if q == 'pandas_G1' else 'the CPU engine'}"
+                    f" ({why}):\n{got[:2]}\n{exp[:2]}")
+            key = "pandas_s" if q == "pandas_G1" else "check_s"
+            res[name][key] = res[name].get(key, 0.0) + check_s
+        pool.join()
+        log(f"string: the CPU engine's rows (G1 also pandas') equal the "
+            f"card's; waited {time.perf_counter() - t1:.2f}s for the "
+            f"workers")
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # the warm walls, with the workers gone
+    for q, build in queries.items():
+        res[q]["warm_s"] = _warm_wall(lambda b=build: b(dev).to_arrow(), 3,
+                                      first=res[q]["first_s"])
+    for q in G.PARTITIONED:
+        res[f"G6_{q}"]["warm_s"] = _warm_wall(
+            lambda q=q: G.QUERIES[q](four).to_arrow(), 3,
+            first=res[f"G6_{q}"]["first_s"])
+    for q, r in res.items():
+        log(f"string {q}: {r['rows']} rows; launches {r['launches']}; "
+            f"warm wall {r['warm_s']:.4f}s (median of 3); check "
+            f"{r.get('check_s', 0.0):.3f}s; on the CPU engine "
+            f"{r.get('off_device') or 'nothing'}")
+
+    return dict(runs.finish("phase 19"), queries=res, rows=n,
+                wall_s=time.perf_counter() - t_phase + state["started_s"])
 
 
 def check_stat_scan(values, is_start, op: str, shape: str = "stat_largest",
@@ -3669,6 +3952,8 @@ def main(argv=None) -> int:
     join_rows.update(breadth_res.pop("rows"))
     sorted_res = run_sorted_hash(ds_tables, join_rows)
 
+    # the window-surface pass's CPU-engine run overlaps phases 10-12
+    surface_check = start_window_surface_check(ds_tables)
     union_res = run_query_slice(
         ds_tables, args.sf_ds, Q.UNION_SLICE, "union", device_only=False,
         extra=lambda d, cpu: q76_with_null_promotions(ds_tables))
@@ -3699,7 +3984,7 @@ def main(argv=None) -> int:
                             *win_res.pop("largest_table_probe"), cold=True)
     shapes.append(win_probe)
     sorted_res.update(run_sorted_hash(ds_tables, win_res.pop("rows")))
-    surface_res = window_surface_pass(ds_tables)
+    surface_res = window_surface_pass(ds_tables, surface_check)
 
     part_res = run_partitioned_path(main_res.pop("tables"), ds_tables)
     part_probe = check_probe("partitioned_largest",
@@ -3740,13 +4025,29 @@ def main(argv=None) -> int:
         f"{mem_checks.checked - checked_before} queries")
     # phase 18: the scalar sales pass
     checked_before = mem_checks.checked
-    scalar_res = run_scalar_path(ds_tables)
+    # phase 19's CPU-engine checks start beside phase 18's (they take
+    # tens of seconds on the host's CPU)
+    string_state = {}
+    scalar_res = run_scalar_path(ds_tables, started=lambda t: string_state.
+                                 update(start_string_checks(
+                                     ds_tables, t["untyped_store_sales"])))
     scalar_probe = check_probe("scalar_largest",
                                *scalar_res.pop("largest_probe"), cold=True)
     shapes.append(scalar_probe)
     scalar_scan = check_stat_scan(*scalar_res.pop("largest_scan"),
                                   shape="scalar_largest", phase="phase 18")
     log(f"phase 18 took {scalar_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
+    # phase 19: the string sales pass
+    checked_before = mem_checks.checked
+    string_res = run_string_path(string_state)
+    string_probe = check_probe("string_largest",
+                               *string_res.pop("largest_probe"), cold=True)
+    shapes.append(string_probe)
+    string_scan = check_stat_scan(*string_res.pop("largest_scan"),
+                                  shape="string_largest", phase="phase 19")
+    log(f"phase 19 took {string_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
 
@@ -3764,7 +4065,8 @@ def main(argv=None) -> int:
                       "memory": memory_res["launches"][name],
                       "typed_sales": typed_res["launches"][name],
                       "stat_sales": stat_res["launches"][name],
-                      "scalar_sales": scalar_res["launches"][name]}
+                      "scalar_sales": scalar_res["launches"][name],
+                      "string_sales": string_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -3818,6 +4120,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "scalar_calls_checked": scalar_res["probe_calls_checked"],
+        "string_largest": {k: string_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "string_calls_checked": string_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
                      "smallint float timestamp (the 64-bit key hashes)",
         "exact": all(s["exact"] for s in shapes)}, {
@@ -3851,6 +4157,10 @@ def main(argv=None) -> int:
         "scalar_largest": {k: scalar_scan[k] for k in (
             "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
+        "string_calls_checked": string_res["segscan_calls_checked"],
+        "string_largest": {k: string_scan[k] for k in (
+            "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
         "value_types": "int32 int64 float32 float64 (int8 and int16 "
                        "widened to int32 by the wrapper)",
         "exact": scan_shapes["int_and_minmax_exact"]}]}
@@ -3882,6 +4192,9 @@ def main(argv=None) -> int:
               "scalar_sales": {k: v for k, v in scalar_res.items()
                                if k != "launches"},
               "segscan_scalar": scalar_scan,
+              "string_sales": {k: v for k, v in string_res.items()
+                               if k != "launches"},
+              "segscan_string": string_scan,
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

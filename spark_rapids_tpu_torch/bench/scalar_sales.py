@@ -428,16 +428,17 @@ def first_store(tables) -> int:
     return int(pc.min(tables["store_sales"].column("ss_store_sk")).as_py())
 
 
-def check_rows(name: str, got, exp):
+def check_rows(name: str, got, exp, order_keys=None):
     """(ok, reason): the rows equal under the equivalence bar (doubles
-    within relative 1e-6, ``tpch.rows_match``) and in ORDER BY order."""
+    within relative 1e-6, ``tpch.rows_match``) and in ORDER BY order
+    (the keys of ``name`` in ``order_keys``, this pass's by default)."""
     from spark_rapids_tpu_torch.bench.tpch import rows_match
 
     if [list(r) for r in got[:1]] != [list(r) for r in exp[:1]]:
         return False, "column names differ"
     if not rows_match(got, exp):
         return False, "rows differ"
-    keys = ORDER_KEYS[name]
+    keys = (order_keys or ORDER_KEYS)[name]
     if [tuple(r[k] for k in keys) for r in got] != [
             tuple(r[k] for k in keys) for r in exp]:
         return False, f"ORDER BY order of {keys} differs"

@@ -162,8 +162,9 @@ def dictionary_encode_table(table: pa.Table,
     return out
 
 
-def _plain_string_column(sarr: pa.Array, device) -> DeviceColumn:
-    sarr = sarr.cast(pa.string())
+def _plain_string_column(sarr: pa.Array, device,
+                         dt: T.DataType = T.STRING) -> DeviceColumn:
+    sarr = sarr.cast(dt.arrow_type())
     n = len(sarr)
     valid = np.asarray(sarr.is_valid(), dtype=np.bool_)
     raw = np.frombuffer(sarr.buffers()[1], dtype=np.int32, count=n + 1,
@@ -174,7 +175,7 @@ def _plain_string_column(sarr: pa.Array, device) -> DeviceColumn:
     data = (np.frombuffer(buf, dtype=np.uint8, count=nbytes,
                           offset=int(raw[0])).copy()
             if buf is not None and nbytes else np.zeros(0, np.uint8))
-    return DeviceColumn(T.STRING, _to_tensor(data, device),
+    return DeviceColumn(dt, _to_tensor(data, device),
                         _to_tensor(valid, device), _to_tensor(offsets, device))
 
 
@@ -228,7 +229,7 @@ def batch_from_arrow(table, device=None,
             cols.append(DeviceColumn(dt, _to_tensor(values, device),
                                      _to_tensor(valid, device)))
         else:
-            cols.append(_plain_string_column(arr, device))
+            cols.append(_plain_string_column(arr, device, dt))
     return ColumnarBatch(cols, table.num_rows)
 
 
@@ -237,12 +238,13 @@ def _validity_buffer(valid: np.ndarray) -> pa.Buffer:
 
 
 def _string_array(offsets: np.ndarray, data: np.ndarray,
-                  valid: Optional[np.ndarray]) -> pa.Array:
+                  valid: Optional[np.ndarray],
+                  arrow_type: pa.DataType = pa.string()) -> pa.Array:
     n = len(offsets) - 1
     vbuf = (_validity_buffer(valid)
             if valid is not None and not valid.all() else None)
     return pa.Array.from_buffers(
-        pa.string(), n, [vbuf, pa.py_buffer(offsets.astype(np.int32).tobytes()),
+        arrow_type, n, [vbuf, pa.py_buffer(offsets.astype(np.int32).tobytes()),
                          pa.py_buffer(data.tobytes())])
 
 
@@ -275,7 +277,7 @@ def _column_to_arrow(col: DeviceColumn, dt: T.DataType) -> pa.Array:
         return pa.DictionaryArray.from_arrays(codes, dvals).cast(pa.string())
     if col.offsets is not None:
         return _string_array(col.offsets.cpu().numpy(), col.data.cpu().numpy(),
-                             valid)
+                             valid, dt.arrow_type())
     values = col.data.cpu().numpy()
     if isinstance(dt, T.DecimalType):
         return _decimal_array(values, dt, valid)

@@ -298,6 +298,12 @@ SORT_MERGE_PATH_ENABLED = conf(
         "set by a stable sort, which gives the same rows in the same "
         "order.")
 
+REGEX_MAX_DFA_STATES = conf(
+    "spark.rapids.gpu.sql.regex.maxDfaStates", default=96,
+    doc="DFA state budget of an RLIKE pattern on the device; a pattern "
+        "whose automaton needs more runs on the CPU engine (reference: "
+        "spark.rapids.tpu.sql.regex.maxDfaStates).")
+
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
 SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
 SHUFFLE_CODECS = ("none", "zlib", "lz4", "zstd")

@@ -50,7 +50,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.base import DeviceExec
-from spark_rapids_tpu_torch.mem import retry, spill
+from spark_rapids_tpu_torch.mem import cleaner, retry, spill
 
 # ---------------------------------------------------------------------------
 # counters
@@ -255,6 +255,16 @@ def _hold(batches: List[ColumnarBatch], nbytes: int) -> Optional[_Held]:
 _UNCACHED = object()  # a partition the cache did not admit
 
 
+def _drop_entry(cache, key: int, parts: Dict[int, object]) -> None:
+    """A collected entry's release: its held partitions closed, its bytes
+    given back."""
+    for held in parts.values():
+        if held is not _UNCACHED:
+            held.close()
+    parts.clear()
+    cache._forget(key)
+
+
 class SharedExchangeEntry:
     """The reduce partitions of a kept exchange, for its direct consumers
     (the exchange and each ``ReusedExchangeExec``).
@@ -274,8 +284,9 @@ class SharedExchangeEntry:
         self._refs = 0
         self._active_readers = 0  # replays in flight: no eviction
         # an entry dropped with its plan, never cleaned up, gives its
-        # bytes back
-        weakref.finalize(self, self._cache._forget, id(self))
+        # bytes back and closes what it holds
+        weakref.finalize(self, cleaner.defer, _drop_entry, self._cache,
+                         id(self), self._parts)
 
     def retain(self, n: int = 1) -> None:
         with self._lock:
@@ -347,8 +358,9 @@ class SharedExchangeEntry:
             if self._active_readers > 0:
                 return -1
             held = [v for v in self._parts.values() if v is not _UNCACHED]
-            self._parts = {k: v for k, v in self._parts.items()
-                           if v is _UNCACHED}
+            for k in [k for k, v in self._parts.items()
+                      if v is not _UNCACHED]:
+                del self._parts[k]
         for h in held:
             h.close()
         if held:
@@ -360,7 +372,8 @@ class SharedExchangeEntry:
             self._refs -= 1
             if self._refs > 0:
                 return
-            parts, self._parts = self._parts, {}
+            parts = dict(self._parts)
+            self._parts.clear()  # in place: the finalizer holds it
             self._plocks = {}
             self._refs = self._initial_refs
         for held in parts.values():

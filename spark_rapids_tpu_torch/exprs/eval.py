@@ -75,6 +75,16 @@ functions are ``exprs/math.py``'s.
 
 IsNaN and Nanvl read floats; the date-and-time functions are
 ``exprs/datetime.py``'s.
+
+The string family and RLIKE (``_eval_string_fn``) run the byte kernels
+of ``exprs/strings.py`` and the DFA of ``exprs/regex.py``. A function of
+one string column runs over a dictionary column's entries once: a string
+result is re-encoded (``kernels.dictionary_unique``), a number or a
+boolean gathered by code, and BINARY (Unhex, UnBase64) gathered into a
+plain column. Functions of several strings (Concat, ConcatWs, Overlay)
+decode their inputs first. Left/Right and Overlay with a FOR length are
+Substring and Concat, as the reference rewrites them; StartsWith,
+EndsWith and Contains take a literal pattern.
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.exprs import math as MATH
 from spark_rapids_tpu_torch.exprs import regex as RX
+from spark_rapids_tpu_torch.exprs import strings as S
 
 
 class ColVal(NamedTuple):
@@ -736,6 +747,136 @@ def _like(expr: E.Like, ctx: EvalContext) -> ColVal:
     return ColVal(hit & c.validity, c.validity)
 
 
+def _map_string(c: DeviceColumn, fn) -> DeviceColumn:
+    """A function from a plain string column to a string or bytes column,
+    over a dictionary column's entries once: a string result re-encoded
+    (``kernels.dictionary_unique``), a BINARY one gathered by code."""
+    if not c.is_dict:
+        out = fn(c)
+        return DeviceColumn(out.dtype, out.data, out.validity & c.validity,
+                            out.offsets)
+    out = fn(c.dictionary)
+    if out.dtype == T.BINARY:
+        return K.gather_string(out, c.data, c.validity)
+    entries, remap = K.dictionary_unique(out)
+    return DeviceColumn(T.STRING, remap[c.data.long()], c.validity, None,
+                        entries)
+
+
+def _map_value(c: DeviceColumn, fn) -> ColVal:
+    """A function from a plain string column to one value a row, over a
+    dictionary column's entries once and gathered by code."""
+    if c.is_dict:
+        return ColVal(fn(c.dictionary)[c.data.long()], c.validity)
+    return ColVal(fn(c), c.validity)
+
+
+def _plain_string(expr: E.Expression, ctx: EvalContext) -> DeviceColumn:
+    c = _string_value(expr, ctx)
+    return K.decode_dictionary(c) if c.is_dict else c
+
+
+def _eval_string_fn(expr: E.Expression, ctx: EvalContext) -> Val:
+    """The string family and RLIKE (``exprs/strings.py``,
+    ``exprs/regex.py``); the CPU engine's classes never reach here."""
+    kid = expr.children[0]
+    if isinstance(expr, (E.Chr, E.Hex)) and kid.dtype in T.INTEGRAL_TYPES:
+        v = eval_expr(kid, ctx)
+        fn = S.chr_of if isinstance(expr, E.Chr) else S.hex_of_long
+        return fn(v.data, v.validity)
+    if isinstance(expr, E.Concat):
+        return S.concat([_plain_string(k, ctx) for k in expr.children])
+    if isinstance(expr, E.ConcatWs):
+        ones = torch.ones(ctx.num_rows, dtype=torch.bool, device=ctx.device)
+        return S.concat_ws(expr.sep.encode("utf-8"), [
+            _plain_string(k, ctx) for k in expr.children], ones)
+    if isinstance(expr, E.Overlay):  # an explicit FOR length, pos >= 1
+        inp, repl = expr.children
+        return eval_expr(E.Concat(
+            E.Substring(inp, 1, expr.pos - 1), repl,
+            E.Substring(inp, expr.pos + expr.length, 1 << 29)), ctx)
+    if isinstance(expr, (E.StringLeft, E.StringRight)):
+        n = max(expr.n, 0)
+        sub = (E.Substring(kid, 1, n) if type(expr) is E.StringLeft
+               else E.Substring(kid, -n if n else 1, n))
+        return _substring(sub, ctx)
+    c = _string_value(kid, ctx)
+    if isinstance(expr, (E.StartsWith, E.EndsWith, E.Contains)):
+        pat = expr.right
+        if not isinstance(pat, E.Literal):
+            raise NotImplementedError(
+                f"{type(expr).__name__} of a column pattern is not on the "
+                f"device")
+        if pat.value is None:
+            return ColVal(torch.zeros_like(c.validity),
+                          torch.zeros_like(c.validity))
+        kind = {E.StartsWith: "starts", E.EndsWith: "ends",
+                E.Contains: "contains"}[type(expr)]
+        return _map_value(c, lambda x: S.search(
+            x, pat.value.encode("utf-8"), kind))
+    if isinstance(expr, E.Length):
+        return _map_value(c, S.char_lengths)
+    if isinstance(expr, E.OctetLength):  # BitLength too
+        mul = 8 if isinstance(expr, E.BitLength) else 1
+        return _map_value(c, lambda x: x.lengths() * mul)
+    if isinstance(expr, E.Ascii):
+        return _map_value(c, S.ascii_code)
+    if isinstance(expr, E.RLike):
+        dfa = RX.compile_rlike(expr.pattern)
+        return _map_value(c, lambda x: RX.match_strings(dfa, x))
+    if isinstance(expr, E.FindInSet):
+        def index(x):
+            idx = torch.zeros(x.num_rows, dtype=torch.int32, device=x.device)
+            items = expr.items.split(",")
+            for k in reversed(range(len(items))):
+                hit = _string_equals_literal(x, items[k])
+                idx = torch.where(hit, k + 1, idx)
+            return idx
+        return _map_value(c, index)
+    if isinstance(expr, E.StringLocate):  # before StringInstr, its base
+        if expr.start < 1:
+            return _map_value(c, lambda x: torch.zeros(
+                x.num_rows, dtype=torch.int32, device=x.device))
+        return _map_value(c, lambda x: S.first_match_pos(
+            x, expr.substr.encode("utf-8"), expr.start))
+    if isinstance(expr, E.StringInstr):
+        return _map_value(c, lambda x: S.first_match_pos(
+            x, expr.substr.encode("utf-8")))
+    return _map_string(c, _string_kernel(expr))
+
+
+def _string_kernel(expr: E.Expression):
+    """The plain-column kernel of a unary string -> string function."""
+    if isinstance(expr, (E.Upper, E.Lower)):
+        return lambda x: S.change_case(x, isinstance(expr, E.Upper))
+    if isinstance(expr, E.StringTrim):  # Left and Right too
+        chars = (" " if expr.trim_str is None else expr.trim_str).encode()
+        return lambda x: S.trim(x, chars, expr.side in ("both", "left"),
+                                expr.side in ("both", "right"))
+    if isinstance(expr, E.StringReplace):
+        return lambda x: S.replace(x, expr.search.encode("utf-8"),
+                                   expr.replacement.encode("utf-8"))
+    if isinstance(expr, E.StringLPad):  # StringRPad too
+        return lambda x: S.pad(x, expr.length, expr.pad.encode("utf-8"),
+                               expr.side_left)
+    if isinstance(expr, E.StringRepeat):
+        return lambda x: S.repeat(x, expr.times)
+    if isinstance(expr, E.StringTranslate):
+        return lambda x: S.translate(x, expr.matching.encode("utf-8"),
+                                     expr.replace.encode("utf-8"))
+    if isinstance(expr, E.SubstringIndex):
+        return lambda x: S.substring_index(x, expr.delim.encode("utf-8"),
+                                           expr.count)
+    kernels = {E.InitCap: S.initcap, E.StringReverse: S.reverse,
+               E.Base64: S.base64_encode, E.UnBase64: S.unbase64,
+               E.Hex: S.hex_encode, E.Unhex: S.unhex}
+    fn = kernels.get(type(expr))
+    if fn is None:
+        raise NotImplementedError(
+            f"expression {type(expr).__name__} is not on the device")
+    return fn
+
+
 def _string_value(expr: E.Expression, ctx: EvalContext,
                   like: DeviceColumn = None) -> DeviceColumn:
     """A string branch as a column; a literal becomes a column of ``n``
@@ -822,7 +963,7 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         return eval_expr(expr.child, ctx)
     if isinstance(expr, E.ColumnRef):
         c = ctx.batch.columns[expr.index]
-        if c.dtype == T.STRING:
+        if not c.dtype.fixed_width:
             return c
         return ColVal(c.data, c.validity)
     if isinstance(expr, E.Literal):
@@ -896,6 +1037,8 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         return _substring(expr, ctx)
     if isinstance(expr, E.Like):
         return _like(expr, ctx)
+    if isinstance(expr, E._StringFn):
+        return _eval_string_fn(expr, ctx)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the port yet")
 

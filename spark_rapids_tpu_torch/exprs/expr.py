@@ -599,6 +599,383 @@ class Like(Expression):
         return f"({self.child!r} LIKE {self.pattern!r})"
 
 
+# --- the string family and regex (exprs/strings.py and exprs/regex.py on
+# the device, plan/cpu_strings.py on the CPU engine) ---
+class _StringFn(Expression):
+    """A string function: its expression children and its literal
+    parameters (``_params``, in constructor order after the children)."""
+
+    _params: tuple = ()
+    # False: the device never runs it (the reference's device_supported)
+    device_supported = True
+
+    def rebuild(self, kids: Sequence[Expression]) -> "_StringFn":
+        return type(self)(*kids, *self._params)
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    def __repr__(self):
+        args = [repr(c) for c in self.children] + [repr(p)
+                                                   for p in self._params]
+        return f"{type(self).__name__}({', '.join(args)})"
+
+
+class _UnaryString(_StringFn):
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+
+class Length(_UnaryString):
+    """Characters of a string (UTF-8 characters on both engines)."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class OctetLength(_UnaryString):
+    """Bytes of a string's UTF-8 form."""
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class BitLength(OctetLength):
+    pass
+
+
+class Upper(_UnaryString):
+    pass
+
+
+class Lower(_UnaryString):
+    pass
+
+
+class InitCap(_UnaryString):
+    pass
+
+
+class StringReverse(_UnaryString):
+    pass
+
+
+class Base64(_UnaryString):
+    pass
+
+
+class UnBase64(_UnaryString):
+    @property
+    def dtype(self):
+        return T.BINARY
+
+    @property
+    def nullable(self):
+        return True
+
+
+class Hex(_UnaryString):
+    """hex of a string's bytes, or of an integer's two's complement."""
+
+
+class Unhex(UnBase64):
+    pass
+
+
+class Ascii(_UnaryString):
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class Chr(_UnaryString):
+    pass
+
+
+class Bin(_UnaryString):
+    """bin(long): the two's complement in binary digits."""
+
+    device_supported = False
+
+
+class Md5(_UnaryString):
+    device_supported = False
+
+
+class Sha1(Md5):
+    pass
+
+
+class Crc32(Md5):
+    @property
+    def dtype(self):
+        return T.LONG
+
+
+class StringSpace(Md5):
+    """space(n): n spaces (none for n <= 0)."""
+
+
+class Sha2(_StringFn):
+    device_supported = False
+
+    def __init__(self, child: Expression, bits: int = 256):
+        self.children = (child,)
+        self.bits = int(bits)
+        self._params = (self.bits,)
+
+
+class FormatNumber(_StringFn):
+    """format_number(x, d): thousands separators and d decimals."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression, d: int):
+        self.children = (child,)
+        self.d = int(d)
+        self._params = (self.d,)
+
+
+class _SearchString(_StringFn):
+    """startswith / endswith / contains of a pattern (a literal on the
+    device)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.left, self.right = left, _lit(right)
+        self.children = (self.left, self.right)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class StartsWith(_SearchString):
+    pass
+
+
+class EndsWith(_SearchString):
+    pass
+
+
+class Contains(_SearchString):
+    pass
+
+
+class Levenshtein(_SearchString):
+    device_supported = False
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class StringLeft(_StringFn):
+    """left(str, n): substring(str, 1, n)."""
+
+    def __init__(self, child: Expression, n: int):
+        self.children = (child,)
+        self.n = int(n)
+        self._params = (self.n,)
+
+
+class StringRight(StringLeft):
+    """right(str, n): the last n characters."""
+
+
+class Concat(_StringFn):
+    """concat(...): null where any input is null."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(_lit(c) for c in children)
+
+
+class ConcatWs(_StringFn):
+    """concat_ws(sep, ...): the non-null inputs joined by ``sep`` (a
+    literal); never null."""
+
+    def __init__(self, *children: Expression, sep: str = ""):
+        self.children = tuple(_lit(c) for c in children)
+        self.sep = sep
+        self._params = (sep,)
+
+    def rebuild(self, kids):
+        return ConcatWs(*kids, sep=self.sep)
+
+    @property
+    def nullable(self):
+        return False
+
+
+class StringTrim(_StringFn):
+    """trim(str [, chars]): strips ``trim_str``'s characters (a space by
+    default) from both ends; StringTrimLeft/Right from one."""
+
+    side = "both"
+
+    def __init__(self, child: Expression, trim_str: Optional[str] = None):
+        self.children = (child,)
+        self.trim_str = trim_str
+        self._params = (trim_str,)
+
+
+class StringTrimLeft(StringTrim):
+    side = "left"
+
+
+class StringTrimRight(StringTrim):
+    side = "right"
+
+
+class StringReplace(_StringFn):
+    def __init__(self, child: Expression, search: str, replacement: str):
+        self.children = (child,)
+        self.search, self.replacement = search, replacement
+        self._params = (search, replacement)
+
+
+class StringInstr(_StringFn):
+    """instr(str, substr): 1-based position of the first occurrence, 0 if
+    none."""
+
+    def __init__(self, child: Expression, substr: str):
+        self.children = (child,)
+        self.substr = substr
+        self._params = (substr,)
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class StringLocate(StringInstr):
+    """locate(substr, str, start): instr from position ``start`` (0 for
+    start < 1)."""
+
+    def __init__(self, child: Expression, substr: str, start: int = 1):
+        super().__init__(child, substr)
+        self.start = int(start)
+        self._params = (substr, self.start)
+
+
+class StringLPad(_StringFn):
+    side_left = True
+
+    def __init__(self, child: Expression, length: int, pad: str = " "):
+        self.children = (child,)
+        self.length, self.pad = int(length), pad
+        self._params = (self.length, pad)
+
+
+class StringRPad(StringLPad):
+    side_left = False
+
+
+class StringRepeat(_StringFn):
+    def __init__(self, child: Expression, times: int):
+        self.children = (child,)
+        self.times = int(times)
+        self._params = (self.times,)
+
+
+class StringTranslate(_StringFn):
+    def __init__(self, child: Expression, matching: str, replace: str):
+        self.children = (child,)
+        self.matching, self.replace = matching, replace
+        self._params = (matching, replace)
+
+
+class SubstringIndex(_StringFn):
+    def __init__(self, child: Expression, delim: str, count: int):
+        self.children = (child,)
+        self.delim, self.count = delim, int(count)
+        self._params = (delim, self.count)
+
+
+class FindInSet(_StringFn):
+    """find_in_set(str, items): the 1-based index of str among the comma
+    list ``items`` (a literal), 0 if absent."""
+
+    def __init__(self, child: Expression, items: str):
+        self.children = (child,)
+        self.items = items
+        self._params = (items,)
+
+    @property
+    def dtype(self):
+        return T.INT
+
+
+class Overlay(_StringFn):
+    """overlay(str PLACING replace FROM pos [FOR length]). The default
+    length (-1: the replacement's characters, per row) runs on the CPU
+    engine; an explicit one with pos >= 1 on the device, as substrings and
+    a concat."""
+
+    def __init__(self, child: Expression, replace: Expression, pos: int,
+                 length: int = -1):
+        self.children = (child, _lit(replace))
+        self.pos, self.length = int(pos), int(length)
+        self._params = (self.pos, self.length)
+        self.device_supported = self.length >= 0 and self.pos >= 1
+
+
+class RLike(_StringFn):
+    """str RLIKE pattern (a literal Java regex; find semantics)."""
+
+    def __init__(self, child: Expression, pattern: str):
+        self.children = (child,)
+        self.pattern = pattern
+        self._params = (pattern,)
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class RegexpExtract(_StringFn):
+    """regexp_extract(str, pattern, group): the group of the first match,
+    "" where none (the CPU engine's)."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression, pattern: str, group: int = 1):
+        self.children = (child,)
+        self.pattern, self.group = pattern, int(group)
+        self._params = (pattern, self.group)
+
+
+class RegexpReplace(_StringFn):
+    """regexp_replace(str, pattern, replacement): every match replaced
+    (Java's ``$n`` group references; the CPU engine's)."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression, pattern: str, replacement: str):
+        self.children = (child,)
+        self.pattern, self.replacement = pattern, replacement
+        self._params = (pattern, replacement)
+
+
+STRING_FUNCTIONS = (Bin, OctetLength, BitLength, StringLeft, StringRight,
+                    Length, Upper, Lower, StartsWith, EndsWith, Contains,
+                    Concat, ConcatWs, StringTrim, StringTrimLeft,
+                    StringTrimRight, StringReplace, StringInstr,
+                    StringLocate, StringLPad, StringRPad, StringRepeat,
+                    StringReverse, StringTranslate, InitCap, SubstringIndex,
+                    Md5, Sha1, Sha2, Crc32, Base64, UnBase64, Hex, Unhex,
+                    FormatNumber, StringSpace, Levenshtein, FindInSet,
+                    Overlay, Ascii, Chr)
+REGEX_FUNCTIONS = (RLike, RegexpExtract, RegexpReplace)
+# the string and regex classes only the CPU engine evaluates (Overlay's
+# default length is placed there by its own device_supported)
+CPU_ONLY_STRINGS = tuple(c for c in STRING_FUNCTIONS + REGEX_FUNCTIONS
+                         if not c.device_supported)
+
+
 @dataclasses.dataclass(frozen=True, repr=False, eq=False)
 class Cast(Expression):
     """Non-ANSI cast among BOOLEAN, the integers, FLOAT, DOUBLE, DECIMAL,
@@ -1809,11 +2186,13 @@ SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              IsNaN, Nanvl, Sum, Count, Average, Min, Max, First, Last,
              AnyValue, CovarSamp, CovarPop, Corr, MinBy, MaxBy, BoolAnd,
              BoolOr, CountIf) + VARIANCE_FAMILY + DATETIME_FUNCTIONS + tuple(
-                 c for c in SCALAR_FUNCTIONS if c is not Rand)
+                 c for c in SCALAR_FUNCTIONS if c is not Rand) + tuple(
+                 c for c in STRING_FUNCTIONS + REGEX_FUNCTIONS
+                 if c not in CPU_ONLY_STRINGS)
 # expressions only the CPU engine evaluates (the reference's
 # device_supported = False aggregates and Rand among them)
 CPU_ONLY = (CountDistinct, BitAndAgg, BitOrAgg, BitXorAgg, Percentile,
-            Median, Rand)
+            Median, Rand) + CPU_ONLY_STRINGS
 
 
 def check_supported(expr: Expression) -> None:
@@ -1925,6 +2304,8 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Like(child, expr.pattern, expr.escape)
     if isinstance(expr, DATETIME_FUNCTIONS):
         return _resolve_datetime(expr, kids)
+    if isinstance(expr, _StringFn):
+        return _resolve_string(expr, kids)
     if isinstance(expr, SCALAR_FUNCTIONS):
         return _resolve_scalar(expr, kids)
     check_supported(expr)
@@ -2001,6 +2382,35 @@ def _resolve_scalar(expr: Expression, kids: List[Expression]) -> Expression:
     return type(expr)(*[_typed(k, T.DOUBLE) for k in kids])
 
 
+# the type an untyped NULL child of a string function takes
+_NUMBER_INPUT = {Chr: T.LONG, Bin: T.LONG, StringSpace: T.INT,
+                 FormatNumber: T.DOUBLE}
+
+
+def _resolve_string(expr: "_StringFn", kids: List[Expression]
+                    ) -> Expression:
+    """A string function over resolved children: an untyped NULL takes the
+    type the function reads (a string, or Chr/Bin's BIGINT, space's INT,
+    format_number's DOUBLE); a string input that is not a string or bytes
+    raises TypeError (Hex also takes an integer)."""
+    want = _NUMBER_INPUT.get(type(expr), T.STRING)
+    kids = [_typed(k, want) for k in kids]
+    for k in kids:
+        if want == T.STRING:
+            ok = k.dtype in (T.STRING, T.BINARY) or (
+                isinstance(expr, Hex) and k.dtype in T.INTEGRAL_TYPES)
+        elif want == T.DOUBLE:
+            ok = (k.dtype in T.INTEGRAL_TYPES + T.FRACTIONAL_TYPES
+                  or isinstance(k.dtype, T.DecimalType))
+        else:
+            ok = k.dtype in T.INTEGRAL_TYPES
+        if not ok:
+            raise TypeError(f"{type(expr).__name__} takes "
+                            f"{'a string' if want == T.STRING else want}, "
+                            f"not {k.dtype}")
+    return expr.rebuild(kids)
+
+
 def _resolve_datetime(expr: Expression, kids: List[Expression]
                       ) -> Expression:
     """A date-time function over resolved children: an untyped NULL takes
@@ -2041,7 +2451,7 @@ def _resolve_datetime(expr: Expression, kids: List[Expression]
 
 # type_support declarations of the device path (spark_rapids_tpu_torch.support)
 from spark_rapids_tpu_torch.support import (  # noqa: E402
-    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, ts)
+    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, STRINGY, ts)
 
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
@@ -2088,6 +2498,22 @@ UnixDate.type_support = ts("date", out="integral")
 DateFromUnixDate.type_support = ts("integral", out="date")
 FromUTCTimestamp.type_support = ts("timestamp")
 Substring.type_support = ts("string")
+# the string family and RLIKE, as the reference declares them; check_expr
+# places the reference's CPU-only classes, Overlay's default length and a
+# pattern outside the regex subset on the CPU engine
+_StringFn.type_support = ts(STRINGY, "integral", out=STRINGY)
+for _cls in (Length, OctetLength, Ascii, StringInstr, FindInSet):
+    _cls.type_support = ts(STRINGY, out="integral")
+for _cls in (_SearchString, RLike):
+    _cls.type_support = ts(STRINGY, out="boolean")
+Upper.type_support = ts(STRINGY)
+Lower.type_support = ts(STRINGY)
+StringLocate.type_support = ts(STRINGY, "integral", out="integral")
+Chr.type_support = ts("integral", "boolean", out="string")
+Hex.type_support = ts("integral", STRINGY, out="string")
+Base64.type_support = ts(STRINGY, out="string")
+UnBase64.type_support = ts(STRINGY, out="binary")
+Overlay.type_support = ts(STRINGY, out=STRINGY)
 # the scalar families, as the reference declares them; check_expr places
 # decimal floor/ceil/round and decimal division on the CPU engine
 Positive.type_support = ts(NUMERIC, DECIMAL)

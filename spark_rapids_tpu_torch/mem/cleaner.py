@@ -10,12 +10,19 @@ files still exist. ``assert_clean`` raises on a non-empty report.
 
 from __future__ import annotations
 
+import collections
+import gc
 import os
 import threading
 import weakref
 from typing import List
 
 _lock = threading.Lock()
+# releases of resources whose owner was collected: a finalizer only queues
+# them (it may run inside any allocation, under any lock), and ``sweep``
+# and each query run them
+_deferred: "collections.deque" = collections.deque()
+_drain_lock = threading.Lock()
 _pools: "weakref.WeakSet" = weakref.WeakSet()
 _frameworks: "weakref.WeakSet" = weakref.WeakSet()
 _managers: "weakref.WeakSet" = weakref.WeakSet()
@@ -41,8 +48,35 @@ def frameworks() -> list:
         return list(_frameworks)
 
 
+def defer(fn, *args) -> None:
+    """Queue ``fn(*args)`` for ``run_deferred`` (safe from a finalizer)."""
+    _deferred.append((fn, args))
+
+
+def run_deferred() -> None:
+    """Run the queued releases."""
+    with _drain_lock:
+        while _deferred:
+            fn, args = _deferred.popleft()
+            fn(*args)
+
+
 def sweep() -> List[str]:
-    """The leak report; empty when everything was released."""
+    """The leak report; empty when everything was released. The queued
+    releases run first, and where something is still held, garbage is
+    collected and the report made again: a plan dropped without being run
+    (in a reference cycle) releases its shuffles and held partitions when
+    it is collected."""
+    run_deferred()
+    leaks = _report()
+    if leaks:
+        gc.collect()
+        run_deferred()
+        leaks = _report()
+    return leaks
+
+
+def _report() -> List[str]:
     leaks: List[str] = []
     with _lock:
         pools, fws, managers = list(_pools), list(_frameworks), \

@@ -6,8 +6,9 @@ and Union in this module, the aggregate and the join in ``cpu_agg.py``.
 Substring and LIKE work on Python strings (characters), which equals the
 device's bytes on ASCII text; the date-and-time functions are
 ``plan/cpu_datetime.py``'s (numpy ``datetime64``), the scalar function
-families ``plan/cpu_math.py``'s and casts to and from strings
-``plan/cpu_cast_strings.py``'s; the other casts follow the reference's
+families ``plan/cpu_math.py``'s, casts to and from strings
+``plan/cpu_cast_strings.py``'s and the string family and regex
+``plan/cpu_strings.py``'s; the other casts follow the reference's
 ``cast_val`` as the device's do (``E.cast_supported``). IntegralDivide,
 Remainder and Pmod follow Java as on the device, decimals exactly in
 Python integers (Spark's pmod: the divisor added only to a negative
@@ -53,6 +54,7 @@ from spark_rapids_tpu_torch.exprs.eval import (
 from spark_rapids_tpu_torch.plan import cpu_cast_strings as CCS
 from spark_rapids_tpu_torch.plan import cpu_datetime as CDT
 from spark_rapids_tpu_torch.plan import cpu_math as CM
+from spark_rapids_tpu_torch.plan import cpu_strings as CST
 
 Pair = Tuple[np.ndarray, np.ndarray]
 
@@ -90,6 +92,10 @@ def column_values(arr, dt: T.DataType) -> Pair:
         vals = np.asarray(arr.fill_null("").to_numpy(zero_copy_only=False),
                           dtype=object)
         return vals, valid
+    if dt == T.BINARY:
+        vals = np.asarray(arr.fill_null(b"").to_numpy(zero_copy_only=False),
+                          dtype=object)
+        return vals, valid
     if T.is_wide_decimal(dt):
         vals = _wide_decimals(arr)
         vals[~valid] = 0
@@ -103,8 +109,8 @@ def values_to_arrow(vals: np.ndarray, valid: np.ndarray,
     """(values, valid) -> an Arrow array of ``dt``."""
     valid = np.asarray(valid, dtype=np.bool_)
     mask = None if valid.all() else ~valid
-    if dt == T.STRING:
-        return pa.array(vals, pa.string(), mask=mask)
+    if dt in (T.STRING, T.BINARY):
+        return pa.array(vals, dt.arrow_type(), mask=mask)
     if isinstance(dt, T.DecimalType):
         if not dt.is_wide:
             return _decimal_array(np.asarray(vals, np.int64), dt, valid)
@@ -247,8 +253,9 @@ def _compare(kind: type, a: np.ndarray, b: np.ndarray,
 def _literal(expr: E.Literal, n: int) -> Pair:
     dt = expr.dtype
     if expr.value is None:
-        if dt == T.STRING:
-            return np.full(n, "", dtype=object), np.zeros(n, np.bool_)
+        if dt in (T.STRING, T.BINARY):
+            return (np.full(n, "" if dt == T.STRING else b"", dtype=object),
+                    np.zeros(n, np.bool_))
         if T.is_wide_decimal(dt):
             return np.zeros(n, dtype=object), np.zeros(n, np.bool_)
         return np.zeros(n, _np_dtype(dt)), np.zeros(n, np.bool_)
@@ -525,6 +532,8 @@ def expr_key(e: E.Expression):
         to = e.target
     elif isinstance(e, E.FromUTCTimestamp):
         to = e.tz
+    elif isinstance(e, E._StringFn):
+        to = e._params
     return (type(e).__name__, to, tuple(expr_key(c) for c in e.children))
 
 
@@ -632,6 +641,8 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return np.where(rm, a, b), np.where(rm, am, bm)
     if isinstance(expr, E.SCALAR_FUNCTIONS):
         return CM.eval_scalar(expr, ev, n)
+    if isinstance(expr, E._StringFn):
+        return CST.eval_string(expr, ev, n)
     if isinstance(expr, E.Substring):
         v, m = ev(expr.child)
         return _per_value(v, lambda x: np.array(

@@ -17,6 +17,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.sort import SortOrder
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.mem import cleaner
 from spark_rapids_tpu_torch.mem.semaphore import get_task_semaphore
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -142,41 +143,56 @@ def execute_to_arrow(node) -> pa.Table:
     the plan, so it can read the operators' metrics after the run, or run
     it again: its exchanges are written again, and its AQE readers read
     them through the specs they planned the first time."""
-    from spark_rapids_tpu_torch.exec.reuse import ReusedExchangeExec
     from spark_rapids_tpu_torch.plan.cpu import CpuExec
+
+    schema = node.output_schema
+    try:
+        if isinstance(node, CpuExec):  # a CPU root: rows stay on the host
+            tables = []
+            for p in range(node.num_partitions()):
+                rows = node.execute_host(p)
+                try:
+                    tables.extend(rows)
+                finally:
+                    # a run that raises closes its operators now (their
+                    # registrations in the pool end with them), not
+                    # whenever the traceback that holds them is collected
+                    rows.close()
+        else:
+            sem = (None if getattr(node, "_fastpath", False)
+                   else get_task_semaphore())
+            tables = []
+            for p in range(node.num_partitions()):
+                # a task is one partition of one run: two threads draining
+                # partition 0 are two holders, not one re-entrant one
+                task = (threading.get_ident(), id(node), p)
+                if sem is not None:
+                    sem.acquire(task)
+                batches = node.execute(p)
+                try:
+                    tables.extend(batch_to_arrow(b, schema) for b in batches)
+                finally:
+                    batches.close()
+                    if sem is not None:
+                        sem.release(task)
+    finally:
+        # a run that raises cleans up too: its shuffles' files and blocks
+        # would otherwise live as long as the process-wide manager
+        _cleanup_shuffles(node)
+        cleaner.run_deferred()
+    if not tables:
+        return schema.to_arrow().empty_table()
+    return pa.concat_tables(tables)
+
+
+def _cleanup_shuffles(node) -> None:
+    """Stop a plan's AQE readers' read-ahead, then release its shuffles'
+    blocks and its reused exchanges' holds on their shared entries."""
+    from spark_rapids_tpu_torch.exec.reuse import ReusedExchangeExec
     from spark_rapids_tpu_torch.shuffle.aqe import AQEShuffleReadExec
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
         ShuffleExchangeExec)
 
-    schema = node.output_schema
-    if isinstance(node, CpuExec):  # a CPU root: its rows stay on the host
-        tables = []
-        for p in range(node.num_partitions()):
-            rows = node.execute_host(p)
-            try:
-                tables.extend(rows)
-            finally:
-                # a run that raises closes its operators now (their
-                # registrations in the pool end with them), not whenever
-                # the traceback that holds them is collected
-                rows.close()
-    else:
-        sem = (None if getattr(node, "_fastpath", False)
-               else get_task_semaphore())
-        tables = []
-        for p in range(node.num_partitions()):
-            # a task is one partition of one run: two threads draining
-            # partition 0 are two holders, not one re-entrant one
-            task = (threading.get_ident(), id(node), p)
-            if sem is not None:
-                sem.acquire(task)
-            batches = node.execute(p)
-            try:
-                tables.extend(batch_to_arrow(b, schema) for b in batches)
-            finally:
-                batches.close()
-                if sem is not None:
-                    sem.release(task)
     nodes, stack = [], [node]
     while stack:
         n = stack.pop()
@@ -189,9 +205,6 @@ def execute_to_arrow(node) -> pa.Table:
         for n in nodes:
             if isinstance(n, kinds):
                 n.cleanup()
-    if not tables:
-        return schema.to_arrow().empty_table()
-    return pa.concat_tables(tables)
 
 
 class GroupedDataFrame:

@@ -12,8 +12,12 @@ Divide's rescale range, and the device's own refusals such as string
 ordering comparisons, MinBy/MaxBy over a float, string or decimal
 ordering or a string or decimal value, float -> string, string -> decimal
 and ANSI string casts, decimal floor/ceil/round and decimal IntegralDivide,
-Remainder and Pmod, each with the reference's reason; Rand is outside the
-device's set, as the reference's planner keeps it), and each node to its
+Remainder and Pmod, an RLIKE pattern outside the regex subset ("regex not
+on device: ..."), each with the reference's reason; Rand and the
+reference's CPU-only string classes (``device_supported`` False: Bin, the
+digests, Crc32, Levenshtein, FormatNumber, StringSpace, RegexpExtract,
+RegexpReplace, and Overlay without a FOR length) are outside the device's
+set, as the reference's planner keeps them), and each node to its
 operator's:
 a DECIMAL128 group key, join key or window Min/Max, and a Skewness or
 Kurtosis window, stay on the CPU engine, as in the reference. The
@@ -120,6 +124,7 @@ from spark_rapids_tpu_torch.exec.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.exec.window import (
     WindowExec, bind_function, check_window, plan_stream_mode)
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import regex as RX
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cbo as CBO
 from spark_rapids_tpu_torch.plan import cpu as CPU
@@ -188,12 +193,16 @@ WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
 _WIDE_WINDOW_OK = (E.Sum, E.Average, E.Count, E.First, E.Last, W.Lead)
 
 
-def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
-    """Reasons this expression cannot run on the device (empty: it can)."""
+def check_expr(expr: E.Expression, schema: T.Schema,
+               conf: Optional[C.RapidsConf] = None) -> List[str]:
+    """Reasons this expression cannot run on the device (empty: it can).
+    ``conf`` (the active one by default) bounds an RLIKE's automaton."""
     reasons: List[str] = []
+    max_states = C.REGEX_MAX_DFA_STATES.get(conf or C.get_active())
 
     def walk(e: E.Expression):
-        if type(e) not in E.SUPPORTED:
+        if type(e) not in E.SUPPORTED or not getattr(
+                e, "device_supported", True):
             reasons.append(f"expression {type(e).__name__} not on device")
             return
         bound = E.resolve(e, schema)
@@ -260,6 +269,16 @@ def check_expr(expr: E.Expression, schema: T.Schema) -> List[str]:
                     or isinstance(vdt, T.DecimalType)):
                 reasons.append(
                     "min_by/max_by ordering/value type not on device")
+        if isinstance(bound, (E.StartsWith, E.EndsWith, E.Contains)) and (
+                not isinstance(bound.right, E.Literal)):
+            reasons.append("string search of a column pattern not on device")
+        # a pattern the regex subset rejects (the reference's transpiler
+        # bail-outs) runs on the CPU engine
+        if isinstance(bound, E.RLike):
+            try:
+                RX.compile_rlike(bound.pattern, max_states)
+            except RX.RegexUnsupported as rex:
+                reasons.append(f"regex not on device: {rex}")
         # the bound children: resolve may add Casts (conditional branches)
         for c in bound.children:
             walk(c)
@@ -418,7 +437,7 @@ class Overrides:
         node = meta.node
         child_schema = node.children[0].schema if node.children else None
         for e in _node_exprs(node):
-            for r in check_expr(e, child_schema):
+            for r in check_expr(e, child_schema, self.conf):
                 meta.will_not_work(r)
         if isinstance(node, L.Sort):
             for o in node.orders:
@@ -436,7 +455,7 @@ class Overrides:
             for k, s in ([(k, node.left.schema) for k in node.left_keys]
                          + [(k, node.right.schema)
                             for k in node.right_keys]):
-                for r in check_expr(k, s):
+                for r in check_expr(k, s, self.conf):
                     meta.will_not_work(r)
                 if T.is_wide_decimal(E.resolve(k, s).dtype):
                     meta.will_not_work("decimal128 join key not on device")
@@ -444,7 +463,8 @@ class Overrides:
                     meta.will_not_work(f"join key {k!r} is not a column "
                                        f"reference")
             if node.condition is not None:
-                for r in check_expr(node.condition, pair_schema(node)):
+                for r in check_expr(node.condition, pair_schema(node),
+                                    self.conf):
                     meta.will_not_work(f"join condition: {r}")
         elif isinstance(node, L.Window):
             for r in _window_reasons(node):

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import threading
+import weakref
 from typing import Iterator, Optional
 
 from spark_rapids_tpu_torch.columnar.batch import (
@@ -56,6 +57,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
 from spark_rapids_tpu_torch.exec.pipeline import ReadAhead
+from spark_rapids_tpu_torch.mem import cleaner
 from spark_rapids_tpu_torch.shuffle.manager import (
     ReadCounts, ShuffleManager, get_manager)
 from spark_rapids_tpu_torch.shuffle.partition import Partitioner
@@ -102,23 +104,34 @@ class ShuffleExchangeExec(UnaryExec):
             reg = self.manager.register(schema,
                                         self.partitioner.num_partitions)
             pending = []
-            with self.timer("writeTimeNs"):
-                try:
-                    for p in range(self.child.num_partitions()):
-                        per_part = self._map_pass(p, schema)
-                        if per_part is not None:
-                            pending.append(self.manager.writer_pool.submit(
-                                self._write, reg, per_part, p))
-                finally:
-                    # a failed map pass still waits for the writes it
-                    # started before the error goes up
-                    with self.timer("waitTimeNs"):
-                        cf.wait(pending)
-                for f in pending:
-                    f.result()
+            written = False
+            try:
+                with self.timer("writeTimeNs"):
+                    try:
+                        for p in range(self.child.num_partitions()):
+                            per_part = self._map_pass(p, schema)
+                            if per_part is not None:
+                                pending.append(
+                                    self.manager.writer_pool.submit(
+                                        self._write, reg, per_part, p))
+                    finally:
+                        # a failed map pass still waits for the writes it
+                        # started before the error goes up
+                        with self.timer("waitTimeNs"):
+                            cf.wait(pending)
+                    for f in pending:
+                        f.result()
+                written = True
+            finally:
+                if not written:  # a map pass that raised leaves no output
+                    self.manager.cleanup(reg)
             self.metrics["shuffleBytesWritten"].add(reg.bytes_written)
             self.metrics["shuffleBlocksWritten"].add(reg.blocks_written)
             self._reg = reg
+            # a plan dropped unrun (a range sort's sample wrote this at
+            # planning) releases the shuffle when it is collected
+            self._release = weakref.finalize(self, cleaner.defer,
+                                             self.manager.cleanup, reg)
             self._written = True
             return reg
 
@@ -147,6 +160,7 @@ class ShuffleExchangeExec(UnaryExec):
         self._ahead.shutdown()
         with self._write_lock:
             if self._reg is not None:
+                self._release.detach()
                 self.manager.cleanup(self._reg)
                 self._reg = None
             self._written = False

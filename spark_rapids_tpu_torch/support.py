@@ -21,6 +21,7 @@ The vocabulary is the reference's type classes that the port has:
 ``date``       DateType
 ``timestamp``  TimestampType
 ``string``     StringType
+``binary``     BinaryType
 =============  ========================================================
 """
 
@@ -31,7 +32,7 @@ from typing import FrozenSet, Optional
 from spark_rapids_tpu_torch import types as T
 
 TYPE_CLASSES = ("boolean", "integral", "fractional", "decimal64",
-                "decimal128", "date", "timestamp", "string")
+                "decimal128", "date", "timestamp", "string", "binary")
 
 # named groups of the port's device
 NUMERIC = "integral fractional"
@@ -39,6 +40,7 @@ DECIMAL = "decimal64 decimal128"
 DECIMAL64 = "decimal64"
 DECIMAL128 = "decimal128"
 DATETIME = "date timestamp"
+STRINGY = "string binary"
 ORDERABLE = ("boolean integral fractional decimal64 decimal128 date "
              "timestamp")
 DEVICE_SCALAR = ("boolean integral fractional decimal64 decimal128 date "
@@ -62,6 +64,8 @@ def classify(dtype: T.DataType) -> str:
         return "timestamp"
     if isinstance(dtype, T.StringType):
         return "string"
+    if isinstance(dtype, T.BinaryType):
+        return "binary"
     raise TypeError(f"unclassifiable dtype {dtype!r}")
 
 

@@ -8,7 +8,9 @@ reads as it), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
 unscaled value), DECIMAL128 (precision 19-38, one ``(n, 2)`` int64
 tensor ``[lo, hi]`` a column: two's complement limbs, Arrow's own 16-byte
 little-endian layout; arithmetic in ``exec/int128.py``) and STRING
-(dictionary codes or int32 offsets + uint8 bytes).
+(dictionary codes or int32 offsets + uint8 bytes). BINARY, the type of
+Unhex and UnBase64, is a plain string column's layout (never a dictionary)
+read out as Arrow ``binary``.
 """
 
 from __future__ import annotations
@@ -180,6 +182,20 @@ class StringType(DataType):
         return pa.string()
 
 
+class BinaryType(DataType):
+    """Bytes: a plain string column's layout (int32 offsets, uint8 bytes)
+    that reads out as Arrow ``binary``."""
+
+    name = "binary"
+
+    @property
+    def fixed_width(self):
+        return False
+
+    def arrow_type(self):
+        return pa.binary()
+
+
 class NullType(DataType):
     """The type of an untyped NULL literal (``lit(None)``). No column has
     it: ``exprs.expr.resolve`` gives each such literal the type its parent
@@ -230,6 +246,7 @@ DOUBLE = DoubleType()
 DATE = DateType()
 TIMESTAMP = TimestampType()
 STRING = StringType()
+BINARY = BinaryType()
 NULL = NullType()
 
 INTEGRAL_TYPES = (BYTE, SHORT, INT, LONG)
@@ -316,4 +333,6 @@ def from_arrow_type(t: pa.DataType) -> DataType:
         return DecimalType(t.precision, t.scale)
     if pa.types.is_string(t) or pa.types.is_large_string(t):
         return STRING
+    if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        return BINARY
     raise NotImplementedError(f"arrow type {t} is outside the port's types")

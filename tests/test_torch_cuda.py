@@ -39,7 +39,11 @@ statistics pass's S3 under a capped pool, its spilled partials read back
 equal; the scalar families: every device class over seeded edge values on
 the card against the CPU, the string casts over a 2^20-row dictionary
 column and a plain one, and the scalar sales pass's N3 on one split and
-on four against the CPU engine.
+on four against the CPU engine; the string family: every device class
+over 2^18 rows (a dictionary and a plain column) on the card against the
+CPU byte for byte, the composition scan with uint8 and int32 states, and
+the string sales pass's G1 (the probe) and G5 (the scan) against the CPU
+engine.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -1956,3 +1960,102 @@ def test_scalar_sales_n3_on_card_matches_the_cpu_engine(splits):
                                       "false"}), device="cuda")
     assert SS.check_rows("N3", got, SS.n3(cpu).to_arrow().to_pylist()) == (
         True, "")
+
+
+def _string_family_table(n: int, seed: int = 21) -> pa.Table:
+    """n rows of seeded words (ASCII and not, empty, null), a plain
+    column and a dictionary one, and integers."""
+    rng = np.random.default_rng(seed)
+    words = ["hello world", "", "aXbXcXXd", "  pad  ", "abcabcabc", "4142",
+             "QUJDRA==", "a,b", "héllo", "日本", "x"]
+    pick = rng.integers(0, len(words), n)
+    null = rng.random(n) < 0.05
+    d = [None if null[i] else words[pick[i]] for i in range(n)]
+    p = [None if null[i] else words[pick[i]] + str(i) for i in range(n)]
+    return pa.table({"d": pa.array(d, pa.string()), "p": pa.array(p),
+                     "n": pa.array(rng.integers(-500, 5000, n), pa.int64())})
+
+
+def _string_family_exprs(E, s):
+    c = E.col(s)
+    return [E.Length(c), E.OctetLength(c), E.Upper(c), E.Lower(c),
+            E.InitCap(c), E.StringReverse(c), E.StartsWith(c, E.lit("he")),
+            E.EndsWith(c, E.lit("d")), E.Contains(c, E.lit("X")),
+            E.Concat(c, E.lit("-"), E.col("d")),
+            E.ConcatWs(c, E.col("d"), sep="|"), E.StringTrim(c),
+            E.StringReplace(c, "X", "YY"), E.StringReplace(c, "abc", "Z"),
+            E.StringInstr(c, "X"), E.StringLocate(c, "X", 3),
+            E.StringLPad(c, 8, "*-"), E.StringRPad(c, 12, "="),
+            E.StringRepeat(c, 2), E.StringTranslate(c, "lXa", "L!"),
+            E.SubstringIndex(c, "X", 2), E.SubstringIndex(c, "abc", -2),
+            E.Base64(c), E.UnBase64(c), E.Hex(c), E.Unhex(c),
+            E.Hex(E.col("n")), E.FindInSet(c, "x,4142,a"),
+            E.Overlay(c, E.lit("__"), 2, 3), E.Ascii(c), E.Chr(E.col("n")),
+            E.StringLeft(c, 3), E.StringRight(c, 3),
+            E.RLike(c, "X+d$|^[a-z]+ w")]
+
+
+@pytest.mark.parametrize("s", ["d", "p"])
+def test_string_family_on_card_matches_the_cpu(s):
+    """Every device class of the string family over 2^18 rows on the card
+    against the same projection on the CPU, byte for byte."""
+    _card()
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exprs import eval as EV
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    t = _string_family_table(1 << 18)
+    exprs = [e.alias(f"c{i}") for i, e in
+             enumerate(_string_family_exprs(E, s))]
+    bound = EV.bind_projection(exprs, T.Schema.from_arrow(t.schema))
+    schema = EV.output_schema(bound)
+    out = {}
+    for device in ("cuda", "cpu"):
+        b = PB.batch_from_arrow(PB.dictionary_encode_table(t), device)
+        res = PB.batch_to_arrow(EV.project_batch(b, bound), schema)
+        out[device] = [c.cast(pa.binary()) if pa.types.is_string(c.type)
+                       else c for c in res.columns]
+    for i, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert g.equals(c), (i, bound[i])
+
+
+def test_compose_scan_on_card_matches_the_cpu():
+    """The segmented compose scan of a random automaton on the card
+    against the CPU: 7 uint8 states over 2^22 bytes, 260 int32 states over
+    2^16."""
+    _card()
+    from spark_rapids_tpu_torch.exprs.segscan import (exclusive_states,
+                                                      segmented_compose)
+
+    rng = np.random.default_rng(22)
+    for states, dtype, n in ((7, torch.uint8, 1 << 22),
+                             (260, torch.int32, 1 << 16)):
+        fns = torch.from_numpy(rng.integers(0, states, (n, states)).astype(
+            np.int64)).to(dtype)
+        resets = torch.from_numpy(rng.random(n) < 1 / 40)
+        resets[0] = True
+        got = segmented_compose(fns.cuda(), resets.cuda(), 512)
+        exp = segmented_compose(fns, resets, 512)
+        assert torch.equal(got.cpu(), exp)
+        assert torch.equal(exclusive_states(got, resets.cuda(), 3).cpu(),
+                           exclusive_states(exp, resets, 3))
+
+
+def test_string_sales_g1_and_g5_on_card_match_the_cpu_engine():
+    """G1 (the dictionary path through the probe kernel) and G5 (windows
+    over a projected string partition through the scan kernel) of the
+    string sales pass at SF 0.1 on the card against the CPU engine."""
+    _card()
+    from spark_rapids_tpu_torch.bench import string_sales as G
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = G.tables_for(0.1)
+    d = G.df_tables(t, device="cuda")
+    cpu = G.df_tables(t, RapidsConf({"spark.rapids.gpu.sql.enabled":
+                                     "false"}), device="cuda")
+    for q, kernel in (("G1", "hashtbl_probe"), ("G5", "segscan")):
+        PK.reset_kernel_launches()
+        got = G.QUERIES[q](d).to_arrow().to_pylist()
+        assert PK.KERNEL_LAUNCHES[kernel] > 0, q
+        exp = G.QUERIES[q](cpu).to_arrow().to_pylist()
+        assert G.check_rows(q, got, exp) == (True, ""), q

@@ -480,3 +480,40 @@ def test_the_scalar_family_and_string_cast_modules_are_covered():
             assert c in PE.SUPPORTED and c.type_support is not None, c
     assert importlib.import_module(
         "spark_rapids_tpu_torch.exprs.cast_strings").PARSE_WINDOW == 64
+
+
+def test_the_string_family_and_regex_modules_are_covered():
+    """The modules that carry the string family and regex are walked by
+    the import checks above (no JAX, nothing of the JAX package), hold the
+    names the slice adds, and each of the 44 classes is declared for the
+    device or kept for the CPU engine as the reference keeps it."""
+    import importlib
+
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.plan import cpu as PCPU
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exprs.segscan",
+             ("segmented_compose", "exclusive_states")),
+            ("spark_rapids_tpu_torch.exprs.strings",
+             ("concat", "concat_ws", "trim", "replace", "first_match_pos",
+              "pad", "repeat", "reverse", "translate", "initcap",
+              "substring_index", "ascii_code", "chr_of", "hex_encode",
+              "unhex", "base64_encode", "unbase64", "hex_of_long")),
+            ("spark_rapids_tpu_torch.exprs.regex",
+             ("RegexUnsupported", "compile_rlike", "compile_fullmatch",
+              "_Parser", "_find_wrap", "like_to_dfa", "match_strings")),
+            ("spark_rapids_tpu_torch.plan.cpu_strings", ("eval_string",)),
+            ("spark_rapids_tpu_torch.bench.string_sales",
+             ("QUERIES", "pandas_g1", "check_rows", "tables_for"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    classes = PE.STRING_FUNCTIONS + PE.REGEX_FUNCTIONS
+    assert len(classes) == 44
+    for c in classes:
+        assert c in PCPU.CPU_EXPRS, c
+        assert (c in PE.SUPPORTED) == c.device_supported, c
+        assert (c in PE.CPU_ONLY) != c.device_supported, c
