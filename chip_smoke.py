@@ -303,8 +303,8 @@ Phases, in order; any failure exits non-zero before the last line:
    N3 with 4 splits and 4 shuffle partitions against one partition. The
    CPU engine's runs go to worker processes (spawned, reading the tables
    from Arrow files) that overlap the card's runs. Each query's
-   launches, probe and scan counts and warm wall (median of 3, after the
-   workers end);
+   launches, probe and scan counts and warm wall (median of 3, after its
+   checks return);
    every probe and scan call of the counted runs held against the plain
    version (``scalar_calls_checked``), the phase's largest probe and
    largest scan timed against their bounds (``scalar_largest``).
@@ -327,15 +327,40 @@ Phases, in order; any failure exits non-zero before the last line:
    probe and scan counts and warm walls as phase 18's; every probe and
    scan call of the counted runs held against the plain version
    (``string_calls_checked``), the largest probe and scan timed against
-   their bounds (``string_largest``).
+   their bounds (``string_largest``);
+20. the nested sales pass (``bench/nested_sales.py``) over tables built
+   from the SF1 store_sales and item, none cut: ``tickets`` (one row a
+   ticket: a BINARY basket digest, the items as array<int>, the summed
+   quantities as map<int,int>, a head struct, the ticket as JSON text)
+   and ``lines`` (store_sales' 2,880,000 rows with the basket digest).
+   H1 (posexplode through ``GenerateExec``, the hash join exec with
+   item and the aggregate, composed as exec nodes: the probe over the
+   2,880,000 exploded items) against pyarrow's list kernels; H2 (the
+   nested functions grouped by ``head.store_sk``), H3 (get_json_object of
+   five paths, also against Python's json), H4G (BINARY as a group key
+   and an ORDER BY ... LIMIT 100 key), H4J (BINARY as the join key of
+   tickets against lines: the probe) and H6 (a running sum over a
+   projected ``head.store_sk`` partition: the scan) wholly on the card;
+   H3R (a path outside the grammar: its projection on the CPU engine) and
+   H5 (collect_list, collect_set, map_values, JsonToStructsText: CPU
+   nodes), each named with its reasons; each against the CPU engine; then
+   H7: H2, H4G and H4J with 4 splits and 4 shuffle partitions (BINARY
+   keys through the hash exchanges; no nested column crosses one)
+   against one partition. Launches, probe and scan counts and warm walls
+   as phase 18's; every probe and scan call of the counted runs held
+   against the plain version (``nested_calls_checked``), the largest
+   probe and scan timed against their bounds (``nested_largest``).
 
 The CPU engine's comparison runs of phases 9-13, the window-surface pass
-and phases 18-19 go to spawned worker processes (``check_workers``, the
-tables read from Arrow files written once; a result of millions of rows
-comes back as an Arrow file, ``cpu_engine_table``) that overlap the
-card's runs: one after another on the host's CPU they took a third of
-the whole run. Every such phase takes its warm walls after its workers
-end.
+and phases 18-20 go to the run's one pool of spawned worker processes
+(``check_workers``, the tables read from Arrow files written once; a
+result of millions of rows comes back as an Arrow file,
+``cpu_engine_table``) that overlap the card's runs: one after another on
+the host's CPU they took a third of the whole run. Every such phase takes
+its warm walls after its own checks have returned. Two sets of checks
+start phases ahead and may still run beside an earlier phase's walls:
+the window-surface pass's, and phase 19's beside phase 18's. Phase 20's
+start after phase 19's walls.
 
 The last lines are the kernels JSON line, the card's name and power limit,
 and {"ok": true, "device": {...}}.
@@ -371,8 +396,13 @@ BEYOND_L2_SLOTS = 1 << 23
 FLUSH_BYTES = 128 << 20  # written before each cold-L2 run (L2: 50 MB)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, with the seconds since the script began."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:7.1f}s] {msg}",
+          flush=True)
 
 
 def smi_line() -> str:
@@ -1164,13 +1194,34 @@ def read_table_files(table_dir: str, names) -> dict:
     return out
 
 
-def check_workers(n: int):
-    """A pool of ``n`` spawned worker processes for the CPU engine's check
-    runs: run one after another on the host's CPU, they, not the card,
-    set a phase's wall. The caller closes and joins it."""
+_POOL: list = []  # the run's one pool of check workers, made at first use
+
+
+def check_workers():
+    """The run's pool of ``CHECK_WORKERS`` spawned processes for the CPU
+    engine's check runs, shared by every phase: run one after another on
+    the host's CPU, they, not the card, set a phase's wall, and one pool
+    for the run imports torch and the port once a process (a pool for
+    each phase spawned dozens of processes, each importing them, beside the
+    card's host thread on the machine's 8 cores). Tasks run in the order
+    submitted."""
     import multiprocessing
 
-    return multiprocessing.get_context("spawn").Pool(n)
+    if not _POOL:
+        import atexit
+
+        _POOL.append(multiprocessing.get_context("spawn").Pool(
+            CHECK_WORKERS))
+        atexit.register(stop_check_workers)
+    return _POOL[0]
+
+
+def stop_check_workers() -> None:
+    """End the run's check workers."""
+    while _POOL:
+        pool = _POOL.pop()
+        pool.terminate()
+        pool.join()
 
 
 def tpcds_cpu_rows(q: str, table_dir: str) -> tuple:
@@ -1209,7 +1260,7 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
     ``scan_queries``, held against the plain version; then warm walls
     (the median of ``warm_reps`` runs). The CPU engine's runs go to
     worker processes started first (``check_workers``), which overlap
-    the card's runs; the warm walls come after they end."""
+    the card's runs; the warm walls come after they return."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -1239,10 +1290,9 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
     results, rows = {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
     table_dir = table_files(tables, Q.tables_of(queries))
-    pool = check_workers(min(CHECK_WORKERS, len(queries)))
+    pool = check_workers()
     pending = {q: pool.apply_async(tpcds_cpu_rows, (q, table_dir))
                for q in queries}
-    pool.close()
     K.probe_hash_table_kernel = recording_probe
     try:
         for q in queries:
@@ -1311,11 +1361,8 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
                     f"{strategy_line(strategy)}")
         if extra is not None:
             results.update(extra(d, cpu))
-        pool.join()
     finally:
         K.probe_hash_table_kernel = real_probe
-        pool.terminate()
-        pool.join()
     res = {"queries": results, "launches": total, "rows": rows,
            "probe_calls_checked": check_every_probe(d, queries),
            "largest_table_probe": by_table.get("args"),
@@ -1579,12 +1626,9 @@ def _columns_agree(a, b, rel: float = 1e-6) -> bool:
 def start_window_surface_check(tables):
     """The window-surface pass's CPU-engine run in a worker process of
     its own, started phases ahead of the pass (it runs for tens of seconds
-    on the host's CPU): (pool, pending result)."""
-    pool = check_workers(1)
-    pending = pool.apply_async(cpu_engine_table, (
+    on the host's CPU): its pending result."""
+    return check_workers().apply_async(cpu_engine_table, (
         "window", "surface", table_files(tables, ["store_sales"])))
-    pool.close()
-    return pool, pending
 
 
 def window_surface_pass(tables, check) -> dict:
@@ -1611,7 +1655,7 @@ def window_surface_pass(tables, check) -> dict:
 
     ss = tables["store_sales"]
     dev = from_arrow(ss, batch_rows=1 << 22, device="cuda")
-    pool, pending = check  # ``start_window_surface_check``'s
+    pending = check  # ``start_window_surface_check``'s
     exprs = window_surface_exprs()
     windows = [w for _a, w in exprs]
     largest = {}
@@ -1643,12 +1687,7 @@ def window_surface_pass(tables, check) -> dict:
     if launches["segscan"] <= 0:
         raise AssertionError("the window-surface pass launched no segscan")
     t1 = time.perf_counter()
-    try:
-        path, cpu_s = pending.get(timeout=900)
-        pool.join()
-    finally:
-        pool.terminate()
-        pool.join()
+    path, cpu_s = pending.get(timeout=900)
     exp = read_cpu_table(path)
     log(f"window surface: waited {time.perf_counter() - t1:.2f}s for the "
         f"CPU engine's worker")
@@ -2137,106 +2176,100 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
                            for t in query_tables(q)}))
     log(f"partitioned: tables written for the check workers in "
         f"{time.perf_counter() - t1:.2f}s")
-    pool = check_workers(CHECK_WORKERS)
+    pool = check_workers()
     pending = {}
     for name, _b, d, check, _j, _w in cases:
         kind = ("tpch" if d is h else "sort" if check is None else "tpcds")
         pending[name] = pool.apply_async(cpu_engine_table, (
             kind, name[len("tpch_"):] if kind == "tpch" else name,
             tpch_dir if kind == "tpch" else ds_dir))
-    pool.close()
     results, rows, outs = {}, {}, {}
     total = {k: 0 for k in K.KERNEL_LAUNCHES}
-    try:
-        for name, build, d, check, joins, window in cases:
-            t1 = time.perf_counter()
-            exp = execute_to_arrow(build(d["one"]).physical_plan())
-            torch.cuda.synchronize()
-            one_s = time.perf_counter() - t1
-            df = build(d["four"])
-            cpu_marks = [ln.strip() for ln in df.explain("ALL").splitlines()
-                         if ln.lstrip().startswith("!")]
-            if cpu_marks:
-                raise AssertionError(f"{name} partitioned has nodes on the "
-                                     f"CPU engine: {cpu_marks}")
-            K.reset_kernel_launches()
-            R.reset_counters()
-            PP.STATS.reset()
-            K.probe_hash_table_kernel = recording_probe
-            K.segmented_scan_kernel = check_scan_call
-            try:
-                t1 = time.perf_counter()
-                plan = df.physical_plan()
-                out = execute_to_arrow(plan)
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t1
-            finally:
-                K.probe_hash_table_kernel = real_probe
-                K.segmented_scan_kernel = real_scan
-            launches = dict(K.KERNEL_LAUNCHES)
-            for k, v in launches.items():
-                total[k] += v
-            strategy = plan_strategy(plan)
-            strategy["bytes_saved"] = R.counters()[
-                "reuse_bytes_saved_total"]
-            if check is None:
-                if out.num_rows != ds_tables["store_sales"].num_rows:
-                    raise AssertionError(f"{name} gave {out.num_rows} rows")
-                if not same_sorted_rows(out, exp):
-                    raise AssertionError(f"{name} partitioned differs from "
-                                         f"one partition")
-            else:
-                got = out.to_pylist()
-                # rows equal to an empty result prove nothing of the
-                # exchanges
-                if not Q.informative(got):
-                    raise AssertionError(f"{name} shows no value: "
-                                         f"{got[:3]}")
-                ok, why = check(got, exp.to_pylist())
-                if not ok:
-                    raise AssertionError(f"{name} partitioned differs from "
-                                         f"one partition ({why}):\n"
-                                         f"{got[:3]}")
-            if not strategy["exchanges"] and not strategy["broadcast_joins"]:
-                raise AssertionError(f"{name} planned no exchange and no "
-                                     f"broadcast join")
-            if (name == "q38_shuffled_joins"
-                    and strategy["shuffled_joins"] < 2):
-                raise AssertionError(f"{name} shuffled "
-                                     f"{strategy['shuffled_joins']} joins, "
-                                     f"not its two semi joins")
-            if joins and launches["hashtbl_probe"] <= 0:
-                raise AssertionError(f"{name} launched no probe kernel")
-            if window and launches["segscan"] <= 0:
-                raise AssertionError(f"{name} launched no segscan kernel")
-            results[name] = dict(strategy, rows=out.num_rows,
-                                 first_s=first_s,
-                                 one_partition_first_s=one_s,
-                                 launches=launches)
-            rows[name] = outs[name] = out
-            log(f"{name}: {out.num_rows} rows, 4 splits equal one "
-                f"partition; {strategy_line(strategy)}; launches "
-                f"{launches}; first run {first_s:.3f}s")
-        # the CPU engine's results, from the workers
+    for name, build, d, check, joins, window in cases:
         t1 = time.perf_counter()
-        for name, _b, _d, check, _j, _w in cases:
-            path, cpu_s = pending[name].get(timeout=900)
-            on_cpu = read_cpu_table(path)
-            out = outs[name]
-            if check is None:
-                ok, why = same_sorted_rows(out, on_cpu), "rows differ"
-            else:
-                ok, why = check(out.to_pylist(), on_cpu.to_pylist())
+        exp = execute_to_arrow(build(d["one"]).physical_plan())
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+        df = build(d["four"])
+        cpu_marks = [ln.strip() for ln in df.explain("ALL").splitlines()
+                     if ln.lstrip().startswith("!")]
+        if cpu_marks:
+            raise AssertionError(f"{name} partitioned has nodes on the "
+                                 f"CPU engine: {cpu_marks}")
+        K.reset_kernel_launches()
+        R.reset_counters()
+        PP.STATS.reset()
+        K.probe_hash_table_kernel = recording_probe
+        K.segmented_scan_kernel = check_scan_call
+        try:
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            K.segmented_scan_kernel = real_scan
+        launches = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        strategy = plan_strategy(plan)
+        strategy["bytes_saved"] = R.counters()[
+            "reuse_bytes_saved_total"]
+        if check is None:
+            if out.num_rows != ds_tables["store_sales"].num_rows:
+                raise AssertionError(f"{name} gave {out.num_rows} rows")
+            if not same_sorted_rows(out, exp):
+                raise AssertionError(f"{name} partitioned differs from "
+                                     f"one partition")
+        else:
+            got = out.to_pylist()
+            # rows equal to an empty result prove nothing of the
+            # exchanges
+            if not Q.informative(got):
+                raise AssertionError(f"{name} shows no value: "
+                                     f"{got[:3]}")
+            ok, why = check(got, exp.to_pylist())
             if not ok:
-                raise AssertionError(f"{name} partitioned differs from the "
-                                     f"CPU engine ({why})")
-            results[name]["cpu_engine_s"] = cpu_s
-        pool.join()
-        log(f"partitioned: every case equals the CPU engine's rows; waited "
-            f"{time.perf_counter() - t1:.2f}s for the workers")
-    finally:
-        pool.terminate()
-        pool.join()
+                raise AssertionError(f"{name} partitioned differs from "
+                                     f"one partition ({why}):\n"
+                                     f"{got[:3]}")
+        if not strategy["exchanges"] and not strategy["broadcast_joins"]:
+            raise AssertionError(f"{name} planned no exchange and no "
+                                 f"broadcast join")
+        if (name == "q38_shuffled_joins"
+                and strategy["shuffled_joins"] < 2):
+            raise AssertionError(f"{name} shuffled "
+                                 f"{strategy['shuffled_joins']} joins, "
+                                 f"not its two semi joins")
+        if joins and launches["hashtbl_probe"] <= 0:
+            raise AssertionError(f"{name} launched no probe kernel")
+        if window and launches["segscan"] <= 0:
+            raise AssertionError(f"{name} launched no segscan kernel")
+        results[name] = dict(strategy, rows=out.num_rows,
+                             first_s=first_s,
+                             one_partition_first_s=one_s,
+                             launches=launches)
+        rows[name] = outs[name] = out
+        log(f"{name}: {out.num_rows} rows, 4 splits equal one "
+            f"partition; {strategy_line(strategy)}; launches "
+            f"{launches}; first run {first_s:.3f}s")
+    # the CPU engine's results, from the workers
+    t1 = time.perf_counter()
+    for name, _b, _d, check, _j, _w in cases:
+        path, cpu_s = pending[name].get(timeout=900)
+        on_cpu = read_cpu_table(path)
+        out = outs[name]
+        if check is None:
+            ok, why = same_sorted_rows(out, on_cpu), "rows differ"
+        else:
+            ok, why = check(out.to_pylist(), on_cpu.to_pylist())
+        if not ok:
+            raise AssertionError(f"{name} partitioned differs from the "
+                                 f"CPU engine ({why})")
+        results[name]["cpu_engine_s"] = cpu_s
+    log(f"partitioned: every case equals the CPU engine's rows; waited "
+        f"{time.perf_counter() - t1:.2f}s for the workers")
     log(f"probe: all {probe_calls[0]} calls and segscan: all "
         f"{sum(scan_calls.values())} calls ({scan_calls}) of the "
         f"partitioned path equal the plain version")
@@ -3514,7 +3547,7 @@ def run_scalar_path(ds_tables, started=None) -> dict:
     runs (N2's in two halves of its columns) go to worker processes
     started first (``check_workers``), which read the tables from Arrow
     files, so that they overlap the card's counted runs; the warm walls
-    are taken after the workers have ended. ``started``, if given, is
+    are taken after they have returned. ``started``, if given, is
     called with the phase's tables once its workers are started (phase
     19 starts its own workers then)."""
 
@@ -3530,109 +3563,103 @@ def run_scalar_path(ds_tables, started=None) -> dict:
     table_dir = table_files(tables, list(tables))
     log(f"scalar store_sales: {n} rows typed and untyped, written for the "
         f"check workers, in {time.perf_counter() - t_phase:.2f}s")
-    pool = check_workers(len(SCALAR_CHECKS))
+    pool = check_workers()
     pending = {q: pool.apply_async(scalar_check, (q, table_dir, store))
                for q in SCALAR_CHECKS}
-    pool.close()
     if started is not None:
         started(tables)
     runs = CountedRuns()
-    try:
-        dev = SS.df_tables(tables, device="cuda")
-        queries = dict(SS.QUERIES)
-        queries["N6"] = lambda d: SS.n6(d, store=store)
-        res, rows = {}, {}
-        for q, build in queries.items():
-            df = build(dev)
-            off = off_device(df)
-            if q == "N6":
-                want = ("float to string cast not on device",
-                        "decimal floor/ceil/round not on device",
-                        "decimal division not on device")
-                if (len(off) != 1 or not off[0].startswith("! Project")
-                        or not all(w in off[0] for w in want)):
-                    raise AssertionError(f"N6 places {off} on the CPU "
-                                         f"engine")
-            elif off:
-                raise AssertionError(f"{q} places {off} on the CPU engine")
-            out, wall, launches, plan = runs.run(df)
-            got = out.to_pylist()
-            if q in ("N1", "N3") and (launches["hashtbl_probe"] <= 0
-                                      or set(join_paths(plan)) != {"ht"}):
-                raise AssertionError(f"{q} launched {launches} on join "
-                                     f"paths {join_paths(plan)}")
-            if q == "N5" and launches["segscan"] <= 0:
-                raise AssertionError("N5 launched no segscan kernel")
-            if not SS.informative(got):
-                raise AssertionError(f"{q} shows no values: {got[:2]}")
-            rows[q] = got
-            res[q] = {"rows": len(got), "first_s": wall,
-                      "launches": launches,
-                      "probe_calls": launches["hashtbl_probe"],
-                      "scan_calls": launches["segscan"], "off_device": off,
-                      "shown": [{k: str(v) for k, v in r.items()}
-                                for r in got[:1]]}
-        typed = SS.n1(dev, typed=True).to_arrow().to_pylist()
-        ok, why = SS.check_rows("N1", rows["N1"], typed)
+    dev = SS.df_tables(tables, device="cuda")
+    queries = dict(SS.QUERIES)
+    queries["N6"] = lambda d: SS.n6(d, store=store)
+    res, rows = {}, {}
+    for q, build in queries.items():
+        df = build(dev)
+        off = off_device(df)
+        if q == "N6":
+            want = ("float to string cast not on device",
+                    "decimal floor/ceil/round not on device",
+                    "decimal division not on device")
+            if (len(off) != 1 or not off[0].startswith("! Project")
+                    or not all(w in off[0] for w in want)):
+                raise AssertionError(f"N6 places {off} on the CPU "
+                                     f"engine")
+        elif off:
+            raise AssertionError(f"{q} places {off} on the CPU engine")
+        out, wall, launches, plan = runs.run(df)
+        got = out.to_pylist()
+        if q in ("N1", "N3") and (launches["hashtbl_probe"] <= 0
+                                  or set(join_paths(plan)) != {"ht"}):
+            raise AssertionError(f"{q} launched {launches} on join "
+                                 f"paths {join_paths(plan)}")
+        if q == "N5" and launches["segscan"] <= 0:
+            raise AssertionError("N5 launched no segscan kernel")
+        if not SS.informative(got):
+            raise AssertionError(f"{q} shows no values: {got[:2]}")
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall,
+                  "launches": launches,
+                  "probe_calls": launches["hashtbl_probe"],
+                  "scan_calls": launches["segscan"], "off_device": off,
+                  "shown": [{k: str(v) for k, v in r.items()}
+                            for r in got[:1]]}
+    typed = SS.n1(dev, typed=True).to_arrow().to_pylist()
+    ok, why = SS.check_rows("N1", rows["N1"], typed)
+    if not ok:
+        raise AssertionError(f"N1 differs from its typed twin ({why})")
+    # N4 formats and parses every row twice over: it is held against
+    # pyarrow's text (in this process: a few tenths of a second)
+    t1 = time.perf_counter()
+    exp4 = SS.arrow_n4(tables)
+    res["N4"]["check_s"] = time.perf_counter() - t1
+    ok, why = SS.check_rows("N4", rows["N4"], exp4)
+    if not ok:
+        raise AssertionError(f"N4 differs from pyarrow's text ({why}):"
+                             f"\n{rows['N4'][:2]}\n{exp4[:2]}")
+
+    # N7: N1 and N3 with 4 splits and 4 shuffle partitions against one
+    # partition (the fast path off)
+    four = SS.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+        partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+    for q in SS.PARTITIONED:
+        out, wall, launches, plan = runs.run(SS.QUERIES[q](four))
+        strategy = plan_strategy(plan)
+        shown = plan.explain()
+        if ("HashPartitioner(4)" not in shown
+                or "mode=partial" not in shown):
+            raise AssertionError(f"N7 {q} plans no partial aggregate "
+                                 f"over a hash exchange:\n{shown}")
+        ok, why = SS.check_rows(q, out.to_pylist(), rows[q])
         if not ok:
-            raise AssertionError(f"N1 differs from its typed twin ({why})")
-        # N4 formats and parses every row twice over: it is held against
-        # pyarrow's text (in this process: a few tenths of a second)
-        t1 = time.perf_counter()
-        exp4 = SS.arrow_n4(tables)
-        res["N4"]["check_s"] = time.perf_counter() - t1
-        ok, why = SS.check_rows("N4", rows["N4"], exp4)
+            raise AssertionError(f"N7 {q} with 4 partitions differs "
+                                 f"from one partition ({why})")
+        res[f"N7_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                          "launches": launches, "strategy": strategy}
+        log(f"scalar N7 {q}: 4 splits x 4 partitions equal one "
+            f"partition ({out.num_rows} rows); "
+            f"{strategy_line(strategy)}; launches {launches}")
+
+    # the CPU engine's rows (and pyarrow's N1) from the workers
+    t1 = time.perf_counter()
+    for q in SCALAR_CHECKS:
+        exp, check_s = pending[q].get(timeout=600)
+        name = "N1" if q == "pyarrow_N1" else q[:2]
+        got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
+            if exp else rows[name]  # N2's half of the columns
+        ok, why = SS.check_rows(name, got, exp)
         if not ok:
-            raise AssertionError(f"N4 differs from pyarrow's text ({why}):"
-                                 f"\n{rows['N4'][:2]}\n{exp4[:2]}")
+            raise AssertionError(
+                f"{q} on the card differs from "
+                f"{'pyarrow' if q == 'pyarrow_N1' else 'the CPU engine'}"
+                f" ({why}):\n{got[:2]}\n{exp[:2]}")
+        key = ("pyarrow_s" if q == "pyarrow_N1" else "check_s")
+        res[name][key] = res[name].get(key, 0.0) + check_s
+    log(f"scalar: the CPU engine's rows (N1 also pyarrow's) equal the "
+        f"card's; waited {time.perf_counter() - t1:.2f}s for the "
+        f"workers")
 
-        # N7: N1 and N3 with 4 splits and 4 shuffle partitions against one
-        # partition (the fast path off)
-        four = SS.df_tables(tables, RapidsConf(
-            {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
-            partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
-        for q in SS.PARTITIONED:
-            out, wall, launches, plan = runs.run(SS.QUERIES[q](four))
-            strategy = plan_strategy(plan)
-            shown = plan.explain()
-            if ("HashPartitioner(4)" not in shown
-                    or "mode=partial" not in shown):
-                raise AssertionError(f"N7 {q} plans no partial aggregate "
-                                     f"over a hash exchange:\n{shown}")
-            ok, why = SS.check_rows(q, out.to_pylist(), rows[q])
-            if not ok:
-                raise AssertionError(f"N7 {q} with 4 partitions differs "
-                                     f"from one partition ({why})")
-            res[f"N7_{q}"] = {"rows": out.num_rows, "first_s": wall,
-                              "launches": launches, "strategy": strategy}
-            log(f"scalar N7 {q}: 4 splits x 4 partitions equal one "
-                f"partition ({out.num_rows} rows); "
-                f"{strategy_line(strategy)}; launches {launches}")
-
-        # the CPU engine's rows (and pyarrow's N1) from the workers
-        t1 = time.perf_counter()
-        for q in SCALAR_CHECKS:
-            exp, check_s = pending[q].get(timeout=600)
-            name = "N1" if q == "pyarrow_N1" else q[:2]
-            got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
-                if exp else rows[name]  # N2's half of the columns
-            ok, why = SS.check_rows(name, got, exp)
-            if not ok:
-                raise AssertionError(
-                    f"{q} on the card differs from "
-                    f"{'pyarrow' if q == 'pyarrow_N1' else 'the CPU engine'}"
-                    f" ({why}):\n{got[:2]}\n{exp[:2]}")
-            key = ("pyarrow_s" if q == "pyarrow_N1" else "check_s")
-            res[name][key] = res[name].get(key, 0.0) + check_s
-        pool.join()
-        log(f"scalar: the CPU engine's rows (N1 also pyarrow's) equal the "
-            f"card's; waited {time.perf_counter() - t1:.2f}s for the "
-            f"workers")
-    finally:
-        pool.terminate()
-        pool.join()
-
-    # the warm walls, with the workers gone
+    # the warm walls, with the phase's checks returned
     for q, build in queries.items():
         res[q]["warm_s"] = _warm_wall(lambda b=build: b(dev).to_arrow(), 3,
                                       first=res[q]["first_s"])
@@ -3700,12 +3727,11 @@ def start_string_checks(ds_tables, untyped) -> dict:
     log(f"string tables: {tables['store_sales'].num_rows} store_sales rows "
         f"typed and untyped, written for the check workers, in "
         f"{time.perf_counter() - t0:.2f}s")
-    pool = check_workers(len(STRING_CHECKS))
+    pool = check_workers()
     pending = {q: pool.apply_async(string_check, (q, table_dir, store))
                for q in STRING_CHECKS}
-    pool.close()
-    return {"tables": tables, "store": store, "pool": pool,
-            "pending": pending, "started_s": time.perf_counter() - t0}
+    return {"tables": tables, "store": store, "pending": pending,
+            "started_s": time.perf_counter() - t0}
 
 
 def run_string_path(state) -> dict:
@@ -3717,7 +3743,7 @@ def run_string_path(state) -> dict:
     of the counted runs is held against its plain version; the largest of
     each is kept for timing. The CPU engine's runs go to worker processes
     started before phase 18's card runs (``start_string_checks``); the
-    warm walls are taken after the workers have ended."""
+    warm walls are taken after they have returned."""
 
     from spark_rapids_tpu_torch.bench import string_sales as G
     from spark_rapids_tpu_torch.config.conf import RapidsConf
@@ -3725,7 +3751,7 @@ def run_string_path(state) -> dict:
 
     t_phase = time.perf_counter()
     tables, store = state["tables"], state["store"]
-    pool, pending = state["pool"], state["pending"]
+    pending = state["pending"]
     n = tables["store_sales"].num_rows
     runs = CountedRuns()
     # the one node each query places on the CPU engine, and its reasons
@@ -3735,92 +3761,87 @@ def run_string_path(state) -> dict:
                   "Md5", "Sha1", "Sha2", "Crc32", "Levenshtein",
                   "FormatNumber", "StringSpace", "Bin", "Overlay",
                   "RegexpExtract", "RegexpReplace")])}
-    try:
-        dev = G.df_tables(tables, device="cuda")
-        queries = dict(G.QUERIES)
-        queries["G4"] = lambda d: G.g4(d, store=store)
-        res, rows = {}, {}
-        for q, build in queries.items():
-            df = build(dev)
-            off = off_device(df)
-            if q in placed:
-                node, reasons = placed[q]
-                if (len(off) != 1 or not off[0].startswith(node)
-                        or not all(r in off[0] for r in reasons)):
-                    raise AssertionError(f"{q} places {off} on the CPU "
-                                         f"engine")
-            elif off:
-                raise AssertionError(f"{q} places {off} on the CPU engine")
-            out, wall, launches, plan = runs.run(df)
-            got = out.to_pylist()
-            if q in ("G1", "G3", "G3R", "G5") and (
-                    launches["hashtbl_probe"] <= 0
-                    or set(join_paths(plan)) != {"ht"}):
-                raise AssertionError(f"{q} launched {launches} on join "
-                                     f"paths {join_paths(plan)}")
-            if q == "G5" and launches["segscan"] <= 0:
-                raise AssertionError("G5 launched no segscan kernel")
-            if not G.informative(got):
-                raise AssertionError(f"{q} shows no values: {got[:2]}")
-            rows[q] = got
-            res[q] = {"rows": len(got), "first_s": wall,
-                      "launches": launches,
-                      "probe_calls": launches["hashtbl_probe"],
-                      "scan_calls": launches["segscan"], "off_device": off,
-                      "shown": [{k: str(v) for k, v in r.items()}
-                                for r in got[:1]]}
-        bad = [{b: r[b] for b in G.G2_BAD} for r in rows["G2"]]
-        if any(v for r in bad for v in r.values()):
-            raise AssertionError(f"G2's round trips changed values: {bad}")
+    dev = G.df_tables(tables, device="cuda")
+    queries = dict(G.QUERIES)
+    queries["G4"] = lambda d: G.g4(d, store=store)
+    res, rows = {}, {}
+    for q, build in queries.items():
+        df = build(dev)
+        off = off_device(df)
+        if q in placed:
+            node, reasons = placed[q]
+            if (len(off) != 1 or not off[0].startswith(node)
+                    or not all(r in off[0] for r in reasons)):
+                raise AssertionError(f"{q} places {off} on the CPU "
+                                     f"engine")
+        elif off:
+            raise AssertionError(f"{q} places {off} on the CPU engine")
+        out, wall, launches, plan = runs.run(df)
+        got = out.to_pylist()
+        if q in ("G1", "G3", "G3R", "G5") and (
+                launches["hashtbl_probe"] <= 0
+                or set(join_paths(plan)) != {"ht"}):
+            raise AssertionError(f"{q} launched {launches} on join "
+                                 f"paths {join_paths(plan)}")
+        if q == "G5" and launches["segscan"] <= 0:
+            raise AssertionError("G5 launched no segscan kernel")
+        if not G.informative(got):
+            raise AssertionError(f"{q} shows no values: {got[:2]}")
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall,
+                  "launches": launches,
+                  "probe_calls": launches["hashtbl_probe"],
+                  "scan_calls": launches["segscan"], "off_device": off,
+                  "shown": [{k: str(v) for k, v in r.items()}
+                            for r in got[:1]]}
+    bad = [{b: r[b] for b in G.G2_BAD} for r in rows["G2"]]
+    if any(v for r in bad for v in r.values()):
+        raise AssertionError(f"G2's round trips changed values: {bad}")
 
-        # G6: G1 and G2 with 4 splits and 4 shuffle partitions against one
-        # partition (the fast path off)
-        four = G.df_tables(tables, RapidsConf(
-            {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
-            partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
-        for q in G.PARTITIONED:
-            out, wall, launches, plan = runs.run(G.QUERIES[q](four))
-            strategy = plan_strategy(plan)
-            shown = plan.explain()
-            if ("HashPartitioner(4)" not in shown
-                    or "mode=partial" not in shown):
-                raise AssertionError(f"G6 {q} plans no partial aggregate "
-                                     f"over a hash exchange:\n{shown}")
-            ok, why = G.check_rows(q, out.to_pylist(), rows[q])
-            if not ok:
-                raise AssertionError(f"G6 {q} with 4 partitions differs "
-                                     f"from one partition ({why})")
-            res[f"G6_{q}"] = {"rows": out.num_rows, "first_s": wall,
-                              "launches": launches, "strategy": strategy}
-            log(f"string G6 {q}: 4 splits x 4 partitions equal one "
-                f"partition ({out.num_rows} rows); "
-                f"{strategy_line(strategy)}; launches {launches}")
+    # G6: G1 and G2 with 4 splits and 4 shuffle partitions against one
+    # partition (the fast path off)
+    four = G.df_tables(tables, RapidsConf(
+        {"spark.rapids.gpu.fastpath.enabled": "false"}), device="cuda",
+        partitions=4, shuffle_partitions=4, batch_rows=-(-n // 4))
+    for q in G.PARTITIONED:
+        out, wall, launches, plan = runs.run(G.QUERIES[q](four))
+        strategy = plan_strategy(plan)
+        shown = plan.explain()
+        if ("HashPartitioner(4)" not in shown
+                or "mode=partial" not in shown):
+            raise AssertionError(f"G6 {q} plans no partial aggregate "
+                                 f"over a hash exchange:\n{shown}")
+        ok, why = G.check_rows(q, out.to_pylist(), rows[q])
+        if not ok:
+            raise AssertionError(f"G6 {q} with 4 partitions differs "
+                                 f"from one partition ({why})")
+        res[f"G6_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                          "launches": launches, "strategy": strategy}
+        log(f"string G6 {q}: 4 splits x 4 partitions equal one "
+            f"partition ({out.num_rows} rows); "
+            f"{strategy_line(strategy)}; launches {launches}")
 
-        # the CPU engine's rows (and pandas' G1) from the workers
-        t1 = time.perf_counter()
-        for q in STRING_CHECKS:
-            exp, check_s = pending[q].get(timeout=600)
-            name = "G1" if q == "pandas_G1" else q[:2] if q[:2] in (
-                "G1", "G2") else q
-            got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
-                if exp else rows[name]  # a half of the columns
-            ok, why = G.check_rows(name, got, exp)
-            if not ok:
-                raise AssertionError(
-                    f"{q} on the card differs from "
-                    f"{'pandas' if q == 'pandas_G1' else 'the CPU engine'}"
-                    f" ({why}):\n{got[:2]}\n{exp[:2]}")
-            key = "pandas_s" if q == "pandas_G1" else "check_s"
-            res[name][key] = res[name].get(key, 0.0) + check_s
-        pool.join()
-        log(f"string: the CPU engine's rows (G1 also pandas') equal the "
-            f"card's; waited {time.perf_counter() - t1:.2f}s for the "
-            f"workers")
-    finally:
-        pool.terminate()
-        pool.join()
+    # the CPU engine's rows (and pandas' G1) from the workers
+    t1 = time.perf_counter()
+    for q in STRING_CHECKS:
+        exp, check_s = pending[q].get(timeout=600)
+        name = "G1" if q == "pandas_G1" else q[:2] if q[:2] in (
+            "G1", "G2") else q
+        got = [{k: r[k] for k in exp[0]} for r in rows[name]] \
+            if exp else rows[name]  # a half of the columns
+        ok, why = G.check_rows(name, got, exp)
+        if not ok:
+            raise AssertionError(
+                f"{q} on the card differs from "
+                f"{'pandas' if q == 'pandas_G1' else 'the CPU engine'}"
+                f" ({why}):\n{got[:2]}\n{exp[:2]}")
+        key = "pandas_s" if q == "pandas_G1" else "check_s"
+        res[name][key] = res[name].get(key, 0.0) + check_s
+    log(f"string: the CPU engine's rows (G1 also pandas') equal the "
+        f"card's; waited {time.perf_counter() - t1:.2f}s for the "
+        f"workers")
 
-    # the warm walls, with the workers gone
+    # the warm walls, with the phase's checks returned
     for q, build in queries.items():
         res[q]["warm_s"] = _warm_wall(lambda b=build: b(dev).to_arrow(), 3,
                                       first=res[q]["first_s"])
@@ -3836,6 +3857,201 @@ def run_string_path(state) -> dict:
 
     return dict(runs.finish("phase 19"), queries=res, rows=n,
                 wall_s=time.perf_counter() - t_phase + state["started_s"])
+
+
+# phase 20: the nested sales pass; the CPU engine's runs (and the
+# independent oracles: pyarrow's list kernels for H1, Python's json for H3)
+# in worker processes
+NESTED_CHECKS = ("H2", "H3", "H3R", "H4G", "H4J", "H5", "H6", "arrow_H1",
+                 "json_H3")
+NESTED_TABLES = ("tickets", "lines", "item")
+# the one node each query places on the CPU engine, and its reasons (H5's
+# aggregate and the nodes above it hold its collected arrays of strings)
+NESTED_PLACED = {
+    "H3R": ["json path '$.lines[*].item' not on device"],
+    "H5": ["expression CollectList not on device",
+           "expression CollectSet not on device",
+           "expression MapValues not on device",
+           "expression JsonToStructsText not on device",
+           "arrays of variable-width elements are not on the device"]}
+
+
+def nested_check(q: str, table_dir: str) -> tuple:
+    """Phase 20's check of one query in a worker process of its own, over
+    the nested tables in ``table_dir``: the query's rows on the CPU engine
+    (``arrow_H1`` H1 by pyarrow's list kernels, ``json_H3`` H3 by
+    Python's json) and its seconds."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import nested_sales as NS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    tables = read_table_files(table_dir, NESTED_TABLES)
+    t0 = time.perf_counter()
+    if q == "arrow_H1":
+        rows = NS.arrow_h1(tables)
+    elif q == "json_H3":
+        rows = NS.json_h3(tables)
+    else:
+        cpu = NS.df_tables(tables, RapidsConf(
+            {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+        rows = NS.QUERIES[q](cpu).to_arrow().to_pylist()
+    return rows, time.perf_counter() - t0
+
+
+def start_nested_checks(ds_tables) -> dict:
+    """Phase 20's tables (``nested_sales.nested_tables`` of the SF1
+    store_sales, and item) built on the host and written as Arrow files,
+    and its CPU-engine checks started in worker processes
+    (``NESTED_CHECKS``): (tables, pending results, seconds to build)."""
+    from spark_rapids_tpu_torch.bench import nested_sales as NS
+
+    t0 = time.perf_counter()
+    tables = NS.nested_tables(ds_tables["store_sales"])
+    tables["item"] = ds_tables["item"].select(["i_item_sk", "i_category"])
+    build_s = time.perf_counter() - t0
+    table_dir = table_files(tables, NESTED_TABLES)
+    log(f"nested tables: {tables['tickets'].num_rows} tickets over "
+        f"{tables['lines'].num_rows} lines, "
+        f"{tables['tickets'].column('doc').nbytes} B of JSON, built in "
+        f"{build_s:.2f}s and written for the check workers in "
+        f"{time.perf_counter() - t0 - build_s:.2f}s")
+    pool = check_workers()
+    pending = {q: pool.apply_async(nested_check, (q, table_dir))
+               for q in NESTED_CHECKS}
+    return tables, pending, build_s
+
+
+class _Planned:
+    """A physical plan in a DataFrame's clothes, for ``CountedRuns.run``."""
+
+    def __init__(self, build):
+        self.build = build
+
+    def physical_plan(self):
+        return self.build()
+
+
+def run_nested_path(ds_tables) -> dict:
+    """Phase 20: the nested sales pass (``bench/nested_sales.py``): H1
+    (posexplode through ``GenerateExec``, the hash join exec and the
+    aggregate, composed as exec nodes) against pyarrow's list kernels;
+    H2-H6 on the card against the CPU engine, H3 also against Python's
+    json; the placement of H3R's rejected path and of H5's CPU-engine
+    classes named by ``explain``; then H7: H2, H4G and H4J with 4 splits
+    and 4 shuffle partitions against one partition. Every probe and
+    segmented-scan call of the counted runs is held against its plain
+    version; the largest of each is kept for timing. The CPU engine's
+    runs start with the phase (``start_nested_checks``), after phase 19's
+    warm walls, and overlap its counted runs; the warm walls are taken
+    after they have returned."""
+    from spark_rapids_tpu_torch.bench import nested_sales as NS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import join_paths
+
+    t_phase = time.perf_counter()
+    tables, pending, build_s = start_nested_checks(ds_tables)
+    n = tables["tickets"].num_rows
+    runs = CountedRuns()
+    res, rows = {}, {}
+    sources = NS.h1_sources(tables, "cuda")
+    h1 = _Planned(lambda: NS.h1_plan(sources))
+    out, wall, launches, plan = runs.run(h1)
+    got = sorted(out.to_pylist(), key=lambda r: r["i_category"])
+    if launches["hashtbl_probe"] <= 0:
+        raise AssertionError(f"H1 launched {launches}")
+    rows["H1"] = got
+    res["H1"] = {"rows": len(got), "first_s": wall, "launches": launches,
+                 "probe_calls": launches["hashtbl_probe"],
+                 "scan_calls": launches["segscan"], "off_device": [],
+                 "exploded": sum(r["n"] for r in got)}
+    dev = NS.df_tables(tables, device="cuda")
+    for q, build in NS.QUERIES.items():
+        df = build(dev)
+        off = off_device(df)
+        if q in NESTED_PLACED:
+            if not all(any(r in ln for ln in off)
+                       for r in NESTED_PLACED[q]):
+                raise AssertionError(f"{q} places {off} on the CPU "
+                                     f"engine")
+        elif off:
+            raise AssertionError(f"{q} places {off} on the CPU engine")
+        out, wall, launches, plan = runs.run(df)
+        got = out.to_pylist()
+        if q == "H4J" and (launches["hashtbl_probe"] <= 0
+                           or set(join_paths(plan)) != {"ht"}):
+            raise AssertionError(f"H4J launched {launches} on join "
+                                 f"paths {join_paths(plan)}")
+        if q == "H6" and launches["segscan"] <= 0:
+            raise AssertionError("H6 launched no segscan kernel")
+        if not got or (q == "H4J" and got[0]["bad"]):
+            raise AssertionError(f"{q} gave {got[:2]}")
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall,
+                  "launches": launches,
+                  "probe_calls": launches["hashtbl_probe"],
+                  "scan_calls": launches["segscan"], "off_device": off}
+
+    # H7: H2, H4G and H4J with 4 splits and 4 shuffle partitions
+    # against one partition; no nested column crosses an exchange
+    four = NS.df_tables(tables, RapidsConf(NS.H7_CONF), device="cuda",
+                        partitions=4, shuffle_partitions=4,
+                        batch_rows=-(-n // 4))
+    for q in NS.PARTITIONED:
+        out, wall, launches, plan = runs.run(NS.QUERIES[q](four))
+        strategy = plan_strategy(plan)
+        if "HashPartitioner(4)" not in plan.explain():
+            raise AssertionError(f"H7 {q} plans no hash exchange:\n"
+                                 f"{plan.explain()}")
+        ok, why = NS.check_rows(q, out.to_pylist(), rows[q])
+        if not ok:
+            raise AssertionError(f"H7 {q} with 4 partitions differs "
+                                 f"from one partition ({why})")
+        res[f"H7_{q}"] = {"rows": out.num_rows, "first_s": wall,
+                          "launches": launches, "strategy": strategy}
+        log(f"nested H7 {q}: 4 splits x 4 partitions equal one "
+            f"partition ({out.num_rows} rows); "
+            f"{strategy_line(strategy)}; launches {launches}")
+
+    # the CPU engine's rows (and the oracles') from the workers
+    t1 = time.perf_counter()
+    for q in NESTED_CHECKS:
+        exp, check_s = pending[q].get(timeout=900)
+        name = q.split("_")[-1]
+        ok, why = NS.check_rows(name, rows[name], exp)
+        if not ok:
+            raise AssertionError(f"{name} on the card differs from "
+                                 f"{q} ({why}):\n{rows[name][:2]}\n"
+                                 f"{exp[:2]}")
+        key = "oracle_s" if "_" in q else "check_s"
+        res[name][key] = check_s
+    waited = time.perf_counter() - t1
+    log(f"nested: the CPU engine's rows (H1 pyarrow's, H3 also "
+        f"json's) equal the card's; waited {waited:.2f}s for the "
+        f"workers")
+
+    # the warm walls, with the phase's checks returned
+    res["H1"]["warm_s"] = _warm_wall(
+        lambda: execute_to_arrow(NS.h1_plan(sources)), 3,
+        first=res["H1"]["first_s"])
+    for q, build in NS.QUERIES.items():
+        res[q]["warm_s"] = _warm_wall(lambda b=build: b(dev).to_arrow(), 3,
+                                      first=res[q]["first_s"])
+    for q in NS.PARTITIONED:
+        res[f"H7_{q}"]["warm_s"] = _warm_wall(
+            lambda q=q: NS.QUERIES[q](four).to_arrow(), 3,
+            first=res[f"H7_{q}"]["first_s"])
+    for q, r in res.items():
+        log(f"nested {q}: {r['rows']} rows; launches {r['launches']}; "
+            f"warm wall {r['warm_s']:.4f}s (median of 3); check "
+            f"{r.get('check_s', 0.0):.3f}s; on the CPU engine "
+            f"{r.get('off_device') or 'nothing'}")
+    return dict(runs.finish("phase 20"), queries=res, tickets=n,
+                lines=tables["lines"].num_rows, waited_s=waited,
+                build_s=build_s, wall_s=time.perf_counter() - t_phase)
 
 
 def check_stat_scan(values, is_start, op: str, shape: str = "stat_largest",
@@ -4050,6 +4266,17 @@ def main(argv=None) -> int:
     log(f"phase 19 took {string_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    # phase 20: the nested sales pass
+    checked_before = mem_checks.checked
+    nested_res = run_nested_path(ds_tables)
+    nested_probe = check_probe("nested_largest",
+                               *nested_res.pop("largest_probe"), cold=True)
+    shapes.append(nested_probe)
+    nested_scan = check_stat_scan(*nested_res.pop("largest_scan"),
+                                  shape="nested_largest", phase="phase 20")
+    log(f"phase 20 took {nested_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -4066,7 +4293,8 @@ def main(argv=None) -> int:
                       "typed_sales": typed_res["launches"][name],
                       "stat_sales": stat_res["launches"][name],
                       "scalar_sales": scalar_res["launches"][name],
-                      "string_sales": string_res["launches"][name]}
+                      "string_sales": string_res["launches"][name],
+                      "nested_sales": nested_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -4124,8 +4352,13 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "string_calls_checked": string_res["probe_calls_checked"],
+        "nested_largest": {k: nested_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "nested_calls_checked": nested_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
-                     "smallint float timestamp (the 64-bit key hashes)",
+                     "smallint float timestamp binary (the 64-bit key "
+                     "hashes)",
         "exact": all(s["exact"] for s in shapes)}, {
         "name": "segscan", "route": "cuda", "source": SEGSCAN_SOURCE,
         "replaces": SEGSCAN_REPLACES,
@@ -4159,6 +4392,10 @@ def main(argv=None) -> int:
             "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
         "string_calls_checked": string_res["segscan_calls_checked"],
         "string_largest": {k: string_scan[k] for k in (
+            "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
+        "nested_calls_checked": nested_res["segscan_calls_checked"],
+        "nested_largest": {k: nested_scan[k] for k in (
             "rows", "dtype", "op", "heads", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms", "max_abs_err")},
         "value_types": "int32 int64 float32 float64 (int8 and int16 "
@@ -4195,6 +4432,9 @@ def main(argv=None) -> int:
               "string_sales": {k: v for k, v in string_res.items()
                                if k != "launches"},
               "segscan_string": string_scan,
+              "nested_sales": {k: v for k, v in nested_res.items()
+                               if k != "launches"},
+              "segscan_nested": nested_scan,
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,
@@ -4202,6 +4442,7 @@ def main(argv=None) -> int:
               "probe_beyond_l2": probe_big,
               "kernels": kernels_line["kernels"],
               "total_s": time.perf_counter() - t_all}
+    stop_check_workers()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

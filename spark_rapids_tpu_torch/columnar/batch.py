@@ -6,6 +6,10 @@ column's length, so there is no padding mask and no capacity bucket.
 Strings that ``dictionary_encode_table`` encodes arrive as int32 codes into a
 bytewise-sorted dictionary shared by every batch sliced from one table
 (``dict_cache``), so codes compare and order consistently across batches.
+STRUCT, MAP and ARRAY columns upload recursively (``_nested_column``: a
+struct's fields and a map's keys and values as child columns, their
+strings plain) and download back to Arrow's layouts; an array with a null
+element raises (``ELEMENT_NULLS``: the device's arrays have none).
 """
 
 from __future__ import annotations
@@ -43,6 +47,18 @@ def resolve_device(device=None) -> torch.device:
 
 def empty_column(dt: T.DataType, device) -> DeviceColumn:
     valid = torch.zeros(0, dtype=torch.bool, device=device)
+    if isinstance(dt, (T.StructType, T.MapType)):
+        kids = ([f.dtype for f in dt.fields] if isinstance(dt, T.StructType)
+                else [dt.key, dt.value])
+        return DeviceColumn(
+            dt, torch.zeros(0, dtype=torch.int32, device=device), valid,
+            None if isinstance(dt, T.StructType) else torch.zeros(
+                1, dtype=torch.int32, device=device),
+            children=tuple(empty_column(k, device) for k in kids))
+    if isinstance(dt, T.ArrayType):
+        return DeviceColumn(dt, torch.zeros(0, dtype=dt.element.torch_dtype,
+                                            device=device), valid,
+                            torch.zeros(1, dtype=torch.int32, device=device))
     if dt.fixed_width:
         return DeviceColumn(dt, torch.zeros(T.device_shape(dt, 0),
                                             dtype=dt.torch_dtype,
@@ -203,6 +219,74 @@ def _dict_column(arr: pa.DictionaryArray, device,
                         _to_tensor(valid, device), None, dict_col)
 
 
+ELEMENT_NULLS = "element nulls in arrays are not on the device"
+
+
+def array_element_nulls(arr, dt: T.DataType) -> bool:
+    """Whether an Arrow column of type ``dt`` holds an array with a null
+    element anywhere in it (the device's arrays have none)."""
+    if isinstance(arr, pa.ChunkedArray):
+        return any(array_element_nulls(c, dt) for c in arr.chunks)
+    if isinstance(dt, T.ArrayType):
+        return _list_values(arr).null_count > 0
+    if isinstance(dt, T.StructType):
+        return any(array_element_nulls(arr.field(i), f.dtype)
+                   for i, f in enumerate(dt.fields))
+    if isinstance(dt, T.MapType):
+        entries = _list_values(arr)
+        return (array_element_nulls(entries.field(0), dt.key)
+                or array_element_nulls(entries.field(1), dt.value))
+    return False
+
+
+def _list_values(arr: pa.Array) -> pa.Array:
+    """The elements an array (or map) column's rows span, from its first
+    row's start: ``values`` (not ``flatten``) keeps the elements under null
+    rows, so offsets and elements stay aligned."""
+    raw = np.asarray(arr.offsets, dtype=np.int32)
+    return arr.values.slice(int(raw[0]), int(raw[-1] - raw[0]))
+
+
+def _rebased_offsets(arr: pa.Array) -> np.ndarray:
+    raw = np.asarray(arr.offsets, dtype=np.int32)
+    return (raw - raw[0]).astype(np.int32)
+
+
+def _valid_mask(arr: pa.Array) -> np.ndarray:
+    return (np.ones(len(arr), np.bool_) if arr.null_count == 0
+            else np.asarray(arr.is_valid(), dtype=np.bool_))
+
+
+def _nested_column(arr: pa.Array, dt: T.DataType, device) -> DeviceColumn:
+    """An Arrow column of any of the port's types as a device column,
+    recursively for STRUCT and MAP children (their strings plain)."""
+    valid = _to_tensor(_valid_mask(arr), device)
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    if isinstance(dt, T.StructType):
+        kids = tuple(_nested_column(arr.field(i), f.dtype, device)
+                     for i, f in enumerate(dt.fields))
+        return DeviceColumn(dt, empty, valid, children=kids)
+    if isinstance(dt, T.MapType):
+        off = _rebased_offsets(arr)
+        entries = _list_values(arr)
+        keys, items = entries.field(0), entries.field(1)
+        return DeviceColumn(dt, empty, valid, _to_tensor(off, device),
+                            children=(_nested_column(keys, dt.key, device),
+                                      _nested_column(items, dt.value,
+                                                     device)))
+    if isinstance(dt, T.ArrayType):
+        flat = _list_values(arr)
+        if flat.null_count:
+            raise NotImplementedError(ELEMENT_NULLS)
+        values, _ = _arrow_fixed_to_numpy(flat, dt.element)
+        return DeviceColumn(dt, _to_tensor(values, device), valid,
+                            _to_tensor(_rebased_offsets(arr), device))
+    if dt.fixed_width:
+        values, _ = _arrow_fixed_to_numpy(arr, dt)
+        return DeviceColumn(dt, _to_tensor(values, device), valid)
+    return _plain_string_column(arr, device, dt)
+
+
 def batch_from_arrow(table, device=None,
                      dict_cache: Optional[dict] = None) -> ColumnarBatch:
     """Host Arrow table -> device batch of its rows.
@@ -222,7 +306,9 @@ def batch_from_arrow(table, device=None,
                 cols.append(_dict_column(arr, device, dict_cache))
                 continue
             arr = arr.cast(arr.type.value_type)
-        if dt.fixed_width:
+        if T.is_nested(dt):
+            cols.append(_nested_column(arr, dt, device))
+        elif dt.fixed_width:
             values, valid = _arrow_fixed_to_numpy(arr, dt)
             if valid is None:
                 valid = np.ones(len(values), np.bool_)
@@ -268,6 +354,29 @@ def _decimal_array(unscaled: np.ndarray, dt: T.DecimalType,
 def _column_to_arrow(col: DeviceColumn, dt: T.DataType) -> pa.Array:
     valid = col.validity.cpu().numpy()
     mask = None if valid.all() else ~valid
+    if isinstance(dt, T.StructType):
+        kids = [_column_to_arrow(c, f.dtype)
+                for c, f in zip(col.children, dt.fields)]
+        return pa.StructArray.from_arrays(
+            kids, fields=list(dt.arrow_type()),
+            mask=None if mask is None else pa.array(mask))
+    if isinstance(dt, (T.MapType, T.ArrayType)):
+        off = col.offsets.cpu().numpy().astype(np.int32)
+        vbuf = None if mask is None else _validity_buffer(valid)
+        if isinstance(dt, T.MapType):
+            entries = pa.StructArray.from_arrays(
+                [_column_to_arrow(col.children[0], dt.key),
+                 _column_to_arrow(col.children[1], dt.value)],
+                fields=[pa.field("key", dt.key.arrow_type(), False),
+                        pa.field("value", dt.value.arrow_type())])
+        else:  # the elements, none null, as a column of their own
+            n = int(off[-1])
+            entries = _column_to_arrow(DeviceColumn(
+                dt.element, col.data[:n], torch.ones(
+                    n, dtype=torch.bool, device=col.device)), dt.element)
+        return pa.Array.from_buffers(dt.arrow_type(), len(valid),
+                                     [vbuf, pa.py_buffer(off.tobytes())],
+                                     children=[entries])
     if col.is_dict:
         d = col.dictionary
         dvals = _string_array(d.offsets.cpu().numpy(), d.data.cpu().numpy(),

@@ -8,7 +8,15 @@ A column holds exactly its live rows, so there is no capacity padding:
   and ``torch.cat`` along rows carry it as they carry any column;
 - plain string: ``data`` uint8 bytes, ``offsets`` int32 (n+1,), ``validity``;
 - dictionary string: ``data`` int32 codes into ``dictionary``, a plain string
-  column of distinct values sorted bytewise, so code order is byte order.
+  column of distinct values sorted bytewise, so code order is byte order;
+- ARRAY: ``data`` the flat element buffer (no element nulls), ``offsets``
+  int32 (n+1,) into it, ``validity``: a plain string's layout with
+  elements for bytes, so the string gathers, slices and concatenations
+  carry it;
+- STRUCT: ``children`` one column of n rows a field, ``validity`` the
+  struct's own, ``data`` an empty placeholder (struct-of-columns);
+- MAP: ``offsets`` int32 (n+1,) over ``children`` ``(keys, values)``, two
+  flat entry columns, ``data`` an empty placeholder.
 
 Null rows carry zeroed data (empty strings), so hashing and gathers never
 read undefined values. A plain string column's ``data`` holds exactly
@@ -18,7 +26,7 @@ read undefined values. A plain string column's ``data`` holds exactly
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,10 +40,19 @@ class DeviceColumn:
     validity: torch.Tensor
     offsets: Optional[torch.Tensor] = None
     dictionary: Optional["DeviceColumn"] = None
+    children: Optional[Tuple["DeviceColumn", ...]] = None
 
     @property
     def is_dict(self) -> bool:
         return self.dictionary is not None
+
+    @property
+    def is_struct(self) -> bool:
+        return self.children is not None and self.offsets is None
+
+    @property
+    def is_map(self) -> bool:
+        return self.children is not None and self.offsets is not None
 
     @property
     def num_rows(self) -> int:

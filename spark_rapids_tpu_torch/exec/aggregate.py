@@ -122,7 +122,8 @@ def _lower_agg(func: E.AggregateExpression, name: str,
     if isinstance(func, (E.Min, E.Max)):
         op = "min" if isinstance(func, E.Min) else "max"
         return spec([op], [func.dtype],
-                    "string" if func.child.dtype == T.STRING else "simple")
+                    "string" if func.child.dtype in (T.STRING, T.BINARY)
+                    else "simple")
     if isinstance(func, (E.First, E.Last, E.AnyValue)):
         return spec(["last" if isinstance(func, E.Last) else "first"],
                     [func.dtype], "pick")

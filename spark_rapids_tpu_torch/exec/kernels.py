@@ -23,6 +23,12 @@ unsigned), hash both limbs and compare both; their segment
 sums are exact mod 2^128 and their min/max reduce hi, then lo among the
 rows that tie on hi (``segment_agg``).
 
+BINARY is a plain string column and sorts, hashes and compares as one.
+The gathers, slices and concatenations carry the nested layouts: an
+ARRAY's elements move as a string's bytes, a STRUCT's children by the
+same rows, a MAP's key and value children by its gathered entry ranges
+(``_range_gather``). No nested column is a key.
+
 Two functions have hand-written CUDA kernels, each behind a wrapper that
 launches the kernel for CUDA tensors and runs the plain torch version for
 CPU tensors: the hash-table probe (``csrc/hashtbl_probe.cu``,
@@ -74,15 +80,14 @@ def where_valid(valid: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
                                             device=data.device))
 
 
-def gather_string(col: DeviceColumn, idx: torch.Tensor,
-                  row_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
-    """Gather rows of a plain string column. Rows where ``row_valid`` is
-    False come out null and empty. One host read: the output byte count."""
-    idx = idx.long()
-    lens = col.lengths()[idx]
-    validity = col.validity[idx]
+def _range_gather(offsets: torch.Tensor, idx: torch.Tensor,
+                  row_valid: Optional[torch.Tensor] = None):
+    """(output offsets, source positions) gathering the ranges that
+    ``offsets`` gives rows ``idx`` (a string's bytes, an array's elements,
+    a map's entries); a row where ``row_valid`` is False comes out empty.
+    One host read: the output's length."""
+    lens = (offsets[1:] - offsets[:-1])[idx]
     if row_valid is not None:
-        validity = validity & row_valid
         lens = torch.where(row_valid, lens, torch.zeros_like(lens))
     m = idx.numel()
     out_off = torch.zeros(m + 1, dtype=torch.int32, device=idx.device)
@@ -92,8 +97,38 @@ def gather_string(col: DeviceColumn, idx: torch.Tensor,
     rows = torch.repeat_interleave(
         torch.arange(m, device=idx.device), lens.long(), output_size=total)
     rel = torch.arange(total, device=idx.device) - out_off[:-1].long()[rows]
-    src = col.offsets[:-1].long()[idx][rows] + rel
+    return out_off, offsets[:-1].long()[idx][rows] + rel
+
+
+def gather_string(col: DeviceColumn, idx: torch.Tensor,
+                  row_valid: Optional[torch.Tensor] = None) -> DeviceColumn:
+    """Gather rows of a plain string (or ARRAY) column. Rows where
+    ``row_valid`` is False come out null and empty. One host read: the
+    output byte count."""
+    idx = idx.long()
+    validity = col.validity[idx]
+    if row_valid is not None:
+        validity = validity & row_valid
+    out_off, src = _range_gather(col.offsets, idx, row_valid)
     return DeviceColumn(col.dtype, col.data[src], validity, out_off)
+
+
+def _gather_nested(col: DeviceColumn, idx: torch.Tensor,
+                   row_valid: Optional[torch.Tensor]) -> DeviceColumn:
+    """Rows ``idx`` of a STRUCT (every child by the same rows) or a MAP
+    (both entry children by the gathered entry ranges)."""
+    validity = col.validity[idx]
+    if row_valid is not None:
+        validity = validity & row_valid
+    if col.is_struct:
+        kids = tuple(gather_column_or_null(c, idx) if row_valid is not None
+                     else gather_column(c, idx) for c in col.children)
+        return DeviceColumn(col.dtype, col.data, validity, None,
+                            children=kids)
+    out_off, src = _range_gather(col.offsets, idx, row_valid)
+    return DeviceColumn(col.dtype, col.data, validity, out_off,
+                        children=tuple(gather_column(c, src)
+                                       for c in col.children))
 
 
 def decode_dictionary(col: DeviceColumn) -> DeviceColumn:
@@ -111,6 +146,17 @@ def null_column(dt: T.DataType, n: int, device,
         return DeviceColumn(dt, torch.zeros(n, dtype=torch.int32,
                                             device=device), valid, None,
                             dictionary)
+    if isinstance(dt, T.StructType):
+        return DeviceColumn(dt, torch.zeros(0, dtype=torch.int32,
+                                            device=device), valid,
+                            children=tuple(null_column(f.dtype, n, device)
+                                           for f in dt.fields))
+    if isinstance(dt, (T.MapType, T.ArrayType)):
+        from spark_rapids_tpu_torch.columnar.batch import empty_column
+
+        e = empty_column(dt, device)
+        return DeviceColumn(dt, e.data, valid, torch.zeros(
+            n + 1, dtype=torch.int32, device=device), children=e.children)
     if dt.fixed_width:
         return DeviceColumn(dt, torch.zeros(T.device_shape(dt, n),
                                             dtype=dt.torch_dtype,
@@ -134,6 +180,8 @@ def mark_rows(flags: torch.Tensor, rows: torch.Tensor,
 
 
 def gather_column(col: DeviceColumn, idx: torch.Tensor) -> DeviceColumn:
+    if col.children is not None:
+        return _gather_nested(col, idx.long(), None)
     if col.offsets is not None:
         return gather_string(col, idx)
     idx = idx.long()
@@ -148,6 +196,10 @@ def gather_column_or_null(col: DeviceColumn,
     idx = idx.long()
     ok = idx >= 0
     safe = torch.where(ok, idx, torch.zeros_like(idx))
+    if col.children is not None:
+        if col.is_struct:  # the children's own nulls follow idx too
+            return _gather_nested(col, idx, ok)
+        return _gather_nested(col, safe, ok)
     if col.offsets is not None:
         return gather_string(col, safe, ok)
     return DeviceColumn(col.dtype, where_valid(ok, col.data[safe]),
@@ -175,18 +227,28 @@ def slice_batch(batch: ColumnarBatch, start: int, stop: int
     """Rows [start, stop) of a batch without a gather: fixed-width and
     dictionary columns as views; a plain string column's bytes cut and
     its offsets rebased (one host read of the two byte offsets)."""
-    cols = []
-    for c in batch.columns:
-        if c.offsets is None:
-            cols.append(DeviceColumn(c.dtype, c.data[start:stop],
-                                     c.validity[start:stop], None,
-                                     c.dictionary))
-            continue
-        lo, hi = c.offsets[[start, stop]].tolist()
-        cols.append(DeviceColumn(c.dtype, c.data[lo:hi],
-                                 c.validity[start:stop],
-                                 c.offsets[start:stop + 1] - lo))
-    return ColumnarBatch(cols, stop - start)
+    return ColumnarBatch([slice_column(c, start, stop)
+                          for c in batch.columns], stop - start)
+
+
+def slice_column(c: DeviceColumn, start: int, stop: int) -> DeviceColumn:
+    """Rows [start, stop) of one column (see ``slice_batch``); a STRUCT's
+    children sliced alike, a MAP's entry children by its offsets."""
+    if c.is_struct:
+        return DeviceColumn(c.dtype, c.data, c.validity[start:stop],
+                            children=tuple(slice_column(k, start, stop)
+                                           for k in c.children))
+    if c.offsets is None:
+        return DeviceColumn(c.dtype, c.data[start:stop],
+                            c.validity[start:stop], None, c.dictionary)
+    lo, hi = c.offsets[[start, stop]].tolist()
+    if c.is_map:
+        return DeviceColumn(c.dtype, c.data, c.validity[start:stop],
+                            c.offsets[start:stop + 1] - lo,
+                            children=tuple(slice_column(k, lo, hi)
+                                           for k in c.children))
+    return DeviceColumn(c.dtype, c.data[lo:hi], c.validity[start:stop],
+                        c.offsets[start:stop + 1] - lo)
 
 
 def filter_indices(keep: torch.Tensor) -> torch.Tensor:
@@ -842,23 +904,37 @@ def concat_device(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     codes when every input shares one dictionary, else decode first."""
     if len(batches) == 1:
         return batches[0]
-    out: List[DeviceColumn] = []
-    for ci in range(len(batches[0].columns)):
-        cols = [b.columns[ci] for b in batches]
-        first = cols[0]
-        if all(c.is_dict and c.dictionary is first.dictionary for c in cols):
-            out.append(DeviceColumn(first.dtype,
-                                    torch.cat([c.data for c in cols]),
-                                    torch.cat([c.validity for c in cols]),
-                                    None, first.dictionary))
-        elif any(c.is_dict or c.offsets is not None for c in cols):
-            out.append(_concat_strings([decode_dictionary(c) if c.is_dict
-                                        else c for c in cols]))
-        else:
-            out.append(DeviceColumn(first.dtype,
-                                    torch.cat([c.data for c in cols]),
-                                    torch.cat([c.validity for c in cols])))
+    out = [concat_columns([b.columns[ci] for b in batches])
+           for ci in range(len(batches[0].columns))]
     return ColumnarBatch(out, sum(b.num_rows for b in batches))
+
+
+def concat_columns(cols: Sequence[DeviceColumn]) -> DeviceColumn:
+    """One column of the rows of ``cols`` in order; a nested column's
+    children concatenated alike (a MAP's offsets rebased as a string's)."""
+    first = cols[0]
+    if first.children is not None:
+        kids = tuple(concat_columns([c.children[k] for c in cols])
+                     for k in range(len(first.children)))
+        offsets = None
+        if first.is_map:
+            offs, base = [], 0
+            for i, c in enumerate(cols):
+                offs.append((c.offsets if i == 0 else c.offsets[1:]) + base)
+                base += c.children[0].num_rows
+            offsets = torch.cat(offs).int()
+        return DeviceColumn(first.dtype, first.data,
+                            torch.cat([c.validity for c in cols]), offsets,
+                            children=kids)
+    if all(c.is_dict and c.dictionary is first.dictionary for c in cols):
+        return DeviceColumn(first.dtype, torch.cat([c.data for c in cols]),
+                            torch.cat([c.validity for c in cols]), None,
+                            first.dictionary)
+    if any(c.is_dict or c.offsets is not None for c in cols):
+        return _concat_strings([decode_dictionary(c) if c.is_dict else c
+                                for c in cols])
+    return DeviceColumn(first.dtype, torch.cat([c.data for c in cols]),
+                        torch.cat([c.validity for c in cols]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,13 @@
 """Operators without a kernel of their own (counterpart of
 spark_rapids_tpu/exec/misc.py): coalesce, limits, the top-k of a sort with
-a limit, and union.
+a limit, union and the Bernoulli sample.
+
+``SampleExec`` keeps each row with probability ``fraction``, by a uniform
+draw from a ``torch.Generator`` on the batch's device seeded from (seed,
+partition, batch index): the same seed gives the same rows on one device.
+The reference draws from ``jax.random`` keys folded with the same
+coordinates, so the two do not keep the same rows (a known deliberate
+difference); both keep a row where the draw is below the fraction.
 
 ``UnionExec`` numbers partitions as the reference's (GpuUnionExec): the
 partitions of each child become partitions of the union, child by child.
@@ -21,6 +28,29 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
 from spark_rapids_tpu_torch.exec.sort import SortExec, SortOrder
+
+
+class SampleExec(UnaryExec):
+    """Seeded Bernoulli row sample without replacement (GpuSampleExec)."""
+
+    def __init__(self, fraction: float, seed: int, child: DeviceExec):
+        super().__init__(child)
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"sample fraction {fraction} is outside [0, 1]")
+        self.fraction = fraction
+        self.seed = seed
+
+    def node_description(self) -> str:
+        return f"Sample {self.fraction} seed={self.seed}"
+
+    def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
+        for bi, b in enumerate(self.child.execute(partition)):
+            dev = b.columns[0].device
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(hash((self.seed, partition, bi)) & ((1 << 63)
+                                                               - 1))
+            u = torch.rand(b.num_rows, generator=gen, device=dev)
+            yield K.gather_batch(b, K.filter_indices(u < self.fraction))
 
 
 class CoalesceBatchesExec(UnaryExec):

@@ -85,7 +85,7 @@ def reset_counters() -> None:
 
 def batch_nbytes(b: ColumnarBatch) -> int:
     """Device bytes of a batch's tensors (a dictionary column's dictionary
-    included)."""
+    and a nested column's children included)."""
     total = 0
     cols = list(b.columns)
     while cols:
@@ -95,6 +95,7 @@ def batch_nbytes(b: ColumnarBatch) -> int:
                 total += t.numel() * t.element_size()
         if c.dictionary is not None:
             cols.append(c.dictionary)
+        cols.extend(c.children or ())
     return total
 
 

@@ -129,7 +129,7 @@ def check_window(f: E.Expression, frame: W.WindowFrame,
                                   f"not in the port yet")
     if isinstance(f, _AGGS) and f.children:
         in_t = f.children[0].dtype
-        if in_t == T.STRING and not isinstance(f, E.Count):
+        if in_t in (T.STRING, T.BINARY) and not isinstance(f, E.Count):
             raise NotImplementedError(
                 f"window {type(f).__name__} over a string column is not in "
                 f"the port (nor in the reference's window)")

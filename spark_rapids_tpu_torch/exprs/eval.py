@@ -85,6 +85,17 @@ plain column. Functions of several strings (Concat, ConcatWs, Overlay)
 decode their inputs first. Left/Right and Overlay with a FOR length are
 Substring and Concat, as the reference rewrites them; StartsWith,
 EndsWith and Contains take a literal pattern.
+
+BINARY is a plain string column and goes where strings go (a BINARY
+literal is a plain column, never a dictionary); a cast between BINARY and
+STRING keeps the bytes. A STRUCT, MAP or ARRAY value is a ``NestedVal``,
+the column itself: a struct field is its child (null where the struct
+is), map_keys the map's offsets over its key child, size the offsets'
+differences, element_at a gather at an entry position (a map's, the first
+entry whose key equals the probe, a per-row minimum over the entries),
+array_contains a per-row count of the element matches; get_json_object
+is ``exprs/json_device.py``'s, its paths over one column sharing one
+structure pass.
 """
 
 from __future__ import annotations
@@ -102,6 +113,7 @@ from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exprs import cast_strings as CS
 from spark_rapids_tpu_torch.exprs import datetime as DT
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import json_device as JD
 from spark_rapids_tpu_torch.exprs import math as MATH
 from spark_rapids_tpu_torch.exprs import regex as RX
 from spark_rapids_tpu_torch.exprs import strings as S
@@ -112,7 +124,20 @@ class ColVal(NamedTuple):
     validity: torch.Tensor
 
 
-Val = Union[ColVal, DeviceColumn]
+class NestedVal(NamedTuple):
+    """A STRUCT, MAP or ARRAY value: the device column itself (its
+    struct-of-columns or offsets-and-children layout is the value)."""
+
+    col: DeviceColumn
+
+    @property
+    def validity(self) -> torch.Tensor:
+        return self.col.validity
+
+
+Val = Union[ColVal, DeviceColumn, NestedVal]
+
+_STRINGY = (T.STRING, T.BINARY)
 
 
 class EvalContext:
@@ -120,12 +145,14 @@ class EvalContext:
         self.batch = batch
         self.num_rows = batch.num_rows
         self.device = batch.columns[0].device
+        # a JSON column's structure, shared by the paths read from it
+        self.json: dict = {}
 
 
 def _broadcast_literal(lit: E.Literal, ctx: EvalContext) -> ColVal:
     n = ctx.num_rows
     dt = lit.dtype
-    if dt == T.STRING:
+    if dt in _STRINGY:
         return _string_value(lit, ctx)
     if lit.value is None:
         return ColVal(torch.zeros(T.device_shape(dt, n), dtype=dt.torch_dtype,
@@ -200,7 +227,7 @@ def _string_equals_literal(c: DeviceColumn, value: str) -> torch.Tensor:
     """Per-row byte equality of a string column with one literal."""
     if c.is_dict:
         return _string_equals_literal(c.dictionary, value)[c.data.long()]
-    raw = value.encode("utf-8")
+    raw = value if isinstance(value, bytes) else value.encode("utf-8")
     lens = c.lengths()
     eq = lens == len(raw)
     starts = c.offsets[:-1].long()
@@ -310,7 +337,7 @@ def _eval_compare(expr: E.BinaryComparison, ctx: EvalContext) -> ColVal:
                                                                ctx)
         return ColVal((eq.data & eq.validity) | neither,
                       torch.ones_like(neither))
-    if expr.left.dtype == T.STRING or expr.right.dtype == T.STRING:
+    if expr.left.dtype in _STRINGY or expr.right.dtype in _STRINGY:
         if not isinstance(expr, E.EqualTo):
             raise NotImplementedError("string ordering comparison")
         col_side, lit_side = expr.left, expr.right
@@ -572,6 +599,10 @@ def _eval_cast(expr: E.Cast, ctx: EvalContext) -> ColVal:
     if not E.cast_supported(src, dst):
         raise NotImplementedError(f"cast {src} -> {dst} is not in the port "
                                   f"yet")
+    if T.BINARY in (src, dst):  # the same bytes under the other type
+        if v.is_dict:
+            v = K.decode_dictionary(v)
+        return DeviceColumn(dst, v.data, v.validity, v.offsets)
     if src == T.STRING:
         if expr.ansi or isinstance(dst, T.DecimalType):
             raise NotImplementedError(f"cast string -> {dst} is the CPU "
@@ -653,7 +684,7 @@ def _cast_to_decimal(data: torch.Tensor, valid: torch.Tensor,
 
 def _eval_in(expr: E.In, ctx: EvalContext) -> ColVal:
     value = expr.value
-    if value.dtype == T.STRING:
+    if value.dtype in _STRINGY:
         if not all(isinstance(i, E.Literal) for i in expr.items):
             raise NotImplementedError("string IN over non-literal items")
         c = eval_expr(value, ctx)
@@ -721,11 +752,11 @@ def substring_bytes(c: DeviceColumn, pos: int, length: int) -> DeviceColumn:
 
 def _null_if(expr: E.NullIf, ctx: EvalContext) -> Val:
     """nullif(a, b): a, null where a = b."""
-    a = (_string_value(expr.left, ctx) if expr.dtype == T.STRING
+    a = (_string_value(expr.left, ctx) if expr.dtype in _STRINGY
          else eval_expr(expr.left, ctx))
     eq = _eval_compare(E.EqualTo(expr.left, expr.right), ctx)
     keep = ~(eq.data & eq.validity)
-    if expr.dtype != T.STRING:
+    if expr.dtype not in _STRINGY:
         ok = a.validity & keep
         return ColVal(K.where_valid(ok, a.data), ok)
     if a.is_dict:
@@ -890,7 +921,9 @@ def _string_value(expr: E.Expression, ctx: EvalContext,
             return DeviceColumn(T.STRING, zeros, zeros.bool(), None,
                                 like.dictionary)
         return K.null_column(T.STRING, n, dev)
-    raw = torch.tensor(list(expr.value.encode("utf-8")), dtype=torch.uint8,
+    value = expr.value
+    raw = torch.tensor(list(value if isinstance(value, bytes)
+                            else value.encode("utf-8")), dtype=torch.uint8,
                        device=dev)
     entry = DeviceColumn(T.STRING, raw,
                          torch.ones(1, dtype=torch.bool, device=dev),
@@ -929,7 +962,7 @@ def _eval_conditional(expr: E.Expression, ctx: EvalContext) -> Val:
     else:  # Coalesce: each value is its own predicate (non-null)
         arms = [(None, v) for v in expr.children[:-1]]
         last = expr.children[-1]
-    if expr.dtype == T.STRING:
+    if expr.dtype in _STRINGY:
         cols = {id(v): eval_expr(v, ctx) for v in [v for _, v in arms]
                 + [last] if not isinstance(v, E.Literal)}
         like = next((c for c in cols.values() if c.is_dict), None)
@@ -962,10 +995,7 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
     if isinstance(expr, E.Alias):
         return eval_expr(expr.child, ctx)
     if isinstance(expr, E.ColumnRef):
-        c = ctx.batch.columns[expr.index]
-        if not c.dtype.fixed_width:
-            return c
-        return ColVal(c.data, c.validity)
+        return _as_val(ctx.batch.columns[expr.index])
     if isinstance(expr, E.Literal):
         return _broadcast_literal(expr, ctx)
     if isinstance(expr, E.BinaryArithmetic):
@@ -1021,7 +1051,7 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
     if isinstance(expr, E.Nvl2):
         ref, a, b = expr.children
         take = eval_expr(ref, ctx).validity
-        if expr.dtype == T.STRING:
+        if expr.dtype in _STRINGY:
             return _string_select(take, _string_value(a, ctx),
                                   _string_value(b, ctx))
         x, y = eval_expr(a, ctx), eval_expr(b, ctx)
@@ -1039,12 +1069,110 @@ def eval_expr(expr: E.Expression, ctx: EvalContext) -> Val:
         return _like(expr, ctx)
     if isinstance(expr, E._StringFn):
         return _eval_string_fn(expr, ctx)
+    if isinstance(expr, E.GetJsonObject):
+        c = _plain_string(expr.child, ctx)
+        held = ctx.json.get(id(c.data))
+        if held is None or held[0] is not c.data:
+            held = ctx.json[id(c.data)] = (c.data, JD.structure(c))
+        return JD.get_json_object(c, expr.path, held[1])
+    if isinstance(expr, E.NESTED_FUNCTIONS):
+        return _eval_nested(expr, ctx)
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the port yet")
 
 
+def _as_val(c: DeviceColumn) -> Val:
+    """A column read as an expression value."""
+    if T.is_nested(c.dtype):
+        return NestedVal(c)
+    if not c.dtype.fixed_width:
+        return c
+    return ColVal(c.data, c.validity)
+
+
+def _eval_nested(expr: E.Expression, ctx: EvalContext) -> Val:
+    """The nested expressions on the device layouts: a struct field is its
+    child column (null where the struct is), map_keys the map's offsets
+    over its key child, element_at of a map the first entry whose key
+    equals the probe (a per-row minimum over the entries), and
+    array_contains a per-row maximum of the element matches."""
+    n, dev = ctx.num_rows, ctx.device
+    if isinstance(expr, E.GetStructField):
+        st = eval_expr(expr.child, ctx).col
+        c = st.children[expr.child.dtype.field_index(expr.field)]
+        valid = c.validity & st.validity
+        if c.dtype.fixed_width:
+            return ColVal(K.where_valid(valid, c.data), valid)
+        return _as_val(DeviceColumn(c.dtype, c.data, valid, c.offsets,
+                                    c.dictionary, c.children))
+    if isinstance(expr, E.CreateNamedStruct):
+        kids = tuple(val_to_column(eval_expr(c, ctx), c.dtype)
+                     for c in expr.children)
+        return NestedVal(DeviceColumn(
+            expr.dtype, torch.zeros(0, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), children=kids))
+    if isinstance(expr, E.MapKeys):
+        m = eval_expr(expr.child, ctx).col
+        return NestedVal(DeviceColumn(expr.dtype, m.children[0].data,
+                                      m.validity, m.offsets))
+    if isinstance(expr, E.Size):
+        c = eval_expr(expr.child, ctx).col
+        lens = (c.offsets[1:] - c.offsets[:-1]).int()
+        if expr.legacy_null:
+            return ColVal(torch.where(c.validity, lens,
+                                      torch.full_like(lens, -1)),
+                          torch.ones_like(c.validity))
+        return ColVal(K.where_valid(c.validity, lens), c.validity)
+    c = eval_expr(expr.left, ctx).col
+    probe = eval_expr(expr.right, ctx)
+    if isinstance(expr, E.ElementAt) and not isinstance(expr.left.dtype,
+                                                        T.MapType):
+        # an array, 1-based (a negative index counts from the end)
+        lens = (c.offsets[1:] - c.offsets[:-1]).long()
+        i = probe.data.long()
+        pos = torch.where(i > 0, i - 1, lens + i)
+        ok = c.validity & probe.validity & (pos >= 0) & (pos < lens) & (
+            i != 0)
+        if c.data.numel() == 0:
+            return ColVal(torch.zeros(n, dtype=c.data.dtype, device=dev),
+                          torch.zeros_like(ok))
+        src = torch.clamp(c.offsets[:-1].long() + pos, 0,
+                          c.data.shape[0] - 1)
+        return ColVal(K.where_valid(ok, c.data[src]), ok)
+    keys = c.children[0] if isinstance(expr, E.ElementAt) else c
+    total = keys.data.shape[0]
+    rows = S.row_ids(c.offsets, total)  # each entry's row
+    eq = (keys.data == probe.data[rows]) & probe.validity[rows]
+    if isinstance(expr, E.ArrayContains):
+        hit = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
+            0, rows, eq.int()) > 0
+        return ColVal(hit & c.validity & probe.validity,
+                      c.validity & probe.validity)
+    vals = c.children[1]
+    ent = torch.arange(total, device=dev)
+    sel = torch.full((n,), total, dtype=torch.long, device=dev)
+    sel = sel.scatter_reduce(0, rows, torch.where(
+        eq & keys.validity[:total], ent, torch.full_like(ent, total)),
+        "amin")
+    found = sel < total
+    if total == 0:
+        return ColVal(torch.zeros(T.device_shape(expr.dtype, n),
+                                  dtype=vals.data.dtype, device=dev),
+                      torch.zeros_like(found))
+    sel_c = torch.clamp(sel, max=total - 1)
+    valid = found & c.validity & probe.validity & vals.validity[sel_c]
+    return ColVal(K.where_valid(valid, vals.data[sel_c]), valid)
+
+
 def val_to_column(v: Val, dt: T.DataType) -> DeviceColumn:
+    if isinstance(v, NestedVal):
+        return v.col
     if isinstance(v, DeviceColumn):
+        if dt == T.BINARY and v.is_dict:  # BINARY is never a dictionary
+            v = K.decode_dictionary(v)
+        if v.dtype != dt and dt in _STRINGY:
+            return DeviceColumn(dt, v.data, v.validity, v.offsets,
+                                v.dictionary)
         return v
     return DeviceColumn(dt, K.where_valid(v.validity,
                                           v.data.to(dt.torch_dtype)),

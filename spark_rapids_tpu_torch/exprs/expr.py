@@ -199,6 +199,8 @@ class Literal(Expression):
                 dtype = T.DOUBLE
             elif isinstance(v, str):
                 dtype = T.STRING
+            elif isinstance(v, bytes):
+                dtype = T.BINARY
             elif v is None:
                 dtype = T.NULL
             elif isinstance(v, datetime.datetime):
@@ -1500,11 +1502,14 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     BOOLEAN, BYTE, SHORT, INT, LONG, FLOAT, DOUBLE, DECIMAL, DATE and
     TIMESTAMP that the reference's ``cast_val`` takes (not a number or a
     decimal into a date, not a float or a decimal into a timestamp, not a
-    DECIMAL128 into a boolean, date or timestamp), and every one of them to
+    DECIMAL128 into a boolean, date or timestamp), every one of them to
     and from STRING (float -> string and string -> decimal on the CPU
-    engine only, as ``plan/overrides.py`` places them)."""
+    engine only, as ``plan/overrides.py`` places them), and BINARY to and
+    from STRING (the same bytes)."""
     if src == dst:
         return True
+    if T.BINARY in (src, dst):
+        return {src, dst} == {T.STRING, T.BINARY}
     if T.STRING in (src, dst):
         other = dst if src == T.STRING else src
         return other in _CASTABLE or isinstance(other, T.DecimalType)
@@ -2169,13 +2174,205 @@ class Median(Percentile):
         return f"Median({self.child!r})"
 
 
+class CollectList(AggregateExpression):
+    """collect_list(x): the group's non-null values as an array, in input
+    order. The CPU engine only, as in the reference (its device path is
+    future work there too)."""
+
+    device_supported = False
+
+    def __init__(self, child: Expression):
+        self.child = child
+        self.children = (child,)
+
+    @property
+    def dtype(self):
+        return T.ArrayType(self.child.dtype)
+
+    @property
+    def nullable(self):
+        return False
+
+
+class CollectSet(CollectList):
+    """collect_set(x): the group's distinct non-null values, sorted (the
+    reference sorts them so that the answer is deterministic)."""
+
+
+# ---------------------------------------------------------------------------
+# Nested types and JSON
+# ---------------------------------------------------------------------------
+
+
+class GetStructField(_Unary):
+    """struct.field: on the struct-of-columns layout the field's child
+    column, null where the struct is."""
+
+    def __init__(self, child: Expression, field: str):
+        super().__init__(child)
+        self.field = field
+
+    @property
+    def dtype(self):
+        st = self.child.dtype
+        if not isinstance(st, T.StructType):
+            raise TypeError(f"GetStructField needs a struct, not {st}")
+        return st.fields[st.field_index(self.field)].dtype
+
+    @property
+    def nullable(self):
+        return True
+
+    def __repr__(self):
+        return f"{self.child!r}.{self.field}"
+
+
+class CreateNamedStruct(Expression):
+    """named_struct(name1, value1, ...): ``names`` are fixed, the children
+    are the value expressions; never null."""
+
+    def __init__(self, names, *values: Expression):
+        self.names = tuple(names)
+        self.children = tuple(values)
+        if len(self.names) != len(self.children):
+            raise ValueError("named_struct needs one value a name")
+
+    @property
+    def dtype(self):
+        return T.StructType([T.Field(n, c.dtype, c.nullable)
+                             for n, c in zip(self.names, self.children)])
+
+    @property
+    def nullable(self):
+        return False
+
+    def __repr__(self):
+        inner = ", ".join(f"{n!r}, {c!r}" for n, c in
+                          zip(self.names, self.children))
+        return f"CreateNamedStruct({inner})"
+
+
+class MapKeys(_Unary):
+    """map_keys(m): the keys as an array (the map's offsets over its key
+    child)."""
+
+    @property
+    def dtype(self):
+        mt = self.child.dtype
+        if not isinstance(mt, T.MapType):
+            raise TypeError(f"{type(self).__name__} needs a map, not {mt}")
+        return T.ArrayType(mt.key)
+
+
+class MapValues(_Unary):
+    """map_values(m): the values as an array. The CPU engine only: the
+    reference's device set lacks it."""
+
+    @property
+    def dtype(self):
+        mt = self.child.dtype
+        if not isinstance(mt, T.MapType):
+            raise TypeError(f"MapValues needs a map, not {mt}")
+        return T.ArrayType(mt.value)
+
+
+class Size(_Unary):
+    """size(array or map). With ``legacy_null`` (Spark 3's default,
+    spark.sql.legacy.sizeOfNull) a null input gives -1, else null."""
+
+    def __init__(self, child: Expression, legacy_null: bool = True):
+        super().__init__(child)
+        self.legacy_null = legacy_null
+
+    @property
+    def dtype(self):
+        return T.INT
+
+    @property
+    def nullable(self):
+        return not self.legacy_null
+
+    def __repr__(self):
+        return f"Size({self.child!r}, legacy_null={self.legacy_null})"
+
+
+class ElementAt(_Binary):
+    """element_at(map, key), or element_at(array, index) with a 1-based
+    index (a negative one counts from the end); null when nothing is
+    there (non-ANSI)."""
+
+    @property
+    def dtype(self):
+        ct = self.left.dtype
+        if isinstance(ct, T.MapType):
+            return ct.value
+        if not isinstance(ct, T.ArrayType):
+            raise TypeError(f"ElementAt needs an array or a map, not {ct}")
+        return ct.element
+
+    @property
+    def nullable(self):
+        return True
+
+
+class ArrayContains(_Binary):
+    """array_contains(array, value)."""
+
+    @property
+    def dtype(self):
+        return T.BOOLEAN
+
+
+class GetJsonObject(_Unary):
+    """get_json_object(json, path): the value at a JSONPath of the subset
+    ``$``, ``.name``, ``['name']`` and ``[index]`` as a string (a string
+    unquoted and unescaped, a number as written, a container compacted);
+    null for JSON null, a missing path or text that is not JSON. A path
+    outside the subset runs on the CPU engine."""
+
+    def __init__(self, child: Expression, path: str):
+        super().__init__(child)
+        self.path = path
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def nullable(self):
+        return True
+
+    def __repr__(self):
+        return f"GetJsonObject({self.child!r}, {self.path!r})"
+
+
+class JsonToStructsText(_Unary):
+    """from_json as text: a JSON document normalised to compact canonical
+    text, null when it does not parse. The CPU engine only, as in the
+    reference."""
+
+    device_supported = False
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def nullable(self):
+        return True
+
+
+NESTED_FUNCTIONS = (GetStructField, CreateNamedStruct, MapKeys, Size,
+                    ElementAt, ArrayContains)
+
+
 VARIANCE_FAMILY = (VarianceSamp, VariancePop, StddevSamp, StddevPop,
                    Skewness, Kurtosis)
 # every aggregate of the port, device and CPU engine
 AGGREGATES = (Sum, Count, Average, Min, Max, First, Last, AnyValue,
               CountDistinct, CovarSamp, CovarPop, Corr, MinBy, MaxBy,
               BoolAnd, BoolOr, CountIf, BitAndAgg, BitOrAgg, BitXorAgg,
-              Percentile, Median) + VARIANCE_FAMILY
+              Percentile, Median, CollectList, CollectSet) + VARIANCE_FAMILY
 
 
 # expressions the device evaluates
@@ -2188,11 +2385,13 @@ SUPPORTED = (ColumnRef, UnresolvedColumn, Literal, Alias, Cast, Add,
              BoolOr, CountIf) + VARIANCE_FAMILY + DATETIME_FUNCTIONS + tuple(
                  c for c in SCALAR_FUNCTIONS if c is not Rand) + tuple(
                  c for c in STRING_FUNCTIONS + REGEX_FUNCTIONS
-                 if c not in CPU_ONLY_STRINGS)
+                 if c not in CPU_ONLY_STRINGS) + NESTED_FUNCTIONS + (
+                     GetJsonObject,)
 # expressions only the CPU engine evaluates (the reference's
 # device_supported = False aggregates and Rand among them)
 CPU_ONLY = (CountDistinct, BitAndAgg, BitOrAgg, BitXorAgg, Percentile,
-            Median, Rand) + CPU_ONLY_STRINGS
+            Median, Rand, CollectList, CollectSet, MapValues,
+            JsonToStructsText) + CPU_ONLY_STRINGS
 
 
 def check_supported(expr: Expression) -> None:
@@ -2304,6 +2503,22 @@ def _resolve(expr: Expression, schema: T.Schema) -> Expression:
         return Like(child, expr.pattern, expr.escape)
     if isinstance(expr, DATETIME_FUNCTIONS):
         return _resolve_datetime(expr, kids)
+    if isinstance(expr, GetStructField):
+        return GetStructField(kids[0], expr.field)
+    if isinstance(expr, CreateNamedStruct):
+        return CreateNamedStruct(expr.names, *kids)
+    if isinstance(expr, Size):
+        return Size(kids[0], expr.legacy_null)
+    if isinstance(expr, GetJsonObject):
+        return GetJsonObject(_typed(kids[0], T.STRING), expr.path)
+    if isinstance(expr, (ElementAt, ArrayContains)):
+        # an untyped NULL probe takes the type the function looks up
+        ct = kids[0].dtype
+        if isinstance(expr, ArrayContains):
+            want = getattr(ct, "element", T.NULL)
+        else:
+            want = ct.key if isinstance(ct, T.MapType) else T.INT
+        return type(expr)(kids[0], _typed(kids[1], want))
     if isinstance(expr, _StringFn):
         return _resolve_string(expr, kids)
     if isinstance(expr, SCALAR_FUNCTIONS):
@@ -2451,31 +2666,31 @@ def _resolve_datetime(expr: Expression, kids: List[Expression]
 
 # type_support declarations of the device path (spark_rapids_tpu_torch.support)
 from spark_rapids_tpu_torch.support import (  # noqa: E402
-    DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, STRINGY, ts)
+    ALL, ALL_SCALAR, DATETIME, DECIMAL, DEVICE_SCALAR, NUMERIC, STRINGY, ts)
 
 Expression.type_support = None
 for _cls in (ColumnRef, UnresolvedColumn, Literal, Alias):
-    _cls.type_support = ts(DEVICE_SCALAR)
+    _cls.type_support = ts(ALL)
 # the casts cast_supported names; check_expr refuses the rest and places
 # float -> string, string -> decimal and ANSI string casts on the CPU engine
-Cast.type_support = ts("boolean", NUMERIC, DECIMAL, DATETIME, "string")
+Cast.type_support = ts("boolean", NUMERIC, DECIMAL, DATETIME, STRINGY)
 # Divide inherits; check_expr gates the decimal divide's rescale
 BinaryArithmetic.type_support = ts(NUMERIC, DECIMAL)
 UnaryMinus.type_support = ts(NUMERIC, DECIMAL)
 Abs.type_support = ts(NUMERIC, DECIMAL)
 # check_expr places string ordering comparisons and string equality of two
 # columns on the CPU engine
-BinaryComparison.type_support = ts(DEVICE_SCALAR, out="boolean")
+BinaryComparison.type_support = ts(ALL_SCALAR, out="boolean")
 And.type_support = ts("boolean")
 Or.type_support = ts("boolean")
 Not.type_support = ts("boolean")
-IsNull.type_support = ts(DEVICE_SCALAR, out="boolean")
-IsNotNull.type_support = ts(DEVICE_SCALAR, out="boolean")
-In.type_support = ts(DEVICE_SCALAR, out="boolean")
+IsNull.type_support = ts(ALL, out="boolean")
+IsNotNull.type_support = ts(ALL, out="boolean")
+In.type_support = ts(ALL_SCALAR, out="boolean")
 # a predicate is boolean; value branches are any device scalar
-If.type_support = ts(DEVICE_SCALAR)
-CaseWhen.type_support = ts(DEVICE_SCALAR)
-Coalesce.type_support = ts(DEVICE_SCALAR)
+If.type_support = ts(ALL_SCALAR)
+CaseWhen.type_support = ts(ALL_SCALAR)
+Coalesce.type_support = ts(ALL)
 IsNaN.type_support = ts("fractional", out="boolean")
 Nanvl.type_support = ts("fractional")
 _DatePart.type_support = ts("date", out="integral")
@@ -2517,8 +2732,8 @@ Overlay.type_support = ts(STRINGY, out=STRINGY)
 # the scalar families, as the reference declares them; check_expr places
 # decimal floor/ceil/round and decimal division on the CPU engine
 Positive.type_support = ts(NUMERIC, DECIMAL)
-NullIf.type_support = ts(DEVICE_SCALAR)
-Nvl2.type_support = ts(DEVICE_SCALAR)
+NullIf.type_support = ts(ALL_SCALAR)
+Nvl2.type_support = ts(ALL_SCALAR)
 _UnaryMath.type_support = ts(NUMERIC, DECIMAL, out="fractional")
 Floor.type_support = ts(NUMERIC)
 Round.type_support = ts(NUMERIC)
@@ -2534,17 +2749,18 @@ Murmur3Hash.type_support = ts(DEVICE_SCALAR, out="integral")
 Like.type_support = ts("string", out="boolean")
 Sum.type_support = ts(NUMERIC, DECIMAL)
 Average.type_support = ts(NUMERIC, DECIMAL, out="fractional " + DECIMAL)
-Count.type_support = ts(DEVICE_SCALAR, out="integral")
-# strings reduce exactly in byte order (a dictionary's codes are in it)
-Min.type_support = ts(DEVICE_SCALAR)
-Max.type_support = ts(DEVICE_SCALAR)
-First.type_support = ts(DEVICE_SCALAR)
-Last.type_support = ts(DEVICE_SCALAR)
-AnyValue.type_support = ts(DEVICE_SCALAR)
+Count.type_support = ts(ALL, out="integral")
+# strings and BINARY reduce exactly in byte order (a dictionary's codes
+# are in it)
+Min.type_support = ts(ALL_SCALAR)
+Max.type_support = ts(ALL_SCALAR)
+First.type_support = ts(ALL)
+Last.type_support = ts(ALL)
+AnyValue.type_support = ts(ALL_SCALAR)
 _VarianceBase.type_support = ts(NUMERIC, DECIMAL, out="fractional")
 _CovarianceBase.type_support = ts(NUMERIC, DECIMAL, out="fractional")
 # overrides.check_expr gates the ordering's and the value's types further
-MinBy.type_support = ts(DEVICE_SCALAR)
+MinBy.type_support = ts(ALL_SCALAR)
 BoolAnd.type_support = ts("boolean")
 CountIf.type_support = ts("boolean", out="integral")
 # not on the device (not in SUPPORTED): the distinct rewrite replaces it
@@ -2552,3 +2768,12 @@ CountDistinct.type_support = ts(DEVICE_SCALAR, out="integral")
 # the CPU engine's (not in SUPPORTED), declared as the reference's
 BitAndAgg.type_support = ts("integral")
 Percentile.type_support = ts(NUMERIC, DECIMAL, out="fractional")
+# the nested types, as the reference declares them (overrides.NESTED_OK
+# holds every expression that touches a nested value further)
+GetStructField.type_support = ts(ALL)
+CreateNamedStruct.type_support = ts(ALL, out="struct")
+MapKeys.type_support = ts("map", out="array")
+Size.type_support = ts("array map", out="integral")
+ElementAt.type_support = ts(ALL)
+ArrayContains.type_support = ts("array", ALL_SCALAR, out="boolean")
+GetJsonObject.type_support = ts(STRINGY)

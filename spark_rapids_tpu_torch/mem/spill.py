@@ -139,8 +139,8 @@ def _batch_tensors(batch: ColumnarBatch):
     """(layout, tensors): the tensors a spill moves, in order, and per
     column the slots to rebuild it (its dictionary kept by reference)."""
     tensors: List[torch.Tensor] = []
-    cols = []
-    for c in batch.columns:
+
+    def slots_of(c: DeviceColumn) -> dict:
         slots = {"dtype": c.dtype, "data": len(tensors)}
         tensors.append(c.data)
         slots["valid"] = len(tensors)
@@ -149,7 +149,11 @@ def _batch_tensors(batch: ColumnarBatch):
             slots["offsets"] = len(tensors)
             tensors.append(c.offsets)
         slots["dictionary"] = c.dictionary
-        cols.append(slots)
+        if c.children is not None:  # nested: the children's tensors too
+            slots["children"] = [slots_of(k) for k in c.children]
+        return slots
+
+    cols = [slots_of(c) for c in batch.columns]
     return {"num_rows": batch.num_rows, "cols": cols}, tensors
 
 
@@ -158,10 +162,13 @@ def batch_nbytes(batch: ColumnarBatch) -> int:
     validity and offsets (dictionaries excluded, see the module
     docstring)."""
     total = 0
-    for c in batch.columns:
+    stack = list(batch.columns)
+    while stack:
+        c = stack.pop()
         for t in (c.data, c.validity, c.offsets):
             if t is not None:
                 total += t.numel() * t.element_size()
+        stack.extend(c.children or ())
     return total
 
 
@@ -604,13 +611,16 @@ def _rebuild(layout: dict, arrays: List[np.ndarray],
         t = torch.from_numpy(arrays[i])
         return t.to(device) if device is not None else t
 
-    cols = []
-    for slots in layout["cols"]:
-        cols.append(DeviceColumn(
+    def column(slots: dict) -> DeviceColumn:
+        kids = slots.get("children")
+        return DeviceColumn(
             slots["dtype"], up(slots["data"]), up(slots["valid"]),
             up(slots["offsets"]) if "offsets" in slots else None,
-            slots["dictionary"]))
-    return ColumnarBatch(cols, layout["num_rows"])
+            slots["dictionary"],
+            None if kids is None else tuple(column(k) for k in kids))
+
+    return ColumnarBatch([column(s) for s in layout["cols"]],
+                         layout["num_rows"])
 
 
 _default_dir: Optional[str] = None

@@ -7,8 +7,9 @@ Substring and LIKE work on Python strings (characters), which equals the
 device's bytes on ASCII text; the date-and-time functions are
 ``plan/cpu_datetime.py``'s (numpy ``datetime64``), the scalar function
 families ``plan/cpu_math.py``'s, casts to and from strings
-``plan/cpu_cast_strings.py``'s and the string family and regex
-``plan/cpu_strings.py``'s; the other casts follow the reference's
+``plan/cpu_cast_strings.py``'s, the string family and regex
+``plan/cpu_strings.py``'s, and the nested functions, JSON and BINARY casts
+``plan/cpu_nested.py``'s (a nested value is its Arrow array); the other casts follow the reference's
 ``cast_val`` as the device's do (``E.cast_supported``). IntegralDivide,
 Remainder and Pmod follow Java as on the device, decimals exactly in
 Python integers (Spark's pmod: the divisor added only to a negative
@@ -40,6 +41,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import pandas as pd
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -54,6 +56,7 @@ from spark_rapids_tpu_torch.exprs.eval import (
 from spark_rapids_tpu_torch.plan import cpu_cast_strings as CCS
 from spark_rapids_tpu_torch.plan import cpu_datetime as CDT
 from spark_rapids_tpu_torch.plan import cpu_math as CM
+from spark_rapids_tpu_torch.plan import cpu_nested as CN
 from spark_rapids_tpu_torch.plan import cpu_strings as CST
 
 Pair = Tuple[np.ndarray, np.ndarray]
@@ -86,6 +89,8 @@ def column_values(arr, dt: T.DataType) -> Pair:
         arr = arr.combine_chunks()
     if pa.types.is_dictionary(arr.type):
         arr = arr.cast(arr.type.value_type)
+    if T.is_nested(dt):
+        return CN.nested_values(arr)
     valid = (np.ones(len(arr), np.bool_) if arr.null_count == 0
              else np.asarray(arr.is_valid(), dtype=np.bool_))
     if dt == T.STRING:
@@ -108,6 +113,8 @@ def values_to_arrow(vals: np.ndarray, valid: np.ndarray,
                     dt: T.DataType) -> pa.Array:
     """(values, valid) -> an Arrow array of ``dt``."""
     valid = np.asarray(valid, dtype=np.bool_)
+    if T.is_nested(dt):
+        return CN.nested_to_arrow(vals, valid, dt)
     mask = None if valid.all() else ~valid
     if dt in (T.STRING, T.BINARY):
         return pa.array(vals, dt.arrow_type(), mask=mask)
@@ -260,7 +267,7 @@ def _literal(expr: E.Literal, n: int) -> Pair:
             return np.zeros(n, dtype=object), np.zeros(n, np.bool_)
         return np.zeros(n, _np_dtype(dt)), np.zeros(n, np.bool_)
     ones = np.ones(n, np.bool_)
-    if dt == T.STRING:
+    if dt in (T.STRING, T.BINARY):
         return np.full(n, expr.value, dtype=object), ones
     if isinstance(dt, T.DecimalType):
         v = decimal_unscaled(expr.value, dt.scale)
@@ -534,6 +541,14 @@ def expr_key(e: E.Expression):
         to = e.tz
     elif isinstance(e, E._StringFn):
         to = e._params
+    elif isinstance(e, E.GetStructField):
+        to = e.field
+    elif isinstance(e, E.GetJsonObject):
+        to = e.path
+    elif isinstance(e, E.CreateNamedStruct):
+        to = e.names
+    elif isinstance(e, E.Size):
+        to = e.legacy_null
     return (type(e).__name__, to, tuple(expr_key(c) for c in e.children))
 
 
@@ -567,6 +582,8 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         return _literal(expr, n)
     if isinstance(expr, E.Cast):
         v, m = ev(expr.child)
+        if T.BINARY in (expr.child.dtype, expr.to):
+            return CN.cast_binary(v, m, expr.to)
         if expr.child.dtype == T.STRING and expr.to != T.STRING:
             return CCS.from_string(v, m, expr.to, expr.ansi)
         if expr.to == T.STRING and expr.child.dtype != T.STRING:
@@ -634,7 +651,8 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         (a, am), (b, bm) = ev(expr.left), ev(expr.right)
         x, y, fl = comparable(a, expr.left.dtype, b, expr.right.dtype)
         ok = am & ~(_compare(E.EqualTo, x, y, fl) & am & bm)
-        return np.where(ok, a, "" if expr.dtype == T.STRING else 0), ok
+        empty = {T.STRING: "", T.BINARY: b""}.get(expr.dtype, 0)
+        return np.where(ok, a, empty), ok
     if isinstance(expr, E.Nvl2):
         _r, rm = ev(expr.children[0])
         (a, am), (b, bm) = ev(expr.children[1]), ev(expr.children[2])
@@ -653,6 +671,12 @@ def _cpu_eval(expr: E.Expression, table: pa.Table,
         prog = like_regex(expr.pattern, expr.escape)
         return _per_value(v, lambda x: np.array(
             [prog.fullmatch(s) is not None for s in x], np.bool_)) & m, m
+    if isinstance(expr, E.NESTED_FUNCTIONS + (E.MapValues,)):
+        return CN.eval_nested(expr, ev, n)
+    if isinstance(expr, E.GetJsonObject):
+        return CN.get_json_object(*ev(expr.child), expr.path)
+    if isinstance(expr, E.JsonToStructsText):
+        return CN.json_to_text(*ev(expr.child))
     raise NotImplementedError(
         f"expression {type(expr).__name__} is not in the CPU engine yet")
 
@@ -701,6 +725,7 @@ def _conditional(expr: E.Expression, ev) -> Pair:
         arms = [(None, v) for v in expr.children[:-1]]
         last = expr.children[-1]
     out, valid = ev(last)
+    nested = T.is_nested(expr.dtype)
     for pred, v in reversed(arms):
         vals, vm = ev(v)
         if pred is None:
@@ -708,7 +733,12 @@ def _conditional(expr: E.Expression, ev) -> Pair:
         else:
             pv, pm = ev(pred)
             take = pv.astype(np.bool_) & pm
-        out = np.where(take, vals, out)
+        if nested:  # Arrow arrays, selected by Arrow
+            out = pc.if_else(pa.array(take), CN.nested_to_arrow(
+                vals, vm, expr.dtype), CN.nested_to_arrow(out, valid,
+                                                          expr.dtype))
+        else:
+            out = np.where(take, vals, out)
         valid = np.where(take, vm, valid)
     return out, valid
 

@@ -11,7 +11,9 @@ Average, Min and Max reduce with Spark's
 result types: integer sums wrap as a long does, decimal sums are exact and
 null past their precision, decimal averages round HALF_UP at the result
 scale in integer arithmetic; CountDistinct counts each group's distinct
-non-null values. A global aggregate over no rows is one row (counts 0,
+non-null values; CollectList each group's non-null values in row order
+and CollectSet their distinct values, sorted (the reference sorts them),
+the CPU engine's alone as in the reference. A global aggregate over no rows is one row (counts 0,
 everything else null).
 
 The rest of the family follows the device's rules (``exec/aggregate.py``):
@@ -52,6 +54,7 @@ from spark_rapids_tpu_torch.exec.base import DeviceExec
 from spark_rapids_tpu_torch.exec.join import (
     JOIN_TYPES, PairCondition, join_schema)
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.plan import cpu_nested as CN
 from spark_rapids_tpu_torch.plan.cpu import (
     CpuExec, _canonical_float, _half_up_div, _is_float, comparable,
     cpu_eval, expr_key, order_ranks, values_to_arrow)
@@ -66,6 +69,8 @@ def _factorize(vals: np.ndarray, valid: np.ndarray,
     v = vals[valid]
     if _is_float(dt):
         v = _canonical_float(v)
+    if T.is_nested(dt):  # dicts and lists by their text
+        v = np.array([repr(x) for x in v], dtype=object)
     codes, uniq = pd.factorize(v, use_na_sentinel=False)
     k = len(uniq)
     out = np.full(len(vals), k, np.int64)
@@ -160,8 +165,8 @@ def _group_extreme(vals: np.ndarray, valid: np.ndarray, ranks: np.ndarray,
     at = _arg_extreme_rows(ranks, valid, groups, want_max)
     has = at >= 0
     out = np.zeros(groups.ng, vals.dtype)
-    if vals.dtype == object and dt == T.STRING:
-        out[:] = ""
+    if vals.dtype == object and dt in (T.STRING, T.BINARY):
+        out[:] = "" if dt == T.STRING else b""
     out[has] = vals[at[has]]
     return out, has
 
@@ -186,6 +191,26 @@ def _decimal_avg(total: np.ndarray, count: np.ndarray,
     out[:] = [_half_up_div(int(t) * 10 ** shift_digits, int(c))
               for t, c in zip(total, den)]
     return out
+
+
+def _host_pair(pair):
+    """A (values, valid) pair with a nested value as Python objects."""
+    return CN.host_objects(pair[0]), pair[1]
+
+
+def _collect(func: E.CollectList, out_t: T.DataType, groups: "_Groups",
+             evaluate) -> pa.Array:
+    """collect_list: each group's non-null values in row order;
+    collect_set: their distinct values, sorted."""
+    vals, valid = evaluate(func.child)
+    py = values_to_arrow(vals, valid, func.child.dtype).to_pylist()
+    out: List[list] = [[] for _ in range(groups.ng)]
+    for g, v, ok in zip(groups.gid.tolist(), py, valid.tolist()):
+        if ok:
+            out[g].append(v)
+    if isinstance(func, E.CollectSet):
+        out = [sorted(set(x)) for x in out]
+    return pa.array(out, type=out_t.arrow_type())
 
 
 class CpuAggregateExec(CpuExec):
@@ -227,7 +252,7 @@ class CpuAggregateExec(CpuExec):
     def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
         t = self.all_child_rows(self.children[0])
         n = t.num_rows
-        key_vals = [cpu_eval(b, t) for b in self._keys]
+        key_vals = [_host_pair(cpu_eval(b, t)) for b in self._keys]
         if key_vals:
             gid = _combine([_factorize(v, m, b.dtype)[0]
                             for (v, m), b in zip(key_vals, self._keys)], n)
@@ -246,7 +271,7 @@ class CpuAggregateExec(CpuExec):
         cache: dict = {}  # each distinct (sub-)expression, evaluated once
 
         def evaluate(e: E.Expression):
-            return cpu_eval(e, t, cache)
+            return _host_pair(cpu_eval(e, t, cache))
 
         arrays: List[pa.Array] = []
         for (v, m), f in zip(key_vals, self._schema):
@@ -266,6 +291,8 @@ class CpuAggregateExec(CpuExec):
                      else np.ones(n, np.bool_))
             return values_to_arrow(groups.counts(valid),
                                    np.ones(ng, np.bool_), out_t)
+        if isinstance(func, E.CollectList):
+            return _collect(func, out_t, groups, evaluate)
         if not isinstance(func, _BASIC):
             return _reduce_family(func, out_t, groups, evaluate, memo)
         in_t = func.children[0].dtype

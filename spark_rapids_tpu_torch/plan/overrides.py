@@ -17,10 +17,20 @@ on device: ..."), each with the reference's reason; Rand and the
 reference's CPU-only string classes (``device_supported`` False: Bin, the
 digests, Crc32, Levenshtein, FormatNumber, StringSpace, RegexpExtract,
 RegexpReplace, and Overlay without a FOR length) are outside the device's
-set, as the reference's planner keeps them), and each node to its
+set, as the reference's planner keeps them; an expression that touches a
+STRUCT, MAP or ARRAY value outside ``NESTED_OK``, map_keys of a
+variable-width or DECIMAL128 key, element_at over variable-width keys,
+values or elements, array_contains beyond fixed-width elements, and
+get_json_object of a path outside ``json_device.parse_path``'s grammar,
+each with the reference's reason), and each node to its
 operator's:
-a DECIMAL128 group key, join key or window Min/Max, and a Skewness or
-Kurtosis window, stay on the CPU engine, as in the reference. The
+a DECIMAL128 group key, join key or window Min/Max, a nested group, sort
+or join key, a struct with variable-width fields beside a join, and a
+Skewness or Kurtosis window, stay on the CPU engine, as in the
+reference. So do, beyond the reference (whose upload fails on them), a
+column of arrays with a null element (its scan and every node that
+reads it) and an array of variable-width elements (collect_list of a
+string makes one). The
 reference's CPU-only aggregates (BitAndAgg/BitOrAgg/BitXorAgg,
 Percentile/Median) are outside the device's expression set. A node with
 reasons runs on the CPU engine when
@@ -105,7 +115,8 @@ import numpy as np
 from spark_rapids_tpu_torch import support
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (
-    batch_from_arrow, dictionary_encode_table)
+    ELEMENT_NULLS, array_element_nulls, batch_from_arrow,
+    dictionary_encode_table)
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.aggregate import (
     HashAggregateExec, _strip_alias)
@@ -124,6 +135,7 @@ from spark_rapids_tpu_torch.exec.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.exec.window import (
     WindowExec, bind_function, check_window, plan_stream_mode)
 from spark_rapids_tpu_torch.exprs import expr as E
+from spark_rapids_tpu_torch.exprs import json_device as JD
 from spark_rapids_tpu_torch.exprs import regex as RX
 from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cbo as CBO
@@ -187,6 +199,68 @@ WIDE_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.Literal, E.Cast,
            E.BinaryComparison, E.IsNull, E.IsNotNull, E.If, E.CaseWhen,
            E.Coalesce, E.Sum, E.Min, E.Max, E.Average, E.Count, E.First,
            E.Last, E.Greatest)
+
+# the expressions with a device implementation over a STRUCT, MAP or ARRAY
+# operand or result (the reference's ``_NESTED_OK``): any other expression
+# that touches a nested value runs on the CPU engine
+NESTED_OK = (E.Alias, E.ColumnRef, E.UnresolvedColumn, E.GetStructField,
+             E.CreateNamedStruct, E.MapKeys, E.Size, E.ElementAt,
+             E.ArrayContains, E.IsNull, E.IsNotNull)
+
+_STRINGY = (T.STRING, T.BINARY)
+
+
+def _struct_has_varwidth(dt: T.DataType) -> bool:
+    return isinstance(dt, T.StructType) and any(
+        not f.dtype.fixed_width or _struct_has_varwidth(f.dtype)
+        for f in dt.fields)
+
+
+def _varwidth_array(dt: T.DataType) -> bool:
+    """Whether ``dt`` holds an ARRAY of variable-width elements, which has
+    no device layout (``collect_list`` of a string makes one)."""
+    if isinstance(dt, T.ArrayType):
+        return not dt.element.fixed_width
+    if isinstance(dt, T.StructType):
+        return any(_varwidth_array(f.dtype) for f in dt.fields)
+    if isinstance(dt, T.MapType):
+        return _varwidth_array(dt.key) or _varwidth_array(dt.value)
+    return False
+
+
+def _nested_reasons(bound: E.Expression) -> List[str]:
+    """The reference's nested gates: the expressions of ``NESTED_OK``
+    only, map_keys of a fixed-width (not DECIMAL128) key, element_at of
+    fixed-width keys and values or elements, array_contains of fixed-width
+    elements and value, and a JSON path inside ``parse_path``'s grammar."""
+    out: List[str] = []
+    kids = [c.dtype for c in bound.children]
+    if ((T.is_nested(bound.dtype) or any(T.is_nested(k) for k in kids))
+            and not isinstance(bound, NESTED_OK)):
+        out.append(f"{type(bound).__name__} not on device for nested types")
+    if isinstance(bound, E.MapKeys):
+        kdt = bound.child.dtype.key
+        if not kdt.fixed_width or T.is_wide_decimal(kdt):
+            out.append("map_keys key type not on device")
+    if isinstance(bound, E.ElementAt):
+        ct = bound.left.dtype
+        if isinstance(ct, T.MapType):
+            if (not ct.key.fixed_width or T.is_wide_decimal(ct.key)
+                    or not ct.value.fixed_width):
+                out.append("element_at key/value type not on device")
+        elif not ct.element.fixed_width:
+            out.append("element_at element type not on device")
+    if isinstance(bound, E.ArrayContains):
+        ct, vt = bound.left.dtype, bound.right.dtype
+        if not (isinstance(ct, T.ArrayType) and ct.element.fixed_width
+                and vt.fixed_width and not T.is_wide_decimal(ct.element)
+                and not T.is_wide_decimal(vt)):
+            out.append("array_contains type not on device")
+    if isinstance(bound, E.GetJsonObject) and JD.parse_path(
+            bound.path) is None:
+        out.append(f"json path {bound.path!r} not on device")
+    return out
+
 
 # the window functions with a DECIMAL128 device implementation (Lead covers
 # Lag)
@@ -252,11 +326,12 @@ def check_expr(expr: E.Expression, schema: T.Schema,
             k = bound.dtype.scale - s1 + s2
             if not 0 <= k <= 76:
                 reasons.append("decimal divide rescale outside device range")
-        if isinstance(bound, E.BinaryComparison) and T.STRING in (
-                bound.left.dtype, bound.right.dtype):
+        if isinstance(bound, E.BinaryComparison) and (
+                bound.left.dtype in _STRINGY
+                or bound.right.dtype in _STRINGY):
             if isinstance(bound, _ORDERING):
                 reasons.append("string ordering comparison not on device")
-        if (isinstance(bound, E.In) and bound.value.dtype == T.STRING
+        if (isinstance(bound, E.In) and bound.value.dtype in _STRINGY
                 and not all(isinstance(i, E.Literal) for i in bound.items)):
             reasons.append("string IN over non-literal items not on device")
         if isinstance(bound, E.MinBy):
@@ -264,7 +339,8 @@ def check_expr(expr: E.Expression, schema: T.Schema,
             # ordering and gathers a fixed-width value (the reference's
             # gate)
             odt, vdt = bound.ordering.dtype, bound.value.dtype
-            if (odt in T.FRACTIONAL_TYPES or T.STRING in (odt, vdt)
+            if (odt in T.FRACTIONAL_TYPES or odt in _STRINGY
+                    or vdt in _STRINGY
                     or isinstance(odt, T.DecimalType)
                     or isinstance(vdt, T.DecimalType)):
                 reasons.append(
@@ -272,6 +348,7 @@ def check_expr(expr: E.Expression, schema: T.Schema,
         if isinstance(bound, (E.StartsWith, E.EndsWith, E.Contains)) and (
                 not isinstance(bound.right, E.Literal)):
             reasons.append("string search of a column pattern not on device")
+        reasons.extend(_nested_reasons(bound))
         # a pattern the regex subset rejects (the reference's transpiler
         # bail-outs) runs on the CPU engine
         if isinstance(bound, E.RLike):
@@ -361,6 +438,9 @@ class PlanMeta:
     reasons: List[str] = dataclasses.field(default_factory=list)
     # the exchanges and join strategy the conversion placed for this node
     physical: List[str] = dataclasses.field(default_factory=list)
+    # the output columns holding arrays with null elements (no device
+    # layout; ``Overrides._tag_element_nulls``)
+    host_columns: Set[str] = dataclasses.field(default_factory=set)
 
     def will_not_work(self, reason: str) -> None:
         if reason not in self.reasons:
@@ -431,7 +511,27 @@ class Overrides:
             meta.will_not_work(f"{C.SQL_ENABLED.key} is false")
         else:
             self._tag(meta)
+            self._tag_element_nulls(meta)
         return meta
+
+    @staticmethod
+    def _tag_element_nulls(meta: PlanMeta) -> None:
+        """A column holding an array with a null element has no device
+        layout: its scan and every node that reads it run on the CPU
+        engine (``host_columns``: the names carrying one out of a node)."""
+        node = meta.node
+        if isinstance(node, L.InMemoryScan):
+            bad = {n for n in node.table.column_names
+                   if T.is_nested(node.schema[n].dtype)
+                   and array_element_nulls(node.table.column(n),
+                                           node.schema[n].dtype)}
+        else:
+            bad = set().union(*[c.host_columns for c in meta.children])
+        for name in sorted(bad):
+            meta.will_not_work(f"column {name}: {ELEMENT_NULLS}")
+        if bad and not isinstance(node, L.InMemoryScan):
+            bad &= set(node.schema.names())
+        meta.host_columns = bad
 
     def _tag(self, meta: PlanMeta) -> None:
         node = meta.node
@@ -439,16 +539,27 @@ class Overrides:
         for e in _node_exprs(node):
             for r in check_expr(e, child_schema, self.conf):
                 meta.will_not_work(r)
+        for c in node.children:
+            for f in c.schema:
+                if _varwidth_array(f.dtype):
+                    meta.will_not_work(f"column {f.name}: arrays of "
+                                       f"variable-width elements are not "
+                                       f"on the device")
         if isinstance(node, L.Sort):
             for o in node.orders:
                 if not isinstance(o.child, (E.UnresolvedColumn,
                                             E.ColumnRef)):
                     meta.will_not_work(f"sort key {o.child!r} is not a "
                                        f"column reference")
+                if T.is_nested(E.resolve(o.child, child_schema).dtype):
+                    meta.will_not_work("nested sort key not on device")
         elif isinstance(node, L.Aggregate):
             for g in node.group_exprs:
-                if T.is_wide_decimal(E.resolve(g, child_schema).dtype):
+                gdt = E.resolve(g, child_schema).dtype
+                if T.is_wide_decimal(gdt):
                     meta.will_not_work("decimal128 group key not on device")
+                if T.is_nested(gdt):
+                    meta.will_not_work("nested group key not on device")
         elif isinstance(node, L.Join):
             if node.join_type not in JOIN_TYPES:
                 meta.will_not_work(f"{node.join_type} join not on device")
@@ -457,8 +568,11 @@ class Overrides:
                             for k in node.right_keys]):
                 for r in check_expr(k, s, self.conf):
                     meta.will_not_work(r)
-                if T.is_wide_decimal(E.resolve(k, s).dtype):
+                kdt = E.resolve(k, s).dtype
+                if T.is_wide_decimal(kdt):
                     meta.will_not_work("decimal128 join key not on device")
+                if T.is_nested(kdt):
+                    meta.will_not_work("nested join key not on device")
                 if not isinstance(k, (E.UnresolvedColumn, E.ColumnRef)):
                     meta.will_not_work(f"join key {k!r} is not a column "
                                        f"reference")
@@ -466,6 +580,14 @@ class Overrides:
                 for r in check_expr(node.condition, pair_schema(node),
                                     self.conf):
                     meta.will_not_work(f"join condition: {r}")
+            # as the reference: a struct with variable-width fields has no
+            # per-child byte bound in a join's gathers
+            for s in (node.left.schema, node.right.schema):
+                for f in s:
+                    if _struct_has_varwidth(f.dtype):
+                        meta.will_not_work(
+                            f"struct column {f.name} with var-width fields "
+                            "not on device in joins")
         elif isinstance(node, L.Window):
             for r in _window_reasons(node):
                 meta.will_not_work(r)
@@ -689,7 +811,8 @@ class Overrides:
         integers, a date's days), the units the partitioner compares."""
         first = node.orders[0]
         bound = E.resolve(first.child, child.output_schema)
-        if (len(node.orders) > 1 or bound.dtype in (T.STRING, T.BOOLEAN)
+        if (len(node.orders) > 1 or bound.dtype in (T.STRING, T.BINARY,
+                                                     T.BOOLEAN)
                 or T.is_wide_decimal(bound.dtype)):
             return SinglePartitioner()
         samples = []

@@ -13,7 +13,10 @@ Wire layout per table (little-endian):
 
 A DECIMAL64 column rides as bigint (its unscaled int64 values) and a
 DECIMAL128 one as 16-byte rows; the scale travels out of band, in the
-schema the reader is given. ``merge_tables`` turns many serialized blocks
+schema the reader is given. BINARY rides as a string does, under its own
+type code. The format has no code for a nested type (neither has the
+reference's, which fails with a KeyError): serializing an ARRAY, STRUCT
+or MAP column raises NotImplementedError naming it. ``merge_tables`` turns many serialized blocks
 into one Arrow table on the host (the kudo host merge). Host-only: numpy
 and pyarrow, no device.
 """
@@ -32,8 +35,7 @@ from spark_rapids_tpu_torch.columnar.batch import timestamp_micros
 
 _MAGIC = 0x54505553
 
-# the reference's type codes (binary is the code of a type the port does
-# not have yet)
+# the reference's type codes
 _TYPE_CODES = {
     "boolean": 0, "tinyint": 1, "smallint": 2, "int": 3, "bigint": 4,
     "float": 5, "double": 6, "date": 7, "timestamp": 8, "string": 9,
@@ -54,6 +56,10 @@ def _is_wide_dec(dt: T.DataType) -> bool:
 
 
 def _type_code(dt: T.DataType) -> int:
+    if T.is_nested(dt):
+        raise NotImplementedError(
+            f"the shuffle's wire format has no code for the nested type "
+            f"{dt.name}")
     if isinstance(dt, T.DecimalType):
         return _TYPE_CODES["decimal128" if _is_wide_dec(dt) else "bigint"]
     return _TYPE_CODES[dt.name]
@@ -67,9 +73,10 @@ def _decimal_to_bytes(arr: pa.Array, dt: T.DecimalType) -> bytes:
     return limbs[0::2].tobytes()
 
 
-def _string_parts(arr: pa.Array, n_rows: int) -> Tuple[bytes, bytes]:
-    """(data bytes, offsets from 0) of a string array."""
-    sarr = arr.cast(pa.string())
+def _string_parts(arr: pa.Array, dt: T.DataType,
+                  n_rows: int) -> Tuple[bytes, bytes]:
+    """(data bytes, offsets from 0) of a string or BINARY array."""
+    sarr = arr.cast(dt.arrow_type())
     raw = np.frombuffer(sarr.buffers()[1], dtype=np.int32, count=n_rows + 1,
                         offset=sarr.offset * 4)
     off = raw - raw[0]
@@ -88,6 +95,7 @@ def serialize_table(table: pa.Table, codec: str = "none") -> bytes:
     for col in table.columns:
         arr = col.combine_chunks()
         dt = T.from_arrow_type(arr.type)
+        code = _type_code(dt)
         offsets = b""
         if dt == T.BOOLEAN:
             data = np.asarray(arr.fill_null(False)).astype(np.uint8).tobytes()
@@ -101,10 +109,10 @@ def serialize_table(table: pa.Table, codec: str = "none") -> bytes:
             data = np.asarray(arr.fill_null(0)).astype(
                 _NUMPY[dt], copy=False).tobytes()
         else:
-            data, offsets = _string_parts(arr, n_rows)
+            data, offsets = _string_parts(arr, dt, n_rows)
         validity = (b"" if arr.null_count == 0 else np.packbits(
             np.asarray(arr.is_valid()), bitorder="little").tobytes())
-        header.append(_COL.pack(_type_code(dt), 1 if offsets else 0,
+        header.append(_COL.pack(code, 1 if offsets else 0,
                                 len(data), len(validity), len(offsets)))
         bufs.append(data + validity + offsets)
     body = b"".join(bufs)
@@ -170,7 +178,7 @@ def deserialize_table(buf: bytes, schema: T.Schema,
         dt = field.dtype
         vbuf = pa.py_buffer(validity) if vlen else None
         if has_off:
-            arr = pa.Array.from_buffers(pa.string(), n_rows,
+            arr = pa.Array.from_buffers(dt.arrow_type(), n_rows,
                                         [vbuf, pa.py_buffer(offs),
                                          pa.py_buffer(data)])
         elif dt == T.BOOLEAN:

@@ -22,6 +22,9 @@ The vocabulary is the reference's type classes that the port has:
 ``timestamp``  TimestampType
 ``string``     StringType
 ``binary``     BinaryType
+``array``      ArrayType
+``struct``     StructType
+``map``        MapType
 =============  ========================================================
 """
 
@@ -32,7 +35,8 @@ from typing import FrozenSet, Optional
 from spark_rapids_tpu_torch import types as T
 
 TYPE_CLASSES = ("boolean", "integral", "fractional", "decimal64",
-                "decimal128", "date", "timestamp", "string", "binary")
+                "decimal128", "date", "timestamp", "string", "binary",
+                "array", "struct", "map")
 
 # named groups of the port's device
 NUMERIC = "integral fractional"
@@ -45,6 +49,10 @@ ORDERABLE = ("boolean integral fractional decimal64 decimal128 date "
              "timestamp")
 DEVICE_SCALAR = ("boolean integral fractional decimal64 decimal128 date "
                  "timestamp string")
+NESTED = "array struct map"
+# the reference's ALL_SCALAR and ALL
+ALL_SCALAR = DEVICE_SCALAR + " binary"
+ALL = ALL_SCALAR + " " + NESTED
 
 
 def classify(dtype: T.DataType) -> str:
@@ -66,6 +74,12 @@ def classify(dtype: T.DataType) -> str:
         return "string"
     if isinstance(dtype, T.BinaryType):
         return "binary"
+    if isinstance(dtype, T.ArrayType):
+        return "array"
+    if isinstance(dtype, T.StructType):
+        return "struct"
+    if isinstance(dtype, T.MapType):
+        return "map"
     raise TypeError(f"unclassifiable dtype {dtype!r}")
 
 

@@ -8,9 +8,14 @@ reads as it), DECIMAL64 (``DecimalType`` of precision <= 18, an int64
 unscaled value), DECIMAL128 (precision 19-38, one ``(n, 2)`` int64
 tensor ``[lo, hi]`` a column: two's complement limbs, Arrow's own 16-byte
 little-endian layout; arithmetic in ``exec/int128.py``) and STRING
-(dictionary codes or int32 offsets + uint8 bytes). BINARY, the type of
-Unhex and UnBase64, is a plain string column's layout (never a dictionary)
-read out as Arrow ``binary``.
+(dictionary codes or int32 offsets + uint8 bytes). BINARY is a plain
+string column's layout (never a dictionary) read out as Arrow ``binary``.
+
+The nested types are the reference's: ARRAY of fixed-width elements
+with no element nulls on the device (int32 row offsets over a flat element
+buffer), STRUCT (one child column a field, struct-of-columns) and MAP
+(int32 row offsets over flat key and value children). Two nested types are
+equal when their names are (``array<int>``, ``struct<a:int>``).
 """
 
 from __future__ import annotations
@@ -208,6 +213,89 @@ class NullType(DataType):
         return pa.null()
 
 
+class _NestedType(DataType):
+    """Base of ARRAY, STRUCT and MAP: variable width, equal by name."""
+
+    @property
+    def fixed_width(self):
+        return False
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _NestedType) and self.name == other.name
+
+    def __hash__(self) -> int:
+        return hash(self.name)
+
+
+class ArrayType(_NestedType):
+    """Array of fixed-width elements: a flat element buffer and int32 row
+    offsets, the offsets of a string column. As the reference's round-1
+    contract, the device holds no element nulls (an Arrow array with one
+    is refused at upload and the planner keeps it on the CPU engine)."""
+
+    def __init__(self, element: DataType, contains_null: bool = False):
+        self.element = element
+        self.contains_null = contains_null
+
+    @property
+    def name(self):  # type: ignore[override]
+        return f"array<{self.element.name}>"
+
+    @property
+    def torch_dtype(self):  # type: ignore[override]
+        return self.element.torch_dtype
+
+    def arrow_type(self):
+        return pa.list_(self.element.arrow_type())
+
+
+class StructType(_NestedType):
+    """Struct of named fields, laid out as one child column a field beside
+    one struct-level validity."""
+
+    def __init__(self, fields):
+        self.fields = [f if isinstance(f, Field) else Field(f[0], f[1])
+                       for f in fields]
+
+    @property
+    def name(self):  # type: ignore[override]
+        inner = ",".join(f"{f.name}:{f.dtype.name}" for f in self.fields)
+        return f"struct<{inner}>"
+
+    def field_index(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(name)
+
+    def arrow_type(self):
+        return pa.struct([pa.field(f.name, f.dtype.arrow_type(), f.nullable)
+                          for f in self.fields])
+
+
+class MapType(_NestedType):
+    """Map: int32 row offsets over two flat entry columns, the keys and the
+    values, in entry order (Arrow's map layout without its entries
+    struct)."""
+
+    def __init__(self, key: DataType, value: DataType,
+                 value_contains_null: bool = True):
+        self.key = key
+        self.value = value
+        self.value_contains_null = value_contains_null
+
+    @property
+    def name(self):  # type: ignore[override]
+        return f"map<{self.key.name},{self.value.name}>"
+
+    def arrow_type(self):
+        return pa.map_(self.key.arrow_type(), self.value.arrow_type())
+
+
+def is_nested(dt: DataType) -> bool:
+    return isinstance(dt, _NestedType)
+
+
 def is_wide_decimal(dt: DataType) -> bool:
     return isinstance(dt, DecimalType) and dt.is_wide
 
@@ -335,4 +423,17 @@ def from_arrow_type(t: pa.DataType) -> DataType:
         return STRING
     if pa.types.is_binary(t) or pa.types.is_large_binary(t):
         return BINARY
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        elem = from_arrow_type(t.value_type)
+        if not elem.fixed_width:
+            raise NotImplementedError("nested variable-width arrays")
+        return ArrayType(elem)
+    if pa.types.is_map(t):
+        return MapType(from_arrow_type(t.key_type),
+                       from_arrow_type(t.item_type))
+    if pa.types.is_struct(t):
+        return StructType([Field(t.field(i).name,
+                                 from_arrow_type(t.field(i).type),
+                                 t.field(i).nullable)
+                           for i in range(t.num_fields)])
     raise NotImplementedError(f"arrow type {t} is outside the port's types")

@@ -2059,3 +2059,61 @@ def test_string_sales_g1_and_g5_on_card_match_the_cpu_engine():
         assert PK.KERNEL_LAUNCHES[kernel] > 0, q
         exp = G.QUERIES[q](cpu).to_arrow().to_pylist()
         assert G.check_rows(q, got, exp) == (True, ""), q
+
+
+def _checked_kernels(monkeypatch):
+    """Wrap both kernel wrappers so that every call on the card is held
+    against its plain version on the same inputs; the calls checked."""
+    calls = {"probe": 0, "scan": 0}
+    real_probe, real_scan = PK.probe_hash_table_kernel, \
+        PK.segmented_scan_kernel
+
+    def probe(tbl, h1, h2, capacity, seed, max_probes):
+        ks, kh = real_probe(tbl, h1, h2, capacity, seed, max_probes)
+        ps, ph = PK.probe_hash_table(tbl, h1, h2, capacity, seed,
+                                     max_probes)
+        assert torch.equal(ks, ps) and torch.equal(kh, ph)
+        calls["probe"] += 1
+        return ks, kh
+
+    def scan(values, is_start, op_name="add"):
+        k = real_scan(values, is_start, op_name)
+        p = PK.segmented_scan(values, is_start, op_name)
+        if values.is_floating_point():
+            torch.testing.assert_close(k, p, rtol=1e-9, atol=1e-6)
+        else:
+            assert torch.equal(k, p)
+        calls["scan"] += 1
+        return k
+
+    monkeypatch.setattr(PK, "probe_hash_table_kernel", probe)
+    monkeypatch.setattr(PK, "segmented_scan_kernel", scan)
+    return calls
+
+
+def test_nested_sales_h1_h4j_h6_kernels_on_card(monkeypatch):
+    """The nested sales pass at SF 0.1 on the card: H1's probe over the
+    exploded items, H4J's probe on BINARY keys and H6's scans, every call
+    held against the plain version, the rows against pyarrow (H1) and the
+    CPU engine."""
+    _card()
+    from spark_rapids_tpu_torch.bench import nested_sales as NS
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t = NS.tables_for(0.1)
+    calls = _checked_kernels(monkeypatch)
+    PK.reset_kernel_launches()
+    assert NS.h1_rows(t, "cuda") == NS.arrow_h1(t)
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] > 0 and calls["probe"] > 0
+    d = NS.df_tables(t, device="cuda")
+    cpu = NS.df_tables(t, RapidsConf({"spark.rapids.gpu.sql.enabled":
+                                      "false"}), device="cuda")
+    for q, kernel in (("H4J", "hashtbl_probe"), ("H6", "segscan"),
+                      ("H3", None), ("H2", None), ("H4G", None)):
+        PK.reset_kernel_launches()
+        got = NS.QUERIES[q](d).to_arrow().to_pylist()
+        if kernel:
+            assert PK.KERNEL_LAUNCHES[kernel] > 0, q
+        exp = NS.QUERIES[q](cpu).to_arrow().to_pylist()
+        assert NS.check_rows(q, got, exp) == (True, ""), q
+    assert calls["scan"] > 0

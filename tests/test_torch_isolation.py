@@ -517,3 +517,48 @@ def test_the_string_family_and_regex_modules_are_covered():
         assert c in PCPU.CPU_EXPRS, c
         assert (c in PE.SUPPORTED) == c.device_supported, c
         assert (c in PE.CPU_ONLY) != c.device_supported, c
+
+
+def test_the_nested_types_json_and_generate_modules_are_covered():
+    """The modules that carry the nested types, BINARY, JSON, explode and
+    sample are walked by the import checks above (no JAX, nothing of the
+    JAX package), hold the names the slice adds, and each new class is
+    declared for the device or kept for the CPU engine as the reference
+    keeps it."""
+    import importlib
+
+    from spark_rapids_tpu_torch.exprs import expr as PE
+    from spark_rapids_tpu_torch.plan import cpu as PCPU
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.types",
+             ("ArrayType", "StructType", "MapType", "is_nested")),
+            ("spark_rapids_tpu_torch.columnar.batch",
+             ("array_element_nulls", "ELEMENT_NULLS")),
+            ("spark_rapids_tpu_torch.exec.kernels",
+             ("slice_column", "concat_columns")),
+            ("spark_rapids_tpu_torch.exprs.eval", ("NestedVal",)),
+            ("spark_rapids_tpu_torch.exprs.json_device",
+             ("parse_path", "get_json_object")),
+            ("spark_rapids_tpu_torch.plan.cpu_nested",
+             ("eval_nested", "get_json_object", "json_to_text",
+              "cast_binary")),
+            ("spark_rapids_tpu_torch.plan.overrides", ("NESTED_OK",)),
+            ("spark_rapids_tpu_torch.exec.generate", ("GenerateExec",)),
+            ("spark_rapids_tpu_torch.exec.misc", ("SampleExec",)),
+            ("spark_rapids_tpu_torch.bench.nested_sales",
+             ("QUERIES", "h1_rows", "arrow_h1", "json_h3", "check_rows",
+              "tables_for"))):
+        assert m in mods
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    for c in PE.NESTED_FUNCTIONS + (PE.GetJsonObject,):
+        assert c in PE.SUPPORTED and c.type_support is not None, c
+    for c in (PE.MapValues, PE.CollectList, PE.CollectSet,
+              PE.JsonToStructsText):
+        assert c in PE.CPU_ONLY and c not in PE.SUPPORTED, c
+    for c in PE.NESTED_FUNCTIONS + (PE.MapValues, PE.GetJsonObject,
+                                    PE.JsonToStructsText):
+        assert c in PCPU.CPU_EXPRS, c
