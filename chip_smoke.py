@@ -181,8 +181,9 @@ Phases, in order; any failure exits non-zero before the last line:
    against the plain version (which launches no kernel, so the counts
    stay the kernels' own); the path's largest table probe is checked as
    in phase 8 (``partitioned_largest``), and the warm walls (median of
-   3) of each query partitioned and in one partition are printed side by
-   side;
+   3, the counted run and the one-partition run the first of their
+   three since phase 21's arrival) of each query partitioned and in one
+   partition are printed side by side;
 14. adaptive reads and reuse. Phases 9-13 run at the port's defaults:
    AQE readers (coalesced and skew-split reads), exchange and broadcast
    reuse and prefetch on; ``plan_strategy`` prints each AQE reader's
@@ -193,15 +194,15 @@ Phases, in order; any failure exits non-zero before the last line:
    exchange and every case of phase 13 runs once with them off, its rows
    equal to the defaults' run (the query's check: ORDER BY order, rel
    1e-6 on doubles), with its probe launches on and off; q2, q75 and
-   Q3's warm walls (median of 3, the checked run with them off the first
-   of the three) with them off beside the defaults', and Q3's checked
-   run with prefetch alone off (the read-ahead isolated; Q5's off walls
-   were cut with phase 16, Q3's prefetch-off repeats with phase 17). Then
-   q2, q4, q11,
-   q74 and q75 with 4 source splits, reuse on against off:
+   Q3's checked runs' walls with them off beside the defaults' warm
+   walls, and Q3's checked run with prefetch alone off (the read-ahead
+   isolated; Q5's off walls were cut with phase 16, Q3's prefetch-off
+   repeats with phase 17, the repeats of the off runs with phase 21).
+   Then q2, q4, q11 and q75 with 4 source splits, reuse on against off:
    equal rows, with values; q2 and q75 must reuse an exchange (the
-   reference's plans of q4, q11 and q74 reuse broadcasts only, and so
-   must theirs). Last, a skewed shuffled join (``skewed_tables``: 2^24
+   reference's plans of q4 and q11 reuse broadcasts only, and so must
+   theirs; q74, whose plan is q11's, was cut with phase 21). Last, a
+   skewed shuffled join (``skewed_tables``: 2^24
    fact rows in 4 splits of 2^22, 60% on one key, the rest uniform over
    2^20 keys, an int64 and a float64 payload; 2^20 dimension keys) with
    ``broadcastRowThreshold`` 0 and ``skewedPartitionThresholdBytes`` 64
@@ -209,8 +210,10 @@ Phases, in order; any failure exits non-zero before the last line:
    fact side with paired readers that line up, the probe launched and
    every probe call held against the plain version, the rows equal to
    AQE off as multisets sorted on the card by every column and their
-   count equal to numpy's, and the warm walls on and off (medians of 3,
-   the tables uploaded first, each checked run the first of its three).
+   count equal to numpy's, and the walls on and off: medians of 3 for
+   the inner join (the tables uploaded first, each checked run the first
+   of its three), the checked runs' for the left and left_semi joins
+   (their repeats were cut with phase 21).
    Every probe and segmented-scan call of the phase's counted runs is
    held against the plain version (``adaptive_calls_checked``), and the
    checked calls must cover every counted launch;
@@ -349,10 +352,31 @@ Phases, in order; any failure exits non-zero before the last line:
    against one partition. Launches, probe and scan counts and warm walls
    as phase 18's; every probe and scan call of the counted runs held
    against the plain version (``nested_calls_checked``), the largest
-   probe and scan timed against their bounds (``nested_largest``).
+   probe and scan timed against their bounds (``nested_largest``);
+21. the Parquet pass (``run_parquet_path``): the headline queries' eight
+   SF1 tables written with the port's ``write_columnar`` from the card's
+   batches (``bench/parquet_sales.py``: store_sales clustered by
+   ``ss_sold_date_sk`` in 2^17-row row groups and 786,432-row files, so 4
+   files and 22 row groups of about 83 days; a file a dimension), each
+   read back by pyarrow equal to its source, the bytes and the write's
+   wall reported. q3's CPU-engine run over the files starts in a check
+   worker (``CpuParquetScanExec``: the worker reads the files itself).
+   Then q3/q7/q42/q52/q96 from ``read_parquet`` frames (four scan
+   partitions, so exchanges and broadcasts as Spark plans them):
+   ``explain("ALL")`` marks no node for the CPU engine; one counted run
+   (launch counts zeroed before and read after, every probe call held
+   against the plain version), its rows equal to phase 6's verified rows
+   of the query, its scans' ``numRowGroups``, ``numPrunedRowGroups``,
+   ``numDynPrunedRowGroups``, ``scanTimeNs`` and ``uploadTimeNs``; the
+   same query with dynamic pruning off: the same rows, none pruned
+   dynamically. q3 must prune a row group dynamically, and its CPU-engine
+   rows equal the card's. Warm walls with pruning on and off (medians of
+   3, each checked run the first of its three); the largest probe timed
+   against its bound (``parquet_largest``; ``parquet_calls_checked``
+   counts the probe calls of the counted and the pruning-off runs).
 
 The CPU engine's comparison runs of phases 9-13, the window-surface pass
-and phases 18-20 go to the run's one pool of spawned worker processes
+and phases 18-21 go to the run's one pool of spawned worker processes
 (``check_workers``, the tables read from Arrow files written once; a
 result of millions of rows comes back as an Arrow file,
 ``cpu_engine_table``) that overlap the card's runs: one after another on
@@ -2275,9 +2299,13 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
         f"partitioned path equal the plain version")
     for name, build, d, _c, _j, _w in cases:
         r = results[name]
-        r["warm_s"] = _warm_wall(lambda: build(d["four"]).to_arrow())
+        # the counted run and the one-partition run are the first of
+        # their three (room for phase 21)
+        r["warm_s"] = _warm_wall(lambda: build(d["four"]).to_arrow(),
+                                 first=r["first_s"])
         r["one_partition_warm_s"] = _warm_wall(
-            lambda: build(d["one"]).to_arrow())
+            lambda: build(d["one"]).to_arrow(),
+            first=r["one_partition_first_s"])
         log(f"{name}: warm wall {r['warm_s']:.4f}s partitioned, "
             f"{r['one_partition_warm_s']:.4f}s in one partition (medians "
             f"of 3)")
@@ -2296,19 +2324,21 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
 SWITCHES_OFF = {"spark.rapids.gpu.sql.adaptive.enabled": "false",
                 "spark.rapids.gpu.sql.exchange.reuse.enabled": "false",
                 "spark.rapids.gpu.sql.prefetch.enabled": "false"}
-# the queries whose warm walls run with the switches off too: q2 and q75
-# (phases 10-11) and TPC-H Q3 (phase 13; Q5's off walls, 22 s of repeats,
-# were cut with phase 16's arrival to keep the whole run near 650 s)
+# the queries whose walls with the switches off are reported: q2 and q75
+# (phases 10-11) and TPC-H Q3 (phase 13), each its checked run's (Q5's
+# off walls, 22 s of repeats, were cut with phase 16's arrival, the
+# repeats of these with phase 21's, to keep the whole run near 650 s)
 SWITCHES_OFF_WALLS = ("q2", "q75", "tpch_q3")
 # the queries whose warm walls run with prefetch alone off (the read-ahead
 # and the prefetch boundaries; AQE and reuse on): Q3, a phase 13 case
 # whose AQE readers read several specs
 PREFETCH_OFF_WALLS = ("tpch_q3",)
 # phase 14's reuse queries at SF ``--sf-ds`` with 4 source splits: q2 and
-# q75 read one exchange twice; q4, q11 and q74 total each channel and year
-# on its own (no exchange repeats, as in the reference's plans) and
-# repeat their broadcast builds
-REUSE_QUERIES = ("q2", "q4", "q11", "q74", "q75")
+# q75 read one exchange twice; q4 and q11 total each channel and year on
+# its own (no exchange repeats, as in the reference's plans) and repeat
+# their broadcast builds (q74, whose plan is q11's with other columns,
+# was cut with phase 21's arrival)
+REUSE_QUERIES = ("q2", "q4", "q11", "q75")
 REUSED_EXCHANGE_QUERIES = ("q2", "q75")
 # the skewed shuffled join: 2^24 fact rows in 4 splits of 2^22, 60% of
 # them on one key, the rest uniform over 2^20 keys (the even ones in the
@@ -2321,6 +2351,9 @@ SKEW_CONF = {"spark.rapids.gpu.sql.join.broadcastRowThreshold": 0,
              "spark.rapids.gpu.sql.adaptive.skewJoin."
              "skewedPartitionThresholdBytes": 64 << 20}
 SKEW_JOINS = ("inner", "left", "left_semi")
+# the skewed joins whose walls are medians of 3; the others report their
+# checked runs' walls (repeats cut with phase 21's arrival)
+SKEW_WALL_JOINS = ("inner",)
 
 
 def same_rows_as(name, check, got, exp) -> None:
@@ -2377,7 +2410,8 @@ def skewed_join_case(facts, dims, how, probe_calls) -> dict:
     """Phase 14's skewed join ``how``: planned with skew-split specs on
     the fact side, every probe call held against the plain version, rows
     equal to AQE off as multisets sorted on the card, the row count equal
-    to numpy's; warm walls on and off (medians of 3)."""
+    to numpy's; walls on and off (warm medians of 3 for the joins of
+    ``SKEW_WALL_JOINS``, the checked runs' for the others)."""
     import numpy as np
     import torch
 
@@ -2448,10 +2482,18 @@ def skewed_join_case(facts, dims, how, probe_calls) -> dict:
         raise AssertionError(f"skewed {how} join differs from AQE off")
     del a, b
     # each checked run (its probe calls also run the plain version, a few
-    # ms in all) is the first of its three
-    walls = {name: _warm_wall(lambda extra=extra: query(extra).to_arrow(),
-                              first=runs[name]["first_s"])
-             for name, extra in (("on", None), ("off", off))}
+    # ms in all) is the first of three warm runs, or, for the joins not in
+    # SKEW_WALL_JOINS, the only wall: a checked-run wall, not a warm one
+    if how in SKEW_WALL_JOINS:
+        walls = {name: _warm_wall(
+            lambda extra=extra: query(extra).to_arrow(), 3,
+            first=runs[name]["first_s"])
+            for name, extra in (("on", None), ("off", off))}
+        wall_key, wall_what, wall_of = "warm_s", "warm wall", "medians of 3"
+    else:
+        walls = {name: r["first_s"] for name, r in runs.items()}
+        wall_key, wall_what, wall_of = ("checked_s", "checked-run wall",
+                                        "one run each")
     lsizes, rsizes = readers[0].planner.sizes
     res = {"rows": want, "left_specs": [sp.describe() for sp in lspecs],
            "right_specs": [sp.describe() for sp in rspecs],
@@ -2459,14 +2501,14 @@ def skewed_join_case(facts, dims, how, probe_calls) -> dict:
            "skew_split_specs": split,
            "first_s": {k: v["first_s"] for k, v in runs.items()},
            "launches": {k: v["launches"] for k, v in runs.items()},
-           "warm_s": walls}
+           wall_key: walls}
     log(f"skewed {how} join: {want} rows, equal to AQE off and numpy; "
         f"reduce partitions {lsizes} B (facts), {rsizes} B (dimension); "
         f"left specs {res['left_specs']}, right specs "
         f"{res['right_specs']}; probe launches on "
         f"{res['launches']['on']['hashtbl_probe']} off "
-        f"{res['launches']['off']['hashtbl_probe']}; warm wall on "
-        f"{walls['on']:.4f}s off {walls['off']:.4f}s (medians of 3)")
+        f"{res['launches']['off']['hashtbl_probe']}; {wall_what} on "
+        f"{walls['on']:.4f}s off {walls['off']:.4f}s ({wall_of})")
     return res
 
 
@@ -2480,10 +2522,10 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
     """Phase 14: every query of phases 10-11 that plans an exchange and
     every case of phase 13 once with AQE, reuse and prefetch off, its rows
     equal to the defaults', with its AQE specs, reuse and probe launches
-    on and off; q2/q75/Q3's warm walls off beside the defaults', and
-    Q3's with prefetch alone off; q2, q4, q11, q74 and q75 with 4
-    splits, reuse on against off; the skewed shuffled join. Every kernel
-    call of the counted runs is held against its plain version."""
+    on and off; q2/q75/Q3's checked runs' walls off beside the defaults'
+    warm walls, and Q3's with prefetch alone off; q2, q4, q11 and q75
+    with 4 splits, reuse on against off; the skewed shuffled join. Every
+    kernel call of the counted runs is held against its plain version."""
     import torch
 
     from spark_rapids_tpu_torch.bench import tpcds_queries as Q
@@ -2549,9 +2591,7 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
                           "probe_off": launches["hashtbl_probe"],
                           "warm_s_on": r["warm_s"]}
             if q in SWITCHES_OFF_WALLS:
-                walls_off[q] = _warm_wall(
-                    lambda q=q: Q.QUERIES[q](off_one).to_arrow(),
-                    first=off_st["wall_s"])
+                walls_off[q] = off_st["wall_s"]
     off_four = part_res["four"](SWITCHES_OFF)
     for name, build, frame, check in part_res["cases"]:
         out, launches, off_st = counted(
@@ -2565,9 +2605,7 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
             "probe_on": r["launches"]["hashtbl_probe"],
             "probe_off": launches["hashtbl_probe"], "warm_s_on": r["warm_s"]}
         if name in SWITCHES_OFF_WALLS:
-            walls_off[name] = _warm_wall(
-                lambda build=build, frame=frame: build(
-                    off_four[frame]).to_arrow(), first=off_st["wall_s"])
+            walls_off[name] = off_st["wall_s"]
     for name, r in results.items():
         on = r["on"]
         log(f"{name}: AQE, reuse and prefetch off equal the defaults; AQE "
@@ -2576,11 +2614,14 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
             f"{on['bytes_saved']} B saved; probe launches on "
             f"{r['probe_on']} off {r['probe_off']}; exchanges on "
             f"{on['exchanges']} off {r['off']['exchanges']}")
+    # off, the wall is the checked run's alone: the first run under the
+    # off settings, its kernel calls also running the plain version; not
+    # like for like with the warm medians at the defaults
     for name, w in walls_off.items():
-        results[name]["warm_s_off"] = w
+        results[name]["checked_s_off"] = w
         log(f"{name}: warm wall {results[name]['warm_s_on']:.4f}s at the "
-            f"defaults, {w:.4f}s with AQE, reuse and prefetch off (medians "
-            f"of 3)")
+            f"defaults (median of 3); checked-run wall {w:.4f}s with AQE, "
+            f"reuse and prefetch off (one run, probes checked)")
     missing = set(SWITCHES_OFF_WALLS) - set(walls_off)
     if missing:
         raise AssertionError(f"{sorted(missing)} planned no exchange")
@@ -2597,10 +2638,11 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
         r["prefetch_off"] = st
         # its checked run's wall alone (the two repeats were cut with
         # phase 17's arrival)
-        r["wall_s_prefetch_off"] = st["wall_s"]
+        r["checked_s_prefetch_off"] = st["wall_s"]
         log(f"{name}: warm wall {r['warm_s_on']:.4f}s at the defaults "
-            f"(median of 3), {r['wall_s_prefetch_off']:.4f}s with prefetch "
-            f"off (one run); read {st['read_ms']:.1f} ms off against "
+            f"(median of 3); checked-run wall "
+            f"{r['checked_s_prefetch_off']:.4f}s with prefetch off (one "
+            f"run, probes checked); read {st['read_ms']:.1f} ms off against "
             f"{part_res['queries'][name]['read_ms']:.1f} ms (of it "
             f"{part_res['queries'][name]['read_ahead_wait_ms']:.1f} ms "
             f"waiting for a read-ahead) at the defaults")
@@ -4079,6 +4121,241 @@ def check_stat_scan(values, is_start, op: str, shape: str = "stat_largest",
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the Parquet pass
+# ---------------------------------------------------------------------------
+
+SCAN_COUNTS = ("numRowGroups", "numPrunedRowGroups", "numDynPrunedRowGroups")
+DPP_OFF = {"spark.rapids.gpu.sql.dynamicPartitionPruning.enabled": "false"}
+
+
+def parquet_files(ds_tables) -> tuple:
+    """The headline queries' eight tables written as Parquet files with
+    the port's writer from the card's batches (``bench/parquet_sales.py``:
+    store_sales clustered by date, 2^17-row row groups, 786,432-row
+    files) under the temporary directory (removed at exit), each read
+    back by pyarrow and held equal to its source: (paths, stats, write
+    seconds)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.bench import parquet_sales as PS
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+
+    tables = {n: ds_tables[n] for n in S.BASE_TABLES}
+    d = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    atexit.register(shutil.rmtree, d, True)
+    t0 = time.perf_counter()
+    paths, stats = PS.write_tables(tables, d, device="cuda")
+    write_s = time.perf_counter() - t0
+    for name, t in tables.items():
+        back = pq.read_table(paths[name])
+        if name == PS.FACT:
+            t = PS.clustered_fact(t)
+        if not back.equals(t.cast(back.schema)):
+            raise AssertionError(f"the written {name} differs from its "
+                                 f"source")
+    return paths, stats, write_s
+
+
+def parquet_cpu_rows(q: str, paths: dict) -> tuple:
+    """A worker's check: ``q`` on the CPU engine over the Parquet files
+    (``CpuParquetScanExec``): (rows, seconds)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import parquet_sales as PS
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    t0 = time.perf_counter()
+    cpu = PS.df_tables(paths, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+    rows = Q.QUERIES[q](cpu).to_arrow().to_pylist()
+    return rows, time.perf_counter() - t0
+
+
+def scan_metrics(plan) -> dict:
+    """The Parquet scans' row-group counts and host times, summed over
+    the plan's scans."""
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
+
+    out = {k: 0 for k in SCAN_COUNTS + ("scanTimeNs", "uploadTimeNs")}
+    out["scans"] = 0
+    for n in _walk_plan(plan):
+        if isinstance(n, ParquetScanExec):
+            out["scans"] += 1
+            for k in SCAN_COUNTS + ("scanTimeNs", "uploadTimeNs"):
+                out[k] += n.metrics[k].value
+    return out
+
+
+def run_parquet_path(ds_tables, head_rows: dict) -> dict:
+    """Phase 21: the headline queries read from Parquet files. The files
+    written from the card's batches and read back equal; q3's CPU-engine
+    run over the files started in a check worker; then each of
+    q3/q7/q42/q52/q96 on the card from ``read_parquet`` frames: no node on
+    the CPU engine, one counted run (launch counts zeroed before and read
+    after, every probe call held against the plain version) whose rows
+    equal phase 6's verified rows, its scans' row-group counts and times;
+    the same query with dynamic pruning off, its rows equal and none
+    pruned dynamically; warm walls with pruning on and off (medians of 3,
+    each checked run the first of its three). q3 must prune a row group
+    dynamically."""
+    import torch
+
+    from spark_rapids_tpu_torch.bench import parquet_sales as PS
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec import dpp as DPP
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    t_phase = time.perf_counter()
+    paths, stats, write_s = parquet_files(ds_tables)
+    written = sum(st.num_bytes for st in stats.values())
+    fact_groups = PS.row_groups(paths[PS.FACT])
+    log(f"parquet: {sum(st.num_files for st in stats.values())} files, "
+        f"{written} B written from the card's batches in {write_s:.2f}s "
+        f"(store_sales {len(paths[PS.FACT])} files, {fact_groups} row "
+        f"groups); pyarrow reads each back equal to its source")
+    pending = check_workers().apply_async(parquet_cpu_rows, ("q3", paths))
+    frames = {"on": PS.df_tables(paths, device="cuda"),
+              "off": PS.df_tables(paths, RapidsConf(DPP_OFF),
+                                  device="cuda")}
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    probe_calls = [0]
+    largest = {}
+    real_probe = K.probe_hash_table_kernel
+    check_call = checking_probe(real_probe, probe_calls)
+
+    def recording(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("n", -1):
+            largest.update(n=h1.numel(), args=(tbl, h1, h2, capacity, seed))
+        return check_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    # the pruning filters' collect (the build's run and its download
+    # included) and, within it, the build batches' download, host clock
+    dpp_ns = {"collect": 0, "download": 0}
+    real_collect = DPP.DynamicPruningFilter._collect
+    real_download = DPP.batch_to_arrow
+
+    def timed(key, fn):
+        def call(*args):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args)
+            finally:
+                dpp_ns[key] += time.perf_counter_ns() - t0
+        return call
+
+    def checked_run(df):
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = recording
+        dpp_ns.update(collect=0, download=0)
+        DPP.DynamicPruningFilter._collect = timed("collect", real_collect)
+        DPP.batch_to_arrow = timed("download", real_download)
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plan = df.physical_plan()
+            out = execute_to_arrow(plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            K.probe_hash_table_kernel = real_probe
+            DPP.DynamicPruningFilter._collect = real_collect
+            DPP.batch_to_arrow = real_download
+        scans = scan_metrics(plan)
+        scans.update(dpp_collect_ns=dpp_ns["collect"],
+                     dpp_download_ns=dpp_ns["download"])
+        return out.to_pylist(), wall, dict(K.KERNEL_LAUNCHES), plan, scans
+
+    res, rows = {}, {}
+    for q in Q.HEADLINE:
+        df = Q.QUERIES[q](frames["on"])
+        off = off_device(df)
+        if off:
+            raise AssertionError(f"parquet {q} has nodes on the CPU engine: "
+                                 f"{off}")
+        got, wall, launches, plan, scans = checked_run(df)
+        for k, v in launches.items():
+            total[k] += v
+        ok, why = Q.check_rows(q, got, head_rows[q])
+        if not ok:
+            raise AssertionError(f"parquet {q} differs from phase 6's rows "
+                                 f"({why})")
+        if launches["hashtbl_probe"] <= 0:
+            raise AssertionError(f"parquet {q} launched no probe kernel")
+        # the pruning-off run: its probe calls checked, its launches not
+        # counted
+        saved = dict(K.KERNEL_LAUNCHES)
+        got_off, wall_off, _l, _p, scans_off = checked_run(
+            Q.QUERIES[q](frames["off"]))
+        K.KERNEL_LAUNCHES.update(saved)
+        if got_off != got:
+            raise AssertionError(f"parquet {q} with dynamic pruning off "
+                                 f"differs")
+        if scans_off["numDynPrunedRowGroups"]:
+            raise AssertionError(f"parquet {q} pruned dynamically with it "
+                                 f"off")
+        rows[q] = got
+        res[q] = {"rows": len(got), "first_s": wall, "launches": launches,
+                  "scan": scans, "scan_dpp_off": scans_off,
+                  "first_s_dpp_off": wall_off,
+                  "strategy": plan_strategy(plan)}
+        log(f"parquet {q}: {len(got)} rows equal phase 6's and with "
+            f"dynamic pruning off; launches {launches}; row groups "
+            f"{scans['numRowGroups']} read, {scans['numPrunedRowGroups']} "
+            f"pruned, {scans['numDynPrunedRowGroups']} pruned dynamically "
+            f"({scans_off['numRowGroups']} read with it off); scan "
+            f"{scans['scanTimeNs'] / 1e6:.1f} ms, upload "
+            f"{scans['uploadTimeNs'] / 1e6:.1f} ms (host); pruning "
+            f"filters' collect {scans['dpp_collect_ns'] / 1e6:.1f} ms, of "
+            f"it the build's download {scans['dpp_download_ns'] / 1e6:.1f}"
+            f" ms (host; with pruning off: scan "
+            f"{scans_off['scanTimeNs'] / 1e6:.1f} ms, upload "
+            f"{scans_off['uploadTimeNs'] / 1e6:.1f} ms); "
+            f"{strategy_line(res[q]['strategy'])}")
+    if res["q3"]["scan"]["numDynPrunedRowGroups"] < 1:
+        raise AssertionError("parquet q3 pruned no row group dynamically")
+    if probe_calls[0] < total["hashtbl_probe"]:
+        raise AssertionError(f"phase 21 checked {probe_calls[0]} probe calls "
+                             f"for {total} launches")
+    t1 = time.perf_counter()
+    cpu_rows, cpu_s = pending.get(timeout=900)
+    waited = time.perf_counter() - t1
+    ok, why = Q.check_rows("q3", cpu_rows, rows["q3"])
+    if not ok:
+        raise AssertionError(f"parquet q3 on the CPU engine differs from "
+                             f"the card ({why})")
+    res["q3"]["cpu_engine_s"] = cpu_s
+    log(f"parquet q3 on the CPU engine (a worker reading the files) equals "
+        f"the card; {cpu_s:.2f}s, waited {waited:.2f}s")
+    for q in Q.HEADLINE:
+        r = res[q]
+        for name in ("on", "off"):
+            first = r["first_s"] if name == "on" else r["first_s_dpp_off"]
+            r[f"warm_s_dpp_{name}"] = _warm_wall(
+                lambda q=q, name=name: Q.QUERIES[q](frames[name]).to_arrow(),
+                first=first)
+        log(f"parquet {q}: warm wall {r['warm_s_dpp_on']:.4f}s with dynamic "
+            f"pruning, {r['warm_s_dpp_off']:.4f}s without (medians of 3)")
+    log(f"probe: all {probe_calls[0]} calls of phase 21 equal the plain "
+        f"version ({total} launches)")
+    return {"queries": res, "launches": total,
+            "probe_calls_checked": probe_calls[0],
+            "largest_probe": largest.get("args"),
+            "bytes_written": written, "write_s": write_s,
+            "files": {n: len(p) for n, p in paths.items()},
+            "fact_row_groups": fact_groups, "waited_s": waited,
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def tpch_plan(q, frames):
     from spark_rapids_tpu_torch.bench import tpch
 
@@ -4110,8 +4387,11 @@ def main(argv=None) -> int:
     mem_checks.install()
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
+    import pyarrow
+
     log(f"device: {smi} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+        f"{torch.version.cuda} pyarrow {pyarrow.__version__} | {kind} "
+        f"x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
     libs = native.build_all()
@@ -4162,7 +4442,8 @@ def main(argv=None) -> int:
     shapes.append(breadth_probe)
     shapes.append(check_probe("breadth_most_rows",
                               *breadth_res.pop("largest_probe"), cold=True))
-    join_rows = dict(head_res.pop("rows"))
+    headline_rows = head_res.pop("rows")
+    join_rows = dict(headline_rows)
     join_rows.update({q: r for q, r in joins_res.pop("rows").items()
                       if q != "q9"})
     join_rows.update(breadth_res.pop("rows"))
@@ -4277,6 +4558,15 @@ def main(argv=None) -> int:
     log(f"phase 20 took {nested_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    # phase 21: the Parquet pass
+    checked_before = mem_checks.checked
+    parquet_res = run_parquet_path(ds_tables, headline_rows)
+    parquet_probe = check_probe("parquet_largest",
+                                *parquet_res.pop("largest_probe"), cold=True)
+    shapes.append(parquet_probe)
+    log(f"phase 21 took {parquet_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -4294,7 +4584,8 @@ def main(argv=None) -> int:
                       "stat_sales": stat_res["launches"][name],
                       "scalar_sales": scalar_res["launches"][name],
                       "string_sales": string_res["launches"][name],
-                      "nested_sales": nested_res["launches"][name]}
+                      "nested_sales": nested_res["launches"][name],
+                      "parquet_sales": parquet_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -4356,6 +4647,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "nested_calls_checked": nested_res["probe_calls_checked"],
+        "parquet_largest": {k: parquet_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "parquet_calls_checked": parquet_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
                      "smallint float timestamp binary (the 64-bit key "
                      "hashes)",
@@ -4435,6 +4730,8 @@ def main(argv=None) -> int:
               "nested_sales": {k: v for k, v in nested_res.items()
                                if k != "launches"},
               "segscan_nested": nested_scan,
+              "parquet_sales": {k: v for k, v in parquet_res.items()
+                                if k != "launches"},
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

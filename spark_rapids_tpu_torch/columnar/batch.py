@@ -157,6 +157,9 @@ def dictionary_encode_table(table: pa.Table,
     for i, name in enumerate(table.column_names):
         if columns is not None and name not in columns:
             continue
+        ftype = table.schema.field(i).type
+        if not (pa.types.is_string(ftype) or pa.types.is_dictionary(ftype)):
+            continue  # not a string: no need to gather its chunks
         col = table.column(i).combine_chunks()
         if pa.types.is_dictionary(col.type):
             if not pa.types.is_string(col.type.value_type):

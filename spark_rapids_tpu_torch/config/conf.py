@@ -304,6 +304,50 @@ REGEX_MAX_DFA_STATES = conf(
         "whose automaton needs more runs on the CPU engine (reference: "
         "spark.rapids.tpu.sql.regex.maxDfaStates).")
 
+PATHS_TO_REPLACE = conf(
+    "spark.rapids.gpu.alluxio.pathsToReplace", default="",
+    doc="Comma-separated 'src->dst' prefix rules applied to scan paths "
+        "before reading, e.g. 's3://bucket->/mnt/cache/bucket' "
+        "(reference: spark.rapids.alluxio.pathsToReplace, AlluxioUtils).")
+
+DPP_ENABLED = conf(
+    "spark.rapids.gpu.sql.dynamicPartitionPruning.enabled", default=True,
+    doc="Dynamic partition pruning: collect a join's build-side key values "
+        "and prune the probe scan's parquet row groups whose statistics "
+        "prove no key can match (reference: GpuDynamicPruningExpression / "
+        "GpuSubqueryBroadcastExec).")
+
+DPP_MAX_KEYS = conf(
+    "spark.rapids.gpu.sql.dynamicPartitionPruning.maxKeys", default=1 << 16,
+    doc="Disable dynamic pruning when the build side has more distinct keys "
+        "than this (broadcast-threshold analog).")
+
+SCAN_ROW_GROUP_PRUNING = conf(
+    "spark.rapids.gpu.sql.parquet.rowGroupPruning.enabled", default=True,
+    doc="Prune parquet row groups with min/max statistics against pushed "
+        "predicates (reference: GpuParquetScan predicate pushdown).")
+
+SCAN_COMBINE_WINDOW = conf(
+    "spark.rapids.gpu.sql.parquet.reader.combineWindow", default=4,
+    doc="Files decoded per threadpool window in the multithreaded parquet "
+        "reader before device upload (reference: MULTITHREADED reader "
+        "combine settings).")
+
+SCAN_METADATA_THREADS = conf(
+    "spark.rapids.gpu.sql.scan.metadataThreads", default=4,
+    doc="Threads reading parquet footers and row-group metadata ahead of "
+        "the decode pool (reference: MULTITHREADED reader footer threads).")
+
+FILECACHE_MAX_BYTES = conf(
+    "spark.rapids.gpu.filecache.maxBytes", default=8 << 30,
+    doc="Local disk budget for the file range cache.")
+
+WRITER_ASYNC_MAX_IN_FLIGHT = conf(
+    "spark.rapids.gpu.sql.write.async.maxInFlightBytes", default=256 << 20,
+    doc="Host bytes allowed in flight for async writes before producers "
+        "block (reference: HostMemoryThrottle).")
+
+PARQUET_READER_TYPES = ("PERFILE", "MULTITHREADED", "COALESCING")
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
 SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
 SHUFFLE_CODECS = ("none", "zlib", "lz4", "zstd")
@@ -342,7 +386,8 @@ class RapidsConf:
                 (AGG_REPARTITION_MAX_DEPTH, lambda v: v >= 1, ">= 1"),
                 (RETRY_MAX_ATTEMPTS, lambda v: v >= 1, ">= 1"),
                 (SORT_OOC_TARGET_ROWS, lambda v: v >= 1, ">= 1"),
-                (SORT_OOC_MAX_MERGE_RUNS, lambda v: v >= 2, ">= 2")):
+                (SORT_OOC_MAX_MERGE_RUNS, lambda v: v >= 2, ">= 2"),
+                (SCAN_METADATA_THREADS, lambda v: v >= 1, ">= 1")):
             if not ok(self[entry]):
                 raise ValueError(f"{entry.key} must be {rule}")
 

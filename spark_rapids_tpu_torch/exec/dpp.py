@@ -12,8 +12,17 @@ build is then that very batch (``kernels.concat_device`` of one batch is
 the batch), not a second copy. It stays on the device (build sides are
 dimension-sized) for the plan's life.
 
-The reference's ``DynamicPruningFilter`` prunes file scans by a build
-side's keys; the port has no file scan yet, so it is not here.
+``DynamicPruningFilter`` (dynamic partition pruning; the reference's
+GpuSubqueryBroadcastExec analog) collects the distinct values of a join's
+build-side key once, at the probe scan's first task planning, and answers
+whether a parquet row group's [min, max] statistics may hold any of them
+(``exec/scan.ParquetScanExec._dyn_prune``). Its build is the join's own
+materialization: the broadcast's ``ReplayExec``, the raw right exchange of
+a shuffled join (not its AQE reader: consulting the reader from inside the
+probe side's exchange write would re-enter the skew planner), or a
+``ReplayExec`` that the join then reads too. A key set above
+``max_values`` distinct values, or holding a NaN, disables the filter
+(every row group may match).
 """
 
 from __future__ import annotations
@@ -21,7 +30,11 @@ from __future__ import annotations
 import threading
 from typing import Iterator, List, Optional
 
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+import pyarrow as pa
+import pyarrow.compute as pc
+
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnarBatch, batch_to_arrow)
 from spark_rapids_tpu_torch.exec import kernels as K
 from spark_rapids_tpu_torch.exec.base import DeviceExec, UnaryExec
 
@@ -60,3 +73,80 @@ class ReplayExec(UnaryExec):
 
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         yield from self._materialize()[partition]
+
+
+class DynamicPruningFilter:
+    """The distinct values of a build plan's key column ``key_index``,
+    consulted by the probe scan's row-group pruner for its ``column``."""
+
+    def __init__(self, build: DeviceExec, key_index: int, column: str,
+                 max_values: int = 1 << 16):
+        self.build = build
+        self.key_index = key_index
+        self.column = column  # the scan-side column the keys prune
+        self.max_values = max_values
+        self._values: Optional[List] = None
+        self._overflow = False
+        self._done = False
+        self._lock = threading.Lock()
+
+    def _collect(self) -> None:
+        """Arrow set operations per batch and an incremental cap check, so
+        an oversized build gives up early."""
+        chunks: List[pa.Array] = []
+        upper = 0  # the sum of per-chunk distinct counts bounds the total
+        schema = self.build.output_schema
+
+        def merge() -> int:
+            m = pc.unique(pa.concat_arrays(
+                [c.cast(chunks[0].type) for c in chunks]))
+            chunks[:] = [m]
+            return len(m)
+
+        for p in range(self.build.num_partitions()):
+            for b in self.build.execute(p):
+                t = batch_to_arrow(b, schema)
+                u = pc.unique(t.column(self.key_index).combine_chunks())
+                chunks.append(u.drop_null())
+                upper += len(chunks[-1])
+                if upper > self.max_values:
+                    upper = merge()  # compacted: the true count so far
+                    if upper > self.max_values:
+                        self._overflow = True
+                        return
+        if not chunks:
+            self._values = []
+            return
+        merge()
+        vals = chunks[0].to_pylist()
+        if any(isinstance(v, float) and v != v for v in vals):
+            # a NaN compares false with everything: bisect cannot use it
+            self._overflow = True
+            return
+        # one Arrow column: its values are of one type and order
+        self._values = sorted(vals)
+
+    def values(self) -> Optional[List]:
+        """The sorted distinct keys, or None when pruning is disabled."""
+        with self._lock:
+            if not self._done:
+                self._collect()
+                self._done = True
+            return None if self._overflow else self._values
+
+    def may_match(self, mn, mx) -> bool:
+        """Could a collected key fall inside [mn, mx]? True on unknown
+        statistics or a disabled filter."""
+        from spark_rapids_tpu_torch.exec.scan import values_may_overlap
+
+        vals = self.values()
+        if vals is None:
+            return True
+        return values_may_overlap(vals, mn, mx)
+
+    def describe(self) -> str:
+        if not self._done:
+            return f"dpp[{self.column}] (pending)"
+        if self._overflow:
+            return f"dpp[{self.column}] (disabled)"
+        return f"dpp[{self.column}] ({len(self._values)} keys)"

@@ -17,10 +17,11 @@ waits on a full queue, and closes the source.
 ``insert_prefetch`` wraps the boundaries of a converted plan in
 ``PrefetchExec``: exchanges, reused exchanges, AQE readers (an exchange
 directly under an AQE reader stays bare: the reader reads its blocks, not
-its batches) and a CPU-engine node under a device parent (the
-CPU-to-device transition). File scans join the list when the port has
-them. With ``spark.rapids.gpu.sql.prefetch.enabled`` false it leaves the
-plan bare; the planner skips it on the fast path.
+its batches), file scans (``exec/scan.FileScanBase``: the decode and
+upload lane) and a CPU-engine node under a device parent (the
+CPU-to-device transition). With
+``spark.rapids.gpu.sql.prefetch.enabled`` false it leaves the plan bare;
+the planner skips it on the fast path.
 
 Each batch a queue holds is accounted on the device pool (``mem/pool.py``)
 from the worker's put to the consumer's take. When the pool refuses one
@@ -306,6 +307,7 @@ def insert_prefetch(ex: DeviceExec, conf: C.RapidsConf) -> DeviceExec:
     if not enabled:
         return ex
     from spark_rapids_tpu_torch.exec.reuse import ReusedExchangeExec
+    from spark_rapids_tpu_torch.exec.scan import FileScanBase
     from spark_rapids_tpu_torch.plan.cpu import CpuExec
     from spark_rapids_tpu_torch.shuffle.aqe import AQEShuffleReadExec
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
@@ -321,7 +323,7 @@ def insert_prefetch(ex: DeviceExec, conf: C.RapidsConf) -> DeviceExec:
         if isinstance(node, exchanges) and isinstance(parent,
                                                       AQEShuffleReadExec):
             return node
-        if isinstance(node, exchanges + (AQEShuffleReadExec,)):
+        if isinstance(node, exchanges + (AQEShuffleReadExec, FileScanBase)):
             return PrefetchExec(node, depth)
         if (isinstance(node, CpuExec) and parent is not None
                 and not isinstance(parent, CpuExec)):

@@ -33,8 +33,9 @@ its consumers). The plan-time rewrite is ``plan/reuse.py``.
 
 Counters (``counters()``): ``reuse_exchanges_total`` and
 ``reuse_broadcasts_total`` (aliases the rewrite placed),
-``reuse_bytes_saved_total`` (bytes not written, read or built again),
-``reuse_evict_total``, ``reuse_evict_bytes_total`` and
+``reuse_subqueries_total`` (dynamic pruning filters merged or pointed at
+a surviving build), ``reuse_bytes_saved_total`` (bytes not written, read
+or built again), ``reuse_evict_total``, ``reuse_evict_bytes_total`` and
 ``reuse_evict_skipped_active_total``.
 """
 
@@ -60,6 +61,7 @@ _counters_lock = threading.Lock()
 _counters: Dict[str, int] = {
     "reuse_exchanges_total": 0,
     "reuse_broadcasts_total": 0,
+    "reuse_subqueries_total": 0,
     "reuse_bytes_saved_total": 0,
     "reuse_evict_total": 0,
     "reuse_evict_bytes_total": 0,

@@ -834,6 +834,38 @@ class CpuInMemoryScanExec(CpuExec):
                else self.table.cast(target))
 
 
+class CpuParquetScanExec(CpuExec):
+    """Parquet files read whole on the host, one partition, every file
+    cast to the first file's schema (the reference's; it prunes no row
+    group)."""
+
+    def __init__(self, paths: Sequence[str],
+                 columns: Optional[Sequence[str]] = None, *, device):
+        super().__init__(device=device)
+        self.paths = list(paths)
+        self.columns = list(columns) if columns is not None else None
+
+    @property
+    def output_schema(self) -> T.Schema:
+        import pyarrow.parquet as pq
+
+        s = pq.read_schema(self.paths[0])
+        if self.columns is not None:
+            s = pa.schema([s.field(c) for c in self.columns])
+        return T.Schema.from_arrow(s)
+
+    def node_description(self) -> str:
+        return f"CpuParquetScan[{len(self.paths)} files]"
+
+    def execute_host(self, partition: int = 0) -> Iterator[pa.Table]:
+        import pyarrow.parquet as pq
+
+        target = self.output_schema.to_arrow()
+        for p in self.paths:
+            t = pq.read_table(p, columns=self.columns)
+            yield t.select(target.names).cast(target)
+
+
 class CpuProjectExec(CpuExec):
     def __init__(self, exprs: Sequence[E.Expression], child: DeviceExec,
                  device):

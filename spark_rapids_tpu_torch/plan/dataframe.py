@@ -227,3 +227,19 @@ def from_arrow(table: pa.Table, conf: Optional[C.RapidsConf] = None,
     dev = resolve_device(device)
     return DataFrame(L.InMemoryScan(table, batch_rows, str(dev), partitions),
                      conf)
+
+
+def read_parquet(paths, columns=None, predicate=None,
+                 conf: Optional[C.RapidsConf] = None,
+                 device=None) -> DataFrame:
+    """A DataFrame over Parquet files (one path or a list), scanned to
+    ``device`` (``cuda`` by default; raises when no card is present) in
+    ``min(files, shuffle partitions)`` partitions; ``columns`` selects
+    columns, ``predicate`` prunes row groups by their statistics (a filter
+    above it still applies it to rows)."""
+    if isinstance(paths, str):
+        paths = [paths]
+    dev = resolve_device(device)
+    return DataFrame(L.ParquetScan(list(paths),
+                                   None if columns is None else list(columns),
+                                   predicate, str(dev)), conf)

@@ -1,7 +1,7 @@
 """Logical plan nodes (counterpart of spark_rapids_tpu/plan/logical.py for
-the nodes the port plans): InMemoryScan, Project, Filter, Aggregate,
-Window, Sort, Join (with an optional residual condition over the pair of
-rows), Limit and Union. They hold structure and schemas only;
+the nodes the port plans): ParquetScan, InMemoryScan, Project, Filter,
+Aggregate, Window, Sort, Join (with an optional residual condition over
+the pair of rows), Limit and Union. They hold structure and schemas only;
 ``overrides.py`` converts them into physical operators.
 """
 
@@ -28,6 +28,30 @@ class LogicalPlan:
 
     def describe(self) -> str:
         return type(self).__name__
+
+
+@dataclasses.dataclass
+class ParquetScan(LogicalPlan):
+    """Parquet files; the schema is the first file's, as the reference's
+    (the other files are read and cast to it). ``predicate`` is pushed to
+    the scan's row-group pruning only: a filter above applies it."""
+
+    paths: List[str]
+    columns: Optional[List[str]] = None
+    predicate: Optional[E.Expression] = None
+    device: str = "cuda"
+
+    @property
+    def schema(self) -> T.Schema:
+        import pyarrow.parquet as pq
+
+        s = pq.read_schema(self.paths[0])
+        if self.columns is not None:
+            s = pa.schema([s.field(c) for c in self.columns])
+        return T.Schema.from_arrow(s)
+
+    def describe(self):
+        return f"ParquetScan[{len(self.paths)} files]"
 
 
 @dataclasses.dataclass

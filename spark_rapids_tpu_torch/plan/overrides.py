@@ -43,13 +43,17 @@ inner/left/right/full/left_semi/left_anti, an expression outside the port)
 raises NotImplementedError with the reasons.
 
 Partitions are planned as the reference plans them, with its adaptive
-execution (AQE), exchange and broadcast reuse and prefetch, at its
-defaults; its dynamic partition pruning (which prunes file scans, and
-the port has none yet) and fusion are not in the port. A scan has
-``min(partitions, batches)`` source splits; a query whose scan leaves all
-sit under the fast path's row and byte bounds plans one shuffle partition
-instead of ``shuffle_partitions``. Above a child with more than one
-partition the planner places:
+execution (AQE), exchange and broadcast reuse, prefetch and dynamic
+partition pruning, at its defaults; its fusion is not in the port. An
+in-memory scan has ``min(partitions, batches)`` source splits, a Parquet
+scan ``min(files, shuffle partitions)`` (``exec/scan.ParquetScanExec``;
+the CPU engine's ``CpuParquetScanExec`` one); its paths are rewritten by
+``spark.rapids.gpu.alluxio.pathsToReplace`` (``io/paths.py``) before any
+footer is read. A query whose scan leaves all sit under the fast path's
+row and byte bounds (a Parquet leaf: at most 16 files, its footers' rows
+and its files' sizes on disk) plans one shuffle partition instead of
+``shuffle_partitions``. Above a child with more than one partition the
+planner places:
 
 - an aggregate: partial, a hash exchange on the keys (a single-partition
   exchange when there is no key), final;
@@ -68,7 +72,13 @@ partition the planner places:
   ``spark.rapids.gpu.sql.join.broadcastRowThreshold``, its build side a
   ``ReplayExec`` run once, else a shuffled hash join over two hash
   exchanges; a multi-partition right side under a one-partition left side
-  takes a single-partition exchange.
+  takes a single-partition exchange. An inner, left-semi or right join
+  whose left side is a Parquet scan (under filters and coalesces only)
+  gives the scan a ``DynamicPruningFilter`` per key column of the scan
+  (``spark.rapids.gpu.sql.dynamicPartitionPruning.enabled``): its build
+  is the join's broadcast ``ReplayExec``, its raw right exchange, its
+  single-partition exchange, or else a ``ReplayExec`` that the join then
+  reads too.
 
 With ``spark.rapids.gpu.sql.adaptive.enabled`` (the default) an AQE
 reader (``shuffle/aqe.py``) reads each hash exchange of an aggregate and
@@ -106,6 +116,7 @@ rewritten plan.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import weakref
 from typing import List, Optional, Set
@@ -121,7 +132,7 @@ from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.exec.aggregate import (
     HashAggregateExec, _strip_alias)
 from spark_rapids_tpu_torch.exec.base import BatchSourceExec, DeviceExec
-from spark_rapids_tpu_torch.exec.dpp import ReplayExec
+from spark_rapids_tpu_torch.exec.dpp import DynamicPruningFilter, ReplayExec
 from spark_rapids_tpu_torch.exec.join import JOIN_TYPES, HashJoinExec
 from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
 from spark_rapids_tpu_torch.exec.misc import (
@@ -131,6 +142,7 @@ from spark_rapids_tpu_torch.exec.pipeline import PrefetchExec, insert_prefetch
 from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
 from spark_rapids_tpu_torch.exec.reuse import (
     ReusedBroadcastExec, ReusedExchangeExec)
+from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
 from spark_rapids_tpu_torch.exec.sort import SortExec, SortOrder
 from spark_rapids_tpu_torch.exec.window import (
     WindowExec, bind_function, check_window, plan_stream_mode)
@@ -518,18 +530,28 @@ class Overrides:
     def _tag_element_nulls(meta: PlanMeta) -> None:
         """A column holding an array with a null element has no device
         layout: its scan and every node that reads it run on the CPU
-        engine (``host_columns``: the names carrying one out of a node)."""
+        engine (``host_columns``: the names carrying one out of a node).
+        A Parquet scan's nested columns are read at planning to find
+        them."""
         node = meta.node
-        if isinstance(node, L.InMemoryScan):
-            bad = {n for n in node.table.column_names
-                   if T.is_nested(node.schema[n].dtype)
-                   and array_element_nulls(node.table.column(n),
-                                           node.schema[n].dtype)}
+        leaf = isinstance(node, (L.InMemoryScan, L.ParquetScan))
+        if leaf:
+            schema = node.schema
+            nested = [f.name for f in schema if T.is_nested(f.dtype)]
+            if isinstance(node, L.InMemoryScan):
+                tables = [node.table]
+            else:
+                import pyarrow.parquet as pq
+
+                tables = [pq.read_table(p, columns=nested)
+                          for p in node.paths] if nested else []
+            bad = {n for n in nested for t in tables
+                   if array_element_nulls(t.column(n), schema[n].dtype)}
         else:
             bad = set().union(*[c.host_columns for c in meta.children])
         for name in sorted(bad):
             meta.will_not_work(f"column {name}: {ELEMENT_NULLS}")
-        if bad and not isinstance(node, L.InMemoryScan):
+        if bad and not leaf:
             bad &= set(node.schema.names())
         meta.host_columns = bad
 
@@ -594,8 +616,12 @@ class Overrides:
 
     # -- rewrite -----------------------------------------------------------
     def prepare(self, plan: L.LogicalPlan) -> PlanMeta:
-        """The tagged plan the planner converts: unions widened, and
-        rewritten for the device first when the device is enabled."""
+        """The tagged plan the planner converts: scan paths rewritten,
+        unions widened, and rewritten for the device first when the device
+        is enabled."""
+        return self._prepare(apply_path_rules(plan, self.conf))
+
+    def _prepare(self, plan: L.LogicalPlan) -> PlanMeta:
         plan = widen_unions(plan)
         if C.SQL_ENABLED.get(self.conf):
             plan = rewrite_distinct(plan)
@@ -605,7 +631,8 @@ class Overrides:
     def apply(self, plan: L.LogicalPlan) -> DeviceExec:
         with _APPLY_LOCK:
             C.set_active(self.conf)
-            meta = self.prepare(plan)
+            plan = apply_path_rules(plan, self.conf)
+            meta = self._prepare(plan)
             fastpath = self._fastpath_eligible(plan)
             self._parts = 1 if fastpath else self.shuffle_partitions
             self._converted = []
@@ -625,7 +652,9 @@ class Overrides:
     def _fastpath_eligible(self, plan: L.LogicalPlan) -> bool:
         """True when the scan leaves' rows and bytes, summed, sit at or
         under the fast path's bounds: the query then plans one shuffle
-        partition."""
+        partition. A Parquet leaf counts its footers' rows and its files'
+        sizes on disk (not their decoded size, as the reference), and one
+        of more than 16 files disqualifies the query."""
         if not C.FASTPATH_ENABLED.get(self.conf):
             return False
         rows = nbytes = 0
@@ -637,6 +666,11 @@ class Overrides:
             elif isinstance(n, L.InMemoryScan):
                 rows += n.table.num_rows
                 nbytes += n.table.nbytes
+            elif isinstance(n, L.ParquetScan):
+                if len(n.paths) > 16:
+                    return False  # the footer reads would eat the gain
+                rows += int(CBO.scan_rows(list(n.paths)))
+                nbytes += sum(os.path.getsize(p) for p in n.paths)
             else:
                 return False
         return (rows <= C.FASTPATH_MAX_ROWS.get(self.conf)
@@ -681,6 +715,14 @@ class Overrides:
         kids = [self._convert(c) for c in meta.children]
         kids_out.extend(kids)
         dev = self._device(node)
+        if isinstance(node, L.ParquetScan):
+            if not on_dev:
+                return CPU.CpuParquetScanExec(node.paths, node.columns,
+                                              device=dev)
+            return ParquetScanExec(
+                node.paths, columns=node.columns, predicate=node.predicate,
+                n_partitions=max(1, min(len(node.paths), self._parts)),
+                device=dev, conf=self.conf)
         if isinstance(node, L.InMemoryScan):
             if not on_dev:
                 return CPU.CpuInMemoryScanExec(node.table, dev)
@@ -833,28 +875,74 @@ class Overrides:
     def _convert_join(self, node: L.Join, left: DeviceExec,
                       right: DeviceExec) -> DeviceExec:
         max_rows = C.JOIN_MAX_OUTPUT_ROWS.get(self.conf)
+        probe = left  # the subtree below any exchange, where DPP looks
         if self._planned_parts(left) > 1:
             if (node.join_type in BroadcastHashJoinExec.BROADCAST_TYPES
                     and CBO.estimate_rows(node.right)
                     <= C.JOIN_BROADCAST_ROWS.get(self.conf)):
+                cached = ReplayExec(right)
+                self._try_dynamic_pruning(node, probe, cached)
                 return BroadcastHashJoinExec(
                     node.left_keys, node.right_keys, node.join_type, left,
-                    ReplayExec(right), max_rows, condition=node.condition)
+                    cached, max_rows, condition=node.condition)
             lk = [E.resolve(k, left.output_schema).index
                   for k in node.left_keys]
             rk = [E.resolve(k, right.output_schema).index
                   for k in node.right_keys]
             left = ShuffleExchangeExec(HashPartitioner(lk, self._parts), left)
-            right = ShuffleExchangeExec(HashPartitioner(rk, self._parts),
-                                        right)
+            rex = ShuffleExchangeExec(HashPartitioner(rk, self._parts), right)
+            right = rex
             if C.AQE_ENABLED.get(self.conf):
-                left, right = pair_for_skew_join(left, right, node.join_type,
+                left, right = pair_for_skew_join(left, rex, node.join_type,
                                                  self.conf)
+            # the raw right exchange, not its AQE reader: the keys are
+            # collected inside the left exchange's write, where the reader
+            # would re-enter the skew planner
+            self._try_dynamic_pruning(node, probe, rex)
         elif self._planned_parts(right) > 1:
             right = ShuffleExchangeExec(SinglePartitioner(), right)
+            self._try_dynamic_pruning(node, probe, right)
+        else:
+            # no exchange to share: the build materialized once for the
+            # filter and the join
+            cached = ReplayExec(right)
+            if self._try_dynamic_pruning(node, probe, cached):
+                right = cached
         return HashJoinExec(node.left_keys, node.right_keys, node.join_type,
                             left, right, max_candidate_rows=max_rows,
                             condition=node.condition)
+
+    def _try_dynamic_pruning(self, node: L.Join, probe: DeviceExec,
+                             build: DeviceExec) -> bool:
+        """Attach a runtime key filter from the join's ``build`` (its own
+        materialization) to a Parquet scan under the probe side, where
+        dropping unmatched probe rows cannot change the join's result (an
+        inner, left-semi or right join); the walk goes through filters and
+        coalesces only (a projection could rename or derive the key).
+        Returns whether a filter was attached."""
+        if not C.DPP_ENABLED.get(self.conf):
+            return False
+        if node.join_type not in ("inner", "left_semi", "right"):
+            return False
+        cur = probe
+        while isinstance(cur, (FilterExec, CoalesceBatchesExec)):
+            cur = cur.children[0]
+        if not isinstance(cur, ParquetScanExec):
+            return False
+        scan_cols = {f.name for f in cur.output_schema}
+        attached = False
+        for lk, rk in zip(node.left_keys, node.right_keys):
+            lb = E.resolve(lk, node.left.schema)
+            rb = E.resolve(rk, node.right.schema)
+            if not isinstance(lb, E.ColumnRef) or lb.name not in scan_cols:
+                continue
+            if not isinstance(rb, E.ColumnRef):
+                continue
+            cur.dynamic_filters.append(DynamicPruningFilter(
+                build, rb.index, lb.name,
+                max_values=C.DPP_MAX_KEYS.get(self.conf)))
+            attached = True
+        return attached
 
     @staticmethod
     def _device(node: L.LogicalPlan) -> str:
@@ -863,6 +951,23 @@ class Overrides:
         while node.children:
             node = node.children[0]
         return node.device
+
+
+def apply_path_rules(plan: L.LogicalPlan,
+                     conf: C.RapidsConf) -> L.LogicalPlan:
+    """The plan with every Parquet scan's paths rewritten by the conf's
+    replacement rules (``io/paths.replace_paths``, the reference's
+    AlluxioUtils analog); the plan itself when no rule applies."""
+    from spark_rapids_tpu_torch.io.paths import replace_paths
+
+    if isinstance(plan, L.ParquetScan):
+        paths = replace_paths(plan.paths, conf)
+        return (plan if paths == plan.paths
+                else dataclasses.replace(plan, paths=paths))
+    kids = [apply_path_rules(c, conf) for c in plan.children]
+    if any(k is not c for k, c in zip(kids, plan.children)):
+        plan = _with_children(plan, kids)
+    return plan
 
 
 def join_strategy(join: HashJoinExec) -> str:

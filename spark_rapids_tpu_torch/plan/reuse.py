@@ -14,10 +14,12 @@ gather) gets a key of its own identity and merges with nothing: an
 operator unknown to the rewrite costs a missed reuse, never a wrong one.
 These are the reference's keys over the port's operators.
 
-The reference also points dynamic-pruning subqueries at the surviving
-builds (``_dedupe_subqueries``); the port has no dynamic pruning filter
-(it prunes file scans, and the port has none yet), so that step is not
-here.
+A Parquet scan's key holds its dynamic pruning filters' build
+fingerprints (they change what it emits). After the aliasing,
+``_dedupe_subqueries`` points each filter whose build was replaced at the
+surviving build, and merges filters of equal (build, key, column, cap)
+into one object, so a key set is collected once for every scan that
+reads it.
 """
 
 from __future__ import annotations
@@ -127,6 +129,7 @@ def _local_key(node) -> Optional[tuple]:
     from spark_rapids_tpu_torch.exec.misc import (
         CoalesceBatchesExec, GlobalLimitExec, LocalLimitExec, UnionExec)
     from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
     from spark_rapids_tpu_torch.exec.sort import SortExec
     from spark_rapids_tpu_torch.shuffle.aqe import AQEShuffleReadExec
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
@@ -136,6 +139,15 @@ def _local_key(node) -> Optional[tuple]:
         # overrides.source_batches keeps one upload per table and slicing,
         # so two scans of one table hold the same batch objects
         return ("src", tuple(tuple(id(b) for b in p) for p in node._parts))
+    if isinstance(node, ParquetScanExec):
+        # dynamic filters change what the scan emits: their builds'
+        # fingerprints are part of its identity
+        dyn = tuple((plan_fingerprint(f.build, {}), f.key_index, f.column,
+                     f.max_values) for f in node.dynamic_filters)
+        pred = None if node.predicate is None else expr_key(node.predicate)
+        return ("parquet", tuple(node.paths),
+                None if node.columns is None else tuple(node.columns),
+                pred, node.n_partitions, dyn)
     if isinstance(node, ProjectExec):
         return ("project", _exprs_key(node.exprs, node.child.output_schema))
     if isinstance(node, FilterExec):
@@ -257,6 +269,7 @@ def apply_reuse(root, conf: C.RapidsConf):
     memo: Dict[int, tuple] = {}
     groups = _reusable_roots(root, memo)
     dead: set = set()
+    survivors: Dict[tuple, object] = {}
 
     def mark_dead(node):
         dead.add(id(node))
@@ -285,6 +298,7 @@ def apply_reuse(root, conf: C.RapidsConf):
         if len(live) < 2:
             continue
         survivor = live[0][2]
+        survivors[plan_fingerprint(survivor, memo)] = survivor
         _next_reuse_id[0] += 1
         rid = _next_reuse_id[0]
         survivor.reuse_id = rid
@@ -310,8 +324,37 @@ def apply_reuse(root, conf: C.RapidsConf):
                     survivor, node.output_schema, rid)
                 R.note("reuse_broadcasts_total")
                 mark_dead(node)
+    _dedupe_subqueries(root, memo, dead, survivors)
     _attach_shared_broadcasts(root, memo)
     return root
+
+
+def _dedupe_subqueries(root, memo, dead, survivors) -> None:
+    """Point each dynamic pruning filter whose build the rewrite replaced
+    at the surviving build, and merge filters of equal (build, key,
+    column, cap) into one object."""
+    from spark_rapids_tpu_torch.exec import reuse as R
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
+
+    canon: Dict[tuple, object] = {}
+    for _, _, node in _walk_slots(root):
+        if not isinstance(node, ParquetScanExec) or not node.dynamic_filters:
+            continue
+        for j, f in enumerate(list(node.dynamic_filters)):
+            bfp = plan_fingerprint(f.build, memo)
+            key = (bfp, f.key_index, f.column, f.max_values)
+            prior = canon.get(key)
+            if prior is not None:
+                if prior is not f:
+                    node.dynamic_filters[j] = prior
+                    R.note("reuse_subqueries_total")
+                continue
+            if id(f.build) in dead:
+                surv = survivors.get(bfp)
+                if surv is not None:
+                    f.build = surv
+                    R.note("reuse_subqueries_total")
+            canon[key] = f
 
 
 def _attach_shared_broadcasts(root, memo) -> None:

@@ -43,7 +43,10 @@ on four against the CPU engine; the string family: every device class
 over 2^18 rows (a dictionary and a plain column) on the card against the
 CPU byte for byte, the composition scan with uint8 and int32 states, and
 the string sales pass's G1 (the probe) and G5 (the scan) against the CPU
-engine.
+engine; the nested sales pass's kernels; the Parquet scan of each reader
+type on the card against its CPU run, ``write_columnar`` of card batches
+read back equal, and q3 over Parquet files with every probe call held
+against the plain version and a row group pruned dynamically.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -2117,3 +2120,116 @@ def test_nested_sales_h1_h4j_h6_kernels_on_card(monkeypatch):
         exp = NS.QUERIES[q](cpu).to_arrow().to_pylist()
         assert NS.check_rows(q, got, exp) == (True, ""), q
     assert calls["scan"] > 0
+
+
+def _parquet_files(tmp_path, seed=21):
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(3):
+        n = 3000 + i * 100
+        t = pa.table({
+            "a": pa.array(rng.integers(0, 50, n), pa.int64()),
+            "s": pa.array([f"s{j % 7}" if j % 11 else None
+                           for j in range(n)]),
+            "d": pa.array(rng.normal(size=n))})
+        p = str(tmp_path / f"f{i}.parquet")
+        pq.write_table(t, p, row_group_size=700)
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("reader_type",
+                         ["PERFILE", "MULTITHREADED", "COALESCING"])
+def test_parquet_scan_on_card_matches_its_cpu_run(tmp_path, reader_type):
+    """Each reader type uploads its chunks to the card (the staging
+    worker on the consumer's stream), rows equal to the same scan on the
+    CPU; pruning counts equal."""
+    _card()
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
+    from spark_rapids_tpu_torch.exprs import expr as PE
+
+    paths = _parquet_files(tmp_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        node = ParquetScanExec(paths, reader_type=reader_type,
+                               predicate=PE.col("a") >= 0, n_partitions=2,
+                               target_batch_rows=1000, device=dev)
+        rows = []
+        for p in range(node.num_partitions()):
+            for b in node.execute(p):
+                if dev == "cuda":
+                    assert b.columns[0].data.is_cuda
+                rows.extend(PB.batch_to_arrow(
+                    b, node.output_schema).to_pylist())
+        out[dev] = (rows, {k: node.metrics[k].value for k in (
+            "numRowGroups", "numPrunedRowGroups")})
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cuda"][0]) == 9300
+
+
+def test_write_columnar_of_card_batches_reads_back_equal(tmp_path):
+    _card()
+    import glob
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.io import write_columnar
+
+    rng = np.random.default_rng(3)
+    n = 50_000
+    t = pa.table({"k": pa.array([f"g{int(x)}" for x in
+                                 rng.integers(0, 4, n)]),
+                  "v": pa.array(rng.integers(0, 100, n), pa.int64()),
+                  "x": pa.array(rng.normal(size=n))})
+    enc = PB.dictionary_encode_table(t)
+    cache = {}
+    batches = [PB.batch_from_arrow(enc.slice(i, 8192), "cuda",
+                                   dict_cache=cache)
+               for i in range(0, n, 8192)]
+    schema = PT.Schema.from_arrow(t.schema)
+    st = write_columnar(iter(batches), schema, str(tmp_path / "plain"))
+    assert st.num_rows == n and st.num_files == 1
+    files = glob.glob(str(tmp_path / "plain" / "*.parquet"))
+    back = pq.read_table(files[0])
+    assert back.equals(t)
+    st = write_columnar(iter(batches), schema, str(tmp_path / "part"),
+                        partition_by=["k"])
+    assert st.num_partitions == 4 and st.num_rows == n
+
+
+def test_parquet_q3_probe_calls_equal_plain_on_card(tmp_path, monkeypatch):
+    """q3 over Parquet files written from card batches (SF 0.1, store_sales
+    clustered by date in 16,384-row row groups): rows equal the CPU
+    engine's, every probe call equal to the plain version, a row group
+    pruned dynamically."""
+    _card()
+    from spark_rapids_tpu_torch.bench import parquet_sales as PSales
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    paths, _ = PSales.write_tables(S.tables_for(0.1), str(tmp_path), "cuda",
+                                   batch_rows=16384, rows_per_file=65536)
+    calls = _checked_kernels(monkeypatch)
+    PK.reset_kernel_launches()
+    plan = Q.QUERIES["q3"](PSales.df_tables(paths, device="cuda")) \
+        .physical_plan()
+    got = execute_to_arrow(plan).to_pylist()
+    assert PK.KERNEL_LAUNCHES["hashtbl_probe"] > 0
+    assert calls["probe"] >= PK.KERNEL_LAUNCHES["hashtbl_probe"]
+    stack, dyn = [plan], 0
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children)
+        if isinstance(n, ParquetScanExec):
+            dyn += n.metrics["numDynPrunedRowGroups"].value
+    assert dyn >= 1
+    cpu = PSales.df_tables(paths, RapidsConf(
+        {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
+    exp = Q.QUERIES["q3"](cpu).to_arrow().to_pylist()
+    assert Q.check_rows("q3", got, exp) == (True, "")

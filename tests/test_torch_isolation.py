@@ -562,3 +562,72 @@ def test_the_nested_types_json_and_generate_modules_are_covered():
     for c in PE.NESTED_FUNCTIONS + (PE.MapValues, PE.GetJsonObject,
                                     PE.JsonToStructsText):
         assert c in PCPU.CPU_EXPRS, c
+
+
+def test_the_file_input_modules_are_covered():
+    """The modules that carry the file scans, dynamic pruning, the
+    columnar writers and the other formats are walked by the import
+    checks above (no JAX, nothing of the JAX package) and hold the names
+    the slice adds."""
+    import importlib
+
+    mods = _modules()
+    for m, names in (
+            ("spark_rapids_tpu_torch.exec.scan",
+             ("windowed_map", "FileScanBase", "RowGroupTask",
+              "ParquetScanExec", "_stats_may_match", "_col_lit",
+              "stats_value", "values_may_overlap")),
+            ("spark_rapids_tpu_torch.exec.dpp",
+             ("ReplayExec", "DynamicPruningFilter")),
+            ("spark_rapids_tpu_torch.io",
+             ("CsvScanExec", "JsonScanExec", "OrcScanExec", "AvroScanExec",
+              "CsvWriter", "OrcWriter", "ParquetWriter", "WriteStats",
+              "write_columnar", "AsyncOutputStream", "HostMemoryThrottle",
+              "TrafficController", "FileCache", "HiveTextScanExec",
+              "discover_partitions", "parse_partition_values",
+              "prune_partitions", "replace_paths")),
+            ("spark_rapids_tpu_torch.io.paths",
+             ("parse_rules", "replace_paths")),
+            ("spark_rapids_tpu_torch.io.text_parse",
+             ("parse_field", "CsvOptions", "convert_string_table",
+              "parse_json_lines")),
+            ("spark_rapids_tpu_torch.io.avro",
+             ("read_avro", "write_avro", "read_avro_schema")),
+            ("spark_rapids_tpu_torch.plan.logical", ("ParquetScan",)),
+            ("spark_rapids_tpu_torch.plan.dataframe", ("read_parquet",)),
+            ("spark_rapids_tpu_torch.plan.cpu", ("CpuParquetScanExec",)),
+            ("spark_rapids_tpu_torch.plan.cbo", ("scan_rows",)),
+            ("spark_rapids_tpu_torch.plan.overrides", ("apply_path_rules",)),
+            ("spark_rapids_tpu_torch.plan.reuse", ("_dedupe_subqueries",)),
+            ("spark_rapids_tpu_torch.bench.parquet_sales",
+             ("write_tables", "df_tables", "clustered_fact",
+              "row_groups"))):
+        assert m in mods, m
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+    for rel in ("exec/scan.py", "io/__init__.py", "io/paths.py",
+                "io/writer.py", "io/async_write.py", "io/filecache.py",
+                "io/text_parse.py", "io/csv.py", "io/json.py", "io/orc.py",
+                "io/avro.py", "io/hive.py"):
+        assert os.path.exists(os.path.join(PKG, *rel.split("/"))), rel
+
+
+def test_read_parquet_without_device_raises_when_no_card(monkeypatch,
+                                                         tmp_path):
+    import pyarrow.parquet as pq
+    import torch
+
+    from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
+    from spark_rapids_tpu_torch.plan import read_parquet
+
+    p = str(tmp_path / "t.parquet")
+    pq.write_table(pa.table({"a": pa.array([1, 2], pa.int64())}), p)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        read_parquet(p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParquetScanExec([p])
+    # asked for the CPU, it runs there
+    assert read_parquet(p, device="cpu").to_arrow().column(
+        "a").to_pylist() == [1, 2]

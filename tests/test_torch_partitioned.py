@@ -152,7 +152,7 @@ def plan_shape(node):
     def walk(n, depth):
         name = type(n).__name__
         kind = None
-        if name == "BatchSourceExec":
+        if name in ("BatchSourceExec", "ParquetScanExec"):
             kind = ("scan", n.num_partitions())
         elif name == "HashAggregateExec":
             kind = ("aggregate", n.mode)
@@ -202,6 +202,68 @@ def test_plan_shape_matches_the_reference_at_the_defaults(case):
         jax_conf = dict(JAX_DEFAULTS, **{
             "spark.rapids.tpu.sql.window.streaming.enabled": "false"})
     _check_plan_shape(case, NO_FASTPATH, jax_conf)
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_plan_shape_over_parquet_matches_the_reference_at_the_defaults(
+        case, tmp_path):
+    """The fact table read from four Parquet files (four scan partitions)
+    instead of four in-memory splits, dynamic partition pruning on in
+    both planners: the same operators where the reference places them,
+    the same scans given a dynamic filter, and the rows of the in-memory
+    plan."""
+    import pyarrow.parquet as pqw
+
+    from spark_rapids_tpu.plan import read_parquet as jax_read_parquet
+    from spark_rapids_tpu_torch.plan import read_parquet
+
+    f, small, big = _facts(), _dims(200), _dims(3000, 3)
+    paths = []
+    for i in range(4):
+        p = str(tmp_path / f"f{i}.parquet")
+        pqw.write_table(f.slice(i * 1000, 1000), p, row_group_size=250)
+        paths.append(p)
+    pconf = RapidsConf(dict(NO_FASTPATH, **{
+        "spark.rapids.gpu.sql.join.broadcastRowThreshold": BCAST}))
+    jax_conf = dict(JAX_DEFAULTS, **{
+        "spark.rapids.tpu.sql.dynamicPartitionPruning.enabled": "true",
+        "spark.rapids.tpu.sql.join.broadcastRowThreshold": BCAST})
+    if case == "window_expression_key":  # as in the in-memory test
+        jax_conf["spark.rapids.tpu.sql.window.streaming.enabled"] = "false"
+    jconf = JConf(jax_conf)
+    pdf = [read_parquet(paths, conf=pconf, device="cpu")] + [
+        port_from_arrow(t, pconf, batch_rows=500, device="cpu",
+                        partitions=4) for t in (small, big)]
+    jdf = [jax_read_parquet(paths, conf=jconf)] + [
+        jax_from_arrow(t, jconf, batch_rows=500, partitions=4)
+        for t in (small, big)]
+    pq_ = SHAPES[case]((PE, PW, POrd), *pdf)
+    jq = SHAPES[case]((JE, JW, JOrd), *jdf)
+    pplan, jplan = pq_.physical_plan(), jq.physical_plan()
+    got = plan_shape(pplan)
+    assert got == plan_shape(jplan)
+    assert any(k[1:] == ("scan", 4) for k in got)
+    assert _dpp_scans(pplan) == _dpp_scans(jplan)
+    one = [port_from_arrow(t, RapidsConf(), batch_rows=500, device="cpu")
+           for t in (f, small, big)]
+    exp = SHAPES[case]((PE, PW, POrd), *one).collect()
+    rows = execute_to_arrow(pplan).to_pylist()
+    if case == "sort_limit":
+        assert [r["v"] for r in rows] == [r["v"] for r in exp]
+        return
+    assert PTPCH.rows_match(_canon(rows), _canon(exp))
+
+
+def _dpp_scans(node):
+    """The dynamic filters of each Parquet scan, as (column, key index),
+    depth first."""
+    out = []
+    if type(node).__name__ == "ParquetScanExec":
+        out.append(tuple((f.column, f.key_index)
+                         for f in node.dynamic_filters))
+    for c in node.children:
+        out.extend(_dpp_scans(c))
+    return out
 
 
 def _check_plan_shape(case, port_conf, jax_conf):
