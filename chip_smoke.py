@@ -374,6 +374,42 @@ Phases, in order; any failure exits non-zero before the last line:
    3, each checked run the first of its three); the largest probe timed
    against its bound (``parquet_largest``; ``parquet_calls_checked``
    counts the probe calls of the counted and the pruning-off runs).
+22. the lakehouse pass (``run_lakehouse_path``,
+   ``bench/lakehouse_sales.run_pass``) over the SF1 store_sales, item and
+   date_dim: a Delta store_sales of four 720,000-row commits, a DELETE of
+   November 1999's sales of more than 50 units (deletion vectors, the
+   predicate on the card) and an UPDATE of November 2001's sales price
+   (copy-on-write through the card's projection); item kept by a MERGE of
+   2,000 updated and 500 new items; q3 at version 5 (item at version 1),
+   at version 3 and over an Iceberg table of phase 21's store_sales files
+   (Avro manifests written with the port's ``write_avro``), each wholly
+   on the card, one counted run (launch counts zeroed before and read
+   after, every probe call held against the plain version), version 5's
+   rows equal to q3 on the CPU engine over the tables ``pyarrow.compute``
+   modified alike (a check worker), version 3's to phase 6's and the
+   Iceberg table's to phase 21's; two warm repeats over Delta that must
+   hit the plan memo; each snapshot's records against the rows read; the
+   Iceberg scan's row groups against the same scan of the files; a
+   ``CachedRelation`` of a November filter read twice equal to its plan
+   (its bytes against Arrow's, ``decodeTimeNs``); a ROLLUP of
+   ``ss_ext_sales_price`` by (i_category, i_class) through ``ExpandExec``
+   (8,640,000 rows) equal to three pyarrow group-bys; a bloom filter of
+   the Music items' keys probed by every ``ss_item_sk`` (no false
+   negative, the false-positive share), Z-order and Hilbert orders of
+   (ss_item_sk, ss_customer_sk) and the Z-curve of three keys, each equal
+   to the port's run on the CPU in a check worker (by digest); a feature
+   matrix on the card equal to the rows' values; the largest probe timed
+   against its bound (``lakehouse_largest``).
+
+The plan memo (``plan/plan_cache.py``) is on in every phase, as at the
+port's defaults: a warm repeat is served the tree its first run planned,
+which dropped its broadcast builds when that run ended and builds them
+again. A counted run whose tree the memo served has the tree's metrics
+set to 0 first (``counted_plan``), so that they count that run alone;
+phase 15 plans its counted runs afresh (``fresh_plan``), so that the
+largest handle, the pinned sets and the peak that size its capped pool
+are a first run's, range exchanges' planning samples included. Each phase's memo hits, misses, uncacheable plans and
+evictions are logged (``MemoLog``), and the whole run's.
 
 The CPU engine's comparison runs of phases 9-13, the window-surface pass
 and phases 18-21 go to the run's one pool of spawned worker processes
@@ -1329,7 +1365,7 @@ def run_query_slice(tables, sf: float, queries, what: str, *,
             df = Q.QUERIES[q](d)
             t2 = time.perf_counter()
             # a range exchange samples its child's partitions here
-            plan = df.physical_plan()
+            plan = counted_plan(df)
             torch.cuda.synchronize()
             plan_s = time.perf_counter() - t2
             out = execute_to_arrow(plan)
@@ -1695,7 +1731,7 @@ def window_surface_pass(tables, check) -> dict:
     if any(ln.lstrip().startswith("!") for ln in df.explain().splitlines()):
         raise AssertionError("the window-surface pass is not wholly on the "
                              "device:\n" + df.explain())
-    plan = df.physical_plan()
+    plan = counted_plan(df)
     K.segmented_scan_kernel = recording_scan
     try:
         from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
@@ -1842,7 +1878,7 @@ def run_sorted_hash(tables, rows: dict) -> dict:
         batch_rows=1 << 22, device="cuda")
     results = {}
     for q, exp in rows.items():
-        plan = Q.QUERIES[q](d).physical_plan()
+        plan = counted_plan(Q.QUERIES[q](d))
         K.reset_kernel_launches()
         got = execute_to_arrow(plan).to_pylist()
         torch.cuda.synchronize()
@@ -2227,7 +2263,7 @@ def run_partitioned_path(tpch_tables, ds_tables) -> dict:
         K.segmented_scan_kernel = check_scan_call
         try:
             t1 = time.perf_counter()
-            plan = df.physical_plan()
+            plan = counted_plan(df)
             out = execute_to_arrow(plan)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t1
@@ -2437,7 +2473,7 @@ def skewed_join_case(facts, dims, how, probe_calls) -> dict:
         K.probe_hash_table_kernel = checking_probe(real_probe, probe_calls)
         try:
             t1 = time.perf_counter()
-            plan = query(extra).physical_plan()
+            plan = counted_plan(query(extra))
             out = execute_to_arrow(plan)
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t1
@@ -2518,6 +2554,60 @@ def _walk_plan(node):
         yield from _walk_plan(c)
 
 
+class MemoLog:
+    """The plan memo's hits, misses, uncacheable plans and evictions since
+    the previous mark, logged and kept by phase."""
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.plan import plan_cache
+
+        self._memo = plan_cache
+        self._last = plan_cache.counters()
+        self.by_phase = {}
+
+    def mark(self, phase: str) -> None:
+        now = self._memo.counters()
+        d = {k[len("plan_cache_"):-len("_total")]: now[k] - self._last[k]
+             for k in now if k.endswith("_total")}
+        self._last = now
+        self.by_phase[phase] = d
+        log(f"plan memo, {phase}: {d['hit']} hits, {d['miss']} misses, "
+            f"{d['uncacheable']} uncacheable, {d['evict']} evictions")
+
+
+def fresh_plan(df):
+    """``df``'s physical plan built afresh (the plan memo's key false): a
+    run of it allocates, pins and spills all that a first run does, its
+    range exchanges' planning samples included, which a served tree took
+    at its own planning."""
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.plan.overrides import Overrides
+
+    conf = RapidsConf(dict(df.conf._values if df.conf is not None else {},
+                           **{"spark.rapids.gpu.plan.cache.enabled": False}))
+    return Overrides(conf, df.shuffle_partitions).apply(df.plan)
+
+
+def counted_plan(df):
+    """``df``'s physical plan for a counted run. The plan memo is on, as
+    at the port's defaults; a tree it serves adds each run to its
+    metrics, so a served tree's metrics are set to 0 first and then count
+    this run alone (the difference from a snapshot taken just before
+    it). A served tree builds its broadcasts again (it dropped them when
+    its last run ended), so its kernel launches are a first run's. A tree
+    planned now holds what its planning did (a range exchange's sample),
+    as before the memo."""
+    from spark_rapids_tpu_torch.plan import plan_cache
+
+    hits = plan_cache.counters()["plan_cache_hit_total"]
+    plan = df.physical_plan()
+    if plan_cache.counters()["plan_cache_hit_total"] > hits:
+        for n in _walk_plan(plan):
+            for m in n.metrics.values():
+                m.value = 0
+    return plan
+
+
 def run_adaptive_path(ds_tables, slices, part_res) -> dict:
     """Phase 14: every query of phases 10-11 that plans an exchange and
     every case of phase 13 once with AQE, reuse and prefetch off, its rows
@@ -2556,7 +2646,7 @@ def run_adaptive_path(ds_tables, slices, part_res) -> dict:
         K.segmented_scan_kernel = check_scan_call
         try:
             t1 = time.perf_counter()
-            plan = build().physical_plan()
+            plan = counted_plan(build())
             out = execute_to_arrow(plan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -2806,7 +2896,9 @@ def run_memory_path(ds_tables, part_res) -> dict:
         """(rows, wall, launches, peak bytes above the start or None,
         plan) of one planning and run of ``df`` (planning may run a range
         sort's sample, and with it the exchanges below), every kernel
-        call checked."""
+        call checked. It is planned afresh (``fresh_plan``): the largest
+        handle, the pinned sets and the peak that size the capped pool
+        are a first run's."""
         torch.cuda.synchronize()
         if peak:
             torch.cuda.empty_cache()
@@ -2817,7 +2909,7 @@ def run_memory_path(ds_tables, part_res) -> dict:
         K.segmented_scan_kernel = check_scan_call
         try:
             t1 = time.perf_counter()
-            plan = df.physical_plan()
+            plan = fresh_plan(df)
             out = DF.execute_to_arrow(plan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -3173,7 +3265,7 @@ def run_typed_path(ds_tables) -> dict:
         K.segmented_scan_kernel = check_scan_call
         try:
             t1 = time.perf_counter()
-            plan = df.physical_plan()
+            plan = counted_plan(df)
             out = DF.execute_to_arrow(plan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -3346,7 +3438,7 @@ class CountedRuns:
         K.segmented_scan_kernel = self._scan
         try:
             t1 = time.perf_counter()
-            plan = df.physical_plan()
+            plan = counted_plan(df)
             out = DF.execute_to_arrow(plan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -4262,7 +4354,7 @@ def run_parquet_path(ds_tables, head_rows: dict) -> dict:
         try:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            plan = df.physical_plan()
+            plan = counted_plan(df)
             out = execute_to_arrow(plan)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
@@ -4350,16 +4442,237 @@ def run_parquet_path(ds_tables, head_rows: dict) -> dict:
     return {"queries": res, "launches": total,
             "probe_calls_checked": probe_calls[0],
             "largest_probe": largest.get("args"),
+            "paths": paths, "q3_rows": rows["q3"],
             "bytes_written": written, "write_s": write_s,
             "files": {n: len(p) for n, p in paths.items()},
             "fact_row_groups": fact_groups, "waited_s": waited,
             "wall_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the lakehouse pass
+# ---------------------------------------------------------------------------
+
+LAKE_TABLES = ("store_sales", "item", "date_dim")
+
+
+def lakehouse_cpu_part(part: str, table_dir: str) -> tuple:
+    """A worker's check of phase 22 on the CPU: ``"q3"``, q3 on the CPU
+    engine over store_sales and item modified by ``pyarrow.compute`` as
+    the Delta tables' versions 5 and 1 are (its rows), or a part of the
+    bloom filter and Z-order steps (``lakehouse_sales.clustering``) on the
+    CPU (its outputs' digests): (result, seconds)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(1)
+    from spark_rapids_tpu_torch.bench import lakehouse_sales as LH
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+
+    tables = read_table_files(table_dir, LAKE_TABLES)
+    t0 = time.perf_counter()
+    if part == "q3":
+        t = dict(tables)
+        t[LH.FACT] = LH.plain_fact(tables[LH.FACT], tables["date_dim"])
+        t[LH.DIM] = LH.plain_item(tables[LH.DIM],
+                                  LH.merge_source(tables[LH.DIM]))
+        cpu = Q.df_tables(t, RapidsConf(
+            {"spark.rapids.gpu.sql.enabled": "false"}), device="cpu")
+        out = Q.QUERIES["q3"](cpu).to_arrow().to_pylist()
+    else:
+        out = {f"{part}.{k}": LH.digest(v)
+               for k, v in LH.clustering(tables, "cpu", part).items()}
+    return out, time.perf_counter() - t0
+
+
+def run_lakehouse_path(ds_tables, parquet_paths: dict, head_rows: dict,
+                       parquet_q3: list) -> dict:
+    """Phase 22: the lakehouse pass (``bench/lakehouse_sales.run_pass``) on
+    the card over the SF1 store_sales, item and date_dim and phase 21's
+    files. q3 at Delta version 5 (item at version 1), at version 3 and over
+    the Iceberg table runs wholly on the card, each one counted run
+    (launch counts zeroed before and read after, every probe call held
+    against the plain version); version 5's rows equal q3 on the CPU
+    engine over the tables ``pyarrow.compute`` modified alike (a check
+    worker), version 3's phase 6's and the Iceberg table's phase 21's; two
+    warm repeats over the Delta tables must hit the plan memo. Each
+    snapshot's records equal the rows read; the Iceberg scan prunes as the
+    same scan of the files; the cache reads back its plan's rows, twice;
+    the ROLLUP equals three pyarrow group-bys; the bloom filter has no
+    false negative, and its bits and mask and the Z-order outputs equal
+    the port's run on the CPU (workers, by digest); the feature matrix is
+    a card tensor equal to the rows' values."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_rapids_tpu_torch.bench import lakehouse_sales as LH
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.exec import kernels as K
+    from spark_rapids_tpu_torch.plan import plan_cache
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    t_phase = time.perf_counter()
+    table_dir = table_files(ds_tables, LAKE_TABLES)
+    pool = check_workers()
+    pending = {p: pool.apply_async(lakehouse_cpu_part, (p, table_dir))
+               for p in ("q3",) + LH.CLUSTERING_PARTS}
+    work = tempfile.mkdtemp(prefix="chip_smoke_lakehouse_")
+    atexit.register(shutil.rmtree, work, True)
+    total = {k: 0 for k in K.KERNEL_LAUNCHES}
+    launches = {}
+    probe_calls = [0]
+    largest = {}
+    real_probe = K.probe_hash_table_kernel
+    check_call = checking_probe(real_probe, probe_calls)
+
+    def recording(tbl, h1, h2, capacity, seed, max_probes):
+        if h1.numel() > largest.get("n", -1):
+            largest.update(n=h1.numel(), args=(tbl, h1, h2, capacity, seed))
+        return check_call(tbl, h1, h2, capacity, seed, max_probes)
+
+    def run_query(name, df):
+        off = off_device(df)
+        if off:
+            raise AssertionError(f"lakehouse {name} has nodes on the CPU "
+                                 f"engine: {off}")
+        K.reset_kernel_launches()
+        K.probe_hash_table_kernel = recording
+        try:
+            out = execute_to_arrow(counted_plan(df))
+        finally:
+            K.probe_hash_table_kernel = real_probe
+        launches[name] = dict(K.KERNEL_LAUNCHES)
+        for k, v in launches[name].items():
+            total[k] += v
+        if launches[name]["hashtbl_probe"] <= 0:
+            raise AssertionError(f"lakehouse {name} launched no probe "
+                                 f"kernel")
+        return out.to_pylist()
+
+    memo0 = plan_cache.counters()
+    res = LH.run_pass({n: ds_tables[n] for n in LAKE_TABLES}, parquet_paths,
+                      work, device="cuda", run_query=run_query)
+    if probe_calls[0] < total["hashtbl_probe"]:
+        raise AssertionError(f"phase 22 checked {probe_calls[0]} probe "
+                             f"calls for {total} launches")
+    walls = res["walls"]
+    # the warm repeats of q3 over the Delta tables: served by the memo
+    frames = res.pop("frames_v5")
+    c0 = plan_cache.counters()
+    warm = _warm_wall(lambda: Q.QUERIES["q3"](frames).to_arrow(),
+                      first=walls["q3_v5"])
+    hits = (plan_cache.counters()["plan_cache_hit_total"]
+            - c0["plan_cache_hit_total"])
+    if hits < 2:
+        raise AssertionError(f"the warm repeats of q3 over Delta hit the "
+                             f"plan memo {hits} times")
+    del frames
+    # the checks against the references
+    snaps, rows_read = res["snapshots"], res["rows_read"]
+    if res["versions"] != [0, 1, 2, 3, 4, 5] or res["item_version"] != 1:
+        raise AssertionError(f"Delta versions {res['versions']}, item "
+                             f"{res['item_version']}")
+    for v in (3, 5):
+        if snaps[v]["num_records"] != rows_read[v]:
+            raise AssertionError(f"Delta version {v} records "
+                                 f"{snaps[v]['num_records']}, rows read "
+                                 f"{rows_read[v]}")
+    if res["item_records"] != rows_read["item"]:
+        raise AssertionError("item's records differ from its rows read")
+    if not (snaps[4]["dv_rows"] > 0 and 1 <= res["files_rewritten"] <= 2):
+        raise AssertionError(f"DELETE wrote {snaps[4]['dv_rows']} deleted "
+                             f"rows, UPDATE rewrote {res['files_rewritten']}"
+                             f" files")
+    for name, got, exp in (("q3_v3", res["q3_v3"], head_rows["q3"]),
+                           ("q3_iceberg", res["q3_iceberg"], parquet_q3)):
+        ok, why = Q.check_rows("q3", got, exp)
+        if not ok:
+            raise AssertionError(f"lakehouse {name} differs ({why})")
+    if res["iceberg_files"] != parquet_paths[LH.FACT]:
+        raise AssertionError("the Iceberg table's files differ from phase "
+                             "21's")
+    if (res["iceberg_scan"] != res["direct_scan"]
+            or res["iceberg_scan"]["numPrunedRowGroups"] < 1):
+        raise AssertionError(f"Iceberg scan {res['iceberg_scan']} against "
+                             f"{res['direct_scan']}")
+    cache = res["cache"]
+    if not (cache["equal"] and cache["same_relation"]):
+        raise AssertionError(f"the cached relation: {cache}")
+    t0 = time.perf_counter()
+    plain = LH.plain_rollup(ds_tables[LH.FACT], ds_tables[LH.DIM])
+    plain_rollup_s = time.perf_counter() - t0
+    if res["rollup"] != plain:
+        raise AssertionError("the ROLLUP differs from pyarrow's group-bys")
+    if res["rollup_rows_in"] != 3 * ds_tables[LH.FACT].num_rows:
+        raise AssertionError(f"Expand gave {res['rollup_rows_in']} rows")
+    bloom = res.pop("bloom")
+    bloom.pop("bits")
+    bloom.pop("mask")
+    if bloom["false_negatives"]:
+        raise AssertionError(f"the bloom filter has {bloom['false_negatives']}"
+                             f" false negatives")
+    res.pop("zorder")
+    ml = res["ml"]
+    if not (ml["equal"] and ml["device"] == "cuda"):
+        raise AssertionError(f"the feature matrix: {ml}")
+    t1 = time.perf_counter()
+    cpu = {p: pending[p].get(timeout=900) for p in pending}
+    waited = time.perf_counter() - t1
+    ok, why = Q.check_rows("q3", res["q3_v5"], cpu["q3"][0])
+    if not ok:
+        raise AssertionError(f"lakehouse q3 over Delta differs from the CPU "
+                             f"engine ({why})")
+    cpu_digests = {}
+    for p in LH.CLUSTERING_PARTS:
+        cpu_digests.update(cpu[p][0])
+    if cpu_digests != res["digests"]:
+        raise AssertionError("the bloom filter or Z-order on the card "
+                             "differs from the CPU's run")
+    MemoryChecks().check()
+    memo1 = plan_cache.counters()
+    out = {"walls": walls, "warm_q3_v5_s": warm, "memo_hits_warm": hits,
+           "memo": {k: memo1[k] - memo0[k] for k in memo1},
+           "versions": res["versions"], "snapshots": snaps,
+           "rows_read": rows_read, "files_rewritten": res["files_rewritten"],
+           "iceberg_scan": res["iceberg_scan"], "cache": cache,
+           "rollup_rows": len(plain), "rollup_rows_in": res["rollup_rows_in"],
+           "plain_rollup_s": plain_rollup_s, "bloom": bloom,
+           "ml": ml, "query_launches": launches, "launches": total,
+           "probe_calls_checked": probe_calls[0],
+           "largest_probe": largest.get("args"),
+           "cpu_s": {p: cpu[p][1] for p in cpu}, "waited_s": waited,
+           "q3_rows": {k: len(res[k]) for k in ("q3_v5", "q3_v3",
+                                                  "q3_iceberg")},
+           "wall_s": time.perf_counter() - t_phase}
+    log(f"lakehouse: Delta versions {res['versions']} (records "
+        f"{[snaps[v]['num_records'] for v in range(6)]}, {snaps[4]['dv_rows']}"
+        f" rows deleted by deletion vectors, {res['files_rewritten']} files "
+        f"rewritten), item {rows_read['item']} rows; q3 at version 5 equals "
+        f"the CPU engine's, at version 3 phase 6's, over Iceberg phase 21's; "
+        f"warm q3 over Delta {warm:.4f}s (memo hits {hits}); Iceberg scan "
+        f"{res['iceberg_scan']}; cache {cache['bytes']} B for "
+        f"{cache['arrow_bytes']} B of Arrow, decode "
+        f"{cache['decode_ns'] / 1e6:.1f} ms; ROLLUP {len(plain)} rows from "
+        f"{res['rollup_rows_in']} equal pyarrow's; bloom "
+        f"{bloom['members']} members, no false negative, false positives "
+        f"{bloom['false_positive_share']:.6f}, bits and mask equal the CPU's;"
+        f" Z-order and Hilbert equal the CPU's; feature matrix {ml['shape']} "
+        f"on the card equal; walls {json.dumps(walls)}; launches {total}; "
+        f"memo {out['memo']}; CPU parts {json.dumps(out['cpu_s'])}, waited "
+        f"{waited:.2f}s")
+    log(f"probe: all {probe_calls[0]} calls of phase 22 equal the plain "
+        f"version ({total} launches)")
+    return out
+
+
 def tpch_plan(q, frames):
     from spark_rapids_tpu_torch.bench import tpch
 
-    return tpch.DF_QUERIES[q](frames).physical_plan()
+    return counted_plan(tpch.DF_QUERIES[q](frames))
 
 
 def main(argv=None) -> int:
@@ -4383,6 +4696,7 @@ def main(argv=None) -> int:
     from spark_rapids_tpu_torch.exec import kernels as K
 
     t_all = time.perf_counter()
+    memo_log = MemoLog()
     mem_checks = MemoryChecks()
     mem_checks.install()
     smi = smi_line()
@@ -4414,10 +4728,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     main_res = run_main_path(args.sf)
+    memo_log.mark("phase 4")
     ds_tables = tpcds_tables(args.sf_ds)
     ds_res = run_tpcds_path(ds_tables)
+    memo_log.mark("phase 5")
     head_res = run_headline_path(ds_tables)
+    memo_log.mark("phase 6")
     joins_res = run_joins_path(ds_tables)
+    memo_log.mark("phase 7")
 
     tbl, h1, h2, capacity, seed = main_res.pop("largest_probe")
     real = check_probe("main_path_largest", tbl, h1, h2, capacity, seed,
@@ -4448,6 +4766,7 @@ def main(argv=None) -> int:
                       if q != "q9"})
     join_rows.update(breadth_res.pop("rows"))
     sorted_res = run_sorted_hash(ds_tables, join_rows)
+    memo_log.mark("phase 9")
 
     # the window-surface pass's CPU-engine run overlaps phases 10-12
     surface_check = start_window_surface_check(ds_tables)
@@ -4461,6 +4780,7 @@ def main(argv=None) -> int:
     union_rows = union_res.pop("rows")
     sorted_res.update(run_sorted_hash(ds_tables, {
         q: union_rows[q] for q in Q.CONDITION_JOINS}))
+    memo_log.mark("phase 10")
 
     dec_res = run_query_slice(
         ds_tables, args.sf_ds,
@@ -4473,6 +4793,7 @@ def main(argv=None) -> int:
     dec_rows = dec_res.pop("rows")
     sorted_res.update(run_sorted_hash(ds_tables, dec_rows))
     divide_res = decimal_divide_cost()
+    memo_log.mark("phase 11")
 
     win_res = run_query_slice(ds_tables, args.sf_ds, Q.WINDOW_SLICE,
                               "window", device_only=True,
@@ -4482,11 +4803,13 @@ def main(argv=None) -> int:
     shapes.append(win_probe)
     sorted_res.update(run_sorted_hash(ds_tables, win_res.pop("rows")))
     surface_res = window_surface_pass(ds_tables, surface_check)
+    memo_log.mark("phase 12")
 
     part_res = run_partitioned_path(main_res.pop("tables"), ds_tables)
     part_probe = check_probe("partitioned_largest",
                              *part_res.pop("largest_table_probe"), cold=True)
     shapes.append(part_probe)
+    memo_log.mark("phase 13")
 
     # phase 14: adaptive reads and reuse against the three switches off
     t_adaptive = time.perf_counter()
@@ -4494,11 +4817,13 @@ def main(argv=None) -> int:
         ds_tables, [(union_res, union_rows), (dec_res, dec_rows)], part_res)
     adaptive_res["wall_s"] = time.perf_counter() - t_adaptive
     log(f"phase 14 took {adaptive_res['wall_s']:.1f}s")
+    memo_log.mark("phase 14")
     # phase 15: the memory path
     memory_res = run_memory_path(ds_tables, part_res)
     log(f"phase 15 took {memory_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked} queries")
+    memo_log.mark("phase 15")
     for k in ("four", "cases", "rows", "frames"):
         part_res.pop(k)
     # phase 16: the typed store_sales pass
@@ -4510,6 +4835,7 @@ def main(argv=None) -> int:
     log(f"phase 16 took {typed_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 16")
     # phase 17: the statistics pass
     checked_before = mem_checks.checked
     stat_res = run_stat_path(ds_tables)
@@ -4520,6 +4846,7 @@ def main(argv=None) -> int:
     log(f"phase 17 took {stat_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 17")
     # phase 18: the scalar sales pass
     checked_before = mem_checks.checked
     # phase 19's CPU-engine checks start beside phase 18's (they take
@@ -4536,6 +4863,7 @@ def main(argv=None) -> int:
     log(f"phase 18 took {scalar_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 18")
     # phase 19: the string sales pass
     checked_before = mem_checks.checked
     string_res = run_string_path(string_state)
@@ -4547,6 +4875,7 @@ def main(argv=None) -> int:
     log(f"phase 19 took {string_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 19")
     # phase 20: the nested sales pass
     checked_before = mem_checks.checked
     nested_res = run_nested_path(ds_tables)
@@ -4558,6 +4887,7 @@ def main(argv=None) -> int:
     log(f"phase 20 took {nested_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 20")
     # phase 21: the Parquet pass
     checked_before = mem_checks.checked
     parquet_res = run_parquet_path(ds_tables, headline_rows)
@@ -4567,6 +4897,26 @@ def main(argv=None) -> int:
     log(f"phase 21 took {parquet_res['wall_s']:.1f}s; the pool empty, the "
         f"leak sweep clean and no spill file after each of "
         f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 21")
+    # phase 22: the lakehouse pass
+    checked_before = mem_checks.checked
+    lake_res = run_lakehouse_path(ds_tables, parquet_res.pop("paths"),
+                                  headline_rows, parquet_res.pop("q3_rows"))
+    lake_probe = check_probe("lakehouse_largest",
+                             *lake_res.pop("largest_probe"), cold=True)
+    shapes.append(lake_probe)
+    log(f"phase 22 took {lake_res['wall_s']:.1f}s; the pool empty, the "
+        f"leak sweep clean and no spill file after each of "
+        f"{mem_checks.checked - checked_before} queries")
+    memo_log.mark("phase 22")
+    from spark_rapids_tpu_torch.plan import plan_cache
+
+    memo = plan_cache.counters()
+    log(f"plan memo over the whole run: {memo['plan_cache_hit_total']} hits, "
+        f"{memo['plan_cache_miss_total']} misses, "
+        f"{memo['plan_cache_uncacheable_total']} uncacheable, "
+        f"{memo['plan_cache_evict_total']} evictions, "
+        f"{memo['plan_cache_size']} held at the end")
 
     by_path = {name: {"tpch": main_res["launches"][name],
                       "tpcds_windows": ds_res["launches"][name],
@@ -4585,7 +4935,8 @@ def main(argv=None) -> int:
                       "scalar_sales": scalar_res["launches"][name],
                       "string_sales": string_res["launches"][name],
                       "nested_sales": nested_res["launches"][name],
-                      "parquet_sales": parquet_res["launches"][name]}
+                      "parquet_sales": parquet_res["launches"][name],
+                      "lakehouse_sales": lake_res["launches"][name]}
                for name in main_res["launches"]}
     for name, paths in by_path.items():
         if sum(paths.values()) <= 0:
@@ -4651,6 +5002,10 @@ def main(argv=None) -> int:
             "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
             "call_ms", "host_us", "plain_ms", "bound_ms")},
         "parquet_calls_checked": parquet_res["probe_calls_checked"],
+        "lakehouse_largest": {k: lake_probe[k] for k in (
+            "probe_rows", "capacity", "table_keys", "kernel_ms", "cold_ms",
+            "call_ms", "host_us", "plain_ms", "bound_ms")},
+        "lakehouse_calls_checked": lake_res["probe_calls_checked"],
         "key_types": "int32 int64 double date decimal string tinyint "
                      "smallint float timestamp binary (the 64-bit key "
                      "hashes)",
@@ -4732,6 +5087,9 @@ def main(argv=None) -> int:
               "segscan_nested": nested_scan,
               "parquet_sales": {k: v for k, v in parquet_res.items()
                                 if k != "launches"},
+              "lakehouse_sales": {k: v for k, v in lake_res.items()
+                                  if k != "launches"},
+              "plan_memo": memo, "plan_memo_by_phase": memo_log.by_phase,
               "queries_memory_checked": mem_checks.checked,
               "sorted_hash": sorted_res,
               "segscan_shapes": scan_shapes, "segscan_main": scan_real,

@@ -11,7 +11,8 @@ Each runs once to upload its tables, then once with the card's peak
 counter reset. Prints per query the bytes allocated before the counted
 run (the uploaded tables), the peak during it above that, and the
 batches and bytes the plan's broadcast builds (``ReplayExec``) hold
-after it. Run it from the root of the tree to measure (``python -m``
+after it. The counted run's plan is built with the plan memo off: a
+memoised tree drops its builds when its run ends. Run it from the root of the tree to measure (``python -m``
 imports the package of the working directory).
 
 Needs a CUDA card: it fails rather than measure the CPU.
@@ -32,9 +33,11 @@ def measure(frame, queries) -> dict:
     """``queries``: name -> query over ``frame``."""
     import torch
 
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
     from spark_rapids_tpu_torch.exec.dpp import ReplayExec
     from spark_rapids_tpu_torch.exec.reuse import batch_nbytes
     from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    from spark_rapids_tpu_torch.plan.overrides import Overrides
 
     out = {}
     for q, query in queries.items():
@@ -43,7 +46,12 @@ def measure(frame, queries) -> dict:
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        plan = query(frame).physical_plan()
+        df = query(frame)
+        conf = RapidsConf(dict(df.conf._values if df.conf is not None
+                               else {},
+                               **{"spark.rapids.gpu.plan.cache.enabled":
+                                  False}))
+        plan = Overrides(conf, df.shuffle_partitions).apply(df.plan)
         rows = execute_to_arrow(plan).num_rows
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()

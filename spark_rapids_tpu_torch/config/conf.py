@@ -347,6 +347,23 @@ WRITER_ASYNC_MAX_IN_FLIGHT = conf(
     doc="Host bytes allowed in flight for async writes before producers "
         "block (reference: HostMemoryThrottle).")
 
+PLAN_CACHE_ENABLED = conf(
+    "spark.rapids.gpu.plan.cache.enabled", default=True,
+    doc="Memoize Overrides.apply: a repeat of a rename-equal logical plan "
+        "under the same configuration is served the physical plan built "
+        "the first time (plan/plan_cache.py; reference: "
+        "spark.rapids.tpu.plan.cache.enabled).")
+
+PLAN_CACHE_MAX_ENTRIES = conf(
+    "spark.rapids.gpu.plan.cache.maxEntries", default=128,
+    doc="Physical plans the plan memo holds; the least recently used goes "
+        "past the cap (at least 1).")
+
+BLOOM_JOIN_BITS = conf(
+    "spark.rapids.gpu.sql.join.bloomFilter.bits", default=1 << 23,
+    doc="Bloom filter size in bits for runtime join filters (read by "
+        "exec/bloom.default_bits outside any hot loop).")
+
 PARQUET_READER_TYPES = ("PERFILE", "MULTITHREADED", "COALESCING")
 EXPLAIN_MODES = ("NONE", "NOT_ON_GPU", "ALL")
 SHUFFLE_MODES = ("MULTITHREADED", "CACHE_ONLY")
@@ -378,6 +395,7 @@ class RapidsConf:
                 (PREFETCH_DEPTH, lambda v: v >= 1, ">= 1"),
                 (REUSE_CACHE_MAX_BYTES, lambda v: v >= 0, ">= 0"),
                 (REUSE_CACHE_MAX_ENTRIES, lambda v: v >= 1, ">= 1"),
+                (PLAN_CACHE_MAX_ENTRIES, lambda v: v >= 1, ">= 1"),
                 (CONCURRENT_TASKS, lambda v: v >= 1, ">= 1"),
                 (POOL_MAX_BYTES, lambda v: v >= 0, ">= 0"),
                 (SPILL_CHUNK_BYTES, lambda v: v >= 4096, ">= 4096"),

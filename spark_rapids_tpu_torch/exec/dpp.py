@@ -10,7 +10,8 @@ partition and concatenate, so it keeps the rows concatenated, as one
 batch in partition 0 (the other partitions replay nothing): the join's
 build is then that very batch (``kernels.concat_device`` of one batch is
 the batch), not a second copy. It stays on the device (build sides are
-dimension-sized) for the plan's life.
+dimension-sized) for the plan's life, or until its run ends when the plan
+memo keeps the plan (``drop_run_state``).
 
 ``DynamicPruningFilter`` (dynamic partition pruning; the reference's
 GpuSubqueryBroadcastExec analog) collects the distinct values of a join's
@@ -74,6 +75,10 @@ class ReplayExec(UnaryExec):
     def do_execute(self, partition: int) -> Iterator[ColumnarBatch]:
         yield from self._materialize()[partition]
 
+    def drop_run_state(self) -> None:
+        with self._lock:
+            self._cache = None
+
 
 class DynamicPruningFilter:
     """The distinct values of a build plan's key column ``key_index``,
@@ -133,6 +138,13 @@ class DynamicPruningFilter:
                 self._collect()
                 self._done = True
             return None if self._overflow else self._values
+
+    def reset(self) -> None:
+        """Forget the collected keys: the next run collects again."""
+        with self._lock:
+            self._values = None
+            self._overflow = False
+            self._done = False
 
     def may_match(self, mn, mx) -> bool:
         """Could a collected key fall inside [mn, mx]? True on unknown

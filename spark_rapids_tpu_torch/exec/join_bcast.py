@@ -66,3 +66,11 @@ class BroadcastHashJoinExec(HashJoinExec):
             if holder is not None:
                 holder.put(self._broadcast)
             return self._broadcast
+
+    def drop_run_state(self) -> None:
+        """Forget the build, and the value of the build it shares: the
+        next run builds again (a memoised plan between its runs)."""
+        with self._bcast_lock:
+            self._broadcast = None
+        if self._shared_broadcast is not None:
+            self._shared_broadcast.clear()

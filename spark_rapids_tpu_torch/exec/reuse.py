@@ -402,6 +402,10 @@ class SharedBroadcast:
             if self._value is None:
                 self._value = value
 
+    def clear(self) -> None:
+        with self._lock:
+            self._value = None
+
 
 # ---------------------------------------------------------------------------
 # the aliases

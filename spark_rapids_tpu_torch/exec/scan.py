@@ -362,6 +362,10 @@ class ParquetScanExec(FileScanBase):
         return (f"ParquetScan [{len(self.paths)} files,"
                 f" {self.reader_type}]{cols}{dyn}")
 
+    def drop_run_state(self) -> None:
+        for f in self.dynamic_filters:
+            f.reset()
+
     # -- planning ----------------------------------------------------------
     def _plan_file(self, path: str):
         """Footer and row-group statistics of one file (a pool worker):

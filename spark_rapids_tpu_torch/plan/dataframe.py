@@ -20,6 +20,7 @@ from spark_rapids_tpu_torch.exprs import expr as E
 from spark_rapids_tpu_torch.mem import cleaner
 from spark_rapids_tpu_torch.mem.semaphore import get_task_semaphore
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan import plan_cache
 
 
 def _cols(ks) -> List[E.Expression]:
@@ -142,10 +143,16 @@ def execute_to_arrow(node) -> pa.Table:
     entries. The caller keeps
     the plan, so it can read the operators' metrics after the run, or run
     it again: its exchanges are written again, and its AQE readers read
-    them through the specs they planned the first time."""
+    them through the specs they planned the first time. A tree the plan
+    memo holds runs once at a time (``plan/plan_cache.acquire`` waits for
+    another run of it to end), and goes back to the memo once its
+    shuffles are released (``plan/plan_cache.release``), or is dropped
+    from it if the run raised."""
     from spark_rapids_tpu_torch.plan.cpu import CpuExec
 
     schema = node.output_schema
+    plan_cache.acquire(node)
+    ok = False
     try:
         if isinstance(node, CpuExec):  # a CPU root: rows stay on the host
             tables = []
@@ -175,14 +182,22 @@ def execute_to_arrow(node) -> pa.Table:
                     batches.close()
                     if sem is not None:
                         sem.release(task)
+        ok = True
     finally:
-        # a run that raises cleans up too: its shuffles' files and blocks
-        # would otherwise live as long as the process-wide manager
-        _cleanup_shuffles(node)
-        cleaner.run_deferred()
+        finish_run(node, ok)
     if not tables:
         return schema.to_arrow().empty_table()
     return pa.concat_tables(tables)
+
+
+def finish_run(node, ok: bool) -> None:
+    """The end of a run of a physical plan, also one that raised (its
+    shuffles' files and blocks would otherwise live as long as the
+    process-wide manager): release its shuffles, run the deferred
+    releases, and give a tree lent by the plan memo back to it."""
+    _cleanup_shuffles(node)
+    cleaner.run_deferred()
+    plan_cache.release(node, ok)
 
 
 def _cleanup_shuffles(node) -> None:

@@ -8,6 +8,7 @@ the pair of rows), Limit and Union. They hold structure and schemas only;
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import pyarrow as pa
@@ -20,6 +21,12 @@ from spark_rapids_tpu_torch.exprs import window as W
 
 
 class LogicalPlan:
+    """A node's schema reads its children's. Above the leaves it is
+    computed once and kept on the node (no node changes after it is
+    built: a rewrite builds new nodes), so that a walk asking every node
+    for its children's schemas (the planner, the plan memo's key) takes
+    time linear in the plan's depth, not quadratic."""
+
     children: Tuple["LogicalPlan", ...] = ()
 
     @property
@@ -77,7 +84,7 @@ class Project(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         return EV.output_schema(EV.bind_projection(self.exprs,
                                                    self.child.schema))
@@ -94,7 +101,7 @@ class Filter(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         return self.child.schema
 
@@ -111,7 +118,7 @@ class Aggregate(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
 
@@ -140,7 +147,7 @@ class Window(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         from spark_rapids_tpu_torch.exec.aggregate import _strip_alias
 
@@ -172,7 +179,7 @@ class Sort(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         return self.child.schema
 
@@ -194,7 +201,7 @@ class Join(LogicalPlan):
     def __post_init__(self):
         self.children = (self.left, self.right)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         from spark_rapids_tpu_torch.exec.join import join_schema
 
@@ -216,7 +223,7 @@ class Limit(LogicalPlan):
     def __post_init__(self):
         self.children = (self.child,)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         return self.child.schema
 
@@ -236,7 +243,7 @@ class Union(LogicalPlan):
     def __post_init__(self):
         self.children = tuple(self.inputs)
 
-    @property
+    @functools.cached_property
     def schema(self) -> T.Schema:
         schemas = [c.schema for c in self.inputs]
         first = schemas[0]

@@ -105,6 +105,13 @@ any projection: on the device when the device has the cast, else on the
 CPU engine, named by ``explain``. A join's residual condition is checked
 like a filter's, over the pair schema (left columns, then right).
 
+``apply`` is memoised (``plan/plan_cache.py``,
+``spark.rapids.gpu.plan.cache.enabled``, on by default as the reference's
+key): a repeat of a rename-equal plan under the same configuration is
+lent the tree built the first time, and skips every step below (the
+range exchange's sample too); ``execute_to_arrow`` gives it back after
+the run.
+
 Before tagging, with ``spark.rapids.gpu.sql.enabled`` true, an aggregate
 with COUNT(DISTINCT x) is rewritten for the device (``rewrite_distinct``,
 Spark's RewriteDistinctAggregates): the regular aggregate joined on its
@@ -153,6 +160,7 @@ from spark_rapids_tpu_torch.exprs import window as W
 from spark_rapids_tpu_torch.plan import cbo as CBO
 from spark_rapids_tpu_torch.plan import cpu as CPU
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan import plan_cache as PC
 from spark_rapids_tpu_torch.plan.cpu_agg import CpuAggregateExec, CpuJoinExec
 from spark_rapids_tpu_torch.plan.cpu_window import CpuWindowExec
 from spark_rapids_tpu_torch.plan.reuse import apply_reuse
@@ -631,6 +639,19 @@ class Overrides:
     def apply(self, plan: L.LogicalPlan) -> DeviceExec:
         with _APPLY_LOCK:
             C.set_active(self.conf)
+            # the plan memo (plan/plan_cache.py): a repeat of a
+            # rename-equal plan under the same conf is lent the tree built
+            # the first time
+            memo_key = None
+            pinned: list = []
+            if self.conf[C.PLAN_CACHE_ENABLED]:
+                memo_key = PC.build_key(plan, self.conf,
+                                        self.shuffle_partitions, pinned)
+                hit = PC.lookup(memo_key) if memo_key is not None else None
+                if hit is not None:
+                    if C.EXPLAIN.get(self.conf) != "NONE":
+                        print("[plan-cache hit]\n" + hit.explain)
+                    return hit.ex
             plan = apply_path_rules(plan, self.conf)
             meta = self._prepare(plan)
             fastpath = self._fastpath_eligible(plan)
@@ -647,6 +668,9 @@ class Overrides:
             mode = C.EXPLAIN.get(self.conf)
             if mode != "NONE":
                 print(explain(meta, mode))
+            if memo_key is not None:
+                PC.store(memo_key, node, explain(meta, "ALL"), pinned,
+                         self.conf)
             return node
 
     def _fastpath_eligible(self, plan: L.LogicalPlan) -> bool:

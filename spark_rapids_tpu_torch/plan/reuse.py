@@ -125,12 +125,14 @@ def _local_key(node) -> Optional[tuple]:
     from spark_rapids_tpu_torch.exec.aggregate import HashAggregateExec
     from spark_rapids_tpu_torch.exec.base import BatchSourceExec
     from spark_rapids_tpu_torch.exec.dpp import ReplayExec
+    from spark_rapids_tpu_torch.exec.expand import ExpandExec
     from spark_rapids_tpu_torch.exec.join import HashJoinExec
     from spark_rapids_tpu_torch.exec.misc import (
         CoalesceBatchesExec, GlobalLimitExec, LocalLimitExec, UnionExec)
     from spark_rapids_tpu_torch.exec.project import FilterExec, ProjectExec
     from spark_rapids_tpu_torch.exec.scan import ParquetScanExec
     from spark_rapids_tpu_torch.exec.sort import SortExec
+    from spark_rapids_tpu_torch.plan.cache import CachedRelation
     from spark_rapids_tpu_torch.shuffle.aqe import AQEShuffleReadExec
     from spark_rapids_tpu_torch.shuffle.exchange_exec import (
         ShuffleExchangeExec)
@@ -139,6 +141,8 @@ def _local_key(node) -> Optional[tuple]:
         # overrides.source_batches keeps one upload per table and slicing,
         # so two scans of one table hold the same batch objects
         return ("src", tuple(tuple(id(b) for b in p) for p in node._parts))
+    if isinstance(node, CachedRelation):
+        return ("cached", id(node._blobs))
     if isinstance(node, ParquetScanExec):
         # dynamic filters change what the scan emits: their builds'
         # fingerprints are part of its identity
@@ -153,6 +157,9 @@ def _local_key(node) -> Optional[tuple]:
     if isinstance(node, FilterExec):
         return ("filter", _expr_key(node.condition,
                                     node.child.output_schema))
+    if isinstance(node, ExpandExec):
+        cs = node.child.output_schema
+        return ("expand", tuple(_exprs_key(p, cs) for p in node.projections))
     if isinstance(node, HashAggregateExec):
         if node.mode == "final":
             return None

@@ -46,7 +46,11 @@ the string sales pass's G1 (the probe) and G5 (the scan) against the CPU
 engine; the nested sales pass's kernels; the Parquet scan of each reader
 type on the card against its CPU run, ``write_columnar`` of card batches
 read back equal, and q3 over Parquet files with every probe call held
-against the plain version and a row group pruned dynamically.
+against the plain version and a row group pruned dynamically; the bloom
+filter, Z-order, Hilbert and Expand on the card against the CPU, a Delta
+DELETE and UPDATE with their predicates on the card, a plan memo hit
+whose rows equal the first run's, and an idle memoised tree holding no
+device memory.
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
 
@@ -2233,3 +2237,163 @@ def test_parquet_q3_probe_calls_equal_plain_on_card(tmp_path, monkeypatch):
         {"spark.rapids.gpu.sql.enabled": "false"}), device="cuda")
     exp = Q.QUERIES["q3"](cpu).to_arrow().to_pylist()
     assert Q.check_rows("q3", got, exp) == (True, "")
+
+
+# -- the lakehouse slice: clustering, runtime filters, Expand, Delta and the
+# plan memo on the card ----------------------------------------------------
+
+def _lake_table(n=300_001, seed=21):
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "a": pa.array([None if x % 17 == 0 else int(x)
+                       for x in rng.integers(0, 5000, n)], pa.int64()),
+        "b": pa.array(rng.normal(size=n)),
+        "s": pa.array([f"s{x}" for x in rng.integers(0, 300, n)]),
+        "v": pa.array(rng.integers(0, 1000, n), pa.int64())})
+
+
+def test_bloom_zorder_and_hilbert_on_card_equal_the_cpu():
+    _card()
+    from spark_rapids_tpu_torch.exec import bloom, zorder
+
+    t = _lake_table()
+    gb, cb = PB.batch_from_arrow(t, "cuda"), PB.batch_from_arrow(t, "cpu")
+    bits = bloom.build_bloom_filter(gb, (0, 2), 1 << 20, 3)
+    cbits = bloom.build_bloom_filter(cb, (0, 2), 1 << 20, 3)
+    assert bits.is_cuda and torch.equal(bits.cpu(), cbits)
+    mask = bloom.might_contain(gb, (0, 2), bits, 1 << 20, 3)
+    assert torch.equal(mask.cpu(), bloom.might_contain(cb, (0, 2), cbits,
+                                                       1 << 20, 3))
+    assert bool(mask.all())
+    for cols in ((0, 1), (1, 2, 3)):
+        z = zorder.interleave_bits(gb, cols)
+        assert z.is_cuda and torch.equal(z.cpu(),
+                                         zorder.interleave_bits(cb, cols))
+    for curve in ("z", "hilbert"):
+        o = zorder.zorder_sort_indices(gb, (0, 2), curve)
+        assert torch.equal(o.cpu(),
+                           zorder.zorder_sort_indices(cb, (0, 2), curve))
+    h = zorder.hilbert_index(gb, (1, 3))
+    assert torch.equal(h.cpu(), zorder.hilbert_index(cb, (1, 3)))
+
+
+def test_expand_rollup_on_card_equals_the_cpu():
+    _card()
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+    from spark_rapids_tpu_torch.exec.expand import ExpandExec
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    t = _lake_table(100_000)
+    enc = PB.dictionary_encode_table(t)
+    none = E.lit(None, PT.STRING)
+    projections = [[E.col("s"), E.col("v"), E.Alias(E.lit(0), "g")],
+                   [E.Alias(none, "s"), E.col("v"), E.Alias(E.lit(1), "g")],
+                   [E.Alias(none, "s"), E.col("a"), E.Alias(E.lit(3), "g")]]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        src = BatchSourceExec([[PB.batch_from_arrow(enc, dev, dict_cache={})]],
+                              PT.Schema.from_arrow(t.schema))
+        node = ExpandExec(projections, src)
+        out[dev] = pa.concat_tables(PB.batch_to_arrow(b, node.output_schema)
+                                    for b in node.execute_all())
+    assert out["cuda"].num_rows == 3 * t.num_rows
+    assert out["cuda"].equals(out["cpu"])
+
+
+def test_delta_delete_mask_on_card(tmp_path):
+    """A Delta DELETE whose predicate is evaluated on the card: the same
+    deletion vectors, snapshot and rows as the run on the CPU."""
+    _card()
+    from spark_rapids_tpu_torch.delta import DeltaTable
+    from spark_rapids_tpu_torch.delta.log import read_dv
+    from spark_rapids_tpu_torch.exprs import expr as E
+
+    t = _lake_table(50_000)
+    cond = E.And(E.LessThan(E.col("a"), E.lit(100)),
+                 E.Like(E.col("s"), "s1%"))
+    state = {}
+    for dev in ("cuda", "cpu"):
+        dt = DeltaTable.create(str(tmp_path / dev), t.slice(0, 25_000),
+                               device=dev)
+        dt.append(t.slice(25_000))
+        assert dt.device.type == dev
+        dt.delete(cond)
+        snap = dt.log.snapshot()
+        dvs = sorted(read_dv(dt.path, f.deletion_vector).tolist()
+                     for f in snap.files if f.deletion_vector)
+        dt.update(E.GreaterThan(E.col("v"), E.lit(990)),
+                  {"b": E.lit(0.0)})
+        after = dt.log.snapshot()
+        state[dev] = (snap.num_records, dvs, after.version,
+                      after.num_records,
+                      sorted(dt.to_arrow().to_pylist(), key=repr))
+    assert state["cuda"] == state["cpu"]
+    assert state["cuda"][1] and state["cuda"][0] < t.num_rows
+
+
+def test_plan_memo_hit_on_card():
+    """A repeat of a query on the card is served the memoised tree, and
+    its rows equal the first run's."""
+    _card()
+    from spark_rapids_tpu_torch.bench import tpcds_queries as Q
+    from spark_rapids_tpu_torch.bench import tpcds_schema as S
+    from spark_rapids_tpu_torch.plan import from_arrow, plan_cache
+
+    tables = S.tables_for(0.1)
+    d = {n: from_arrow(t, device="cuda") for n, t in tables.items()}
+    c0 = plan_cache.counters()
+    first = Q.QUERIES["q3"](d).to_arrow()
+    plan = Q.QUERIES["q3"](d).physical_plan()
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+    second = execute_to_arrow(plan)
+    c1 = plan_cache.counters()
+    assert c1["plan_cache_miss_total"] - c0["plan_cache_miss_total"] == 1
+    assert c1["plan_cache_hit_total"] - c0["plan_cache_hit_total"] == 1
+    assert second.equals(first)
+    assert Q.QUERIES["q3"](d).physical_plan() is plan
+
+
+def test_an_idle_memoised_tree_holds_no_device_memory_on_card():
+    """While a broadcast join's tree sits idle in the plan memo, the
+    card's allocated memory is back at its level before the run: the
+    tree dropped its broadcast build and its hash table when the run
+    ended."""
+    _card()
+    import gc
+
+    from spark_rapids_tpu_torch.config.conf import RapidsConf
+    from spark_rapids_tpu_torch.exec.join_bcast import BroadcastHashJoinExec
+    from spark_rapids_tpu_torch.exprs import expr as E
+    from spark_rapids_tpu_torch.plan import from_arrow, plan_cache
+    from spark_rapids_tpu_torch.plan.dataframe import execute_to_arrow
+
+    rng = np.random.default_rng(31)
+    n, m = 1 << 20, 1 << 14
+    facts = pa.table({"k": pa.array(rng.integers(0, m, n), pa.int64()),
+                      "v": pa.array(rng.integers(-500, 500, n), pa.int64())})
+    dims = pa.table({"k": pa.array(np.arange(m), pa.int64()),
+                     "w": pa.array(rng.integers(0, 64, m), pa.int64())})
+    conf = RapidsConf({"spark.rapids.gpu.fastpath.enabled": "false"})
+
+    def query():
+        left = from_arrow(facts, conf=conf, batch_rows=1 << 18,
+                          device="cuda", partitions=4)
+        return (left.join(from_arrow(dims, conf=conf, device="cuda"),
+                          on="k")
+                .group_by("w").agg(E.Alias(E.Sum(E.col("v")), "s")))
+
+    warm = query().to_arrow().sort_by("w")  # the first run's one-off state
+    plan_cache.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    plan = query().physical_plan()
+    assert any(isinstance(x, BroadcastHashJoinExec)
+               for x in _walk_plan(plan))
+    assert execute_to_arrow(plan).sort_by("w").equals(warm)
+    del plan
+    gc.collect()
+    torch.cuda.synchronize()
+    assert plan_cache.counters()["plan_cache_size"] == 1
+    assert torch.cuda.memory_allocated() == base

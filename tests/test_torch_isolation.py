@@ -631,3 +631,86 @@ def test_read_parquet_without_device_raises_when_no_card(monkeypatch,
     # asked for the CPU, it runs there
     assert read_parquet(p, device="cpu").to_arrow().column(
         "a").to_pylist() == [1, 2]
+
+
+def test_the_lakehouse_modules_are_covered():
+    """The table formats, caches and clustering modules are walked by the
+    import checks above and hold the reference's names."""
+    import importlib
+
+    mods = set(_modules())
+    for m, names in (
+            ("spark_rapids_tpu_torch.plan.plan_cache",
+             ("Unfingerprintable", "logical_fingerprint", "build_key",
+              "lookup", "store", "release", "bump_epoch", "clear",
+              "counters", "reset_stats")),
+            ("spark_rapids_tpu_torch.exec.expand", ("ExpandExec",)),
+            ("spark_rapids_tpu_torch.plan.cache", ("CachedRelation",)),
+            ("spark_rapids_tpu_torch.exec.bloom",
+             ("optimal_params", "default_bits", "build_bloom_filter",
+              "might_contain")),
+            ("spark_rapids_tpu_torch.exec.zorder",
+             ("interleave_bits", "hilbert_index", "zorder_sort_indices")),
+            ("spark_rapids_tpu_torch.delta",
+             ("DeltaLog", "DeltaSnapshot", "DeltaTable")),
+            ("spark_rapids_tpu_torch.delta.log",
+             ("AddFile", "write_dv", "read_dv")),
+            ("spark_rapids_tpu_torch.delta.table", ("DeltaTable",)),
+            ("spark_rapids_tpu_torch.iceberg", ("IcebergTable",)),
+            ("spark_rapids_tpu_torch.plan.ml",
+             ("device_batches", "feature_matrix")),
+            ("spark_rapids_tpu_torch.bench.lakehouse_sales",
+             ("run_pass", "build_delta", "plain_fact", "plain_item",
+              "write_iceberg", "rollup", "plain_rollup"))):
+        assert m in mods, m
+        mod = importlib.import_module(m)
+        for n in names:
+            assert hasattr(mod, n), (m, n)
+
+
+def test_lakehouse_entry_points_without_device_raise_when_no_card(
+        monkeypatch, tmp_path):
+    import json
+
+    import pyarrow.parquet as pq
+    import torch
+
+    from spark_rapids_tpu_torch import types as PT
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_arrow
+    from spark_rapids_tpu_torch.delta import DeltaTable
+    from spark_rapids_tpu_torch.exec import bloom, zorder
+    from spark_rapids_tpu_torch.exec.base import BatchSourceExec
+    from spark_rapids_tpu_torch.iceberg import IcebergTable
+    from spark_rapids_tpu_torch.plan.cache import CachedRelation
+
+    t = pa.table({"a": pa.array([1, 2], pa.int64())})
+    p = str(tmp_path / "t.parquet")
+    pq.write_table(t, p)
+    (tmp_path / "ice" / "metadata").mkdir(parents=True)
+    with open(tmp_path / "ice" / "metadata" / "v1.metadata.json", "w") as f:
+        json.dump({"current-snapshot-id": 1, "snapshots": [
+            {"snapshot-id": 1, "manifests": [str(tmp_path / "m.json")]}]}, f)
+    with open(tmp_path / "m.json", "w") as f:
+        json.dump([{"file_path": p}], f)
+    DeltaTable.create(str(tmp_path / "d"), t, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeltaTable(str(tmp_path / "d")).scan_exec()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeltaTable.create(str(tmp_path / "e"), t)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IcebergTable(str(tmp_path / "ice")).scan_exec()
+    b = batch_from_arrow(t, "cpu")
+    src = BatchSourceExec([[b]], PT.Schema.from_arrow(t.schema))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CachedRelation.cache(src)
+    # asked for the CPU, each runs there; the batch functions run where
+    # their batch lives
+    assert DeltaTable(str(tmp_path / "d"), device="cpu").scan_exec() \
+        .plan_device().type == "cpu"
+    assert IcebergTable(str(tmp_path / "ice")).scan_exec(
+        device="cpu").plan_device().type == "cpu"
+    assert CachedRelation.cache(src, device="cpu").plan_device().type == \
+        "cpu"
+    assert zorder.zorder_sort_indices(b, (0,)).device.type == "cpu"
+    assert bloom.build_bloom_filter(b, (0,), 64).device.type == "cpu"

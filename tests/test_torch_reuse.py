@@ -40,6 +40,7 @@ torch.set_num_threads(1)
 
 NO_FASTPATH = {"spark.rapids.gpu.fastpath.enabled": "false"}
 REUSE_OFF = {"spark.rapids.gpu.sql.exchange.reuse.enabled": "false"}
+MEMO_OFF = {"spark.rapids.gpu.plan.cache.enabled": "false"}
 
 
 def _walk(node):
@@ -179,9 +180,11 @@ def test_a_broadcast_build_runs_once_when_two_joins_share_it(monkeypatch):
 
 def test_a_broadcast_build_is_the_replayed_batch_not_a_copy():
     """A build side of 5 batches in 4 splits: ``ReplayExec`` keeps its
-    rows as one batch, and the join's build is that batch."""
+    rows as one batch, and the join's build is that batch. Planned with
+    the plan memo off: a memoised tree drops its builds when its run
+    ends, and this test reads them after the run."""
     f, s = _facts(), _dims(2500, seed=3)
-    q = _df(f).join(_df(s), on="k")
+    q = _df(f, MEMO_OFF).join(_df(s, MEMO_OFF), on="k")
     plan = q.physical_plan()
     (join,) = [n for n in _walk(plan)
                if isinstance(n, BroadcastHashJoinExec)]
